@@ -10,10 +10,13 @@ raise without one; pass ``device="cpu"`` to run on the CPU.
 
 Ported so far: single-GPU GPT serving on the dense KV cache
 (``models.gpt``, ``inference.engine``) with the flash-attention forward
-and decode-attention kernels.
+and decode-attention kernels, and the single-GPU GPT training step
+(``distributed.SpmdTrainer``, ``optimizer``, ``io.DevicePrefetcher``,
+the fused cross-entropy) with the flash-attention backward kernels.
 """
-from . import core, device, distributed, inference, models, nn, ops
+from . import (core, device, distributed, inference, io, models, nn, ops,
+               optimizer)
 from .device import resolve_device
 
-__all__ = ["core", "device", "distributed", "inference", "models", "nn",
-           "ops", "resolve_device"]
+__all__ = ["core", "device", "distributed", "inference", "io", "models",
+           "nn", "ops", "optimizer", "resolve_device"]

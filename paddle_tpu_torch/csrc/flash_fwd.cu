@@ -22,79 +22,16 @@
 // are staged in shared memory with rows padded by 8 elements so the
 // 32-bit fragment loads are bank-conflict free.  Rows and keys past S
 // (prefill buckets of 16, 32, 48 ... tokens) are masked in the kernel.
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tile.cuh"
 
 namespace {
+
+using flash::kNeg;
+using flash::Mma;
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 128;
-constexpr float kNeg = -1e30f;
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t ld16(const T* p) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p));
-}
-
-// Copy `rows` rows of D elements (row stride `stride` elements in global
-// memory) into shared memory rows of `ld` elements; rows at or past
-// `valid` are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long stride,
-                                          int valid, int ld) {
-  constexpr int kVec = 8;  // elements per 16-byte vector
-  constexpr int kVecPerRow = D / kVec;
-  for (int i = threadIdx.x; i < 64 * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < valid) val = *reinterpret_cast<const uint4*>(src + r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -127,20 +64,15 @@ __global__ void __launch_bounds__(kThreads)
   const T* kb = k + static_cast<long>(b) * S * kv_stride + static_cast<long>(hk) * D;
   const T* vb = v + static_cast<long>(b) * S * kv_stride + static_cast<long>(hk) * D;
 
-  load_tile<T, D>(sQ, qb + q0 * q_stride, q_stride, S - q0, kLd);
+  flash::load_tile<T, D, kThreads>(sQ, qb + q0 * q_stride, q_stride, S - q0, kLd);
   __syncthreads();
 
   // this warp's 16 q rows as A fragments for every k16 chunk of D
   const int r0 = warp * 16 + gid;
   uint32_t qf[kDChunks][4];
 #pragma unroll
-  for (int c = 0; c < kDChunks; ++c) {
-    const T* base = sQ + c * 16 + tig * 2;
-    qf[c][0] = ld32(base + r0 * kLd);
-    qf[c][1] = ld32(base + (r0 + 8) * kLd);
-    qf[c][2] = ld32(base + r0 * kLd + 8);
-    qf[c][3] = ld32(base + (r0 + 8) * kLd + 8);
-  }
+  for (int c = 0; c < kDChunks; ++c)
+    flash::load_a(qf[c], sQ, kLd, warp * 16, c * 16, gid, tig);
 
   float acc[kDTiles][4];
 #pragma unroll
@@ -156,8 +88,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(sK, kb + k0 * kv_stride, kv_stride, S - k0, kLd);
-    load_tile<T, D>(sV, vb + k0 * kv_stride, kv_stride, S - k0, kLd);
+    flash::load_tile<T, D, kThreads>(sK, kb + k0 * kv_stride, kv_stride, S - k0, kLd);
+    flash::load_tile<T, D, kThreads>(sV, vb + k0 * kv_stride, kv_stride, S - k0, kLd);
     for (int j = threadIdx.x; j < kBlockK; j += kThreads) {
       const int key = k0 + j;
       sM[j] = key < S ? (kv_mask ? kv_mask[static_cast<long>(b) * S + key] : 1.f)
@@ -172,8 +104,8 @@ __global__ void __launch_bounds__(kThreads)
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
       for (int c = 0; c < kDChunks; ++c) {
-        const T* kr = sK + (nt * 8 + gid) * kLd + c * 16 + tig * 2;
-        uint32_t bf[2] = {ld32(kr), ld32(kr + 8)};
+        uint32_t bf[2];
+        flash::load_b_rows(bf, sK, kLd, nt * 8, c * 16, gid, tig);
         Mma<T>::run(s[nt], qf[c], bf);
       }
     }
@@ -235,10 +167,8 @@ __global__ void __launch_bounds__(kThreads)
       pa[3] = Mma<T>::pack(s[2 * c + 1][2], s[2 * c + 1][3]);
 #pragma unroll
       for (int t = 0; t < kDTiles; ++t) {
-        const T* vr = sV + (c * 16 + tig * 2) * kLd + t * 8 + gid;
         uint32_t bf[2];
-        bf[0] = ld16(vr) | (ld16(vr + kLd) << 16);
-        bf[1] = ld16(vr + 8 * kLd) | (ld16(vr + 9 * kLd) << 16);
+        flash::load_b_cols(bf, sV, kLd, c * 16, t * 8, gid, tig);
         Mma<T>::run(acc[t], pa, bf);
       }
     }

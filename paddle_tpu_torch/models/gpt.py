@@ -1,13 +1,15 @@
-"""GPT decoder for serving on one GPU (counterpart of
-``paddle_tpu/models/gpt.py``: the dense, single-device, full-precision
-cache path, plus the no-cache forward).
+"""GPT decoder on one GPU (counterpart of ``paddle_tpu/models/gpt.py``:
+the dense, single-device, full-precision serving path, the no-cache
+forward and the training surface: recompute, the fused-CE head and
+``GPTPretrainingCriterion``).
 
 Parameters keep the JAX package's names and ``[in, out]`` layout
 (``gpt.blocks.3.attn.qkv_proj.weight`` ...), so ``models.convert`` loads
 a ``paddle_tpu`` model's weights one to one.  Attention goes through
 ``ops.flash_attention`` (prefill, no-cache forward) and
 ``ops.decode_attention`` (decode): hand-written kernels on the card,
-their plain versions on the CPU.  The projections are ``torch.matmul``.
+their plain versions on the CPU; under autograd the flash backward runs
+the dq and dk/dv kernels.  The projections are ``torch.matmul``.
 
 Differences from the JAX package: the serving cache is updated in place
 (JAX returns a new cache each call), and the model lives on one explicit
@@ -25,6 +27,7 @@ from torch import nn
 
 from ..core import random as prandom
 from ..device import resolve_device
+from ..distributed.recompute import check_policy, recompute
 from ..distributed.parallel_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
                                            VocabParallelEmbedding)
@@ -34,8 +37,8 @@ from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.norm import LayerNorm
 from .. import ops
 
-__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "StaticKVCache",
-           "gpt_configs"]
+__all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "StaticKVCache", "gpt_configs"]
 
 
 class StaticKVCache:
@@ -85,7 +88,15 @@ class GPTConfig:
     attn_dropout: float = 0.0
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    # False raises on the card (the port has no library attention); on
+    # the CPU both settings run the plain attention
+    use_flash_attention: bool = True
     tie_word_embeddings: bool = True
+    # fused LM loss: in training the model returns (hidden, wte.weight)
+    # and the criterion runs the blocked cross-entropy over vocab chunks
+    # (ops.fused_cross_entropy): no [B, S, V] logits.  Needs tied
+    # embeddings.
+    fused_ce: bool = False
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:
@@ -96,6 +107,24 @@ class GPTConfig:
     @property
     def head_dim(self):
         return self.hidden_size // self.num_heads
+
+    def num_params(self, include_embeddings=True):
+        h, l, v = self.hidden_size, self.num_layers, self.vocab_size
+        # qkv (h*(h+2*kv)) + out (h*h) + mlp (2*h*ffn) + biases/norms
+        kv_dim = self.num_kv_heads * self.head_dim
+        per_block = h * (h + 2 * kv_dim) + h * h + \
+            2 * h * self.ffn_hidden_size + 13 * h
+        total = l * per_block + 2 * h  # final norm
+        if include_embeddings:
+            total += v * h + self.max_seq_len * h
+        return int(total)
+
+    def flops_per_token(self, seq_len=None):
+        """Model FLOPs per token (fwd+bwd, 6N + attention quadratic
+        term): the MFU formula of the JAX package's bench.py."""
+        s = seq_len or self.max_seq_len
+        n = self.num_params(include_embeddings=False)
+        return 6 * n + 12 * self.num_layers * self.hidden_size * s
 
 
 def gpt_configs():
@@ -150,10 +179,14 @@ class GPTAttention(nn.Module):
         return self.dropout(self.out_proj(out.reshape(b, s, -1)))
 
     def _attend_fresh(self, q, k, v):
-        """No-past causal attention through the flash kernel."""
-        return F.flash_attention(
-            q, k, v, dropout=self.cfg.attn_dropout if self.training else 0.0,
-            causal=q.shape[1] > 1)
+        """No-past causal attention through the flash kernels."""
+        if not self.cfg.use_flash_attention and q.is_cuda:
+            raise NotImplementedError(
+                "use_flash_attention=False: the port has no library "
+                "attention on the card; its flash kernels are the attention")
+        return F.flash_attention(q, k, v, dropout=self.cfg.attn_dropout,
+                                 causal=q.shape[1] > 1,
+                                 training=self.training)
 
     def forward(self, x):
         b, s = x.shape[0], x.shape[1]
@@ -251,6 +284,16 @@ class GPTModel(nn.Module):
             [GPTBlock(config, **kw) for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
                               device=device, dtype=dtype)
+        self._recompute = False
+
+    def enable_recompute(self, policy=None):
+        """Recompute every block in the backward when training
+        (``torch.utils.checkpoint``): only full recompute is ported; a
+        selective policy name raises (``distributed.recompute``).
+        Parameter names are unchanged."""
+        check_policy(policy)
+        self._recompute = True
+        return self
 
     def _embed(self, ids, pos):
         return self.drop(self.wte(ids) + self.wpe(pos))
@@ -260,7 +303,8 @@ class GPTModel(nn.Module):
         pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self._embed(input_ids, pos)
         for blk in self.blocks:
-            x = blk(x)
+            x = recompute(blk, x) if self._recompute and self.training \
+                else blk(x)
         return self.ln_f(x)
 
     # ---- serving path: static KV cache --------------------------------
@@ -343,9 +387,19 @@ class GPTForCausalLM(nn.Module):
     def device(self) -> torch.device:
         return self.gpt.wte.weight.device
 
+    def enable_recompute(self, policy=None):
+        self.gpt.enable_recompute(policy)
+        return self
+
     def forward(self, input_ids):
-        """Logits ``[B, S, vocab]`` of a causal forward without cache."""
-        return self._head_logits(self.gpt(input_ids))
+        """Logits ``[B, S, vocab]`` of a causal forward without cache; in
+        training with ``fused_ce`` (tied embeddings) ``(hidden [B, S, H],
+        wte.weight [V, H])`` for the criterion's blocked loss."""
+        x = self.gpt(input_ids)
+        if (self.cfg.fused_ce and self.training
+                and self.cfg.tie_word_embeddings):
+            return x, self.gpt.wte.weight
+        return self._head_logits(x)
 
     def init_kv_cache(self, batch_slots: int,
                       capacity: Optional[int] = None) -> StaticKVCache:
@@ -387,3 +441,30 @@ class GPTForCausalLM(nn.Module):
                                       eos_id=eos_id, temperature=temperature,
                                       top_p=top_p), np.int32)
         return np.concatenate([ids, gen]) if include_prompt else gen
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Shifted-token cross-entropy with an optional loss mask.  ``labels``
+    are already shifted (``labels[t] = input_ids[t + 1]``).  Given the
+    fused-CE pair ``(hidden, weight)`` the loss runs blockwise over the
+    vocab; given logits ``[B, S, V]`` it is the plain cross-entropy."""
+
+    def __init__(self, ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels, loss_mask=None):
+        flat_labels = labels.reshape(-1)
+        if isinstance(logits, (tuple, list)) and len(logits) == 2:
+            hidden, w = logits
+            losses = F.fused_linear_cross_entropy(
+                hidden.reshape(-1, hidden.shape[-1]), w, flat_labels,
+                reduction="none", ignore_index=self.ignore_index)
+        else:
+            losses = F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), flat_labels,
+                reduction="none", ignore_index=self.ignore_index)
+        if loss_mask is not None:
+            m = loss_mask.reshape(-1).to(losses.dtype)
+            return (losses * m).sum() / m.sum()
+        return losses.mean()

@@ -1,4 +1,7 @@
-from . import functional, initializer
+from . import clip, functional, initializer
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import Dropout, Embedding, LayerNorm
 
-__all__ = ["functional", "initializer", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["clip", "functional", "initializer", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "Dropout", "Embedding",
+           "LayerNorm"]

@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels and bind them with ctypes.
 
-Every ``paddle_tpu_torch/csrc/*.cu`` file exports plain C entry points
+Every ``paddle_tpu_torch/csrc/*.cu`` file (which may include the shared
+``csrc/*.cuh`` headers) exports plain C entry points
 (pointers and the stream as ``void*``, sizes as ``int``) that return the
 ``cudaGetLastError()`` of their launch.  At first use each source is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
@@ -51,10 +52,14 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives.  The name
+    hashes the source, every shared header (``csrc/*.cuh``) and the
+    flags, so an edit to any of them builds afresh."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    data = src.read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(data + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
