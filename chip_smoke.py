@@ -10,10 +10,14 @@ before the result lines:
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, all in
    parallel, with the compiler's register and spill report;
 3. kernels: each serving kernel against its plain PyTorch version on the
-   card at the serving path's shapes (bf16), with the stated tolerance,
-   then timed (CUDA events) beside the plain version, one PyTorch library
-   call computing the same function (a yardstick the port never calls)
-   and the least time the card could take;
+   card at the serving path's shapes (bf16 queries; int8 caches made by
+   ``quantize_kv``, the plain version fed the same codes), with the
+   stated tolerance, then timed (CUDA events) beside the plain version,
+   one PyTorch library call computing the same function (a yardstick the
+   port never calls) and the least time the card could take.  Dense
+   decode (bf16 and int8) and paged decode (bf16 and int8) also at GQA,
+   G = 16, D=64, length 0 or 1, exact block multiples, null-block tails,
+   shuffled blocks and an inactive slot;
 4. train-kernels: the flash backward kernels (dq, dk/dv) the same way at
    the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA,
    D=64 and a key mask with a fully masked row, each run twice (results
@@ -23,16 +27,32 @@ before the result lines:
    depth) behind ``InferenceEngine(batch_slots=8)``, 16 requests of 32
    new tokens; checks token counts, finite cache contents, one host sync
    per decode step, and that every prefill/decode layer launched the
-   kernels (launch counts reset just before the run, read just after);
-6. teacher-forced: prefill + 8 decode steps reproduce ``model.forward``
-   over the same tokens within the stated bf16 tolerance;
-7. profile: device time against wall time of steady decode steps
-   (torch.profiler), the top kernels by device time;
-8. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
+   kernels (launch counts reset just before each serve run, read just
+   after);
+6. serve-paged: the same model behind ``kv_layout='paged'``
+   (``kv_block_size=128``, radix prefix cache), 16 requests of 32 new
+   tokens, 8 of them sharing one 1024-token prefix: prefix hits, launches
+   of the paged kernel per decode step and of the flash kernel per cold
+   prefill, one host sync per decode step, a leak-free pool after the
+   prefix flush;
+7. serve-pressure: 8 slots over a 40-block pool, prompts of about 1000
+   tokens and 64 new tokens, so decode needs a ninth block while the
+   pool is dry: preemptions, every request complete, leak-free;
+8. serve-int8: the dense and the paged engine with ``kv_dtype='int8'``
+   (launches of the int8 kernels, host syncs, cache bytes);
+9. teacher-forced: prefill + decode steps reproduce ``model.forward``
+   over the same tokens within the stated tolerance, on the dense cache,
+   the paged cache cold and over a cached prefix (hit path), and the
+   int8 dense and paged caches; the hit prefill timed against the cold
+   one;
+10. profile: device time against wall time of steady decode steps
+   (torch.profiler), the top kernels by device time, for the dense, the
+   paged, and the int8 dense and paged engines;
+11. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
    one 2 x 512 batch through ``SpmdTrainer``: every parameter gradient
    of the kernel path against the same step with the plain attention
    swapped in by this script;
-9. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
+12. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
    fused cross-entropy, Adam, batch 4 x 2048, fed by
    ``DevicePrefetcher``: 2 warm-up and 6 measured steps on one repeated
    batch (finite and falling loss, no host sync, 24 launches of each
@@ -71,9 +91,20 @@ PEAK_HBM_BYTES = 3.35e12
 # bf16 inputs
 TOL_OUT = 1e-2      # x max|reference row|, per row
 TOL_LSE = 1e-3      # x max(1, |reference lse|), per row, f32 on both sides
+# the decode kernels over int8 caches (dense and paged) are held to
+# TOL_OUT as well: they dequantize code x scale in f32, and so does the
+# plain version fed the same codes and the f32 q; what is left is the
+# output's bf16 rounding and the order of the f32 sums
 # prefill + decode vs one forward, both bf16 end to end through 24
 # layers: different kernels and matmul shapes round differently
 TOL_TEACHER = 5e-2  # x max|forward logits| of each position
+# the int8 cache adds its quantization: each stored k/v vector keeps 8
+# bits relative to its own largest element (half a code step, 2^-8 of
+# amax, where bf16 rounds each element to 2^-9 of itself), so small
+# elements lose more; twice the bf16 limit, the JAX package's int8
+# decode smoke holds int8 to 5% of the logit scale against its own fp
+# decode, and the forward here is a third path
+TOL_TEACHER_INT8 = 1e-1  # x max|forward logits| of each position
 # flash backward: p and ds are rounded to bf16 in series before their
 # products and each gradient to bf16 at the end, against the plain
 # version in f32 on the same bf16 inputs (and the kernel's own o, lse):
@@ -204,33 +235,161 @@ def check_flash(gen, b, s, h, hkv, d, causal=True, mask=False):
     return q, k, v, max(err_o, err_l), worst_o
 
 
-def check_decode(gen, lengths, cap, h, hkv, d):
+def _int8(x):
+    """bf16 values -> (int8 codes, f32 scales) as the int8 cache stores
+    them (``quantize_kv``)."""
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    return qm.quantize_kv(x)
+
+
+def _kv_for_plain(k, v):
+    """What the plain versions take beside an f32 q: the int8 codes as
+    they are (dequantized in f32 inside), bf16 caches widened to f32."""
+    return (k, v) if k.dtype == torch.int8 else (k.float(), v.float())
+
+
+def check_decode(gen, lengths, cap, h, hkv, d, quantized=False):
     da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
     b = len(lengths)
     q = _rand((b, h, d), gen)
     kc = _rand((b, cap, hkv, d), gen)
     vc = _rand((b, cap, hkv, d), gen)
+    ks = vs = None
+    if quantized:
+        (kc, ks), (vc, vs) = _int8(kc), _int8(vc)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    o = da.decode_attention(q, kc, vc, lens)
-    ro = da._decode_plain(q.float(), kc.float(), vc.float(), lens)
+    o = da.decode_attention(q, kc, vc, lens, ks, vs)
+    ro = da._decode_plain(q.float(), *_kv_for_plain(kc, vc), lens, ks, vs)
     torch.cuda.synchronize()
     err, worst, ok_rows = row_errors(o, ro)
     zero_ok = all(o[i].abs().max().item() == 0.0
                   for i, n in enumerate(lengths) if n == 0)
     ok = ok_rows and zero_ok and torch.isfinite(o).all().item()
-    log(f"[kernels] decode B={b} cap={cap} H={h} Hkv={hkv} D={d} "
-        f"lengths={lengths}: max|o-plain|={err:.3e} worst (slot, head) "
-        f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
+    log(f"[kernels] decode{'_q' if quantized else ''} B={b} cap={cap} H={h} "
+        f"Hkv={hkv} D={d} lengths={lengths}: max|o-plain|={err:.3e} worst "
+        f"(slot, head) |o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
         f"zeros_for_len0={zero_ok} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"decode kernel disagrees with its plain version "
-                         f"at B={b} H={h} Hkv={hkv} D={d}")
-    return q, kc, vc, lens, err, worst
+        raise SystemExit(f"decode kernel (int8={quantized}) disagrees with "
+                         f"its plain version at B={b} H={h} Hkv={hkv} D={d}")
+    return (q, kc, vc, lens, ks, vs), err, worst
+
+
+def paged_inputs(gen, lengths, bs, h, hkv, d, quantized, mb=None,
+                 spare=3, inactive=False):
+    """q, pools and tables for slots of ``lengths``: each slot's blocks
+    drawn from a shuffled pool without repeats, entries past its extent
+    the null block 0 (a table ``mb`` wider than the longest slot gives
+    null-block tails); ``inactive`` appends a slot whose table row is all
+    0 at length 1, as the engine leaves an empty slot."""
+    need = [-(-n // bs) for n in lengths]
+    mb = mb or max(need)
+    nb = 1 + sum(need) + spare
+    b = len(lengths) + int(inactive)
+    q = _rand((b, h, d), gen)
+    k = _rand((nb, bs, hkv, d), gen)
+    v = _rand((nb, bs, hkv, d), gen)
+    perm = (1 + torch.randperm(nb - 1, generator=gen, device="cuda")).tolist()
+    tables = torch.zeros((b, mb), dtype=torch.int32)
+    for i, n in enumerate(need):
+        tables[i, :n] = torch.tensor(perm[:n])
+        perm = perm[n:]
+    tables = tables.cuda()
+    lens = torch.tensor(list(lengths) + [1] * int(inactive),
+                        dtype=torch.int32, device="cuda")
+    ks = vs = None
+    if quantized:
+        (k, ks), (v, vs) = _int8(k), _int8(v)
+    return q, k, v, tables, lens, ks, vs
+
+
+def check_paged(gen, lengths, bs, h, hkv, d, quantized=False, **kw):
+    da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+    q, k, v, tables, lens, ks, vs = paged_inputs(gen, lengths, bs, h, hkv, d,
+                                                 quantized, **kw)
+    o = da.paged_decode_attention(q, k, v, tables, lens, ks, vs)
+    ro = da._paged_plain(q.float(), *_kv_for_plain(k, v), tables, lens, ks,
+                         vs)
+    torch.cuda.synchronize()
+    err, worst, ok_rows = row_errors(o, ro)
+    ok = ok_rows and torch.isfinite(o).all().item()
+    log(f"[kernels] paged{'_q' if quantized else ''} bs={bs} B={q.shape[0]} "
+        f"MB={tables.shape[1]} NB={k.shape[0]} H={h} Hkv={hkv} D={d} "
+        f"lengths={lens.tolist()}: max|o-plain|={err:.3e} worst (slot, head) "
+        f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"paged decode kernel (int8={quantized}) disagrees "
+                         f"with its plain version at bs={bs} H={h} Hkv={hkv} "
+                         f"D={d} lengths={lengths}")
+    return (q, k, v, tables, lens, ks, vs), err, worst
+
+
+def time_decode_row(key, line, tensors, paged, errs, worst, lib_args):
+    """Time one decode kernel at the serving shape beside its plain
+    version and the library yardstick (SDPA over the equivalent dense
+    bf16 K/V, gathered and dequantized before the clock), and its bound:
+    K/V (codes and scales) read once, q read and o written once."""
+    da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+    F = torch.nn.functional
+    if paged:
+        q, k, v, tables, lens, ks, vs = tensors
+
+        def kernel():
+            return da.paged_decode_attention(q, k, v, tables, lens, ks, vs)
+
+        def plain():
+            return da._paged_plain(q, k, v, tables, lens, ks, vs)
+        extra = 4 * tables.numel()
+    else:
+        q, k, v, lens, ks, vs = tensors
+
+        def kernel():
+            return da.decode_attention(q, k, v, lens, ks, vs)
+
+        def plain():
+            return da._decode_plain(q, k, v, lens, ks, vs)
+        extra = 0
+    # tens of microseconds a call: the best of three windows of 200
+    # calls, so that one disturbed window (one read 2.6x the others in a
+    # run of this script) does not stand for the kernel
+    t_kernel = min(cuda_ms(kernel, iters=200, warmup=10) for _ in range(3))
+    t_plain = cuda_ms(plain, iters=5)
+    t_lib = min(cuda_ms(lambda: F.scaled_dot_product_attention(*lib_args),
+                        iters=200, warmup=10) for _ in range(3))
+    b, h, d = q.shape
+    hkv = k.shape[-2]
+    npos = int(lens.sum().item())
+    per_value = 1 if ks is not None else 2
+    nbytes = (2 * per_value * npos * hkv * d
+              + (2 * 4 * npos * hkv if ks is not None else 0)
+              + 2 * 2 * q.numel() + 4 * b + extra)
+    b_ms, b_by = bound(4 * h * d * npos, nbytes)
+    log(f"[kernels] {key} timing B={b} lengths={b}x{npos // b} H={h} D={d}: "
+        f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} "
+        f"library_ms={t_lib:.4f} (SDPA over dense bf16 K/V) "
+        f"bound_ms={b_ms:.4f} ({b_by}, {nbytes / 1e6:.2f} MB)")
+    return dict(
+        name=key, route="cuda", source=f"paddle_tpu_torch/csrc/{key}.cu",
+        replaces=f"paddle_tpu/ops/decode_attention.py:{line}",
+        max_abs_err=max(errs), max_row_rel_err=max(worst), row_tol=TOL_OUT,
+        ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=t_lib)
+
+
+def sdpa_args(q, k, v, lens):
+    """Arguments of the library yardstick: dense bf16 K/V ``[B, S, Hkv,
+    D]`` expanded to the query heads, a length mask."""
+    h, hkv = q.shape[1], k.shape[2]
+    kt, vt = (x.repeat_interleave(h // hkv, dim=2).transpose(1, 2)
+              .contiguous() for x in (k, v))
+    keep = (torch.arange(k.shape[1], device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    return q[:, :, None].contiguous(), kt, vt, keep
 
 
 def phase_kernels():
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -271,40 +430,71 @@ def phase_kernels():
         t2 = cuda_ms(lambda: fa.flash_attention_fwd(q2, k2, v2, causal=True))
         log(f"[kernels] flash timing S={s2}: kernel_ms={t2:.4f}")
 
-    # decode: batch_slots=8 over the 2048-token cache, boundary lengths
+    # dense decode, bf16 (row 4) and int8 (row 5): batch_slots=8 over the
+    # 2048-token cache, boundary lengths, GQA, G = 16 (16 query heads over
+    # one kv head), D=64; then the timing shape, 8 full slots
     mixed = [0, 1, 127, 128, 1000, 2048, 64, 1537]
-    err, w = check_decode(gen, mixed, 2048, 16, 16, 128)[-2:]
-    worst = [w, check_decode(gen, mixed, 2048, 16, 4, 128)[-1],
-             check_decode(gen, [0, 5, 300, 512], 512, 8, 8, 64)[-1]]
     full = [2048] * 8
-    q, kc, vc, lens, err_full, w = check_decode(gen, full, 2048, 16, 16, 128)
-    worst.append(w)
-    t_kernel = cuda_ms(lambda: da.decode_attention(q, kc, vc, lens), iters=50)
-    t_plain = cuda_ms(lambda: da._decode_plain(q, kc, vc, lens), iters=5)
-    b, h, d = q.shape
-    qt = q[:, :, None].contiguous()
-    kt, vt = (x.transpose(1, 2).contiguous() for x in (kc, vc))
-    keep = (torch.arange(kc.shape[1], device="cuda")[None, :]
-            < lens[:, None])[:, None, None, :]
-    t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=keep), iters=50)
-    npos = sum(full)
-    hkv = kc.shape[2]
-    flops = 4 * h * d * npos
-    nbytes = 2 * 2 * npos * hkv * d + 2 * 2 * q.numel() + 4 * b
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"[kernels] decode timing B={b} lengths=8x2048 H={h} D={d}: "
-        f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} "
-        f"library_ms={t_lib:.4f} bound_ms={b_ms:.4f} ({b_by}, "
-        f"{nbytes / 1e6:.2f} MB)")
-    records["decode_attention"] = dict(
-        name="decode_attention", route="cuda",
-        source="paddle_tpu_torch/csrc/decode_attention.cu",
-        replaces="paddle_tpu/ops/decode_attention.py:126",
-        max_abs_err=max(err, err_full), max_row_rel_err=max(worst),
-        row_tol=TOL_OUT, ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=t_lib)
+    dense_cases = [(mixed, 2048, 16, 16, 128), (mixed, 2048, 16, 4, 128),
+                   ([1, 300, 2048], 2048, 16, 1, 128),
+                   ([0, 5, 300, 512], 512, 8, 8, 64),
+                   (full, 2048, 16, 16, 128)]
+    for key, line, quantized in (("decode_attention", 126, False),
+                                 ("decode_attention_q", 190, True)):
+        errs, worst = [], []
+        for case in dense_cases:
+            tensors, err, w = check_decode(gen, *case, quantized=quantized)
+            errs.append(err)
+            worst.append(w)
+        q, kc, vc, lens, ks, vs = tensors
+        dense_k = kc if ks is None else _dequant(kc, ks)
+        dense_v = vc if vs is None else _dequant(vc, vs)
+        records[key] = time_decode_row(key, line, tensors, False, errs, worst,
+                                       sdpa_args(q, dense_k, dense_v, lens))
+        del tensors, q, kc, vc, dense_k, dense_v
+
+    # paged decode, bf16 (row 6) and int8 (row 7): block size 128 as the
+    # engine serves, and 16 / 32 for the layout's edges; shuffled blocks,
+    # a length of one, exact block multiples, ragged and null-block tails,
+    # an inactive slot, GQA, G = 16, D=64; then the timing shape, 8 full
+    # slots of 16 blocks in a pool of 129
+    paged_cases = [
+        (dict(lengths=[1, 128, 1000, 2048, 256, 1537, 64], bs=128, h=16,
+              hkv=16, d=128, mb=16, inactive=True)),
+        (dict(lengths=[1, 300, 2048, 129], bs=128, h=16, hkv=4, d=128,
+              inactive=True)),
+        (dict(lengths=[5, 2048, 700], bs=128, h=16, hkv=1, d=128)),
+        (dict(lengths=[1, 16, 100, 512, 31], bs=16, h=8, hkv=8, d=64,
+              mb=40, inactive=True)),
+        (dict(lengths=[64, 33, 480], bs=32, h=16, hkv=4, d=128)),
+        (dict(lengths=full, bs=128, h=16, hkv=16, d=128, spare=0)),
+    ]
+    for key, line, quantized in (("paged_decode_attention", 364, False),
+                                 ("paged_decode_attention_q", 469, True)):
+        errs, worst = [], []
+        for case in paged_cases:
+            tensors, err, w = check_paged(gen, quantized=quantized, **case)
+            errs.append(err)
+            worst.append(w)
+        q, k, v, tables, lens, ks, vs = tensors
+        # the library yardstick reads the same positions as a dense cache
+        b, mb = tables.shape
+        bs = k.shape[1]
+        idx = tables.long()
+        dense_k = k[idx].reshape(b, mb * bs, k.shape[2], k.shape[3])
+        dense_v = v[idx].reshape(b, mb * bs, v.shape[2], v.shape[3])
+        if ks is not None:
+            dense_k = _dequant(dense_k, ks[idx].reshape(b, mb * bs, -1))
+            dense_v = _dequant(dense_v, vs[idx].reshape(b, mb * bs, -1))
+        records[key] = time_decode_row(key, line, tensors, True, errs, worst,
+                                       sdpa_args(q, dense_k, dense_v, lens))
+        del tensors, q, k, v, dense_k, dense_v
     return records
+
+
+def _dequant(codes, scale):
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    return qm.dequantize_kv(codes, scale, torch.bfloat16)
 
 
 def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False):
@@ -489,9 +679,101 @@ def build_model():
     return model
 
 
+def cache_bytes(cache):
+    return sum(t.numel() * t.element_size()
+               for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+               if t is not None)
+
+
+def drive(tag, eng, prompts, new_tokens, sample_every=5):
+    """Queue ``prompts`` (every ``sample_every``-th one sampled at
+    temperature 0.8, top-p 0.9; the rest greedy), reset every launch count
+    and the peak-memory counter, run the engine dry and read both back.
+    Checks every request's token count, finite cache contents, one host
+    sync per decode step and, per layer, one launch of the decode kernel
+    the engine's cache calls for in every decode step and one of the
+    flash kernel in every prefill without a cached prefix.  Returns
+    ``(launches by kernel, stats, problems)``."""
+    from paddle_tpu_torch.ops import KERNELS
+    cfg = eng.model.cfg
+    rids = {}
+    for i, p in enumerate(prompts):
+        sampled = sample_every and i % sample_every == sample_every - 1
+        rid = eng.add_request(p, max_new_tokens=new_tokens,
+                              temperature=0.8 if sampled else 0.0,
+                              top_p=0.9 if sampled else 1.0)
+        rids[rid] = len(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # read before the finiteness check below, whose temporaries are as
+    # large as the cache
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    st = eng.stats()
+    counts = [len(results[r]) for r in rids]
+    cache = eng.cache
+    finite = all(bool(torch.isfinite(t).all().item())
+                 for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
+                 if t is not None and t.is_floating_point())
+    tokens = sum(counts)
+    log(f"[{tag}] {len(prompts)} requests, prompt lengths "
+        f"{sorted(rids.values())}, buckets used "
+        f"{sorted(st['prefill_ms_by_bucket'])}")
+    log(f"[{tag}] tokens={tokens} wall_s={wall:.3f} "
+        f"tokens_per_s={tokens / wall:.1f} prefills={st['prefills']} "
+        f"prefill_tokens={st['prefill_tokens']} "
+        f"decode_steps={st['decode_steps']} "
+        f"mean_decode_step_ms={st['decode_ms'] / st['decode_steps']:.3f} "
+        f"decode_tokens_per_s={st['decode_tokens_per_sec']:.1f}")
+    for bk, v in st["prefill_ms_by_bucket"].items():
+        log(f"[{tag}] prefill bucket {bk}: n={v['count']} "
+            f"mean_ms={v['mean_ms']:.3f}")
+    log(f"[{tag}] kv_layout={st['kv_layout']} kv_dtype={st['kv_dtype']} "
+        f"cache_bytes={cache_bytes(cache)} max_memory_allocated={peak} bytes; "
+        f"host_syncs decode={st['decode_host_syncs']} "
+        f"prefill={st['prefill_host_syncs']}; launches {launches}")
+    layers = cfg.num_layers
+    decode_key = ("paged_decode_attention" if st["kv_layout"] == "paged"
+                  else "decode_attention")
+    if st["kv_dtype"] == "int8":
+        decode_key += "_q"
+    cold = st["prefills"] - st.get("prefix_hit_queries", 0)
+    problems = []
+    if counts != [new_tokens] * len(prompts):
+        problems.append(f"token counts {counts} != {new_tokens} each")
+    if not finite:
+        problems.append("non-finite values in the KV cache")
+    if launches["flash_fwd"] != layers * cold:
+        problems.append(f"flash launches {launches['flash_fwd']} != "
+                        f"{layers} x {cold} prefills without a cached prefix")
+    for key, n in launches.items():
+        want = layers * st["decode_steps"] if key == decode_key else 0
+        if key != "flash_fwd" and n != want:
+            problems.append(f"{key} launches {n} != {want}")
+    if st["decode_host_syncs"] != st["decode_steps"]:
+        problems.append(f"{st['decode_host_syncs']} host syncs over "
+                        f"{st['decode_steps']} decode steps")
+    return launches, st, problems
+
+
+def finish(tag, problems):
+    if problems:
+        raise SystemExit(f"{tag} phase failed: " + "; ".join(problems))
+    log(f"[{tag}] ok")
+
+
+def random_prompts(rng, vocab, lengths):
+    return [rng.randint(0, vocab, size=int(n)) for n in lengths]
+
+
 def phase_serve(model):
     from paddle_tpu_torch.inference import InferenceEngine
-    from paddle_tpu_torch.ops import KERNELS
     cfg = model.cfg
     # warm the libraries (cuBLAS handles, allocator) off the record
     scratch = model.init_kv_cache(1)
@@ -503,122 +785,247 @@ def phase_serve(model):
     torch.cuda.synchronize()
 
     rng = np.random.RandomState(7)
-    n_req, new_tokens = 16, 32
-    plens = rng.randint(32, 1537, size=n_req)
+    plens = rng.randint(32, 1537, size=16)
     plens[:4] = [32, 100, 700, 1536]        # at least four buckets
     eng = InferenceEngine(model, batch_slots=8, top_k=50, seed=7,
                           device="cuda")
-    rids = {}
-    for i, n in enumerate(plens):
-        sampled = i % 5 == 4
-        rid = eng.add_request(rng.randint(0, cfg.vocab_size, size=int(n)),
-                              max_new_tokens=new_tokens,
-                              temperature=0.8 if sampled else 0.0,
-                              top_p=0.9 if sampled else 1.0)
-        rids[rid] = int(n)
-    torch.cuda.reset_peak_memory_stats()
-    for kernel in KERNELS.values():
-        kernel.launches = 0
-    t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in KERNELS.values()}
-    st = eng.stats()
-    counts = [len(results[r]) for r in rids]
-    finite = bool(torch.isfinite(eng.cache.k).all().item()
-                  and torch.isfinite(eng.cache.v).all().item())
-    tokens = sum(counts)
-    log(f"[serve] {n_req} requests, prompt lengths {sorted(rids.values())}, "
-        f"buckets used {sorted(st['prefill_ms_by_bucket'])}")
-    log(f"[serve] tokens={tokens} wall_s={wall:.3f} "
-        f"tokens_per_s={tokens / wall:.1f} prefills={st['prefills']} "
-        f"decode_steps={st['decode_steps']} "
-        f"mean_decode_step_ms={st['decode_ms'] / st['decode_steps']:.3f} "
-        f"decode_tokens_per_s={st['decode_tokens_per_sec']:.1f}")
-    for bk, v in st["prefill_ms_by_bucket"].items():
-        log(f"[serve] prefill bucket {bk}: n={v['count']} "
-            f"mean_ms={v['mean_ms']:.3f}")
-    log(f"[serve] max_memory_allocated={torch.cuda.max_memory_allocated()} "
-        f"bytes; host_syncs decode={st['decode_host_syncs']} "
-        f"prefill={st['prefill_host_syncs']}; launches {launches}")
-    layers = cfg.num_layers
-    problems = []
-    if counts != [new_tokens] * n_req:
-        problems.append(f"token counts {counts} != {new_tokens} each")
-    if not finite:
-        problems.append("non-finite values in the KV cache")
-    if launches["flash_fwd"] != layers * st["prefills"]:
-        problems.append(f"flash launches {launches['flash_fwd']} != "
-                        f"{layers} x {st['prefills']} prefills")
-    if launches["decode_attention"] != layers * st["decode_steps"]:
-        problems.append(f"decode launches {launches['decode_attention']} != "
-                        f"{layers} x {st['decode_steps']} decode steps")
-    if st["decode_host_syncs"] != st["decode_steps"]:
-        problems.append(f"{st['decode_host_syncs']} host syncs over "
-                        f"{st['decode_steps']} decode steps")
-    if problems:
-        raise SystemExit("serve phase failed: " + "; ".join(problems))
-    log("[serve] ok")
+    launches, _, problems = drive(
+        "serve", eng, random_prompts(rng, cfg.vocab_size, plens), 32)
+    finish("serve", problems)
     return launches
 
 
+def phase_serve_paged(model):
+    """Paged bf16 serving with the radix prefix cache: 8 of the 16
+    requests share one 1024-token prefix (8 full blocks) followed by 32 to
+    512 tokens of their own, interleaved with 8 random prompts of 32 to
+    1536 tokens."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    vocab = model.cfg.vocab_size
+    rng = np.random.RandomState(17)
+    prefix = rng.randint(0, vocab, size=1024)
+    shared = [np.concatenate([prefix, p]) for p in random_prompts(
+        rng, vocab, rng.randint(32, 513, size=8))]
+    other = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
+    prompts = [p for pair in zip(shared, other) for p in pair]
+    eng = InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                          kv_block_size=128, prefix_cache=True, top_k=50,
+                          seed=17, device="cuda")
+    launches, st, problems = drive("serve-paged", eng, prompts, 32)
+    log(f"[serve-paged] prefix_queries={st['prefix_queries']} "
+        f"prefix_hit_queries={st['prefix_hit_queries']} "
+        f"prefix_hit_blocks={st['prefix_hit_blocks']} "
+        f"block_occupancy={st['block_occupancy']:.4f} "
+        f"kv_blocks_total={st['kv_blocks_total']}")
+    if st["prefix_hit_queries"] < 7:
+        problems.append(f"{st['prefix_hit_queries']} prefix hits < 7")
+    eng.check_leak_free()
+    log(f"[serve-paged] pool leak-free after the prefix flush: "
+        f"{eng._alloc.num_free}/{eng._alloc.capacity} blocks free")
+    finish("serve-paged", problems)
+    return launches
+
+
+def phase_serve_pressure(model):
+    """A pool too small for its slots: 40 blocks of 128 for 8 slots,
+    prompts of 960 to 1020 tokens (8 blocks each at admission) and 64 new
+    tokens, so decode crosses into a ninth block while the pool is dry
+    and the scheduler must preempt."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    rng = np.random.RandomState(23)
+    prompts = random_prompts(rng, model.cfg.vocab_size,
+                             rng.randint(960, 1021, size=8))
+    eng = InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                          kv_block_size=128, kv_num_blocks=40, seed=23,
+                          device="cuda")
+    launches, st, problems = drive("serve-pressure", eng, prompts, 64,
+                                   sample_every=0)
+    log(f"[serve-pressure] preemptions={st['preemptions']} "
+        f"memory_capped_retirements={st['memory_capped_retirements']} "
+        f"block_occupancy={st['block_occupancy']:.4f} "
+        f"prefix_hit_queries={st['prefix_hit_queries']}")
+    if st["preemptions"] < 1:
+        problems.append("no preemption under a dry pool")
+    eng.check_leak_free()
+    finish("serve-pressure", problems)
+    return launches
+
+
+def phase_serve_int8(model):
+    """The dense and the paged engine over int8 caches: 8 requests of 32
+    new tokens each (the paged one with 4 sharing a 512-token prefix)."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    vocab = model.cfg.vocab_size
+    out = {}
+    for layout in ("dense", "paged"):
+        rng = np.random.RandomState(29)
+        prompts = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
+        if layout == "paged":
+            prefix = rng.randint(0, vocab, size=512)
+            for i in range(0, 8, 2):
+                prompts[i] = np.concatenate([prefix, prompts[i][:300]])
+        eng = InferenceEngine(model, batch_slots=8, kv_layout=layout,
+                              kv_dtype="int8", top_k=50, seed=29,
+                              device="cuda")
+        tag = f"serve-int8-{layout}"
+        launches, st, problems = drive(tag, eng, prompts, 32)
+        if layout == "paged":
+            log(f"[{tag}] prefix_hit_queries={st['prefix_hit_queries']}")
+            eng.check_leak_free()
+        finish(tag, problems)
+        out[tag] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _padded(ids, start, stop, bucket):
+    out = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
+    out[:, :stop - start] = ids[:, start:stop]
+    return out
+
+
+def teacher_check(what, got, ref, first, tol):
+    """Logits of prefill + decode (``got [steps, V]``) against the
+    forward's at positions ``first ...``, each row against its own
+    largest |logit|."""
+    got = torch.cat(got).float()
+    want = ref[0, first:first + got.shape[0]]
+    err = (got - want).abs().amax(-1)
+    worst = (err / want.abs().amax(-1)).max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    ok = bool(torch.isfinite(got).all().item()) and worst <= tol
+    log(f"[teacher] {what}: max|diff|={err.max().item():.4e}, worst position "
+        f"max|diff|/max|logit|={worst:.4e} (tol {tol}) argmax agreement "
+        f"{agree:.3f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"teacher-forced check failed: {what}")
+
+
 def phase_teacher_forced(model):
+    """Prefill + decode steps against one no-cache forward over the same
+    tokens: the dense cache, then the paged cache cold (flash prefill)
+    and over a cached 1024-token prefix (the composite hit path), each in
+    bf16 and int8; then the hit prefill timed against the cold one."""
+    from paddle_tpu_torch.inference.paged_kv import init_paged_cache
     cfg = model.cfg
     rng = np.random.RandomState(11)
     plen, steps = 200, 8
+    hit_prefix, hit_len = 1024, 1100
     ids = torch.from_numpy(
-        rng.randint(0, cfg.vocab_size, size=(1, plen + steps))).cuda()
+        rng.randint(0, cfg.vocab_size, size=(1, hit_len + steps))).cuda()
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    bs, mb = 128, cfg.max_seq_len // 128
     with torch.no_grad():
         ref = model(ids).float()                       # [1, S, V]
-        cache = model.init_kv_cache(1)
-        padded = torch.zeros((1, 256), dtype=torch.long, device="cuda")
-        padded[:, :plen] = ids[:, :plen]
-        got = [model.prefill(padded, cache, 0, plen)[0].float()]
-        one = torch.ones(1, dtype=torch.int32, device="cuda")
-        for t in range(plen, plen + steps - 1):
-            got.append(model.decode_step(ids[:, t], cache, one)[0].float())
-    got = torch.cat(got)                                # [steps, V]
-    want = ref[0, plen - 1:plen + steps - 1]
-    # per position: each row of logits against its own largest |logit|
-    err = (got - want).abs().amax(-1)
-    scale = want.abs().amax(-1)
-    worst = (err / scale).max().item()
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    ok = bool(torch.isfinite(got).all().item()) and worst <= TOL_TEACHER
-    log(f"[teacher] prefill({plen}, bucket 256) + {steps - 1} decode steps vs "
-        f"forward({plen + steps}): max|diff|={err.max().item():.4e}, worst "
-        f"position max|diff|/max|logit|={worst:.4e} (tol {TOL_TEACHER}) "
-        f"argmax agreement {agree:.3f} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit("teacher-forced check failed")
+        for kv_dtype in (None, "int8"):
+            tol = TOL_TEACHER if kv_dtype is None else TOL_TEACHER_INT8
+            name = "bf16" if kv_dtype is None else "int8"
+            cache = model.init_kv_cache(1, kv_dtype=kv_dtype)
+            got = [model.prefill(_padded(ids, 0, plen, 256), cache, 0,
+                                 plen)[0]]
+            for t in range(plen, plen + steps - 1):
+                got.append(model.decode_step(ids[:, t], cache, one)[0])
+            teacher_check(f"{name} dense: prefill({plen}, bucket 256) + "
+                          f"{steps - 1} decode steps vs forward",
+                          got, ref, plen - 1, tol)
+            del cache
+
+            pool = init_paged_cache(model, 1 + 2 + 9 + 16, bs,
+                                    kv_dtype=kv_dtype)
+
+            def table(blocks):
+                row = torch.zeros(mb, dtype=torch.int32, device="cuda")
+                row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+                return row
+
+            def decode_paged(row, start, n):
+                out = []
+                for t in range(start, start + n):
+                    out.append(model.decode_step_paged(
+                        ids[:, t], pool, row[None],
+                        torch.tensor([t], dtype=torch.int32,
+                                     device="cuda"))[0])
+                return out
+
+            cold_row = table([1, 2])
+            got = [model.prefill_paged(_padded(ids, 0, plen, 256), pool,
+                                       cold_row, 0, plen)[0]]
+            got += decode_paged(cold_row, plen, steps - 1)
+            teacher_check(f"{name} paged cold: prefill_paged({plen}, bucket "
+                          f"256) + {steps - 1} decode steps vs forward",
+                          got, ref, plen - 1, tol)
+            # slot A leaves the prefix in blocks 3..10; slot B shares them
+            # and prefills its 76-token suffix over them
+            model.prefill_paged(_padded(ids, 0, hit_prefix, hit_prefix), pool,
+                                table(list(range(3, 11))), 0, hit_prefix)
+            hit_row = table(list(range(3, 12)))
+            suffix = _padded(ids, hit_prefix, hit_len, 128)
+            got = [model.prefill_paged(suffix, pool, hit_row, hit_prefix,
+                                       hit_len - hit_prefix)[0]]
+            got += decode_paged(hit_row, hit_len, steps - 1)
+            teacher_check(f"{name} paged hit: {hit_prefix} cached tokens + "
+                          f"prefill_paged({hit_len - hit_prefix}, bucket 128) "
+                          f"+ {steps - 1} decode steps vs forward",
+                          got, ref, hit_len - 1, tol)
+
+            # the hit prefill against a cold prefill of the same prompt
+            cold_full = table(list(range(12, 28)))
+            whole = _padded(ids, 0, hit_len, 2048)
+
+            def timed(fn, reps=5):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3 / reps
+            t_cold = timed(lambda: model.prefill_paged(whole, pool, cold_full,
+                                                       0, hit_len))
+            t_hit = timed(lambda: model.prefill_paged(
+                suffix, pool, hit_row, hit_prefix, hit_len - hit_prefix))
+            log(f"[teacher] {name} paged prefill of a {hit_len}-token prompt: "
+                f"cold (bucket 2048, flash) {t_cold:.3f} ms, over a cached "
+                f"{hit_prefix}-token prefix (bucket 128, composite) "
+                f"{t_hit:.3f} ms (host clock, mean of 5)")
+            del pool
 
 
 def phase_profile(model):
-    """Where a steady decode step's time goes: 8 active slots with
-    512-token prompts; 5 steps timed on the host clock (each step ends in
-    its host sync, so that is the step's real duration), then 5 steps
-    under torch.profiler for the device kernel time per step."""
+    """Where a steady decode step's time goes, for the dense and the
+    paged engine, bf16 and int8: 8 active slots with 512-token prompts; 5
+    steps timed on the host clock (each step ends in its host sync, so
+    that is the step's real duration), then 5 steps under torch.profiler
+    for the device kernel time per step."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import InferenceEngine
-    eng = InferenceEngine(model, batch_slots=8, device="cuda")
-    rng = np.random.RandomState(13)
-    for _ in range(8):
-        eng.add_request(rng.randint(0, model.cfg.vocab_size, size=512),
-                        max_new_tokens=16)
-    for _ in range(3):          # admissions, then two warm decode steps
-        eng.step()
-    steps = 5
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        eng.step()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    for layout, kv_dtype in (("dense", None), ("paged", None),
+                             ("dense", "int8"), ("paged", "int8")):
+        eng = InferenceEngine(model, batch_slots=8, kv_layout=layout,
+                              kv_dtype=kv_dtype, device="cuda")
+        rng = np.random.RandomState(13)
+        for _ in range(8):
+            eng.add_request(rng.randint(0, model.cfg.vocab_size, size=512),
+                            max_new_tokens=16)
+        for _ in range(3):          # admissions, then two warm decode steps
+            eng.step()
+        steps = 5
+        t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
-    report_profile(prof, steps, wall_ms,
-                   "decode step (8 active, ~520-token slots)")
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                eng.step()
+        report_profile(prof, steps, wall_ms,
+                       f"{layout} {kv_dtype or 'bf16'} decode step (8 "
+                       f"active, ~520-token slots)")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def report_profile(prof, steps, wall_ms, what):
@@ -847,7 +1254,14 @@ def main():
     records = phase_kernels()
     phase_train_kernels(records)
     model = build_model()
-    serve = phase_serve(model)
+    paths = {}
+    for tag, phase in (("serve", phase_serve),
+                       ("serve-paged", phase_serve_paged),
+                       ("serve-pressure", phase_serve_pressure)):
+        paths[tag] = phase(model)
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths.update(phase_serve_int8(model))
     phase_teacher_forced(model)
     phase_profile(model)
     del model
@@ -856,12 +1270,13 @@ def main():
     phase_train_parity()
     gc.collect()
     torch.cuda.empty_cache()
-    train = phase_train()
+    paths["train"] = phase_train()
     for key, rec in records.items():
-        by_path = {p: n[key] for p, n in (("serve", serve), ("train", train))
-                   if n[key]}
+        by_path = {p: n[key] for p, n in paths.items() if n[key]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
+        if not by_path:
+            raise SystemExit(f"{key} was launched on no path")
     log(f"[done] {time.perf_counter() - t0:.1f} s after the device check")
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "max_row_rel_err", "row_tol",

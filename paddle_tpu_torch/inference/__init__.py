@@ -1,3 +1,8 @@
 from .engine import InferenceEngine, Request, default_prefill_buckets
+from .paged_kv import (BlockAllocator, PagedKVCache, blocks_for,
+                       init_paged_cache)
+from .prefix_cache import RadixPrefixCache
 
-__all__ = ["InferenceEngine", "Request", "default_prefill_buckets"]
+__all__ = ["InferenceEngine", "Request", "default_prefill_buckets",
+           "BlockAllocator", "PagedKVCache", "RadixPrefixCache",
+           "blocks_for", "init_paged_cache"]

@@ -1,19 +1,34 @@
-"""Continuous-batching serving engine on the dense static KV cache
-(counterpart of the dense layout of ``paddle_tpu/inference/engine.py``).
+"""Continuous-batching serving engine on the dense static KV cache or a
+paged block pool (counterpart of ``paddle_tpu/inference/engine.py``).
 
 Prompts are padded to a prefill bucket and prefilled one slot at a time
-(``GPTForCausalLM.prefill``, flash-attention kernel); every step then
-decodes one token for all slots at once (``decode_step``, decode-
-attention kernel).  Requests are admitted into free slots between decode
-steps and retire on EOS, on ``max_new_tokens`` or when the slot's
-sequence reaches ``max_seq_len``.  Sampling (greedy, temperature, static
-top-k, per-slot top-p) runs on the engine's device with its own
-``torch.Generator``, and the sampled ids are the ONE device-to-host copy
-of a decode step (``stats()['decode_host_syncs']``).  An admission costs
-one more, for its first token.
+(``GPTForCausalLM.prefill`` / ``prefill_paged``, flash-attention
+kernel); every step then decodes one token for all slots at once
+(``decode_step`` / ``decode_step_paged``, decode-attention kernels).
+Requests are admitted between decode steps and retire on EOS, on
+``max_new_tokens`` or when the slot's sequence reaches ``max_seq_len``.
+Sampling (greedy, temperature, static top-k, per-slot top-p) runs on
+the engine's device with its own ``torch.Generator``, and the sampled
+ids are the ONE device-to-host copy of a decode step
+(``stats()['decode_host_syncs']``).  An admission costs one more, for
+its first token.
 
-Left for later slices: the paged layout, prefix cache, quantized KV,
-speculative decoding, chunked prefill, deadlines, drain and telemetry.
+``kv_layout='paged'`` (Kwon et al., *PagedAttention*): the cache is a
+block pool (``inference.paged_kv``) and each slot holds a block table,
+so admission is by free blocks; a radix prefix cache
+(``inference.prefix_cache``) shares prompt-prefix blocks so a shared
+prefix prefills once; on pool exhaustion the scheduler evicts unpinned
+cached blocks, then PREEMPTS the youngest request back onto the queue
+(it resumes through a prefill over prompt + generated) instead of
+deadlocking.  Block tables and lengths are host state; each paged decode
+step stages them in pinned memory and copies them to the device without
+a sync (the previous step's sync has finished the previous copy before
+the host writes the staging buffers again).  ``kv_dtype='int8'`` stores
+either layout as int8 codes with per-(position, head) f32 scales, read
+by the int8 decode kernels.
+
+Left for later slices: speculative decoding, chunked prefill, deadlines,
+drain, guards and telemetry.
 """
 from __future__ import annotations
 
@@ -26,6 +41,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, same_device
+from ..ops.quantized_matmul import resolve_kv_quant
+from .paged_kv import BlockAllocator, blocks_for, init_paged_cache
+from .prefix_cache import RadixPrefixCache
 
 __all__ = ["InferenceEngine", "Request", "default_prefill_buckets"]
 
@@ -58,6 +76,15 @@ class Request:
         self.top_p = float(top_p)
         self.generated: List[int] = []
         self.slot: Optional[int] = None
+        # preemption: a preempted request resumes through a prefill over
+        # prompt + generated so far (this field), keeping `generated`
+        self.resume_prompt: Optional[np.ndarray] = None
+        self.preemptions = 0
+        self.admit_seq: Optional[int] = None
+
+    def effective_prompt(self) -> np.ndarray:
+        return self.prompt if self.resume_prompt is None \
+            else self.resume_prompt
 
 
 class InferenceEngine:
@@ -65,18 +92,26 @@ class InferenceEngine:
 
     Usage::
 
-        eng = InferenceEngine(model, batch_slots=8)
+        eng = InferenceEngine(model, batch_slots=8, kv_layout="paged")
         rid = eng.add_request(prompt_ids, max_new_tokens=64, eos_id=eos)
         outputs = eng.run()          # {rid: np.int32 generated tokens}
 
-    ``device=None`` means the CUDA device (raises without one); the
-    model must live on the engine's device.
+    ``kv_layout``: ``'dense'`` (default; ``batch_slots x max_seq_len``
+    positions) or ``'paged'`` (a pool of ``kv_num_blocks`` blocks of
+    ``kv_block_size`` positions, default the dense-equivalent memory,
+    with a radix prefix cache unless ``prefix_cache=False``).
+    ``kv_dtype='int8'`` quantizes either cache.  ``device=None`` means
+    the CUDA device (raises without one); the model must live on the
+    engine's device.
     """
 
     def __init__(self, model, batch_slots: int = 8,
                  max_seq_len: Optional[int] = None,
                  prefill_buckets: Optional[List[int]] = None,
-                 top_k: int = 0, seed: int = 0, device=None):
+                 top_k: int = 0, seed: int = 0, device=None,
+                 kv_layout: str = "dense", kv_block_size: int = 128,
+                 kv_num_blocks: Optional[int] = None,
+                 prefix_cache: bool = True, kv_dtype: Optional[str] = None):
         self.device = resolve_device(device)
         if not same_device(model.device, self.device):
             raise ValueError(f"model is on {model.device}, engine on "
@@ -92,7 +127,19 @@ class InferenceEngine:
         self.buckets = sorted(prefill_buckets or
                               default_prefill_buckets(self.max_seq_len))
         self.top_k = int(top_k)
-        self.cache = model.init_kv_cache(self.batch_slots, self.max_seq_len)
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout must be dense|paged, got "
+                             f"{kv_layout!r}")
+        self.kv_layout = kv_layout
+        self.kv_dtype = resolve_kv_quant(kv_dtype)
+        self._alloc: Optional[BlockAllocator] = None
+        self._prefix: Optional[RadixPrefixCache] = None
+        if kv_layout == "paged":
+            self._init_paged(kv_block_size, kv_num_blocks, prefix_cache)
+        else:
+            self.cache = model.init_kv_cache(self.batch_slots,
+                                             self.max_seq_len,
+                                             kv_dtype=self.kv_dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
 
@@ -100,6 +147,14 @@ class InferenceEngine:
         self._queue: deque = deque()
         self._slots: List[Optional[Request]] = [None] * b
         self._slot_len = np.zeros(b, np.int64)
+        self._admit_counter = itertools.count()
+        # head-of-line admission memo: once the queue head fails paged
+        # admission, remember (rid, free blocks, release epoch) and do not
+        # re-run its radix match and allocation until blocks could have
+        # come free; the epoch catches releases that leave num_free
+        # unchanged (blocks the radix cache pins become evictable)
+        self._hol_block: Optional[tuple] = None
+        self._release_epoch = 0
         # per-slot device state, written one element at a time on
         # admission/retirement (no host->device copy on the decode step)
         self._d_next = torch.zeros(b, dtype=torch.int64, device=self.device)
@@ -111,8 +166,44 @@ class InferenceEngine:
             "prefill_ms": 0.0, "decode_ms": 0.0, "prefills": 0,
             "prefill_tokens": 0, "decode_steps": 0, "tokens_generated": 0,
             "decode_host_syncs": 0, "prefill_host_syncs": 0,
+            "preemptions": 0, "memory_capped_retirements": 0,
+            "block_occupancy_sum": 0.0,
         }
         self._bucket_ms: Dict[int, List[float]] = {}
+
+    # ---- paged layout setup -------------------------------------------
+    def _init_paged(self, kv_block_size, kv_num_blocks, prefix_cache):
+        """Block pool + allocator + host block tables + radix cache.  The
+        default pool is dense-equivalent memory (batch_slots x
+        ceil(max_seq_len / bs) blocks), plus the null block 0."""
+        bs = int(kv_block_size)
+        if bs < 1:
+            raise ValueError(f"kv_block_size must be >= 1, got {bs}")
+        self.block_size = bs
+        self.blocks_per_slot = blocks_for(self.max_seq_len, bs)
+        usable = int(kv_num_blocks or 0) or \
+            self.batch_slots * self.blocks_per_slot
+        self.num_blocks = usable
+        self.cache = init_paged_cache(self.model, usable + 1, bs,
+                                      kv_dtype=self.kv_dtype)
+        self._alloc = BlockAllocator(usable + 1, bs)
+        # host tables and lengths live in (pinned, on the card) staging
+        # tensors; each decode step copies them to the device mirrors
+        shape = (self.batch_slots, self.blocks_per_slot)
+        pin = self.device.type == "cuda"
+        self._h_tables = torch.zeros(shape, dtype=torch.int32, pin_memory=pin)
+        self._h_lens = torch.zeros(self.batch_slots, dtype=torch.int32,
+                                   pin_memory=pin)
+        self._tables = self._h_tables.numpy()
+        self._lens_np = self._h_lens.numpy()
+        self._d_tables = torch.zeros(shape, dtype=torch.int32,
+                                     device=self.device)
+        self._d_lens = torch.zeros(self.batch_slots, dtype=torch.int32,
+                                   device=self.device)
+        self._slot_blocks: List[List[int]] = \
+            [[] for _ in range(self.batch_slots)]
+        self._prefix = RadixPrefixCache(self._alloc, bs) if prefix_cache \
+            else None
 
     # ---- sampling -----------------------------------------------------
     def _sample(self, logits, temps, top_ps):
@@ -145,8 +236,8 @@ class InferenceEngine:
     def add_request(self, prompt, max_new_tokens: int = 32,
                     eos_id: Optional[int] = None, temperature: float = 0.0,
                     top_p: float = 1.0) -> int:
-        """Queue a request; returns its id.  Admitted into a free slot at
-        the next ``step()``."""
+        """Queue a request; returns its id.  Admitted into a free slot
+        (dense) or free blocks (paged) at the next ``step()``."""
         req = Request(prompt, max_new_tokens, eos_id, temperature, top_p)
         if req.prompt.size > self.buckets[-1]:
             raise ValueError(f"prompt of {req.prompt.size} tokens exceeds "
@@ -156,6 +247,17 @@ class InferenceEngine:
             raise ValueError(f"prompt of {req.prompt.size} tokens leaves no "
                              f"room to generate within "
                              f"max_seq_len={self.max_seq_len}")
+        if self.kv_layout == "paged":
+            # can it EVER run alone on an empty pool: its bucket-padded
+            # prefill, then its full extent
+            bs = self.block_size
+            worst = max(
+                blocks_for(self._bucket_for(req.prompt.size), bs),
+                blocks_for(min(req.prompt.size + req.max_new_tokens,
+                               self.max_seq_len), bs))
+            if worst > self._alloc.capacity:
+                raise ValueError(f"request needs {worst} KV blocks but the "
+                                 f"pool only has {self._alloc.capacity}")
         self._queue.append(req)
         return req.rid
 
@@ -163,11 +265,11 @@ class InferenceEngine:
                  eos_id: Optional[int] = None, temperature: float = 0.0,
                  top_p: float = 1.0) -> np.ndarray:
         """Blocking single-request generation through the admission
-        queue (waits for a free slot while in-flight requests decode)."""
+        queue (waits for capacity while in-flight requests decode)."""
         rid = self.add_request(prompt, max_new_tokens, eos_id, temperature,
                                top_p)
         while rid not in self.results:
-            self.step()
+            self.step_or_raise()
         return self.results[rid]
 
     def _bucket_for(self, n: int) -> int:
@@ -176,22 +278,222 @@ class InferenceEngine:
                 return b
         return self.buckets[-1]
 
+    # ---- paged block accounting ---------------------------------------
+    def _alloc_blocks(self, n: int) -> Optional[List[int]]:
+        """Allocate n blocks, evicting unpinned radix-cache blocks if the
+        free list alone cannot cover it."""
+        if n <= 0:
+            return []
+        out = self._alloc.alloc(n)
+        if out is None and self._prefix is not None:
+            self._prefix.evict(n - self._alloc.num_free)
+            out = self._alloc.alloc(n)
+        return out
+
+    def _free_slot_blocks(self, slot: int):
+        self._alloc.decref(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self._tables[slot, :] = 0
+        self._slot_len[slot] = 0
+
+    def _release_slot(self, req: Request):
+        """Slot teardown shared by retirement and preemption."""
+        slot = req.slot
+        if self.kv_layout == "paged":
+            self._free_slot_blocks(slot)
+        self._slots[slot] = None
+        self._d_active[slot] = 0
+        self._d_temps[slot] = 0.0
+        self._d_top_ps[slot] = 1.0
+        req.slot = None
+        # any release can make blocks free or evictable: wake the
+        # head-of-line memo
+        self._release_epoch += 1
+
+    def _preempt(self, req: Request):
+        """Put an active request back at the queue head: free its blocks
+        now; it resumes through a prefill over prompt + generated (which
+        usually hits the radix cache), which re-derives its last sampled
+        token's k/v."""
+        req.resume_prompt = np.concatenate(
+            [req.prompt, np.asarray(req.generated, np.int32)])
+        req.preemptions += 1
+        self._timings["preemptions"] += 1
+        self._release_slot(req)
+        self._queue.appendleft(req)
+
+    def _resumable(self, req: Request) -> bool:
+        """Its prompt + generated fits a prefill bucket whose cold
+        admission fits the pool, so a preemption can re-admit it."""
+        total = len(req.prompt) + len(req.generated)
+        return (total <= self.buckets[-1] and
+                blocks_for(self._bucket_for(total), self.block_size)
+                <= self._alloc.capacity)
+
+    def _preempt_for_blocks(self, n: int,
+                            exclude: Request) -> Optional[List[int]]:
+        """The pool is dry mid-decode: preempt the youngest other
+        resumable request(s) until n blocks come free."""
+        while True:
+            out = self._alloc_blocks(n)
+            if out is not None:
+                return out
+            victims = [r for r in self._slots
+                       if r is not None and r is not exclude
+                       and self._resumable(r)]
+            if not victims:
+                return None
+            self._preempt(max(victims, key=lambda r: r.admit_seq))
+
+    def _ensure_decode_room(self):
+        """Before a paged decode step, every active slot whose next write
+        falls past its blocks gets a fresh block: from the free list, by
+        radix-cache eviction, or by preempting the youngest other
+        request.  With no resumable victim the requester itself is
+        preempted if it can resume, else retired with the tokens it has
+        (a memory-capped finish)."""
+        for slot in range(self.batch_slots):
+            req = self._slots[slot]
+            if req is None:
+                continue
+            need = blocks_for(int(self._slot_len[slot]) + 1, self.block_size)
+            while (self._slots[slot] is req
+                   and len(self._slot_blocks[slot]) < need):
+                nb = self._alloc_blocks(1)
+                if nb is None:
+                    nb = self._preempt_for_blocks(1, exclude=req)
+                if nb is None:
+                    if self._resumable(req):
+                        self._preempt(req)
+                    else:
+                        self._timings["memory_capped_retirements"] += 1
+                        self._retire(req)
+                    break
+                self._tables[slot, len(self._slot_blocks[slot])] = nb[0]
+                self._slot_blocks[slot].append(nb[0])
+
     # ---- admission ----------------------------------------------------
+    def _try_admit(self, req: Request, slot: int) -> bool:
+        """Admit into ``slot`` if capacity allows; False leaves the
+        request at the queue head (admission is FIFO)."""
+        if self.kv_layout == "dense":
+            self._admit_dense(req, slot)
+            return True
+        return self._admit_paged(req, slot)
+
+    def _ids_on_device(self, tokens, bucket: int) -> torch.Tensor:
+        ids = np.zeros((1, bucket), np.int64)
+        ids[0, :tokens.size] = tokens
+        return torch.from_numpy(ids).to(self.device, non_blocking=True)
+
     def _admit_dense(self, req: Request, slot: int):
         """Prefill the bucket-padded prompt into ``slot`` and sample the
         first token from its logits."""
         t0 = time.perf_counter()
-        plen = req.prompt.size
+        prompt = req.effective_prompt()
+        plen = prompt.size
         bucket = self._bucket_for(plen)
-        ids = np.zeros((1, bucket), np.int64)
-        ids[0, :plen] = req.prompt
-        ids_d = torch.from_numpy(ids).to(self.device, non_blocking=True)
-        logits, _ = self.model.prefill(ids_d, self.cache, slot, plen)
+        logits, _ = self.model.prefill(self._ids_on_device(prompt, bucket),
+                                       self.cache, slot, plen)
         self._timings["prefill_tokens"] += bucket
         self._record_admission(req, slot, plen, logits)
+        self._note_prefill(bucket, t0)
+
+    def _note_prefill(self, bucket: int, t0: float):
         ms = (time.perf_counter() - t0) * 1e3
         self._timings["prefill_ms"] += ms
         self._bucket_ms.setdefault(bucket, []).append(ms)
+
+    def _admit_paged(self, req: Request, slot: int) -> bool:
+        """Paged admission: one prefill, then the slot adoption."""
+        rec = self._paged_prefill(req)
+        if rec is None:
+            return False                      # stays queued
+        blocks, _plen, logits = rec
+        self.admit_handoff(req, slot, blocks, logits)
+        return True
+
+    def _paged_prefill(self, req: Request):
+        """Match the radix cache, allocate blocks for the divergent
+        suffix's bucket, prefill ONLY the suffix, then return the bucket
+        padding's blocks and adopt the prompt's full blocks into the
+        radix tree.  Returns ``(blocks, plen, logits)`` with the slot's
+        references taken, or None when the pool cannot hold the request
+        yet."""
+        bs = self.block_size
+        prompt = req.effective_prompt()
+        pc_stats0 = None
+        if self._prefix is not None:
+            # a blocked head-of-line request re-matches on every retry:
+            # roll the hit counters back on failure so they count
+            # admissions, not retries
+            pc_stats0 = (self._prefix.queries, self._prefix.hit_queries,
+                         self._prefix.hit_blocks)
+            shared, prefix_len = self._prefix.match(prompt)
+        else:
+            shared, prefix_len = [], 0
+        # the bucket-padded extent must fit the slot's table and the
+        # whole pool: shed cached prefix blocks (recompute those tokens)
+        # until it does; prefix 0 always fits (add_request checked it)
+        fit = min(self.blocks_per_slot, self._alloc.capacity)
+        shed = 0
+        while shared and blocks_for(
+                prefix_len + self._bucket_for(prompt.size - prefix_len),
+                bs) > fit:
+            shared = shared[:-1]
+            prefix_len -= bs
+            shed += 1
+        if shed and pc_stats0 is not None:
+            self._prefix.hit_blocks -= shed
+            if not shared:
+                self._prefix.hit_queries -= 1
+        suffix = prompt[prefix_len:]
+        bucket = self._bucket_for(suffix.size)
+        need_total = blocks_for(prefix_len + bucket, bs)
+        # the slot's own reference on the shared blocks, taken BEFORE any
+        # allocation: an eviction could otherwise free a matched block
+        # and hand it out again as this request's suffix block
+        self._alloc.incref(shared)
+        new_blocks = self._alloc_blocks(need_total - len(shared))
+        if new_blocks is None:
+            self._alloc.decref(shared)
+            if pc_stats0 is not None:
+                (self._prefix.queries, self._prefix.hit_queries,
+                 self._prefix.hit_blocks) = pc_stats0
+            return None
+        blocks = list(shared) + new_blocks
+        t0 = time.perf_counter()
+        self._timings["prefill_tokens"] += bucket
+        row = np.zeros(self.blocks_per_slot, np.int32)
+        row[:len(blocks)] = blocks
+        logits, _ = self.model.prefill_paged(
+            self._ids_on_device(suffix, bucket), self.cache,
+            torch.from_numpy(row).to(self.device, non_blocking=True),
+            prefix_len, suffix.size)
+        self._note_prefill(bucket, t0)
+        # blocks past the real prompt held only bucket padding
+        plen = int(prefix_len + suffix.size)
+        keep = blocks_for(plen, bs)
+        if len(blocks) > keep:
+            self._alloc.decref(blocks[keep:])
+            blocks = blocks[:keep]
+        if self._prefix is not None:
+            n_full = prompt.size // bs
+            if n_full:
+                self._prefix.insert(prompt[:n_full * bs], blocks[:n_full])
+        return blocks, plen, logits
+
+    def admit_handoff(self, req: Request, slot: int, blocks, logits):
+        """Adopt a request whose prefill already ran: install its block
+        table (the blocks arrive trimmed, radix-adopted and owned by this
+        slot) and finish admission from its last-token logits."""
+        if self.kv_layout != "paged":
+            raise ValueError("admit_handoff needs the paged layout")
+        self._slot_blocks[slot] = list(blocks)
+        self._tables[slot, :] = 0
+        self._tables[slot, :len(blocks)] = blocks
+        self._record_admission(req, slot, int(req.effective_prompt().size),
+                               logits)
 
     def _record_admission(self, req: Request, slot: int, plen: int, logits):
         """Sample the first token from the prefill logits and bind the
@@ -204,6 +506,7 @@ class InferenceEngine:
         self._timings["prefill_host_syncs"] += 1
         self._timings["prefills"] += 1
         req.slot = slot
+        req.admit_seq = next(self._admit_counter)
         self._slots[slot] = req
         self._slot_len[slot] = plen
         self._d_next[slot] = tok
@@ -222,13 +525,8 @@ class InferenceEngine:
             self._retire(req)
 
     def _retire(self, req: Request):
-        slot = req.slot
         self.results[req.rid] = np.asarray(req.generated, np.int32)
-        self._slots[slot] = None
-        self._d_active[slot] = 0
-        self._d_temps[slot] = 0.0
-        self._d_top_ps[slot] = 1.0
-        req.slot = None
+        self._release_slot(req)
 
     # ---- the loop -----------------------------------------------------
     @property
@@ -239,21 +537,61 @@ class InferenceEngine:
     def has_work(self) -> bool:
         return bool(self._queue) or self.num_active > 0
 
-    def step(self) -> int:
-        """Admit queued requests into free slots, then decode one token
-        for every active slot.  Returns the tokens produced this step
-        (first tokens of admissions included)."""
-        produced = 0
+    @property
+    def blocks_in_use(self) -> Optional[int]:
+        return self._alloc.num_in_use if self._alloc else None
+
+    def _admit(self) -> int:
+        """Admit queued requests into free slots in FIFO order; returns
+        the admissions (each produced its first token)."""
+        admitted = 0
         for slot in range(self.batch_slots):
-            if self._slots[slot] is None and self._queue:
-                self._admit_dense(self._queue.popleft(), slot)
-                produced += 1
+            if self._slots[slot] is not None or not self._queue:
+                continue
+            head = self._queue[0]
+            # the blocked head is not retried until blocks came free
+            # (num_free grew) or became evictable (release epoch moved)
+            if (self._alloc is not None and self._hol_block is not None
+                    and self._hol_block[0] == head.rid
+                    and self._alloc.num_free <= self._hol_block[1]
+                    and self._release_epoch == self._hol_block[2]):
+                break
+            if not self._try_admit(head, slot):
+                if self._alloc is not None:
+                    self._hol_block = (head.rid, self._alloc.num_free,
+                                       self._release_epoch)
+                break
+            self._hol_block = None
+            self._queue.popleft()
+            admitted += 1
+        return admitted
+
+    def step(self) -> int:
+        """Admit queued requests, then decode one token for every active
+        slot.  Returns the tokens produced this step (first tokens of
+        admissions included)."""
+        produced = self._admit()
         if self.num_active == 0:
             return produced
+        paged = self.kv_layout == "paged"
+        if paged:
+            self._ensure_decode_room()
+            # a preemption or capped retirement may have emptied slots
+            if self.num_active == 0:
+                return produced
+            self._timings["block_occupancy_sum"] += \
+                self._alloc.num_in_use / self._alloc.capacity
         t0 = time.perf_counter()
         with torch.no_grad():
-            logits, _ = self.model.decode_step(self._d_next, self.cache,
-                                               self._d_active)
+            if paged:
+                self._lens_np[:] = self._slot_len
+                self._d_tables.copy_(self._h_tables, non_blocking=True)
+                self._d_lens.copy_(self._h_lens, non_blocking=True)
+                logits, _ = self.model.decode_step_paged(
+                    self._d_next, self.cache, self._d_tables, self._d_lens)
+            else:
+                logits, _ = self.model.decode_step(self._d_next, self.cache,
+                                                   self._d_active)
             nxt = self._sample(logits, self._d_temps, self._d_top_ps)
         self._d_next = nxt
         # the ONE device->host copy of the step: the scheduler needs the
@@ -273,18 +611,51 @@ class InferenceEngine:
             self._retire_if_done(req, tok)
         return produced
 
+    def step_or_raise(self) -> int:
+        """``step()``, turning a wedged scheduler into an error: no
+        progress, nothing active and a non-empty queue never resolves."""
+        produced = self.step()
+        if produced == 0 and self.num_active == 0 and self._queue:
+            raise RuntimeError("admission stalled: queued requests but no "
+                               "free capacity and nothing active to retire")
+        return produced
+
     def run(self) -> Dict[int, np.ndarray]:
         """Step until every queued request finished; returns
         ``{request id: generated token ids}``."""
         while self.has_work:
-            self.step()
+            self.step_or_raise()
         return self.results
+
+    # ---- paged pool upkeep --------------------------------------------
+    def prefix_summary(self) -> Optional[dict]:
+        """The radix cache's digest (fingerprint set, hit and eviction
+        counters), or None without a prefix cache."""
+        return self._prefix.summary() if self._prefix is not None else None
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every radix-cache node (blocks a slot still uses survive
+        under the slot's own reference).  Returns blocks released."""
+        released = self._prefix.flush() if self._prefix is not None else 0
+        if released:
+            self._release_epoch += 1        # wake the head-of-line memo
+        return released
+
+    def check_leak_free(self):
+        """Drained-engine invariant: with no active slots, no queue and a
+        flushed prefix cache, every pool block is free."""
+        assert self.num_active == 0 and not self._queue, \
+            "leak check requires a drained engine"
+        if self._alloc is not None:
+            self.flush_prefix_cache()
+            self._alloc.check_leak_free()
 
     def stats(self) -> dict:
         """Cumulative wall-clock and counters.  Every step ends in a
         device-to-host copy, so the host clock measures device work."""
         t = self._timings
         s = dict(t)
+        s.pop("block_occupancy_sum")
         s["host_syncs"] = t["decode_host_syncs"] + t["prefill_host_syncs"]
         decode_s = t["decode_ms"] / 1e3
         s["decode_tokens_per_sec"] = (t["tokens_generated"] / decode_s
@@ -295,4 +666,17 @@ class InferenceEngine:
         s["batch_slots"] = self.batch_slots
         s["buckets"] = list(self.buckets)
         s["device"] = str(self.device)
+        s["kv_layout"] = self.kv_layout
+        s["kv_dtype"] = self.kv_dtype or "dense"
+        if self.kv_layout == "paged":
+            s["kv_block_size"] = self.block_size
+            s["kv_blocks_total"] = self._alloc.capacity
+            s["kv_blocks_in_use"] = self._alloc.num_in_use
+            s["block_occupancy"] = (t["block_occupancy_sum"]
+                                    / max(t["decode_steps"], 1))
+            if self._prefix is not None:
+                s.update(self._prefix.stats)
+        else:
+            s.pop("preemptions")
+            s.pop("memory_capped_retirements")
         return s

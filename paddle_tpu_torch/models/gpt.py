@@ -1,19 +1,25 @@
 """GPT decoder on one GPU (counterpart of ``paddle_tpu/models/gpt.py``:
-the dense, single-device, full-precision serving path, the no-cache
-forward and the training surface: recompute, the fused-CE head and
-``GPTPretrainingCriterion``).
+the single-device serving paths over the dense and the paged KV cache,
+full precision or int8, the no-cache forward and the training surface:
+recompute, the fused-CE head and ``GPTPretrainingCriterion``).
 
 Parameters keep the JAX package's names and ``[in, out]`` layout
 (``gpt.blocks.3.attn.qkv_proj.weight`` ...), so ``models.convert`` loads
 a ``paddle_tpu`` model's weights one to one.  Attention goes through
-``ops.flash_attention`` (prefill, no-cache forward) and
-``ops.decode_attention`` (decode): hand-written kernels on the card,
+``ops.flash_attention`` (prefill without a cached prefix, no-cache
+forward), ``ops.decode_attention`` and ``ops.paged_decode_attention``
+(decode, full precision or int8): hand-written kernels on the card,
 their plain versions on the CPU; under autograd the flash backward runs
-the dq and dk/dv kernels.  The projections are ``torch.matmul``.
+the dq and dk/dv kernels.  A paged prefill over a cached prefix attends
+through ``masked_attention``, a plain masked composite, as the JAX
+package does through its XLA composite.  The projections are
+``torch.matmul``.
 
-Differences from the JAX package: the serving cache is updated in place
-(JAX returns a new cache each call), and the model lives on one explicit
-device, CUDA unless ``device="cpu"`` is asked for.
+Differences from the JAX package: the serving caches are updated in
+place (JAX returns new caches each call; the paged prefill writes only
+the new tokens' positions instead of gathering and scattering the slot's
+whole row), and the model lives on one explicit device, CUDA unless
+``device="cpu"`` is asked for.
 """
 from __future__ import annotations
 
@@ -36,26 +42,37 @@ from ..nn import initializer as I
 from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.norm import LayerNorm
 from .. import ops
+from ..ops.quantized_matmul import (dequantize_kv, kv_zeros, quantize_kv,
+                                    resolve_kv_quant)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
-           "GPTPretrainingCriterion", "StaticKVCache", "gpt_configs"]
+           "GPTPretrainingCriterion", "StaticKVCache", "gpt_configs",
+           "masked_attention"]
 
 
 class StaticKVCache:
     """Preallocated serving KV cache: ``k``/``v`` are
     ``[layers, batch_slots, capacity, kv_heads, head_dim]`` and
     ``lengths`` is ``[batch_slots]`` int32, the valid tokens per slot.
+    Quantized form (``kv_dtype='int8'``): int8 ``k``/``v`` and
+    ``k_scale``/``v_scale``, per-(position, head) f32 scales
+    ``[layers, batch_slots, capacity, kv_heads]``.
 
     Statically shaped, like the JAX cache, but updated IN PLACE: prefill
-    and decode write into ``k``/``v``/``lengths`` and return this same
-    object.
+    and decode write into it and return this same object.
     """
 
-    __slots__ = ("k", "v", "lengths")
+    __slots__ = ("k", "v", "lengths", "k_scale", "v_scale")
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor,
-                 lengths: torch.Tensor):
+                 lengths: torch.Tensor, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None):
         self.k, self.v, self.lengths = k, v, lengths
+        self.k_scale, self.v_scale = k_scale, v_scale
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def num_layers(self):
@@ -72,7 +89,43 @@ class StaticKVCache:
     def __repr__(self):
         return (f"StaticKVCache(layers={self.k.shape[0]}, "
                 f"slots={self.k.shape[1]}, capacity={self.k.shape[2]}, "
-                f"kv_heads={self.k.shape[3]}, dtype={self.k.dtype})")
+                f"kv_heads={self.k.shape[3]}, dtype={self.k.dtype}"
+                f"{', quantized' if self.quantized else ''})")
+
+
+def _write_kv(k_dst, v_dst, ks_dst, vs_dst, index, k, v):
+    """Store k/v ``[..., Hkv, D]`` at ``k_dst[index]``/``v_dst[index]``
+    (in place): as they are, or as int8 codes with their scales when the
+    cache is quantized (``ks_dst`` not None)."""
+    if ks_dst is None:
+        k_dst[index] = k.to(k_dst.dtype)
+        v_dst[index] = v.to(v_dst.dtype)
+        return
+    # k and v quantized together: one pass of the quantizer's small
+    # elementwise kernels instead of two, on the per-step decode path
+    codes, scales = quantize_kv(torch.stack([k, v]))
+    k_dst[index], ks_dst[index] = codes[0], scales[0]
+    v_dst[index], vs_dst[index] = codes[1], scales[1]
+
+
+def masked_attention(q, k, v, offset: int) -> torch.Tensor:
+    """Attention of queries at absolute positions ``offset + i`` over
+    keys ``j <= offset + i``: q ``[B, S, H, D]``, k/v ``[B, N, Hkv, D]``
+    (GQA expanded here).  A plain composite (matmul, masked softmax,
+    matmul) in f32, mirroring the JAX package's ``_sdpa_reference``
+    with a boolean mask; returns q's dtype."""
+    b, s, h, d = q.shape
+    n, hkv = k.shape[1], k.shape[2]
+    kf, vf = k.float(), v.float()
+    if hkv != h:
+        kf = kf.repeat_interleave(h // hkv, dim=2)
+        vf = vf.repeat_interleave(h // hkv, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) / math.sqrt(d)
+    keep = (torch.arange(n, device=q.device)[None, :]
+            <= offset + torch.arange(s, device=q.device)[:, None])
+    scores = torch.where(keep, scores, torch.full_like(scores, -1e30))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(q.dtype)
 
 
 @dataclass
@@ -200,21 +253,65 @@ class GPTAttention(nn.Module):
         q, k, v = self._qkv_arrays(x)
         return self._proj_out(self._attend_fresh(q, k, v), b, s), k, v
 
-    def forward_decode(self, x, k_layer, v_layer, lengths):
+    def forward_decode(self, x, k_layer, v_layer, lengths, k_scale=None,
+                       v_scale=None):
         """One decode step over a cache layer: write each slot's new k/v
         at ``min(lengths[b], cap - 1)`` in place, then attend over the
         first ``idx + 1`` positions.  x ``[B, 1, hidden]``; k_layer /
         v_layer ``[B, cap, Hkv, D]``; lengths ``[B]`` int32, tokens in the
-        cache EXCLUDING this one."""
+        cache EXCLUDING this one.  Quantized layer: ``k_scale``/
+        ``v_scale`` ``[B, cap, Hkv]`` f32; the new k/v are quantized per
+        head on write, q stays in the model dtype."""
         b = x.shape[0]
         cap = k_layer.shape[1]
         q, k, v = self._qkv_arrays(x)
         idx = torch.clamp(lengths, max=cap - 1)
         rows = torch.arange(b, device=x.device)
-        k_layer[rows, idx] = k[:, 0]
-        v_layer[rows, idx] = v[:, 0]
+        _write_kv(k_layer, v_layer, k_scale, v_scale, (rows, idx),
+                  k[:, 0], v[:, 0])
         out = ops.decode_attention(q[:, 0], k_layer, v_layer,
-                                   (idx + 1).to(torch.int32))
+                                   (idx + 1).to(torch.int32), k_scale,
+                                   v_scale)
+        return self._proj_out(out[:, None], b, 1)
+
+    def forward_prefill_paged(self, x, k_prefix=None, v_prefix=None):
+        """Prefill attention of one slot's new tokens (absolute positions
+        ``prefix_len + i``, ``prefix_len = len(k_prefix)``) over its
+        cached prefix ``k_prefix``/``v_prefix`` ``[prefix_len, Hkv, D]``
+        and the new tokens' own k/v; returns ``(out, k, v)`` for the
+        cache write.  Cold (no prefix): the flash kernel, exactly as the
+        dense prefill.  Over a prefix: ``masked_attention`` (query i sees
+        keys ``j <= prefix_len + i``), the JAX package's composite path;
+        the prefix is cast to q's dtype first, as JAX casts its buffer."""
+        b, s = x.shape[0], x.shape[1]
+        q, k, v = self._qkv_arrays(x)
+        if k_prefix is None or k_prefix.shape[0] == 0:
+            out = self._attend_fresh(q, k, v)
+        else:
+            kf = torch.cat([k_prefix.to(q.dtype)[None], k], dim=1)
+            vf = torch.cat([v_prefix.to(q.dtype)[None], v], dim=1)
+            out = masked_attention(q, kf, vf, k_prefix.shape[0])
+        return self._proj_out(out, b, s), k, v
+
+    def forward_decode_paged(self, x, k_pool, v_pool, tables, lengths,
+                             k_scale=None, v_scale=None):
+        """One decode step over a paged layer: write each slot's new k/v
+        at pool position ``(tables[b, lengths[b] // bs], lengths[b] %
+        bs)`` in place, then attend through the block tables.  x
+        ``[B, 1, hidden]``; pools ``[NB, bs, Hkv, D]``; tables ``[B, MB]``
+        int32; lengths ``[B]`` int32 EXCLUDING the new token.  Inactive
+        slots (table rows all 0, length 0) write into the null block and
+        attend one position there; their outputs are ignored.  Quantized
+        pools: ``k_scale``/``v_scale`` ``[NB, bs, Hkv]`` f32."""
+        b = x.shape[0]
+        bs, mb = k_pool.shape[1], tables.shape[1]
+        q, k, v = self._qkv_arrays(x)
+        rows = torch.arange(b, device=x.device)
+        blk = tables[rows, torch.clamp(lengths // bs, max=mb - 1)].long()
+        _write_kv(k_pool, v_pool, k_scale, v_scale, (blk, lengths % bs),
+                  k[:, 0], v[:, 0])
+        out = ops.paged_decode_attention(q[:, 0], k_pool, v_pool, tables,
+                                         lengths + 1, k_scale, v_scale)
         return self._proj_out(out[:, None], b, 1)
 
 
@@ -259,11 +356,29 @@ class GPTBlock(nn.Module):
         x = x + a
         return x + self.mlp(self.ln_2(x)), k, v
 
-    def forward_decode(self, x, k_layer, v_layer, lengths):
+    def forward_decode(self, x, k_layer, v_layer, lengths, k_scale=None,
+                       v_scale=None):
         """Single-token block step over one cache layer (written in
         place)."""
         x = x + self.attn.forward_decode(self.ln_1(x), k_layer, v_layer,
-                                         lengths)
+                                         lengths, k_scale, v_scale)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_prefill_paged(self, x, k_prefix=None, v_prefix=None):
+        """Block prefill over one slot's cached prefix; also returns this
+        layer's new k/v."""
+        a, k, v = self.attn.forward_prefill_paged(self.ln_1(x), k_prefix,
+                                                  v_prefix)
+        x = x + a
+        return x + self.mlp(self.ln_2(x)), k, v
+
+    def forward_decode_paged(self, x, k_pool, v_pool, tables, lengths,
+                             k_scale=None, v_scale=None):
+        """Single-token block step over one paged layer (written in
+        place)."""
+        x = x + self.attn.forward_decode_paged(self.ln_1(x), k_pool, v_pool,
+                                               tables, lengths, k_scale,
+                                               v_scale)
         return x + self.mlp(self.ln_2(x))
 
 
@@ -308,19 +423,22 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
     # ---- serving path: static KV cache --------------------------------
-    def init_kv_cache(self, batch_slots: int,
-                      capacity: Optional[int] = None) -> StaticKVCache:
-        """Zeroed cache ``[layers, batch_slots, capacity, Hkv, D]`` in the
-        embedding's dtype (capacity defaults to max_seq_len)."""
+    def init_kv_cache(self, batch_slots: int, capacity: Optional[int] = None,
+                      kv_dtype: Optional[str] = None) -> StaticKVCache:
+        """Zeroed cache ``[layers, batch_slots, capacity, Hkv, D]``
+        (capacity defaults to max_seq_len) in the embedding's dtype.
+        ``kv_dtype='int8'`` (default from ``PADDLE_TPU_KV_DTYPE``) stores
+        int8 codes plus per-(position, head) f32 scales."""
         cfg = self.cfg
         cap = int(capacity or cfg.max_seq_len)
         w = self.wte.weight
-        shape = (cfg.num_layers, int(batch_slots), cap, cfg.num_kv_heads,
-                 cfg.head_dim)
+        k, v, k_scale, v_scale = kv_zeros(
+            (cfg.num_layers, int(batch_slots), cap, cfg.num_kv_heads,
+             cfg.head_dim), resolve_kv_quant(kv_dtype), w.dtype, w.device)
         return StaticKVCache(
-            torch.zeros(shape, dtype=w.dtype, device=w.device),
-            torch.zeros(shape, dtype=w.dtype, device=w.device),
-            torch.zeros(int(batch_slots), dtype=torch.int32, device=w.device))
+            k, v,
+            torch.zeros(int(batch_slots), dtype=torch.int32, device=w.device),
+            k_scale, v_scale)
 
     @torch.no_grad()
     def forward_prefill(self, input_ids, cache: StaticKVCache, slot: int,
@@ -329,7 +447,8 @@ class GPTModel(nn.Module):
         padded) prompt ``input_ids [1, s]``, every layer's k/v written at
         ``(layer, slot, 0:s)`` and ``lengths[slot] = prompt_len``.  The
         padding's k/v lie past the recorded length, so no later decode
-        step reads them.  Returns hidden ``[1, s, hidden]``."""
+        step reads them.  A quantized cache stores int8 codes; attention
+        ran on the full-precision k/v.  Returns hidden ``[1, s, hidden]``."""
         s = input_ids.shape[1]
         if s > cache.capacity:
             raise ValueError(f"prefill of {s} tokens exceeds the cache "
@@ -338,10 +457,17 @@ class GPTModel(nn.Module):
         x = self._embed(input_ids, pos)
         for i, blk in enumerate(self.blocks):
             x, k, v = blk.forward_prefill(x)
-            cache.k[i, slot, :s] = k[0]
-            cache.v[i, slot, :s] = v[0]
+            _write_kv(cache.k[i, slot], cache.v[i, slot],
+                      cache.k_scale[i, slot] if cache.quantized else None,
+                      cache.v_scale[i, slot] if cache.quantized else None,
+                      slice(0, s), k[0], v[0])
         cache.lengths[slot] = int(prompt_len)
         return self.ln_f(x)
+
+    def _layer_scales(self, cache, i):
+        if not cache.quantized:
+            return None, None
+        return cache.k_scale[i], cache.v_scale[i]
 
     @torch.no_grad()
     def forward_decode(self, tokens, cache: StaticKVCache, active):
@@ -354,9 +480,71 @@ class GPTModel(nn.Module):
         pos = torch.clamp(cache.lengths, max=cfg.max_seq_len - 1)
         x = self._embed(tokens.reshape(b, 1), pos.reshape(b, 1))
         for i, blk in enumerate(self.blocks):
-            x = blk.forward_decode(x, cache.k[i], cache.v[i], cache.lengths)
+            x = blk.forward_decode(x, cache.k[i], cache.v[i], cache.lengths,
+                                   *self._layer_scales(cache, i))
         cache.lengths.copy_(torch.clamp(
             cache.lengths + active.to(torch.int32), max=cache.capacity))
+        return self.ln_f(x)
+
+    # ---- serving path: paged KV cache ---------------------------------
+    @torch.no_grad()
+    def forward_prefill_paged(self, input_ids, cache, table_row,
+                              prefix_len: int):
+        """Prefill ONE slot over a PAGED cache: ``input_ids [1, s]`` is
+        the (bucket-padded) divergent suffix, tokens ``prefix_len``
+        onward of the prompt; ``table_row [MB]`` int32 maps the slot's
+        positions to pool blocks (cached prefix blocks, fresh blocks for
+        the suffix, null block 0 beyond).  Per layer: read the prefix's
+        k/v through the table (dequantized into f32 from an int8 pool),
+        attend, and write the s new k/v at positions ``prefix_len + i``
+        in place (quantized on an int8 pool).  Returns hidden
+        ``[1, s, hidden]``."""
+        cfg = self.cfg
+        s = input_ids.shape[1]
+        bs, mb = cache.block_size, table_row.shape[0]
+        p0 = int(prefix_len)
+        if p0 + s > mb * bs:
+            raise ValueError(f"prefix {p0} + {s} tokens exceed the slot's "
+                             f"{mb} blocks of {bs}")
+        dev = input_ids.device
+        t_new = p0 + torch.arange(s, device=dev)
+        x = self._embed(input_ids,
+                        torch.clamp(t_new, max=cfg.max_seq_len - 1)[None])
+        tbl = table_row.long()
+        new_at = (tbl[t_new // bs], t_new % bs)
+        t_old = torch.arange(p0, device=dev)
+        old_at = (tbl[t_old // bs], t_old % bs)
+        for i, blk in enumerate(self.blocks):
+            ks_i, vs_i = self._layer_scales(cache, i)
+            k_prefix = v_prefix = None
+            if p0:
+                k_prefix, v_prefix = cache.k[i][old_at], cache.v[i][old_at]
+                if ks_i is not None:
+                    # f32, as JAX's working buffer: its requantization of
+                    # the prefix is then exact, and the attention casts
+                    # to q's dtype
+                    k_prefix = dequantize_kv(k_prefix, ks_i[old_at])
+                    v_prefix = dequantize_kv(v_prefix, vs_i[old_at])
+            x, k, v = blk.forward_prefill_paged(x, k_prefix, v_prefix)
+            _write_kv(cache.k[i], cache.v[i], ks_i, vs_i, new_at, k[0], v[0])
+        return self.ln_f(x)
+
+    @torch.no_grad()
+    def forward_decode_paged(self, tokens, cache, tables, lengths):
+        """One decode step for every slot over the PAGED cache: append
+        ``tokens [B]`` at each slot's ``lengths[b]`` through its block
+        table and attend.  Lengths are HOST state of the scheduler with
+        the paged layout: they come in as ``[B]`` int32 on the model's
+        device and are not advanced here.  Returns hidden
+        ``[B, 1, hidden]``."""
+        cfg = self.cfg
+        b = tables.shape[0]
+        pos = torch.clamp(lengths, max=cfg.max_seq_len - 1)
+        x = self._embed(tokens.reshape(b, 1), pos.reshape(b, 1))
+        for i, blk in enumerate(self.blocks):
+            x = blk.forward_decode_paged(x, cache.k[i], cache.v[i], tables,
+                                         lengths,
+                                         *self._layer_scales(cache, i))
         return self.ln_f(x)
 
 
@@ -401,9 +589,9 @@ class GPTForCausalLM(nn.Module):
             return x, self.gpt.wte.weight
         return self._head_logits(x)
 
-    def init_kv_cache(self, batch_slots: int,
-                      capacity: Optional[int] = None) -> StaticKVCache:
-        return self.gpt.init_kv_cache(batch_slots, capacity)
+    def init_kv_cache(self, batch_slots: int, capacity: Optional[int] = None,
+                      kv_dtype: Optional[str] = None) -> StaticKVCache:
+        return self.gpt.init_kv_cache(batch_slots, capacity, kv_dtype)
 
     def _head_logits(self, hidden):
         if self.cfg.tie_word_embeddings:
@@ -423,6 +611,24 @@ class GPTForCausalLM(nn.Module):
         """One decode step for all slots; returns ``(logits [B, V],
         cache)``."""
         h = self.gpt.forward_decode(tokens, cache, active)
+        return self._head_logits(h)[:, 0], cache
+
+    @torch.no_grad()
+    def prefill_paged(self, input_ids, cache, table_row, prefix_len: int,
+                      suffix_len: int):
+        """Paged prefill of one slot; ``input_ids`` is the bucket-padded
+        divergent suffix and ``suffix_len`` its real token count.  Returns
+        ``(logits [1, V], cache)``: the logits of the last real suffix
+        token (the first generated token's distribution)."""
+        h = self.gpt.forward_prefill_paged(input_ids, cache, table_row,
+                                           prefix_len)
+        return self._head_logits(h[:, int(suffix_len) - 1]), cache
+
+    @torch.no_grad()
+    def decode_step_paged(self, tokens, cache, tables, lengths):
+        """One paged decode step for all slots; returns ``(logits [B, V],
+        cache)``."""
+        h = self.gpt.forward_decode_paged(tokens, cache, tables, lengths)
         return self._head_logits(h)[:, 0], cache
 
     def generate(self, input_ids, max_new_tokens: int = 32,

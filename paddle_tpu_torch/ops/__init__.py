@@ -1,17 +1,27 @@
 """Kernel ops of the ported paths: each a hand-written CUDA kernel for
-Hopper with its plain PyTorch version beside it (see ``_build``), and
-the fused cross-entropy (plain products, no kernel of its own)."""
-from .decode_attention import DECODE_ATTENTION, decode_attention
+Hopper with its plain PyTorch version beside it (see ``_build``), the
+fused cross-entropy (plain products, no kernel of its own) and the KV
+quantization helpers."""
+from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_Q,
+                               PAGED_DECODE_ATTENTION,
+                               PAGED_DECODE_ATTENTION_Q, decode_attention,
+                               paged_decode_attention)
 from .flash_attention import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
                               flash_attention, flash_attention_fwd)
 from .fused_cross_entropy import fused_linear_cross_entropy, pick_vocab_block
+from .quantized_matmul import dequantize_kv, quantize_kv
 
-__all__ = ["decode_attention", "flash_attention", "flash_attention_fwd",
-           "fused_linear_cross_entropy", "pick_vocab_block",
-           "DECODE_ATTENTION", "FLASH_FWD", "FLASH_BWD_DQ", "FLASH_BWD_DKV",
-           "KERNELS"]
+__all__ = ["decode_attention", "paged_decode_attention", "flash_attention",
+           "flash_attention_fwd", "fused_linear_cross_entropy",
+           "pick_vocab_block", "quantize_kv", "dequantize_kv",
+           "DECODE_ATTENTION", "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
+           "PAGED_DECODE_ATTENTION_Q", "FLASH_FWD", "FLASH_BWD_DQ",
+           "FLASH_BWD_DKV", "KERNELS"]
 
 # every kernel of the package by source file, for builds and launch counts
 KERNELS = {"flash_fwd.cu": FLASH_FWD, "flash_bwd_dq.cu": FLASH_BWD_DQ,
            "flash_bwd_dkv.cu": FLASH_BWD_DKV,
-           "decode_attention.cu": DECODE_ATTENTION}
+           "decode_attention.cu": DECODE_ATTENTION,
+           "decode_attention_q.cu": DECODE_ATTENTION_Q,
+           "paged_decode_attention.cu": PAGED_DECODE_ATTENTION,
+           "paged_decode_attention_q.cu": PAGED_DECODE_ATTENTION_Q}

@@ -1,17 +1,28 @@
-"""Single-token decode attention over a dense KV cache: hand-written
-Hopper kernel + plain version.
+"""Single-token decode attention over a dense or a paged KV cache, full
+precision or int8: hand-written Hopper kernels + plain versions.
 
-Counterpart of the dense path of ``paddle_tpu/ops/decode_attention.py``.
+Counterpart of the decode paths of ``paddle_tpu/ops/decode_attention.py``.
 Layout contract is the JAX package's: q ``[B, H, D]`` (the new token's
-query per slot), caches ``[B, S, Hkv, D]`` that already hold the new
-token's k/v, lengths ``[B]`` int32 counting the valid positions per slot
-including the new one.  GQA native (``h = hk * G + g``).
+query per slot), caches that already hold the new token's k/v, lengths
+``[B]`` int32 counting the valid positions per slot including the new
+one.  GQA native (``h = hk * G + g``, any ``G = H / Hkv``).
 
-Dispatch: a CPU tensor goes to the plain version (``_decode_plain``); a
-CUDA tensor goes to the kernel in ``csrc/decode_attention.cu`` or the
-call raises.  The kernel takes bf16/fp16, D in {64, 128}, H / Hkv in
-{1, 2, 4, 8}, contiguous tensors and int32 lengths, and reads only the
-positions below ``lengths[b]``.
+- ``decode_attention``: dense caches ``[B, S, Hkv, D]``;
+- ``paged_decode_attention``: pools ``[NB, bs, Hkv, D]`` read through
+  block tables ``[B, MB]`` int32 (position t of slot b at
+  ``pool[tables[b, t // bs], t % bs]``; entries past a slot's extent
+  point at the null block 0);
+- with ``k_scale``/``v_scale`` (``[B, S, Hkv]`` dense, ``[NB, bs, Hkv]``
+  paged, f32) the caches hold int8 codes of ``ops.quantized_matmul.
+  quantize_kv``, dequantized inside the kernels.
+
+Dispatch: a CPU tensor goes to the plain version (``_decode_plain``,
+``_paged_plain``); a CUDA tensor goes to its kernel in ``csrc/``
+(``decode_attention.cu``, ``decode_attention_q.cu``,
+``paged_decode_attention.cu``, ``paged_decode_attention_q.cu``) or the
+call raises.  The kernels take bf16/fp16 q, D in {64, 128}, bs a
+multiple of 16, contiguous 16-byte-aligned tensors and int32 lengths and
+tables, and read only the positions below ``lengths[b]``.
 """
 from __future__ import annotations
 
@@ -22,20 +33,41 @@ import torch
 
 from . import _build
 
-__all__ = ["decode_attention", "DECODE_ATTENTION"]
+__all__ = ["decode_attention", "paged_decode_attention", "DECODE_ATTENTION",
+           "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
+           "PAGED_DECODE_ATTENTION_Q"]
 
 _NEG = -1e30
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
 DECODE_ATTENTION = _build.CudaKernel(
-    "decode_attention.cu", "decode_attention",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    "decode_attention.cu", "decode_attention", [_P] * 5 + [_I] * 6 + [_P])
+DECODE_ATTENTION_Q = _build.CudaKernel(
+    "decode_attention_q.cu", "decode_attention_q", [_P] * 7 + [_I] * 6 + [_P])
+PAGED_DECODE_ATTENTION = _build.CudaKernel(
+    "paged_decode_attention.cu", "paged_decode_attention",
+    [_P] * 6 + [_I] * 7 + [_P])
+PAGED_DECODE_ATTENTION_Q = _build.CudaKernel(
+    "paged_decode_attention_q.cu", "paged_decode_attention_q",
+    [_P] * 8 + [_I] * 7 + [_P])
 
 
-def _decode_plain(q, k_cache, v_cache, lengths) -> torch.Tensor:
-    """Reference math in f32, mirroring the JAX ``_decode_composite``,
-    except that a slot with ``lengths[b] == 0`` gives zeros (the JAX
-    kernel's ``1e-30`` guard) rather than the composite's uniform
-    average over masked positions."""
+def _dequant_cache(cache, scale, dtype):
+    """int8 cache values ``[..., Hkv, D]`` × per-(position, head) scales
+    ``[..., Hkv]`` -> ``dtype`` (the JAX ``_dequant_cache``)."""
+    return (cache.float() * scale[..., None].float()).to(dtype)
+
+
+def _decode_plain(q, k_cache, v_cache, lengths, k_scale=None,
+                  v_scale=None) -> torch.Tensor:
+    """Reference math in f32, mirroring the JAX ``_decode_composite``:
+    with scales, the caches are dequantized to q's dtype first (as the
+    JAX kernel rounds its dequantized blocks to q's dtype).  A slot with
+    ``lengths[b] == 0`` gives zeros (the JAX kernel's ``1e-30`` guard)
+    rather than the composite's uniform average over masked positions."""
+    if k_scale is not None:
+        k_cache = _dequant_cache(k_cache, k_scale, q.dtype)
+        v_cache = _dequant_cache(v_cache, v_scale, q.dtype)
     b, h, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     g = h // hkv
@@ -51,49 +83,145 @@ def _decode_plain(q, k_cache, v_cache, lengths) -> torch.Tensor:
     return out.reshape(b, h, d).to(q.dtype)
 
 
-def _decode_cuda(q, k_cache, v_cache, lengths):
+def _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale=None,
+                 v_scale=None) -> torch.Tensor:
+    """The JAX ``_paged_composite``: gather each slot's blocks through
+    its table into the dense ``[B, MB * bs, Hkv, D]`` layout (scale pools
+    likewise) and run the dense plain version."""
+    b, mb = tables.shape
+    bs, hkv, d = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    idx = tables.long()
+    kg = k_pool[idx].reshape(b, mb * bs, hkv, d)
+    vg = v_pool[idx].reshape(b, mb * bs, hkv, d)
+    ksg = vsg = None
+    if k_scale is not None:
+        ksg = k_scale[idx].reshape(b, mb * bs, hkv)
+        vsg = v_scale[idx].reshape(b, mb * bs, hkv)
+    return _decode_plain(q, kg, vg, lengths, ksg, vsg)
+
+
+def _check_cuda(name, q, k, v, lengths, k_scale, v_scale, scale_shape,
+                tables=None):
+    """Raise on anything the kernel does not take: q bf16/fp16 ``[B, H,
+    D]`` with D in {64, 128}; k/v of one shape with ``H % Hkv == 0``, in
+    q's dtype (int8 with scales of ``scale_shape`` f32); int32 lengths
+    ``[B]`` (and tables ``[B, MB]``); every tensor on q's device,
+    contiguous, 16-byte aligned."""
     b, h, d = q.shape
-    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape \
-            or k_cache.shape[0] != b or k_cache.shape[3] != d:
+    hkv = k.shape[-2]
+    if v.shape != k.shape or k.shape[-1] != d or hkv == 0 or h % hkv:
+        raise ValueError(f"{name}: k/v must have one shape [..., Hkv, D] "
+                         f"with H % Hkv == 0 and q's D: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if d not in (64, 128):
+        raise ValueError(f"{name} kernel supports D in (64, 128), got {d}")
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{name} kernel takes a bf16/fp16 q, got {q.dtype}")
+    quantized = k_scale is not None
+    want = torch.int8 if quantized else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"{name} kernel needs {want} caches here, got "
+                        f"{k.dtype}, {v.dtype}")
+    if (v_scale is None) == quantized:
+        raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
+    named = [("q", q), ("k", k), ("v", v), ("lengths", lengths)]
+    if quantized:
+        for sname, s in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if s.dtype != torch.float32 or tuple(s.shape) != scale_shape:
+                raise TypeError(f"{name} kernel needs f32 {sname} of shape "
+                                f"{scale_shape}, got {s.dtype} "
+                                f"{tuple(s.shape)}")
+        named += [("k_scale", k_scale), ("v_scale", v_scale)]
+    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
+        raise TypeError(f"{name} kernel needs int32 lengths [B], got "
+                        f"{lengths.dtype} {tuple(lengths.shape)}")
+    if tables is not None:
+        if tables.dtype != torch.int32 or tables.dim() != 2 \
+                or tables.shape[0] != b:
+            raise TypeError(f"{name} kernel needs int32 tables [B, MB], got "
+                            f"{tables.dtype} {tuple(tables.shape)}")
+        named.append(("tables", tables))
+    for tname, t in named:
+        if t.device != q.device:
+            raise ValueError(f"{name}: {tname} on {t.device}, q on {q.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel needs contiguous, 16-byte "
+                             f"aligned {tname}")
+
+
+def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
+    b, h, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape[0] != b:
         raise ValueError(f"decode_attention: caches must be [B, S, Hkv, D] "
                          f"matching q {tuple(q.shape)}, got "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+                         f"{tuple(k_cache.shape)}")
     s, hkv = k_cache.shape[1], k_cache.shape[2]
-    if hkv == 0 or h % hkv or h // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"decode_attention kernel needs H / Hkv in "
-                         f"(1, 2, 4, 8), got H={h}, Hkv={hkv}")
-    if d not in (64, 128):
-        raise ValueError(f"decode_attention kernel supports D in (64, 128), "
-                         f"got {d}")
-    if q.dtype not in _build.DTYPE_CODES or k_cache.dtype != q.dtype \
-            or v_cache.dtype != q.dtype:
-        raise TypeError(f"decode_attention kernel takes bf16/fp16 q and "
-                        f"caches of one dtype, got {q.dtype}, "
-                        f"{k_cache.dtype}, {v_cache.dtype}")
-    if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,):
-        raise TypeError(f"decode_attention kernel needs int32 lengths [B], "
-                        f"got {lengths.dtype} {tuple(lengths.shape)}")
-    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
-                    ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"decode_attention: {name} on {t.device}, q on "
-                             f"{q.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention kernel needs contiguous, "
-                             f"16-byte aligned {name}")
+    _check_cuda("decode_attention", q, k_cache, v_cache, lengths, k_scale,
+                v_scale, (b, s, hkv))
     o = torch.empty_like(q)
-    DECODE_ATTENTION(_build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
-                     _build.ptr(lengths), _build.ptr(o), b, s, h, hkv, d,
-                     _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    dims = (b, s, h, hkv, d, _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    if k_scale is None:
+        DECODE_ATTENTION(_build.ptr(q), _build.ptr(k_cache),
+                         _build.ptr(v_cache), _build.ptr(lengths),
+                         _build.ptr(o), *dims)
+    else:
+        DECODE_ATTENTION_Q(_build.ptr(q), _build.ptr(k_cache),
+                           _build.ptr(v_cache), _build.ptr(k_scale),
+                           _build.ptr(v_scale), _build.ptr(lengths),
+                           _build.ptr(o), *dims)
     return o
 
 
-def decode_attention(q, k_cache, v_cache, lengths) -> torch.Tensor:
+def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
+    b, h, d = q.shape
+    if k_pool.dim() != 4:
+        raise ValueError(f"paged_decode_attention: pools must be "
+                         f"[NB, bs, Hkv, D], got {tuple(k_pool.shape)}")
+    nb, bs, hkv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    _check_cuda("paged_decode_attention", q, k_pool, v_pool, lengths,
+                k_scale, v_scale, (nb, bs, hkv), tables)
+    if bs % 16:
+        raise ValueError(f"paged_decode_attention kernel needs a block size "
+                         f"that is a multiple of 16, got {bs}")
+    o = torch.empty_like(q)
+    dims = (b, tables.shape[1], bs, h, hkv, d, _build.DTYPE_CODES[q.dtype],
+            _build.stream_ptr(q))
+    if k_scale is None:
+        PAGED_DECODE_ATTENTION(_build.ptr(q), _build.ptr(k_pool),
+                               _build.ptr(v_pool), _build.ptr(tables),
+                               _build.ptr(lengths), _build.ptr(o), *dims)
+    else:
+        PAGED_DECODE_ATTENTION_Q(_build.ptr(q), _build.ptr(k_pool),
+                                 _build.ptr(v_pool), _build.ptr(k_scale),
+                                 _build.ptr(v_scale), _build.ptr(tables),
+                                 _build.ptr(lengths), _build.ptr(o), *dims)
+    return o
+
+
+def _device_of(name, q):
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    return q.device.type
+
+
+def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
+                     v_scale=None) -> torch.Tensor:
     """Attention of each slot's new token over its first ``lengths[b]``
-    cache positions; returns ``[B, H, D]``.  CPU tensors run the plain
-    version; CUDA tensors run the kernel or raise."""
-    if q.device.type == "cpu":
-        return _decode_plain(q, k_cache, v_cache, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _decode_cuda(q, k_cache, v_cache, lengths)
+    positions of a dense cache (int8 with ``k_scale``/``v_scale``);
+    returns ``[B, H, D]``.  CPU tensors run the plain version; CUDA
+    tensors run the kernel or raise."""
+    if _device_of("decode_attention", q) == "cpu":
+        return _decode_plain(q, k_cache, v_cache, lengths, k_scale, v_scale)
+    return _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, lengths, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
+    """Attention of each slot's new token over its first ``lengths[b]``
+    positions, read from the block pools through ``tables`` (int8 with
+    ``k_scale``/``v_scale`` scale pools); returns ``[B, H, D]``.  CPU
+    tensors run the plain version; CUDA tensors run the kernel or raise."""
+    if _device_of("paged_decode_attention", q) == "cpu":
+        return _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale,
+                            v_scale)
+    return _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)

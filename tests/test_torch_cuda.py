@@ -12,7 +12,9 @@ held to their own scale: bf16 inputs, the flash kernel rounds p to bf16
 before p.v and both round the output to bf16 (relative 2^-8); the plain
 version runs in f32 on the same inputs, so each row's error is about
 2^-8 of its largest element: 1e-2 x max|ref row|.  lse: 1e-3 x
-max(1, |ref lse|) per row.
+max(1, |ref lse|) per row.  The int8 decode kernels (dense and paged)
+are held to the same 1e-2: they dequantize code x scale in f32, and so
+does the plain version fed the same codes and an f32 q.
 """
 import importlib
 
@@ -75,6 +77,87 @@ def test_decode_kernel_matches_plain(gen, hkv, d):
     assert o[0].abs().max().item() == 0.0
 
 
+def test_decode_kernel_group_of_16(gen):
+    """G = H / Hkv = 16 (16 query heads over one kv head), which the JAX
+    package serves: the group is split over two blocks of 8 rows."""
+    lengths = [1, 300, 1024]
+    q = _rand((3, 16, 128), gen)
+    kc = _rand((3, 1024, 1, 128), gen)
+    vc = _rand((3, 1024, 1, 128), gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    n = da.DECODE_ATTENTION.launches
+    o = da.decode_attention(q, kc, vc, lens)
+    assert da.DECODE_ATTENTION.launches == n + 1
+    _close(o, da._decode_plain(q.float(), kc.float(), vc.float(), lens))
+
+
+def _int8(x):
+    """bf16 values -> int8 codes and f32 scales (``quantize_kv``)."""
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    return qm.quantize_kv(x)
+
+
+@pytest.mark.parametrize("h,hkv,d", [(16, 16, 128), (16, 4, 128), (8, 8, 64),
+                                     (16, 1, 128)])
+def test_decode_int8_kernel_matches_plain(gen, h, hkv, d):
+    """Row 5: int8 codes and f32 scales dequantized in the kernel; the
+    plain version fed the same codes dequantizes in f32 (q in f32)."""
+    lengths = [0, 1, 63, 64, 500, 1024]
+    q = _rand((len(lengths), h, d), gen)
+    kc, ks = _int8(_rand((len(lengths), 1024, hkv, d), gen))
+    vc, vs = _int8(_rand((len(lengths), 1024, hkv, d), gen))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    n = da.DECODE_ATTENTION_Q.launches
+    o = da.decode_attention(q, kc, vc, lens, ks, vs)
+    assert da.DECODE_ATTENTION_Q.launches == n + 1
+    _close(o, da._decode_plain(q.float(), kc, vc, lens, ks, vs))
+    assert o[0].abs().max().item() == 0.0
+
+
+def _paged_case(gen, lengths, nb, bs, h, hkv, d, quantized):
+    """Pools of ``nb`` blocks, each slot's blocks drawn at random without
+    repeats (null block 0 past its extent); the last slot is inactive:
+    table row all 0 and length 1."""
+    b = len(lengths)
+    mb = max(-(-n // bs) for n in lengths)
+    q = _rand((b, h, d), gen)
+    k = _rand((nb, bs, hkv, d), gen)
+    v = _rand((nb, bs, hkv, d), gen)
+    perm = torch.randperm(nb - 1, generator=torch.Generator().manual_seed(b))
+    tables = torch.zeros((b, mb), dtype=torch.int32)
+    used = 0
+    for i, n in enumerate(lengths[:-1]):
+        need = -(-n // bs)
+        tables[i, :need] = 1 + perm[used:used + need]
+        used += need
+    tables = tables.cuda()
+    lens = torch.tensor(lengths[:-1] + [1], dtype=torch.int32, device="cuda")
+    scales = (None, None)
+    if quantized:
+        (k, ks), (v, vs) = _int8(k), _int8(v)
+        scales = (ks, vs)
+    return q, k, v, tables, lens, scales
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs,h,hkv,d", [(128, 16, 16, 128), (16, 16, 4, 128),
+                                        (32, 8, 8, 64), (128, 16, 1, 128)])
+def test_paged_kernels_match_plain(gen, quantized, bs, h, hkv, d):
+    """Rows 6 and 7: shuffled, non-contiguous blocks, a length of one, an
+    exact block multiple, a ragged tail and an inactive slot."""
+    lengths = [1, 4 * bs, 3 * bs + 5, 0]
+    q, k, v, tables, lens, (ks, vs) = _paged_case(gen, lengths, 40, bs, h,
+                                                  hkv, d, quantized)
+    kern = da.PAGED_DECODE_ATTENTION_Q if quantized else \
+        da.PAGED_DECODE_ATTENTION
+    n = kern.launches
+    o = da.paged_decode_attention(q, k, v, tables, lens, ks, vs)
+    assert kern.launches == n + 1
+    ref = da._paged_plain(q.float(), k if quantized else k.float(),
+                          v if quantized else v.float(), tables, lens, ks, vs)
+    _close(o, ref)
+
+
 def test_cuda_path_raises_instead_of_falling_back(gen):
     q = _rand((1, 64, 4, 96), gen)        # D=96: no kernel
     with pytest.raises(ValueError):
@@ -84,6 +167,39 @@ def test_cuda_path_raises_instead_of_falling_back(gen):
     with pytest.raises(TypeError):        # int64 lengths
         da.decode_attention(q, kc, kc, torch.ones(2, dtype=torch.long,
                                                   device="cuda"))
+
+
+@pytest.mark.parametrize("case", ["dtype", "layout", "group"])
+def test_int8_and_paged_paths_raise_instead_of_falling_back(gen, case):
+    """A bad dtype (f32 q), layout (block size 8) or group (H % Hkv != 0)
+    raises on the card before any launch."""
+    b, h, hkv, d, bs = 2, 8, 4, 64, 16
+    q = _rand((b, h, d), gen)
+    k = _rand((6, bs, hkv, d), gen)
+    if case == "dtype":
+        q = q.float()
+    elif case == "layout":
+        k = _rand((6, 8, hkv, d), gen)
+    elif case == "group":
+        k = _rand((6, bs, 3, d), gen)
+    kq, ks = _int8(k)
+    tables = torch.ones((b, 2), dtype=torch.int32, device="cuda")
+    lens = torch.full((b,), 5, dtype=torch.int32, device="cuda")
+    counts = [kern.launches for kern in (da.PAGED_DECODE_ATTENTION,
+                                         da.PAGED_DECODE_ATTENTION_Q,
+                                         da.DECODE_ATTENTION_Q)]
+    with pytest.raises((ValueError, TypeError)):
+        da.paged_decode_attention(q, k, k, tables, lens)
+    with pytest.raises((ValueError, TypeError)):
+        da.paged_decode_attention(q, kq, kq, tables, lens, ks, ks)
+    if case != "layout":
+        dense = kq.reshape(b, -1, kq.shape[2], d)
+        dense_s = ks.reshape(b, -1, ks.shape[2])
+        with pytest.raises((ValueError, TypeError)):
+            da.decode_attention(q, dense, dense, lens, dense_s, dense_s)
+    assert counts == [kern.launches for kern in (
+        da.PAGED_DECODE_ATTENTION, da.PAGED_DECODE_ATTENTION_Q,
+        da.DECODE_ATTENTION_Q)]
 
 
 @pytest.mark.parametrize("s,h,hkv,d,causal,masked", [
