@@ -17,7 +17,10 @@ before the result lines:
    port never calls) and the least time the card could take.  Dense
    decode (bf16 and int8) and paged decode (bf16 and int8) also at GQA,
    G = 16, D=64, length 0 or 1, exact block multiples, null-block tails,
-   shuffled blocks and an inactive slot;
+   shuffled blocks and an inactive slot.  The four window kernels
+   (dense and paged, bf16 and int8) at the verify window (W=5), a
+   512-token chunk, G = 16, D=64 and blocks of 16 and 128, timed at the
+   verify and the chunk shape;
 4. train-kernels: the flash backward kernels (dq, dk/dv) the same way at
    the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA,
    D=64 and a key mask with a fully masked row, each run twice (results
@@ -40,19 +43,33 @@ before the result lines:
    pool is dry: preemptions, every request complete, leak-free;
 8. serve-int8: the dense and the paged engine with ``kv_dtype='int8'``
    (launches of the int8 kernels, host syncs, cache bytes);
-9. teacher-forced: prefill + decode steps reproduce ``model.forward``
+9. serve-chunked: ``prefill_chunk=512`` on the dense bf16 engine (the
+   serve prompts) and the paged int8 engine with the radix cache (the
+   serve-paged prompts): one host sync per decode step and none per
+   chunk tick but a graduating one, one window launch per layer per
+   chunk tick, leak-free, greedy streams against the monolithic engine
+   (a divergence must sit at a near-tie of the plain engine's logits);
+10. serve-spec: ``spec_k=4`` behind dense int8 and paged bf16 targets
+   with a gpt3-125m draft (random weights) and a dense bf16 target
+   drafting for itself, 8 prompts of 32-1024 tokens, 64 new tokens: one
+   host sync per tick, the verify and catch-up window launches per
+   tick, K+1 tokens a tick for the self-draft, greedy streams against
+   the plain engine;
+11. teacher-forced: prefill + decode steps reproduce ``model.forward``
    over the same tokens within the stated tolerance, on the dense cache,
    the paged cache cold and over a cached prefix (hit path), and the
-   int8 dense and paged caches; the hit prefill timed against the cold
-   one;
-10. profile: device time against wall time of steady decode steps
+   int8 dense and paged caches; chunked prefill (dense and paged) and a
+   K+1 verify window (against the forward and 5 decode steps) the same
+   way; the hit prefill timed against the cold one;
+12. profile: device time against wall time of steady decode steps
    (torch.profiler), the top kernels by device time, for the dense, the
-   paged, and the int8 dense and paged engines;
-11. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
+   paged, and the int8 dense and paged engines, a chunked step and a
+   spec tick;
+13. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
    one 2 x 512 batch through ``SpmdTrainer``: every parameter gradient
    of the kernel path against the same step with the plain attention
    swapped in by this script;
-12. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
+14. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
    fused cross-entropy, Adam, batch 4 x 2048, fed by
    ``DevicePrefetcher``: 2 warm-up and 6 measured steps on one repeated
    batch (finite and falling loss, no host sync, 24 launches of each
@@ -95,6 +112,9 @@ TOL_LSE = 1e-3      # x max(1, |reference lse|), per row, f32 on both sides
 # TOL_OUT as well: they dequantize code x scale in f32, and so does the
 # plain version fed the same codes and the f32 q; what is left is the
 # output's bf16 rounding and the order of the f32 sums
+# the window kernels over int8 caches dequantize code x scale to bf16
+# before the products (as the TPU kernel does), so their plain version
+# runs in f32 over the same bf16-rounded values: TOL_OUT again
 # prefill + decode vs one forward, both bf16 end to end through 24
 # layers: different kernels and matmul shapes round differently
 TOL_TEACHER = 5e-2  # x max|forward logits| of each position
@@ -492,6 +512,185 @@ def phase_kernels():
     return records
 
 
+def window_inputs(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048,
+                  spare=2):
+    """q ``[B, W, H, D]`` and a cache whose slots hold ``lengths`` tokens
+    before the window: dense ``[B, cap, Hkv, D]``, or (``bs``) a shuffled
+    block pool with tables of ``cap / bs`` entries, each slot's blocks
+    covering ``min(len + W, cap)`` positions and null-block tails past
+    them.  int8 caches are ``quantize_kv`` codes with f32 scales.
+    Returns ``(q, k, v, tables or None, lens, ks, vs)``."""
+    b = len(lengths)
+    q = _rand((b, w, h, d), gen)
+    tables = None
+    if bs is None:
+        k = _rand((b, cap, hkv, d), gen)
+        v = _rand((b, cap, hkv, d), gen)
+    else:
+        need = [-(-min(n + w, cap) // bs) for n in lengths]
+        nb = 1 + sum(need) + spare
+        k = _rand((nb, bs, hkv, d), gen)
+        v = _rand((nb, bs, hkv, d), gen)
+        perm = (1 + torch.randperm(nb - 1, generator=gen,
+                                   device="cuda")).tolist()
+        tables = torch.zeros((b, cap // bs), dtype=torch.int32)
+        for i, n in enumerate(need):
+            tables[i, :n] = torch.tensor(perm[:n])
+            perm = perm[n:]
+        tables = tables.cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ks = vs = None
+    if quantized:
+        (k, ks), (v, vs) = _int8(k), _int8(v)
+    return q, k, v, tables, lens, ks, vs
+
+
+def _window_call(tensors, plain=False):
+    da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+    q, k, v, tables, lens, ks, vs = tensors
+    if plain:
+        # the plain version in f32 over the values the window kernels
+        # attend: int8 codes dequantized to q's dtype (bf16), as the TPU
+        # kernel and the JAX composite dequantize them
+        if ks is not None:
+            k, v = _dequant(k, ks), _dequant(v, vs)
+            ks = vs = None
+        q, k, v = q.float(), k.float(), v.float()
+    if tables is None:
+        fn = da._window_plain if plain else da.decode_attention_window
+        return fn(q, k, v, lens, ks, vs)
+    fn = da._paged_window_plain if plain else da.paged_decode_attention_window
+    return fn(q, k, v, tables, lens, ks, vs)
+
+
+def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
+                 cap=2048):
+    """One window kernel against its plain version, every output row
+    (one query of one head) within TOL_OUT of its own max |plain|."""
+    tensors = window_inputs(gen, lengths, w, h, hkv, d, quantized, bs, cap)
+    o = _window_call(tensors)
+    ro = _window_call(tensors, plain=True)
+    torch.cuda.synchronize()
+    err, worst, ok_rows = row_errors(o, ro)
+    ok = ok_rows and torch.isfinite(o).all().item()
+    log(f"[kernels] {'paged_' if bs else ''}window{'_q' if quantized else ''}"
+        f"{f' bs={bs}' if bs else ''} B={len(lengths)} W={w} H={h} Hkv={hkv} "
+        f"D={d} cap={cap} lengths={lengths}: max|o-plain|={err:.3e} worst row "
+        f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"window kernel (paged={bool(bs)}, int8={quantized}) "
+                         f"disagrees with its plain version at W={w} H={h} "
+                         f"Hkv={hkv} D={d} bs={bs} lengths={lengths}")
+    return err, worst
+
+
+# the window kernels' cases: the verify window (K = 4), a 512-token chunk,
+# G = 16, the gpt3-125m draft's heads (D = 64, H = 12), lengths 0 and 1,
+# mid values and the last window that fits (S - W)
+WINDOW_CASES = [
+    dict(lengths=[0, 1, 127, 700, 1000, 1536, 2000, 2043], w=5, h=16, hkv=16,
+         d=128),
+    dict(lengths=[0, 1, 64, 100, 511, 1000, 1500, 1536], w=512, h=16, hkv=16,
+         d=128),
+    dict(lengths=[0, 300, 2043], w=5, h=16, hkv=1, d=128),
+    dict(lengths=[3, 1000], w=1, h=16, hkv=1, d=128),
+    dict(lengths=[0, 37, 1200], w=64, h=16, hkv=1, d=128),
+    dict(lengths=[0, 1, 700, 2043], w=5, h=12, hkv=12, d=64),
+    dict(lengths=[0, 200, 1536], w=512, h=12, hkv=12, d=64),
+]
+VERIFY_W, CHUNK_W = 5, 512
+
+
+def time_window(key, line, bs, quantized, gen, errs, worst):
+    """Time one window kernel at the verify shape (B=8, W=5, every slot
+    at S - W = 2043 cached tokens: bytes bound) and the chunk shape (B=8,
+    W=512, every slot at 1536: operations bound) beside its plain version
+    and the library yardstick (SDPA with a boolean staircase mask over
+    the dense bf16 K/V, gathered and dequantized before the clock)."""
+    F = torch.nn.functional
+    rec = dict(name=key, route="cuda",
+               source=f"paddle_tpu_torch/csrc/{key}.cu",
+               replaces=f"paddle_tpu/ops/decode_attention.py:{line}",
+               max_abs_err=max(errs), max_row_rel_err=max(worst),
+               row_tol=TOL_OUT)
+    for shape, w, n0, iters in (("verify", VERIFY_W, 2048 - VERIFY_W, 200),
+                                ("chunk", CHUNK_W, 1536, 50)):
+        tensors = window_inputs(gen, [n0] * 8, w, 16, 16, 128, quantized, bs,
+                                spare=0)
+        q, k, v, tables, lens, ks, vs = tensors
+        t_kernel = min(cuda_ms(lambda: _window_call(tensors), iters=iters,
+                               warmup=5) for _ in range(3))
+        t_plain = cuda_ms(lambda: _window_call(tensors, plain=True),
+                          iters=3, warmup=1)
+        if tables is not None:
+            idx = tables.long()
+            k = k[idx].reshape(8, -1, 16, 128)
+            v = v[idx].reshape(8, -1, 16, 128)
+            if ks is not None:
+                ks, vs = (x[idx].reshape(8, -1, 16) for x in (ks, vs))
+        if ks is not None:
+            k, v = _dequant(k, ks), _dequant(v, vs)
+        s = k.shape[1]
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        qt = q.transpose(1, 2).contiguous()
+        keep = (torch.arange(s, device="cuda")[None, None, :]
+                < (lens[:, None, None] + torch.arange(w, device="cuda")[
+                    None, :, None] + 1))[:, None]
+        t_lib = min(cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep), iters=iters, warmup=5)
+            for _ in range(3))
+        npos = sum(min(n0 + w, 2048) for _ in range(8))
+        per_value = 1 if quantized else 2
+        nbytes = (2 * per_value * npos * 16 * 128
+                  + (2 * 4 * npos * 16 if quantized else 0)
+                  + 2 * 2 * q.numel() + 4 * 8
+                  + (4 * tables.numel() if tables is not None else 0))
+        flops = 4 * 8 * 16 * 128 * sum(n0 + i + 1 for i in range(w))
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"[kernels] {key} timing {shape} B=8 W={w} lengths=8x{n0} H=16 "
+            f"D=128{f' bs={bs}' if bs else ''}: kernel_ms={t_kernel:.4f} "
+            f"plain_ms={t_plain:.4f} library_ms={t_lib:.4f} (SDPA, staircase "
+            f"mask, dense bf16 K/V) bound_ms={b_ms:.4f} ({b_by}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        vals = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=t_lib)
+        if shape == "verify":
+            rec.update(vals)
+        else:
+            rec.update({f"chunk_{k2}": v2 for k2, v2 in vals.items()})
+        del tensors, q, k, v, kt, vt, qt, keep
+    rec["note"] = ("ms, plain_ms, bound_ms and library_ms at the verify "
+                   "shape (B=8, W=5, 8 x 2043 cached tokens); chunk_* at the "
+                   "chunk shape (B=8, W=512, 8 x 1536 cached tokens)")
+    return rec
+
+
+def phase_window_kernels(records):
+    """The four window kernels (rows 8a, 8b, 9a, 9b) against their plain
+    versions at every case of WINDOW_CASES, dense and paged (blocks of
+    128 as the engine serves, and of 16, whose 64-key tiles span four
+    blocks), then timed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    for key, line, paged, quantized in (
+            ("window_attention", 628, False, False),
+            ("window_attention_q", 668, False, True),
+            ("paged_window_attention", 836, True, False),
+            ("paged_window_attention_q", 883, True, True)):
+        errs, worst = [], []
+        for i, case in enumerate(WINDOW_CASES):
+            for bs in ((128, 16) if paged and i in (0, 1, 2) else
+                       (128,) if paged else (None,)):
+                e, w = check_window(gen, quantized=quantized, bs=bs, **case)
+                errs.append(e)
+                worst.append(w)
+        records[key] = time_window(key, line, 128 if paged else None,
+                                   quantized, gen, errs, worst)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _dequant(codes, scale):
     qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
     return qm.dequantize_kv(codes, scale, torch.bfloat16)
@@ -880,6 +1079,245 @@ def phase_serve_int8(model):
     return out
 
 
+def run_engine(tag, eng, prompts, new_tokens, sampled=()):
+    """Queue ``prompts`` (those at the indices in ``sampled`` at
+    temperature 0.8, top-p 0.9; the rest greedy), reset every launch
+    count, run the engine dry and read the counts back.  Returns
+    ``(streams in prompt order, launches by kernel, stats, wall s)``;
+    logs tokens/s, host syncs and launches."""
+    from paddle_tpu_torch.ops import KERNELS
+    rids = [eng.add_request(p, max_new_tokens=new_tokens,
+                            temperature=0.8 if i in sampled else 0.0,
+                            top_p=0.9 if i in sampled else 1.0)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    st = eng.stats()
+    streams = [results[r].tolist() for r in rids]
+    tokens = sum(len(x) for x in streams)
+    log(f"[{tag}] {len(prompts)} requests of {new_tokens} new tokens, prompt "
+        f"lengths {sorted(len(p) for p in prompts)}: tokens={tokens} "
+        f"wall_s={wall:.3f} tokens_per_s={tokens / wall:.1f} "
+        f"decode_steps={st['decode_steps']} decode_ms={st['decode_ms']:.1f} "
+        f"prefill_ms={st['prefill_ms']:.1f} prefill_tokens="
+        f"{st['prefill_tokens']} host_syncs decode={st['decode_host_syncs']} "
+        f"prefill={st['prefill_host_syncs']} (per token "
+        f"{st['host_syncs'] / max(tokens, 1):.4f})")
+    log(f"[{tag}] launches {{{', '.join(f'{k}: {n}' for k, n in launches.items() if n)}}}")
+    return streams, launches, st, wall
+
+
+def compare_greedy(tag, model, prompts, got, want, tol):
+    """Greedy streams of a chunked or speculative engine against the
+    plain engine's of the same cache form.  bf16 kernels that round
+    differently can flip a near-tie, so at each request's first
+    divergence the plain stream's top-2 logit gap there (one no-cache
+    forward over the prompt and the plain tokens before it) is held to
+    ``tol`` x that position's max |logit|: a divergence at a clear
+    margin is a fault.  Returns the problems."""
+    same = sum(g == w for g, w in zip(got, want))
+    agree = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    total = sum(len(w) for w in want)
+    problems = []
+    gaps = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        t = next((j for j, (a, b) in enumerate(zip(g, w)) if a != b),
+                 min(len(g), len(w)))
+        if t >= min(len(g), len(w)):
+            problems.append(f"request {i}: lengths {len(g)} vs {len(w)} "
+                            f"with equal tokens")
+            continue
+        ids = torch.tensor(np.concatenate([prompts[i], w[:t]])[None],
+                           device="cuda")
+        with torch.no_grad():
+            last = model(ids)[0, -1].float()
+        top2 = torch.topk(last, 2).values
+        gap = ((top2[0] - top2[1]) / last.abs().max()).item()
+        gaps.append((i, t, gap))
+        if gap > tol:
+            problems.append(f"request {i} diverges at token {t} where the "
+                            f"plain engine's top-2 gap is {gap:.3e} of its "
+                            f"max |logit| (tol {tol})")
+    log(f"[{tag}] greedy streams vs the plain engine: {same}/{len(want)} "
+        f"identical, token agreement {agree}/{total}; first divergences "
+        f"(request, token, top-2 gap / max|logit|): "
+        f"{[(i, t, round(gp, 5)) for i, t, gp in gaps]}")
+    return problems
+
+
+def window_key(st):
+    key = ("paged_window_attention" if st["kv_layout"] == "paged"
+           else "window_attention")
+    return key + ("_q" if st["kv_dtype"] == "int8" else "")
+
+
+def decode_key(st):
+    key = ("paged_decode_attention" if st["kv_layout"] == "paged"
+           else "decode_attention")
+    return key + ("_q" if st["kv_dtype"] == "int8" else "")
+
+
+def phase_serve_chunked(model):
+    """Chunked prefill (``prefill_chunk=512``) on two engines: dense bf16
+    over the serve phase's 16 prompts of 32-1536 tokens, and paged int8
+    with the radix cache (blocks of 128) over serve-paged's prompts (8
+    sharing a 1024-token prefix); 32 new tokens, greedy, 8 slots.
+    Checks every stream's length, one host sync per decode step and none
+    per chunk tick but those that graduate a slot, one window launch per
+    layer per chunk tick and no flash launch, a leak-free pool, and the
+    greedy streams against the monolithic engine of the same cache
+    form."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    rng = np.random.RandomState(7)
+    plens = rng.randint(32, 1537, size=16)
+    plens[:4] = [32, 100, 700, 1536]
+    dense_prompts = random_prompts(rng, vocab, plens)
+    rng = np.random.RandomState(17)
+    prefix = rng.randint(0, vocab, size=1024)
+    shared = [np.concatenate([prefix, p]) for p in random_prompts(
+        rng, vocab, rng.randint(32, 513, size=8))]
+    other = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
+    paged_prompts = [p for pair in zip(shared, other) for p in pair]
+    out = {}
+    for tag, prompts, kw in (
+            ("serve-chunked-dense", dense_prompts, {}),
+            ("serve-chunked-paged-int8", paged_prompts,
+             dict(kv_layout="paged", kv_block_size=128, kv_dtype="int8"))):
+        want, _, _, _ = run_engine(f"{tag} (monolithic)", InferenceEngine(
+            model, batch_slots=8, device="cuda", **kw), prompts, 32)
+        eng = InferenceEngine(model, batch_slots=8, prefill_chunk=512,
+                              device="cuda", **kw)
+        got, launches, st, _ = run_engine(tag, eng, prompts, 32)
+        log(f"[{tag}] chunk_ticks={st['chunk_ticks']} graduation ticks="
+            f"{st['chunk_graduation_ticks']} decode steps during chunk ticks="
+            f"{st['decode_steps_with_chunk']} prefill_stall_ms="
+            f"{st['prefill_stall_ms']} prefills={st['prefills']}"
+            + (f" prefix_hit_queries={st['prefix_hit_queries']}"
+               if "prefix_hit_queries" in st else ""))
+        problems = compare_greedy(
+            tag, model, prompts, got, want,
+            TOL_TEACHER_INT8 if "int8" in tag else TOL_TEACHER)
+        if [len(x) for x in got] != [32] * len(prompts):
+            problems.append(f"stream lengths {[len(x) for x in got]}")
+        if st["decode_host_syncs"] != st["decode_steps"]:
+            problems.append("not one host sync per decode step")
+        if st["prefill_host_syncs"] != st["chunk_graduation_ticks"]:
+            problems.append(f"{st['prefill_host_syncs']} prefill syncs over "
+                            f"{st['chunk_graduation_ticks']} graduating "
+                            f"chunk ticks")
+        wkey, dkey = window_key(st), decode_key(st)
+        want_l = {wkey: layers * st["chunk_ticks"],
+                  dkey: layers * st["decode_steps"]}
+        for key, n in launches.items():
+            if n != want_l.get(key, 0):
+                problems.append(f"{key} launches {n} != {want_l.get(key, 0)}")
+        if st["prefill_stall_ms"] != 0 or st["decode_steps_with_chunk"] < 1:
+            problems.append("a monolithic stall, or no decode during chunks")
+        if kw:
+            eng.check_leak_free()
+            log(f"[{tag}] pool leak-free after the prefix flush")
+        finish(tag, problems)
+        out[tag] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_draft():
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_configs
+    draft = GPTForCausalLM(gpt_configs()["gpt3-125m"], device="cuda",
+                           dtype=torch.bfloat16,
+                           generator=prandom.seed(1234, "cuda"))
+    draft.eval()
+    return draft
+
+
+def phase_serve_spec(model):
+    """Speculative decoding (``spec_k=4``) behind gpt3-1.3b: dense int8
+    and paged bf16 with a gpt3-125m draft of random weights (it proposes
+    badly, so the reject path runs), and dense bf16 with the target as
+    its own draft (every proposal accepted); 8 prompts of 32-1024
+    tokens, 64 new tokens, greedy (the paged engine also serves 2 sampled
+    requests).  Checks one host sync per tick, the window launches per
+    tick (the target's verify and the draft's catch-up, one per layer
+    each) and the draft's decode launches, K+1 tokens a tick for the
+    self-draft, and the greedy streams against the plain engine of the
+    same cache form."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    cfg = model.cfg
+    k, new = 4, 64
+    draft = build_draft()
+    rng = np.random.RandomState(31)
+    plens = rng.randint(32, 1025, size=8)
+    plens[:2] = [32, 1024]
+    prompts = random_prompts(rng, cfg.vocab_size, plens)
+    out = {}
+    for tag, kw, drf, sampled in (
+            ("serve-spec-dense-int8", dict(kv_dtype="int8"), draft, ()),
+            ("serve-spec-paged", dict(kv_layout="paged", kv_block_size=128),
+             draft, (3, 7)),
+            ("serve-spec-self", {}, model, ())):
+        want, _, _, _ = run_engine(f"{tag} (plain)", InferenceEngine(
+            model, batch_slots=8, device="cuda", **kw), prompts, new)
+        eng = InferenceEngine(model, batch_slots=8, spec_k=k,
+                              draft_model=drf, device="cuda", **kw)
+        got, launches, st, wall = run_engine(tag, eng, prompts, new,
+                                             sampled=sampled)
+        ticks = st["spec_ticks"]
+        log(f"[{tag}] spec_ticks={ticks} accepted_tokens_per_tick="
+            f"{st['accepted_tokens_per_tick']:.4f} acceptance_rate="
+            f"{st['spec_acceptance_rate']:.4f} mean_tick_ms="
+            f"{st['decode_ms'] / max(ticks, 1):.3f} host syncs per generated "
+            f"token {st['host_syncs'] / (new * len(prompts)):.4f}")
+        greedy = [i for i in range(len(prompts)) if i not in sampled]
+        problems = compare_greedy(
+            tag, model, [prompts[i] for i in greedy],
+            [got[i] for i in greedy], [want[i] for i in greedy],
+            TOL_TEACHER_INT8 if "int8" in tag else TOL_TEACHER)
+        if [len(x) for x in got] != [new] * len(prompts):
+            problems.append(f"stream lengths {[len(x) for x in got]}")
+        if not st["decode_host_syncs"] == st["decode_steps"] == ticks > 0:
+            problems.append("not one host sync per spec tick")
+        d_layers = drf.cfg.num_layers
+        t_key = window_key(st)
+        want_l = {t_key: cfg.num_layers * ticks}
+        want_l["window_attention"] = want_l.get("window_attention", 0) + \
+            d_layers * ticks
+        want_l["decode_attention"] = d_layers * (k - 1) * ticks
+        want_l["flash_fwd"] = (cfg.num_layers + d_layers) * st["prefills"]
+        for key, n in launches.items():
+            if n != want_l.get(key, 0):
+                problems.append(f"{key} launches {n} != {want_l.get(key, 0)}")
+        if drf is model:
+            per_req = -(-(new - 1) // (k + 1))
+            if st["spec_slot_ticks"] != per_req * len(prompts) or \
+                    st["spec_tokens_committed"] != (new - 1) * len(prompts):
+                problems.append(
+                    f"self-draft: {st['spec_tokens_committed']} tokens over "
+                    f"{st['spec_slot_ticks']} slot ticks, want "
+                    f"{(new - 1) * len(prompts)} over "
+                    f"{per_req * len(prompts)} (K+1 a tick)")
+        if st["kv_layout"] == "paged":
+            eng.check_leak_free()
+        finish(tag, problems)
+        out[tag] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def _padded(ids, start, stop, bucket):
     out = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
     out[:, :stop - start] = ids[:, start:stop]
@@ -970,6 +1408,55 @@ def phase_teacher_forced(model):
                           f"+ {steps - 1} decode steps vs forward",
                           got, ref, hit_len - 1, tol)
 
+            # the window steps: a prompt fed in chunks of 512 (last-token
+            # logits against the forward), and a K+1 = 5 verify window
+            # against 5 sequential decode steps and the forward
+            def chunked(prefill_chunk, extra=()):
+                pos, lg = 0, None
+                while pos < hit_len:
+                    n = min(512, hit_len - pos)
+                    lg, _ = prefill_chunk(
+                        _padded(ids, pos, pos + n, 512), *extra,
+                        torch.tensor([pos], dtype=torch.int32, device="cuda"),
+                        torch.tensor([n], dtype=torch.int32, device="cuda"))
+                    pos += n
+                return lg
+            cache = model.init_kv_cache(1, kv_dtype=kv_dtype)
+            teacher_check(f"{name} dense chunked prefill ({hit_len} tokens, "
+                          f"chunks of 512) vs forward",
+                          [chunked(lambda *a: model.prefill_chunk(
+                              a[0], cache, *a[1:]))], ref, hit_len - 1, tol)
+            chunk_row = table(list(range(12, 21)))
+            teacher_check(f"{name} paged chunked prefill ({hit_len} tokens, "
+                          f"chunks of 512) vs forward",
+                          [chunked(lambda *a: model.prefill_chunk_paged(
+                              a[0], pool, chunk_row[None], *a[1:]))], ref,
+                          hit_len - 1, tol)
+            seq_cache = model.init_kv_cache(1, kv_dtype=kv_dtype)
+            for c in (cache, seq_cache):
+                c.lengths.zero_()
+                model.prefill(_padded(ids, 0, plen, 256), c, 0, plen)
+            win, _ = model.verify_step(ids[:, plen:plen + 5], cache)
+            seq = torch.cat([model.decode_step(ids[:, t], seq_cache, one)[0]
+                             for t in range(plen, plen + 5)]).float()
+            err = (win[0].float() - seq).abs().amax(-1)
+            worst = (err / seq.abs().amax(-1)).max().item()
+            log(f"[teacher] {name} dense verify window (K+1 = 5 after "
+                f"{plen} tokens) vs 5 sequential decode steps: worst position "
+                f"max|diff|/max|logit|={worst:.4e} (tol {tol}) "
+                f"{'ok' if worst <= tol else 'FAIL'}")
+            if not worst <= tol:
+                raise SystemExit(f"teacher-forced check failed: {name} "
+                                 f"verify window vs decode steps")
+            teacher_check(f"{name} dense verify window (K+1 = 5) vs forward",
+                          [win[0]], ref, plen, tol)
+            win_p, _ = model.verify_step_paged(
+                ids[:, plen:plen + 5], pool, cold_row[None],
+                torch.tensor([plen], dtype=torch.int32, device="cuda"))
+            teacher_check(f"{name} paged verify window (K+1 = 5) vs forward",
+                          [win_p[0]], ref, plen, tol)
+            del cache, seq_cache
+
             # the hit prefill against a cold prefill of the same prompt
             cold_full = table(list(range(12, 28)))
             whole = _padded(ids, 0, hit_len, 2048)
@@ -1001,14 +1488,25 @@ def phase_profile(model):
     for the device kernel time per step."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import InferenceEngine
-    for layout, kv_dtype in (("dense", None), ("paged", None),
-                             ("dense", "int8"), ("paged", "int8")):
-        eng = InferenceEngine(model, batch_slots=8, kv_layout=layout,
-                              kv_dtype=kv_dtype, device="cuda")
+    runs = [(f"{layout} {kv_dtype or 'bf16'} decode step (8 active, "
+             f"~520-token slots)", dict(kv_layout=layout, kv_dtype=kv_dtype),
+             512, 16)
+            for layout, kv_dtype in (("dense", None), ("paged", None),
+                                     ("dense", "int8"), ("paged", "int8"))]
+    # a step of the chunked engine while slots are still prefilling: one
+    # 512-token chunk tick and the decode step of the graduated slots;
+    # a spec tick of the self-drafting dense engine (K = 4)
+    runs += [("dense bf16 chunked step (chunk 512, 8 slots of 1024-token "
+              "prompts, one chunk tick a step)", dict(prefill_chunk=512),
+              1024, 16),
+             ("dense bf16 spec tick (K = 4, self-draft, 8 active)",
+              dict(spec_k=4, draft_model=model), 512, 80)]
+    for what, kw, plen, new in runs:
+        eng = InferenceEngine(model, batch_slots=8, device="cuda", **kw)
         rng = np.random.RandomState(13)
         for _ in range(8):
-            eng.add_request(rng.randint(0, model.cfg.vocab_size, size=512),
-                            max_new_tokens=16)
+            eng.add_request(rng.randint(0, model.cfg.vocab_size, size=plen),
+                            max_new_tokens=new)
         for _ in range(3):          # admissions, then two warm decode steps
             eng.step()
         steps = 5
@@ -1020,9 +1518,7 @@ def phase_profile(model):
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 eng.step()
-        report_profile(prof, steps, wall_ms,
-                       f"{layout} {kv_dtype or 'bf16'} decode step (8 "
-                       f"active, ~520-token slots)")
+        report_profile(prof, steps, wall_ms, what)
         del eng
         gc.collect()
         torch.cuda.empty_cache()
@@ -1048,7 +1544,8 @@ def report_profile(prof, steps, wall_ms, what):
         f"launches per step")
     groups = {}
     for ms, n, key in rows:
-        if "flash_" in key or "decode_kernel" in key:
+        if "flash_" in key or "decode_kernel" in key or \
+                "window_kernel" in key:
             group = "port kernels"
         elif any(w in key for w in ("nvjet", "gemm", "cutlass", "xmma")):
             group = "library matmuls"
@@ -1252,6 +1749,7 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     records = phase_kernels()
+    phase_window_kernels(records)
     phase_train_kernels(records)
     model = build_model()
     paths = {}
@@ -1262,6 +1760,10 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     paths.update(phase_serve_int8(model))
+    paths.update(phase_serve_chunked(model))
+    paths.update(phase_serve_spec(model))
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_teacher_forced(model)
     phase_profile(model)
     del model
@@ -1282,8 +1784,8 @@ def main():
             "launches_by_path", "max_abs_err", "max_row_rel_err", "row_tol",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [
-        {**{k: r[k] for k in keys}, **({"note": r["note"]} if "note" in r
-                                       else {})}
+        {**{k: r[k] for k in keys}, **{k: v for k, v in r.items()
+                                       if k not in keys}}
         for r in records.values()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}))

@@ -27,8 +27,26 @@ the host writes the staging buffers again).  ``kv_dtype='int8'`` stores
 either layout as int8 codes with per-(position, head) f32 scales, read
 by the int8 decode kernels.
 
-Left for later slices: speculative decoding, chunked prefill, deadlines,
-drain, guards and telemetry.
+``prefill_chunk=C`` (Sarathi-style chunked prefill): admission binds a
+request to a slot without running a prefill; each ``step()`` then feeds
+up to C prompt tokens in total, oldest admission first, through ONE
+fixed ``[batch_slots, C]`` window step (``prefill_chunk`` /
+``prefill_chunk_paged``, the window-attention kernels) before the
+decode step, so live streams never stall behind a long prompt.  A slot
+still prefilling is inactive on the decode step; when its prompt
+completes it graduates and its first token is sampled.  A chunk tick
+makes no host sync unless a slot graduates, and then one.  Every slot
+row goes through the chunk (advance 0 outside it): the product work of
+those rows is spent, as in the JAX package.
+
+``spec_k=K, draft_model=...`` (speculative decoding,
+``inference.spec_decode``): every decode step becomes a tick in which the
+draft proposes K tokens and the target verifies K+1 in one window step;
+greedy streams stay token-identical to the non-speculative engine,
+sampled ones follow the rejection rule.  One host sync per tick.
+
+Left for later slices: deadlines, drain, guards, telemetry, environment
+knobs, autotune hooks and the HBM ledger.
 """
 from __future__ import annotations
 
@@ -42,8 +60,10 @@ import torch
 
 from ..device import resolve_device, same_device
 from ..ops.quantized_matmul import resolve_kv_quant
-from .paged_kv import BlockAllocator, blocks_for, init_paged_cache
+from .paged_kv import (BlockAllocator, blocks_for, blocks_to_extend,
+                       init_paged_cache)
 from .prefix_cache import RadixPrefixCache
+from .spec_decode import SpecDecoder, resolve_spec_k
 
 __all__ = ["InferenceEngine", "Request", "default_prefill_buckets"]
 
@@ -81,6 +101,10 @@ class Request:
         self.resume_prompt: Optional[np.ndarray] = None
         self.preemptions = 0
         self.admit_seq: Optional[int] = None
+        # chunked prefill: bound to a slot while its prompt is still being
+        # fed (prefill_pos tokens are in the cache so far)
+        self.prefilling = False
+        self.prefill_pos = 0
 
     def effective_prompt(self) -> np.ndarray:
         return self.prompt if self.resume_prompt is None \
@@ -100,9 +124,12 @@ class InferenceEngine:
     positions) or ``'paged'`` (a pool of ``kv_num_blocks`` blocks of
     ``kv_block_size`` positions, default the dense-equivalent memory,
     with a radix prefix cache unless ``prefix_cache=False``).
-    ``kv_dtype='int8'`` quantizes either cache.  ``device=None`` means
-    the CUDA device (raises without one); the model must live on the
-    engine's device.
+    ``kv_dtype='int8'`` quantizes either cache.  ``prefill_chunk=C > 0``
+    admits by chunks of C prompt tokens per step; ``spec_k=K`` with a
+    ``draft_model`` (a ``GPTForCausalLM`` of the same vocabulary on the
+    same device) decodes speculatively.  ``device=None`` means the CUDA
+    device (raises without one); the model must live on the engine's
+    device.
     """
 
     def __init__(self, model, batch_slots: int = 8,
@@ -111,7 +138,9 @@ class InferenceEngine:
                  top_k: int = 0, seed: int = 0, device=None,
                  kv_layout: str = "dense", kv_block_size: int = 128,
                  kv_num_blocks: Optional[int] = None,
-                 prefix_cache: bool = True, kv_dtype: Optional[str] = None):
+                 prefix_cache: bool = True, kv_dtype: Optional[str] = None,
+                 prefill_chunk: int = 0, spec_k: Optional[int] = None,
+                 draft_model=None):
         self.device = resolve_device(device)
         if not same_device(model.device, self.device):
             raise ValueError(f"model is on {model.device}, engine on "
@@ -132,6 +161,11 @@ class InferenceEngine:
                              f"{kv_layout!r}")
         self.kv_layout = kv_layout
         self.kv_dtype = resolve_kv_quant(kv_dtype)
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got "
+                             f"{self.prefill_chunk}")
+        self._chunked = self.prefill_chunk > 0
         self._alloc: Optional[BlockAllocator] = None
         self._prefix: Optional[RadixPrefixCache] = None
         if kv_layout == "paged":
@@ -168,8 +202,24 @@ class InferenceEngine:
             "decode_host_syncs": 0, "prefill_host_syncs": 0,
             "preemptions": 0, "memory_capped_retirements": 0,
             "block_occupancy_sum": 0.0,
+            # decode-step wall time spent in monolithic admission prefills
+            # while other streams waited (0 when chunked)
+            "prefill_stall_ms": 0.0,
+            "chunk_ticks": 0, "chunk_graduation_ticks": 0,
+            "decode_steps_with_chunk": 0,
+            "spec_ticks": 0, "spec_tokens_committed": 0,
+            "spec_slot_ticks": 0, "spec_capacity_retirements": 0,
         }
         self._bucket_ms: Dict[int, List[float]] = {}
+        sk = resolve_spec_k(spec_k)
+        self._spec: Optional[SpecDecoder] = None
+        if sk > 0:
+            if draft_model is None:
+                raise ValueError("spec_k set but no draft_model given: "
+                                 "speculation needs a draft (the target "
+                                 "itself is a valid one)")
+            self._spec = SpecDecoder(self, draft_model, sk)
+        self.spec_k = self._spec.k if self._spec else 0
 
     # ---- paged layout setup -------------------------------------------
     def _init_paged(self, kv_block_size, kv_num_blocks, prefix_cache):
@@ -251,10 +301,12 @@ class InferenceEngine:
             # can it EVER run alone on an empty pool: its bucket-padded
             # prefill, then its full extent
             bs = self.block_size
+            # a spec tick writes its K+1 window before it knows how much
+            # commits, so the steady extent carries that margin
             worst = max(
                 blocks_for(self._bucket_for(req.prompt.size), bs),
-                blocks_for(min(req.prompt.size + req.max_new_tokens,
-                               self.max_seq_len), bs))
+                blocks_for(min(req.prompt.size + req.max_new_tokens
+                               + self.spec_k, self.max_seq_len), bs))
             if worst > self._alloc.capacity:
                 raise ValueError(f"request needs {worst} KV blocks but the "
                                  f"pool only has {self._alloc.capacity}")
@@ -305,7 +357,11 @@ class InferenceEngine:
         self._d_active[slot] = 0
         self._d_temps[slot] = 0.0
         self._d_top_ps[slot] = 1.0
+        if self._spec is not None:
+            self._spec.on_release(slot)
         req.slot = None
+        req.prefilling = False
+        req.prefill_pos = 0
         # any release can make blocks free or evictable: wake the
         # head-of-line memo
         self._release_epoch += 1
@@ -345,18 +401,20 @@ class InferenceEngine:
                 return None
             self._preempt(max(victims, key=lambda r: r.admit_seq))
 
-    def _ensure_decode_room(self):
-        """Before a paged decode step, every active slot whose next write
-        falls past its blocks gets a fresh block: from the free list, by
-        radix-cache eviction, or by preempting the youngest other
-        request.  With no resumable victim the requester itself is
-        preempted if it can resume, else retired with the tokens it has
-        (a memory-capped finish)."""
+    def _ensure_decode_room(self, need_tokens: int = 1):
+        """Before a paged decode step (or spec tick, ``need_tokens`` = K +
+        1), every decoding slot whose next writes fall past its blocks
+        gets fresh blocks: from the free list, by radix-cache eviction,
+        or by preempting the youngest other request.  With no resumable
+        victim the requester itself is preempted if it can resume, else
+        retired with the tokens it has (a memory-capped finish).
+        Still-prefilling slots are left to ``_ensure_chunk_room``."""
         for slot in range(self.batch_slots):
             req = self._slots[slot]
-            if req is None:
+            if req is None or req.prefilling:
                 continue
-            need = blocks_for(int(self._slot_len[slot]) + 1, self.block_size)
+            need = blocks_for(int(self._slot_len[slot]) + need_tokens,
+                              self.block_size)
             while (self._slots[slot] is req
                    and len(self._slot_blocks[slot]) < need):
                 nb = self._alloc_blocks(1)
@@ -413,6 +471,46 @@ class InferenceEngine:
         self.admit_handoff(req, slot, blocks, logits)
         return True
 
+    def _match_prefix(self, prompt, fits):
+        """Radix match of ``prompt``, shedding cached blocks from its end
+        (their tokens are recomputed) until ``fits(prefix_len)``.  Returns
+        ``(shared blocks, prefix_len, counters)``, ``counters`` the hit
+        counters before the match: a blocked head-of-line request
+        re-matches on every retry, so a refused admission rolls them back
+        and they count admissions, not retries."""
+        if self._prefix is None:
+            return [], 0, None
+        pc = self._prefix
+        counters = (pc.queries, pc.hit_queries, pc.hit_blocks)
+        shared, prefix_len = pc.match(prompt)
+        shed = 0
+        while shared and not fits(prefix_len):
+            shared = shared[:-1]
+            prefix_len -= self.block_size
+            shed += 1
+        if shed:
+            pc.hit_blocks -= shed
+            if not shared:
+                pc.hit_queries -= 1
+        return shared, prefix_len, counters
+
+    def _claim_blocks(self, shared, n_total: int,
+                      counters) -> Optional[List[int]]:
+        """The slot's reference on the ``shared`` prefix blocks, then
+        ``n_total - len(shared)`` fresh ones.  The reference comes BEFORE
+        any allocation: an eviction could otherwise free a matched block
+        and hand it out again as this request's own.  None (nothing held,
+        hit counters rolled back) when the pool cannot hold them yet."""
+        self._alloc.incref(shared)
+        new_blocks = self._alloc_blocks(n_total - len(shared))
+        if new_blocks is None:
+            self._alloc.decref(shared)
+            if counters is not None:
+                pc = self._prefix
+                pc.queries, pc.hit_queries, pc.hit_blocks = counters
+            return None
+        return list(shared) + new_blocks
+
     def _paged_prefill(self, req: Request):
         """Match the radix cache, allocate blocks for the divergent
         suffix's bucket, prefill ONLY the suffix, then return the bucket
@@ -422,46 +520,18 @@ class InferenceEngine:
         yet."""
         bs = self.block_size
         prompt = req.effective_prompt()
-        pc_stats0 = None
-        if self._prefix is not None:
-            # a blocked head-of-line request re-matches on every retry:
-            # roll the hit counters back on failure so they count
-            # admissions, not retries
-            pc_stats0 = (self._prefix.queries, self._prefix.hit_queries,
-                         self._prefix.hit_blocks)
-            shared, prefix_len = self._prefix.match(prompt)
-        else:
-            shared, prefix_len = [], 0
         # the bucket-padded extent must fit the slot's table and the
-        # whole pool: shed cached prefix blocks (recompute those tokens)
-        # until it does; prefix 0 always fits (add_request checked it)
+        # whole pool; prefix 0 always fits (add_request checked it)
         fit = min(self.blocks_per_slot, self._alloc.capacity)
-        shed = 0
-        while shared and blocks_for(
-                prefix_len + self._bucket_for(prompt.size - prefix_len),
-                bs) > fit:
-            shared = shared[:-1]
-            prefix_len -= bs
-            shed += 1
-        if shed and pc_stats0 is not None:
-            self._prefix.hit_blocks -= shed
-            if not shared:
-                self._prefix.hit_queries -= 1
+        shared, prefix_len, counters = self._match_prefix(
+            prompt, lambda p: blocks_for(
+                p + self._bucket_for(prompt.size - p), bs) <= fit)
         suffix = prompt[prefix_len:]
         bucket = self._bucket_for(suffix.size)
-        need_total = blocks_for(prefix_len + bucket, bs)
-        # the slot's own reference on the shared blocks, taken BEFORE any
-        # allocation: an eviction could otherwise free a matched block
-        # and hand it out again as this request's suffix block
-        self._alloc.incref(shared)
-        new_blocks = self._alloc_blocks(need_total - len(shared))
-        if new_blocks is None:
-            self._alloc.decref(shared)
-            if pc_stats0 is not None:
-                (self._prefix.queries, self._prefix.hit_queries,
-                 self._prefix.hit_blocks) = pc_stats0
+        blocks = self._claim_blocks(shared, blocks_for(prefix_len + bucket, bs),
+                                    counters)
+        if blocks is None:
             return None
-        blocks = list(shared) + new_blocks
         t0 = time.perf_counter()
         self._timings["prefill_tokens"] += bucket
         row = np.zeros(self.blocks_per_slot, np.int32)
@@ -515,6 +585,165 @@ class InferenceEngine:
         self._d_top_ps[slot] = req.top_p
         req.generated.append(tok)
         self._retire_if_done(req, tok)
+        if self._spec is not None and self._slots[slot] is req:
+            self._spec.on_admit(req, slot, tok)
+
+    # ---- chunked prefill ------------------------------------------------
+    def _try_admit_chunked(self, req: Request, slot: int) -> bool:
+        """Chunked admission: bind the request to ``slot`` without a
+        prefill; ``_chunk_tick`` feeds its prompt.  Paged, the slot starts
+        with blocks for its radix-matched prefix plus its first chunk;
+        False (pool dry) leaves it at the queue head."""
+        prompt = req.effective_prompt()
+        plen0 = 0
+        if self.kv_layout == "paged":
+            bs = self.block_size
+            # the match cannot exceed the slot's table or the pool
+            fit = min(self.blocks_per_slot, self._alloc.capacity)
+            shared, prefix_len, counters = self._match_prefix(
+                prompt, lambda p: p // bs <= fit)
+            first = min(self.prefill_chunk, prompt.size - prefix_len)
+            blocks = self._claim_blocks(
+                shared, blocks_for(prefix_len + first, bs), counters)
+            if blocks is None:
+                return False
+            self._slot_blocks[slot] = blocks
+            self._tables[slot, :] = 0
+            self._tables[slot, :len(blocks)] = blocks
+            plen0 = prefix_len
+        req.prefilling = True
+        req.prefill_pos = plen0
+        req.slot = slot
+        req.admit_seq = next(self._admit_counter)
+        self._slots[slot] = req
+        self._slot_len[slot] = plen0
+        self._d_temps[slot] = req.temperature
+        self._d_top_ps[slot] = req.top_p
+        return True
+
+    def _ensure_chunk_room(self, req: Request, adv: int) -> int:
+        """Grow ``req``'s blocks to cover its next ``adv`` prompt tokens
+        (free list, radix eviction, then preempting the youngest other
+        request).  Returns the advance that is safe: 0 when the requester
+        itself had to be preempted (a still-prefilling request can always
+        resume, so it is never retired here)."""
+        slot = req.slot
+        while (self._slots[slot] is req and blocks_to_extend(
+                len(self._slot_blocks[slot]), req.prefill_pos + adv,
+                self.block_size) > 0):
+            nb = self._alloc_blocks(1)
+            if nb is None:
+                nb = self._preempt_for_blocks(1, exclude=req)
+            if nb is None:
+                self._preempt(req)
+                break
+            self._tables[slot, len(self._slot_blocks[slot])] = nb[0]
+            self._slot_blocks[slot].append(nb[0])
+        return adv if self._slots[slot] is req else 0
+
+    def _chunk_tick(self) -> int:
+        """Advance the still-prefilling slots by up to ``prefill_chunk``
+        prompt tokens in total (oldest admission first) through ONE
+        ``[batch_slots, C]`` chunk step, then graduate the slots whose
+        prompt completed.  The chunk's inputs are copied from pageable
+        host memory (a copy the host may overwrite at once: no sync
+        guards a chunk tick).  Returns the first tokens sampled."""
+        pre = sorted(((s, r) for s, r in enumerate(self._slots)
+                      if r is not None and r.prefilling),
+                     key=lambda sr: sr[1].admit_seq)
+        if not pre:
+            return 0
+        c = self.prefill_chunk
+        budget = c
+        tokens = np.zeros((self.batch_slots, c), np.int64)
+        advance = np.zeros(self.batch_slots, np.int32)
+        for slot, req in pre:
+            if budget <= 0:
+                break
+            prompt = req.effective_prompt()
+            adv = min(prompt.size - req.prefill_pos, budget)
+            if self.kv_layout == "paged":
+                # may preempt other prefilling slots: their rows then
+                # write into the null block through a zeroed table row
+                adv = self._ensure_chunk_room(req, adv)
+            if self._slots[slot] is not req or adv <= 0:
+                continue
+            tokens[slot, :adv] = prompt[req.prefill_pos:req.prefill_pos + adv]
+            advance[slot] = adv
+            budget -= adv
+        if not advance.any():
+            return 0
+        t0 = time.perf_counter()
+        self._timings["prefill_tokens"] += int(advance.sum())
+        self._timings["chunk_ticks"] += 1
+        dev = self.device
+        lens = torch.from_numpy(self._slot_len.astype(np.int32)).to(
+            dev, non_blocking=True)
+        with torch.no_grad():
+            tok_d = torch.from_numpy(tokens).to(dev, non_blocking=True)
+            adv_d = torch.from_numpy(advance).to(dev, non_blocking=True)
+            if self.kv_layout == "paged":
+                tables = torch.from_numpy(self._tables.copy()).to(
+                    dev, non_blocking=True)
+                logits, _ = self.model.prefill_chunk_paged(
+                    tok_d, self.cache, tables, lens, adv_d)
+            else:
+                logits, _ = self.model.prefill_chunk(tok_d, self.cache, lens,
+                                                     adv_d)
+        grads = []
+        for slot, req in pre:
+            adv = int(advance[slot])
+            if self._slots[slot] is not req or adv <= 0:
+                continue
+            req.prefill_pos += adv
+            self._slot_len[slot] = req.prefill_pos
+            prompt = req.effective_prompt()
+            if self.kv_layout == "paged" and self._prefix is not None:
+                # completed blocks join the radix tree now, so a request
+                # admitted meanwhile already shares them
+                n_full = req.prefill_pos // self.block_size
+                if n_full:
+                    self._prefix.insert(prompt[:n_full * self.block_size],
+                                        self._slot_blocks[slot][:n_full])
+            if req.prefill_pos >= prompt.size:
+                grads.append((slot, req))
+        if grads:
+            with torch.no_grad():
+                nxt = self._sample(logits, self._d_temps, self._d_top_ps)
+            toks = nxt.tolist()
+            self._timings["prefill_host_syncs"] += 1
+            self._timings["chunk_graduation_ticks"] += 1
+            for slot, req in grads:
+                self._graduate(req, slot, toks[slot])
+        self._timings["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+        return len(grads)
+
+    def _graduate(self, req: Request, slot: int, tok: int):
+        """The slot's prompt completed: commit its first token and make
+        the slot live on the decode step."""
+        req.prefilling = False
+        self._timings["prefills"] += 1
+        req.generated.append(tok)
+        self._d_next[slot] = tok
+        self._d_active[slot] = 1
+        self._retire_if_done(req, tok)
+        if self._spec is not None and self._slots[slot] is req:
+            self._spec.on_admit(req, slot, tok)
+
+    def set_prefill_chunk(self, chunk: int) -> bool:
+        """Switch the chunk budget (0 = monolithic admission) between
+        steps.  A slot still prefilling pins the current budget: returns
+        False without changing anything."""
+        chunk = int(chunk)
+        if chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got {chunk}")
+        if chunk == self.prefill_chunk:
+            return True
+        if any(r is not None and r.prefilling for r in self._slots):
+            return False
+        self.prefill_chunk = chunk
+        self._chunked = chunk > 0
+        return True
 
     # ---- retirement ---------------------------------------------------
     def _retire_if_done(self, req: Request, last_tok: int):
@@ -543,7 +772,7 @@ class InferenceEngine:
 
     def _admit(self) -> int:
         """Admit queued requests into free slots in FIFO order; returns
-        the admissions (each produced its first token)."""
+        the admissions (each produced its first token unless chunked)."""
         admitted = 0
         for slot in range(self.batch_slots):
             if self._slots[slot] is not None or not self._queue:
@@ -556,7 +785,9 @@ class InferenceEngine:
                     and self._alloc.num_free <= self._hol_block[1]
                     and self._release_epoch == self._hol_block[2]):
                 break
-            if not self._try_admit(head, slot):
+            ok = (self._try_admit_chunked(head, slot) if self._chunked
+                  else self._try_admit(head, slot))
+            if not ok:
                 if self._alloc is not None:
                     self._hol_block = (head.rid, self._alloc.num_free,
                                        self._release_epoch)
@@ -566,27 +797,53 @@ class InferenceEngine:
             admitted += 1
         return admitted
 
+    def _live(self) -> int:
+        """Slots that decode this step (bound and not still prefilling)."""
+        return sum(r is not None and not r.prefilling for r in self._slots)
+
+    def _stage_paged(self):
+        """Copy the host block tables and lengths to their device mirrors
+        through the pinned staging tensors, without a sync (the step's
+        sync finishes the copy before the host writes them again)."""
+        self._lens_np[:] = self._slot_len
+        self._d_tables.copy_(self._h_tables, non_blocking=True)
+        self._d_lens.copy_(self._h_lens, non_blocking=True)
+
     def step(self) -> int:
-        """Admit queued requests, then decode one token for every active
-        slot.  Returns the tokens produced this step (first tokens of
-        admissions included)."""
-        produced = self._admit()
-        if self.num_active == 0:
+        """Admit queued requests, run a chunk tick when chunked, then
+        decode one token (or run one spec tick) for every live slot.
+        Returns the tokens produced this step (first tokens included)."""
+        t_admit = time.perf_counter()
+        had_live = self._live() > 0
+        admitted = self._admit()
+        produced = 0
+        if not self._chunked:
+            produced = admitted
+            if admitted and had_live:
+                # live streams waited for these monolithic prefills
+                self._timings["prefill_stall_ms"] += \
+                    (time.perf_counter() - t_admit) * 1e3
+        chunked_now = False
+        if self._chunked:
+            ticks = self._timings["chunk_ticks"]
+            produced += self._chunk_tick()
+            chunked_now = self._timings["chunk_ticks"] > ticks
+        if self._live() == 0:
             return produced
+        if self._spec is not None:
+            return produced + self._step_spec(chunked_now)
         paged = self.kv_layout == "paged"
         if paged:
             self._ensure_decode_room()
             # a preemption or capped retirement may have emptied slots
-            if self.num_active == 0:
+            if self._live() == 0:
                 return produced
             self._timings["block_occupancy_sum"] += \
                 self._alloc.num_in_use / self._alloc.capacity
         t0 = time.perf_counter()
         with torch.no_grad():
             if paged:
-                self._lens_np[:] = self._slot_len
-                self._d_tables.copy_(self._h_tables, non_blocking=True)
-                self._d_lens.copy_(self._h_lens, non_blocking=True)
+                self._stage_paged()
                 logits, _ = self.model.decode_step_paged(
                     self._d_next, self.cache, self._d_tables, self._d_lens)
             else:
@@ -597,11 +854,10 @@ class InferenceEngine:
         # the ONE device->host copy of the step: the scheduler needs the
         # sampled ids for retirement
         nxt_host = nxt.tolist()
-        self._timings["decode_host_syncs"] += 1
-        self._timings["decode_steps"] += 1
-        self._timings["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        self._note_decode_step(t0, chunked_now)
         for slot, req in enumerate(self._slots):
-            if req is None:
+            # a still-prefilling row was inactive: its token is garbage
+            if req is None or req.prefilling:
                 continue
             tok = nxt_host[slot]
             self._slot_len[slot] += 1        # the token just appended
@@ -609,6 +865,63 @@ class InferenceEngine:
             produced += 1
             self._timings["tokens_generated"] += 1
             self._retire_if_done(req, tok)
+        return produced
+
+    def _note_decode_step(self, t0: float, chunked_now: bool):
+        self._timings["decode_host_syncs"] += 1
+        self._timings["decode_steps"] += 1
+        self._timings["decode_steps_with_chunk"] += int(chunked_now)
+        self._timings["decode_ms"] += (time.perf_counter() - t0) * 1e3
+
+    def _step_spec(self, chunked_now: bool) -> int:
+        """One speculative tick for every live slot; commits each slot's
+        accepted prefix plus one token, truncated at EOS and
+        max_new_tokens.  One host sync."""
+        k = self._spec.k
+        # the window writes at slot_len .. slot_len + K: a slot without
+        # room for it retires now, up to K tokens before a non-spec engine
+        for req in list(self._slots):
+            if (req is not None and not req.prefilling
+                    and int(self._slot_len[req.slot]) + k + 1
+                    > self.max_seq_len):
+                self._timings["spec_capacity_retirements"] += 1
+                self._retire(req)
+        if self.kv_layout == "paged":
+            self._ensure_decode_room(need_tokens=k + 1)
+        live = self._live()
+        if live == 0:
+            return 0
+        if self.kv_layout == "paged":
+            self._timings["block_occupancy_sum"] += \
+                self._alloc.num_in_use / self._alloc.capacity
+        t0 = time.perf_counter()
+        out = self._spec.tick().tolist()     # the tick's one host sync
+        self._note_decode_step(t0, chunked_now)
+        self._timings["spec_ticks"] += 1
+        self._timings["spec_slot_ticks"] += live
+        produced = 0
+        for slot, req in enumerate(list(self._slots)):
+            if req is None or req.prefilling:
+                continue
+            n_emit = out[slot][k + 1]
+            # the host mirrors the device advance (dense) or owns it
+            # (paged); a truncation below retires the slot
+            self._slot_len[slot] += n_emit
+            emitted = []
+            retired = False
+            for tok in out[slot][:n_emit]:
+                req.generated.append(tok)
+                emitted.append(tok)
+                produced += 1
+                self._timings["tokens_generated"] += 1
+                if tok == req.eos_id or \
+                        len(req.generated) >= req.max_new_tokens:
+                    retired = True
+                    self._retire(req)
+                    break
+            self._timings["spec_tokens_committed"] += len(emitted)
+            if not retired and emitted:
+                self._spec.after_commit(slot, emitted)
         return produced
 
     def step_or_raise(self) -> int:
@@ -668,6 +981,23 @@ class InferenceEngine:
         s["device"] = str(self.device)
         s["kv_layout"] = self.kv_layout
         s["kv_dtype"] = self.kv_dtype or "dense"
+        s["chunked_prefill"] = self._chunked
+        s["prefill_chunk"] = self.prefill_chunk
+        spec_keys = ("spec_ticks", "spec_tokens_committed", "spec_slot_ticks",
+                     "spec_capacity_retirements")
+        if self._spec is not None:
+            s["spec_k"] = self._spec.k
+            # committed tokens per (tick x live slot): 1.0 is what a plain
+            # decode step gives for its host sync, K + 1 the ceiling
+            ticks = t["spec_slot_ticks"]
+            s["accepted_tokens_per_tick"] = (
+                t["spec_tokens_committed"] / ticks if ticks else 0.0)
+            s["spec_acceptance_rate"] = (
+                (t["spec_tokens_committed"] - ticks)
+                / max(ticks * self._spec.k, 1))
+        else:
+            for key in spec_keys:
+                s.pop(key)
         if self.kv_layout == "paged":
             s["kv_block_size"] = self.block_size
             s["kv_blocks_total"] = self._alloc.capacity

@@ -1,6 +1,8 @@
 """GPT decoder on one GPU (counterpart of ``paddle_tpu/models/gpt.py``:
 the single-device serving paths over the dense and the paged KV cache,
-full precision or int8, the no-cache forward and the training surface:
+full precision or int8, with the W-token window steps of speculative
+decoding and chunked prefill, the no-cache forward and the training
+surface:
 recompute, the fused-CE head and ``GPTPretrainingCriterion``).
 
 Parameters keep the JAX package's names and ``[in, out]`` layout
@@ -8,7 +10,9 @@ Parameters keep the JAX package's names and ``[in, out]`` layout
 a ``paddle_tpu`` model's weights one to one.  Attention goes through
 ``ops.flash_attention`` (prefill without a cached prefix, no-cache
 forward), ``ops.decode_attention`` and ``ops.paged_decode_attention``
-(decode, full precision or int8): hand-written kernels on the card,
+(decode, full precision or int8), ``ops.decode_attention_window`` and
+``ops.paged_decode_attention_window`` (verify windows and prefill
+chunks): hand-written kernels on the card,
 their plain versions on the CPU; under autograd the flash backward runs
 the dq and dk/dv kernels.  A paged prefill over a cached prefix attends
 through ``masked_attention``, a plain masked composite, as the JAX
@@ -314,6 +318,53 @@ class GPTAttention(nn.Module):
                                          lengths + 1, k_scale, v_scale)
         return self._proj_out(out[:, None], b, 1)
 
+    def forward_verify(self, x, k_layer, v_layer, lengths, k_scale=None,
+                       v_scale=None):
+        """W-token window step over a cache layer (the spec-decode verify
+        and draft catch-up, and a prefill chunk): write the W new k/v at
+        ``min(lengths[b] + i, cap - 1)`` in place (quantized per head on
+        an int8 layer), then query i attends ``j <= lengths[b] + i``.  x
+        ``[B, W, hidden]``; lengths ``[B]`` int32 EXCLUDING the window.
+        Clamped writes of several window rows may share the last
+        position: only rows past the capacity collide, and their outputs
+        are never used."""
+        b, w = x.shape[0], x.shape[1]
+        cap = k_layer.shape[1]
+        q, k, v = self._qkv_arrays(x)
+        lens = lengths.to(torch.int32)
+        idx = torch.clamp(lens[:, None].long()
+                          + torch.arange(w, device=x.device)[None, :],
+                          max=cap - 1)
+        rows = torch.arange(b, device=x.device)[:, None]
+        _write_kv(k_layer, v_layer, k_scale, v_scale, (rows, idx), k, v)
+        out = ops.decode_attention_window(q, k_layer, v_layer, lens, k_scale,
+                                          v_scale)
+        return self._proj_out(out, b, w)
+
+    def forward_verify_paged(self, x, k_pool, v_pool, tables, lengths,
+                             k_scale=None, v_scale=None):
+        """Paged twin of ``forward_verify``: the W new k/v go through each
+        slot's table to ``(tables[b, t // bs], t % bs)``, t = lengths[b] +
+        i, then the paged window attention.  Positions past a slot's
+        blocks land in the null block: a zero table entry, or t >=
+        MB * bs.  The second matters to a slot decoding in its last table
+        block that rides a chunk tick with advance 0: clamping t to block
+        MB - 1 (as the JAX package does) would overwrite its own cached
+        positions."""
+        b, w = x.shape[0], x.shape[1]
+        bs, mb = k_pool.shape[1], tables.shape[1]
+        q, k, v = self._qkv_arrays(x)
+        lens = lengths.to(torch.int32)
+        pos = lens[:, None].long() + torch.arange(w, device=x.device)[None, :]
+        rows = torch.arange(b, device=x.device)[:, None]
+        blk = torch.where(pos < mb * bs,
+                          tables[rows, torch.clamp(pos // bs, max=mb - 1)],
+                          0).long()
+        _write_kv(k_pool, v_pool, k_scale, v_scale, (blk, pos % bs), k, v)
+        out = ops.paged_decode_attention_window(q, k_pool, v_pool, tables,
+                                                lens, k_scale, v_scale)
+        return self._proj_out(out, b, w)
+
 
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, *, device, dtype, generator):
@@ -377,6 +428,23 @@ class GPTBlock(nn.Module):
         """Single-token block step over one paged layer (written in
         place)."""
         x = x + self.attn.forward_decode_paged(self.ln_1(x), k_pool, v_pool,
+                                               tables, lengths, k_scale,
+                                               v_scale)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_verify(self, x, k_layer, v_layer, lengths, k_scale=None,
+                       v_scale=None):
+        """W-token window block step over one cache layer (written in
+        place)."""
+        x = x + self.attn.forward_verify(self.ln_1(x), k_layer, v_layer,
+                                         lengths, k_scale, v_scale)
+        return x + self.mlp(self.ln_2(x))
+
+    def forward_verify_paged(self, x, k_pool, v_pool, tables, lengths,
+                             k_scale=None, v_scale=None):
+        """W-token window block step over one paged layer (written in
+        place)."""
+        x = x + self.attn.forward_verify_paged(self.ln_1(x), k_pool, v_pool,
                                                tables, lengths, k_scale,
                                                v_scale)
         return x + self.mlp(self.ln_2(x))
@@ -486,6 +554,50 @@ class GPTModel(nn.Module):
             cache.lengths + active.to(torch.int32), max=cache.capacity))
         return self.ln_f(x)
 
+    def _window_positions(self, tokens, lengths):
+        """Embeddings of ``tokens [B, W]`` at positions ``lengths[b] + i``
+        (clamped at ``max_seq_len - 1``)."""
+        w = tokens.shape[1]
+        pos = torch.clamp(lengths[:, None].long()
+                          + torch.arange(w, device=tokens.device)[None, :],
+                          max=self.cfg.max_seq_len - 1)
+        return self._embed(tokens, pos)
+
+    def _forward_window(self, tokens, cache: StaticKVCache, lengths):
+        x = self._window_positions(tokens, lengths)
+        for i, blk in enumerate(self.blocks):
+            x = blk.forward_verify(x, cache.k[i], cache.v[i], lengths,
+                                   *self._layer_scales(cache, i))
+        return self.ln_f(x)
+
+    @torch.no_grad()
+    def forward_verify(self, tokens, cache: StaticKVCache):
+        """W-token window step for every slot (the spec-decode verify and
+        draft catch-up): ``tokens [B, W]`` are W consecutive new tokens
+        per slot from ``cache.lengths[b]`` on; their k/v are written and
+        query i attends ``j <= lengths[b] + i``.  Lengths stay UNCHANGED:
+        the caller advances them by what it commits.  Window positions
+        past the committed count hold masked garbage above the length.
+        Returns hidden ``[B, W, hidden]``."""
+        return self._forward_window(tokens, cache, cache.lengths)
+
+    @torch.no_grad()
+    def forward_prefill_chunk(self, tokens, cache: StaticKVCache, lengths,
+                              advance):
+        """Chunked-prefill step for every slot over the dense cache:
+        ``tokens [B, C]`` carry the next prompt tokens of each
+        still-prefilling slot, written and attended as in
+        ``forward_verify`` from the scheduler's host ``lengths [B]``
+        int32 (not ``cache.lengths``, which a retired slot may leave
+        stale); then ``cache.lengths = min(lengths + advance, capacity)``
+        with ``advance [B]`` int32 (0 for slots outside the chunk).  Rows
+        past a slot's advance write masked garbage above its new length.
+        Returns hidden ``[B, C, hidden]``."""
+        h = self._forward_window(tokens, cache, lengths)
+        cache.lengths.copy_(torch.clamp(lengths + advance.to(torch.int32),
+                                        max=cache.capacity))
+        return h
+
     # ---- serving path: paged KV cache ---------------------------------
     @torch.no_grad()
     def forward_prefill_paged(self, input_ids, cache, table_row,
@@ -546,6 +658,27 @@ class GPTModel(nn.Module):
                                          lengths,
                                          *self._layer_scales(cache, i))
         return self.ln_f(x)
+
+    @torch.no_grad()
+    def forward_verify_paged(self, tokens, cache, tables, lengths):
+        """Paged twin of ``forward_verify``: ``tokens [B, W]`` written
+        through the block tables from the host ``lengths [B]`` int32
+        (EXCLUDING the window, not advanced here).  Returns hidden
+        ``[B, W, hidden]``."""
+        x = self._window_positions(tokens, lengths)
+        for i, blk in enumerate(self.blocks):
+            x = blk.forward_verify_paged(x, cache.k[i], cache.v[i], tables,
+                                         lengths,
+                                         *self._layer_scales(cache, i))
+        return self.ln_f(x)
+
+    def forward_prefill_chunk_paged(self, tokens, cache, tables, lengths,
+                                    advance):
+        """Paged chunked-prefill step: the paged window step itself; the
+        scheduler advances its host lengths (``advance`` is not read).
+        Rows outside a slot's extent write into the null block."""
+        del advance
+        return self.forward_verify_paged(tokens, cache, tables, lengths)
 
 
 class GPTForCausalLM(nn.Module):
@@ -630,6 +763,47 @@ class GPTForCausalLM(nn.Module):
         cache)``."""
         h = self.gpt.forward_decode_paged(tokens, cache, tables, lengths)
         return self._head_logits(h)[:, 0], cache
+
+    @torch.no_grad()
+    def verify_step(self, tokens, cache: StaticKVCache):
+        """W-token window step for all slots (spec-decode verify, draft
+        catch-up); returns ``(logits [B, W, V], cache)``: logits[:, i] is
+        the next-token distribution after tokens[:, :i + 1].  Lengths are
+        not advanced."""
+        return self._head_logits(self.gpt.forward_verify(tokens, cache)), \
+            cache
+
+    @torch.no_grad()
+    def verify_step_paged(self, tokens, cache, tables, lengths):
+        """Paged W-token window step for all slots; returns ``(logits
+        [B, W, V], cache)``."""
+        h = self.gpt.forward_verify_paged(tokens, cache, tables, lengths)
+        return self._head_logits(h), cache
+
+    def _chunk_last_logits(self, h, advance):
+        """Logits ``[B, V]`` of each slot's last real chunk token (window
+        row ``advance[b] - 1``, row 0 for slots outside the chunk, whose
+        logits the scheduler ignores): one head product per tick."""
+        idx = torch.clamp(advance.long() - 1, 0, h.shape[1] - 1)
+        last = h[torch.arange(h.shape[0], device=h.device), idx]
+        return self._head_logits(last)
+
+    @torch.no_grad()
+    def prefill_chunk(self, tokens, cache: StaticKVCache, lengths, advance):
+        """Chunked-prefill step for all slots (dense cache); returns
+        ``(logits [B, V], cache)``: the logits after each slot's last
+        real chunk token, the first token's distribution for slots whose
+        prompt this chunk completes."""
+        h = self.gpt.forward_prefill_chunk(tokens, cache, lengths, advance)
+        return self._chunk_last_logits(h, advance), cache
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, tokens, cache, tables, lengths, advance):
+        """Paged chunked-prefill step for all slots; returns ``(logits
+        [B, V], cache)``."""
+        h = self.gpt.forward_prefill_chunk_paged(tokens, cache, tables,
+                                                 lengths, advance)
+        return self._chunk_last_logits(h, advance), cache
 
     def generate(self, input_ids, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None, temperature: float = 0.0,

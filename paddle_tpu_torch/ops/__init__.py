@@ -4,18 +4,29 @@ fused cross-entropy (plain products, no kernel of its own) and the KV
 quantization helpers."""
 from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_Q,
                                PAGED_DECODE_ATTENTION,
-                               PAGED_DECODE_ATTENTION_Q, decode_attention,
-                               paged_decode_attention)
+                               PAGED_DECODE_ATTENTION_Q,
+                               PAGED_WINDOW_ATTENTION,
+                               PAGED_WINDOW_ATTENTION_Q, WINDOW_ATTENTION,
+                               WINDOW_ATTENTION_Q, chunk_prefill_attention,
+                               decode_attention, decode_attention_window,
+                               paged_chunk_prefill_attention,
+                               paged_decode_attention,
+                               paged_decode_attention_window)
 from .flash_attention import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
                               flash_attention, flash_attention_fwd)
 from .fused_cross_entropy import fused_linear_cross_entropy, pick_vocab_block
 from .quantized_matmul import dequantize_kv, quantize_kv
 
-__all__ = ["decode_attention", "paged_decode_attention", "flash_attention",
+__all__ = ["decode_attention", "paged_decode_attention",
+           "decode_attention_window", "paged_decode_attention_window",
+           "chunk_prefill_attention", "paged_chunk_prefill_attention",
+           "flash_attention",
            "flash_attention_fwd", "fused_linear_cross_entropy",
            "pick_vocab_block", "quantize_kv", "dequantize_kv",
            "DECODE_ATTENTION", "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
-           "PAGED_DECODE_ATTENTION_Q", "FLASH_FWD", "FLASH_BWD_DQ",
+           "PAGED_DECODE_ATTENTION_Q", "WINDOW_ATTENTION",
+           "WINDOW_ATTENTION_Q", "PAGED_WINDOW_ATTENTION",
+           "PAGED_WINDOW_ATTENTION_Q", "FLASH_FWD", "FLASH_BWD_DQ",
            "FLASH_BWD_DKV", "KERNELS"]
 
 # every kernel of the package by source file, for builds and launch counts
@@ -24,4 +35,8 @@ KERNELS = {"flash_fwd.cu": FLASH_FWD, "flash_bwd_dq.cu": FLASH_BWD_DQ,
            "decode_attention.cu": DECODE_ATTENTION,
            "decode_attention_q.cu": DECODE_ATTENTION_Q,
            "paged_decode_attention.cu": PAGED_DECODE_ATTENTION,
-           "paged_decode_attention_q.cu": PAGED_DECODE_ATTENTION_Q}
+           "paged_decode_attention_q.cu": PAGED_DECODE_ATTENTION_Q,
+           "window_attention.cu": WINDOW_ATTENTION,
+           "window_attention_q.cu": WINDOW_ATTENTION_Q,
+           "paged_window_attention.cu": PAGED_WINDOW_ATTENTION,
+           "paged_window_attention_q.cu": PAGED_WINDOW_ATTENTION_Q}

@@ -1,7 +1,9 @@
-"""Single-token decode attention over a dense or a paged KV cache, full
-precision or int8: hand-written Hopper kernels + plain versions.
+"""Decode attention over a dense or a paged KV cache, full precision or
+int8, for one new token per slot or a window of W: hand-written Hopper
+kernels + plain versions.
 
-Counterpart of the decode paths of ``paddle_tpu/ops/decode_attention.py``.
+Counterpart of ``paddle_tpu/ops/decode_attention.py`` (single-token and
+window paths).
 Layout contract is the JAX package's: q ``[B, H, D]`` (the new token's
 query per slot), caches that already hold the new token's k/v, lengths
 ``[B]`` int32 counting the valid positions per slot including the new
@@ -23,6 +25,19 @@ Dispatch: a CPU tensor goes to the plain version (``_decode_plain``,
 call raises.  The kernels take bf16/fp16 q, D in {64, 128}, bs a
 multiple of 16, contiguous 16-byte-aligned tensors and int32 lengths and
 tables, and read only the positions below ``lengths[b]``.
+
+Window variants (the spec-decode verify and chunked prefill):
+``decode_attention_window`` and ``paged_decode_attention_window`` take q
+``[B, W, H, D]``, W consecutive new tokens per slot whose k/v the cache
+already holds at ``lengths[b] .. lengths[b] + W - 1``, with ``lengths``
+counting the tokens cached BEFORE the window; query i attends
+``j <= lengths[b] + i`` (clamped to the capacity).  ``W = 1`` is
+``decode_attention`` with ``lengths + 1``.  Plain versions
+``_window_plain`` and ``_paged_window_plain``; kernels
+``window_attention.cu``, ``window_attention_q.cu``,
+``paged_window_attention.cu`` and ``paged_window_attention_q.cu``.
+``chunk_prefill_attention`` and ``paged_chunk_prefill_attention`` name
+the same functions for the chunked-prefill path.
 """
 from __future__ import annotations
 
@@ -33,9 +48,13 @@ import torch
 
 from . import _build
 
-__all__ = ["decode_attention", "paged_decode_attention", "DECODE_ATTENTION",
-           "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
-           "PAGED_DECODE_ATTENTION_Q"]
+__all__ = ["decode_attention", "paged_decode_attention",
+           "decode_attention_window", "paged_decode_attention_window",
+           "chunk_prefill_attention", "paged_chunk_prefill_attention",
+           "DECODE_ATTENTION", "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
+           "PAGED_DECODE_ATTENTION_Q", "WINDOW_ATTENTION",
+           "WINDOW_ATTENTION_Q", "PAGED_WINDOW_ATTENTION",
+           "PAGED_WINDOW_ATTENTION_Q"]
 
 _NEG = -1e30
 
@@ -50,6 +69,16 @@ PAGED_DECODE_ATTENTION = _build.CudaKernel(
 PAGED_DECODE_ATTENTION_Q = _build.CudaKernel(
     "paged_decode_attention_q.cu", "paged_decode_attention_q",
     [_P] * 8 + [_I] * 7 + [_P])
+WINDOW_ATTENTION = _build.CudaKernel(
+    "window_attention.cu", "window_attention", [_P] * 5 + [_I] * 7 + [_P])
+WINDOW_ATTENTION_Q = _build.CudaKernel(
+    "window_attention_q.cu", "window_attention_q", [_P] * 7 + [_I] * 7 + [_P])
+PAGED_WINDOW_ATTENTION = _build.CudaKernel(
+    "paged_window_attention.cu", "paged_window_attention",
+    [_P] * 6 + [_I] * 8 + [_P])
+PAGED_WINDOW_ATTENTION_Q = _build.CudaKernel(
+    "paged_window_attention_q.cu", "paged_window_attention_q",
+    [_P] * 8 + [_I] * 8 + [_P])
 
 
 def _dequant_cache(cache, scale, dtype):
@@ -103,11 +132,12 @@ def _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale=None,
 def _check_cuda(name, q, k, v, lengths, k_scale, v_scale, scale_shape,
                 tables=None):
     """Raise on anything the kernel does not take: q bf16/fp16 ``[B, H,
-    D]`` with D in {64, 128}; k/v of one shape with ``H % Hkv == 0``, in
-    q's dtype (int8 with scales of ``scale_shape`` f32); int32 lengths
-    ``[B]`` (and tables ``[B, MB]``); every tensor on q's device,
-    contiguous, 16-byte aligned."""
-    b, h, d = q.shape
+    D]`` (``[B, W, H, D]`` for the window kernels) with D in {64, 128};
+    k/v of one shape with ``H % Hkv == 0``, in q's dtype (int8 with
+    scales of ``scale_shape`` f32); int32 lengths ``[B]`` (and tables
+    ``[B, MB]``); every tensor on q's device, contiguous, 16-byte
+    aligned."""
+    b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
     hkv = k.shape[-2]
     if v.shape != k.shape or k.shape[-1] != d or hkv == 0 or h % hkv:
         raise ValueError(f"{name}: k/v must have one shape [..., Hkv, D] "
@@ -225,3 +255,132 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, k_scale=None,
         return _paged_plain(q, k_pool, v_pool, tables, lengths, k_scale,
                             v_scale)
     return _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale)
+
+
+# ---- window variants: W new tokens per slot ------------------------------
+
+def _window_plain(q, k_cache, v_cache, lengths, k_scale=None,
+                  v_scale=None) -> torch.Tensor:
+    """Reference math in f32, mirroring the JAX ``_window_composite``:
+    int8 caches are dequantized to q's dtype first, then query i of slot
+    b takes a softmax over positions ``j < lengths[b] + i + 1``."""
+    if k_scale is not None:
+        k_cache = _dequant_cache(k_cache, k_scale, q.dtype)
+        v_cache = _dequant_cache(v_cache, v_scale, q.dtype)
+    b, w, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    qg = q.float().reshape(b, w, hkv, g, d)
+    scores = torch.einsum("bwkgd,bskd->bkwgs", qg,
+                          k_cache.float()) / math.sqrt(d)
+    limit = (lengths.to(torch.int64)[:, None]
+             + torch.arange(w, device=q.device)[None, :] + 1)      # [b, w]
+    valid = (torch.arange(s, device=q.device)[None, None, :]
+             < limit[:, :, None])[:, None, :, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, _NEG))
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), torch.zeros_like(scores))
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkwgs,bskd->bwkgd", p / l, v_cache.float())
+    return out.reshape(b, w, h, d).to(q.dtype)
+
+
+def _paged_window_plain(q, k_pool, v_pool, tables, lengths, k_scale=None,
+                        v_scale=None) -> torch.Tensor:
+    """The JAX ``_paged_window_composite``: gather each slot's blocks
+    dense, then the dense window plain version."""
+    b, mb = tables.shape
+    bs, hkv, d = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    idx = tables.long()
+    kg = k_pool[idx].reshape(b, mb * bs, hkv, d)
+    vg = v_pool[idx].reshape(b, mb * bs, hkv, d)
+    ksg = vsg = None
+    if k_scale is not None:
+        ksg = k_scale[idx].reshape(b, mb * bs, hkv)
+        vsg = v_scale[idx].reshape(b, mb * bs, hkv)
+    return _window_plain(q, kg, vg, lengths, ksg, vsg)
+
+
+def _window_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
+    if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape[0] != q.shape[0]:
+        raise ValueError(f"decode_attention_window: q must be [B, W, H, D] "
+                         f"and caches [B, S, Hkv, D], got {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}")
+    b, w, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    _check_cuda("decode_attention_window", q, k_cache, v_cache, lengths,
+                k_scale, v_scale, (b, s, hkv))
+    o = torch.empty_like(q)
+    dims = (b, w, s, h, hkv, d, _build.DTYPE_CODES[q.dtype],
+            _build.stream_ptr(q))
+    if k_scale is None:
+        WINDOW_ATTENTION(_build.ptr(q), _build.ptr(k_cache),
+                         _build.ptr(v_cache), _build.ptr(lengths),
+                         _build.ptr(o), *dims)
+    else:
+        WINDOW_ATTENTION_Q(_build.ptr(q), _build.ptr(k_cache),
+                           _build.ptr(v_cache), _build.ptr(k_scale),
+                           _build.ptr(v_scale), _build.ptr(lengths),
+                           _build.ptr(o), *dims)
+    return o
+
+
+def _paged_window_cuda(q, k_pool, v_pool, tables, lengths, k_scale,
+                       v_scale):
+    if q.dim() != 4 or k_pool.dim() != 4:
+        raise ValueError(f"paged_decode_attention_window: q must be "
+                         f"[B, W, H, D] and pools [NB, bs, Hkv, D], got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}")
+    b, w, h, d = q.shape
+    nb, bs, hkv = k_pool.shape[0], k_pool.shape[1], k_pool.shape[2]
+    _check_cuda("paged_decode_attention_window", q, k_pool, v_pool, lengths,
+                k_scale, v_scale, (nb, bs, hkv), tables)
+    if bs % 16:
+        raise ValueError(f"paged_decode_attention_window kernel needs a "
+                         f"block size that is a multiple of 16, got {bs}")
+    o = torch.empty_like(q)
+    dims = (b, w, tables.shape[1], bs, h, hkv, d,
+            _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    if k_scale is None:
+        PAGED_WINDOW_ATTENTION(_build.ptr(q), _build.ptr(k_pool),
+                               _build.ptr(v_pool), _build.ptr(tables),
+                               _build.ptr(lengths), _build.ptr(o), *dims)
+    else:
+        PAGED_WINDOW_ATTENTION_Q(_build.ptr(q), _build.ptr(k_pool),
+                                 _build.ptr(v_pool), _build.ptr(k_scale),
+                                 _build.ptr(v_scale), _build.ptr(tables),
+                                 _build.ptr(lengths), _build.ptr(o), *dims)
+    return o
+
+
+def decode_attention_window(q, k_cache, v_cache, lengths, k_scale=None,
+                            v_scale=None) -> torch.Tensor:
+    """Attention of W new tokens per slot over a dense cache: q ``[B, W,
+    H, D]``, caches ``[B, S, Hkv, D]`` that already hold the window's
+    k/v at ``lengths[b] + i``, lengths ``[B]`` int32 EXCLUDING the
+    window; query i attends ``j <= lengths[b] + i``.  int8 caches with
+    ``k_scale``/``v_scale`` ``[B, S, Hkv]``.  Returns ``[B, W, H, D]``.
+    CPU tensors run the plain version; CUDA tensors run the kernel or
+    raise."""
+    if _device_of("decode_attention_window", q) == "cpu":
+        return _window_plain(q, k_cache, v_cache, lengths, k_scale, v_scale)
+    return _window_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale)
+
+
+def paged_decode_attention_window(q, k_pool, v_pool, tables, lengths,
+                                  k_scale=None, v_scale=None) -> torch.Tensor:
+    """The window attention over block pools read through ``tables``
+    (int8 with ``[NB, bs, Hkv]`` scale pools); lengths EXCLUDING the
+    window.  Returns ``[B, W, H, D]``.  CPU tensors run the plain
+    version; CUDA tensors run the kernel or raise."""
+    if _device_of("paged_decode_attention_window", q) == "cpu":
+        return _paged_window_plain(q, k_pool, v_pool, tables, lengths,
+                                   k_scale, v_scale)
+    return _paged_window_cuda(q, k_pool, v_pool, tables, lengths, k_scale,
+                              v_scale)
+
+
+# chunked prefill is the window attention with W = the chunk (the JAX
+# package's aliases)
+chunk_prefill_attention = decode_attention_window
+paged_chunk_prefill_attention = paged_decode_attention_window

@@ -14,7 +14,10 @@ version runs in f32 on the same inputs, so each row's error is about
 2^-8 of its largest element: 1e-2 x max|ref row|.  lse: 1e-3 x
 max(1, |ref lse|) per row.  The int8 decode kernels (dense and paged)
 are held to the same 1e-2: they dequantize code x scale in f32, and so
-does the plain version fed the same codes and an f32 q.
+does the plain version fed the same codes and an f32 q.  The window
+kernels (1e-2 as well) dequantize int8 codes to bf16 before their
+products, as the TPU kernel does; their plain version runs in f32 over
+the same bf16 values.
 """
 import importlib
 
@@ -25,6 +28,7 @@ pytestmark = pytest.mark.cuda
 
 fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
 
 
 @pytest.fixture
@@ -249,3 +253,145 @@ def test_cuda_flash_attention_is_differentiable(gen):
     for t, r in zip((q, k, v), ref):
         assert t.grad is not None and t.grad.dtype == torch.bfloat16
         _close(t.grad, r, tol=2e-2, floor=1e-3)
+
+
+def _window_case(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048):
+    """q [B, W, H, D] over a dense cache [B, cap, Hkv, D], or (``bs``) a
+    shuffled pool whose tables cover min(len + W, cap) positions per slot
+    and end in null-block tails."""
+    b = len(lengths)
+    q = _rand((b, w, h, d), gen)
+    tables = None
+    if bs is None:
+        k = _rand((b, cap, hkv, d), gen)
+        v = _rand((b, cap, hkv, d), gen)
+    else:
+        need = [-(-min(n + w, cap) // bs) for n in lengths]
+        nb = 1 + sum(need)
+        k = _rand((nb, bs, hkv, d), gen)
+        v = _rand((nb, bs, hkv, d), gen)
+        perm = 1 + torch.randperm(nb - 1,
+                                  generator=torch.Generator().manual_seed(b))
+        tables = torch.zeros((b, cap // bs), dtype=torch.int32)
+        used = 0
+        for i, n in enumerate(need):
+            tables[i, :n] = perm[used:used + n]
+            used += n
+        tables = tables.cuda()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    ks = vs = None
+    if quantized:
+        (k, ks), (v, vs) = _int8(k), _int8(v)
+    return q, k, v, tables, lens, ks, vs
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs", [None, 128, 16], ids=["dense", "bs128",
+                                                     "bs16"])
+@pytest.mark.parametrize("lengths,w,h,hkv,d", [
+    ([0, 1, 700, 2043], 5, 16, 16, 128),           # the verify window
+    ([0, 64, 1000, 1536], 512, 16, 16, 128),       # a prefill chunk
+    ([0, 300, 2043], 5, 16, 1, 128),               # G = 16
+    ([2, 1200], 1, 16, 1, 128),
+    ([0, 700, 2043], 5, 12, 12, 64)])              # the draft's heads
+def test_window_kernels_match_plain(gen, lengths, w, h, hkv, d, bs,
+                                    quantized):
+    """Rows 8a, 8b, 9a, 9b: every output row within 1e-2 of its own
+    scale; one launch per call."""
+    q, k, v, tables, lens, ks, vs = _window_case(gen, lengths, w, h, hkv, d,
+                                                 quantized, bs)
+    # the plain version in f32 over the values the kernels attend: int8
+    # codes dequantized to bf16 first, as the kernels and the JAX
+    # composite dequantize them to q's dtype
+    kp, vp = (k, v) if not quantized else (
+        qm.dequantize_kv(k, ks, torch.bfloat16),
+        qm.dequantize_kv(v, vs, torch.bfloat16))
+    kp, vp = kp.float(), vp.float()
+    if bs is None:
+        kern = da.WINDOW_ATTENTION_Q if quantized else da.WINDOW_ATTENTION
+        n = kern.launches
+        o = da.decode_attention_window(q, k, v, lens, ks, vs)
+        ref = da._window_plain(q.float(), kp, vp, lens)
+    else:
+        kern = da.PAGED_WINDOW_ATTENTION_Q if quantized else \
+            da.PAGED_WINDOW_ATTENTION
+        n = kern.launches
+        o = da.paged_decode_attention_window(q, k, v, tables, lens, ks, vs)
+        ref = da._paged_window_plain(q.float(), kp, vp, tables, lens)
+    assert kern.launches == n + 1
+    _close(o, ref)
+
+
+@pytest.mark.parametrize("case", ["d96", "group", "bs8", "tables64"])
+def test_window_paths_raise_instead_of_falling_back(gen, case):
+    """D=96, H % Hkv != 0, a block size of 8 and int64 tables raise on
+    the card before any launch."""
+    d = 96 if case == "d96" else 64
+    q = _rand((2, 3, 8, d), gen)
+    cache = _rand((2, 64, 3 if case == "group" else 4, d), gen)
+    pool = _rand((5, 8 if case == "bs8" else 16, 4, d), gen)
+    tables = torch.ones((2, 4), dtype=torch.int64 if case == "tables64"
+                        else torch.int32, device="cuda")
+    lens = torch.full((2,), 5, dtype=torch.int32, device="cuda")
+    kernels = (da.WINDOW_ATTENTION, da.PAGED_WINDOW_ATTENTION)
+    counts = [kern.launches for kern in kernels]
+    with pytest.raises((ValueError, TypeError)):
+        if case in ("bs8", "tables64"):
+            da.paged_decode_attention_window(q, pool, pool, tables, lens)
+        else:
+            da.decode_attention_window(q, cache, cache, lens)
+    assert counts == [kern.launches for kern in kernels]
+
+
+def _tiny_engine(**kw):
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16)
+    if kw.pop("self_draft", False):
+        kw["draft_model"] = model
+    return InferenceEngine(model, batch_slots=4, device="cuda", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefill_chunk=32), dict(prefill_chunk=32, kv_layout="paged",
+                                 kv_block_size=16, kv_dtype="int8"),
+    dict(spec_k=3, self_draft=True), dict(spec_k=2, self_draft=True,
+                                          kv_layout="paged",
+                                          kv_block_size=16)],
+    ids=["chunked", "chunked-paged-int8", "spec", "spec-paged"])
+def test_engines_sync_once_per_tick_on_the_card(gen, kw, monkeypatch):
+    """Chunked and speculative engines on the card: every device-to-host
+    read is a decode step's or spec tick's, or a graduating chunk
+    tick's, and the window kernels ran."""
+    eng = _tiny_engine(**kw)
+    rng = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, 512, (n,), generator=rng).numpy()
+               for n in (20, 100, 70, 5, 150)]
+    reads = {"n": 0}
+    for name in ("cpu", "item", "tolist", "numpy"):
+        orig = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _orig=orig, **k):
+            reads["n"] += 1
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    launches = sum(kern.launches for kern in (
+        da.WINDOW_ATTENTION, da.WINDOW_ATTENTION_Q,
+        da.PAGED_WINDOW_ATTENTION, da.PAGED_WINDOW_ATTENTION_Q))
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=12)
+    out = eng.run()
+    monkeypatch.undo()
+    st = eng.stats()
+    assert all(len(t) == 12 for t in out.values())
+    assert reads["n"] == st["host_syncs"] == \
+        st["decode_steps"] + st["prefill_host_syncs"]
+    if "prefill_chunk" in kw:
+        assert st["prefill_host_syncs"] == st["chunk_graduation_ticks"]
+    else:
+        assert st["spec_ticks"] == st["decode_steps"]
+    assert sum(kern.launches for kern in (
+        da.WINDOW_ATTENTION, da.WINDOW_ATTENTION_Q,
+        da.PAGED_WINDOW_ATTENTION, da.PAGED_WINDOW_ATTENTION_Q)) > launches
