@@ -20,7 +20,15 @@ before the result lines:
    shuffled blocks and an inactive slot.  The four window kernels
    (dense and paged, bf16 and int8) at the verify window (W=5), a
    512-token chunk, G = 16, D=64 and blocks of 16 and 128, timed at the
-   verify and the chunk shape;
+   verify and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
+   over gpt3-1.3b's four projections (its output must EQUAL the plain
+   version's: exact int32 sums, the same f32 rescale), timed beside
+   ``torch._int_mm`` + rescale; the decode megakernel in its four
+   instantiations (dense and paged, bf16 and int8 caches) at gpt3-1.3b
+   widths, B=8, with edge lengths, G = 16, D=64 and blocks of 16, timed
+   at 8 x 2048 beside the port's composed layer step.  These two rows are
+   timed on the device clock (torch.profiler), the host's launch gaps
+   outlasting their kernels;
 4. train-kernels: the flash backward kernels (dq, dk/dv) the same way at
    the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA,
    D=64 and a key mask with a fully masked row, each run twice (results
@@ -61,15 +69,25 @@ before the result lines:
    int8 dense and paged caches; chunked prefill (dense and paged) and a
    K+1 verify window (against the forward and 5 decode steps) the same
    way; the hit prefill timed against the cold one;
-12. profile: device time against wall time of steady decode steps
+12. serve-mega: ``enable_decode_megakernel()`` on the dense and paged,
+   bf16 and int8 engines, each beside its composed engine: one
+   megakernel launch per layer per decode step and no decode attention
+   launch, one host sync per decode step, leak-free pools, greedy streams
+   against the composed engine's; serve-quant: ``enable_quantize('int8')``
+   beside the bf16 engine: four int8 matmul launches per layer per
+   prefill and decode step, tokens/s and greedy agreement with bf16;
+   teacher-forced megakernel steps (dense, paged, bf16, int8) and the
+   int8-compute model against its own forward;
+13. profile: device time against wall time of steady decode steps
    (torch.profiler), the top kernels by device time, for the dense, the
-   paged, and the int8 dense and paged engines, a chunked step and a
-   spec tick;
-13. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
+   paged, and the int8 dense and paged engines, a chunked step, a spec
+   tick and two megakernel decode steps (dense bf16, paged int8);
+14. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
    one 2 x 512 batch through ``SpmdTrainer``: every parameter gradient
    of the kernel path against the same step with the plain attention
-   swapped in by this script;
-14. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
+   swapped in by this script; train-qat: one such step with
+   ``strategy.qat`` (the int8 matmul under autograd, finite gradients);
+15. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
    fused cross-entropy, Adam, batch 4 x 2048, fed by
    ``DevicePrefetcher``: 2 warm-up and 6 measured steps on one repeated
    batch (finite and falling loss, no host sync, 24 launches of each
@@ -97,6 +115,7 @@ import torch
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor-core rate and
 # HBM3 bandwidth, the denominators of bound_ms
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 # tolerances, stated before measuring, held per output row (one query
@@ -166,10 +185,30 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of operations over the bf16 peak
-    and bytes over the memory rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+def device_ms(fn, iters=20, warmup=3):
+    """Device time per call of ``fn``: the summed time of the kernels it
+    launched (torch.profiler), without the host's launch gaps, which
+    outlast kernels of a few tens of microseconds.  None when the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3 if us > 0 else None
+
+
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(bound_ms, bound_by): the larger of operations over their type's
+    peak (bf16 unless given) and bytes over the memory rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -862,6 +901,275 @@ def phase_fused_ce(gen):
         raise SystemExit("fused cross-entropy disagrees with full logits")
 
 
+# ---- int8 matmul (row 10) and decode megakernel (row 11) ------------------
+
+# the four block projections of gpt3-1.3b as (K, N): qkv, out, up, down
+QMM_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048)]
+
+
+def qmm_operands(gen, m, k, n):
+    """int8 operands as ``quantized_matmul`` makes them on the card from
+    bf16 x ``[M, K]`` and w ``[K, N]``: row-scaled codes of x, the weight
+    codes transposed ``[N, K]`` with one scale per column."""
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    x = _rand((m, k), gen)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
+    qx, sx = qm.quantize_channel(x, axis=1)
+    qw_t, sw_t = qm.quantize_channel(w.t(), axis=1)
+    return qx.contiguous(), qw_t.contiguous(), sx, sw_t.reshape(1, n)
+
+
+def phase_qmm_kernels(records):
+    """Row 10 at M in {8, 512, 4096} (decode, a prefill bucket, a chunk
+    tick's 8 x 512 rows) over the four projections: the kernel's f32 and
+    bf16 outputs must EQUAL the plain version's (exact int32 sums, the
+    same f32 rescale order), then each shape timed beside the plain
+    version, ``torch._int_mm`` + the same rescale (a yardstick the port
+    never calls; cuBLASLt takes M > 16 only) and the bound: the larger of
+    2 M N K over the int8 peak and M K + K N + 4 (M + N) + 2 M N bytes over
+    the memory rate."""
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    shapes = []
+    for m in (8, 512, 4096):
+        for k, n in QMM_SHAPES:
+            qx, qw_t, sx, sw = qmm_operands(gen, m, k, n)
+            got32 = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+            got16 = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+            ref32 = qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.float32)
+            torch.cuda.synchronize()
+            exact = (torch.equal(got32, ref32)
+                     and torch.equal(got16, ref32.to(torch.bfloat16)))
+            err = (got32 - ref32).abs().max().item()
+            if not exact:
+                raise SystemExit(f"quantized_matmul kernel differs from the "
+                                 f"plain version at M={m} K={k} N={n}: "
+                                 f"max|diff| {err:.3e}")
+            t_kernel = device_ms(lambda: qm._qmm_cuda(
+                qx, qw_t, sx, sw, torch.bfloat16), iters=50)
+            t_call = min(cuda_ms(lambda: qm._qmm_cuda(
+                qx, qw_t, sx, sw, torch.bfloat16), iters=100, warmup=5)
+                for _ in range(3))
+            t_plain = device_ms(lambda: qm._qmm_plain(
+                qx, qw_t.t(), sx, sw, torch.bfloat16), iters=3, warmup=1)
+            t_lib = None
+            if m > 16:
+                def lib():
+                    return (torch._int_mm(qx, qw_t.t()).float() * sx
+                            * sw).to(torch.bfloat16)
+                lib_exact = torch.equal(lib(), got16)
+                t_lib = device_ms(lib, iters=50)
+            ops = 2 * m * n * k
+            nbytes = m * k + k * n + 4 * (m + n) + 2 * m * n
+            b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+            log(f"[kernels] quantized_matmul M={m} K={k} N={n}: kernel == "
+                f"plain exactly (f32 and bf16 out); device ms: kernel_ms="
+                f"{t_kernel:.4f} plain_ms={t_plain:.4f} library_ms="
+                + (f"{t_lib:.4f} (torch._int_mm + rescale, equal: {lib_exact})"
+                   if t_lib is not None else "null (torch._int_mm needs "
+                   "M > 16)")
+                + f" bound_ms={b_ms:.4f} ({b_by}, {ops / 1e9:.2f} GOP, "
+                f"{nbytes / 1e6:.2f} MB); a call back to back with its host "
+                f"wrapper {t_call:.4f} ms (CUDA events)")
+            shapes.append(dict(m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
+                               library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                               call_ms=t_call))
+            del qx, qw_t, sx, sw, got32, got16, ref32
+    head = shapes[0]                     # decode's qkv product, M=8
+    records["quantized_matmul"] = dict(
+        name="quantized_matmul", route="cuda",
+        source="paddle_tpu_torch/csrc/quantized_matmul.cu",
+        replaces="paddle_tpu/ops/quantized_matmul.py:181", max_abs_err=0.0,
+        max_row_rel_err=0.0, row_tol=0.0,
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        shapes=shapes,
+        note="device time per call (torch.profiler: the calls' kernels, "
+             "without the host's launch gaps; call_ms: CUDA events around "
+             "back-to-back calls, host wrapper included); ms, plain_ms, "
+             "bound_ms, library_ms at the decode qkv product (M=8, K=2048, "
+             "N=6144), where torch._int_mm takes no M <= 16: library_ms "
+             "null; shapes holds all twelve; the kernel must equal the "
+             "plain version exactly (max_abs_err 0)")
+
+
+def mega_block(gen, heads, hkv, d=None, h=2048, f=8192):
+    """One GPTBlock at gpt3-1.3b widths (or the given heads, kv heads)
+    with random weights (normal 0.02) and random biases and LayerNorm
+    parameters, so that every term of the layer step is exercised."""
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.models.gpt import GPTBlock
+    cfg = GPTConfig(hidden_size=h, num_layers=24, num_heads=heads,
+                    num_kv_heads=hkv, ffn_hidden_size=f, max_seq_len=2048)
+    blk = GPTBlock(cfg, device="cuda", dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if p.dim() == 1:
+                base = 1.0 if name.endswith("weight") else 0.0
+                p.copy_(base + 0.05 * torch.randn(p.shape, generator=gen,
+                                                  device="cuda"))
+    return blk.eval()
+
+
+def mega_inputs(gen, blk, lengths, quantized, bs=None, cap=2048,
+                spare=2):
+    """x ``[B, H]`` and the cache of one layer holding ``lengths`` tokens
+    per slot before the new one: dense ``[B, cap, Hkv, D]``, or (``bs``)
+    a shuffled pool read through tables of ``cap / bs`` entries, a slot of
+    length 0 on the null block."""
+    cfg = blk.attn.cfg
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    x = _rand((len(lengths), cfg.hidden_size), gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if bs is None:
+        k = _rand((len(lengths), cap, hkv, d), gen)
+        v = _rand((len(lengths), cap, hkv, d), gen)
+        ks = vs = None
+        if quantized:
+            (k, ks), (v, vs) = _int8(k), _int8(v)
+        return x, k, v, None, lens, ks, vs
+    _, k, v, tables, _, ks, vs = paged_inputs(
+        gen, lengths, bs, cfg.num_heads, hkv, d, quantized, mb=cap // bs,
+        spare=spare)
+    return x, k, v, tables, lens, ks, vs
+
+
+def _mega_call(blk, tensors, plain=False):
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    x, k, v, tables, lens, ks, vs = tensors
+    w = blk._megakernel_weights()
+    if plain:        # f32 in, so the outputs keep f32 (no final rounding)
+        return mk._mega_plain(x.float(), w, k, v, lens, ks, vs, tables,
+                              eps=blk.ln_1.epsilon)
+    if tables is None:
+        return mk.decode_layer_step(x, w, k, v, lens, ks, vs,
+                                    eps=blk.ln_1.epsilon)
+    return mk.decode_layer_step_paged(x, w, k, v, tables, lens, ks, vs,
+                                      eps=blk.ln_1.epsilon)
+
+
+def check_mega(gen, blk, lengths, quantized, bs=None, cap=2048):
+    """The megakernel against ``_mega_plain`` on the same bf16 inputs:
+    each x_out row (one slot) and each new k/v row (one slot, kv head)
+    within TOL_OUT of its own largest |value|."""
+    tensors = mega_inputs(gen, blk, lengths, quantized, bs, cap)
+    got = _mega_call(blk, tensors)
+    ref = _mega_call(blk, tensors, plain=True)
+    torch.cuda.synchronize()
+    res = [row_errors(g, r) for g, r in zip(got, ref)]
+    ok = all(r[2] for r in res) and all(torch.isfinite(g).all().item()
+                                        for g in got)
+    cfg = blk.attn.cfg
+    log(f"[kernels] megakernel {'paged' if bs else 'dense'}"
+        f"{' int8' if quantized else ''} B={len(lengths)} H={cfg.hidden_size}"
+        f" heads={cfg.num_heads} Hkv={cfg.num_kv_heads} D={cfg.head_dim}"
+        f"{f' bs={bs}' if bs else f' cap={cap}'} lengths={lengths}: " +
+        " ".join(f"{n} max|diff|={r[0]:.3e} worst row {r[1]:.3e}"
+                 for n, r in zip(("x_out", "k_new", "v_new"), res)) +
+        f" (tol {TOL_OUT} per row) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"decode megakernel disagrees with its plain "
+                         f"version (paged={bs is not None}, int8={quantized})")
+    return tensors, max(r[0] for r in res), max(r[1] for r in res)
+
+
+def time_mega(key, blk, tensors, errs, worst):
+    """One megakernel at the serving shape (B=8, 8 x 2048 attended
+    positions: 2047 cached + the new one) beside its plain version and the
+    port's composed layer step on the same inputs (``GPTBlock.
+    forward_decode(_paged)``: the cache write, the decode kernel and some
+    forty other launches; no single library call computes the layer), and
+    its bound: the layer's weights and the cached k/v (codes and scales)
+    read once, x, x_out and the new k/v once."""
+    x, k, v, tables, lens, ks, vs = tensors
+    cfg = blk.attn.cfg
+    t_kernel = device_ms(lambda: _mega_call(blk, tensors))
+    t_call = min(cuda_ms(lambda: _mega_call(blk, tensors), iters=20,
+                         warmup=3) for _ in range(3))
+    t_plain = device_ms(lambda: _mega_call(blk, tensors, plain=True),
+                        iters=3, warmup=1)
+
+    def composed():
+        with torch.no_grad():
+            if tables is None:
+                return blk.forward_decode(x[:, None], k, v, lens, ks, vs)
+            return blk.forward_decode_paged(x[:, None], k, v, tables, lens,
+                                            ks, vs)
+    t_comp = device_ms(composed)
+    t_comp_call = cuda_ms(composed, iters=20, warmup=3)
+    b, hkv, d = x.shape[0], cfg.num_kv_heads, cfg.head_dim
+    npos = int((torch.clamp(lens, max=2047) if tables is None
+                else lens).sum().item())
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in blk._megakernel_weights())
+    kv_bytes = 2 * npos * hkv * d * (1 if ks is not None else 2) + \
+        (2 * 4 * npos * hkv if ks is not None else 0)
+    nbytes = (w_bytes + kv_bytes + 2 * 2 * x.numel() + 2 * 2 * b * hkv * d
+              + 4 * b + (4 * tables.numel() if tables is not None else 0))
+    mat = sum(t.numel() for t in blk._megakernel_weights() if t.dim() == 2)
+    flops = 2 * b * mat + 4 * cfg.num_heads * d * (npos + b)
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"[kernels] {key} timing B={b} lengths={b}x{npos // b} H="
+        f"{cfg.hidden_size} D={d}: device ms: kernel_ms={t_kernel:.4f} "
+        f"plain_ms={t_plain:.4f} composed_layer_step_ms={t_comp:.4f} (the "
+        f"port's GPTBlock.forward_decode"
+        f"{'_paged' if tables is not None else ''}) bound_ms={b_ms:.4f} "
+        f"({b_by}, {nbytes / 1e6:.2f} MB: weights {w_bytes / 1e6:.2f}, cache "
+        f"{kv_bytes / 1e6:.2f}); calls back to back with their host code "
+        f"(CUDA events): kernel {t_call:.4f} ms, composed {t_comp_call:.4f} "
+        f"ms")
+    return dict(
+        name=key, route="cuda", source=f"paddle_tpu_torch/csrc/{key}.cu",
+        replaces="paddle_tpu/ops/decode_megakernel.py:197",
+        max_abs_err=max(errs), max_row_rel_err=max(worst), row_tol=TOL_OUT,
+        ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, composed_ms=t_comp, call_ms=t_call,
+        composed_call_ms=t_comp_call,
+        note="one layer's decode step at B=8, 8 x 2048 attended positions; "
+             "device time per call (torch.profiler); no single PyTorch call "
+             "computes it (library_ms null); composed_ms is the port's "
+             "composed layer step on the same inputs; *call_ms: CUDA events "
+             "around back-to-back calls, host code included")
+
+
+def phase_mega_kernels(records):
+    """Row 11 in its four instantiations at gpt3-1.3b widths (B=8): edge
+    lengths (0, 1, a block edge and one past, cap - 1 and cap for the
+    dense cache, a slot of length 0 on the null block of the paged one),
+    blocks of 128 and 16, G = 16 (16 heads over one kv head) and D=64,
+    then each timed at 8 x 2048."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    mha = mega_block(gen, 16, 16)
+    g16 = mega_block(gen, 16, 1)
+    d64 = mega_block(gen, 32, 32)
+    dense_lens = [0, 1, 127, 128, 2047, 2048, 1000, 129]
+    paged_lens = [0, 1, 128, 2047, 256, 1537, 64, 129]
+    for key, paged, quantized in (
+            ("decode_megakernel", False, False),
+            ("decode_megakernel_q", False, True),
+            ("paged_decode_megakernel", True, False),
+            ("paged_decode_megakernel_q", True, True)):
+        errs, worst = [], []
+        cases = [(mha, dense_lens if not paged else paged_lens, 128),
+                 (g16, [5, 300, 2047, 0, 17, 1024, 64, 1], 128),
+                 (d64, [2047, 0, 31, 700, 128, 5, 1999, 16], 128)]
+        if paged:
+            cases.append((mha, [16, 0, 15, 300, 2047, 33, 1, 512], 16))
+        for blk, lengths, bs in cases:
+            _, e, w = check_mega(gen, blk, lengths, quantized,
+                                 bs if paged else None)
+            errs.append(e)
+            worst.append(w)
+        tensors, e, w = check_mega(gen, mha, [2047] * 8, quantized,
+                                   128 if paged else None)
+        records[key] = time_mega(key, mha, tensors, errs + [e], worst + [w])
+        del tensors
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def build_model():
     from paddle_tpu_torch.core import random as prandom
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_configs
@@ -1318,6 +1626,135 @@ def phase_serve_spec(model):
     return out
 
 
+def serve_prompts(vocab):
+    """The serve phase's 16 prompts of 32-1536 tokens."""
+    rng = np.random.RandomState(7)
+    plens = rng.randint(32, 1537, size=16)
+    plens[:4] = [32, 100, 700, 1536]        # at least four buckets
+    return random_prompts(rng, vocab, plens)
+
+
+def int8_prompts(vocab, paged):
+    """serve-int8's 8 prompts (the paged engine's with 4 sharing a
+    512-token prefix)."""
+    rng = np.random.RandomState(29)
+    prompts = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
+    if paged:
+        prefix = rng.randint(0, vocab, size=512)
+        for i in range(0, 8, 2):
+            prompts[i] = np.concatenate([prefix, prompts[i][:300]])
+    return prompts
+
+
+def phase_serve_mega(model):
+    """``enable_decode_megakernel()`` on the dense bf16, dense int8, paged
+    bf16 and paged int8 engines (serve's and serve-int8's prompts, 32 new
+    tokens, greedy), each beside the composed engine of the same cache
+    form: one megakernel launch per layer per decode step and no decode
+    attention launch, one host sync per decode step, a leak-free pool,
+    and greedy streams equal to the composed engine's or diverging only
+    at a near-tie of its logits."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    out = {}
+    for tag, kw in (
+            ("serve-mega-dense", {}),
+            ("serve-mega-dense-int8", dict(kv_dtype="int8")),
+            ("serve-mega-paged", dict(kv_layout="paged", kv_block_size=128)),
+            ("serve-mega-paged-int8", dict(kv_layout="paged",
+                                           kv_block_size=128,
+                                           kv_dtype="int8"))):
+        paged, int8 = "paged" in tag, "int8" in tag
+        prompts = int8_prompts(vocab, paged) if int8 else \
+            serve_prompts(vocab)
+        model.enable_decode_megakernel(False)
+        want, _, st_c, wall_c = run_engine(
+            f"{tag} (composed)", InferenceEngine(model, batch_slots=8,
+                                                 device="cuda", **kw),
+            prompts, 32)
+        model.enable_decode_megakernel(True)
+        eng = InferenceEngine(model, batch_slots=8, device="cuda", **kw)
+        got, launches, st, wall = run_engine(tag, eng, prompts, 32)
+        tokens = sum(len(x) for x in got)
+        log(f"[{tag}] tokens/s {tokens / wall:.1f} against the composed "
+            f"engine's {tokens / wall_c:.1f}; mean decode step "
+            f"{st['decode_ms'] / st['decode_steps']:.3f} ms against "
+            f"{st_c['decode_ms'] / st_c['decode_steps']:.3f} ms; "
+            f"stats decode_megakernel={st['decode_megakernel']}")
+        problems = compare_greedy(tag, model, prompts, got, want,
+                                  TOL_TEACHER_INT8 if int8 else TOL_TEACHER)
+        if [len(x) for x in got] != [32] * len(prompts):
+            problems.append(f"stream lengths {[len(x) for x in got]}")
+        if st["decode_megakernel"] is not True:
+            problems.append("stats do not report the megakernel")
+        if st["decode_host_syncs"] != st["decode_steps"]:
+            problems.append("not one host sync per decode step")
+        key = ("paged_" if paged else "") + "decode_megakernel" + \
+            ("_q" if int8 else "")
+        cold = st["prefills"] - st.get("prefix_hit_queries", 0)
+        want_l = {key: layers * st["decode_steps"], "flash_fwd": layers * cold}
+        for k2, n in launches.items():
+            if n != want_l.get(k2, 0):
+                problems.append(f"{k2} launches {n} != {want_l.get(k2, 0)}")
+        if paged:
+            eng.check_leak_free()
+            log(f"[{tag}] pool leak-free after the prefix flush")
+        finish(tag, problems)
+        out[tag] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    model.enable_decode_megakernel(False)
+    return out
+
+
+def phase_serve_quant(model):
+    """``enable_quantize('int8')`` behind the dense bf16 engine with
+    serve's prompts, 32 new tokens, greedy, beside the bf16 engine: four
+    int8 matmul launches per layer per prefill and per decode step, the
+    decode and flash kernels as usual, one host sync per decode step;
+    tokens/s of both, and the share of greedy tokens equal to the bf16
+    model's (a number, not a check: quantization changes the model)."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    layers = model.cfg.num_layers
+    prompts = serve_prompts(model.cfg.vocab_size)
+    want, _, st_b, wall_b = run_engine(
+        "serve-quant (bf16)", InferenceEngine(model, batch_slots=8,
+                                              device="cuda"), prompts, 32)
+    model.enable_quantize("int8")
+    try:
+        eng = InferenceEngine(model, batch_slots=8, device="cuda")
+        got, launches, st, wall = run_engine("serve-quant", eng, prompts, 32)
+    finally:
+        model.enable_quantize(None)
+    tokens = sum(len(x) for x in got)
+    same = sum(g == w for g, w in zip(got, want))
+    agree = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    first = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
+             for g, w in zip(got, want)]
+    log(f"[serve-quant] int8 compute: tokens/s {tokens / wall:.1f} against "
+        f"bf16 {tokens / wall_b:.1f}; mean decode step "
+        f"{st['decode_ms'] / st['decode_steps']:.3f} ms against "
+        f"{st_b['decode_ms'] / st_b['decode_steps']:.3f} ms; greedy top-1 "
+        f"agreement with the bf16 model {agree}/{tokens} "
+        f"({agree / tokens:.4f}), {same}/{len(want)} streams identical, "
+        f"first divergence per request {first}")
+    problems = []
+    if [len(x) for x in got] != [32] * len(prompts):
+        problems.append(f"stream lengths {[len(x) for x in got]}")
+    if st["decode_host_syncs"] != st["decode_steps"]:
+        problems.append("not one host sync per decode step")
+    want_l = {"quantized_matmul": 4 * layers * (st["prefills"]
+                                                + st["decode_steps"]),
+              "decode_attention": layers * st["decode_steps"],
+              "flash_fwd": layers * st["prefills"]}
+    for key, n in launches.items():
+        if n != want_l.get(key, 0):
+            problems.append(f"{key} launches {n} != {want_l.get(key, 0)}")
+    finish("serve-quant", problems)
+    return launches
+
+
 def _padded(ids, start, stop, bucket):
     out = torch.zeros((1, bucket), dtype=torch.long, device="cuda")
     out[:, :stop - start] = ids[:, start:stop]
@@ -1480,12 +1917,75 @@ def phase_teacher_forced(model):
             del pool
 
 
+def phase_teacher_mega_quant(model):
+    """Megakernel decode steps against one no-cache forward over the same
+    tokens (dense and paged, bf16 and int8 caches; 5% and 10% of each
+    position's logit scale, as the composed steps), and the int8-compute
+    model's prefill + decode against its own int8 forward (5%)."""
+    from paddle_tpu_torch.inference.paged_kv import init_paged_cache
+    cfg = model.cfg
+    rng = np.random.RandomState(11)
+    plen, steps = 200, 8
+    ids = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, size=(1, plen + steps))).cuda()
+    one = torch.ones(1, dtype=torch.int32, device="cuda")
+    mb = cfg.max_seq_len // 128
+    row = torch.zeros(mb, dtype=torch.int32, device="cuda")
+    row[:2] = torch.tensor([1, 2], dtype=torch.int32)
+    with torch.no_grad():
+        ref = model(ids).float()
+        model.enable_decode_megakernel(True)
+        try:
+            for kv_dtype in (None, "int8"):
+                tol = TOL_TEACHER if kv_dtype is None else TOL_TEACHER_INT8
+                name = "bf16" if kv_dtype is None else "int8"
+                cache = model.init_kv_cache(1, kv_dtype=kv_dtype)
+                got = [model.prefill(_padded(ids, 0, plen, 256), cache, 0,
+                                     plen)[0]]
+                for t in range(plen, plen + steps - 1):
+                    got.append(model.decode_step(ids[:, t], cache, one)[0])
+                teacher_check(f"{name} dense megakernel: prefill({plen}) + "
+                              f"{steps - 1} fused decode steps vs forward",
+                              got, ref, plen - 1, tol)
+                pool = init_paged_cache(model, 4, 128, kv_dtype=kv_dtype)
+                got = [model.prefill_paged(_padded(ids, 0, plen, 256), pool,
+                                           row, 0, plen)[0]]
+                for t in range(plen, plen + steps - 1):
+                    got.append(model.decode_step_paged(
+                        ids[:, t], pool, row[None],
+                        torch.tensor([t], dtype=torch.int32,
+                                     device="cuda"))[0])
+                teacher_check(f"{name} paged megakernel: prefill_paged("
+                              f"{plen}) + {steps - 1} fused decode steps vs "
+                              f"forward", got, ref, plen - 1, tol)
+                del cache, pool
+        finally:
+            model.enable_decode_megakernel(False)
+        model.enable_quantize("int8")
+        try:
+            ref_q = model(ids).float()
+            cache = model.init_kv_cache(1)
+            got = [model.prefill(_padded(ids, 0, plen, 256), cache, 0,
+                                 plen)[0]]
+            for t in range(plen, plen + steps - 1):
+                got.append(model.decode_step(ids[:, t], cache, one)[0])
+            teacher_check(f"int8 compute dense: prefill({plen}) + "
+                          f"{steps - 1} decode steps vs the int8 forward",
+                          got, ref_q, plen - 1, TOL_TEACHER)
+            agree = (ref_q[0].argmax(-1) == ref[0].argmax(-1)).float().mean()
+            log(f"[teacher] int8 compute forward vs bf16 forward: top-1 "
+                f"agreement {agree.item():.4f} over {ids.shape[1]} positions")
+        finally:
+            model.enable_quantize(None)
+
+
 def phase_profile(model):
     """Where a steady decode step's time goes, for the dense and the
-    paged engine, bf16 and int8: 8 active slots with 512-token prompts; 5
-    steps timed on the host clock (each step ends in its host sync, so
-    that is the step's real duration), then 5 steps under torch.profiler
-    for the device kernel time per step."""
+    paged engine, bf16 and int8 caches, the megakernel and int8 compute:
+    8 active slots with 512-token prompts; 5 steps timed on the host
+    clock (each step ends in its host sync, so that is the step's real
+    duration), then 5 steps under torch.profiler for the device kernel
+    time per step."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.inference import InferenceEngine
     runs = [(f"{layout} {kv_dtype or 'bf16'} decode step (8 active, "
@@ -1501,7 +2001,17 @@ def phase_profile(model):
               1024, 16),
              ("dense bf16 spec tick (K = 4, self-draft, 8 active)",
               dict(spec_k=4, draft_model=model), 512, 80)]
+    # the megakernel's decode step, beside the composed ones above
+    runs += [(f"{layout} {kv_dtype or 'bf16'} megakernel decode step (8 "
+              f"active, ~520-token slots)",
+              dict(kv_layout=layout, kv_dtype=kv_dtype, mega=True), 512, 16)
+             for layout, kv_dtype in (("dense", None), ("paged", "int8"))]
+    # int8 compute (the weights quantized on every call)
+    runs += [("dense bf16 int8-compute decode step (8 active, ~520-token "
+              "slots)", dict(quant=True), 512, 16)]
     for what, kw, plen, new in runs:
+        model.enable_decode_megakernel(kw.pop("mega", False))
+        model.enable_quantize("int8" if kw.pop("quant", False) else None)
         eng = InferenceEngine(model, batch_slots=8, device="cuda", **kw)
         rng = np.random.RandomState(13)
         for _ in range(8):
@@ -1522,6 +2032,8 @@ def phase_profile(model):
         del eng
         gc.collect()
         torch.cuda.empty_cache()
+    model.enable_decode_megakernel(False)
+    model.enable_quantize(None)
 
 
 def report_profile(prof, steps, wall_ms, what):
@@ -1529,7 +2041,7 @@ def report_profile(prof, steps, wall_ms, what):
     wall time from unprofiled steps, and the top kernels."""
     from torch.autograd import DeviceType
     rows = sorted(
-        ((e.self_device_time_total / steps / 1e3, e.count // steps, e.key)
+        ((e.self_device_time_total / steps / 1e3, e.count / steps, e.key)
          for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
         reverse=True)
@@ -1540,12 +2052,12 @@ def report_profile(prof, steps, wall_ms, what):
         return
     log(f"[profile] {what}: wall {wall_ms:.3f} ms, device kernels "
         f"{busy_ms:.3f} ms (busy share {busy_ms / wall_ms:.3f}, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}), {sum(r[1] for r in rows)} kernel "
+        f"{1 - busy_ms / wall_ms:.3f}), {sum(r[1] for r in rows):.1f} kernel "
         f"launches per step")
     groups = {}
     for ms, n, key in rows:
-        if "flash_" in key or "decode_kernel" in key or \
-                "window_kernel" in key:
+        if any(w in key for w in ("flash_", "decode_kernel", "window_kernel",
+                                  "mega_kernel", "qmm_kernel")):
             group = "port kernels"
         elif any(w in key for w in ("nvjet", "gemm", "cutlass", "xmma")):
             group = "library matmuls"
@@ -1558,13 +2070,13 @@ def report_profile(prof, steps, wall_ms, what):
         f"{g} {ms:.3f} ms" for g, ms in sorted(groups.items(),
                                               key=lambda x: -x[1])))
     for ms, n, key in rows[:10]:
-        log(f"[profile]   {ms:.4f} ms/step  x{n}  {key[:90]}")
+        log(f"[profile]   {ms:.4f} ms/step  x{n:.1f}  {key[:90]}")
 
 
-def make_trainer(cfg, seed, optimizer):
+def make_trainer(cfg, seed, optimizer, qat=False):
     """A gpt3-1.3b-width model with f32 masters (random weights from
     ``seed``) behind ``SpmdTrainer`` with bf16 AMP, as the JAX package's
-    bench.py sets it up."""
+    bench.py sets it up (``qat``: with ``strategy.qat``)."""
     from paddle_tpu_torch.core import random as prandom
     from paddle_tpu_torch.distributed import SpmdTrainer
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
@@ -1574,6 +2086,7 @@ def make_trainer(cfg, seed, optimizer):
                            generator=prandom.seed(seed, "cuda"))
     st = DistributedStrategy()
     st.amp = True
+    st.qat = qat
     crit = GPTPretrainingCriterion()
     return model, SpmdTrainer(model, optimizer, lambda o, lab: crit(o, lab),
                               strategy=st, anomaly_policy="raise")
@@ -1629,6 +2142,44 @@ def phase_train_parity():
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("train-parity failed")
+
+
+def phase_train_qat():
+    """One 2-layer bf16 AMP step with ``strategy.qat`` (every block linear
+    through the int8 fake-quant matmul): the int8 kernel under autograd
+    (4 launches per layer in the forward; the straight-through backward is
+    two plain products), finite loss and gradients."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import gpt_configs
+    from paddle_tpu_torch.ops import KERNELS
+    cfg = gpt_configs()["gpt3-1.3b"]
+    cfg.num_layers, cfg.fused_ce = 2, True
+    model, trainer = make_trainer(cfg, 99, topt.SGD(learning_rate=0.0),
+                                  qat=True)
+    ids, labels = token_batch(np.random.RandomState(21), cfg.vocab_size, 2,
+                              512)
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    loss = float(trainer.train_step(ids, labels))
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    finite = all(bool(torch.isfinite(p.grad).all().item())
+                 for p in model.parameters())
+    gmax = max(p.grad.abs().max().item() for p in model.parameters())
+    layers = cfg.num_layers
+    ok = (np.isfinite(loss) and finite and gmax > 0
+          and model.cfg.quantize == "int8"
+          and launches["quantized_matmul"] == 4 * layers
+          and launches["flash_fwd"] == layers
+          and launches["flash_bwd_dq"] == layers)
+    log(f"[train-qat] gpt3-1.3b width, {layers} layers, bf16 AMP, "
+        f"strategy.qat (int8), batch 2 x 512: loss {loss:.6f}, every "
+        f"gradient finite: {finite}, largest |gradient| {gmax:.3e}; launches "
+        f"{{{', '.join(f'{k}: {n}' for k, n in launches.items() if n)}}} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train-qat failed")
+    return launches
 
 
 def phase_train():
@@ -1750,6 +2301,8 @@ def main():
     phase_build()
     records = phase_kernels()
     phase_window_kernels(records)
+    phase_qmm_kernels(records)
+    phase_mega_kernels(records)
     phase_train_kernels(records)
     model = build_model()
     paths = {}
@@ -1762,14 +2315,20 @@ def main():
     paths.update(phase_serve_int8(model))
     paths.update(phase_serve_chunked(model))
     paths.update(phase_serve_spec(model))
+    paths.update(phase_serve_mega(model))
+    paths["serve-quant"] = phase_serve_quant(model)
     gc.collect()
     torch.cuda.empty_cache()
     phase_teacher_forced(model)
+    phase_teacher_mega_quant(model)
     phase_profile(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_parity()
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["train-qat"] = phase_train_qat()
     gc.collect()
     torch.cuda.empty_cache()
     paths["train"] = phase_train()

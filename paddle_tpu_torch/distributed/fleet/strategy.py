@@ -1,9 +1,9 @@
 """DistributedStrategy (counterpart of
 ``paddle_tpu/distributed/fleet/strategy.py``): the JAX package's on/off
 flags with their defaults, and the settings the port's ``SpmdTrainer``
-reads.  The trainer honors ``amp`` (bf16) and ``recompute`` and raises
-on every other enabled flag but the three that are moot on one
-device."""
+reads.  The trainer honors ``amp`` (bf16), ``recompute`` and ``qat``
+and raises on every other enabled flag but the three that are moot on
+one device."""
 from __future__ import annotations
 
 import copy
@@ -18,8 +18,12 @@ _DEFAULTS: Dict[str, Any] = {
     "amp_configs": {"use_bf16": True},
     "recompute": False,
     "recompute_configs": {"policy": "dots", "scan_layers": False},
+    # quantization-aware training: every block linear through the int8
+    # fake-quant matmul
+    "qat": False,
+    "qat_configs": {"quantize": "int8"},
     # flags of the JAX package's trainers that this one refuses for now
-    "sharding": False, "gradient_merge": False, "qat": False,
+    "sharding": False, "gradient_merge": False,
     "tensor_parallel": False, "pipeline": False, "sequence_parallel": False,
     "expert_parallel": False, "lamb": False, "lars": False,
     "localsgd": False, "adaptive_localsgd": False, "dgc": False,

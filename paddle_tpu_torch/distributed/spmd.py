@@ -17,10 +17,12 @@ model's device:
   ``StepResult`` whose ``float()`` is the one counted host sync.
 
 Every enabled strategy flag is either supported or raises, as in the
-JAX trainer.  Supported here: ``amp`` with bf16 and ``recompute`` (full
-recompute; a selective policy raises).  Multi-device flags, gradient
-merge, QAT and fp16 loss scaling raise with a pointer to ROADMAP.md, as
-do the ``skip`` and ``rollback`` anomaly policies.
+JAX trainer.  Supported here: ``amp`` with bf16, ``recompute`` (full
+recompute; a selective policy raises) and ``qat`` (the model's
+``enable_quantize(qat_configs['quantize'])``: every block linear through
+the int8 fake-quant matmul).  Multi-device flags, gradient merge and fp16
+loss scaling raise with a pointer to ROADMAP.md, as do the ``skip`` and
+``rollback`` anomaly policies.
 """
 from __future__ import annotations
 
@@ -51,8 +53,8 @@ class SpmdTrainer:
         optimizer updates in place).
     optimizer : ``paddle_tpu_torch.optimizer.Optimizer``.
     loss_fn : callable(outputs, *labels) -> scalar tensor.
-    strategy : ``DistributedStrategy``; ``amp`` (bf16) and ``recompute``
-        are honored, any other enabled flag raises.
+    strategy : ``DistributedStrategy``; ``amp`` (bf16), ``recompute`` and
+        ``qat`` are honored, any other enabled flag raises.
     anomaly_policy : ``'raise'`` (default; a non-finite loss is left for
         the caller to see, with no per-step check and so no host sync).
     """
@@ -74,11 +76,11 @@ class SpmdTrainer:
 
         st = self.strategy
         for key, val in st.to_dict().items():
-            if val is True and key not in {"amp", "recompute"} | _MOOT:
+            if val is True and key not in {"amp", "recompute", "qat"} | _MOOT:
                 raise NotImplementedError(
                     f"DistributedStrategy.{key} is not supported by the "
                     f"port's single-GPU trainer yet (see ROADMAP.md); "
-                    f"supported flags: ['amp', 'recompute']")
+                    f"supported flags: ['amp', 'recompute', 'qat']")
         self.amp_enabled = bool(st.amp)
         if self.amp_enabled and not st.amp_configs.get("use_bf16", True):
             raise NotImplementedError(
@@ -105,6 +107,17 @@ class SpmdTrainer:
                     "strategy.recompute=True but the model has no "
                     "enable_recompute()")
             model.enable_recompute(st.recompute_configs.get("policy"))
+
+        # quantization-aware training: every block linear runs the int8
+        # fake-quant matmul (quantized forward, straight-through backward);
+        # parameters and optimizer are untouched
+        if st.qat:
+            if not hasattr(model, "enable_quantize"):
+                raise NotImplementedError(
+                    "strategy.qat=True but the model has no "
+                    "enable_quantize(); route its products through "
+                    "paddle_tpu_torch.ops.fake_quant_matmul instead")
+            model.enable_quantize(st.qat_configs.get("quantize", "int8"))
 
         self._params = dict(model.named_parameters())
         first = next(iter(self._params.values()), None)

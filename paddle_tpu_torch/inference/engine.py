@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, same_device
+from ..ops.decode_megakernel import megakernel_enabled
 from ..ops.quantized_matmul import resolve_kv_quant
 from .paged_kv import (BlockAllocator, blocks_for, blocks_to_extend,
                        init_paged_cache)
@@ -982,6 +983,9 @@ class InferenceEngine:
         s["kv_layout"] = self.kv_layout
         s["kv_dtype"] = self.kv_dtype or "dense"
         s["chunked_prefill"] = self._chunked
+        # whether decode steps run the fused per-layer op (one device: the
+        # JAX engine's tp == 1 case)
+        s["decode_megakernel"] = megakernel_enabled(self.model.cfg)
         s["prefill_chunk"] = self.prefill_chunk
         spec_keys = ("spec_ticks", "spec_tokens_committed", "spec_slot_ticks",
                      "spec_capacity_retirements")

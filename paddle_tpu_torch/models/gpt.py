@@ -1,8 +1,8 @@
 """GPT decoder on one GPU (counterpart of ``paddle_tpu/models/gpt.py``:
 the single-device serving paths over the dense and the paged KV cache,
 full precision or int8, with the W-token window steps of speculative
-decoding and chunked prefill, the no-cache forward and the training
-surface:
+decoding and chunked prefill, the fused per-layer decode step, int8
+quantized compute, the no-cache forward and the training surface:
 recompute, the fused-CE head and ``GPTPretrainingCriterion``).
 
 Parameters keep the JAX package's names and ``[in, out]`` layout
@@ -17,7 +17,10 @@ their plain versions on the CPU; under autograd the flash backward runs
 the dq and dk/dv kernels.  A paged prefill over a cached prefix attends
 through ``masked_attention``, a plain masked composite, as the JAX
 package does through its XLA composite.  The projections are
-``torch.matmul``.
+``torch.matmul``, or ``ops.fake_quant_matmul`` (the int8 kernel on the
+card) under ``quantize='int8'``.  With ``decode_megakernel`` a decode
+step runs each layer as one ``ops.decode_layer_step(_paged)`` call (one
+kernel launch on the card) and writes the returned k/v itself.
 
 Differences from the JAX package: the serving caches are updated in
 place (JAX returns new caches each call; the paged prefill writes only
@@ -28,7 +31,7 @@ whole row), and the model lives on one explicit device, CUDA unless
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -46,8 +49,9 @@ from ..nn import initializer as I
 from ..nn.layer.common import Dropout, Embedding
 from ..nn.layer.norm import LayerNorm
 from .. import ops
-from ..ops.quantized_matmul import (dequantize_kv, kv_zeros, quantize_kv,
-                                    resolve_kv_quant)
+from ..ops.decode_megakernel import megakernel_enabled
+from ..ops.quantized_matmul import (_check_mode, dequantize_kv, kv_zeros,
+                                    resolve_kv_quant, write_kv)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "StaticKVCache", "gpt_configs",
@@ -97,19 +101,19 @@ class StaticKVCache:
                 f"{', quantized' if self.quantized else ''})")
 
 
-def _write_kv(k_dst, v_dst, ks_dst, vs_dst, index, k, v):
-    """Store k/v ``[..., Hkv, D]`` at ``k_dst[index]``/``v_dst[index]``
-    (in place): as they are, or as int8 codes with their scales when the
-    cache is quantized (``ks_dst`` not None)."""
-    if ks_dst is None:
-        k_dst[index] = k.to(k_dst.dtype)
-        v_dst[index] = v.to(v_dst.dtype)
-        return
-    # k and v quantized together: one pass of the quantizer's small
-    # elementwise kernels instead of two, on the per-step decode path
-    codes, scales = quantize_kv(torch.stack([k, v]))
-    k_dst[index], ks_dst[index] = codes[0], scales[0]
-    v_dst[index], vs_dst[index] = codes[1], scales[1]
+def _decode_at(lengths, cap: int):
+    """Where each slot's new token goes in a dense cache layer: ``(rows,
+    min(lengths, cap - 1))``."""
+    rows = torch.arange(lengths.shape[0], device=lengths.device)
+    return rows, torch.clamp(lengths, max=cap - 1)
+
+
+def _paged_decode_at(tables, lengths, bs: int):
+    """Where each slot's new token goes in a paged layer: ``(tables[b,
+    min(lengths[b] // bs, MB - 1)], lengths[b] % bs)``."""
+    rows = torch.arange(tables.shape[0], device=tables.device)
+    blk = tables[rows, torch.clamp(lengths // bs, max=tables.shape[1] - 1)]
+    return blk.long(), lengths % bs
 
 
 def masked_attention(q, k, v, offset: int) -> torch.Tensor:
@@ -154,12 +158,22 @@ class GPTConfig:
     # (ops.fused_cross_entropy): no [B, S, V] logits.  Needs tied
     # embeddings.
     fused_ce: bool = False
+    # quantized compute: 'int8' routes every block linear (qkv, out, up,
+    # down) through ops.fake_quant_matmul (quantized forward, straight-
+    # through backward); embeddings and the LM head stay full precision.
+    # None keeps the unquantized products.
+    quantize: Optional[str] = None
+    # serving: each decode step runs every layer as one fused op
+    # (ops.decode_layer_step); PADDLE_TPU_DECODE_MEGAKERNEL overrides
+    decode_megakernel: bool = False
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:
             self.ffn_hidden_size = 4 * self.hidden_size
         if self.num_kv_heads is None:
             self.num_kv_heads = self.num_heads
+        if self.quantize is not None:
+            _check_mode(self.quantize)
 
     @property
     def head_dim(self):
@@ -212,7 +226,8 @@ class GPTAttention(nn.Module):
         h = config.hidden_size
         kv_dim = config.num_kv_heads * config.head_dim
         init = I.Normal(0.0, config.initializer_range)
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  quantize=config.quantize)
         self.qkv_proj = ColumnParallelLinear(h, h + 2 * kv_dim, init, **kw)
         self.out_proj = RowParallelLinear(h, h, init, **kw)
         self.dropout = Dropout(config.dropout)
@@ -267,14 +282,11 @@ class GPTAttention(nn.Module):
         ``v_scale`` ``[B, cap, Hkv]`` f32; the new k/v are quantized per
         head on write, q stays in the model dtype."""
         b = x.shape[0]
-        cap = k_layer.shape[1]
         q, k, v = self._qkv_arrays(x)
-        idx = torch.clamp(lengths, max=cap - 1)
-        rows = torch.arange(b, device=x.device)
-        _write_kv(k_layer, v_layer, k_scale, v_scale, (rows, idx),
-                  k[:, 0], v[:, 0])
+        at = _decode_at(lengths, k_layer.shape[1])
+        write_kv(k_layer, v_layer, k_scale, v_scale, at, k[:, 0], v[:, 0])
         out = ops.decode_attention(q[:, 0], k_layer, v_layer,
-                                   (idx + 1).to(torch.int32), k_scale,
+                                   (at[1] + 1).to(torch.int32), k_scale,
                                    v_scale)
         return self._proj_out(out[:, None], b, 1)
 
@@ -308,11 +320,9 @@ class GPTAttention(nn.Module):
         attend one position there; their outputs are ignored.  Quantized
         pools: ``k_scale``/``v_scale`` ``[NB, bs, Hkv]`` f32."""
         b = x.shape[0]
-        bs, mb = k_pool.shape[1], tables.shape[1]
         q, k, v = self._qkv_arrays(x)
-        rows = torch.arange(b, device=x.device)
-        blk = tables[rows, torch.clamp(lengths // bs, max=mb - 1)].long()
-        _write_kv(k_pool, v_pool, k_scale, v_scale, (blk, lengths % bs),
+        write_kv(k_pool, v_pool, k_scale, v_scale,
+                  _paged_decode_at(tables, lengths, k_pool.shape[1]),
                   k[:, 0], v[:, 0])
         out = ops.paged_decode_attention(q[:, 0], k_pool, v_pool, tables,
                                          lengths + 1, k_scale, v_scale)
@@ -336,7 +346,7 @@ class GPTAttention(nn.Module):
                           + torch.arange(w, device=x.device)[None, :],
                           max=cap - 1)
         rows = torch.arange(b, device=x.device)[:, None]
-        _write_kv(k_layer, v_layer, k_scale, v_scale, (rows, idx), k, v)
+        write_kv(k_layer, v_layer, k_scale, v_scale, (rows, idx), k, v)
         out = ops.decode_attention_window(q, k_layer, v_layer, lens, k_scale,
                                           v_scale)
         return self._proj_out(out, b, w)
@@ -360,7 +370,7 @@ class GPTAttention(nn.Module):
         blk = torch.where(pos < mb * bs,
                           tables[rows, torch.clamp(pos // bs, max=mb - 1)],
                           0).long()
-        _write_kv(k_pool, v_pool, k_scale, v_scale, (blk, pos % bs), k, v)
+        write_kv(k_pool, v_pool, k_scale, v_scale, (blk, pos % bs), k, v)
         out = ops.paged_decode_attention_window(q, k_pool, v_pool, tables,
                                                 lens, k_scale, v_scale)
         return self._proj_out(out, b, w)
@@ -369,7 +379,8 @@ class GPTAttention(nn.Module):
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig, *, device, dtype, generator):
         super().__init__()
-        kw = dict(device=device, dtype=dtype, generator=generator)
+        kw = dict(device=device, dtype=dtype, generator=generator,
+                  quantize=config.quantize)
         self.up_proj = ColumnParallelLinear(
             config.hidden_size, config.ffn_hidden_size,
             I.Normal(0.0, config.initializer_range), **kw)
@@ -449,6 +460,53 @@ class GPTBlock(nn.Module):
                                                v_scale)
         return x + self.mlp(self.ln_2(x))
 
+    # ---- fused (megakernel) decode step ---------------------------------
+    def _megakernel_weights(self):
+        """The 12 per-layer arrays of the fused step, in
+        ``ops.decode_megakernel.LAYER_WEIGHTS`` order."""
+        a, m = self.attn, self.mlp
+        return (self.ln_1.weight, self.ln_1.bias,
+                a.qkv_proj.weight, a.qkv_proj.bias,
+                a.out_proj.weight, a.out_proj.bias,
+                self.ln_2.weight, self.ln_2.bias,
+                m.up_proj.weight, m.up_proj.bias,
+                m.down_proj.weight, m.down_proj.bias)
+
+    def _megakernel_ok(self) -> bool:
+        """Every projection carries its bias (the fused step adds them)."""
+        a, m = self.attn, self.mlp
+        return all(t is not None for t in (
+            a.qkv_proj.bias, a.out_proj.bias, m.up_proj.bias,
+            m.down_proj.bias))
+
+    def forward_decode_fused(self, x, k_layer, v_layer, lengths,
+                             k_scale=None, v_scale=None):
+        """``forward_decode`` as one fused op: the layer step
+        (``ops.decode_layer_step``, with the live ``quantize`` of the
+        projections, which ``enable_quantize`` flips), then the new k/v
+        written at ``min(lengths[b], cap - 1)`` in place."""
+        xo, k_new, v_new = ops.decode_layer_step(
+            x[:, 0], self._megakernel_weights(), k_layer, v_layer, lengths,
+            k_scale, v_scale, quantize=self.attn.qkv_proj.quantize,
+            eps=self.ln_1.epsilon)
+        write_kv(k_layer, v_layer, k_scale, v_scale,
+                  _decode_at(lengths, k_layer.shape[1]), k_new, v_new)
+        return xo[:, None]
+
+    def forward_decode_paged_fused(self, x, k_pool, v_pool, tables, lengths,
+                                   k_scale=None, v_scale=None):
+        """``forward_decode_paged`` as one fused op, then the new k/v
+        written through the block table as ``forward_decode_paged``
+        writes them."""
+        xo, k_new, v_new = ops.decode_layer_step_paged(
+            x[:, 0], self._megakernel_weights(), k_pool, v_pool, tables,
+            lengths, k_scale, v_scale, quantize=self.attn.qkv_proj.quantize,
+            eps=self.ln_1.epsilon)
+        write_kv(k_pool, v_pool, k_scale, v_scale,
+                  _paged_decode_at(tables, lengths, k_pool.shape[1]),
+                  k_new, v_new)
+        return xo[:, None]
+
 
 class GPTModel(nn.Module):
     """Embeddings + N blocks + final norm; returns hidden states."""
@@ -477,6 +535,39 @@ class GPTModel(nn.Module):
         check_policy(policy)
         self._recompute = True
         return self
+
+    def enable_quantize(self, mode: Optional[str] = "int8"):
+        """The ``strategy.qat`` hook: route every block linear (qkv, out,
+        up, down) through ``ops.fake_quant_matmul`` after construction;
+        ``None`` restores the unquantized products.  Parameters, their
+        names and dtypes are untouched."""
+        if mode is not None:
+            _check_mode(mode)
+        self.cfg = replace(self.cfg, quantize=mode)
+        for blk in self.blocks:
+            for lin in (blk.attn.qkv_proj, blk.attn.out_proj,
+                        blk.mlp.up_proj, blk.mlp.down_proj):
+                lin.quantize = mode
+        return self
+
+    def enable_decode_megakernel(self, flag: bool = True):
+        """Run every serving decode step through the fused per-layer op
+        (``ops.decode_layer_step(_paged)``); parameters and caches are
+        untouched, so flipping the flag back restores the composed
+        step."""
+        self.cfg = replace(self.cfg, decode_megakernel=bool(flag))
+        return self
+
+    def _megakernel_active(self) -> bool:
+        """The fused decode step runs: the knob is armed (config or
+        ``PADDLE_TPU_DECODE_MEGAKERNEL``), no dropout is live, and every
+        block carries its biases."""
+        cfg = self.cfg
+        if not megakernel_enabled(cfg):
+            return False
+        if self.training and (cfg.dropout > 0 or cfg.attn_dropout > 0):
+            return False
+        return all(blk._megakernel_ok() for blk in self.blocks)
 
     def _embed(self, ids, pos):
         return self.drop(self.wte(ids) + self.wpe(pos))
@@ -525,7 +616,7 @@ class GPTModel(nn.Module):
         x = self._embed(input_ids, pos)
         for i, blk in enumerate(self.blocks):
             x, k, v = blk.forward_prefill(x)
-            _write_kv(cache.k[i, slot], cache.v[i, slot],
+            write_kv(cache.k[i, slot], cache.v[i, slot],
                       cache.k_scale[i, slot] if cache.quantized else None,
                       cache.v_scale[i, slot] if cache.quantized else None,
                       slice(0, s), k[0], v[0])
@@ -547,9 +638,11 @@ class GPTModel(nn.Module):
         b = cache.batch_slots
         pos = torch.clamp(cache.lengths, max=cfg.max_seq_len - 1)
         x = self._embed(tokens.reshape(b, 1), pos.reshape(b, 1))
+        fused = self._megakernel_active()
         for i, blk in enumerate(self.blocks):
-            x = blk.forward_decode(x, cache.k[i], cache.v[i], cache.lengths,
-                                   *self._layer_scales(cache, i))
+            step = blk.forward_decode_fused if fused else blk.forward_decode
+            x = step(x, cache.k[i], cache.v[i], cache.lengths,
+                     *self._layer_scales(cache, i))
         cache.lengths.copy_(torch.clamp(
             cache.lengths + active.to(torch.int32), max=cache.capacity))
         return self.ln_f(x)
@@ -638,7 +731,7 @@ class GPTModel(nn.Module):
                     k_prefix = dequantize_kv(k_prefix, ks_i[old_at])
                     v_prefix = dequantize_kv(v_prefix, vs_i[old_at])
             x, k, v = blk.forward_prefill_paged(x, k_prefix, v_prefix)
-            _write_kv(cache.k[i], cache.v[i], ks_i, vs_i, new_at, k[0], v[0])
+            write_kv(cache.k[i], cache.v[i], ks_i, vs_i, new_at, k[0], v[0])
         return self.ln_f(x)
 
     @torch.no_grad()
@@ -653,10 +746,12 @@ class GPTModel(nn.Module):
         b = tables.shape[0]
         pos = torch.clamp(lengths, max=cfg.max_seq_len - 1)
         x = self._embed(tokens.reshape(b, 1), pos.reshape(b, 1))
+        fused = self._megakernel_active()
         for i, blk in enumerate(self.blocks):
-            x = blk.forward_decode_paged(x, cache.k[i], cache.v[i], tables,
-                                         lengths,
-                                         *self._layer_scales(cache, i))
+            step = blk.forward_decode_paged_fused if fused \
+                else blk.forward_decode_paged
+            x = step(x, cache.k[i], cache.v[i], tables, lengths,
+                     *self._layer_scales(cache, i))
         return self.ln_f(x)
 
     @torch.no_grad()
@@ -710,6 +805,16 @@ class GPTForCausalLM(nn.Module):
 
     def enable_recompute(self, policy=None):
         self.gpt.enable_recompute(policy)
+        return self
+
+    def enable_quantize(self, mode: Optional[str] = "int8"):
+        self.gpt.enable_quantize(mode)
+        self.cfg = self.gpt.cfg
+        return self
+
+    def enable_decode_megakernel(self, flag: bool = True):
+        self.gpt.enable_decode_megakernel(flag)
+        self.cfg = self.gpt.cfg
         return self
 
     def forward(self, input_ids):

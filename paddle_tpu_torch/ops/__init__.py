@@ -1,7 +1,7 @@
 """Kernel ops of the ported paths: each a hand-written CUDA kernel for
 Hopper with its plain PyTorch version beside it (see ``_build``), the
-fused cross-entropy (plain products, no kernel of its own) and the KV
-quantization helpers."""
+fused cross-entropy (plain products, no kernel of its own), the int8
+matmul and the KV quantization helpers."""
 from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_Q,
                                PAGED_DECODE_ATTENTION,
                                PAGED_DECODE_ATTENTION_Q,
@@ -15,7 +15,13 @@ from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_Q,
 from .flash_attention import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
                               flash_attention, flash_attention_fwd)
 from .fused_cross_entropy import fused_linear_cross_entropy, pick_vocab_block
-from .quantized_matmul import dequantize_kv, quantize_kv
+from .decode_megakernel import (DECODE_MEGAKERNEL, DECODE_MEGAKERNEL_Q,
+                                PAGED_DECODE_MEGAKERNEL,
+                                PAGED_DECODE_MEGAKERNEL_Q, decode_layer_step,
+                                decode_layer_step_paged)
+from .quantized_matmul import (QUANTIZED_MATMUL, dequantize_kv,
+                               fake_quant_matmul, quantize_kv,
+                               quantized_matmul)
 
 __all__ = ["decode_attention", "paged_decode_attention",
            "decode_attention_window", "paged_decode_attention_window",
@@ -23,6 +29,10 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "flash_attention",
            "flash_attention_fwd", "fused_linear_cross_entropy",
            "pick_vocab_block", "quantize_kv", "dequantize_kv",
+           "quantized_matmul", "fake_quant_matmul", "decode_layer_step",
+           "decode_layer_step_paged", "QUANTIZED_MATMUL", "DECODE_MEGAKERNEL",
+           "DECODE_MEGAKERNEL_Q", "PAGED_DECODE_MEGAKERNEL",
+           "PAGED_DECODE_MEGAKERNEL_Q",
            "DECODE_ATTENTION", "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
            "PAGED_DECODE_ATTENTION_Q", "WINDOW_ATTENTION",
            "WINDOW_ATTENTION_Q", "PAGED_WINDOW_ATTENTION",
@@ -39,4 +49,9 @@ KERNELS = {"flash_fwd.cu": FLASH_FWD, "flash_bwd_dq.cu": FLASH_BWD_DQ,
            "window_attention.cu": WINDOW_ATTENTION,
            "window_attention_q.cu": WINDOW_ATTENTION_Q,
            "paged_window_attention.cu": PAGED_WINDOW_ATTENTION,
-           "paged_window_attention_q.cu": PAGED_WINDOW_ATTENTION_Q}
+           "paged_window_attention_q.cu": PAGED_WINDOW_ATTENTION_Q,
+           "quantized_matmul.cu": QUANTIZED_MATMUL,
+           "decode_megakernel.cu": DECODE_MEGAKERNEL,
+           "decode_megakernel_q.cu": DECODE_MEGAKERNEL_Q,
+           "paged_decode_megakernel.cu": PAGED_DECODE_MEGAKERNEL,
+           "paged_decode_megakernel_q.cu": PAGED_DECODE_MEGAKERNEL_Q}

@@ -395,3 +395,194 @@ def test_engines_sync_once_per_tick_on_the_card(gen, kw, monkeypatch):
     assert sum(kern.launches for kern in (
         da.WINDOW_ATTENTION, da.WINDOW_ATTENTION_Q,
         da.PAGED_WINDOW_ATTENTION, da.PAGED_WINDOW_ATTENTION_Q)) > launches
+
+
+# ---- int8 matmul (exact) and the decode megakernel -----------------------------
+
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 8, 33, 512])
+def test_qmm_kernel_equals_plain(gen, m, out):
+    """Exact int32 sums and the same f32 rescale: bitwise equal."""
+    x = _rand((m, 256), gen)
+    w = (torch.randn((256, 384), generator=gen, device="cuda") * 0.05
+         ).bfloat16()
+    qx, sx = qm.quantize_channel(x, axis=1)
+    qw_t, sw_t = qm.quantize_channel(w.t(), axis=1)
+    qw_t, sw = qw_t.contiguous(), sw_t.reshape(1, 384)
+    got = qm._qmm_cuda(qx, qw_t, sx, sw, out)
+    assert torch.equal(got, qm._qmm_plain(qx, qw_t.t(), sx, sw, out))
+    # the public op on the card equals the CPU's from the same inputs:
+    # the same codes and scales (true division on both), exact sums
+    assert torch.equal(qm.quantized_matmul(x, w, out_dtype=out).cpu(),
+                       qm.quantized_matmul(x.cpu(), w.cpu(), out_dtype=out))
+
+
+def test_fake_quant_matmul_backward_on_the_card(gen):
+    x = torch.randn((4, 9, 128), generator=gen, device="cuda")
+    w = torch.randn((128, 256), generator=gen, device="cuda") * 0.1
+    g = torch.randn((4, 9, 256), generator=gen, device="cuda")
+    grads = []
+    for dev in ("cuda", "cpu"):
+        xs, ws = (a.detach().to(dev, copy=True).requires_grad_()
+                  for a in (x, w))
+        (qm.fake_quant_matmul(xs, ws) * g.to(dev)).sum().backward()
+        grads.append((xs.grad.cpu(), ws.grad.cpu()))
+    for a, b in zip(*grads):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+def _mega_block(gen, h, heads, hkv, f):
+    from paddle_tpu_torch.models import GPTConfig
+    from paddle_tpu_torch.models.gpt import GPTBlock
+    cfg = GPTConfig(hidden_size=h, num_layers=4, num_heads=heads,
+                    num_kv_heads=hkv, ffn_hidden_size=f)
+    blk = GPTBlock(cfg, device="cuda", dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if p.dim() == 1:
+                p.copy_((1.0 if name.endswith("weight") else 0.0) + 0.05
+                        * torch.randn(p.shape, generator=gen, device="cuda"))
+    return blk
+
+
+def _mega_case(gen, blk, lengths, quantized, bs=None, cap=256):
+    cfg = blk.attn.cfg
+    hkv, d = cfg.num_kv_heads, cfg.head_dim
+    b = len(lengths)
+    x = _rand((b, cfg.hidden_size), gen)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    tables = None
+    if bs is None:
+        k, v = _rand((b, cap, hkv, d), gen), _rand((b, cap, hkv, d), gen)
+    else:
+        mb = cap // bs
+        nb = 1 + b * mb
+        k, v = _rand((nb, bs, hkv, d), gen), _rand((nb, bs, hkv, d), gen)
+        perm = 1 + torch.randperm(nb - 1, generator=gen, device="cuda")
+        tables = torch.zeros((b, mb), dtype=torch.int32, device="cuda")
+        for i, n in enumerate(lengths):
+            need = -(-n // bs)
+            tables[i, :need] = perm[i * mb:i * mb + need].int()
+    ks = vs = None
+    if quantized:
+        (k, ks), (v, vs) = _int8(k), _int8(v)
+    return x, k, v, tables, lens, ks, vs
+
+
+def _mega_run(blk, case, plain=False):
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    x, k, v, tables, lens, ks, vs = case
+    w = blk._megakernel_weights()
+    if plain:
+        return mk._mega_plain(x.float(), w, k, v, lens, ks, vs, tables)
+    if tables is None:
+        return mk.decode_layer_step(x, w, k, v, lens, ks, vs)
+    return mk.decode_layer_step_paged(x, w, k, v, tables, lens, ks, vs)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("bs", [None, 128, 16], ids=["dense", "bs128",
+                                                     "bs16"])
+@pytest.mark.parametrize("heads,hkv,h", [(2, 2, 256), (4, 1, 256),
+                                         (16, 1, 1024), (4, 4, 256)],
+                         ids=["mha128", "g4", "g16-d64", "mha-d64"])
+def test_megakernel_matches_plain(gen, heads, hkv, h, bs, quantized):
+    """Every output row (x_out per slot, k_new/v_new per (slot, kv
+    head)) within 1e-2 of its own scale of ``_mega_plain``: lengths 0, 1,
+    a block edge and one past it, cap - 1 and cap (dense)."""
+    blk = _mega_block(gen, h, heads, hkv, 2 * h)
+    lengths = [0, 1, 127, 128, 255, 256 if bs is None else 200, 16, 129]
+    case = _mega_case(gen, blk, lengths, quantized, bs)
+    got = _mega_run(blk, case)
+    ref = _mega_run(blk, case, plain=True)
+    for g, r in zip(got, ref):
+        assert torch.isfinite(g).all()
+        _close(g, r)
+
+
+def test_megakernel_is_one_launch_and_reads_only(gen):
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    blk = _mega_block(gen, 256, 2, 2, 512)
+    case = _mega_case(gen, blk, [3, 90, 255, 0], True, bs=16)
+    before = [t.clone() for t in case[1:3] + case[5:7]]
+    n = mk.PAGED_DECODE_MEGAKERNEL_Q.launches
+    _mega_run(blk, case)
+    torch.cuda.synchronize()
+    assert mk.PAGED_DECODE_MEGAKERNEL_Q.launches == n + 1
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, case[1:3] + case[5:7]))
+
+
+@pytest.mark.parametrize("case", ["fp8", "d96", "strided", "slots17",
+                                  "f32"])
+def test_megakernel_raises_instead_of_falling_back(gen, case):
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    blk = _mega_block(gen, 256, 2, 2, 512)
+    x, k, v, tables, lens, ks, vs = _mega_case(gen, blk, [5, 9], False)
+    w = list(blk._megakernel_weights())
+    if case == "fp8":
+        with pytest.raises(NotImplementedError):
+            mk.decode_layer_step(x, w, k, v, lens, quantize="fp8")
+        return
+    if case == "d96":
+        blk = _mega_block(gen, 384, 4, 4, 512)
+        w = list(blk._megakernel_weights())
+        x = _rand((2, 384), gen)
+        k = v = _rand((2, 64, 4, 96), gen)
+    elif case == "strided":
+        w[2] = w[2].t().contiguous().t()
+    elif case == "slots17":
+        x = _rand((17, 256), gen)
+        k = v = _rand((17, 64, 2, 128), gen)
+        lens = torch.zeros(17, dtype=torch.int32, device="cuda")
+    else:
+        x = x.float()
+    with pytest.raises((ValueError, TypeError)):
+        mk.decode_layer_step(x, w, k, v, lens)
+
+
+def test_quantize_routes_the_composite_on_the_card(gen):
+    """int8 compute takes the composed route: four int8 matmul launches
+    and the decode attention kernel, no megakernel launch."""
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    blk = _mega_block(gen, 256, 2, 2, 512)
+    x, k, v, _, lens, _, _ = _mega_case(gen, blk, [5, 100], False)
+    counts = [kern.launches for kern in (qm.QUANTIZED_MATMUL,
+                                         mk.DECODE_MEGAKERNEL,
+                                         da.DECODE_ATTENTION)]
+    out = mk.decode_layer_step(x, blk._megakernel_weights(), k, v, lens,
+                               quantize="int8")
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(o).all() for o in out)
+    assert [kern.launches for kern in (qm.QUANTIZED_MATMUL,
+                                       mk.DECODE_MEGAKERNEL,
+                                       da.DECODE_ATTENTION)] == \
+        [counts[0] + 4, counts[1], counts[2] + 1]
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             kv_block_size=16,
+                                             kv_dtype="int8")],
+                         ids=["dense", "paged-int8"])
+def test_megakernel_engine_on_the_card(gen, kw):
+    """A megakernel engine: one fused launch per layer per decode step,
+    no decode attention launch, one host sync per decode step."""
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    eng = _tiny_engine(**kw)
+    eng.model.enable_decode_megakernel()
+    kern = mk.PAGED_DECODE_MEGAKERNEL_Q if kw else mk.DECODE_MEGAKERNEL
+    n0, d0 = kern.launches, da.DECODE_ATTENTION.launches + \
+        da.PAGED_DECODE_ATTENTION_Q.launches
+    rng = torch.Generator().manual_seed(4)
+    for n in (20, 100, 70, 5, 150):
+        eng.add_request(torch.randint(0, 512, (n,), generator=rng).numpy(),
+                        max_new_tokens=10)
+    out = eng.run()
+    st = eng.stats()
+    assert all(len(t) == 10 for t in out.values())
+    assert st["decode_megakernel"] and \
+        st["decode_host_syncs"] == st["decode_steps"]
+    assert kern.launches - n0 == 2 * st["decode_steps"]
+    assert da.DECODE_ATTENTION.launches + \
+        da.PAGED_DECODE_ATTENTION_Q.launches == d0

@@ -306,6 +306,9 @@ def test_unsupported_strategy_flags_raise(flag):
     if flag == "fp16":
         st.amp = True
         st.amp_configs = {"use_bf16": False}
+    elif flag == "qat":
+        st.qat = True                # int8 is ported; fp8 compute is not
+        st.qat_configs = {"quantize": "fp8"}
     elif flag == "recompute-dots":
         st.recompute = True          # default policy 'dots' is selective
     else:
