@@ -30,10 +30,13 @@ before the result lines:
    timed on the device clock (torch.profiler), the host's launch gaps
    outlasting their kernels;
 4. train-kernels: the flash backward kernels (dq, dk/dv) the same way at
-   the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA,
-   D=64 and a key mask with a fully masked row, each run twice (results
-   must be bitwise equal); the fused cross-entropy at the training
-   shape against full f32 logits, and its time;
+   the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA
+   (G = 16 at S=2048), D=64, fp16 and a key mask with a fully masked
+   row, each run twice (results must be bitwise equal), with the delta
+   the dq kernel writes against the plain delta; each kernel timed, and
+   the whole backward call in turns with the library's backward; the
+   fused cross-entropy at the training shape against full f32 logits,
+   and its time;
 5. serve: gpt3-1.3b in bf16 (random weights from a seed, full width and
    depth) behind ``InferenceEngine(batch_slots=8)``, 16 requests of 32
    new tokens; checks token counts, finite cache contents, one host sync
@@ -153,6 +156,10 @@ TOL_TEACHER_INT8 = 1e-1  # x max|forward logits| of each position
 # sides, so a row's scale is at least BWD_FLOOR x the tensor's max
 TOL_BWD = 2e-2      # x max|reference row|, per row of dq, dk and dv
 BWD_FLOOR = 1e-3
+# delta = rowsum(do * o): products of two 16-bit values are exact in
+# f32, so kernel and plain version differ only in the order of D f32
+# additions, at most (D - 1) x 2^-24 x sum|do o| (7.6e-6 at D = 128)
+TOL_DELTA = 1e-5    # x sum_d |do o| of the row
 # fused cross-entropy: logits from bf16 operands are exact in TF32, so
 # the loss is f32 rounding; d_logits keep TF32's 10 mantissa bits
 # (2^-11 per element) in the backward products
@@ -735,16 +742,18 @@ def _dequant(codes, scale):
     return qm.dequantize_kv(codes, scale, torch.bfloat16)
 
 
-def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False):
+def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
+              dtype=torch.bfloat16):
     """The dq and dk/dv kernels against the plain backward on the same
-    bf16 inputs and the forward kernel's own o and lse, per row; each
-    kernel runs twice and must give bitwise-equal results (no atomics).
-    Returns the inputs and ``{kernel: (max abs error, worst row ratio)}``."""
+    inputs and the forward kernel's own o and lse, per row, and the dq
+    kernel's delta against the plain delta per row; each kernel runs
+    twice and must give bitwise-equal results (no atomics).  Returns the
+    inputs and ``{kernel: (max abs error, worst row ratio)}``."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    q = _rand((b, s, h, d), gen)
-    k = _rand((b, s, hkv, d), gen)
-    v = _rand((b, s, hkv, d), gen)
-    do = _rand((b, s, h, d), gen)
+    q = _rand((b, s, h, d), gen, dtype)
+    k = _rand((b, s, hkv, d), gen, dtype)
+    v = _rand((b, s, hkv, d), gen, dtype)
+    do = _rand((b, s, h, d), gen, dtype)
     kv_mask = None
     if mask:
         kv_mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
@@ -755,65 +764,87 @@ def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False):
     again = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask)
     ref = fa._flash_bwd_plain(q.float(), k.float(), v.float(), o.float(),
                               lse, do.float(), causal, kv_mask)
+    ref_delta = fa._flash_bwd_delta_plain(o.float(), do.float())
+    delta_scale = fa._flash_bwd_delta_plain(o.float().abs(),
+                                            do.float().abs())
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     res = {n: row_errors(g, r, TOL_BWD, BWD_FLOOR)
            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    d_err = (got[3] - ref_delta).abs()
+    d_ratio = (d_err / delta_scale.clamp_min(1e-30)).max().item()
+    delta_ok = bool((d_err <= TOL_DELTA * delta_scale).all())
     finite = all(torch.isfinite(g).all().item() for g in got)
-    ok = same and finite and all(r[2] for r in res.values())
+    ok = same and finite and delta_ok and all(r[2] for r in res.values())
     log(f"[train-kernels] flash bwd B={b} S={s} H={h} Hkv={hkv} D={d} "
-        f"causal={causal} mask={mask}: " + " ".join(
+        f"causal={causal} mask={mask} {str(dtype)[6:]}: " + " ".join(
             f"max|{n}-plain|={r[0]:.3e} worst row {r[1]:.3e}"
             for n, r in res.items()) +
-        f" (tol {TOL_BWD} per row) deterministic={same} "
+        f" (tol {TOL_BWD} per row); max|delta-plain|="
+        f"{d_err.max().item():.3e} worst row {d_ratio:.3e} (tol "
+        f"{TOL_DELTA} x rowsum|do o|) deterministic={same} "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"flash backward kernels disagree with the plain "
-                         f"version at B={b} S={s} H={h} Hkv={hkv} D={d}")
+                         f"version at B={b} S={s} H={h} Hkv={hkv} D={d} "
+                         f"{dtype}")
     errs = {"flash_bwd_dq": res["dq"][:2],
             "flash_bwd_dkv": (max(res["dk"][0], res["dv"][0]),
-                              max(res["dk"][1], res["dv"][1]))}
+                              max(res["dk"][1], res["dv"][1])),
+            "delta": (d_err.max().item(), d_ratio)}
     return (q, k, v, o, lse, do), errs
 
 
 def phase_train_kernels(records):
     """The backward kernels at the training shape and the edge shapes,
-    then timed at the training shape."""
+    then timed at the training shape: each kernel alone, and the whole
+    backward call (delta included) in turns with the library's."""
     from paddle_tpu_torch.ops import _build
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     F = torch.nn.functional
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    worst = {"flash_bwd_dq": [], "flash_bwd_dkv": []}
+    worst = {"flash_bwd_dq": [], "flash_bwd_dkv": [], "delta": []}
+    fp16 = torch.float16
     cases = [(1, 48, 16, 16, 128, True, False),
              (2, 200, 16, 16, 128, True, False),
              (2, 256, 16, 4, 128, True, False),
              (2, 192, 8, 8, 64, True, False),
              (2, 200, 16, 4, 128, True, True),
              (2, 130, 4, 2, 64, False, True),
+             (2, 333, 16, 16, 128, True, True),        # ragged: 333 % 128
+             (2, 200, 16, 4, 128, True, False, fp16),
+             (2, 256, 8, 8, 64, False, True, fp16),
+             (1, 2048, 16, 1, 128, True, False),       # G = 16
+             (1, 2048, 16, 16, 128, True, False),
              (4, 2048, 16, 16, 128, True, False)]     # the training shape
     for case in cases:
         tensors, errs = check_bwd(gen, *case[:5], causal=case[5],
-                                  mask=case[6])
+                                  mask=case[6], dtype=case[7]
+                                  if len(case) > 7 else torch.bfloat16)
         for key, e in errs.items():
             worst[key].append(e)
     q, k, v, o, lse, do = tensors
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    args = [_build.ptr(x) for x in (q, k, v, do, lse, delta)] + \
-        [_build.ptr(None)]
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    qkv = [_build.ptr(x) for x in (q, k, v)]
     dims = (b, s, h, hkv, d, 1, _build.DTYPE_CODES[q.dtype],
             _build.stream_ptr(q))
-    t_dq = cuda_ms(lambda: fa.FLASH_BWD_DQ(*args, _build.ptr(dq), *dims))
-    t_dkv = cuda_ms(lambda: fa.FLASH_BWD_DKV(*args, _build.ptr(dk),
-                                             _build.ptr(dv), *dims))
+    t_dq = cuda_ms(lambda: fa.FLASH_BWD_DQ(
+        *qkv, _build.ptr(o), _build.ptr(do), _build.ptr(lse), _build.ptr(None),
+        _build.ptr(dq), _build.ptr(delta), *dims))
+    t_dkv = cuda_ms(lambda: fa.FLASH_BWD_DKV(
+        *qkv, _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
+        _build.ptr(None), _build.ptr(dk), _build.ptr(dv), *dims))
     t_fwd = cuda_ms(lambda: fa._flash_cuda(q, k, v, True, None))
     t_plain = cuda_ms(lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, True),
                       iters=3, warmup=1)
     # yardstick: the library's attention backward (dq, dk and dv in one
-    # call) = forward + autograd.grad minus the forward alone
+    # call, its delta pass included) = forward + autograd.grad minus the
+    # forward alone; timed in turns with the port's whole backward call
+    # (call, library, library, call), best of three windows
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
@@ -821,21 +852,35 @@ def phase_train_kernels(records):
     def lib_fwd():
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
-    t_lib = cuda_ms(lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt),
-                                                dot)) - cuda_ms(lib_fwd)
+    def lib_ms():
+        return cuda_ms(lambda: torch.autograd.grad(
+            lib_fwd(), (qt, kt, vt), dot)) - cuda_ms(lib_fwd)
+
+    def call_ms():
+        return cuda_ms(lambda: fa._flash_bwd_cuda(q, k, v, o, lse, do, True,
+                                                  None))
+
+    calls, libs = [], []
+    for _ in range(3):
+        calls.append(call_ms())
+        libs += [lib_ms(), lib_ms()]
+        calls.append(call_ms())
+    t_call, t_lib = min(calls), min(libs)
     pairs = b * h * (s * (s + 1) // 2)          # causal (query, key) pairs
-    row_bytes = 2 * b * h * s * 4               # lse and delta, f32
+    row_bytes = b * h * s * 4                   # one f32 value a row
     dq_flops = 3 * 2 * d * pairs
-    dq_bytes = 2 * (2 * q.numel() + 2 * k.numel() + do.numel()) + row_bytes
+    dq_bytes = 2 * (4 * q.numel() + 2 * k.numel()) + 2 * row_bytes
     dkv_flops = 4 * 2 * d * pairs
-    dkv_bytes = 2 * (q.numel() + 4 * k.numel() + do.numel()) + row_bytes
+    dkv_bytes = 2 * (2 * q.numel() + 4 * k.numel()) + 2 * row_bytes
+    least_ms, _ = bound(5 * 2 * d * pairs, 0)
     for key, t, flops, nbytes, line in (
             ("flash_bwd_dq", t_dq, dq_flops, dq_bytes, 133),
             ("flash_bwd_dkv", t_dkv, dkv_flops, dkv_bytes, 183)):
         b_ms, b_by = bound(flops, nbytes)
         log(f"[train-kernels] {key} timing B={b} S={s} H={h} D={d} causal: "
             f"kernel_ms={t:.4f} bound_ms={b_ms:.4f} ({b_by}, "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) share of "
+            f"bound {b_ms / t:.3f}")
         records[key] = dict(
             name=key, route="cuda",
             source=f"paddle_tpu_torch/csrc/{key}.cu",
@@ -843,16 +888,27 @@ def phase_train_kernels(records):
             max_abs_err=max(e[0] for e in worst[key]),
             max_row_rel_err=max(e[1] for e in worst[key]), row_tol=TOL_BWD,
             ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
-            library_ms=t_lib,
-            note="plain_ms and library_ms each compute dq, dk and dv "
-                 "together: the plain backward, and "
+            library_ms=t_lib, call_ms=t_call,
+            note="plain_ms, library_ms and call_ms each compute dq, dk and "
+                 "dv together: the plain backward, "
                  "scaled_dot_product_attention's backward (forward + "
-                 "autograd.grad minus the forward)")
+                 "autograd.grad minus the forward) and the port's whole "
+                 "backward call (both kernels, delta included); the bound "
+                 "counts this kernel's products (dq 3, dk/dv 4), the "
+                 f"function's least work is 5 products, {least_ms:.4f} ms")
+    records["flash_bwd_dq"].update(
+        delta_max_abs_err=max(e[0] for e in worst["delta"]),
+        delta_max_row_rel_err=max(e[1] for e in worst["delta"]),
+        delta_row_tol=TOL_DELTA)
     fwd_ms, _ = bound(2 * 2 * d * pairs, 2 * 4 * q.numel() + 4 * b * h * s)
     log(f"[train-kernels] backward at the training shape: dq + dk/dv "
-        f"{t_dq + t_dkv:.4f} ms (plain {t_plain:.4f} ms, library backward "
-        f"{t_lib:.4f} ms); forward kernel {t_fwd:.4f} ms "
-        f"(bound {fwd_ms:.4f} ms)")
+        f"{t_dq + t_dkv:.4f} ms, whole call (delta included) {t_call:.4f} "
+        f"ms (windows {[round(x, 4) for x in calls]}), library backward "
+        f"{t_lib:.4f} ms (windows {[round(x, 4) for x in libs]}), plain "
+        f"{t_plain:.4f} ms; bound of the 7 products "
+        f"{bound(dq_flops + dkv_flops, 0)[0]:.4f} ms, of the function's "
+        f"least work (5 products) {least_ms:.4f} ms; forward kernel "
+        f"{t_fwd:.4f} ms (bound {fwd_ms:.4f} ms)")
     phase_fused_ce(gen)
 
 

@@ -1,0 +1,359 @@
+// Hopper (sm_90a) building blocks shared by the wgmma / TMA kernels
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu): mbarriers, TMA tile loads and the
+// host-side tensor-map encoding, wgmma descriptors and instructions, the
+// accumulator-to-A-operand packing and setmaxnreg.
+//
+// Shared-memory tiles are written by TMA with 128-byte swizzle: a box of
+// 64 16-bit elements by `rows` lands as `rows` lines of 128 bytes, the
+// 16-byte chunk c of line r stored at chunk c ^ (r % 8).  A D = 128 tile
+// is two such boxes, columns [0, 64) then [64, 128), each `rows` lines.
+// Every tile starts on a 1024-byte boundary (the swizzle's period), so a
+// wgmma descriptor reads it with base offset 0:
+//   K-major (the reduction dimension runs along a line: q k^T with k
+//   stored [keys, D]): SBO = 1024 bytes between 8-line groups, and the
+//   16-element step j of a 64-element box starts 32 * j bytes in;
+//   MN-major (the reduction dimension runs down the lines: ds k with k
+//   stored [keys, D], read through the transpose bit): SBO = 1024 bytes
+//   between groups of 8 reduction rows, LBO = rows * 128 bytes between
+//   the two 64-column boxes, and the 16-row step j starts 2048 * j bytes
+//   in.
+//
+// wgmma m64nNk16 accumulators, per thread of warp w of the warpgroup
+// (lane = 4 * gid + tig): d[4 t + 0..1] = (row 16 w + gid, columns
+// 8 t + 2 tig, +1), d[4 t + 2..3] = (row 16 w + gid + 8, same columns).
+// The register A operand of a k16 step has the mma.sync m16k16 layout,
+// so the accumulator columns 16 c .. 16 c + 15 packed to 16 bits are the
+// A operand of reduction step c (pack_a below): an f32 score tile feeds
+// the next product without passing through shared memory.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace hopper {
+
+// ---- shared-memory addresses, mbarriers, fences ---------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// make the initialised barriers visible to the other threads and to TMA
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// a barrier among `threads` threads (a multiple of 32) of the block
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- register reallocation between warpgroups ------------------------------
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// ---- TMA tile loads (one thread issues; completion counts on `bar`) -------
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A [B, S, H, D] tile of `rows` consecutive positions s0.. of head h in
+// batch b, all D columns, as D / 64 swizzled boxes of rows x 128 bytes
+// (box k at dst + k * rows * 128).  Positions past S arrive as zeros.
+template <int D>
+__device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map,
+                                              uint32_t bar, int rows, int b,
+                                              int h, int s0) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_load_4d(dst + c * rows * 128, map, bar, c * 64, h, s0, b);
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// descriptor of a 128-byte-swizzled tile at shared address `addr`
+// (byte offsets as described at the top of this file)
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo_bytes,
+                                               uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo_bytes & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo_bytes & 0x3FFFF) >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// keep the compiler from moving accumulator registers across an
+// asynchronous wgmma (call on every register after wgmma_wait)
+template <int kN>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// 2^x on the special-function unit (flush-to-zero; 2^-huge = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two f32 to one register of two 16-bit values (lo in the low half)
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// the register A operand of reduction step c (accumulator columns
+// 16 c .. 16 c + 15), rounded to T
+template <typename T>
+__device__ __forceinline__ void pack_a(uint32_t* a, const float* d, int c) {
+  a[0] = pack2<T>(d[8 * c + 0], d[8 * c + 1]);
+  a[1] = pack2<T>(d[8 * c + 2], d[8 * c + 3]);
+  a[2] = pack2<T>(d[8 * c + 4], d[8 * c + 5]);
+  a[3] = pack2<T>(d[8 * c + 6], d[8 * c + 7]);
+}
+
+// Wgmma<T, N, kTransB>::ss: d[64 x N] (+)= A[64 x 16] B[16 x N], A and B
+// from shared memory (A K-major); ::rs: A from registers.  kTransB = 1
+// reads B MN-major.  `accumulate` = 0 overwrites d.
+template <typename T, int N, int kTransB>
+struct Wgmma;
+
+#define HT_REGS32 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define HT_REGS64 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define HT_ACC32(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31])
+#define HT_ACC64(d) \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+    "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), \
+    "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+template <int kTransB>
+struct Wgmma<__nv_bfloat16, 64, kTransB> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HT_REGS32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : HT_ACC32(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HT_REGS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : HT_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(kTransB));
+  }
+};
+
+template <int kTransB>
+struct Wgmma<__nv_bfloat16, 128, kTransB> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HT_REGS64
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : HT_ACC64(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " HT_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : HT_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(kTransB));
+  }
+};
+
+template <int kTransB>
+struct Wgmma<__half, 64, kTransB> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HT_REGS32
+        ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+        : HT_ACC32(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HT_REGS32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : HT_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(kTransB));
+  }
+};
+
+template <int kTransB>
+struct Wgmma<__half, 128, kTransB> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HT_REGS64
+        ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : HT_ACC64(d)
+        : "l"(a), "l"(b), "r"(accumulate), "n"(kTransB));
+  }
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " HT_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : HT_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(accumulate), "n"(kTransB));
+  }
+};
+
+// ---- host: tensor maps -----------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library the process already
+// runs on (looked up by name: no link against libcuda, no toolkit-version
+// dependent runtime entry point); null when it cannot be found
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib ? reinterpret_cast<EncodeTiledFn>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : static_cast<EncodeTiledFn>(nullptr);
+  }();
+  return fn;
+}
+
+// [B, S, H, D] 16-bit tensor, boxes of 64 columns x `rows` positions of
+// one head, 128-byte swizzle, zeros past the edges
+inline bool map_bshd(CUtensorMap* map, const void* base, bool fp16, int B,
+                     int S, int H, int D, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(H) * D * 2,
+                                 static_cast<cuuint64_t>(S) * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map,
+             fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             4, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace hopper

@@ -1,5 +1,6 @@
-// Tensor-core and tile helpers shared by the flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// mma.sync tensor-core and tile helpers shared by flash_fwd.cu, the
+// window and megakernel templates (the flash backward moved to wgmma:
+// hopper_tile.cuh).
 //
 // mma.sync m16n8k16 with f32 accumulation; per thread of a warp (lane =
 // 4 * gid + tig):

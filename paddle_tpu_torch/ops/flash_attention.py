@@ -9,8 +9,9 @@ an optional key mask ``kv_mask [B, S]`` (1 = attend, 0 = padding).
 ``flash_attention`` / ``flash_attention_fwd`` run through the autograd
 function ``_FlashAttention``: its forward emits o and the per-row lse
 ``[B, H, S]`` (f32) and saves both; its backward makes ``do``
-contiguous, computes ``delta = rowsum(do * o)`` in f32 from the SAVED o
-(as the JAX ``_bwd_gqa`` does) and calls the dq and dk/dv kernels.
+contiguous and calls the dq kernel, which also forms ``delta =
+rowsum(do * o)`` in f32 from the SAVED o (as the JAX ``_bwd_gqa`` does)
+and writes it out, then the dk/dv kernel, which reads that delta.
 
 Dispatch: CPU tensors run the plain versions (``_flash_plain``,
 ``_flash_bwd_plain``); CUDA tensors run the kernels in
@@ -39,7 +40,7 @@ FLASH_FWD = _build.CudaKernel(
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 FLASH_BWD_DQ = _build.CudaKernel(
     "flash_bwd_dq.cu", "flash_bwd_dq",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 FLASH_BWD_DKV = _build.CudaKernel(
     "flash_bwd_dkv.cu", "flash_bwd_dkv",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
@@ -93,6 +94,14 @@ def _flash_plain(q, k, v, causal: bool = False,
     return out.to(q.dtype), lse
 
 
+def _flash_bwd_delta_plain(o, do) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` ``[B, H, S]`` in the math dtype (f32
+    for the half types), as the JAX ``_bwd_gqa`` forms it and the dq
+    kernel writes it."""
+    acc = _math_dtype(o)
+    return (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)
+
+
 def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
                      kv_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -110,7 +119,7 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
     p = torch.where(scores <= _NEG / 2, torch.zeros_like(scores),
                     torch.exp(scores - lse.to(acc)[..., None]))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    delta = (dof * of).sum(-1).transpose(1, 2)                  # [B, H, S]
+    delta = _flash_bwd_delta_plain(of, dof)
     ds = p * (dp - delta[..., None])
     scale = 1.0 / math.sqrt(d)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
@@ -180,23 +189,27 @@ def _flash_cuda(q, k, v, causal, kv_mask):
 
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask):
+    """``(dq, dk, dv, delta)`` from the two kernels; delta ``[B, H, S]``
+    f32 is the dq kernel's rowsum ``do . o``."""
     _check_cuda(q, k, v, kv_mask)
     b, s, h, d = q.shape
     _check_operand("o", o, q, q.shape, q.dtype)
     _check_operand("do", do, q, q.shape, q.dtype)
     _check_operand("lse", lse, q, (b, h, s), torch.float32)
-    # delta_i = do_i . o_i from the saved o, in f32 (JAX _bwd_gqa :577)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
-            _build.ptr(lse), _build.ptr(delta), _build.ptr(kv_mask))
+    # delta_i = do_i . o_i from the saved o, in f32 (JAX _bwd_gqa :577):
+    # written by the dq kernel, read by the dk/dv kernel
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    qkv = (_build.ptr(q), _build.ptr(k), _build.ptr(v))
     dims = (b, s, h, k.shape[2], d, int(bool(causal)),
             _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    FLASH_BWD_DQ(*args, _build.ptr(dq), *dims)
-    FLASH_BWD_DKV(*args, _build.ptr(dk), _build.ptr(dv), *dims)
-    return dq, dk, dv
+    FLASH_BWD_DQ(*qkv, _build.ptr(o), _build.ptr(do), _build.ptr(lse),
+                 _build.ptr(kv_mask), _build.ptr(dq), _build.ptr(delta), *dims)
+    FLASH_BWD_DKV(*qkv, _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
+                  _build.ptr(kv_mask), _build.ptr(dk), _build.ptr(dv), *dims)
+    return dq, dk, dv, delta
 
 
 def _fwd(q, k, v, causal, kv_mask):
@@ -208,7 +221,7 @@ def _fwd(q, k, v, causal, kv_mask):
 def _bwd(q, k, v, o, lse, do, causal, kv_mask):
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, o, lse, do, causal, kv_mask)
-    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask)
+    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask)[:3]
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -206,16 +206,24 @@ def test_int8_and_paged_paths_raise_instead_of_falling_back(gen, case):
         da.DECODE_ATTENTION_Q)]
 
 
-@pytest.mark.parametrize("s,h,hkv,d,causal,masked", [
-    (256, 16, 16, 128, True, False), (200, 16, 4, 128, True, True),
-    (48, 8, 8, 64, False, False), (130, 4, 2, 64, False, True)])
+def _bwd_inputs(gen, b, s, h, hkv, d, dtype):
+    return (_rand(shape, gen).to(dtype) for shape in
+            ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d)))
+
+
+@pytest.mark.parametrize("s,h,hkv,d,causal,masked,dtype", [
+    (256, 16, 16, 128, True, False, "bfloat16"),
+    (200, 16, 4, 128, True, True, "bfloat16"),
+    (48, 8, 8, 64, False, False, "bfloat16"),
+    (130, 4, 2, 64, False, True, "bfloat16"),
+    (200, 16, 4, 128, True, True, "float16"),
+    (130, 4, 2, 64, False, True, "float16"),
+    (512, 16, 1, 128, True, False, "bfloat16"),       # G = 16
+    (333, 8, 8, 128, True, False, "bfloat16")])       # ragged: 333 % 128
 def test_flash_backward_kernels_match_plain(gen, s, h, hkv, d, causal,
-                                            masked):
+                                            masked, dtype):
     b = 2
-    q = _rand((b, s, h, d), gen)
-    k = _rand((b, s, hkv, d), gen)
-    v = _rand((b, s, hkv, d), gen)
-    do = _rand((b, s, h, d), gen)
+    q, k, v, do = _bwd_inputs(gen, b, s, h, hkv, d, getattr(torch, dtype))
     mask = None
     if masked:
         mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3).float()
@@ -231,6 +239,27 @@ def test_flash_backward_kernels_match_plain(gen, s, h, hkv, d, causal,
     for g, a, r in zip(got, again, ref):
         assert torch.equal(g, a)              # no atomics: deterministic
         _close(g, r, tol=2e-2, floor=1e-3)
+    assert torch.equal(got[3], again[3])
+
+
+@pytest.mark.parametrize("s,h,hkv,d,dtype", [
+    (256, 16, 16, 128, "bfloat16"), (333, 8, 2, 64, "float16"),
+    (77, 4, 4, 128, "float16")])
+def test_flash_backward_delta_matches_plain(gen, s, h, hkv, d, dtype):
+    """The delta the dq kernel writes (rowsum do . o in f32) against the
+    plain delta per row: products of 16-bit values are exact in f32, so
+    only the order of the D additions differs, at most (D - 1) 2^-24 x
+    sum|do o| (7.6e-6 at D = 128): held to 1e-5 of that sum."""
+    b = 2
+    q, k, v, do = _bwd_inputs(gen, b, s, h, hkv, d, getattr(torch, dtype))
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = fa._flash_bwd_cuda(q, k, v, o, lse, do, True, None)[3]
+    ref = fa._flash_bwd_delta_plain(o.float(), do.float())
+    scale = fa._flash_bwd_delta_plain(o.float().abs(), do.float().abs())
+    assert delta.shape == (b, h, s) and delta.dtype == torch.float32
+    err = (delta - ref).abs()
+    assert bool((err <= 1e-5 * scale).all()), \
+        (err / scale.clamp_min(1e-30)).max().item()
 
 
 def test_cuda_flash_attention_is_differentiable(gen):

@@ -234,6 +234,27 @@ def test_flash_bwd_plain_key_mask_matches_jax(causal, interpret):
     assert np.all(dv.numpy()[m == 0] == 0.0)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [16, 77])
+@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_flash_bwd_delta_plain_matches_jax(h, hkv, s, dtype):
+    """``_flash_bwd_delta_plain`` (what the dq kernel writes) against the
+    rowsum ``_bwd_gqa`` forms, ``jnp.sum(do4 * o4, -1)`` in f32 on the
+    GQA layout, from the same numpy o and do (rounded to bf16 alike on
+    both sides for the bf16 case)."""
+    b, d = 2, 64
+    rng = np.random.RandomState(s + h)
+    o, do = ((rng.randn(b, s, h, d) * 0.5).astype(np.float32)
+             for _ in range(2))
+    to, tdo = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (o, do))
+    got = tfa._flash_bwd_delta_plain(to, tdo)
+    assert got.dtype == torch.float32 and got.shape == (b, h, s)
+    o4, do4 = (jnp.swapaxes(jnp.asarray(a, getattr(jnp, dtype)), 1, 2)
+               .reshape(b * hkv, h // hkv, s, d) for a in (o, do))
+    ref = jnp.sum(do4.astype(jnp.float32) * o4.astype(jnp.float32), axis=-1)
+    _grad_close(got.numpy(), np.asarray(ref).reshape(b, h, s), "delta")
+
+
 @pytest.mark.parametrize("causal,g,masked", [
     (True, 1, False), (False, 2, True), (True, 2, True)])
 def test_flash_autograd_gradcheck_f64(causal, g, masked):
