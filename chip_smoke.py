@@ -8,19 +8,26 @@ before the result lines:
 1. device: CUDA device name, count and ``nvidia-smi`` name/power limit
    (no CUDA device: exit 2);
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, all in
-   parallel, with the compiler's register and spill report;
+   parallel, with the compiler's register and spill report; a spill in
+   any kernel on the shared wgmma forward mainloop (the flash forward,
+   the window kernels' chunk regime) fails the phase;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes (bf16 queries; int8 caches made by
    ``quantize_kv``, the plain version fed the same codes), with the
    stated tolerance, then timed (CUDA events) beside the plain version,
    one PyTorch library call computing the same function (a yardstick the
-   port never calls) and the least time the card could take.  Dense
+   port never calls) and the least time the card could take.  The flash
+   forward at prefill buckets, ragged S across its 128-row tile, GQA,
+   D=64, fp16, key masks (one row left with no key: exact zeros) and the
+   training shape, each call twice (bitwise equal), timed at B=1 and B=4
+   (S=2048) in turns with SDPA.  Dense
    decode (bf16 and int8) and paged decode (bf16 and int8) also at GQA,
    G = 16, D=64, length 0 or 1, exact block multiples, null-block tails,
    shuffled blocks and an inactive slot.  The four window kernels
    (dense and paged, bf16 and int8) at the verify window (W=5), a
-   512-token chunk, G = 16, D=64 and blocks of 16 and 128, timed at the
-   verify and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
+   512-token chunk, W x G of 20 and 1024, G = 16, D=64 and blocks of
+   16, 48 and 128, each call twice (bitwise equal), timed at the verify
+   and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
    over gpt3-1.3b's four projections (its output must EQUAL the plain
    version's: exact int32 sums, the same f32 rescale), timed beside
    ``torch._int_mm`` + rescale; the decode megakernel in its four
@@ -236,6 +243,31 @@ def phase_device():
     return name, count, smi
 
 
+# the sources whose kernels run on the shared wgmma forward mainloop
+# (hopper_attn_fwd.cuh: every attn_fwd_kernel instantiation); a spill in
+# one of those kernels fails the build phase
+FWD_SOURCES = ("flash_fwd.cu", "window_attention.cu", "window_attention_q.cu",
+               "paged_window_attention.cu", "paged_window_attention_q.cu")
+
+
+def ptxas_kernels(log_text):
+    """[(mangled entry function, registers, spill line)] from the
+    ``-Xptxas=-v`` report of one source."""
+    out, fn, spill = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            fn, spill = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            words = line.split()
+            out.append((fn, int(words[words.index("registers,") - 1]
+                                if "registers," in words else
+                                words[words.index("registers") - 1]), spill))
+            fn = None
+    return out
+
+
 def phase_build():
     from paddle_tpu_torch.ops import _build
     t0 = time.perf_counter()
@@ -243,16 +275,29 @@ def phase_build():
     log(f"[build] {len(secs)} sources in {time.perf_counter() - t0:.2f} s "
         f"(parallel nvcc): " +
         ", ".join(f"{k} {v:.2f} s" for k, v in secs.items()))
+    spilled = []
     for src in secs:
-        lines = _build.build_log(src).splitlines()
-        regs = [int(w) for line in lines if "registers" in line
-                for w, nxt in zip(line.split(), line.split()[1:])
-                if nxt.startswith("registers")]
-        spills = [line.strip() for line in lines if "spill" in line
-                  and "0 bytes spill stores, 0 bytes spill loads" not in line]
+        kernels = ptxas_kernels(_build.build_log(src))
+        regs = [r for _, r, _ in kernels]
+        spills = [sp for _, _, sp in kernels
+                  if sp and "0 bytes spill stores, 0 bytes spill loads" not in sp]
         log(f"[build] {src}: {len(regs)} kernel instantiations, registers "
             f"per thread {min(regs, default=0)}-{max(regs, default=0)}, "
             f"spills: {spills or 'none'}")
+        if src not in FWD_SOURCES:
+            continue
+        fwd = [(r, sp) for fn, r, sp in kernels if "attn_fwd_kernel" in fn]
+        bad = [sp for _, sp in fwd
+               if "0 bytes spill stores, 0 bytes spill loads" not in sp]
+        log(f"[build] {src} wgmma forward mainloop: {len(fwd)} "
+            f"instantiations, registers at launch "
+            f"{sorted({r for r, _ in fwd})} (setmaxnreg raises the "
+            f"consumers'), spills: {bad or 'none'}"
+            f"{'' if kernels else ' (no report: built by an earlier process)'}")
+        spilled += [f"{src}: {sp}" for sp in bad]
+    if spilled:
+        raise SystemExit(f"build phase failed: the forward mainloop spills "
+                         f"registers: {spilled}")
 
 
 def _rand(shape, gen, dtype=torch.bfloat16):
@@ -272,16 +317,24 @@ def row_errors(got, ref, tol=TOL_OUT, floor=0.0):
     return err.max().item(), worst, ok
 
 
-def check_flash(gen, b, s, h, hkv, d, causal=True, mask=False):
+def check_flash(gen, b, s, h, hkv, d, causal=True, mask=False,
+                dtype=torch.bfloat16):
+    """The forward kernel against its plain version: o per row within
+    TOL_OUT, lse per row within TOL_LSE, and two calls bitwise equal.
+    With ``mask`` the last batch row's key 0 is masked, so under causal
+    its query 0 sees no key and must come out exactly 0."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    q = _rand((b, s, h, d), gen)
-    k = _rand((b, s, hkv, d), gen)
-    v = _rand((b, s, hkv, d), gen)
+    q = _rand((b, s, h, d), gen, dtype)
+    k = _rand((b, s, hkv, d), gen, dtype)
+    v = _rand((b, s, hkv, d), gen, dtype)
     kv_mask = None
     if mask:
         kv_mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
-                   ).float().contiguous()
+                   ).float()
+        kv_mask[-1, 0] = 0.0
     o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, kv_mask=kv_mask)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      kv_mask=kv_mask)
     ro, rlse = fa._flash_plain(q.float(), k.float(), v.float(), causal,
                                kv_mask)
     torch.cuda.synchronize()
@@ -289,16 +342,21 @@ def check_flash(gen, b, s, h, hkv, d, causal=True, mask=False):
     dl = (lse - rlse).abs()
     err_l = dl.max().item()
     worst_l = (dl / rlse.abs().clamp_min(1.0)).max().item()
-    ok = (ok_o and worst_l <= TOL_LSE and torch.isfinite(o).all().item())
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    empty_ok = not (mask and causal) or o[-1, 0].abs().max().item() == 0.0
+    ok = (ok_o and worst_l <= TOL_LSE and torch.isfinite(o).all().item()
+          and same and empty_ok)
     log(f"[kernels] flash B={b} S={s} H={h} Hkv={hkv} D={d} causal={causal} "
-        f"mask={mask}: max|o-plain|={err_o:.3e} worst row "
+        f"mask={mask} {str(dtype)[6:]}: max|o-plain|={err_o:.3e} worst row "
         f"|o-plain|/max|plain row|={worst_o:.3e} (tol {TOL_OUT}) "
         f"max|lse-plain|={err_l:.3e} worst row {worst_l:.3e} "
-        f"(tol {TOL_LSE}) {'ok' if ok else 'FAIL'}")
+        f"(tol {TOL_LSE}) deterministic={same}"
+        f"{' masked row exact 0=' + str(empty_ok) if mask and causal else ''} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"flash kernel disagrees with its plain version "
                          f"at B={b} S={s} H={h} Hkv={hkv} D={d}")
-    return q, k, v, max(err_o, err_l), worst_o
+    return q, k, v, err_o, worst_o
 
 
 def _int8(x):
@@ -461,40 +519,74 @@ def phase_kernels():
     gen.manual_seed(0)
     records = {}
 
-    # flash: gpt3-1.3b prefill shapes (B=1, H=16, D=128) at buckets and a
-    # ragged length, GQA, D=64, a key mask and full attention
-    worst = []
-    for s in (16, 48, 128, 2048):
-        q, k, v, err, w = check_flash(gen, 1, s, 16, 16, 128)
+    # flash: gpt3-1.3b prefill shapes (B=1, H=16, D=128) at buckets and
+    # ragged lengths across a 128-row tile, GQA, D=64, fp16, key masks
+    # (one leaving a causal row with no key), full attention, and the
+    # training shape (B=4, S=2048)
+    worst, errs = [], []
+    for args, kw in (((2, 130, 16, 16, 128), {}),
+                     ((1, 256, 16, 4, 128), {}),
+                     ((2, 192, 8, 8, 64), {}),
+                     ((2, 200, 16, 4, 128), dict(causal=False, mask=True)),
+                     ((2, 333, 16, 4, 128), dict(mask=True)),
+                     ((2, 130, 8, 2, 64), dict(mask=True,
+                                               dtype=torch.float16)),
+                     ((2, 200, 16, 16, 128), dict(dtype=torch.float16)),
+                     ((4, 2048, 16, 16, 128), {})):
+        *_, e, w = check_flash(gen, *args, **kw)
+        errs.append(e)
         worst.append(w)
-    worst += [check_flash(gen, 1, 256, 16, 4, 128)[-1],
-              check_flash(gen, 2, 192, 8, 8, 64)[-1],
-              check_flash(gen, 2, 200, 16, 4, 128, causal=False,
-                          mask=True)[-1]]
-    b, s, h, d = q.shape
-    t_kernel = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal=True))
-    t_plain = cuda_ms(lambda: fa._flash_plain(q, k, v, True), iters=5)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    t_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    flops = 4 * b * h * d * (s * (s + 1) // 2)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel()) + 4 * b * h * s
-    b_ms, b_by = bound(flops, nbytes)
-    log(f"[kernels] flash timing B={b} S={s} H={h} D={d} causal: "
-        f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} "
-        f"library_ms={t_lib:.4f} bound_ms={b_ms:.4f} ({b_by}, "
-        f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+    for s in (16, 48, 128, 2048):
+        q, k, v, e, w = check_flash(gen, 1, s, 16, 16, 128)
+        errs.append(e)
+        worst.append(w)
+
+    def flash_row(q, k, v):
+        """(kernel, plain, library ms, bound ms, bound_by) at causal;
+        kernel and library timed in turns, best of two windows each."""
+        b, s, h, d = q.shape
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ts, tl = [], []
+        for _ in range(2):
+            ts.append(cuda_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=True), iters=50))
+            tl += [cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=50) for _ in range(2)]
+            ts.append(cuda_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, causal=True), iters=50))
+        t_plain = cuda_ms(lambda: fa._flash_plain(q, k, v, True), iters=3,
+                          warmup=1)
+        flops = 4 * b * h * d * (s * (s + 1) // 2)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * s
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"[kernels] flash timing B={b} S={s} H={h} D={d} causal: "
+            f"kernel_ms={min(ts):.4f} plain_ms={t_plain:.4f} "
+            f"library_ms={min(tl):.4f} (SDPA) bound_ms={b_ms:.4f} ({b_by}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) share of bound "
+            f"{b_ms / min(ts):.3f}, x SDPA {min(ts) / min(tl):.3f}")
+        return min(ts), t_plain, min(tl), b_ms, b_by
+
+    t_kernel, t_plain, t_lib, b_ms, b_by = flash_row(q, k, v)
     records["flash_fwd"] = dict(
         name="flash_fwd", route="cuda",
         source="paddle_tpu_torch/csrc/flash_fwd.cu",
         replaces="paddle_tpu/ops/flash_attention.py:72",
-        max_abs_err=err, max_row_rel_err=max(worst), row_tol=TOL_OUT,
+        max_abs_err=max(errs), max_row_rel_err=max(worst), row_tol=TOL_OUT,
         ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
         library_ms=t_lib)
     for s2 in (128, 512):
         q2, k2, v2 = (x[:, :s2].contiguous() for x in (q, k, v))
         t2 = cuda_ms(lambda: fa.flash_attention_fwd(q2, k2, v2, causal=True))
         log(f"[kernels] flash timing S={s2}: kernel_ms={t2:.4f}")
+    q, k, v = (_rand((4, 2048, 16, 128), gen) for _ in range(3))
+    t4, p4, l4, b4, by4 = flash_row(q, k, v)
+    records["flash_fwd"].update(
+        train_ms=t4, train_plain_ms=p4, train_library_ms=l4,
+        train_bound_ms=b4, train_bound_by=by4,
+        note="ms, plain_ms, bound_ms and library_ms at the prefill shape "
+             "(B=1, S=2048, H=16, D=128, causal); train_* at the training "
+             "shape (B=4, S=2048)")
+    del q, k, v
 
     # dense decode, bf16 (row 4) and int8 (row 5): batch_slots=8 over the
     # 2048-token cache, boundary lengths, GQA, G = 16 (16 query heads over
@@ -615,15 +707,17 @@ def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
     (one query of one head) within TOL_OUT of its own max |plain|."""
     tensors = window_inputs(gen, lengths, w, h, hkv, d, quantized, bs, cap)
     o = _window_call(tensors)
+    again = _window_call(tensors)
     ro = _window_call(tensors, plain=True)
     torch.cuda.synchronize()
     err, worst, ok_rows = row_errors(o, ro)
-    ok = ok_rows and torch.isfinite(o).all().item()
+    same = torch.equal(o, again)
+    ok = ok_rows and same and torch.isfinite(o).all().item()
     log(f"[kernels] {'paged_' if bs else ''}window{'_q' if quantized else ''}"
         f"{f' bs={bs}' if bs else ''} B={len(lengths)} W={w} H={h} Hkv={hkv} "
         f"D={d} cap={cap} lengths={lengths}: max|o-plain|={err:.3e} worst row "
         f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
-        f"{'ok' if ok else 'FAIL'}")
+        f"deterministic={same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"window kernel (paged={bool(bs)}, int8={quantized}) "
                          f"disagrees with its plain version at W={w} H={h} "
@@ -631,19 +725,26 @@ def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
     return err, worst
 
 
-# the window kernels' cases: the verify window (K = 4), a 512-token chunk,
-# G = 16, the gpt3-125m draft's heads (D = 64, H = 12), lengths 0 and 1,
-# mid values and the last window that fits (S - W)
+# the window kernels' cases: the verify window (K = 4), a 512-token chunk
+# ending at the cache's end (S - W), G = 16, the gpt3-125m draft's heads
+# (D = 64, H = 12), lengths 0 and 1, mid values and the last window that
+# fits (S - W); W * G = 20 (the chunk kernel with one mostly padded tile)
+# and 1024 (G = 16: many w a tile); ``bs``: the paged kernels' block
+# sizes (128 as the engine serves; 16 and 48 split 128-key tiles over
+# several blocks, 48 unevenly, over a 1536-position cap)
 WINDOW_CASES = [
     dict(lengths=[0, 1, 127, 700, 1000, 1536, 2000, 2043], w=5, h=16, hkv=16,
-         d=128),
+         d=128, bs=(128, 16)),
     dict(lengths=[0, 1, 64, 100, 511, 1000, 1500, 1536], w=512, h=16, hkv=16,
-         d=128),
-    dict(lengths=[0, 300, 2043], w=5, h=16, hkv=1, d=128),
+         d=128, bs=(128, 16)),
+    dict(lengths=[0, 300, 2043], w=5, h=16, hkv=1, d=128, bs=(128, 16)),
     dict(lengths=[3, 1000], w=1, h=16, hkv=1, d=128),
-    dict(lengths=[0, 37, 1200], w=64, h=16, hkv=1, d=128),
+    dict(lengths=[0, 37, 1200], w=64, h=16, hkv=1, d=128, bs=(128, 16)),
     dict(lengths=[0, 1, 700, 2043], w=5, h=12, hkv=12, d=64),
     dict(lengths=[0, 200, 1536], w=512, h=12, hkv=12, d=64),
+    dict(lengths=[0, 300, 2043], w=5, h=16, hkv=4, d=128, bs=(128, 16)),
+    dict(lengths=[0, 37, 500, 1472], w=64, h=16, hkv=4, d=128, cap=1536,
+         bs=(48,)),
 ]
 VERIFY_W, CHUNK_W = 5, 512
 
@@ -714,9 +815,8 @@ def time_window(key, line, bs, quantized, gen, errs, worst):
 
 def phase_window_kernels(records):
     """The four window kernels (rows 8a, 8b, 9a, 9b) against their plain
-    versions at every case of WINDOW_CASES, dense and paged (blocks of
-    128 as the engine serves, and of 16, whose 64-key tiles span four
-    blocks), then timed."""
+    versions at every case of WINDOW_CASES, dense and paged (each case's
+    block sizes), each call twice (bitwise equal), then timed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     for key, line, paged, quantized in (
@@ -725,9 +825,10 @@ def phase_window_kernels(records):
             ("paged_window_attention", 836, True, False),
             ("paged_window_attention_q", 883, True, True)):
         errs, worst = [], []
-        for i, case in enumerate(WINDOW_CASES):
-            for bs in ((128, 16) if paged and i in (0, 1, 2) else
-                       (128,) if paged else (None,)):
+        for case in WINDOW_CASES:
+            case = dict(case)
+            sizes = case.pop("bs", (128,))
+            for bs in sizes if paged else (None,):
                 e, w = check_window(gen, quantized=quantized, bs=bs, **case)
                 errs.append(e)
                 worst.append(w)
@@ -2113,7 +2214,8 @@ def report_profile(prof, steps, wall_ms, what):
     groups = {}
     for ms, n, key in rows:
         if any(w in key for w in ("flash_", "decode_kernel", "window_kernel",
-                                  "mega_kernel", "qmm_kernel")):
+                                  "attn_fwd_kernel", "mega_kernel",
+                                  "qmm_kernel")):
             group = "port kernels"
         elif any(w in key for w in ("nvjet", "gemm", "cutlass", "xmma")):
             group = "library matmuls"

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the wgmma / TMA kernels
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu): mbarriers, TMA tile loads and the
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu, hopper_attn_fwd.cuh): mbarriers, TMA tile loads and the
 // host-side tensor-map encoding, wgmma descriptors and instructions, the
 // accumulator-to-A-operand packing and setmaxnreg.
 //
@@ -78,6 +78,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// order this thread's generic shared-memory writes before later reads by
+// the async proxy (wgmma operands written with st.shared)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // a barrier among `threads` threads (a multiple of 32) of the block
@@ -353,6 +359,29 @@ inline bool map_bshd(CUtensorMap* map, const void* base, bool fp16, int B,
              4, const_cast<void*>(base), dims, strides, box, unit,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [B, S, H, D] int8 codes, boxes of all D bytes x `rows` positions of one
+// head, unswizzled (a box lands as `rows` lines of D bytes), zeros past
+// the edges
+inline bool map_bshd_u8(CUtensorMap* map, const void* base, int B, int S,
+                        int H, int D, int rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D),
+                                 static_cast<cuuint64_t>(H) * D,
+                                 static_cast<cuuint64_t>(S) * H * D};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

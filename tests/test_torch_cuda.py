@@ -69,6 +69,38 @@ def test_flash_kernel_matches_plain(gen, s, h, hkv, d, causal):
     assert bool(((lse - rlse).abs() <= 1e-3 * rlse.abs().clamp_min(1.0)).all())
 
 
+@pytest.mark.parametrize("b,s,h,hkv,d,dtype,masked", [
+    (2, 16, 16, 16, 128, "bfloat16", False),
+    (2, 130, 16, 4, 128, "bfloat16", False),        # ragged past one tile
+    (1, 2048, 16, 16, 128, "bfloat16", False),
+    (4, 2048, 16, 16, 128, "bfloat16", False),      # the training shape
+    (2, 200, 8, 2, 64, "float16", False),
+    (2, 130, 8, 8, 128, "float16", True),
+    (2, 333, 16, 4, 128, "bfloat16", True)])
+def test_flash_kernel_on_the_wgmma_mainloop(gen, b, s, h, hkv, d, dtype,
+                                            masked):
+    """The forward on the shared wgmma mainloop: causal, o per row within
+    1e-2, lse within 1e-3, two calls bitwise equal; with a key mask the
+    last batch row's key 0 is masked, so its causal row 0 sees no key
+    and must be exactly 0."""
+    dt = getattr(torch, dtype)
+    q = _rand((b, s, h, d), gen).to(dt)
+    k = _rand((b, s, hkv, d), gen).to(dt)
+    v = _rand((b, s, hkv, d), gen).to(dt)
+    mask = None
+    if masked:
+        mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3).float()
+        mask[-1, 0] = 0.0
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal=True, kv_mask=mask)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    ro, rlse = fa._flash_plain(q.float(), k.float(), v.float(), True, mask)
+    _close(o, ro)
+    assert bool(((lse - rlse).abs() <= 1e-3 * rlse.abs().clamp_min(1.0)).all())
+    if masked:
+        assert o[-1, 0].abs().max().item() == 0.0
+
+
 @pytest.mark.parametrize("hkv,d", [(16, 128), (4, 128), (8, 64)])
 def test_decode_kernel_matches_plain(gen, hkv, d):
     lengths = [0, 1, 63, 64, 500, 1024]
@@ -348,6 +380,45 @@ def test_window_kernels_match_plain(gen, lengths, w, h, hkv, d, bs,
         o = da.paged_decode_attention_window(q, k, v, tables, lens, ks, vs)
         ref = da._paged_window_plain(q.float(), kp, vp, tables, lens)
     assert kern.launches == n + 1
+    _close(o, ref)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("lengths,w,h,hkv,d,bs,cap", [
+    ([0, 300, 2043], 5, 16, 4, 128, None, 2048),   # W G = 20: one tile
+    ([0, 300, 2043], 5, 16, 4, 128, 16, 2048),
+    ([0, 37, 1200], 64, 16, 1, 128, None, 2048),   # W G = 1024, G = 16
+    ([0, 37, 1200], 64, 16, 1, 128, 128, 2048),
+    ([1536, 1536], 512, 16, 16, 128, None, 2048),  # the chunk at S - W
+    ([0, 1536], 512, 16, 16, 128, 128, 2048),
+    ([0, 37, 500, 1472], 64, 16, 4, 128, 48, 1536)])  # blocks of 48
+def test_window_chunk_kernels_on_the_wgmma_mainloop(gen, lengths, w, h, hkv,
+                                                    d, bs, cap, quantized):
+    """The window kernels' chunk regime (W G > 16 rows a kv head) on the
+    shared wgmma mainloop: every row within 1e-2 of its own scale, two
+    calls bitwise equal, one launch per call."""
+    q, k, v, tables, lens, ks, vs = _window_case(gen, lengths, w, h, hkv, d,
+                                                 quantized, bs, cap)
+    kp, vp = (k, v) if not quantized else (
+        qm.dequantize_kv(k, ks, torch.bfloat16),
+        qm.dequantize_kv(v, vs, torch.bfloat16))
+    kp, vp = kp.float(), vp.float()
+    if bs is None:
+        kern = da.WINDOW_ATTENTION_Q if quantized else da.WINDOW_ATTENTION
+        n = kern.launches
+        o = da.decode_attention_window(q, k, v, lens, ks, vs)
+        again = da.decode_attention_window(q, k, v, lens, ks, vs)
+        ref = da._window_plain(q.float(), kp, vp, lens)
+    else:
+        kern = da.PAGED_WINDOW_ATTENTION_Q if quantized else \
+            da.PAGED_WINDOW_ATTENTION
+        n = kern.launches
+        o = da.paged_decode_attention_window(q, k, v, tables, lens, ks, vs)
+        again = da.paged_decode_attention_window(q, k, v, tables, lens, ks,
+                                                 vs)
+        ref = da._paged_window_plain(q.float(), kp, vp, tables, lens)
+    assert kern.launches == n + 2
+    assert torch.equal(o, again)
     _close(o, ref)
 
 

@@ -93,6 +93,43 @@ def test_flash_plain_key_mask_matches_jax(causal, interpret):
         assert np.all(o.numpy()[-1, 0] == 0.0)
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [130, 200])
+def test_flash_plain_matches_jax_at_ragged_tiles(s, causal, masked):
+    """S past one 128-row tile of the Hopper kernel and not a multiple
+    of it (the JAX package takes its composite there): o against
+    ``_composite``; lse against the same masked log-sum-exp formed in
+    JAX (-1e30 for masked scores, ``m + log(max(l, 1e-30))``)."""
+    b, h, hkv, d = 2, 4, 2, 64
+    q, k, v = make_qkv(b, s, h, hkv, d, seed=s + causal)
+    m = key_mask(b, s, seed=s) if masked else None
+    o, lse = tfa.flash_attention_fwd(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=causal, kv_mask=None if m is None else torch.from_numpy(m))
+    jm = None if m is None else jnp.asarray(m)
+    ref = jfa._composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         causal, jm)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref), **TOL)
+    kr = jnp.repeat(jnp.asarray(k), h // hkv, axis=2)
+    sc = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kr,
+                    precision="highest") / np.sqrt(d)
+    keep = jnp.ones((s, s), bool)
+    if causal:
+        keep = jnp.tril(keep)
+    keep = keep[None, None]
+    if jm is not None:
+        keep = keep & (jm[:, None, None, :] > 0)
+    sc = jnp.where(keep, sc, -1e30)
+    mx = sc.max(-1)
+    l = jnp.where(sc <= -0.5e30, 0.0, jnp.exp(sc - mx[..., None])).sum(-1)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(mx + jnp.log(jnp.maximum(l, 1e-30))),
+        rtol=1e-5, atol=1e-4)
+    if masked and causal:   # row 0 of the last batch row sees no key
+        assert np.all(o.numpy()[-1, 0] == 0.0)
+
+
 @pytest.mark.parametrize("hkv", [4, 2, 1])
 def test_decode_plain_matches_jax(hkv):
     b, s, h, d = 4, 256, 4, 64

@@ -165,6 +165,51 @@ def test_window_plain_matches_interpret_kernel(w, quantized):
     np.testing.assert_allclose(pout, pkern, **TOL)
 
 
+# the chunk regime of the Hopper window kernels (W * G > 16 rows a kv
+# head, 128-row tiles): bf16 inputs against the JAX composite, which
+# rounds the probabilities to bf16 before p.v where the plain version
+# keeps f32 (relative 2^-8 of each row's scale), hence 1e-2
+CHUNK_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("layout", [None, 16, 48], ids=["dense", "bs16",
+                                                        "bs48"])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_window_plain_matches_jax_at_chunk_regime(kind, g, layout):
+    """W = 64 new tokens (64 or 256 rows a kv head: more than one w per
+    128-row tile at G = 4) over S = 240 cached positions, lengths 0, 37
+    and S - W, H = 8, D = 64; bf16 caches or int8 codes dequantized to
+    bf16, dense and paged with blocks of 16 and 48 (key tiles of 128
+    that straddle blocks unevenly)."""
+    w, h, s = 64, 8, 240
+    q, k, v, lengths, (ks, vs) = window_case(
+        g * 7 + (layout or 0), w, h // g, kind == "int8", h=h, s=s)
+    bf = jnp.bfloat16
+
+    def run(args, ours, theirs):
+        tq = torch.from_numpy(args[0]).bfloat16()
+        rest = to_t(args[1:])
+        if kind == "bf16":
+            rest[0], rest[1] = rest[0].bfloat16(), rest[1].bfloat16()
+        out = ours(tq, *rest).float().numpy()
+        jargs = to_j(args)
+        jargs[0] = jargs[0].astype(bf)
+        if kind == "bf16":
+            jargs[1], jargs[2] = jargs[1].astype(bf), jargs[2].astype(bf)
+        ref = np.asarray(theirs(*jargs).astype(jnp.float32))
+        np.testing.assert_allclose(out, ref, **CHUNK_TOL)
+
+    if layout is None:
+        run((q, k, v, lengths, ks, vs), tda.decode_attention_window,
+            jda._window_composite)
+    else:
+        pk, pv, tables, (pks, pvs) = paged_of(k, v, (ks, vs), bs=layout,
+                                              seed=g)
+        run((q, pk, pv, tables, lengths, pks, pvs),
+            tda.paged_decode_attention_window, jda._paged_window_composite)
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
 def test_window_of_one_is_decode_and_rows_are_sequential(quantized):
     """Row i of a window equals the single-token decode over lengths +
