@@ -10,7 +10,8 @@ before the result lines:
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, all in
    parallel, with the compiler's register and spill report; a spill in
    any kernel on the shared wgmma forward mainloop (the flash forward,
-   the window kernels' chunk regime) fails the phase;
+   the window kernels' chunk regime) or on the int8 verify code ring
+   fails the phase;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes (bf16 queries; int8 caches made by
    ``quantize_kv``, the plain version fed the same codes), with the
@@ -24,10 +25,11 @@ before the result lines:
    decode (bf16 and int8) and paged decode (bf16 and int8) also at GQA,
    G = 16, D=64, length 0 or 1, exact block multiples, null-block tails,
    shuffled blocks and an inactive slot.  The four window kernels
-   (dense and paged, bf16 and int8) at the verify window (W=5), a
-   512-token chunk, W x G of 20 and 1024, G = 16, D=64 and blocks of
-   16, 48 and 128, each call twice (bitwise equal), timed at the verify
-   and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
+   (dense and paged, bf16 and int8) at the verify window (W=5, lengths
+   0, 1, 63-65 and S - W, B=1 and B=8), a 512-token chunk, W x G of 20
+   and 1024, G = 16, D=64 (fp16 q too) and blocks of 16, 48 and 128,
+   each call twice (bitwise equal), timed in turns with SDPA at the
+   verify shape (B=8 and B=1) and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
    over gpt3-1.3b's four projections (its output must EQUAL the plain
    version's: exact int32 sums, the same f32 rescale), timed beside
    ``torch._int_mm`` + rescale; the decode megakernel in its four
@@ -67,8 +69,9 @@ before the result lines:
    chunk tick but a graduating one, one window launch per layer per
    chunk tick, leak-free, greedy streams against the monolithic engine
    (a divergence must sit at a near-tie of the plain engine's logits);
-10. serve-spec: ``spec_k=4`` behind dense int8 and paged bf16 targets
-   with a gpt3-125m draft (random weights) and a dense bf16 target
+10. serve-spec: ``spec_k=4`` behind dense int8, paged bf16 and paged
+   int8 targets with a gpt3-125m draft (random weights) and a dense bf16
+   target
    drafting for itself, 8 prompts of 32-1024 tokens, 64 new tokens: one
    host sync per tick, the verify and catch-up window launches per
    tick, K+1 tokens a tick for the self-draft, greedy streams against
@@ -202,21 +205,26 @@ def cuda_ms(fn, iters=20, warmup=3):
 def device_ms(fn, iters=20, warmup=3):
     """Device time per call of ``fn``: the summed time of the kernels it
     launched (torch.profiler), without the host's launch gaps, which
-    outlast kernels of a few tens of microseconds.  None when the
-    profiler sees no device time."""
+    outlast kernels of a few tens of microseconds.  A profiling session
+    that records no device time (seen now and then after many sessions in
+    one process) is repeated, up to three sessions; None when none
+    records any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    return None
 
 
 def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -244,8 +252,9 @@ def phase_device():
 
 
 # the sources whose kernels run on the shared wgmma forward mainloop
-# (hopper_attn_fwd.cuh: every attn_fwd_kernel instantiation); a spill in
-# one of those kernels fails the build phase
+# (hopper_attn_fwd.cuh: every attn_fwd_kernel instantiation) and, in the
+# int8 window sources, on the verify code ring (verify_q_kernel); a spill
+# in one of those kernels fails the build phase
 FWD_SOURCES = ("flash_fwd.cu", "window_attention.cu", "window_attention_q.cu",
                "paged_window_attention.cu", "paged_window_attention_q.cu")
 
@@ -286,17 +295,22 @@ def phase_build():
             f"spills: {spills or 'none'}")
         if src not in FWD_SOURCES:
             continue
-        fwd = [(r, sp) for fn, r, sp in kernels if "attn_fwd_kernel" in fn]
-        bad = [sp for _, sp in fwd
-               if "0 bytes spill stores, 0 bytes spill loads" not in sp]
-        log(f"[build] {src} wgmma forward mainloop: {len(fwd)} "
-            f"instantiations, registers at launch "
-            f"{sorted({r for r, _ in fwd})} (setmaxnreg raises the "
-            f"consumers'), spills: {bad or 'none'}"
-            f"{'' if kernels else ' (no report: built by an earlier process)'}")
-        spilled += [f"{src}: {sp}" for sp in bad]
+        checked = [("wgmma forward mainloop", "attn_fwd_kernel",
+                    " (setmaxnreg raises the consumers')")]
+        if src.endswith("_q.cu"):
+            checked.append(("int8 verify code ring", "verify_q_kernel", ""))
+        for what, kname, note in checked:
+            found = [(r, sp) for fn, r, sp in kernels if kname in fn]
+            bad = [sp for _, sp in found
+                   if "0 bytes spill stores, 0 bytes spill loads" not in sp]
+            log(f"[build] {src} {what}: {len(found)} instantiations, "
+                f"registers at launch {sorted({r for r, _ in found})}{note}, "
+                f"spills: {bad or 'none'}"
+                f"{'' if kernels else ' (no report: built by an earlier process)'}")
+            spilled += [f"{src} {kname}: {sp}" for sp in bad]
     if spilled:
-        raise SystemExit(f"build phase failed: the forward mainloop spills "
+        raise SystemExit(f"build phase failed: a kernel on the forward "
+                         f"mainloop or the int8 verify ring spills "
                          f"registers: {spilled}")
 
 
@@ -651,24 +665,25 @@ def phase_kernels():
 
 
 def window_inputs(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048,
-                  spare=2):
-    """q ``[B, W, H, D]`` and a cache whose slots hold ``lengths`` tokens
-    before the window: dense ``[B, cap, Hkv, D]``, or (``bs``) a shuffled
-    block pool with tables of ``cap / bs`` entries, each slot's blocks
-    covering ``min(len + W, cap)`` positions and null-block tails past
-    them.  int8 caches are ``quantize_kv`` codes with f32 scales.
+                  spare=2, dtype=torch.bfloat16):
+    """q ``[B, W, H, D]`` (``dtype``) and a cache whose slots hold
+    ``lengths`` tokens before the window: dense ``[B, cap, Hkv, D]``, or
+    (``bs``) a shuffled block pool with tables of ``cap / bs`` entries,
+    each slot's blocks covering ``min(len + W, cap)`` positions and
+    null-block tails past them.  int8 caches are ``quantize_kv`` codes
+    with f32 scales; 16-bit caches take q's dtype.
     Returns ``(q, k, v, tables or None, lens, ks, vs)``."""
     b = len(lengths)
-    q = _rand((b, w, h, d), gen)
+    q = _rand((b, w, h, d), gen, dtype)
     tables = None
     if bs is None:
-        k = _rand((b, cap, hkv, d), gen)
-        v = _rand((b, cap, hkv, d), gen)
+        k = _rand((b, cap, hkv, d), gen, dtype)
+        v = _rand((b, cap, hkv, d), gen, dtype)
     else:
         need = [-(-min(n + w, cap) // bs) for n in lengths]
         nb = 1 + sum(need) + spare
-        k = _rand((nb, bs, hkv, d), gen)
-        v = _rand((nb, bs, hkv, d), gen)
+        k = _rand((nb, bs, hkv, d), gen, dtype)
+        v = _rand((nb, bs, hkv, d), gen, dtype)
         perm = (1 + torch.randperm(nb - 1, generator=gen,
                                    device="cuda")).tolist()
         tables = torch.zeros((b, cap // bs), dtype=torch.int32)
@@ -688,10 +703,10 @@ def _window_call(tensors, plain=False):
     q, k, v, tables, lens, ks, vs = tensors
     if plain:
         # the plain version in f32 over the values the window kernels
-        # attend: int8 codes dequantized to q's dtype (bf16), as the TPU
-        # kernel and the JAX composite dequantize them
+        # attend: int8 codes dequantized to q's dtype, as the TPU kernel
+        # and the JAX composite dequantize them
         if ks is not None:
-            k, v = _dequant(k, ks), _dequant(v, vs)
+            k, v = _dequant(k, ks, q.dtype), _dequant(v, vs, q.dtype)
             ks = vs = None
         q, k, v = q.float(), k.float(), v.float()
     if tables is None:
@@ -702,10 +717,12 @@ def _window_call(tensors, plain=False):
 
 
 def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
-                 cap=2048):
+                 cap=2048, dtype=torch.bfloat16):
     """One window kernel against its plain version, every output row
-    (one query of one head) within TOL_OUT of its own max |plain|."""
-    tensors = window_inputs(gen, lengths, w, h, hkv, d, quantized, bs, cap)
+    (one query of one head) within TOL_OUT of its own max |plain|, two
+    calls bitwise equal."""
+    tensors = window_inputs(gen, lengths, w, h, hkv, d, quantized, bs, cap,
+                            dtype=dtype)
     o = _window_call(tensors)
     again = _window_call(tensors)
     ro = _window_call(tensors, plain=True)
@@ -715,7 +732,8 @@ def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
     ok = ok_rows and same and torch.isfinite(o).all().item()
     log(f"[kernels] {'paged_' if bs else ''}window{'_q' if quantized else ''}"
         f"{f' bs={bs}' if bs else ''} B={len(lengths)} W={w} H={h} Hkv={hkv} "
-        f"D={d} cap={cap} lengths={lengths}: max|o-plain|={err:.3e} worst row "
+        f"D={d} {str(dtype).split('.')[-1]} cap={cap} lengths={lengths}: "
+        f"max|o-plain|={err:.3e} worst row "
         f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
         f"deterministic={same} {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -731,51 +749,110 @@ def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
 # fits (S - W); W * G = 20 (the chunk kernel with one mostly padded tile)
 # and 1024 (G = 16: many w a tile); ``bs``: the paged kernels' block
 # sizes (128 as the engine serves; 16 and 48 split 128-key tiles over
-# several blocks, 48 unevenly, over a 1536-position cap)
+# several blocks, 48 unevenly, over a 1536-position cap).  The verify
+# edges: lengths around a 64-key tile (63, 64, 65) at B=8 and B=1 (one
+# kv head a slot split over a cluster of CTAs for the int8 kernels), fp16
+# q at D=64, blocks of 16 and 48 on a 1536-position cap up to S - W.
+# Every paged case's tables end in null-block entries past the live ones.
 WINDOW_CASES = [
     dict(lengths=[0, 1, 127, 700, 1000, 1536, 2000, 2043], w=5, h=16, hkv=16,
          d=128, bs=(128, 16)),
     dict(lengths=[0, 1, 64, 100, 511, 1000, 1500, 1536], w=512, h=16, hkv=16,
          d=128, bs=(128, 16)),
     dict(lengths=[0, 300, 2043], w=5, h=16, hkv=1, d=128, bs=(128, 16)),
-    dict(lengths=[3, 1000], w=1, h=16, hkv=1, d=128),
+    dict(lengths=[3, 1000], w=1, h=16, hkv=1, d=128, bs=(128, 16)),
     dict(lengths=[0, 37, 1200], w=64, h=16, hkv=1, d=128, bs=(128, 16)),
     dict(lengths=[0, 1, 700, 2043], w=5, h=12, hkv=12, d=64),
     dict(lengths=[0, 200, 1536], w=512, h=12, hkv=12, d=64),
     dict(lengths=[0, 300, 2043], w=5, h=16, hkv=4, d=128, bs=(128, 16)),
     dict(lengths=[0, 37, 500, 1472], w=64, h=16, hkv=4, d=128, cap=1536,
          bs=(48,)),
+    dict(lengths=[0, 1, 63, 64, 65, 700, 1500, 2043], w=5, h=16, hkv=16,
+         d=128, bs=(128, 16)),
+    dict(lengths=[2043], w=5, h=16, hkv=16, d=128, bs=(128, 16)),
+    dict(lengths=[0], w=5, h=16, hkv=16, d=128, bs=(128,)),
+    dict(lengths=[65], w=5, h=16, hkv=16, d=128, bs=(16,)),
+    dict(lengths=[0, 1, 700, 2043], w=5, h=12, hkv=12, d=64,
+         dtype=torch.float16, bs=(128, 16)),
+    dict(lengths=[0, 1, 63, 64, 65, 1531], w=5, h=16, hkv=16, d=128,
+         cap=1536, bs=(16, 48)),
 ]
 VERIFY_W, CHUNK_W = 5, 512
 
 
+def capture(fn, iters):
+    """A CUDA graph of ``iters`` calls of ``fn`` (after warm-up calls on a
+    side stream, as graph capture wants)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def replay_ms(graph, iters):
+    """Milliseconds per call of one replay of a graph of ``iters`` calls
+    (CUDA events): the device's time without the host's launch gaps."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(fns, iters, rounds=3):
+    """Best of ``rounds`` timing windows of each function, each window one
+    replay of a CUDA graph of ``iters`` calls, taken in turns whose order
+    alternates (a, b, b, a, a, b): ms per call."""
+    graphs = [capture(fn, iters) for fn in fns]
+    times = [[] for _ in fns]
+    for rnd in range(rounds):
+        order = range(len(fns)) if rnd % 2 == 0 else range(len(fns))[::-1]
+        for i in order:
+            times[i].append(replay_ms(graphs[i], iters))
+    return [min(x) for x in times]
+
+
 def time_window(key, line, bs, quantized, gen, errs, worst):
     """Time one window kernel at the verify shape (B=8, W=5, every slot
-    at S - W = 2043 cached tokens: bytes bound) and the chunk shape (B=8,
-    W=512, every slot at 1536: operations bound) beside its plain version
-    and the library yardstick (SDPA with a boolean staircase mask over
-    the dense bf16 K/V, gathered and dequantized before the clock)."""
+    at S - W = 2043 cached tokens: bytes bound), the same at B=1, and the
+    chunk shape (B=8, W=512, every slot at 1536: operations bound) in
+    turns with the library yardstick (SDPA with a boolean staircase mask
+    over the dense bf16 K/V, gathered and dequantized before the clock),
+    both replayed from CUDA graphs (a verify kernel is shorter than the
+    host's launch gap); beside them the plain version (not at B=1) and
+    the wrapper called back to back from the host (``call_ms``)."""
     F = torch.nn.functional
     rec = dict(name=key, route="cuda",
                source=f"paddle_tpu_torch/csrc/{key}.cu",
                replaces=f"paddle_tpu/ops/decode_attention.py:{line}",
                max_abs_err=max(errs), max_row_rel_err=max(worst),
                row_tol=TOL_OUT)
-    for shape, w, n0, iters in (("verify", VERIFY_W, 2048 - VERIFY_W, 200),
-                                ("chunk", CHUNK_W, 1536, 50)):
-        tensors = window_inputs(gen, [n0] * 8, w, 16, 16, 128, quantized, bs,
+    for shape, w, n0, b, iters in (
+            ("verify", VERIFY_W, 2048 - VERIFY_W, 8, 200),
+            ("verify_b1", VERIFY_W, 2048 - VERIFY_W, 1, 200),
+            ("chunk", CHUNK_W, 1536, 8, 50)):
+        tensors = window_inputs(gen, [n0] * b, w, 16, 16, 128, quantized, bs,
                                 spare=0)
         q, k, v, tables, lens, ks, vs = tensors
-        t_kernel = min(cuda_ms(lambda: _window_call(tensors), iters=iters,
-                               warmup=5) for _ in range(3))
-        t_plain = cuda_ms(lambda: _window_call(tensors, plain=True),
-                          iters=3, warmup=1)
+        t_plain = None if b == 1 else cuda_ms(
+            lambda: _window_call(tensors, plain=True), iters=3, warmup=1)
         if tables is not None:
             idx = tables.long()
-            k = k[idx].reshape(8, -1, 16, 128)
-            v = v[idx].reshape(8, -1, 16, 128)
+            k = k[idx].reshape(b, -1, 16, 128)
+            v = v[idx].reshape(b, -1, 16, 128)
             if ks is not None:
-                ks, vs = (x[idx].reshape(8, -1, 16) for x in (ks, vs))
+                ks, vs = (x[idx].reshape(b, -1, 16) for x in (ks, vs))
         if ks is not None:
             k, v = _dequant(k, ks), _dequant(v, vs)
         s = k.shape[1]
@@ -784,32 +861,41 @@ def time_window(key, line, bs, quantized, gen, errs, worst):
         keep = (torch.arange(s, device="cuda")[None, None, :]
                 < (lens[:, None, None] + torch.arange(w, device="cuda")[
                     None, :, None] + 1))[:, None]
-        t_lib = min(cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=keep), iters=iters, warmup=5)
-            for _ in range(3))
-        npos = sum(min(n0 + w, 2048) for _ in range(8))
+        t_kernel, t_lib = in_turns(
+            [lambda: _window_call(tensors),
+             lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                    attn_mask=keep)], iters)
+        t_call = cuda_ms(lambda: _window_call(tensors), iters=iters, warmup=5)
+        npos = sum(min(n0 + w, 2048) for _ in range(b))
         per_value = 1 if quantized else 2
         nbytes = (2 * per_value * npos * 16 * 128
                   + (2 * 4 * npos * 16 if quantized else 0)
-                  + 2 * 2 * q.numel() + 4 * 8
+                  + 2 * 2 * q.numel() + 4 * b
                   + (4 * tables.numel() if tables is not None else 0))
-        flops = 4 * 8 * 16 * 128 * sum(n0 + i + 1 for i in range(w))
+        flops = 4 * b * 16 * 128 * sum(n0 + i + 1 for i in range(w))
         b_ms, b_by = bound(flops, nbytes)
-        log(f"[kernels] {key} timing {shape} B=8 W={w} lengths=8x{n0} H=16 "
-            f"D=128{f' bs={bs}' if bs else ''}: kernel_ms={t_kernel:.4f} "
-            f"plain_ms={t_plain:.4f} library_ms={t_lib:.4f} (SDPA, staircase "
-            f"mask, dense bf16 K/V) bound_ms={b_ms:.4f} ({b_by}, "
-            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        log(f"[kernels] {key} timing {shape} B={b} W={w} lengths={b}x{n0} "
+            f"H=16 D=128{f' bs={bs}' if bs else ''}: kernel_ms={t_kernel:.4f} "
+            f"plain_ms={t_plain if t_plain is None else round(t_plain, 4)} "
+            f"library_ms={t_lib:.4f} (SDPA, staircase mask, dense bf16 K/V, "
+            f"in turns, CUDA graphs) bound_ms={b_ms:.4f} ({b_by}, "
+            f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) share of bound "
+            f"{b_ms / t_kernel:.3f}; "
+            f"the wrapper back to back from the host {t_call:.4f} ms")
         vals = dict(ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=t_lib)
+                    bound_by=b_by, library_ms=t_lib, call_ms=t_call)
         if shape == "verify":
             rec.update(vals)
         else:
-            rec.update({f"chunk_{k2}": v2 for k2, v2 in vals.items()})
+            rec.update({f"{shape}_{k2}": v2 for k2, v2 in vals.items()
+                        if v2 is not None})
         del tensors, q, k, v, kt, vt, qt, keep
     rec["note"] = ("ms, plain_ms, bound_ms and library_ms at the verify "
-                   "shape (B=8, W=5, 8 x 2043 cached tokens); chunk_* at the "
-                   "chunk shape (B=8, W=512, 8 x 1536 cached tokens)")
+                   "shape (B=8, W=5, 8 x 2043 cached tokens); verify_b1_* "
+                   "the same at B=1; chunk_* at the chunk shape (B=8, "
+                   "W=512, 8 x 1536 cached tokens); kernel and library "
+                   "timed in turns from CUDA graph replays, best of three "
+                   "windows; call_ms: the wrapper back to back from the host")
     return rec
 
 
@@ -838,9 +924,9 @@ def phase_window_kernels(records):
         torch.cuda.empty_cache()
 
 
-def _dequant(codes, scale):
+def _dequant(codes, scale, dtype=torch.bfloat16):
     qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
-    return qm.dequantize_kv(codes, scale, torch.bfloat16)
+    return qm.dequantize_kv(codes, scale, dtype)
 
 
 def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
@@ -1709,10 +1795,11 @@ def build_draft():
 
 
 def phase_serve_spec(model):
-    """Speculative decoding (``spec_k=4``) behind gpt3-1.3b: dense int8
-    and paged bf16 with a gpt3-125m draft of random weights (it proposes
-    badly, so the reject path runs), and dense bf16 with the target as
-    its own draft (every proposal accepted); 8 prompts of 32-1024
+    """Speculative decoding (``spec_k=4``) behind gpt3-1.3b: dense int8,
+    paged bf16 and paged int8 (blocks of 128) with a gpt3-125m draft of
+    random weights (it proposes badly, so the reject path runs), and
+    dense bf16 with the target as its own draft (every proposal
+    accepted); 8 prompts of 32-1024
     tokens, 64 new tokens, greedy (the paged engine also serves 2 sampled
     requests).  Checks one host sync per tick, the window launches per
     tick (the target's verify and the draft's catch-up, one per layer
@@ -1732,6 +1819,8 @@ def phase_serve_spec(model):
             ("serve-spec-dense-int8", dict(kv_dtype="int8"), draft, ()),
             ("serve-spec-paged", dict(kv_layout="paged", kv_block_size=128),
              draft, (3, 7)),
+            ("serve-spec-paged-int8", dict(kv_layout="paged", kv_block_size=128,
+                                           kv_dtype="int8"), draft, ()),
             ("serve-spec-self", {}, model, ())):
         want, _, _, _ = run_engine(f"{tag} (plain)", InferenceEngine(
             model, batch_slots=8, device="cuda", **kw), prompts, new)

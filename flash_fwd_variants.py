@@ -1,6 +1,7 @@
 """Variants of the Hopper forward-attention mainloop
-(``paddle_tpu_torch/csrc/hopper_attn_fwd.cuh``), timed against the
-committed kernels on one NVIDIA GPU.
+(``paddle_tpu_torch/csrc/hopper_attn_fwd.cuh``) and of the int8 verify
+window's code ring (``window_attention.cuh``, ``vq::verify_q_kernel``),
+timed against the committed kernels on one NVIDIA GPU.
 
     python3 flash_fwd_variants.py [variant ...]
 
@@ -12,10 +13,16 @@ compiled alone with the package's nvcc flags into
 shapes against the plain version (the per-row check of
 ``chip_smoke.py``; the variants that drop work are expected to fail
 it), then all are timed in turns, forward and backward order
-alternating, three rounds, best round reported: the flash forward at
-B=4, S=2048, H=16, D=128, causal, and the chunk window (B=8, W=512,
+alternating, three rounds, best round reported, each round one replay
+of a CUDA graph of 50 calls (200 for the verify shapes): the flash
+forward at
+B=4, S=2048, H=16, D=128, causal, the chunk window (B=8, W=512,
 8 x 1536 cached, H=16, D=128) dense bf16, dense int8 and paged int8
-(blocks of 128).  What they show:
+(blocks of 128) and paged bf16 (``pchunk:``), and the verify window
+(W=5, 2043 cached a slot, H=16, D=128) dense and paged (blocks of 128),
+bf16 (``verify:``, ``pverify:``) and int8 at B=8 (``verify_q:``,
+``pverify_q:``) and B=1 (``verify_q1:``, ``pverify_q1:``).  What they
+show:
 
 - ``fwd:tile_fastest``: the flash forward launched with each head's q
   tiles together (longest first within a head) in place of every head's
@@ -52,7 +59,39 @@ B=4, S=2048, H=16, D=128, causal, and the chunk window (B=8, W=512,
   walking the block table for every position's scale (one division and
   one table read each) in place of once per pool segment;
   ``pchunk_q:no_prefetch``: the next item's scale loads issued after its
-  ring slot is free, not before.
+  ring slot is free, not before;
+- ``verify_q:no_convert`` / ``pverify_q:no_convert``: the int8 verify
+  kernel whose consumers take the raw code words as their fragments (no
+  conversion; wrong results, timing only); ``*:no_scales``: no scale
+  loads (timing only);
+- ``verify_q:stages2`` / ``stages4`` / ``stages6`` (and ``pverify_q:``):
+  the code ring two, four or six tiles deep in place of three;
+- ``verify_q:warps4`` / ``warps4_stages6``: four consumer warps on 64-key
+  tiles in place of eight on 128-key tiles, with the ring three or six
+  deep (the latter keeps the committed bytes in flight);
+- ``verify_q:split2``: each (slot, kv head) split over a cluster of two
+  CTAs at B=8 (two waves); ``verify_q1:no_cluster`` /
+  ``pverify_q1:no_cluster``: no cluster split at B=1 (16 blocks);
+- ``pverify_q:walk_each``: the paged kernel walking the block table for
+  every position's scale (a division and a table read each) in place of
+  once per pool segment;
+- ``verify_q:scales_in_regs`` / ``pverify_q:scales_in_regs`` (and
+  ``pverify_q:walk_each_in_regs``): the scales loaded into the producer
+  lanes' registers one tile ahead and stored before the lanes' arrival,
+  in place of cp.async copies that complete on the stage's barrier (the
+  arrival then waits for the next tile's loads);
+- ``verify_q:plan_after_wait`` / ``pverify_q:plan_after_wait``: the
+  producer works out a tile's pool blocks and scale rows after its stage
+  is free, in place of while the previous stage is busy;
+- ``verify_q:prev`` / ``pverify_q:prev`` (and ``*1:prev``): the earlier
+  int8 verify design (the codes loaded to registers, converted by I2F and
+  staged as 16-bit tiles by four warps), and ``verify:prev``,
+  ``pverify:prev``, ``chunk:prev``, ``pchunk:prev``, ``chunk_q:prev``,
+  ``pchunk_q:prev``: the window kernels outside the int8 verify regime,
+  each built from a copy of the previous sources in
+  ``build/baseline_csrc/`` when that directory exists (for example
+  ``git archive <commit> paddle_tpu_torch/csrc | tar -x
+  --strip-components=2 -C build/baseline_csrc``).
 
 Needs nvcc and one CUDA device; exits non-zero without them.
 """
@@ -425,6 +464,184 @@ _NO_SCALES = _edit("val[u] = j < kN && k0 + j < p.cap ? scl[row * p.Hkv + hk]",
 _NO_CONVERT = _edit("for (int u = ct; u < kN * (D / 16); u += 96) {",
                     "for (int u = ct; u < 0; u += 96) {")
 
+_VQ_NO_CONVERT = _edit(
+    "  return hopper::pack2<T>(code(wa, ia) * fa, code(wb, ib) * fb);",
+    "  return wa + wb;")
+_VQ_NO_SCALES = _edit("          if (j < 2 * kTileN)\n            cp_async4(",
+                      "          if (j < 0)\n            cp_async4(")
+# the scales loaded to the producer's registers one tile ahead and stored
+# by the lanes before their arrival (the first form of the code ring): the
+# arrival waits for the next tile's loads
+_VQ_SCALES_IN_REGS = _cut(
+    "    // ---- producer: lane 0 issues the codes' TMA, lanes 1-31 copy the",
+    "      if (i + 1 < n) plan(t0 + i + 1);\n    }\n",
+    """    // ---- producer: lane 0 issues the codes' TMA, lanes 1-31 the scales
+    constexpr int kPer = (2 * kTileN + 30) / 31;
+    // scales of tile kt: j < kTileN the K scale of position j, else the V
+    // scale of position j - kTileN
+    auto gather = [&](int kt, float* val) {
+      const int k0 = kt * kTileN;
+      int lg = 0;
+      long seg_row = 0;
+      if constexpr (kPaged) {
+        lg = __ffs(p.seg) - 1;
+        const int t = k0 + ((lane - 1) << lg);
+        const int bi = t / p.bs;
+        if (lane - 1 < (kTileN >> lg))
+          seg_row = static_cast<long>(bi < n_blk ? tbl[bi] : 0) * p.bs + (t - bi * p.bs);
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int j = lane - 1 + 31 * u;
+        const int pos = j & (kTileN - 1);
+        long row;
+        if constexpr (kPaged)
+          row = __shfl_sync(0xfffffffeu, seg_row, 1 + (pos >> lg)) + (pos & (p.seg - 1));
+        else
+          row = static_cast<long>(b) * p.cap + k0 + pos;
+        const float* scl = j < kTileN ? p.ks : p.vs;
+        val[u] = j < 2 * kTileN && k0 + pos < p.cap ? __ldg(scl + row * p.Hkv + hk) : 0.f;
+      }
+    };
+    // one tensor's codes of tile kt: one box (dense) or one a pool segment
+    auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int kt) {
+      const int k0 = kt * kTileN;
+      if constexpr (kPaged) {
+        for (int i = 0; i < kTileN / p.seg; ++i) {
+          const int t = k0 + i * p.seg;
+          const int bi = t / p.bs;
+          const int blk = bi < n_blk ? tbl[bi] : 0;  // the null block past them
+          hopper::tma_load_4d(dst + i * p.seg * D, map, bar, 0, hk, t - bi * p.bs, blk);
+        }
+      } else {
+        hopper::tma_load_4d(dst, map, bar, 0, hk, k0, b);
+      }
+    };
+    float cur[kPer], nxt[kPer];
+    if (lane != 0 && n > 0) gather(t0, cur);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      // the next tile's scale loads go out before this slot is waited for
+      if (lane != 0 && i + 1 < n) gather(t0 + i + 1, nxt);
+      if (i >= kStages) hopper::mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+      const uint32_t st = base + s * L::kStage;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full(s), 2 * L::kCodes);
+        load(st, &p.tm_k, full(s), t0 + i);
+        load(st + L::kCodes, &p.tm_v, full(s), t0 + i);
+      } else {
+        float* sc = reinterpret_cast<float*>(sm + s * L::kStage + 2 * L::kCodes);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          if (lane - 1 + 31 * u < 2 * kTileN) sc[lane - 1 + 31 * u] = cur[u];
+          cur[u] = nxt[u];
+        }
+        hopper::mbar_arrive(full(s));
+      }
+    }
+""")
+
+
+def _vq_stages(n):
+    return _edit("constexpr int kStages = 3;             // ring depth",
+                 f"constexpr int kStages = {n};             // ring depth")
+
+
+_VQ_WARPS4 = _edit("constexpr int kCons = 8;               // consumer warps",
+                   "constexpr int kCons = 4;               // consumer warps")
+_VQ_SPLIT2 = _edit("  int ns = sm_count() / pairs;", "  int ns = 2;")
+_VQ_NO_CLUSTER = _edit("  int ns = sm_count() / pairs;", "  int ns = 1;")
+def _VQ_WALK_EACH(text):
+    for var, mask in (("srow[u]", "0xffffffffu"), ("row", "0xfffffffeu")):
+        line = (f" {var} = __shfl_sync({mask}, seg_row, 1 + (pos >> lg)) "
+                f"+ (pos & (p.seg - 1));")
+        if line in text:
+            return text.replace(line, (
+                " {\n"
+                "            const int t = k0 + pos;\n"
+                "            const int bi = t / p.bs;\n"
+                f"            {var} = static_cast<long>(bi < n_blk ? tbl[bi] : 0)"
+                " * p.bs + (t - bi * p.bs);\n"
+                "          }"))
+    raise SystemExit("variant edit no longer applies: the paged scale row")
+
+
+# the previous producer order: each tile's pool blocks and scale rows
+# worked out after its stage is free
+_VQ_PLAN_AFTER_WAIT = _cut(
+    "    // ---- producer: lane 0 issues the codes' TMA, lanes 1-31 copy the",
+    "      if (i + 1 < n) plan(t0 + i + 1);\n    }\n",
+    """    // ---- producer: lane 0 issues the codes' TMA, lanes 1-31 copy the
+    // scales by cp.async; both complete on the stage's full barrier, so
+    // the warp blocks only on a free stage
+    constexpr int kPer = (2 * kTileN + 30) / 31;
+    // scales of tile kt into the stage at `dst`: j < kTileN the K scale of
+    // position j, else the V scale of position j - kTileN (zero past the
+    // capacity)
+    auto scales = [&](int kt, uint32_t dst, uint32_t bar) {
+      const int k0 = kt * kTileN;
+      int lg = 0;
+      long seg_row = 0;
+      if constexpr (kPaged) {
+        lg = __ffs(p.seg) - 1;
+        const int t = k0 + ((lane - 1) << lg);
+        const int bi = t / p.bs;
+        if (lane - 1 < (kTileN >> lg))
+          seg_row = static_cast<long>(bi < n_blk ? tbl[bi] : 0) * p.bs + (t - bi * p.bs);
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int j = lane - 1 + 31 * u;
+        const int pos = j & (kTileN - 1);
+        long row;
+        if constexpr (kPaged)
+          row = __shfl_sync(0xfffffffeu, seg_row, 1 + (pos >> lg)) + (pos & (p.seg - 1));
+        else
+          row = static_cast<long>(b) * p.cap + k0 + pos;
+        const bool live = k0 + pos < p.cap;
+        const float* scl = j < kTileN ? p.ks : p.vs;
+        if (j < 2 * kTileN)
+          cp_async4(dst + 4 * j, live ? scl + row * p.Hkv + hk : scl, live);
+      }
+      cp_async_arrive(bar);
+    };
+    // one tensor's codes of tile kt: one box (dense) or one a pool segment
+    auto load = [&](uint32_t dst, const CUtensorMap* map, uint32_t bar, int kt) {
+      const int k0 = kt * kTileN;
+      if constexpr (kPaged) {
+        for (int i = 0; i < kTileN / p.seg; ++i) {
+          const int t = k0 + i * p.seg;
+          const int bi = t / p.bs;
+          const int blk = bi < n_blk ? tbl[bi] : 0;  // the null block past them
+          hopper::tma_load_4d(dst + i * p.seg * D, map, bar, 0, hk, t - bi * p.bs, blk);
+        }
+      } else {
+        hopper::tma_load_4d(dst, map, bar, 0, hk, k0, b);
+      }
+    };
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) hopper::mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+      const uint32_t st = base + s * L::kStage;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full(s), 2 * L::kCodes);
+        load(st, &p.tm_k, full(s), t0 + i);
+        load(st + L::kCodes, &p.tm_v, full(s), t0 + i);
+      } else {
+        scales(t0 + i, st + 2 * L::kCodes, full(s));
+      }
+    }
+""")
+VQ = "window_attention.cuh"
+# the pool's codes through a map of one flat run of positions (block id x
+# bs + offset, 2^24 positions) in place of a 4-d map over block ids
+_VQ_FLAT_POOL = _chain(
+    _edit("  const int nb = kPaged ? (1 << 30) : a.B;\n  const int npos = kPaged ? a.bs : a.S;\n"
+          "  p.seg = kPaged && pool_seg(a.bs) < kTileN ? pool_seg(a.bs) : kTileN;",
+          "  const int nb = kPaged ? 1 : a.B;\n  const int npos = kPaged ? (1 << 24) : a.S;\n"
+          "  p.seg = kPaged && pool_seg(a.bs) < kTileN ? pool_seg(a.bs) : kTileN;"),
+    _edit("0, hk, soff[g], sblk[g]);", "0, hk, sblk[g] * p.bs + soff[g], 0);"))
+
 # name: (entry source, file the edit applies to, edit)
 VARIANTS = {
     "fwd:stages3": ("flash_fwd.cu", "flash_fwd.cu", _edit(
@@ -469,30 +686,89 @@ VARIANTS = {
                            "window_attention.cuh", _edit(
                                "scl[row * p.Hkv + hk]",
                                "scl[kv_row(tbl, k0 + j) * p.Hkv + hk]")),
+    "verify_q:no_convert": ("window_attention_q.cu", VQ, _VQ_NO_CONVERT),
+    "pverify_q:no_convert": ("paged_window_attention_q.cu", VQ, _VQ_NO_CONVERT),
+    "verify_q:no_scales": ("window_attention_q.cu", VQ, _VQ_NO_SCALES),
+    "pverify_q:no_scales": ("paged_window_attention_q.cu", VQ, _VQ_NO_SCALES),
+    "verify_q:stages2": ("window_attention_q.cu", VQ, _vq_stages(2)),
+    "verify_q:stages4": ("window_attention_q.cu", VQ, _vq_stages(4)),
+    "verify_q:stages6": ("window_attention_q.cu", VQ, _vq_stages(6)),
+    "pverify_q:stages2": ("paged_window_attention_q.cu", VQ, _vq_stages(2)),
+    "pverify_q:stages4": ("paged_window_attention_q.cu", VQ, _vq_stages(4)),
+    "verify_q:warps4": ("window_attention_q.cu", VQ, _VQ_WARPS4),
+    "verify_q:warps4_stages6": ("window_attention_q.cu", VQ,
+                                _chain(_VQ_WARPS4, _vq_stages(6))),
+    "verify_q:split2": ("window_attention_q.cu", VQ, _VQ_SPLIT2),
+    "verify_q1:no_cluster": ("window_attention_q.cu", VQ, _VQ_NO_CLUSTER),
+    "pverify_q1:no_cluster": ("paged_window_attention_q.cu", VQ,
+                              _VQ_NO_CLUSTER),
+    "pverify_q:walk_each": ("paged_window_attention_q.cu", VQ, _VQ_WALK_EACH),
+    "pverify_q:flat_pool": ("paged_window_attention_q.cu", VQ, _VQ_FLAT_POOL),
+    "pverify_q:plan_after_wait": ("paged_window_attention_q.cu", VQ,
+                                  _VQ_PLAN_AFTER_WAIT),
+    "verify_q:plan_after_wait": ("window_attention_q.cu", VQ,
+                                 _VQ_PLAN_AFTER_WAIT),
+    "verify_q:scales_in_regs": ("window_attention_q.cu", VQ, _VQ_SCALES_IN_REGS),
+    "pverify_q:scales_in_regs": ("paged_window_attention_q.cu", VQ,
+                                 _VQ_SCALES_IN_REGS),
+    "pverify_q:walk_each_in_regs": ("paged_window_attention_q.cu", VQ,
+                                    _chain(_VQ_SCALES_IN_REGS, _VQ_WALK_EACH)),
 }
+# the previous verify design, from a copy of its sources (see above)
+BASELINE = ROOT / "build" / "baseline_csrc"
+BASELINES = {"verify_q:prev": "window_attention_q.cu",
+             "pverify_q:prev": "paged_window_attention_q.cu",
+             "verify_q1:prev": "window_attention_q.cu",
+             "pverify_q1:prev": "paged_window_attention_q.cu",
+             "verify:prev": "window_attention.cu",
+             "pverify:prev": "paged_window_attention.cu",
+             "chunk:prev": "window_attention.cu",
+             "pchunk:prev": "paged_window_attention.cu",
+             "chunk_q:prev": "window_attention_q.cu",
+             "pchunk_q:prev": "paged_window_attention_q.cu"}
 COMMITTED = {"fwd:committed": "flash_fwd.cu",
              "chunk:committed": "window_attention.cu",
              "chunk_q:committed": "window_attention_q.cu",
-             "pchunk_q:committed": "paged_window_attention_q.cu"}
+             "pchunk_q:committed": "paged_window_attention_q.cu",
+             "pchunk:committed": "paged_window_attention.cu",
+             "verify:committed": "window_attention.cu",
+             "pverify:committed": "paged_window_attention.cu",
+             "verify_q:committed": "window_attention_q.cu",
+             "pverify_q:committed": "paged_window_attention_q.cu",
+             "verify_q1:committed": "window_attention_q.cu",
+             "pverify_q1:committed": "paged_window_attention_q.cu"}
 # C entry point: (symbol, pointer arguments, int arguments)
 SYMBOLS = {"flash_fwd.cu": ("flash_fwd", 6, 7),
            "window_attention.cu": ("window_attention", 5, 7),
            "window_attention_q.cu": ("window_attention_q", 7, 7),
+           "paged_window_attention.cu": ("paged_window_attention", 6, 8),
            "paged_window_attention_q.cu": ("paged_window_attention_q", 8, 8)}
 
 
 def build(_build, only=()):
-    """Compile the committed sources and every variant (or those named in
-    ``only``), all at once; returns {name: (entry source, C function)}."""
-    jobs = {n: (src, None, None) for n, src in COMMITTED.items()}
-    jobs.update({n: v for n, v in VARIANTS.items() if not only or n in only})
+    """Compile the committed sources (of the kernels the named variants
+    edit, or all) and every variant (or those named in ``only``), all at
+    once; returns {name: (entry source, C function)}."""
+    prefixes = {n.split(":")[0] for n in only}
+    jobs = {n: (src, None, None, _build.CSRC) for n, src in COMMITTED.items()
+            if not only or n.split(":")[0] in prefixes}
+    jobs.update({n: (*v, _build.CSRC) for n, v in VARIANTS.items()
+                 if not only or n in only})
+    for n, src in BASELINES.items():
+        if only and n not in only:
+            continue
+        if BASELINE.is_dir():
+            jobs[n] = (src, None, None, BASELINE)
+        else:
+            cs.log(f"[variants] {n}: no copy of the previous sources in "
+                   f"{BASELINE}: skipped")
     procs = {}
-    for name, (source, target, edit) in jobs.items():
+    for name, (source, target, edit, src_dir) in jobs.items():
         d = OUT / name.replace(":", "_")
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
-        for f in [source, *(p.name for p in _build.CSRC.glob("*.cuh"))]:
-            shutil.copy(_build.CSRC / f, d / f)
+        for f in [source, *(p.name for p in src_dir.glob("*.cuh"))]:
+            shutil.copy(src_dir / f, d / f)
         if edit is not None:
             (d / target).write_text(edit((d / target).read_text()))
         lib = d / "lib.so"
@@ -576,11 +852,20 @@ def main():
         torch.cuda.synchronize()
         return cs.row_errors(x["o"], ref)
 
+    edges = [0, 1, 63, 64, 65, 700, 1500, 2043]
     cases = {"fwd": [flash_inputs(2, 200, 8, 2, 128),
                      flash_inputs(2, 192, 8, 8, 64)],
              "chunk": [window([0, 100, 1536], 512, False)],
              "chunk_q": [window([0, 100, 1536], 512, True)],
-             "pchunk_q": [window([0, 100, 1536], 512, True, 128)]}
+             "pchunk_q": [window([0, 100, 1536], 512, True, 128)],
+             "pchunk": [window([0, 100, 1536], 512, False, 128)],
+             "verify": [window(edges, 5, False)],
+             "pverify": [window(edges, 5, False, 128)],
+             "verify_q": [window(edges, 5, True)],
+             "pverify_q": [window(edges, 5, True, 128),
+                           window(edges, 5, True, 16)],
+             "verify_q1": [window([2043], 5, True)],
+             "pverify_q1": [window([2043], 5, True, 128)]}
     for name in list(fns):
         for x in cases[name.split(":")[0]]:
             try:
@@ -594,17 +879,29 @@ def main():
     shapes = {"fwd": flash_inputs(4, 2048, 16, 16, 128),
               "chunk": window([1536] * 8, 512, False),
               "chunk_q": window([1536] * 8, 512, True),
-              "pchunk_q": window([1536] * 8, 512, True, 128)}
+              "pchunk_q": window([1536] * 8, 512, True, 128),
+              "pchunk": window([1536] * 8, 512, False, 128),
+              "verify": window([2043] * 8, 5, False),
+              "pverify": window([2043] * 8, 5, False, 128),
+              "verify_q": window([2043] * 8, 5, True),
+              "pverify_q": window([2043] * 8, 5, True, 128),
+              "verify_q1": window([2043], 5, True),
+              "pverify_q1": window([2043], 5, True, 128)}
     names = list(fns)
+    iters = {n: 200 if "verify" in n else 50 for n in names}
+    graphs = {n: cs.capture(lambda: run(n, shapes[n.split(":")[0]]), iters[n])
+              for n in names}
     times = {n: [] for n in names}
     for rnd in range(3):
         for name in (names if rnd % 2 == 0 else names[::-1]):
-            x = shapes[name.split(":")[0]]
-            times[name].append(cs.cuda_ms(lambda: run(name, x), iters=50))
+            times[name].append(cs.replay_ms(graphs[name], iters[name]))
     for name in names:
-        what = ("flash B=4 S=2048 H=16 D=128 causal" if name.startswith("fwd")
-                else "window B=8 W=512 8x1536 H=16 D=128" +
-                (" bs=128" if name.startswith("p") else ""))
+        kind = name.split(":")[0]
+        what = ("flash B=4 S=2048 H=16 D=128 causal" if kind == "fwd"
+                else "window B=8 W=512 8x1536 H=16 D=128" if "chunk" in kind
+                else f"verify B={1 if kind.endswith('1') else 8} W=5 "
+                     f"2043 cached H=16 D=128")
+        what += " bs=128" if kind.startswith("p") else ""
         cs.log(f"[variants] {name} {what}: best {min(times[name]):.4f} ms, "
                f"rounds {[round(x, 4) for x in times[name]]}")
 

@@ -363,10 +363,11 @@ inline bool map_bshd(CUtensorMap* map, const void* base, bool fp16, int B,
 }
 
 // [B, S, H, D] int8 codes, boxes of all D bytes x `rows` positions of one
-// head, unswizzled (a box lands as `rows` lines of D bytes), zeros past
-// the edges
+// head, zeros past the edges; a box lands as `rows` lines of D bytes,
+// unswizzled, or (sw128, D = 128) with the 16-byte chunk c of line r at
+// chunk c ^ (r % 8), as the 16-bit tiles above
 inline bool map_bshd_u8(CUtensorMap* map, const void* base, int B, int S,
-                        int H, int D, int rows) {
+                        int H, int D, int rows, bool sw128 = false) {
   EncodeTiledFn enc = encode_tiled();
   if (!enc) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -381,7 +382,8 @@ inline bool map_bshd_u8(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             sw128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -9,9 +9,13 @@
 // [NB, Hkv, bs] on every call).  Each K/V tile is dequantized to q's
 // dtype before the products, as the TPU kernel does.
 //
-// What bounds it: as window_attention_q.cu; the table walk of the paged
-// kernel and the staged dequantization of the dense int8 kernel, in one
-// kernel (window_attention.cuh).
+// What bounds it: as window_attention_q.cu, the bytes of the codes and
+// scales.  The verify regime (vq::verify_q_kernel in window_attention.cuh)
+// is the dense one's code ring with the pool's indirection kept off the
+// consumers: the producer warp stages the slot's live table entries in
+// shared memory once, issues one TMA box per pool segment of a 128-key
+// tile (128, 64 or 16 positions, dividing bs), and walks the table once
+// per segment for the scales, each position's row by shuffle.
 #include "window_attention.cuh"
 
 // q [B, W, H, D]; k_pool/v_pool [NB, bs, Hkv, D] int8; k_scale/v_scale

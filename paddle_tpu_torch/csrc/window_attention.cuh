@@ -1,6 +1,6 @@
 // Shared device code of the window-attention kernels (window_attention.cu,
 // window_attention_q.cu, paged_window_attention.cu,
-// paged_window_attention_q.cu): one kernel template over the cache layout
+// paged_window_attention_q.cu): kernel templates over the cache layout
 // (dense slot rows [B, S, Hkv, D], or pool blocks [NB, bs, Hkv, D] reached
 // through a block table [B, MB]) and the value type (bf16/fp16, or int8
 // codes with one f32 scale per (position, kv head)).
@@ -16,21 +16,32 @@
 // entries at or past ceil(min(lengths[b] + W, cap) / bs) are not read (the
 // null block 0 stands in for them).  o [B, W, H, D] like q.
 //
-// Two regimes, two kernels.  The spec-decode verify has W * G = K + 1
-// query rows (5 at K = 4) against a long cache: memory bound, like
-// decode.  A prefill chunk has W * G = 512 or more rows: arithmetic
-// bound, like the flash forward.
-// - W * G <= 16 (the verify): window_kernel below, on mma.sync m16n8k16
-//   (mma_tile.cuh) with f32 accumulation and online softmax over 64-key
-//   tiles.  The four warps of a block hold the same 16 rows (w, g) of one
-//   kv head and split the key tiles between them (warp w takes tiles w,
-//   w + 4, ...), each streaming its own K/V buffer by cp.async, so the
-//   block keeps four tiles of loads in flight and no K/V is streamed for
-//   padded rows.  int8 tiles are loaded to registers, dequantized to q's
-//   dtype (code x scale in f32, rounded, as the TPU kernel rounds its
-//   dequantized blocks) and staged in shared memory.  The partial (m, l,
-//   acc) of the key splits merge through shared memory in a fixed order,
-//   so results do not depend on scheduling.
+// Two regimes.  The spec-decode verify has W * G = K + 1 query rows (5 at
+// K = 4) against a long cache: memory bound, like decode.  A prefill chunk
+// has W * G = 512 or more rows: arithmetic bound, like the flash forward.
+// - W * G <= 16, bf16 / fp16 caches (the verify): window_kernel below, on
+//   mma.sync m16n8k16 (mma_tile.cuh) with f32 accumulation and online
+//   softmax over 64-key tiles.  The four warps of a block hold the same 16
+//   rows (w, g) of one kv head and split the key tiles between them (warp
+//   w takes tiles w, w + 4, ...), each streaming its own K/V buffer by
+//   cp.async, so the block keeps four tiles of loads in flight and no K/V
+//   is streamed for padded rows.  The partial (m, l, acc) of the key
+//   splits merge through shared memory in a fixed order, so results do
+//   not depend on scheduling.
+// - W * G <= 16, int8 caches: vq::verify_q_kernel below.  The bound is
+//   the bytes (half the 16-bit kernel's), so the codes must stay in flight
+//   while they are dequantized: one producer warp keeps a three-deep ring
+//   of 128-key tiles of raw codes (TMA into an mbarrier full / empty
+//   ring, up to 99 KB a block in flight) and their f32 scales (cp.async
+//   on the same barriers); eight consumer warps, 16 keys of every tile
+//   each, dequantize the codes out of shared memory straight into the
+//   mma.sync B fragments (byte-permute
+//   conversion, code x scale in f32 rounded once to q's dtype, as the TPU
+//   kernel rounds its dequantized blocks), with the head dimension
+//   permuted so every read is a 16-byte vector.  One block per (slot, kv
+//   head) when B * Hkv fills the SMs; otherwise each pair's key tiles
+//   split over a cluster of up to 8 CTAs, merged through distributed
+//   shared memory in rank order.
 // - W * G > 16 (chunks): chunk_launch below, on the shared wgmma mainloop
 //   of hopper_attn_fwd.cuh (128-row tiles, two consumer warpgroups,
 //   128-key K/V tiles through a TMA / mbarrier ring).  Tile row r of kv
@@ -45,10 +56,12 @@
 //   item (code x scale in f32, rounded once to T) into the swizzled
 //   16-bit K/V stage the consumers read, so the consumers never touch
 //   int8.
-// Both read key tiles only up to the block's highest limit
+// All read key tiles only up to the block's highest limit
 // lengths[b] + w_last + 1 and apply the staircase mask only on tiles
 // that cross their lowest row's limit.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <type_traits>
 
@@ -95,13 +108,11 @@ __device__ __forceinline__ void group_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-template <typename T, typename KV>
+template <typename T>
 struct Params {
   const T* q;
-  const KV* k;
-  const KV* v;
-  const float* ks;     // int8 only: [B, S, Hkv] dense, [NB, bs, Hkv] paged
-  const float* vs;
+  const T* k;
+  const T* v;
   const int* tables;   // paged only: [B, mb]
   const int* lengths;  // [B], tokens cached before the window
   T* o;
@@ -111,10 +122,9 @@ struct Params {
   float scale;
 };
 
-template <typename T, typename KV, int D, bool kPaged>
+template <typename T, int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-    window_kernel(const Params<T, KV> p) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+    window_kernel(const Params<T> p) {
   constexpr int kSplit = kWarps / (kBQ / 16);       // warps per row slice
   constexpr int kGroup = kThreads / kSplit;        // threads per K/V buffer
   constexpr int kLd = D + 8;
@@ -187,8 +197,8 @@ __global__ void __launch_bounds__(kThreads)
     lim[e] = min(len + rr / p.G, p.cap - 1);
   }
 
-  // cache row of position t (values at (row * Hkv + hk) * D, scale at
-  // row * Hkv + hk), or -1 past the capacity
+  // cache row of position t (values at (row * Hkv + hk) * D), or -1 past
+  // the capacity
   auto kv_row = [&](int t) -> long {
     if (t >= p.cap) return -1;
     if constexpr (kPaged) {
@@ -206,65 +216,16 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = split; kt < n_tiles; kt += kSplit) {
     const int k0 = kt * kBlockK;
     group_sync(1 + split, kGroup);                 // the buffer is free
-    if constexpr (!kQuant) {
-      constexpr int kVecPerRow = D / 8;
-      for (int i = gtid; i < kBlockK * kVecPerRow; i += kGroup) {
-        const int r = i / kVecPerRow;
-        const int c = (i % kVecPerRow) * 8;
-        const long row = kv_row(k0 + r);
-        const long off = row >= 0 ? (row * p.Hkv + hk) * D + c : 0;
-        cp_async16(sK + r * kLd + c, p.k + off, row >= 0);
-        cp_async16(sV + r * kLd + c, p.v + off, row >= 0);
-      }
-      cp_async_wait_all();
-    } else {
-      // 16 codes per 16-byte vector; all of a thread's vectors of one
-      // tensor are loaded before any is converted
-      constexpr int kVecPerRow = D / 16;
-      constexpr int kPer = kBlockK * kVecPerRow / kGroup;
-#pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const KV* src = which == 0 ? p.k : p.v;
-        const float* scl = which == 0 ? p.ks : p.vs;
-        T* dst = which == 0 ? sK : sV;
-        uint4 raw[kPer];
-        float sc[kPer];
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int i = gtid + u * kGroup;
-          const long row = kv_row(k0 + i / kVecPerRow);
-          raw[u] = make_uint4(0u, 0u, 0u, 0u);
-          sc[u] = 0.f;
-          if (row >= 0) {
-            const long r = row * p.Hkv + hk;
-            raw[u] = __ldg(reinterpret_cast<const uint4*>(
-                src + r * D + (i % kVecPerRow) * 16));
-            sc[u] = __ldg(scl + r);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int i = gtid + u * kGroup;
-          const uint32_t w4[4] = {raw[u].x, raw[u].y, raw[u].z, raw[u].w};
-          uint32_t packed[8];
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const uint32_t word = w4[j / 2];
-            const int sh = 16 * (j % 2);
-            const float lo = static_cast<float>(
-                static_cast<int8_t>((word >> sh) & 0xffu)) * sc[u];
-            const float hi_v = static_cast<float>(
-                static_cast<int8_t>((word >> (sh + 8)) & 0xffu)) * sc[u];
-            packed[j] = Mma<T>::pack(lo, hi_v);
-          }
-          T* d = dst + (i / kVecPerRow) * kLd + (i % kVecPerRow) * 16;
-          *reinterpret_cast<uint4*>(d) =
-              make_uint4(packed[0], packed[1], packed[2], packed[3]);
-          *reinterpret_cast<uint4*>(d + 8) =
-              make_uint4(packed[4], packed[5], packed[6], packed[7]);
-        }
-      }
+    constexpr int kVecPerRow = D / 8;
+    for (int i = gtid; i < kBlockK * kVecPerRow; i += kGroup) {
+      const int r = i / kVecPerRow;
+      const int c = (i % kVecPerRow) * 8;
+      const long row = kv_row(k0 + r);
+      const long off = row >= 0 ? (row * p.Hkv + hk) * D + c : 0;
+      cp_async16(sK + r * kLd + c, p.k + off, row >= 0);
+      cp_async16(sV + r * kLd + c, p.v + off, row >= 0);
     }
+    cp_async_wait_all();
     group_sync(1 + split, kGroup);                 // the tile has landed
 
     float s[kKTiles][4];
@@ -393,25 +354,23 @@ struct Args {
   void* stream;
 };
 
-template <typename T, typename KV, int D, bool kPaged>
+template <typename T, int D, bool kPaged>
 int launch(const Args& a) {
   constexpr int kSplit = kWarps / (kBQ / 16);
   const size_t smem =
       (static_cast<size_t>(kBQ) + kSplit * 2 * kBlockK) * (D + 8) * sizeof(T) +
       (kPaged ? static_cast<size_t>(a.mb) * sizeof(int) : 0);
-  auto kernel = window_kernel<T, KV, D, kPaged>;
+  auto kernel = window_kernel<T, D, kPaged>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  Params<T, KV> p;
+  Params<T> p;
   p.q = static_cast<const T*>(a.q);
-  p.k = static_cast<const KV*>(a.k);
-  p.v = static_cast<const KV*>(a.v);
-  p.ks = static_cast<const float*>(a.ks);
-  p.vs = static_cast<const float*>(a.vs);
+  p.k = static_cast<const T*>(a.k);
+  p.v = static_cast<const T*>(a.v);
   p.tables = static_cast<const int*>(a.tables);
   p.lengths = static_cast<const int*>(a.lengths);
   p.o = static_cast<T*>(a.o);
@@ -731,11 +690,548 @@ int chunk_launch(const Args& a) {
                                    static_cast<cudaStream_t>(a.stream));
 }
 
-// the verify (the whole group of one kv head in 16 rows) on mma.sync,
-// chunks on the shared wgmma mainloop
+// ---- the int8 verify regime (W * G <= 16): an asynchronous code ring ------
+//
+// One block per (kv head, slot, key split): warp 0 produces, warps 1..kCons
+// consume.  Each ring stage holds one kTileN-key tile: the raw K and V
+// codes (TMA; for D = 128 through the 128-byte swizzle, so the consumers'
+// 16-byte reads below are free of bank conflicts) and the tile's f32 K and
+// V scales (4-byte cp.async copies by the producer's lanes 1-31, one
+// block-table walk per pool segment, each position's row by shuffle).  The
+// codes and the scales complete on the stage's full barrier (TMA bytes and
+// cp.async arrivals), so nothing passes through the producer's registers
+// and the producer waits only for a free stage.  Every consumer warp
+// takes its own 16 keys of each tile and keeps its own (m, l, acc) over
+// the block's 16 query rows, so all kCons warps convert at once while the
+// next kStages - 1 tiles load.
+//
+// The consumers dequantize straight into mma.sync m16n8k16 B fragments,
+// with no 16-bit stage:
+// - q k^T: the reduction (head) dimension is permuted so that k index
+//   (2 tig + i % 2 + 8 (i / 2)) of 16-wide chunk c is column
+//   tig * D / 4 + 4 c + i.  A thread then reads D / 4 contiguous code
+//   bytes of its key row, and each 32-bit word is one chunk's B fragment
+//   (the Q A fragments are read with the same permutation);
+// - p v: B column n of 8-wide output tile t is head column n * D / 8 + t,
+//   so a thread reads D / 8 contiguous bytes of each of its four key rows
+//   (2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of the warp's 16) and byte t
+//   of each is tile t's B fragment.
+// A code becomes f32 exactly by byte permute (0x4B0000uu = 2^23 + uu,
+// uu = code + 128) and one subtraction, in place of the quarter-rate
+// I2F; then code x scale in f32, rounded once to T (the contract).
+//
+// When B * Hkv leaves SMs idle, the key tiles of a (slot, kv head) split
+// over a thread block cluster of nsplit CTAs; each CTA merges its warps'
+// partials in shared memory, then every rank merges one slice of the
+// outputs over all ranks' partials through distributed shared memory, in
+// rank order.  Every merge runs in a
+// fixed order, so a call is bitwise repeatable.
+namespace vq {
+
+constexpr int kCons = 8;               // consumer warps
+constexpr int kTileN = 16 * kCons;     // keys a stage: 16 per consumer warp
+constexpr int kStages = 3;             // ring depth
+constexpr int kThreads = 32 * (kCons + 1);
+constexpr int kMaxSplit = 8;           // CTAs a cluster (portable limit)
+
+// byte offsets from the 1024-aligned base of dynamic shared memory
+template <int D>
+struct Layout {
+  static constexpr int kCodes = kTileN * D;  // one tensor's codes a stage
+  static constexpr int kStage = (2 * kCodes + 2 * kTileN * 4 + 1023) / 1024 * 1024;
+  static constexpr int kRing = kStages * kStage;
+  // after the key loop: each consumer warp's m[16], l[16], acc[16][D + 8]
+  static constexpr int kAccLd = D + 8;
+  static constexpr int kScratch = kCons * 16 * (2 + kAccLd) * 4;
+  static constexpr int kLd = D + 8;  // Q rows (16-bit values)
+  static constexpr int kQ = kRing > kScratch ? kRing : kScratch;
+  static constexpr int kFin = kQ + 16 * kLd * 2;  // the CTA's m, l, acc
+  static constexpr int kBars = kFin + 16 * (2 + kAccLd) * 4;
+  static constexpr int kTbl = kBars + 2 * kStages * 8;  // the block table
+  static constexpr int kLaunch = kTbl + 1024;           // + alignment slack
+};
+
+template <typename T>
+struct Params {
+  CUtensorMap tm_k, tm_v;  // int8 codes, [B, S, Hkv, D] or [NB, bs, Hkv, D]
+  const T* q;
+  T* o;
+  const float* ks;     // [B, S, Hkv] dense, [NB, bs, Hkv] paged
+  const float* vs;
+  const int* tables;   // paged only: [B, mb]
+  const int* lengths;  // [B], tokens cached before the window
+  int W, cap, H, Hkv, G, R, bs, mb, seg, nsplit;
+  float scale_log2;    // 1 / sqrt(D) * log2(e)
+};
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid (src
+// only has to be a legal address then)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once every earlier cp.async of this thread landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// byte i of a code word (bytes already XOR 0x80) as the exact f32 code
+__device__ __forceinline__ float code(uint32_t w, int i) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + i)) - 8388736.f;
+}
+
+// code a x scale fa (low half) and code b x scale fb, rounded to T
+template <typename T>
+__device__ __forceinline__ uint32_t dq2(uint32_t wa, int ia, float fa,
+                                        uint32_t wb, int ib, float fb) {
+  return hopper::pack2<T>(code(wa, ia) * fa, code(wb, ib) * fb);
+}
+
+template <typename T, int D, bool kPaged>
+__global__ void __launch_bounds__(kThreads, 1)
+    verify_q_kernel(const __grid_constant__ Params<T> p) {
+  using L = Layout<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  T* sQ = reinterpret_cast<T*>(sm + L::kQ);
+  int* tbl = reinterpret_cast<int*>(sm + L::kTbl);
+  auto full = [&](int s) { return base + L::kBars + 8 * s; };
+  auto empty = [&](int s) { return base + L::kBars + 8 * (kStages + s); };
+
+  const int rank = blockIdx.x;  // the CTA's rank in its cluster
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int rows = p.R;
+  const int len = max(p.lengths[b], 0);
+  const int hi = min(len + (rows - 1) / p.G + 1, p.cap);  // keys [0, hi)
+  const int lo_lim = min(len, p.cap - 1);  // every row sees keys <= this
+  const int n_tiles = (hi + kTileN - 1) / kTileN;
+  const int per = (n_tiles + p.nsplit - 1) / p.nsplit;
+  const int t0 = min(n_tiles, rank * per);
+  const int n = min(n_tiles, t0 + per) - t0;  // this CTA's tiles
+  const int n_blk = kPaged ? (min(len + p.W, p.cap) + p.bs - 1) / p.bs : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(full(s), 32);     // lane 0's TMA + 31 cp.async lanes
+      hopper::mbar_init(empty(s), kCons);  // one arrival per consumer warp
+    }
+    hopper::mbar_init_fence();
+  }
+  // the block's query rows r = w * G + g -> q[b, w, hk * G + g]; padded
+  // rows zero; the slot's live table entries
+  for (int i = threadIdx.x; i < 16 * (D / 8); i += kThreads) {
+    const int r = i / (D / 8);
+    const int c = (i % (D / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r < rows) {
+      const long off = ((static_cast<long>(b) * p.W + r / p.G) * p.H +
+                        static_cast<long>(hk) * p.G + r % p.G) * D + c;
+      val = *reinterpret_cast<const uint4*>(p.q + off);
+    }
+    *reinterpret_cast<uint4*>(sQ + r * L::kLd + c) = val;
+  }
+  if constexpr (kPaged) {
+    for (int i = threadIdx.x; i < n_blk; i += kThreads)
+      tbl[i] = p.tables[static_cast<long>(b) * p.mb + i];
+  }
+  __syncthreads();
+
+  // a consumer warp's state: its (m, l, acc) over the 16 rows
+  const int cw = warp - 1;
+  const int gid = lane >> 2;
+  const int tig = lane & 3;
+  float acc[D / 8][4];
+  float m_i[2] = {kNeg, kNeg};
+  float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  if (warp == 0) {
+    // ---- producer: lane 0 issues the codes' TMA, lanes 1-31 copy the
+    // scales by cp.async; both complete on the stage's full barrier, so
+    // the warp blocks only on a free stage.  Each tile's pool blocks and
+    // scale rows (one block-table walk per pool segment, by lanes 1-8 at
+    // most; each position's row by shuffle) are worked out while the
+    // previous tile's stage is still busy; the scale of position j goes to
+    // j (K) and kTileN + j (V) of the stage's scale area, zero past the
+    // capacity
+    constexpr int kPer = (2 * kTileN + 30) / 31;
+    constexpr int kSegs = kPaged ? kTileN / 16 : 1;
+    const int nseg = kPaged ? kTileN / p.seg : 1;
+    const int lg = kPaged ? __ffs(p.seg) - 1 : 0;
+    int sblk[kSegs], soff[kSegs];
+    long srow[kPer];
+    auto plan = [&](int kt) {
+      const int k0 = kt * kTileN;
+      long seg_row = 0;
+      if constexpr (kPaged) {
+        // lane 1 + g walks the table for segment g; every lane takes the
+        // blocks and offsets by shuffle (lane 0 issues their boxes)
+        int blk = 0, off = 0;
+        const int t = k0 + ((lane - 1) << lg);
+        const int bi = t / p.bs;
+        if (lane >= 1 && lane - 1 < nseg) {
+          blk = bi < n_blk ? tbl[bi] : 0;
+          off = t - bi * p.bs;
+        }
+#pragma unroll
+        for (int g = 0; g < kSegs; ++g) {
+          sblk[g] = __shfl_sync(0xffffffffu, blk, 1 + g);
+          soff[g] = __shfl_sync(0xffffffffu, off, 1 + g);
+        }
+        seg_row = static_cast<long>(blk) * p.bs + off;
+      }
+#pragma unroll
+      for (int u = 0; u < kPer; ++u) {
+        const int pos = (lane - 1 + 31 * u) & (kTileN - 1);
+        if constexpr (kPaged)
+          srow[u] = __shfl_sync(0xffffffffu, seg_row, 1 + (pos >> lg)) + (pos & (p.seg - 1));
+        else
+          srow[u] = static_cast<long>(b) * p.cap + k0 + pos;
+      }
+    };
+    if (n > 0) plan(t0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const int k0 = (t0 + i) * kTileN;
+      if (i >= kStages) hopper::mbar_wait(empty(s), ((i / kStages) - 1) & 1);
+      const uint32_t st = base + s * L::kStage;
+      if (lane == 0) {
+        hopper::mbar_expect_tx(full(s), 2 * L::kCodes);
+        if constexpr (kPaged) {
+#pragma unroll
+          for (int g = 0; g < kSegs; ++g) {
+            if (g < nseg) {
+              hopper::tma_load_4d(st + g * p.seg * D, &p.tm_k, full(s), 0, hk, soff[g], sblk[g]);
+              hopper::tma_load_4d(st + L::kCodes + g * p.seg * D, &p.tm_v, full(s), 0, hk, soff[g], sblk[g]);
+            }
+          }
+        } else {
+          hopper::tma_load_4d(st, &p.tm_k, full(s), 0, hk, k0, b);
+          hopper::tma_load_4d(st + L::kCodes, &p.tm_v, full(s), 0, hk, k0, b);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int j = lane - 1 + 31 * u;
+          const bool live = k0 + (j & (kTileN - 1)) < p.cap;
+          const float* scl = j < kTileN ? p.ks : p.vs;
+          if (j < 2 * kTileN)
+            cp_async4(st + 2 * L::kCodes + 4 * j, live ? scl + srow[u] * p.Hkv + hk : scl, live);
+        }
+        cp_async_arrive(full(s));
+      }
+      if (i + 1 < n) plan(t0 + i + 1);
+    }
+  } else {
+    // ---- consumers
+    uint32_t qf[D / 16][4];
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      const T* r0 = sQ + gid * L::kLd + tig * (D / 4) + 4 * c;
+      qf[c][0] = flash::ld32(r0);
+      qf[c][1] = flash::ld32(r0 + 8 * L::kLd);
+      qf[c][2] = flash::ld32(r0 + 2);
+      qf[c][3] = flash::ld32(r0 + 8 * L::kLd + 2);
+    }
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    int lim[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      lim[e] = min(len + min(gid + 8 * e, rows - 1) / p.G, p.cap - 1);
+
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kStages;
+      const int kw0 = (t0 + i) * kTileN + 16 * cw;  // the warp's first key
+      hopper::mbar_wait(full(s), (i / kStages) & 1);
+      if (kw0 < hi) {
+        const unsigned char* ck = sm + s * L::kStage;
+        const unsigned char* cv = ck + L::kCodes;
+        const float* sc = reinterpret_cast<const float*>(ck + 2 * L::kCodes);
+        // S = Q K^T over keys kw0 .. kw0 + 15 (n8 tile j: keys + 8 j)
+        float sf[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int line = 16 * cw + 8 * j + gid;
+          const float f = sc[line];
+          uint32_t w[D / 16];
+          if constexpr (D == 128) {
+            // chunks 2 tig, 2 tig + 1 of the line, swizzled by line % 8 = gid
+            const uint4 x0 = *reinterpret_cast<const uint4*>(ck + line * 128 + (((2 * tig) ^ gid) << 4));
+            const uint4 x1 = *reinterpret_cast<const uint4*>(ck + line * 128 + (((2 * tig + 1) ^ gid) << 4));
+            w[0] = x0.x; w[1] = x0.y; w[2] = x0.z; w[3] = x0.w;
+            w[4] = x1.x; w[5] = x1.y; w[6] = x1.z; w[7] = x1.w;
+          } else {
+            const uint4 x0 = *reinterpret_cast<const uint4*>(ck + line * D + tig * 16);
+            w[0] = x0.x; w[1] = x0.y; w[2] = x0.z; w[3] = x0.w;
+          }
+          sf[j][0] = sf[j][1] = sf[j][2] = sf[j][3] = 0.f;
+#pragma unroll
+          for (int c = 0; c < D / 16; ++c) {
+            const uint32_t x = w[c] ^ 0x80808080u;
+            const uint32_t bf[2] = {dq2<T>(x, 0, f, x, 1, f), dq2<T>(x, 2, f, x, 3, f)};
+            Mma<T>::run(sf[j], qf[c], bf);
+          }
+        }
+        // online softmax in base 2, the staircase mask only where the
+        // warp's keys cross some row's limit
+        const bool masked = kw0 + 15 > lo_lim;
+        float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kw0 + 8 * j + 2 * tig + (e & 1);
+            const bool ok = !masked || key <= lim[e >> 1];
+            const float val = ok ? sf[j][e] * p.scale_log2 : kNeg;
+            sf[j][e] = val;
+            mx[e >> 1] = fmaxf(mx[e >> 1], val);
+          }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          alpha[r] = hopper::ex2(m_i[r] - mx[r]);
+          l_i[r] *= alpha[r];
+          m_i[r] = mx[r];
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float val = sf[j][e];
+            const float pr = val <= 0.5f * kNeg ? 0.f : hopper::ex2(val - mx[e >> 1]);
+            sf[j][e] = pr;
+            l_i[e >> 1] += pr;
+          }
+        }
+        // a running max that moved rescales the accumulators (alpha = 1
+        // exactly otherwise)
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+          for (int t = 0; t < D / 8; ++t) {
+            acc[t][0] *= alpha[0];
+            acc[t][1] *= alpha[0];
+            acc[t][2] *= alpha[1];
+            acc[t][3] *= alpha[1];
+          }
+        }
+        // O += P V: key rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of the
+        // warp's 16, D / 8 code bytes each (head columns gid * D / 8 + t)
+        const uint32_t pa[4] = {Mma<T>::pack(sf[0][0], sf[0][1]),
+                                Mma<T>::pack(sf[0][2], sf[0][3]),
+                                Mma<T>::pack(sf[1][0], sf[1][1]),
+                                Mma<T>::pack(sf[1][2], sf[1][3])};
+        uint32_t v[4][D / 32];
+        float fv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int line = 16 * cw + 2 * tig + (e & 1) + 8 * (e >> 1);
+          fv[e] = sc[kTileN + line];
+          if constexpr (D == 128) {
+            const uint4 x = *reinterpret_cast<const uint4*>(cv + line * 128 + ((gid ^ (line & 7)) << 4));
+            v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
+            v[e][2] = x.z ^ 0x80808080u; v[e][3] = x.w ^ 0x80808080u;
+          } else {
+            const uint2 x = *reinterpret_cast<const uint2*>(cv + line * D + gid * 8);
+            v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < D / 8; ++t) {
+          const uint32_t bf[2] = {dq2<T>(v[0][t / 4], t % 4, fv[0], v[1][t / 4], t % 4, fv[1]),
+                                  dq2<T>(v[2][t / 4], t % 4, fv[2], v[3][t / 4], t % 4, fv[3])};
+          Mma<T>::run(acc[t], pa, bf);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(empty(s));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    }
+  }
+  __syncthreads();  // every warp is done with the ring: it becomes scratch
+  // what each consumer warp leaves for the merge
+  float* s_m = reinterpret_cast<float*>(sm);
+  float* s_l = s_m + kCons * 16;
+  float* s_acc = s_l + kCons * 16;  // [kCons][16][kAccLd], tile-major columns
+  if (warp > 0) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = gid + 8 * e;
+      if (tig == 0) {
+        s_m[cw * 16 + r] = m_i[e];
+        s_l[cw * 16 + r] = l_i[e];
+      }
+      float* arow = s_acc + (cw * 16 + r) * L::kAccLd + 2 * tig;
+#pragma unroll
+      for (int t = 0; t < D / 8; ++t)
+        *reinterpret_cast<float2*>(arow + t * 8) = make_float2(acc[t][2 * e], acc[t][2 * e + 1]);
+    }
+  }
+  __syncthreads();
+
+  // merge the warps' partials in warp order; column j of a partial row is
+  // head column (j % 8) * D / 8 + j / 8
+  float* f_m = reinterpret_cast<float*>(sm + L::kFin);
+  float* f_l = f_m + 16;
+  float* f_acc = f_l + 16;  // [16][kAccLd]
+  auto out = [&](int r, int j, float val) {
+    const int d = (j % 8) * (D / 8) + j / 8;
+    p.o[((static_cast<long>(b) * p.W + r / p.G) * p.H +
+         static_cast<long>(hk) * p.G + r % p.G) * D + d] = from_float<T>(val);
+  };
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int r = i / D;
+    const int j = i % D;
+    float mx = kNeg;
+#pragma unroll
+    for (int w = 0; w < kCons; ++w) mx = fmaxf(mx, s_m[w * 16 + r]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kCons; ++w) {
+      const float f = hopper::ex2(s_m[w * 16 + r] - mx);
+      den += s_l[w * 16 + r] * f;
+      num += s_acc[(w * 16 + r) * L::kAccLd + j] * f;
+    }
+    if (p.nsplit == 1) {
+      out(r, j, num / fmaxf(den, 1e-30f));
+    } else {
+      f_acc[r * L::kAccLd + j] = num;
+      if (j == 0) {
+        f_m[r] = mx;
+        f_l[r] = den;
+      }
+    }
+  }
+  if (p.nsplit == 1) return;
+  // the ranks' partials, merged in rank order; each rank writes its own
+  // slice of the outputs, every rank's loads for one output issued at once
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int slice = (rows * D + p.nsplit - 1) / p.nsplit;
+  const int end = min(rows * D, (rank + 1) * slice);
+  for (int i = rank * slice + threadIdx.x; i < end; i += kThreads) {
+    const int r = i / D;
+    const int j = i % D;
+    float mk[kMaxSplit], lk[kMaxSplit], ak[kMaxSplit];
+#pragma unroll
+    for (int k = 0; k < kMaxSplit; ++k) {
+      mk[k] = kNeg;
+      lk[k] = ak[k] = 0.f;
+      if (k < p.nsplit) {
+        mk[k] = cluster.map_shared_rank(f_m, k)[r];
+        lk[k] = cluster.map_shared_rank(f_l, k)[r];
+        ak[k] = cluster.map_shared_rank(f_acc, k)[r * L::kAccLd + j];
+      }
+    }
+    float mx = kNeg;
+#pragma unroll
+    for (int k = 0; k < kMaxSplit; ++k) mx = fmaxf(mx, mk[k]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxSplit; ++k) {
+      const float f = hopper::ex2(mk[k] - mx);
+      den += lk[k] * f;
+      num += ak[k] * f;
+    }
+    out(r, j, num / fmaxf(den, 1e-30f));
+  }
+  cluster.sync();  // every rank's shared memory has been read
+}
+
+// SMs of the current device
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 132;
+  return n;
+}
+
+// the key split: enough CTAs that B * Hkv pairs fill the SMs once, at most
+// kMaxSplit, at most one per key tile of the capacity
+inline int split_for(int pairs, int cap) {
+  int ns = sm_count() / pairs;
+  ns = ns < 1 ? 1 : ns > kMaxSplit ? kMaxSplit : ns;
+  const int tiles = (cap + kTileN - 1) / kTileN;
+  return ns < tiles ? ns : tiles;
+}
+
+template <typename T, int D, bool kPaged>
+int launch(const Args& a) {
+  Params<T> p;
+  const int cap = kPaged ? a.mb * a.bs : a.S;
+  // a pool's block count is not passed: its map spans every block id a
+  // table can hold, as the chunk regime's
+  const int nb = kPaged ? (1 << 30) : a.B;
+  const int npos = kPaged ? a.bs : a.S;
+  p.seg = kPaged && pool_seg(a.bs) < kTileN ? pool_seg(a.bs) : kTileN;
+  if (!hopper::map_bshd_u8(&p.tm_k, a.k, nb, npos, a.Hkv, D, p.seg, D == 128) ||
+      !hopper::map_bshd_u8(&p.tm_v, a.v, nb, npos, a.Hkv, D, p.seg, D == 128))
+    return static_cast<int>(cudaErrorNotSupported);
+  p.q = static_cast<const T*>(a.q);
+  p.o = static_cast<T*>(a.o);
+  p.ks = static_cast<const float*>(a.ks);
+  p.vs = static_cast<const float*>(a.vs);
+  p.tables = static_cast<const int*>(a.tables);
+  p.lengths = static_cast<const int*>(a.lengths);
+  p.W = a.W;
+  p.cap = cap;
+  p.H = a.H;
+  p.Hkv = a.Hkv;
+  p.G = a.H / a.Hkv;
+  p.R = a.W * p.G;
+  p.bs = a.bs;
+  p.mb = a.mb;
+  p.nsplit = split_for(a.B * a.Hkv, cap);
+  p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  const int smem = Layout<D>::kLaunch + (kPaged ? a.mb * 4 : 0);
+  auto kernel = verify_q_kernel<T, D, kPaged>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.nsplit, a.Hkv, a.B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(a.stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.nsplit;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.nsplit > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace vq
+
+// the verify (the whole group of one kv head in 16 rows) on mma.sync: 16-bit
+// caches on window_kernel, int8 on the code ring (vq); chunks on the shared
+// wgmma mainloop
 template <typename T, typename KV, int D, bool kPaged>
 int by_rows(const Args& a) {
-  if (a.W * (a.H / a.Hkv) <= 16) return launch<T, KV, D, kPaged>(a);
+  if (a.W * (a.H / a.Hkv) <= 16) {
+    if constexpr (std::is_same<KV, int8_t>::value) return vq::launch<T, D, kPaged>(a);
+    else return launch<T, D, kPaged>(a);
+  }
   return chunk_launch<T, KV, D, kPaged>(a);
 }
 

@@ -9,10 +9,20 @@
 // instead apply the scale to the f32 dot product.  The scales are read in
 // place (the TPU wrapper transposes them to [B * Hkv, 1, S] first).
 //
-// What bounds it: as window_attention.cu, on half the K/V bytes plus four
-// scale bytes per position and kv head.  The codes are loaded to
-// registers, converted and staged in shared memory as 16-bit values, so
-// both products still run on the tensor cores (window_attention.cuh).
+// What bounds it: a verify window (W * G <= 16 rows a kv head) reads D
+// code bytes and 4 scale bytes per position, K and V, for about 4 * W * G
+// * D FLOPs: device memory bandwidth, as the int8 decode kernel.  The
+// design against it (window_attention.cuh, vq::verify_q_kernel): the
+// codes move by TMA, and their scales by cp.async, into a three-deep ring
+// of 128-key tiles that one producer warp keeps full, so up to 99 KB a
+// block are in flight and nothing passes through the producer's
+// registers; eight consumer
+// warps per block dequantize out of shared memory straight into their
+// tensor-core fragments (a byte permute and two f32 operations a value,
+// not the quarter-rate I2F), and the key tiles of a (slot, kv head)
+// split over a cluster of CTAs when B * Hkv would leave SMs idle.  A
+// prefill chunk (W * G > 16) runs the shared wgmma mainloop with a
+// dequantizing producer warpgroup.
 #include "window_attention.cuh"
 
 // q [B, W, H, D]; k/v [B, S, Hkv, D] int8; k_scale/v_scale [B, S, Hkv]

@@ -40,8 +40,8 @@ def gen():
     return g
 
 
-def _rand(shape, gen):
-    return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+def _rand(shape, gen, dtype=torch.bfloat16):
+    return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
 
 def _close(got, ref, tol=1e-2, floor=0.0):
@@ -316,12 +316,13 @@ def test_cuda_flash_attention_is_differentiable(gen):
         _close(t.grad, r, tol=2e-2, floor=1e-3)
 
 
-def _window_case(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048):
-    """q [B, W, H, D] over a dense cache [B, cap, Hkv, D], or (``bs``) a
-    shuffled pool whose tables cover min(len + W, cap) positions per slot
-    and end in null-block tails."""
+def _window_case(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048,
+                 dtype=torch.bfloat16):
+    """q [B, W, H, D] (``dtype``) over a dense cache [B, cap, Hkv, D], or
+    (``bs``) a shuffled pool whose tables cover min(len + W, cap)
+    positions per slot and end in null-block tails."""
     b = len(lengths)
-    q = _rand((b, w, h, d), gen)
+    q = _rand((b, w, h, d), gen, dtype)
     tables = None
     if bs is None:
         k = _rand((b, cap, hkv, d), gen)
@@ -417,6 +418,52 @@ def test_window_chunk_kernels_on_the_wgmma_mainloop(gen, lengths, w, h, hkv,
         again = da.paged_decode_attention_window(q, k, v, tables, lens, ks,
                                                  vs)
         ref = da._paged_window_plain(q.float(), kp, vp, tables, lens)
+    assert kern.launches == n + 2
+    assert torch.equal(o, again)
+    _close(o, ref)
+
+
+@pytest.mark.parametrize("layout", [None, 128, 16, 48],
+                         ids=["dense", "bs128", "bs16", "bs48"])
+@pytest.mark.parametrize("lengths,w,h,hkv,d,dtype", [
+    ([0, 1, 63, 64, 65, 700, 1500, 2043], 5, 16, 16, 128, torch.bfloat16),
+    ([2043], 5, 16, 16, 128, torch.bfloat16),   # B=1: a cluster of CTAs
+    ([64], 5, 16, 16, 128, torch.bfloat16),
+    ([0, 1000, 2047], 1, 16, 1, 128, torch.bfloat16),  # G = 16, W = 1
+    ([0, 1, 700, 2043], 5, 12, 12, 64, torch.float16)],  # D=64, fp16 q
+    ids=["b8", "b1_long", "b1_tile", "g16_w1", "d64_fp16"])
+def test_window_int8_verify_on_the_code_ring(gen, lengths, w, h, hkv, d,
+                                             dtype, layout):
+    """Rows 8b and 9b in the verify regime (W G <= 16): lengths around a
+    64-key tile and at S - W, B = 8 and 1, every row within 1e-2 of the
+    plain version over the codes dequantized to q's dtype, two calls
+    bitwise equal, one launch each.  Blocks of 48 run on a 1536-position
+    cap.  Paged tables carry a poisoned block id (far past the pool) in
+    every entry past the live ones: a kernel reading one faults."""
+    cap = 1536 if layout == 48 else 2048
+    lengths = [min(n, cap - w) for n in lengths]
+    q, k, v, tables, lens, ks, vs = _window_case(gen, lengths, w, h, hkv, d,
+                                                 True, layout, cap, dtype)
+    kp = qm.dequantize_kv(k, ks, dtype).float()
+    vp = qm.dequantize_kv(v, vs, dtype).float()
+    if layout is None:
+        kern = da.WINDOW_ATTENTION_Q
+        n = kern.launches
+        o = da.decode_attention_window(q, k, v, lens, ks, vs)
+        again = da.decode_attention_window(q, k, v, lens, ks, vs)
+        ref = da._window_plain(q.float(), kp, vp, lens)
+    else:
+        live = torch.tensor([-(-min(x + w, cap) // layout) for x in lengths],
+                            device="cuda")
+        past = torch.arange(tables.shape[1], device="cuda")[None] >= live[:, None]
+        poisoned = torch.where(past, torch.full_like(tables, 1 << 24), tables)
+        kern = da.PAGED_WINDOW_ATTENTION_Q
+        n = kern.launches
+        o = da.paged_decode_attention_window(q, k, v, poisoned, lens, ks, vs)
+        again = da.paged_decode_attention_window(q, k, v, poisoned, lens, ks,
+                                                 vs)
+        ref = da._paged_window_plain(q.float(), kp, vp, tables, lens)
+    torch.cuda.synchronize()
     assert kern.launches == n + 2
     assert torch.equal(o, again)
     _close(o, ref)

@@ -210,6 +210,47 @@ def test_window_plain_matches_jax_at_chunk_regime(kind, g, layout):
             tda.paged_decode_attention_window, jda._paged_window_composite)
 
 
+@pytest.mark.parametrize("layout", [None, 16, 48], ids=["dense", "bs16",
+                                                        "bs48"])
+@pytest.mark.parametrize("shape", ["w5_g1", "w1_g16"])
+@pytest.mark.parametrize("dtype", ["bf16", "fp16"])
+def test_window_plain_matches_jax_at_verify_edges(dtype, shape, layout):
+    """The verify regime of the Hopper window kernels (W * G <= 16 rows a
+    kv head): int8 codes dequantized to q's dtype (bf16 or fp16), W = 5
+    at G = 1 and W = 1 at G = 16, lengths 0, 1, 63, 64, 65 (around a
+    64-key tile) and S - W over S = 192, dense and paged with blocks of 16
+    and 48 and a null-block tail entry, against the JAX composites at
+    CHUNK_TOL (they round the probabilities to q's dtype)."""
+    w, h, hkv = (5, 4, 4) if shape == "w5_g1" else (1, 16, 1)
+    s, d = 192, 64
+    rng = np.random.RandomState(len(shape) + (layout or 0))
+    lengths = np.asarray([0, 1, 63, 64, 65, s - w], np.int32)
+    b = len(lengths)
+    q = (rng.randn(b, w, h, d) * 0.3).astype(np.float32)
+    (kq, ks), (vq, vs) = (jqm.quantize_kv(jnp.asarray(
+        (rng.randn(b, s, hkv, d) * 0.3).astype(np.float32))) for _ in "kv")
+    k, v = np.asarray(kq), np.asarray(vq)
+    scales = (np.asarray(ks), np.asarray(vs))
+    tdt, jdt = ((torch.bfloat16, jnp.bfloat16) if dtype == "bf16"
+                else (torch.float16, jnp.float16))
+
+    def run(args, ours, theirs):
+        out = ours(torch.from_numpy(args[0]).to(tdt),
+                   *to_t(args[1:])).float().numpy()
+        jargs = to_j(args)
+        jargs[0] = jargs[0].astype(jdt)
+        ref = np.asarray(theirs(*jargs).astype(jnp.float32))
+        np.testing.assert_allclose(out, ref, **CHUNK_TOL)
+
+    if layout is None:
+        run((q, k, v, lengths) + scales, tda.decode_attention_window,
+            jda._window_composite)
+    else:
+        pk, pv, tables, ps = paged_of(k, v, scales, bs=layout, seed=w)
+        run((q, pk, pv, tables, lengths) + ps,
+            tda.paged_decode_attention_window, jda._paged_window_composite)
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
 def test_window_of_one_is_decode_and_rows_are_sequential(quantized):
     """Row i of a window equals the single-token decode over lengths +
