@@ -32,12 +32,13 @@ before the result lines:
    verify shape (B=8 and B=1) and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
    over gpt3-1.3b's four projections (its output must EQUAL the plain
    version's: exact int32 sums, the same f32 rescale), timed beside
-   ``torch._int_mm`` + rescale; the decode megakernel in its four
-   instantiations (dense and paged, bf16 and int8 caches) at gpt3-1.3b
-   widths, B=8, with edge lengths, G = 16, D=64 and blocks of 16, timed
-   at 8 x 2048 beside the port's composed layer step.  These two rows are
-   timed on the device clock (torch.profiler), the host's launch gaps
-   outlasting their kernels;
+   ``torch._int_mm`` + rescale (at M=8 on codes padded to 32 rows); the
+   decode megakernel in its four instantiations (dense and paged, bf16
+   and int8 caches) at gpt3-1.3b widths, B=8, with edge lengths, G = 16,
+   D=64 and blocks of 16, timed at 8 x 2048 beside the port's composed
+   layer step, with each product's split over the SMs printed.  The int8
+   matmul is timed on the device clock (torch.profiler), the megakernel
+   from CUDA-graph replays, the host's launch gaps outlasting both;
 4. train-kernels: the flash backward kernels (dq, dk/dv) the same way at
    the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA
    (G = 16 at S=2048), D=64, fp16 and a key mask with a fully masked
@@ -253,8 +254,8 @@ def phase_device():
 
 # the sources whose kernels run on the shared wgmma forward mainloop
 # (hopper_attn_fwd.cuh: every attn_fwd_kernel instantiation) and, in the
-# int8 window sources, on the verify code ring (verify_q_kernel); a spill
-# in one of those kernels fails the build phase
+# window sources, on the verify ring (verify_kernel); a spill in one of
+# those kernels fails the build phase
 FWD_SOURCES = ("flash_fwd.cu", "window_attention.cu", "window_attention_q.cu",
                "paged_window_attention.cu", "paged_window_attention_q.cu")
 
@@ -297,8 +298,8 @@ def phase_build():
             continue
         checked = [("wgmma forward mainloop", "attn_fwd_kernel",
                     " (setmaxnreg raises the consumers')")]
-        if src.endswith("_q.cu"):
-            checked.append(("int8 verify code ring", "verify_q_kernel", ""))
+        if "window" in src:
+            checked.append(("verify ring", "verify_kernel", ""))
         for what, kname, note in checked:
             found = [(r, sp) for fn, r, sp in kernels if kname in fn]
             bad = [sp for _, sp in found
@@ -310,7 +311,7 @@ def phase_build():
             spilled += [f"{src} {kname}: {sp}" for sp in bad]
     if spilled:
         raise SystemExit(f"build phase failed: a kernel on the forward "
-                         f"mainloop or the int8 verify ring spills "
+                         f"mainloop or the verify ring spills "
                          f"registers: {spilled}")
 
 
@@ -1168,7 +1169,8 @@ def phase_qmm_kernels(records):
     bf16 outputs must EQUAL the plain version's (exact int32 sums, the
     same f32 rescale order), then each shape timed beside the plain
     version, ``torch._int_mm`` + the same rescale (a yardstick the port
-    never calls; cuBLASLt takes M > 16 only) and the bound: the larger of
+    never calls; cuBLASLt takes M > 16 only, so at M=8 the codes are
+    padded to 32 rows and the product cut back) and the bound: the larger of
     2 M N K over the int8 peak and M K + K N + 4 (M + N) + 2 M N bytes over
     the memory rate."""
     qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
@@ -1196,22 +1198,27 @@ def phase_qmm_kernels(records):
                 for _ in range(3))
             t_plain = device_ms(lambda: qm._qmm_plain(
                 qx, qw_t.t(), sx, sw, torch.bfloat16), iters=3, warmup=1)
-            t_lib = None
-            if m > 16:
-                def lib():
-                    return (torch._int_mm(qx, qw_t.t()).float() * sx
-                            * sw).to(torch.bfloat16)
-                lib_exact = torch.equal(lib(), got16)
-                t_lib = device_ms(lib, iters=50)
+            # cuBLASLt's int8 product takes M > 16 only: at decode the
+            # activation codes are padded to 32 rows and the product cut
+            # back, the same function
+            qx_lib = qx if m > 16 else torch.cat(
+                [qx, qx.new_zeros((32 - m, k))])
+
+            def lib():
+                return (torch._int_mm(qx_lib, qw_t.t())[:m].float() * sx
+                        * sw).to(torch.bfloat16)
+            lib_exact = torch.equal(lib(), got16)
+            t_lib = device_ms(lib, iters=50)
             ops = 2 * m * n * k
             nbytes = m * k + k * n + 4 * (m + n) + 2 * m * n
             b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
             log(f"[kernels] quantized_matmul M={m} K={k} N={n}: kernel == "
                 f"plain exactly (f32 and bf16 out); device ms: kernel_ms="
                 f"{t_kernel:.4f} plain_ms={t_plain:.4f} library_ms="
-                + (f"{t_lib:.4f} (torch._int_mm + rescale, equal: {lib_exact})"
-                   if t_lib is not None else "null (torch._int_mm needs "
-                   "M > 16)")
+                f"{t_lib:.4f} (torch._int_mm"
+                f"{' on the codes padded to 32 rows' if m <= 16 else ''} + "
+                f"rescale, equal: {lib_exact}) share of bound "
+                f"{b_ms / t_kernel:.3f}"
                 + f" bound_ms={b_ms:.4f} ({b_by}, {ops / 1e9:.2f} GOP, "
                 f"{nbytes / 1e6:.2f} MB); a call back to back with its host "
                 f"wrapper {t_call:.4f} ms (CUDA events)")
@@ -1233,8 +1240,8 @@ def phase_qmm_kernels(records):
              "back-to-back calls, host wrapper included); ms, plain_ms, "
              "bound_ms, library_ms at the decode qkv product (M=8, K=2048, "
              "N=6144), where torch._int_mm takes no M <= 16: library_ms "
-             "null; shapes holds all twelve; the kernel must equal the "
-             "plain version exactly (max_abs_err 0)")
+             "pads the codes to 32 rows; shapes holds all twelve; the "
+             "kernel must equal the plain version exactly (max_abs_err 0)")
 
 
 def mega_block(gen, heads, hkv, d=None, h=2048, f=8192):
@@ -1327,7 +1334,9 @@ def time_mega(key, blk, tensors, errs, worst):
     read once, x, x_out and the new k/v once."""
     x, k, v, tables, lens, ks, vs = tensors
     cfg = blk.attn.cfg
-    t_kernel = device_ms(lambda: _mega_call(blk, tensors))
+    # one replay of a CUDA graph of 20 launches a window, best of three
+    # (a profiler session can drop kernel events)
+    t_kernel = in_turns([lambda: _mega_call(blk, tensors)], 20)[0]
     t_call = min(cuda_ms(lambda: _mega_call(blk, tensors), iters=20,
                          warmup=3) for _ in range(3))
     t_plain = device_ms(lambda: _mega_call(blk, tensors, plain=True),
@@ -1370,10 +1379,39 @@ def time_mega(key, blk, tensors, errs, worst):
         library_ms=None, composed_ms=t_comp, call_ms=t_call,
         composed_call_ms=t_comp_call,
         note="one layer's decode step at B=8, 8 x 2048 attended positions; "
-             "device time per call (torch.profiler); no single PyTorch call "
-             "computes it (library_ms null); composed_ms is the port's "
-             "composed layer step on the same inputs; *call_ms: CUDA events "
+             "ms: CUDA-graph replays of 20 launches, best of three windows; "
+             "no single PyTorch call computes it (library_ms null); "
+             "composed_ms is the port's composed layer step on the same "
+             "inputs (torch.profiler device time); *call_ms: CUDA events "
              "around back-to-back calls, host code included")
+
+
+def log_partition(blk, slots=(1, 8, 16)):
+    """Each product's split over the grid (``_partition``: pieces, tiles
+    and bytes a block) and the attention items at each slot count."""
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    cfg = blk.attn.cfg
+    h, f = cfg.hidden_size, cfg.ffn_hidden_size
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    grid = torch.cuda.get_device_properties(0).multi_processor_count
+    for what, (kk, n) in (("qkv", (h, h + 2 * kvd)), ("out", (h, h)),
+                          ("up", (h, f)), ("down", (f, h))):
+        runs = mk._partition(kk, n, grid)
+        tiles = [sum((k1 - k0) // 64 for _, k0, k1 in r) for r in runs]
+        log(f"[kernels] megakernel partition {what} ({kk} x {n}) over "
+            f"{grid} blocks: {sum(len(r) for r in runs)} pieces "
+            f"(at most {max(len(r) for r in runs)} a block, "
+            f"{mk._part(kk, n, grid).parts} partials a chunk at most), "
+            f"{min(tiles)}-{max(tiles)} tiles = "
+            f"{min(tiles) * 8192 / 1e3:.1f}-{max(tiles) * 8192 / 1e3:.1f} KB "
+            f"a block")
+    rt = -(-cfg.num_heads // cfg.num_kv_heads // 16)
+    for b in slots:
+        pairs = b * cfg.num_kv_heads * rt
+        np_ = max(1, min(mk._MAX_PARTS, grid // pairs))
+        log(f"[kernels] megakernel attention at B={b}: {pairs} (slot, kv "
+            f"head, 16-head tile) pairs x {np_} position parts = "
+            f"{pairs * np_} items over {grid} blocks")
 
 
 def phase_mega_kernels(records):
@@ -1407,6 +1445,8 @@ def phase_mega_kernels(records):
             worst.append(w)
         tensors, e, w = check_mega(gen, mha, [2047] * 8, quantized,
                                    128 if paged else None)
+        if key == "decode_megakernel":
+            log_partition(mha)
         records[key] = time_mega(key, mha, tensors, errs + [e], worst + [w])
         del tensors
         gc.collect()

@@ -1,7 +1,8 @@
 """Variants of the Hopper forward-attention mainloop
-(``paddle_tpu_torch/csrc/hopper_attn_fwd.cuh``) and of the int8 verify
-window's code ring (``window_attention.cuh``, ``vq::verify_q_kernel``),
-timed against the committed kernels on one NVIDIA GPU.
+(``paddle_tpu_torch/csrc/hopper_attn_fwd.cuh``), of the verify window's
+ring (``window_attention.cuh``, ``vq::verify_kernel``) and of the decode
+megakernel (``decode_megakernel.cuh``), timed against the committed
+kernels on one NVIDIA GPU.
 
     python3 flash_fwd_variants.py [variant ...]
 
@@ -83,15 +84,44 @@ show:
 - ``verify_q:plan_after_wait`` / ``pverify_q:plan_after_wait``: the
   producer works out a tile's pool blocks and scale rows after its stage
   is free, in place of while the previous stage is busy;
+- ``verify:stages2`` / ``pverify:stages2``, ``*:warps4_stages6``: the
+  16-bit verify ring two deep, or four consumer warps on 64-key tiles six
+  deep; ``verify1:`` / ``pverify1:`` time B=1;
 - ``verify_q:prev`` / ``pverify_q:prev`` (and ``*1:prev``): the earlier
   int8 verify design (the codes loaded to registers, converted by I2F and
   staged as 16-bit tiles by four warps), and ``verify:prev``,
-  ``pverify:prev``, ``chunk:prev``, ``pchunk:prev``, ``chunk_q:prev``,
+  ``pverify:prev`` (the 16-bit ``window_kernel``), ``chunk:prev``,
+  ``pchunk:prev``, ``chunk_q:prev``,
   ``pchunk_q:prev``: the window kernels outside the int8 verify regime,
   each built from a copy of the previous sources in
   ``build/baseline_csrc/`` when that directory exists (for example
   ``git archive <commit> paddle_tpu_torch/csrc | tar -x
   --strip-components=2 -C build/baseline_csrc``).
+
+The decode megakernel (kinds ``mega:``, ``mega_q:``, ``pmega:``,
+``pmega_q:``: dense and paged, bf16 and int8 caches; ``pmega_seq:`` /
+``pmega_q_seq:`` over pools whose blocks lie in table order) at
+gpt3-1.3b widths, every slot at 2047 cached positions, is checked at B=8
+against the plain version and timed with CUDA events around 20
+back-to-back launches, three rounds in turns, best reported; ``:prev``
+(the previous design, from ``build/baseline_csrc/``) and ``:committed``
+also at B=1 and 16:
+
+- ``*:stamps``: each block's per-phase ``%globaltimer`` stamps, printed
+  as a per-phase breakdown (span between barrier releases, block work,
+  barrier wait); ``mega:prev_stamps`` etc. the same for the previous
+  design;
+- ``mega:skipN`` (N in 1..5: qkv, attention, out, up, down) and
+  ``mega:attn_only``: phases' loads and work skipped (wrong results,
+  timing only); ``mega:no_sync``: no grid barriers;
+  ``mega:fence_barrier``: full fences around the barrier's atomic;
+  ``mega:prev_skipN`` / ``prev_attn_only`` / ``prev_no_sync``: the same
+  cuts of the previous design;
+- ``*:stages16``: the ring 16 slots deep; ``mega_q:no_scales`` /
+  ``pmega_q:no_scales``: no int8 scale copies; ``mega_q:unroll4``: the
+  activation fills unrolled four times; ``pmega_seq:no_walk`` /
+  ``small_map``: block ids by arithmetic in place of the table walk, a
+  pool map of 4096 blocks.
 
 Needs nvcc and one CUDA device; exits non-zero without them.
 """
@@ -642,6 +672,190 @@ _VQ_FLAT_POOL = _chain(
           "  p.seg = kPaged && pool_seg(a.bs) < kTileN ? pool_seg(a.bs) : kTileN;"),
     _edit("0, hk, soff[g], sblk[g]);", "0, hk, sblk[g] * p.bs + soff[g], 0);"))
 
+# ---- the decode megakernel (row 11) ----------------------------------------
+MK = "decode_megakernel.cuh"
+# kind: (entry source, paged, int8 cache); timed at gpt3-1.3b widths (H=2048,
+# 16 heads of 128, F=8192), every slot at 2047 cached positions, B=8 (and
+# B=1, 16 for the committed kernels and the baselines)
+MEGA_KINDS = {"mega": ("decode_megakernel.cu", False, False),
+              "mega_q": ("decode_megakernel_q.cu", False, True),
+              "pmega": ("paged_decode_megakernel.cu", True, False),
+              "pmega_q": ("paged_decode_megakernel_q.cu", True, True),
+              # the paged kernel over a pool whose slots' blocks lie in
+              # table order (the dense cache's bytes as blocks of 128):
+              # the shuffled pool's cost against the kernel's
+              "pmega_seq": ("paged_decode_megakernel.cu", True, False),
+              "pmega_q_seq": ("paged_decode_megakernel_q.cu", True, True)}
+# the phases between grid barriers, in order, of the previous design
+# (``prev_*`` variants, built from the baseline copy)
+MEGA_PREV_PHASES = ("qkv", "attention", "out", "x2+LN2", "up", "down",
+                    "x_out")
+# the committed design's phases (csrc/decode_megakernel.cuh); its timing
+# hooks are macros the variants define
+MEGA_PHASES = ("qkv", "attention", "out (+x2, LN2 statistics)", "up",
+               "down (+x_out)")
+# each block's thread 0 writes %globaltimer to a debug area past the
+# scratch (16 stamps a block): 0 at the start, 2 i + 1 when phase i's work
+# is done (after a block barrier), 2 i + 2 after its grid barrier
+_STAMP_MACRO = r"""#define MEGA_STAMP(i)                                                           \
+  do {                                                                          \
+    __syncthreads();                                                            \
+    if (threadIdx.x == 0) {                                                     \
+      unsigned long long t_;                                                    \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));                    \
+      reinterpret_cast<unsigned long long*>(p.scratch + ((lay.total + 1) & ~1L)) \
+          [blockIdx.x * 16 + (i)] = t_;                                        \
+    }                                                                           \
+  } while (0)
+"""
+
+
+def _mk_prev_stamps(text):
+    text = text.replace("namespace mega {\n", "namespace mega {\n" + _STAMP_MACRO, 1)
+    text = _edit("  // 1: LN1 row statistics (every block, one warp a slot), then qkv\n",
+                 "  MEGA_STAMP(0);\n"
+                 "  // 1: LN1 row statistics (every block, one warp a slot), then qkv\n")(text)
+    parts = text.split("  grid.sync();\n")
+    if len(parts) != 7:
+        raise SystemExit("variant edit no longer applies: six grid barriers")
+    out = parts[0]
+    for i, part in enumerate(parts[1:]):
+        out += (f"  MEGA_STAMP({2 * i + 1});\n  grid.sync();\n"
+                f"  MEGA_STAMP({2 * i + 2});\n") + part
+    return _edit("    p.x_out[i] = decode_attn::from_float<T>(v);\n  }\n}\n",
+                 "    p.x_out[i] = decode_attn::from_float<T>(v);\n  }\n"
+                 "  MEGA_STAMP(13);\n}\n")(out)
+
+
+_MK_PREV_SKIP = {
+    1: _edit("  gemv_phase<T, KV, Fill::kLn1>(", "  if (false) gemv_phase<T, KV, Fill::kLn1>("),
+    2: _edit("it < B * p.Hkv; it += gridDim.x)\n    attend_item",
+             "it < 0; it += gridDim.x)\n    attend_item"),
+    3: _edit("  gemv_phase<T, KV, Fill::kCopy>(p, smem, p.w_out,",
+             "  if (false) gemv_phase<T, KV, Fill::kCopy>(p, smem, p.w_out,"),
+    4: _edit("    for (int b = blockIdx.x; b < B; b += gridDim.x) {\n      __syncthreads();",
+             "    for (int b = blockIdx.x; b < 0; b += gridDim.x) {\n      __syncthreads();"),
+    5: _edit("  gemv_phase<T, KV, Fill::kCopy>(p, smem, p.w_up,",
+             "  if (false) gemv_phase<T, KV, Fill::kCopy>(p, smem, p.w_up,"),
+    6: _edit("  gemv_phase<T, KV, Fill::kGelu>(", "  if (false) gemv_phase<T, KV, Fill::kGelu>("),
+    7: _edit("threadIdx.x; i < total;\n", "threadIdx.x; i < 0;\n"),
+}
+
+
+def _mk_define(*lines):
+    """The committed header with its timing hooks defined."""
+    def fn(text):
+        if "#ifndef MEGA_STAMP" not in text:
+            raise SystemExit("variant edit no longer applies: the timing hooks")
+        return "".join(f"#define {ln}\n" for ln in lines) + text
+    return fn
+
+
+_MK_STAMPS = _mk_define(
+    "MEGA_STAMP(i) do { cons_sync(); if (threadIdx.x == 0) { "
+    "unsigned long long t_; "
+    'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); '
+    "reinterpret_cast<unsigned long long*>(p.scratch + ((lay.total + 1) & ~1L))"
+    "[blockIdx.x * 16 + (i)] = t_; } } while (0)")
+
+
+def _mk_prev_no_sync(text):
+    if text.count("  grid.sync();\n") != 6:
+        raise SystemExit("variant edit no longer applies: six grid barriers")
+    return text.replace("  grid.sync();\n", "")
+
+
+# name: (entry source, header edited, edit, sources): the previous design
+# with one edit, from the baseline copy; ``mega:prev_skipN`` skips phase N's work
+# (keeping every barrier), ``prev_attn_only`` runs the attention phase
+# alone, ``prev_no_sync`` drops every grid barrier (wrong results, timing
+# only), ``prev_stamps`` writes the per-phase stamps
+MEGA_VARIANTS = {}
+for _kind, (_src, _, _) in MEGA_KINDS.items():
+    MEGA_VARIANTS[f"{_kind}:prev_stamps"] = (_src, MK, _mk_prev_stamps, "baseline")
+for _n, _e in _MK_PREV_SKIP.items():
+    MEGA_VARIANTS[f"mega:prev_skip{_n}"] = ("decode_megakernel.cu", MK, _e, "baseline")
+MEGA_VARIANTS["mega:prev_attn_only"] = (
+    "decode_megakernel.cu", MK,
+    _chain(*(e for n, e in _MK_PREV_SKIP.items() if n != 2)), "baseline")
+MEGA_VARIANTS["mega:prev_no_sync"] = ("decode_megakernel.cu", MK, _mk_prev_no_sync,
+                                      "baseline")
+# the committed design: ``stamps`` (all four kinds), ``skipN`` (phase N's
+# loads and work skipped, N in 1..5), ``attn_only``, ``no_sync``
+for _kind, (_src, _, _) in MEGA_KINDS.items():
+    MEGA_VARIANTS[f"{_kind}:stamps"] = (_src, MK, _MK_STAMPS, "committed")
+for _n in range(1, 6):
+    MEGA_VARIANTS[f"mega:skip{_n}"] = (
+        "decode_megakernel.cu", MK, _mk_define(f"MEGA_SKIP {1 << (_n - 1)}"),
+        "committed")
+MEGA_VARIANTS["mega:attn_only"] = ("decode_megakernel.cu", MK,
+                                   _mk_define("MEGA_SKIP 29"), "committed")
+MEGA_VARIANTS["mega:no_sync"] = ("decode_megakernel.cu", MK,
+                                 _mk_define("MEGA_GRID_SYNC 0"), "committed")
+# the paged producer, bisected on pools whose blocks lie in table order
+# (``*_seq`` kinds): block ids by arithmetic in place of the table walk
+# (right on those pools only), a pool map over 4096 blocks in place of
+# 2^30, and (int8) no scale copies (wrong results, timing only)
+_MK_NO_WALK = _edit("            blk = bi < n_blk ? tbl[bi] : 0;  // the null block past them\n",
+                    "            blk = 1 + it.b * p.MB + bi;\n")
+_MK_SMALL_MAP = _edit("  const long nb = kPaged ? (1L << 30) : a.B;",
+                      "  const long nb = kPaged ? (1L << 12) : a.B;")
+_MK_NO_SCALES = _edit("              if (q < kTilePos)\n                window_attn::vq::cp_async4(",
+                      "              if (q < 0)\n                window_attn::vq::cp_async4(")
+for _kind in ("pmega_seq", "pmega_q_seq"):
+    _src = MEGA_KINDS[_kind][0]
+    MEGA_VARIANTS[f"{_kind}:no_walk"] = (_src, MK, _MK_NO_WALK, "committed")
+    MEGA_VARIANTS[f"{_kind}:small_map"] = (_src, MK, _MK_SMALL_MAP, "committed")
+for _kind in ("mega_q", "pmega_q"):
+    MEGA_VARIANTS[f"{_kind}:no_scales"] = (MEGA_KINDS[_kind][0], MK, _MK_NO_SCALES,
+                                           "committed")
+# the activation fills unrolled four times in place of twice (more loads
+# in flight, more registers: the int8 instantiations spill)
+MEGA_VARIANTS["mega_q:unroll4"] = ("decode_megakernel_q.cu", MK, _edit(
+    "#pragma unroll 2\n    for (int e = threadIdx.x; e < B * n8;",
+    "#pragma unroll 4\n    for (int e = threadIdx.x; e < B * n8;"), "committed")
+# the weight / K/V ring 16 slots deep in place of 8 (128 KB in flight; a
+# depth whose tiles do not return to their last owners does not build)
+for _kind, (_src, _, _) in MEGA_KINDS.items():
+    MEGA_VARIANTS[f"{_kind}:stages16"] = (_src, MK, _edit(
+        "constexpr int kStages = 8;", "constexpr int kStages = 16;"), "committed")
+# the grid barrier with full fences around its atomic (as cooperative
+# groups' grid sync) in place of a release arrival and acquire wait
+MEGA_VARIANTS["mega:fence_barrier"] = ("decode_megakernel.cu", MK, _chain(
+    _edit('    asm volatile("atom.add.release.gpu.global.u32 %0, [%1], %2;\\n"\n'
+          '                 : "=r"(old) : "l"(word), "r"(inc) : "memory");\n',
+          "    __threadfence();\n    old = atomicAdd(word, inc);\n"),
+    _edit("    } while (((old ^ now) & 0x80000000u) == 0);\n  }\n",
+          "    } while (((old ^ now) & 0x80000000u) == 0);\n    __threadfence();\n  }\n")),
+    "committed")
+
+
+def _mega_prev_args(x, w, k, v, lens, ks, vs, tables, sms, extra):
+    """The C arguments of the previous design's wrapper (split-K chunk
+    counts, its scratch), with ``extra`` zeroed floats past the
+    scratch."""
+    bsz, h = x.shape
+    hkv, d = k.shape[2], k.shape[3]
+    f = w[8].shape[-1]
+    nq = h + 2 * hkv * d
+
+    def chunks(kk, n):
+        strips, c = n // 64, 1
+        while kk % (2 * c * 64) == 0 and (kk // c > 2048 or strips * c * 2 <= sms):
+            c *= 2
+        return c
+    kq, ko, ku, kd = chunks(h, nq), chunks(h, h), chunks(h, f), chunks(f, h)
+    x_out = torch.empty_like(x)
+    k_new = torch.empty((bsz, hkv, d), dtype=x.dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    total = bsz * (kq * nq + (3 + ko + kd) * h + ku * f)
+    scratch = torch.zeros(total + 2 + extra, dtype=torch.float32, device=x.device)
+    cap, bs, mb = (k.shape[1], 0, 0) if tables is None else (0, k.shape[1], tables.shape[1])
+    dims = [bsz, h, hkv, d, f, cap, bs, mb, kq, ko, ku, kd, 0]
+    ptrs = [x, *w, k, v, ks, vs, tables, lens, x_out, k_new, v_new, scratch]
+    return ptrs, dims, (x_out, k_new, v_new), scratch, total
+
+
 # name: (entry source, file the edit applies to, edit)
 VARIANTS = {
     "fwd:stages3": ("flash_fwd.cu", "flash_fwd.cu", _edit(
@@ -713,6 +927,12 @@ VARIANTS = {
                                  _VQ_SCALES_IN_REGS),
     "pverify_q:walk_each_in_regs": ("paged_window_attention_q.cu", VQ,
                                     _chain(_VQ_SCALES_IN_REGS, _VQ_WALK_EACH)),
+    "verify:stages2": ("window_attention.cu", VQ, _vq_stages(2)),
+    "pverify:stages2": ("paged_window_attention.cu", VQ, _vq_stages(2)),
+    "verify:warps4_stages6": ("window_attention.cu", VQ,
+                              _chain(_VQ_WARPS4, _vq_stages(6))),
+    "pverify:warps4_stages6": ("paged_window_attention.cu", VQ,
+                               _chain(_VQ_WARPS4, _vq_stages(6))),
 }
 # the previous verify design, from a copy of its sources (see above)
 BASELINE = ROOT / "build" / "baseline_csrc"
@@ -722,6 +942,8 @@ BASELINES = {"verify_q:prev": "window_attention_q.cu",
              "pverify_q1:prev": "paged_window_attention_q.cu",
              "verify:prev": "window_attention.cu",
              "pverify:prev": "paged_window_attention.cu",
+             "verify1:prev": "window_attention.cu",
+             "pverify1:prev": "paged_window_attention.cu",
              "chunk:prev": "window_attention.cu",
              "pchunk:prev": "paged_window_attention.cu",
              "chunk_q:prev": "window_attention_q.cu",
@@ -733,16 +955,23 @@ COMMITTED = {"fwd:committed": "flash_fwd.cu",
              "pchunk:committed": "paged_window_attention.cu",
              "verify:committed": "window_attention.cu",
              "pverify:committed": "paged_window_attention.cu",
+             "verify1:committed": "window_attention.cu",
+             "pverify1:committed": "paged_window_attention.cu",
              "verify_q:committed": "window_attention_q.cu",
              "pverify_q:committed": "paged_window_attention_q.cu",
              "verify_q1:committed": "window_attention_q.cu",
              "pverify_q1:committed": "paged_window_attention_q.cu"}
-# C entry point: (symbol, pointer arguments, int arguments)
+for _kind, (_src, _, _) in MEGA_KINDS.items():
+    BASELINES[f"{_kind}:prev"] = _src
+    COMMITTED[f"{_kind}:committed"] = _src
+# C entry point: (symbol, pointer arguments, int arguments); the
+# megakernels take (pointer array, int array, eps, stream)
 SYMBOLS = {"flash_fwd.cu": ("flash_fwd", 6, 7),
            "window_attention.cu": ("window_attention", 5, 7),
            "window_attention_q.cu": ("window_attention_q", 7, 7),
            "paged_window_attention.cu": ("paged_window_attention", 6, 8),
-           "paged_window_attention_q.cu": ("paged_window_attention_q", 8, 8)}
+           "paged_window_attention_q.cu": ("paged_window_attention_q", 8, 8),
+           **{src: (src[:-3], None, None) for src, _, _ in MEGA_KINDS.values()}}
 
 
 def build(_build, only=()):
@@ -754,6 +983,15 @@ def build(_build, only=()):
             if not only or n.split(":")[0] in prefixes}
     jobs.update({n: (*v, _build.CSRC) for n, v in VARIANTS.items()
                  if not only or n in only})
+    for n, (src, target, edit, where) in MEGA_VARIANTS.items():
+        if only and n not in only:
+            continue
+        if where == "baseline" and not BASELINE.is_dir():
+            cs.log(f"[variants] {n}: no copy of the previous sources in "
+                   f"{BASELINE}: skipped")
+            continue
+        jobs[n] = (src, target, edit,
+                   BASELINE if where == "baseline" else _build.CSRC)
     for n, src in BASELINES.items():
         if only and n not in only:
             continue
@@ -772,8 +1010,11 @@ def build(_build, only=()):
         if edit is not None:
             (d / target).write_text(edit((d / target).read_text()))
         lib = d / "lib.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-               str(d / source)]
+        # -fno-gnu-unique: a function-local static of one template
+        # instance stays in its own library (the previous megakernel kept
+        # its grid size in one, which one loaded copy would set for all)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xcompiler",
+               "-fno-gnu-unique", "-o", str(lib), str(d / source)]
         procs[name] = (source, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     fns = {}
@@ -789,11 +1030,144 @@ def build(_build, only=()):
             raise SystemExit(log)
         symbol, n_ptr, n_int = SYMBOLS[source]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
-            [ctypes.c_void_p]
+        if n_ptr is None:
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_int), ctypes.c_float,
+                           ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + \
+                [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fns[name] = (source, fn)
     return fns
+
+
+def _stamp_spans(stamps, n_phases):
+    """Per phase, from one call's stamps [blocks, 16] (ns): the span from
+    the previous barrier's release to this one's (medians over blocks),
+    the mean and largest work time of a block, and its mean wait at the
+    barrier; microseconds."""
+    st = stamps.double()
+    rel = [st[:, 0].median().item()]
+    rows = []
+    for i in range(n_phases):
+        done = st[:, 2 * i + 1]
+        start = st[:, 0] if i == 0 else st[:, 2 * i]
+        work = (done - start) / 1e3
+        if i + 1 < n_phases:
+            after = st[:, 2 * i + 2]
+            rel.append(after.median().item())
+            wait = ((after - done) / 1e3).mean().item()
+        else:
+            rel.append(done.max().item())
+            wait = 0.0
+        rows.append(((rel[-1] - rel[-2]) / 1e3, work.mean().item(),
+                     work.max().item(), wait))
+    return rows
+
+
+def mega_main(fns, names):
+    """Check each megakernel library at B=8 against the plain version,
+    print the stamps variants' per-phase breakdown, then time every
+    library in turns (CUDA events around back-to-back launches, three
+    rounds, best): B=8, and B=1 and 16 for ``:prev`` and ``:committed``."""
+    from paddle_tpu_torch.ops import _build
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    blk = cs.mega_block(gen, 16, 16)
+    w = blk._megakernel_weights()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    inputs = {}
+
+    def tensors(kind, b):
+        if (kind, b) not in inputs:
+            _, paged, quant = MEGA_KINDS[kind]
+            if kind.endswith("_seq"):
+                x, k, v, _, lens, ks, vs = cs.mega_inputs(
+                    gen, blk, [2047] * b, quant)
+                mb = k.shape[1] // 128
+
+                def pool(t):
+                    if t is None:
+                        return None
+                    return torch.cat([t.new_zeros((1, 128) + t.shape[2:]),
+                                      t.reshape((b * mb, 128) + t.shape[2:])])
+                k, v, ks, vs = (pool(t) for t in (k, v, ks, vs))
+                tables = (1 + torch.arange(b * mb, device="cuda",
+                                           dtype=torch.int32)).reshape(b, mb)
+                inputs[kind, b] = (x, k, v, tables, lens, ks, vs)
+            else:
+                inputs[kind, b] = cs.mega_inputs(gen, blk, [2047] * b, quant,
+                                                 128 if paged else None)
+        return inputs[kind, b]
+
+    def caller(name, b, extra=0):
+        kind, var = name.split(":")
+        x, k, v, tables, lens, ks, vs = tensors(kind, b)
+        if var.startswith("prev"):
+            ptrs, dims, outs, scratch, total = _mega_prev_args(
+                x, w, k, v, lens, ks, vs, tables, sms, extra)
+        else:
+            ptrs, dims, outs, scratch, total = mk._launch_args(
+                x, w, k, v, lens, ks, vs, tables, extra=extra)
+        fn = fns[name][1]
+        cp = (ctypes.c_void_p * len(ptrs))(
+            *[None if t is None else t.data_ptr() for t in ptrs])
+        cd = (ctypes.c_int * len(dims))(*dims)
+        eps = ctypes.c_float(blk.ln_1.epsilon)
+        stream = _build.stream_ptr(x)
+
+        def call():
+            err = fn(cp, cd, eps, stream)
+            if err:
+                raise RuntimeError(f"{name}: launch failed with cudaError {err}")
+        call.keep = (ptrs, cp, cd)
+        return call, outs, scratch, total
+
+    for name in names:
+        kind = name.split(":")[0]
+        call, outs, _, _ = caller(name, 8)
+        call()
+        x, k, v, tables, lens, ks, vs = tensors(kind, 8)
+        ref = mk._mega_plain(x.float(), w, k, v, lens, ks, vs, tables,
+                             eps=blk.ln_1.epsilon)
+        torch.cuda.synchronize()
+        res = [cs.row_errors(g, r) for g, r in zip(outs, ref)]
+        cs.log(f"[variants] {name} B=8: worst row "
+               f"{max(r[1] for r in res):.3e} "
+               f"{'ok' if all(r[2] for r in res) else 'differs'}")
+    for name in [n for n in names if n.endswith("stamps")]:
+        prev = ":prev_" in name
+        phases = MEGA_PREV_PHASES if prev else MEGA_PHASES
+        call, _, scratch, total = caller(name, 8, extra=16 * sms * 2)
+        rows = []
+        for _ in range(5):
+            call()
+            torch.cuda.synchronize()
+            off = (total + 1) // 2 * 2
+            rows.append(_stamp_spans(
+                scratch[off:off + 32 * sms].view(torch.int64).view(sms, 16).cpu(),
+                len(phases)))
+        mean = [[sum(r[i][j] for r in rows) / len(rows) for j in range(4)]
+                for i in range(len(phases))]
+        cs.log(f"[variants] {name} B=8 per-phase breakdown (us, mean of 5 "
+               f"calls; span = previous barrier's release to this one's): " +
+               "; ".join(f"{ph} span {m[0]:.2f} (block work mean {m[1]:.2f}"
+                         f" max {m[2]:.2f}, barrier wait mean {m[3]:.2f})"
+                         for ph, m in zip(phases, mean)) +
+               f"; total {sum(m[0] for m in mean):.2f}")
+    runs = [(n, b) for n in names for b in
+            ((1, 8, 16) if n.endswith((":prev", ":committed")) else (8,))]
+    calls = {r: caller(*r)[0] for r in runs}
+    times = {r: [] for r in runs}
+    for rnd in range(3):
+        for r in (runs if rnd % 2 == 0 else runs[::-1]):
+            times[r].append(cs.cuda_ms(calls[r], iters=20, warmup=3))
+    for (name, b) in runs:
+        cs.log(f"[variants] {name} B={b} 2047 cached a slot H=2048 D=128: "
+               f"best {min(times[name, b]):.4f} ms, rounds "
+               f"{[round(x, 4) for x in times[name, b]]}")
 
 
 def main():
@@ -801,6 +1175,13 @@ def main():
     from paddle_tpu_torch.ops import _build
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     fns = build(_build, sys.argv[1:])
+    mega_names = [n for n in fns if n.split(":")[0] in MEGA_KINDS]
+    if mega_names:
+        mega_main(fns, mega_names)
+    for n in mega_names:
+        del fns[n]
+    if not fns:
+        return
     P = _build.ptr
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -860,12 +1241,15 @@ def main():
              "pchunk_q": [window([0, 100, 1536], 512, True, 128)],
              "pchunk": [window([0, 100, 1536], 512, False, 128)],
              "verify": [window(edges, 5, False)],
-             "pverify": [window(edges, 5, False, 128)],
+             "pverify": [window(edges, 5, False, 128),
+                         window(edges, 5, False, 16)],
              "verify_q": [window(edges, 5, True)],
              "pverify_q": [window(edges, 5, True, 128),
                            window(edges, 5, True, 16)],
              "verify_q1": [window([2043], 5, True)],
-             "pverify_q1": [window([2043], 5, True, 128)]}
+             "pverify_q1": [window([2043], 5, True, 128)],
+             "verify1": [window([2043], 5, False)],
+             "pverify1": [window([2043], 5, False, 128)]}
     for name in list(fns):
         for x in cases[name.split(":")[0]]:
             try:
@@ -886,7 +1270,9 @@ def main():
               "verify_q": window([2043] * 8, 5, True),
               "pverify_q": window([2043] * 8, 5, True, 128),
               "verify_q1": window([2043], 5, True),
-              "pverify_q1": window([2043], 5, True, 128)}
+              "pverify_q1": window([2043], 5, True, 128),
+              "verify1": window([2043], 5, False),
+              "pverify1": window([2043], 5, False, 128)}
     names = list(fns)
     iters = {n: 200 if "verify" in n else 50 for n in names}
     graphs = {n: cs.capture(lambda: run(n, shapes[n.split(":")[0]]), iters[n])

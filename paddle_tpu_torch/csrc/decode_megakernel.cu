@@ -10,36 +10,23 @@
 //
 // What bounds it: device memory bandwidth: the layer's weights (100.7 MB of
 // bf16 at gpt3-1.3b) read once per step for every slot together, plus each
-// slot's cached k/v once per query head of its group.  The TPU kernel's
-// sequential grid of (phase, slot) steps becomes a persistent cooperative
-// grid whose phases are separated by grid-wide barriers, so one launch
-// replaces the composed step's launches per layer (decode_megakernel.cuh
-// has the design).
+// slot's cached k/v once.  The TPU kernel's sequential grid of (phase,
+// slot) steps becomes a persistent cooperative grid of one block per SM
+// whose five phases are separated by grid-wide barriers: a producer warp
+// keeps a TMA ring of weight tiles and k/v rows full across the barriers
+// while eight mma.sync consumer warps work through tiles balanced over
+// every SM (decode_megakernel.cuh has the design).
 #include "decode_megakernel.cuh"
 
 // ptrs: x, the 12 layer arrays (LAYER_WEIGHTS order), k, v, k_scale,
-// v_scale, tables (null when dense), lengths, x_out, k_new, v_new, scratch;
+// v_scale, tables (null when dense), lengths, x_out, k_new, v_new, scratch,
+// workspace (zeroed once: a grid-barrier word and strip counters);
 // k/v [B, cap, Hkv, D] in x's type; k_scale/v_scale unused (null).
-// dims: B, H, Hkv, D, F, cap, bs, MB, ks_qkv, ks_out, ks_up, ks_down, dtype
-// (0 = bf16, 1 = fp16).  Returns a cudaError_t: 0 when the launch was
-// accepted.
+// dims: B, H, Hkv, D, F, cap, bs, MB, grid (one block per SM), position
+// parts of an attention pair, partials a chunk of the qkv, out, up and
+// down products, the scratch floats (low 31 bits, the rest), dtype (0 = bf16,
+// 1 = fp16); ops/decode_megakernel.py:_launch_args makes them.  Returns a
+// cudaError_t: 0 when the launch was accepted.
 extern "C" int decode_megakernel(const void* const* ptrs, const int* dims, float eps, void* stream) {
-  mega::Args a;
-  for (int i = 0; i < 23; ++i) a.ptr[i] = ptrs[i];
-  a.B = dims[0];
-  a.H = dims[1];
-  a.Hkv = dims[2];
-  a.D = dims[3];
-  a.F = dims[4];
-  a.cap = dims[5];
-  a.bs = dims[6];
-  a.MB = dims[7];
-  a.ks_qkv = dims[8];
-  a.ks_out = dims[9];
-  a.ks_up = dims[10];
-  a.ks_down = dims[11];
-  a.dtype = dims[12];
-  a.eps = eps;
-  a.stream = stream;
-  return mega::run<false, false>(a);
+  return mega::entry<false, false>(ptrs, dims, eps, stream);
 }

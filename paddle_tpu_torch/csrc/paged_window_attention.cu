@@ -8,13 +8,15 @@
 // j <= min(lengths[b] + i, MB * bs - 1).  The TPU kernel walks every
 // table entry as a grid step and masks; here a block copies the entries
 // below ceil(min(lengths[b] + W, MB * bs) / bs) into shared memory once
-// and reads the null block 0 for any position past them (padded chunk
-// rows, whose output is ignored), so a null-block tail is never read
-// and a 64-key tile may span several blocks (bs = 16).
+// and reads the null block 0 for any position past them (padded rows,
+// whose output is ignored), so a table entry past the slot's live blocks
+// is never read and a key tile may span several blocks (bs = 16).
 //
 // What bounds it: as window_attention.cu (bytes for the verify,
-// operations for a chunk); the table lookup costs one shared-memory read
-// per 16-byte load (window_attention.cuh).
+// operations for a chunk).  The pool's indirection stays off the
+// consumers: the producer issues one TMA box per pool segment of a key
+// tile (128, 64 or 16 positions, dividing bs), its blocks worked out a
+// tile ahead by one table walk per segment (window_attention.cuh).
 #include "window_attention.cuh"
 
 // q [B, W, H, D]; k_pool/v_pool [NB, bs, Hkv, D]; tables [B, MB] int32;

@@ -13,11 +13,13 @@
 // What bounds it: a verify window (W * G = 5 rows) reads each kv head's
 // K/V once for about 4 * W * G * D FLOPs per position: device memory
 // bandwidth.  A prefill chunk (512 rows) does 512x that work on the same
-// bytes: the tensor cores.  The design for both, in
-// window_attention.cuh: tensor-core tiles over the group's rows, 16-row
-// tiles with the key loop split over four warps for the verify, 64-row
-// tiles for chunks, and only the keys below the block's highest limit
-// read.  Not done yet: wgmma, TMA and a multi-stage K/V ring.
+// bytes: the tensor cores.  The designs, in window_attention.cuh: the
+// verify runs a ring of 128-key K/V tiles that one producer warp keeps
+// full by TMA (up to 192 KB a block in flight) while eight mma.sync
+// consumer warps take 16 keys of each tile, with the key tiles of a (slot,
+// kv head) split over a cluster of CTAs when B * Hkv leaves SMs idle; a
+// chunk runs the shared wgmma mainloop of hopper_attn_fwd.cuh.  Both read
+// key tiles only up to the block's highest limit.
 #include "window_attention.cuh"
 
 // q [B, W, H, D], k/v caches [B, S, Hkv, D], lengths [B] int32, all

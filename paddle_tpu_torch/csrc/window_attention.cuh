@@ -19,29 +19,24 @@
 // Two regimes.  The spec-decode verify has W * G = K + 1 query rows (5 at
 // K = 4) against a long cache: memory bound, like decode.  A prefill chunk
 // has W * G = 512 or more rows: arithmetic bound, like the flash forward.
-// - W * G <= 16, bf16 / fp16 caches (the verify): window_kernel below, on
-//   mma.sync m16n8k16 (mma_tile.cuh) with f32 accumulation and online
-//   softmax over 64-key tiles.  The four warps of a block hold the same 16
-//   rows (w, g) of one kv head and split the key tiles between them (warp
-//   w takes tiles w, w + 4, ...), each streaming its own K/V buffer by
-//   cp.async, so the block keeps four tiles of loads in flight and no K/V
-//   is streamed for padded rows.  The partial (m, l, acc) of the key
-//   splits merge through shared memory in a fixed order, so results do
-//   not depend on scheduling.
-// - W * G <= 16, int8 caches: vq::verify_q_kernel below.  The bound is
-//   the bytes (half the 16-bit kernel's), so the codes must stay in flight
-//   while they are dequantized: one producer warp keeps a three-deep ring
-//   of 128-key tiles of raw codes (TMA into an mbarrier full / empty
-//   ring, up to 99 KB a block in flight) and their f32 scales (cp.async
-//   on the same barriers); eight consumer warps, 16 keys of every tile
-//   each, dequantize the codes out of shared memory straight into the
-//   mma.sync B fragments (byte-permute
-//   conversion, code x scale in f32 rounded once to q's dtype, as the TPU
-//   kernel rounds its dequantized blocks), with the head dimension
-//   permuted so every read is a 16-byte vector.  One block per (slot, kv
-//   head) when B * Hkv fills the SMs; otherwise each pair's key tiles
-//   split over a cluster of up to 8 CTAs, merged through distributed
-//   shared memory in rank order.
+// - W * G <= 16 (the verify): vq::verify_kernel below.  The bound is
+//   the bytes, so they must stay in flight while they are converted and
+//   multiplied: one producer warp keeps a three-deep ring of 128-key
+//   tiles full (TMA into an mbarrier full / empty ring: 16-bit K/V rows
+//   through the 128-byte swizzle, two boxes a D = 128 row; int8 codes and,
+//   by cp.async on the same barriers, their f32 scales), up to 192 KB
+//   (16-bit) or 99 KB (int8) a block in flight; eight consumer warps take
+//   16 keys of every tile each, with mma.sync m16n8k16 and f32
+//   accumulation: 16-bit B fragments by ldmatrix (.trans for V) on the
+//   swizzled lines, int8 codes dequantized out of shared memory straight
+//   into the fragments (byte-permute conversion, code x scale in f32
+//   rounded once to q's dtype, as the TPU kernel rounds its dequantized
+//   blocks, with the head dimension permuted so every read is a 16-byte
+//   vector).  Pool tiles arrive as one box per pool segment, their blocks
+//   planned a tile ahead from the slot's table staged in shared memory.
+//   One block per (slot, kv head) when B * Hkv fills the SMs; otherwise
+//   each pair's key tiles split over a cluster of up to 8 CTAs, merged
+//   through distributed shared memory in rank order.
 // - W * G > 16 (chunks): chunk_launch below, on the shared wgmma mainloop
 //   of hopper_attn_fwd.cuh (128-row tiles, two consumer warpgroups,
 //   128-key K/V tiles through a TMA / mbarrier ring).  Tile row r of kv
@@ -73,11 +68,6 @@ namespace window_attn {
 using flash::kNeg;
 using flash::Mma;
 
-constexpr int kBlockK = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBQ = 16;  // rows a block: the whole verify group
-
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -87,255 +77,6 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 template <>
 __device__ __forceinline__ __half from_float<__half>(float x) {
   return __float2half(x);
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (no
-// bytes are read then, src only has to be a legal address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// barrier over the `n` threads (whole warps) that share K/V buffer `id`
-__device__ __forceinline__ void group_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
-template <typename T>
-struct Params {
-  const T* q;
-  const T* k;
-  const T* v;
-  const int* tables;   // paged only: [B, mb]
-  const int* lengths;  // [B], tokens cached before the window
-  T* o;
-  int W, cap;          // cap: positions a slot can hold (S, or mb * bs)
-  int H, Hkv, G, R;    // R = W * G rows per kv head
-  int bs, mb;          // paged only
-  float scale;
-};
-
-template <typename T, int D, bool kPaged>
-__global__ void __launch_bounds__(kThreads)
-    window_kernel(const Params<T> p) {
-  constexpr int kSplit = kWarps / (kBQ / 16);       // warps per row slice
-  constexpr int kGroup = kThreads / kSplit;        // threads per K/V buffer
-  constexpr int kLd = D + 8;
-  constexpr int kDChunks = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kKTiles = kBlockK / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);                    // [kBQ][kLd]
-  T* sKV = sQ + kBQ * kLd;                   // kSplit x (K, V) [kBlockK][kLd]
-  int* s_tbl = reinterpret_cast<int*>(sKV + kSplit * 2 * kBlockK * kLd);
-  // after the key loop the K/V area holds the merge of the key splits
-  float* s_m = reinterpret_cast<float*>(sKV);                // [kSplit][kBQ]
-  float* s_l = s_m + kSplit * kBQ;                            // [kSplit][kBQ]
-  float* s_acc = s_l + kSplit * kBQ;                          // [kSplit][kBQ][D]
-
-  const int r0 = blockIdx.x * kBQ;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int gid = lane >> 2;
-  const int tig = lane & 3;
-  const int split = warp % kSplit;                 // this warp's key split
-  const int wrow = (warp / kSplit) * 16;           // its first row
-  const int gtid = (warp / kSplit) * 32 + lane;    // index in its buffer group
-
-  const int len = max(p.lengths[b], 0);
-  const int rows = min(kBQ, p.R - r0);
-  const int w_first = r0 / p.G;
-  const int w_last = (r0 + rows - 1) / p.G;
-  const int hi = min(len + w_last + 1, p.cap);     // keys [0, hi) are read
-  const int lo_lim = min(len + w_first, p.cap - 1);  // every row sees <= this
-  const int n_tiles = (hi + kBlockK - 1) / kBlockK;
-  const int n_blk = kPaged ? (min(len + p.W, p.cap) + p.bs - 1) / p.bs : 0;
-
-  if constexpr (kPaged) {
-    for (int i = threadIdx.x; i < n_blk; i += kThreads)
-      s_tbl[i] = p.tables[static_cast<long>(b) * p.mb + i];
-  }
-  // the block's query rows (w, g) -> q[b, w, hk * G + g]; padded rows zero
-  for (int i = threadIdx.x; i < kBQ * (D / 8); i += kThreads) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      const int rr = r0 + r;
-      const long off = ((static_cast<long>(b) * p.W + rr / p.G) * p.H +
-                        static_cast<long>(hk) * p.G + rr % p.G) * D + c;
-      val = *reinterpret_cast<const uint4*>(p.q + off);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * kLd + c) = val;
-  }
-  __syncthreads();
-
-  uint32_t qf[kDChunks][4];
-#pragma unroll
-  for (int c = 0; c < kDChunks; ++c)
-    flash::load_a(qf[c], sQ, kLd, wrow, c * 16, gid, tig);
-  float acc[kDTiles][4];
-#pragma unroll
-  for (int t = 0; t < kDTiles; ++t)
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
-  float m_i[2] = {kNeg, kNeg};
-  float l_i[2] = {0.f, 0.f};
-  // each fragment row's last visible key (padded rows take the last row's)
-  int lim[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int rr = r0 + min(wrow + gid + 8 * e, rows - 1);
-    lim[e] = min(len + rr / p.G, p.cap - 1);
-  }
-
-  // cache row of position t (values at (row * Hkv + hk) * D), or -1 past
-  // the capacity
-  auto kv_row = [&](int t) -> long {
-    if (t >= p.cap) return -1;
-    if constexpr (kPaged) {
-      const int bi = t / p.bs;
-      const int blk = bi < n_blk ? s_tbl[bi] : 0;
-      return static_cast<long>(blk) * p.bs + (t - bi * p.bs);
-    } else {
-      return static_cast<long>(b) * p.cap + t;
-    }
-  };
-
-  T* sK = sKV + split * 2 * kBlockK * kLd;
-  T* sV = sK + kBlockK * kLd;
-
-  for (int kt = split; kt < n_tiles; kt += kSplit) {
-    const int k0 = kt * kBlockK;
-    group_sync(1 + split, kGroup);                 // the buffer is free
-    constexpr int kVecPerRow = D / 8;
-    for (int i = gtid; i < kBlockK * kVecPerRow; i += kGroup) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const long row = kv_row(k0 + r);
-      const long off = row >= 0 ? (row * p.Hkv + hk) * D + c : 0;
-      cp_async16(sK + r * kLd + c, p.k + off, row >= 0);
-      cp_async16(sV + r * kLd + c, p.v + off, row >= 0);
-    }
-    cp_async_wait_all();
-    group_sync(1 + split, kGroup);                 // the tile has landed
-
-    float s[kKTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-      for (int c = 0; c < kDChunks; ++c) {
-        uint32_t bf[2];
-        flash::load_b_rows(bf, sK, kLd, nt * 8, c * 16, gid, tig);
-        Mma<T>::run(s[nt], qf[c], bf);
-      }
-    }
-    // staircase mask only where the tile crosses some row's limit
-    const bool masked = k0 + kBlockK - 1 > lo_lim;
-    float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + nt * 8 + tig * 2 + (e & 1);
-        const bool ok = !masked || key <= lim[e >> 1];
-        const float val = ok ? s[nt][e] * p.scale : kNeg;
-        s[nt][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
-    float rowsum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kKTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float val = s[nt][e];
-        const float pr = val <= 0.5f * kNeg ? 0.f : __expf(val - mx[e >> 1]);
-        s[nt][e] = pr;
-        rowsum[e >> 1] += pr;
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rowsum[r] += __shfl_xor_sync(0xffffffffu, rowsum[r], 1);
-      rowsum[r] += __shfl_xor_sync(0xffffffffu, rowsum[r], 2);
-      alpha[r] = __expf(m_i[r] - mx[r]);
-      l_i[r] = l_i[r] * alpha[r] + rowsum[r];
-      m_i[r] = mx[r];
-    }
-#pragma unroll
-    for (int t = 0; t < kDTiles; ++t) {
-      acc[t][0] *= alpha[0];
-      acc[t][1] *= alpha[0];
-      acc[t][2] *= alpha[1];
-      acc[t][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int c = 0; c < kBlockK / 16; ++c) {
-      uint32_t pa[4];
-      pa[0] = Mma<T>::pack(s[2 * c][0], s[2 * c][1]);
-      pa[1] = Mma<T>::pack(s[2 * c][2], s[2 * c][3]);
-      pa[2] = Mma<T>::pack(s[2 * c + 1][0], s[2 * c + 1][1]);
-      pa[3] = Mma<T>::pack(s[2 * c + 1][2], s[2 * c + 1][3]);
-#pragma unroll
-      for (int t = 0; t < kDTiles; ++t) {
-        uint32_t bf[2];
-        flash::load_b_cols(bf, sV, kLd, c * 16, t * 8, gid, tig);
-        Mma<T>::run(acc[t], pa, bf);
-      }
-    }
-  }
-
-  // merge the key splits in a fixed order
-  __syncthreads();                                 // every K/V buffer is done
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const int r = wrow + gid + 8 * e;
-    if (tig == 0) {
-      s_m[split * kBQ + r] = m_i[e];
-      s_l[split * kBQ + r] = l_i[e];
-    }
-    float* arow = s_acc + (static_cast<long>(split) * kBQ + r) * D + tig * 2;
-#pragma unroll
-    for (int t = 0; t < kDTiles; ++t) {
-      arow[t * 8] = acc[t][2 * e];
-      arow[t * 8 + 1] = acc[t][2 * e + 1];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D;
-    const int c = i % D;
-    float mx = kNeg;
-#pragma unroll
-    for (int sp = 0; sp < kSplit; ++sp) mx = fmaxf(mx, s_m[sp * kBQ + r]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int sp = 0; sp < kSplit; ++sp) {
-      const float f = __expf(s_m[sp * kBQ + r] - mx);
-      den += s_l[sp * kBQ + r] * f;
-      num += s_acc[(sp * kBQ + r) * D + c] * f;
-    }
-    const int rr = r0 + r;
-    const long off = ((static_cast<long>(b) * p.W + rr / p.G) * p.H +
-                      static_cast<long>(hk) * p.G + rr % p.G) * D + c;
-    p.o[off] = from_float<T>(num / fmaxf(den, 1e-30f));
-  }
 }
 
 // What the C entry points pass: untyped pointers and sizes.
@@ -353,40 +94,6 @@ struct Args {
   int dtype;           // 0 = bf16, 1 = fp16
   void* stream;
 };
-
-template <typename T, int D, bool kPaged>
-int launch(const Args& a) {
-  constexpr int kSplit = kWarps / (kBQ / 16);
-  const size_t smem =
-      (static_cast<size_t>(kBQ) + kSplit * 2 * kBlockK) * (D + 8) * sizeof(T) +
-      (kPaged ? static_cast<size_t>(a.mb) * sizeof(int) : 0);
-  auto kernel = window_kernel<T, D, kPaged>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  Params<T> p;
-  p.q = static_cast<const T*>(a.q);
-  p.k = static_cast<const T*>(a.k);
-  p.v = static_cast<const T*>(a.v);
-  p.tables = static_cast<const int*>(a.tables);
-  p.lengths = static_cast<const int*>(a.lengths);
-  p.o = static_cast<T*>(a.o);
-  p.W = a.W;
-  p.cap = kPaged ? a.mb * a.bs : a.S;
-  p.H = a.H;
-  p.Hkv = a.Hkv;
-  p.G = a.H / a.Hkv;
-  p.R = a.W * p.G;
-  p.bs = a.bs;
-  p.mb = a.mb;
-  p.scale = 1.f / sqrtf(static_cast<float>(D));
-  dim3 grid((p.R + kBQ - 1) / kBQ, a.Hkv, a.B);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(a.stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---- the chunk regime (W * G > 16) on the shared wgmma mainloop ----------
 
@@ -690,23 +397,25 @@ int chunk_launch(const Args& a) {
                                    static_cast<cudaStream_t>(a.stream));
 }
 
-// ---- the int8 verify regime (W * G <= 16): an asynchronous code ring ------
+// ---- the verify regime (W * G <= 16): an asynchronous K/V ring --------
 //
 // One block per (kv head, slot, key split): warp 0 produces, warps 1..kCons
-// consume.  Each ring stage holds one kTileN-key tile: the raw K and V
-// codes (TMA; for D = 128 through the 128-byte swizzle, so the consumers'
-// 16-byte reads below are free of bank conflicts) and the tile's f32 K and
-// V scales (4-byte cp.async copies by the producer's lanes 1-31, one
-// block-table walk per pool segment, each position's row by shuffle).  The
-// codes and the scales complete on the stage's full barrier (TMA bytes and
-// cp.async arrivals), so nothing passes through the producer's registers
-// and the producer waits only for a free stage.  Every consumer warp
-// takes its own 16 keys of each tile and keeps its own (m, l, acc) over
-// the block's 16 query rows, so all kCons warps convert at once while the
-// next kStages - 1 tiles load.
+// consume.  Each ring stage holds one kTileN-key tile of K and V by TMA:
+// 16-bit rows through the 128-byte swizzle (a D = 128 row is two 64-column
+// boxes, each kTileN lines of 128 bytes), or int8 codes (one box of D-byte
+// lines, swizzled at D = 128) and then the tile's f32 K and V scales
+// (4-byte cp.async copies by the producer's lanes 1-31, one block-table
+// walk per pool segment, each position's row by shuffle).  Everything of a
+// stage completes on its full barrier (TMA bytes and cp.async arrivals),
+// so nothing passes through the producer's registers and the producer
+// waits only for a free stage.  Every consumer warp takes its own 16 keys
+// of each tile (Warp16 below) and keeps its own (m, l, acc) over the
+// block's 16 query rows, so all kCons warps work at once while the next
+// kStages - 1 tiles load.
 //
-// The consumers dequantize straight into mma.sync m16n8k16 B fragments,
-// with no 16-bit stage:
+// 16-bit values reach the mma.sync m16n8k16 B fragments by ldmatrix on the
+// swizzled lines (.trans for V).  int8 codes are dequantized straight into
+// the fragments, with no 16-bit stage:
 // - q k^T: the reduction (head) dimension is permuted so that k index
 //   (2 tig + i % 2 + 8 (i / 2)) of 16-wide chunk c is column
 //   tig * D / 4 + 4 c + i.  A thread then reads D / 4 contiguous code
@@ -735,10 +444,11 @@ constexpr int kThreads = 32 * (kCons + 1);
 constexpr int kMaxSplit = 8;           // CTAs a cluster (portable limit)
 
 // byte offsets from the 1024-aligned base of dynamic shared memory
-template <int D>
+template <typename KV, int D>
 struct Layout {
-  static constexpr int kCodes = kTileN * D;  // one tensor's codes a stage
-  static constexpr int kStage = (2 * kCodes + 2 * kTileN * 4 + 1023) / 1024 * 1024;
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr int kCodes = kTileN * D * static_cast<int>(sizeof(KV));  // one tensor a stage
+  static constexpr int kStage = (2 * kCodes + (kQuant ? 2 * kTileN * 4 : 0) + 1023) / 1024 * 1024;
   static constexpr int kRing = kStages * kStage;
   // after the key loop: each consumer warp's m[16], l[16], acc[16][D + 8]
   static constexpr int kAccLd = D + 8;
@@ -753,10 +463,10 @@ struct Layout {
 
 template <typename T>
 struct Params {
-  CUtensorMap tm_k, tm_v;  // int8 codes, [B, S, Hkv, D] or [NB, bs, Hkv, D]
+  CUtensorMap tm_k, tm_v;  // [B, S, Hkv, D] or [NB, bs, Hkv, D]: 16-bit or int8 codes
   const T* q;
   T* o;
-  const float* ks;     // [B, S, Hkv] dense, [NB, bs, Hkv] paged
+  const float* ks;     // int8 only: [B, S, Hkv] dense, [NB, bs, Hkv] paged
   const float* vs;
   const int* tables;   // paged only: [B, mb]
   const int* lengths;  // [B], tokens cached before the window
@@ -778,6 +488,19 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
                : "memory");
 }
 
+// four 8 x 8 16-bit matrices from shared memory, one row address a lane
+// (lanes 8 i .. 8 i + 7: matrix i); .trans hands each lane the column
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // byte i of a code word (bytes already XOR 0x80) as the exact f32 code
 __device__ __forceinline__ float code(uint32_t w, int i) {
   return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + i)) - 8388736.f;
@@ -790,10 +513,209 @@ __device__ __forceinline__ uint32_t dq2(uint32_t wa, int ia, float fa,
   return hopper::pack2<T>(code(wa, ia) * fa, code(wb, ib) * fb);
 }
 
-template <typename T, int D, bool kPaged>
+// One consumer warp over 16 query rows: its Q fragments and its online
+// softmax state (base 2), fed 16 keys at a time from boxes laid out as the
+// ring's (16-bit: 128-byte lines of 64 columns, a D = 128 row in two
+// boxes; int8: lines of D code bytes; swizzled at 128 bytes a line, so
+// every box starts on a 1024-byte boundary).  Column j of acc's
+// fragments is head column col(j).  The decode megakernel's attention
+// phase runs the same warps.
+template <typename T, typename KV, int D>
+struct Warp16 {
+  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  uint32_t qf[D / 16][4];
+  float acc[D / 8][4];
+  float m_i[2];
+  float l_i[2];  // this thread's share of the row sums until finish()
+
+  // Q rows from 16 rows of shared memory (row stride ld elements)
+  __device__ __forceinline__ void init(const T* sQ, int ld, int lane) {
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      if constexpr (kQuant) {
+        const T* r0 = sQ + gid * ld + tig * (D / 4) + 4 * c;
+        qf[c][0] = flash::ld32(r0);
+        qf[c][1] = flash::ld32(r0 + 8 * ld);
+        qf[c][2] = flash::ld32(r0 + 2);
+        qf[c][3] = flash::ld32(r0 + 8 * ld + 2);
+      } else {
+        flash::load_a(qf[c], sQ, ld, 0, c * 16, gid, tig);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    m_i[0] = m_i[1] = kNeg;
+    l_i[0] = l_i[1] = 0.f;
+  }
+
+  // keys kw0 .. kw0 + 15 on lines l0 .. l0 + 15 (l0 a multiple of 16) of
+  // the K and V values (16-bit at D = 128: columns 0-63 in boxes ck, cv,
+  // 64-127 in ck1, cv1; int8: scales sk, sv by line); key kw0 + i is
+  // visible to fragment row e when !masked or <= lim[e]
+  __device__ __forceinline__ void keys(const unsigned char* ck, const unsigned char* ck1,
+                                       const unsigned char* cv, const unsigned char* cv1,
+                                       const float* sk, const float* sv, int l0, int kw0,
+                                       bool masked, const int* lim, float scale_log2, int lane) {
+    const int gid = lane >> 2;
+    const int tig = lane & 3;
+    // S = Q K^T over the 16 keys (n8 tile j: keys + 8 j)
+    float sf[2][4];
+    sf[0][0] = sf[0][1] = sf[0][2] = sf[0][3] = 0.f;
+    sf[1][0] = sf[1][1] = sf[1][2] = sf[1][3] = 0.f;
+    if constexpr (kQuant) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int line = l0 + 8 * j + gid;
+        const float f = sk[line];
+        uint32_t w[D / 16];
+        if constexpr (D == 128) {
+          // chunks 2 tig, 2 tig + 1 of the line, swizzled by line % 8 = gid
+          const uint4 x0 = *reinterpret_cast<const uint4*>(ck + line * 128 + (((2 * tig) ^ gid) << 4));
+          const uint4 x1 = *reinterpret_cast<const uint4*>(ck + line * 128 + (((2 * tig + 1) ^ gid) << 4));
+          w[0] = x0.x; w[1] = x0.y; w[2] = x0.z; w[3] = x0.w;
+          w[4] = x1.x; w[5] = x1.y; w[6] = x1.z; w[7] = x1.w;
+        } else {
+          const uint4 x0 = *reinterpret_cast<const uint4*>(ck + line * D + tig * 16);
+          w[0] = x0.x; w[1] = x0.y; w[2] = x0.z; w[3] = x0.w;
+        }
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          const uint32_t x = w[c] ^ 0x80808080u;
+          const uint32_t bf[2] = {dq2<T>(x, 0, f, x, 1, f), dq2<T>(x, 2, f, x, 3, f)};
+          Mma<T>::run(sf[j], qf[c], bf);
+        }
+      }
+    } else {
+      // x4 matrices: keys 0-7 / 8-15 (lanes 16-31) x columns 16 c .. + 7 /
+      // 16 c + 8 .. + 15 (lanes 8-15, 24-31)
+      const uint32_t kb[2] = {hopper::smem_u32(ck), hopper::smem_u32(ck1)};
+      const int line = l0 + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        const int chunk = 2 * c + ((lane >> 3) & 1);
+        uint32_t r[4];
+        ldsm_x4(r, kb[c / 4] + line * 128 + (((chunk & 7) ^ (line & 7)) << 4));
+        const uint32_t b0[2] = {r[0], r[1]};
+        const uint32_t b1[2] = {r[2], r[3]};
+        Mma<T>::run(sf[0], qf[c], b0);
+        Mma<T>::run(sf[1], qf[c], b1);
+      }
+    }
+    // online softmax in base 2, the mask only where asked
+    float mx[2] = {m_i[0], m_i[1]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = kw0 + 8 * j + 2 * tig + (e & 1);
+        const bool ok = !masked || key <= lim[e >> 1];
+        const float val = ok ? sf[j][e] * scale_log2 : kNeg;
+        sf[j][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = hopper::ex2(m_i[r] - mx[r]);
+      l_i[r] *= alpha[r];
+      m_i[r] = mx[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float val = sf[j][e];
+        const float pr = val <= 0.5f * kNeg ? 0.f : hopper::ex2(val - mx[e >> 1]);
+        sf[j][e] = pr;
+        l_i[e >> 1] += pr;
+      }
+    }
+    // a running max that moved rescales the accumulators (alpha = 1
+    // exactly otherwise)
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int t = 0; t < D / 8; ++t) {
+        acc[t][0] *= alpha[0];
+        acc[t][1] *= alpha[0];
+        acc[t][2] *= alpha[1];
+        acc[t][3] *= alpha[1];
+      }
+    }
+    const uint32_t pa[4] = {Mma<T>::pack(sf[0][0], sf[0][1]),
+                            Mma<T>::pack(sf[0][2], sf[0][3]),
+                            Mma<T>::pack(sf[1][0], sf[1][1]),
+                            Mma<T>::pack(sf[1][2], sf[1][3])};
+    if constexpr (kQuant) {
+      // O += P V: key rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of the
+      // 16, D / 8 code bytes each (head columns gid * D / 8 + t)
+      uint32_t v[4][D / 32];
+      float fv[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int line = l0 + 2 * tig + (e & 1) + 8 * (e >> 1);
+        fv[e] = sv[line];
+        if constexpr (D == 128) {
+          const uint4 x = *reinterpret_cast<const uint4*>(cv + line * 128 + ((gid ^ (line & 7)) << 4));
+          v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
+          v[e][2] = x.z ^ 0x80808080u; v[e][3] = x.w ^ 0x80808080u;
+        } else {
+          const uint2 x = *reinterpret_cast<const uint2*>(cv + line * D + gid * 8);
+          v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < D / 8; ++t) {
+        const uint32_t bf[2] = {dq2<T>(v[0][t / 4], t % 4, fv[0], v[1][t / 4], t % 4, fv[1]),
+                                dq2<T>(v[2][t / 4], t % 4, fv[2], v[3][t / 4], t % 4, fv[3])};
+        Mma<T>::run(acc[t], pa, bf);
+      }
+    } else {
+      // O += P V: x4.trans matrices keys 0-7 / 8-15 (lanes 8-15, 24-31) x
+      // columns 8 t .. / 8 (t + 1) .. (lanes 16-31)
+      const uint32_t vb[2] = {hopper::smem_u32(cv), hopper::smem_u32(cv1)};
+      const int line = l0 + (lane & 7) + (((lane >> 3) & 1) << 3);
+#pragma unroll
+      for (int t = 0; t < D / 8; t += 2) {
+        const int chunk = t + (lane >> 4);
+        uint32_t r[4];
+        ldsm_x4_t(r, vb[t / 8] + line * 128 + (((chunk & 7) ^ (line & 7)) << 4));
+        const uint32_t b0[2] = {r[0], r[1]};
+        const uint32_t b1[2] = {r[2], r[3]};
+        Mma<T>::run(acc[t], pa, b0);
+        Mma<T>::run(acc[t + 1], pa, b1);
+      }
+    }
+  }
+
+  // the row sums over the quad (call once, after the last keys)
+  __device__ __forceinline__ void finish() {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
+    }
+  }
+
+  // head column of fragment column j (8 t + 2 tig + i of acc[t][i])
+  static __device__ __forceinline__ int col(int j) {
+    return kQuant ? (j % 8) * (D / 8) + j / 8 : j;
+  }
+};
+
+template <typename T, typename KV, int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
-    verify_q_kernel(const __grid_constant__ Params<T> p) {
-  using L = Layout<D>;
+    verify_kernel(const __grid_constant__ Params<T> p) {
+  using L = Layout<KV, D>;
+  constexpr bool kQuant = L::kQuant;
+  // a 16-bit row is D / 64 boxes of 128-byte lines; an int8 row one box of
+  // D bytes
+  constexpr int kLine = kQuant ? D : 128;
+  constexpr int kBoxes = kQuant ? 1 : D / 64;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -820,7 +742,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      hopper::mbar_init(full(s), 32);     // lane 0's TMA + 31 cp.async lanes
+      hopper::mbar_init(full(s), 32);     // lane 0's TMA + 31 lanes (int8: their cp.async)
       hopper::mbar_init(empty(s), kCons);  // one arrival per consumer warp
     }
     hopper::mbar_init_fence();
@@ -848,9 +770,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int cw = warp - 1;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  float acc[D / 8][4];
-  float m_i[2] = {kNeg, kNeg};
-  float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
+  Warp16<T, KV, D> st16;
 
   if (warp == 0) {
     // ---- producer: lane 0 issues the codes' TMA, lanes 1-31 copy the
@@ -860,7 +780,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // most; each position's row by shuffle) are worked out while the
     // previous tile's stage is still busy; the scale of position j goes to
     // j (K) and kTileN + j (V) of the stage's scale area, zero past the
-    // capacity
+    // capacity.  16-bit tiles have no scales: lanes 1-31 only arrive.
     constexpr int kPer = (2 * kTileN + 30) / 31;
     constexpr int kSegs = kPaged ? kTileN / 16 : 1;
     const int nseg = kPaged ? kTileN / p.seg : 1;
@@ -887,13 +807,15 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         seg_row = static_cast<long>(blk) * p.bs + off;
       }
+      if constexpr (kQuant) {
 #pragma unroll
-      for (int u = 0; u < kPer; ++u) {
-        const int pos = (lane - 1 + 31 * u) & (kTileN - 1);
-        if constexpr (kPaged)
-          srow[u] = __shfl_sync(0xffffffffu, seg_row, 1 + (pos >> lg)) + (pos & (p.seg - 1));
-        else
-          srow[u] = static_cast<long>(b) * p.cap + k0 + pos;
+        for (int u = 0; u < kPer; ++u) {
+          const int pos = (lane - 1 + 31 * u) & (kTileN - 1);
+          if constexpr (kPaged)
+            srow[u] = __shfl_sync(0xffffffffu, seg_row, 1 + (pos >> lg)) + (pos & (p.seg - 1));
+          else
+            srow[u] = static_cast<long>(b) * p.cap + k0 + pos;
+        }
       }
     };
     if (n > 0) plan(t0);
@@ -904,7 +826,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t st = base + s * L::kStage;
       if (lane == 0) {
         hopper::mbar_expect_tx(full(s), 2 * L::kCodes);
-        if constexpr (kPaged) {
+        if constexpr (kQuant && kPaged) {
 #pragma unroll
           for (int g = 0; g < kSegs; ++g) {
             if (g < nseg) {
@@ -912,11 +834,29 @@ __global__ void __launch_bounds__(kThreads, 1)
               hopper::tma_load_4d(st + L::kCodes + g * p.seg * D, &p.tm_v, full(s), 0, hk, soff[g], sblk[g]);
             }
           }
-        } else {
+        } else if constexpr (kQuant) {
           hopper::tma_load_4d(st, &p.tm_k, full(s), 0, hk, k0, b);
           hopper::tma_load_4d(st + L::kCodes, &p.tm_v, full(s), 0, hk, k0, b);
+        } else {
+#pragma unroll
+          for (int c = 0; c < kBoxes; ++c) {
+            const uint32_t box = st + c * kTileN * kLine;
+            if constexpr (kPaged) {
+#pragma unroll
+              for (int g = 0; g < kSegs; ++g) {
+                if (g < nseg) {
+                  hopper::tma_load_4d(box + g * p.seg * kLine, &p.tm_k, full(s), c * 64, hk, soff[g], sblk[g]);
+                  hopper::tma_load_4d(box + L::kCodes + g * p.seg * kLine, &p.tm_v, full(s), c * 64, hk,
+                                      soff[g], sblk[g]);
+                }
+              }
+            } else {
+              hopper::tma_load_4d(box, &p.tm_k, full(s), c * 64, hk, k0, b);
+              hopper::tma_load_4d(box + L::kCodes, &p.tm_v, full(s), c * 64, hk, k0, b);
+            }
+          }
         }
-      } else {
+      } else if constexpr (kQuant) {
 #pragma unroll
         for (int u = 0; u < kPer; ++u) {
           const int j = lane - 1 + 31 * u;
@@ -926,22 +866,14 @@ __global__ void __launch_bounds__(kThreads, 1)
             cp_async4(st + 2 * L::kCodes + 4 * j, live ? scl + srow[u] * p.Hkv + hk : scl, live);
         }
         cp_async_arrive(full(s));
+      } else {
+        hopper::mbar_arrive(full(s));
       }
       if (i + 1 < n) plan(t0 + i + 1);
     }
   } else {
     // ---- consumers
-    uint32_t qf[D / 16][4];
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      const T* r0 = sQ + gid * L::kLd + tig * (D / 4) + 4 * c;
-      qf[c][0] = flash::ld32(r0);
-      qf[c][1] = flash::ld32(r0 + 8 * L::kLd);
-      qf[c][2] = flash::ld32(r0 + 2);
-      qf[c][3] = flash::ld32(r0 + 8 * L::kLd + 2);
-    }
-#pragma unroll
-    for (int t = 0; t < D / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+    st16.init(sQ, L::kLd, lane);
     int lim[2];
 #pragma unroll
     for (int e = 0; e < 2; ++e)
@@ -952,144 +884,47 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int kw0 = (t0 + i) * kTileN + 16 * cw;  // the warp's first key
       hopper::mbar_wait(full(s), (i / kStages) & 1);
       if (kw0 < hi) {
+        // the staircase mask only where the warp's keys cross some row's
+        // limit
         const unsigned char* ck = sm + s * L::kStage;
         const unsigned char* cv = ck + L::kCodes;
         const float* sc = reinterpret_cast<const float*>(ck + 2 * L::kCodes);
-        // S = Q K^T over keys kw0 .. kw0 + 15 (n8 tile j: keys + 8 j)
-        float sf[2][4];
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int line = 16 * cw + 8 * j + gid;
-          const float f = sc[line];
-          uint32_t w[D / 16];
-          if constexpr (D == 128) {
-            // chunks 2 tig, 2 tig + 1 of the line, swizzled by line % 8 = gid
-            const uint4 x0 = *reinterpret_cast<const uint4*>(ck + line * 128 + (((2 * tig) ^ gid) << 4));
-            const uint4 x1 = *reinterpret_cast<const uint4*>(ck + line * 128 + (((2 * tig + 1) ^ gid) << 4));
-            w[0] = x0.x; w[1] = x0.y; w[2] = x0.z; w[3] = x0.w;
-            w[4] = x1.x; w[5] = x1.y; w[6] = x1.z; w[7] = x1.w;
-          } else {
-            const uint4 x0 = *reinterpret_cast<const uint4*>(ck + line * D + tig * 16);
-            w[0] = x0.x; w[1] = x0.y; w[2] = x0.z; w[3] = x0.w;
-          }
-          sf[j][0] = sf[j][1] = sf[j][2] = sf[j][3] = 0.f;
-#pragma unroll
-          for (int c = 0; c < D / 16; ++c) {
-            const uint32_t x = w[c] ^ 0x80808080u;
-            const uint32_t bf[2] = {dq2<T>(x, 0, f, x, 1, f), dq2<T>(x, 2, f, x, 3, f)};
-            Mma<T>::run(sf[j], qf[c], bf);
-          }
-        }
-        // online softmax in base 2, the staircase mask only where the
-        // warp's keys cross some row's limit
-        const bool masked = kw0 + 15 > lo_lim;
-        float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kw0 + 8 * j + 2 * tig + (e & 1);
-            const bool ok = !masked || key <= lim[e >> 1];
-            const float val = ok ? sf[j][e] * p.scale_log2 : kNeg;
-            sf[j][e] = val;
-            mx[e >> 1] = fmaxf(mx[e >> 1], val);
-          }
-        }
-        float alpha[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          alpha[r] = hopper::ex2(m_i[r] - mx[r]);
-          l_i[r] *= alpha[r];
-          m_i[r] = mx[r];
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float val = sf[j][e];
-            const float pr = val <= 0.5f * kNeg ? 0.f : hopper::ex2(val - mx[e >> 1]);
-            sf[j][e] = pr;
-            l_i[e >> 1] += pr;
-          }
-        }
-        // a running max that moved rescales the accumulators (alpha = 1
-        // exactly otherwise)
-        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
-#pragma unroll
-          for (int t = 0; t < D / 8; ++t) {
-            acc[t][0] *= alpha[0];
-            acc[t][1] *= alpha[0];
-            acc[t][2] *= alpha[1];
-            acc[t][3] *= alpha[1];
-          }
-        }
-        // O += P V: key rows 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of the
-        // warp's 16, D / 8 code bytes each (head columns gid * D / 8 + t)
-        const uint32_t pa[4] = {Mma<T>::pack(sf[0][0], sf[0][1]),
-                                Mma<T>::pack(sf[0][2], sf[0][3]),
-                                Mma<T>::pack(sf[1][0], sf[1][1]),
-                                Mma<T>::pack(sf[1][2], sf[1][3])};
-        uint32_t v[4][D / 32];
-        float fv[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int line = 16 * cw + 2 * tig + (e & 1) + 8 * (e >> 1);
-          fv[e] = sc[kTileN + line];
-          if constexpr (D == 128) {
-            const uint4 x = *reinterpret_cast<const uint4*>(cv + line * 128 + ((gid ^ (line & 7)) << 4));
-            v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
-            v[e][2] = x.z ^ 0x80808080u; v[e][3] = x.w ^ 0x80808080u;
-          } else {
-            const uint2 x = *reinterpret_cast<const uint2*>(cv + line * D + gid * 8);
-            v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
-          }
-        }
-#pragma unroll
-        for (int t = 0; t < D / 8; ++t) {
-          const uint32_t bf[2] = {dq2<T>(v[0][t / 4], t % 4, fv[0], v[1][t / 4], t % 4, fv[1]),
-                                  dq2<T>(v[2][t / 4], t % 4, fv[2], v[3][t / 4], t % 4, fv[3])};
-          Mma<T>::run(acc[t], pa, bf);
-        }
+        st16.keys(ck, ck + kTileN * 128, cv, cv + kTileN * 128, sc, sc + kTileN, 16 * cw, kw0,
+                  kw0 + 15 > lo_lim, lim, p.scale_log2, lane);
       }
       __syncwarp();
       if (lane == 0) hopper::mbar_arrive(empty(s));
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
-      l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
-    }
+    st16.finish();
   }
   __syncthreads();  // every warp is done with the ring: it becomes scratch
   // what each consumer warp leaves for the merge
   float* s_m = reinterpret_cast<float*>(sm);
   float* s_l = s_m + kCons * 16;
-  float* s_acc = s_l + kCons * 16;  // [kCons][16][kAccLd], tile-major columns
+  float* s_acc = s_l + kCons * 16;  // [kCons][16][kAccLd], fragment columns
   if (warp > 0) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = gid + 8 * e;
       if (tig == 0) {
-        s_m[cw * 16 + r] = m_i[e];
-        s_l[cw * 16 + r] = l_i[e];
+        s_m[cw * 16 + r] = st16.m_i[e];
+        s_l[cw * 16 + r] = st16.l_i[e];
       }
       float* arow = s_acc + (cw * 16 + r) * L::kAccLd + 2 * tig;
 #pragma unroll
       for (int t = 0; t < D / 8; ++t)
-        *reinterpret_cast<float2*>(arow + t * 8) = make_float2(acc[t][2 * e], acc[t][2 * e + 1]);
+        *reinterpret_cast<float2*>(arow + t * 8) = make_float2(st16.acc[t][2 * e], st16.acc[t][2 * e + 1]);
     }
   }
   __syncthreads();
 
-  // merge the warps' partials in warp order; column j of a partial row is
-  // head column (j % 8) * D / 8 + j / 8
+  // merge the warps' partials in warp order; fragment column j of a
+  // partial row is head column Warp16::col(j)
   float* f_m = reinterpret_cast<float*>(sm + L::kFin);
   float* f_l = f_m + 16;
   float* f_acc = f_l + 16;  // [16][kAccLd]
   auto out = [&](int r, int j, float val) {
-    const int d = (j % 8) * (D / 8) + j / 8;
+    const int d = Warp16<T, KV, D>::col(j);
     p.o[((static_cast<long>(b) * p.W + r / p.G) * p.H +
          static_cast<long>(hk) * p.G + r % p.G) * D + d] = from_float<T>(val);
   };
@@ -1171,8 +1006,9 @@ inline int split_for(int pairs, int cap) {
   return ns < tiles ? ns : tiles;
 }
 
-template <typename T, int D, bool kPaged>
+template <typename T, typename KV, int D, bool kPaged>
 int launch(const Args& a) {
+  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
   Params<T> p;
   const int cap = kPaged ? a.mb * a.bs : a.S;
   // a pool's block count is not passed: its map spans every block id a
@@ -1180,9 +1016,11 @@ int launch(const Args& a) {
   const int nb = kPaged ? (1 << 30) : a.B;
   const int npos = kPaged ? a.bs : a.S;
   p.seg = kPaged && pool_seg(a.bs) < kTileN ? pool_seg(a.bs) : kTileN;
-  if (!hopper::map_bshd_u8(&p.tm_k, a.k, nb, npos, a.Hkv, D, p.seg, D == 128) ||
-      !hopper::map_bshd_u8(&p.tm_v, a.v, nb, npos, a.Hkv, D, p.seg, D == 128))
-    return static_cast<int>(cudaErrorNotSupported);
+  const bool ok = kQuant ? hopper::map_bshd_u8(&p.tm_k, a.k, nb, npos, a.Hkv, D, p.seg, D == 128) &&
+                               hopper::map_bshd_u8(&p.tm_v, a.v, nb, npos, a.Hkv, D, p.seg, D == 128)
+                         : hopper::map_bshd(&p.tm_k, a.k, a.dtype == 1, nb, npos, a.Hkv, D, p.seg) &&
+                               hopper::map_bshd(&p.tm_v, a.v, a.dtype == 1, nb, npos, a.Hkv, D, p.seg);
+  if (!ok) return static_cast<int>(cudaErrorNotSupported);
   p.q = static_cast<const T*>(a.q);
   p.o = static_cast<T*>(a.o);
   p.ks = static_cast<const float*>(a.ks);
@@ -1199,8 +1037,8 @@ int launch(const Args& a) {
   p.mb = a.mb;
   p.nsplit = split_for(a.B * a.Hkv, cap);
   p.scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  const int smem = Layout<D>::kLaunch + (kPaged ? a.mb * 4 : 0);
-  auto kernel = verify_q_kernel<T, D, kPaged>;
+  const int smem = Layout<KV, D>::kLaunch + (kPaged ? a.mb * 4 : 0);
+  auto kernel = verify_kernel<T, KV, D, kPaged>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1223,15 +1061,11 @@ int launch(const Args& a) {
 
 }  // namespace vq
 
-// the verify (the whole group of one kv head in 16 rows) on mma.sync: 16-bit
-// caches on window_kernel, int8 on the code ring (vq); chunks on the shared
-// wgmma mainloop
+// the verify (the whole group of one kv head in 16 rows) on the ring of
+// mma.sync consumers (vq); chunks on the shared wgmma mainloop
 template <typename T, typename KV, int D, bool kPaged>
 int by_rows(const Args& a) {
-  if (a.W * (a.H / a.Hkv) <= 16) {
-    if constexpr (std::is_same<KV, int8_t>::value) return vq::launch<T, D, kPaged>(a);
-    else return launch<T, D, kPaged>(a);
-  }
+  if (a.W * (a.H / a.Hkv) <= 16) return vq::launch<T, KV, D, kPaged>(a);
   return chunk_launch<T, KV, D, kPaged>(a);
 }
 

@@ -29,10 +29,19 @@ caller then writes there again; JAX writes into a copy).  Otherwise a CPU
 tensor runs the plain version ``_mega_plain`` and a CUDA tensor the
 hand-written kernel (``csrc/decode_megakernel.cu``, ``_q``,
 ``paged_decode_megakernel.cu``, ``_q``: one cooperative launch per layer
-step) or raises.  The kernel takes bf16/fp16 x and weights of x's dtype,
-B <= 16, D in {64, 128}, H and F multiples of 128, and contiguous tensors.
-Unlike the JAX package, an unsupported shape on the card raises instead
-of taking the composite.
+step, one block per SM) or raises.  The kernel takes bf16/fp16 x and
+weights of x's dtype, B <= 16, D in {64, 128}, H and F multiples of 128,
+block sizes that are multiples of 16, and contiguous tensors.  Unlike the
+JAX package, an unsupported shape on the card raises instead of taking
+the composite.
+
+The launch is capturable in a CUDA graph: its scratch comes from the
+caching allocator, and its only other state, a workspace holding a
+grid-barrier word (every launch leaves it as it found it) and strip
+counters (every launch zeroes them before use), is allocated once per
+device.  :func:`_partition` is the split of each product's weight tiles
+over the blocks that the kernel follows (``csrc/decode_megakernel.cuh``,
+``Part``).
 """
 from __future__ import annotations
 
@@ -74,7 +83,11 @@ PAGED_DECODE_MEGAKERNEL_Q = _build.CudaKernel(
 # the kernel's limits (csrc/decode_megakernel.cuh)
 _MAX_SLOTS = 16
 _MAX_CHUNK = 2048
+_TILE = 64            # a weight tile: 64 input rows x 64 output columns
+_MAX_PARTS = 8        # position parts of one attention pair at most
+_WORK_INTS = 2 + 16384  # grid barrier + strip counters
 _SMS: Dict[int, int] = {}
+_WORK: Dict[int, torch.Tensor] = {}
 # layer weight sets already checked, by their data pointers, dtype and
 # device: a decode step checks its 24 layers' 12 arrays once, not per step
 _CHECKED: Dict[tuple, bool] = {}
@@ -255,16 +268,93 @@ def _sms(device) -> int:
     return _SMS[idx]
 
 
+class _Part:
+    """How a ``k x n`` product's weight tiles (64-column strip x 64-row
+    k-tile, strip-major) split over ``blocks``: block b streams tiles
+    ``[start(b), start(b + 1))``; chunk c is tiles ``[c cl, (c + 1) cl)``
+    of one strip (``cl`` the largest divisor of the strip's k-tiles with
+    ``cl * 64 <= 2048``); each block writes one f32 partial for each chunk
+    its run touches.  The kernel's ``Part`` computes the same."""
+
+    def __init__(self, k: int, n: int, blocks: int):
+        self.k, self.n, self.blocks = k, n, blocks
+        self.nk = k // _TILE
+        self.cl = max(d for d in range(1, self.nk + 1)
+                      if self.nk % d == 0 and d * _TILE <= _MAX_CHUNK)
+        self.total = (n // _TILE) * self.nk
+
+    def start(self, b: int) -> int:
+        return b * self.total // self.blocks
+
+    def blk(self, t: int) -> int:
+        """The block whose run holds tile t."""
+        return ((t + 1) * self.blocks - 1) // self.total
+
+    @functools.cached_property
+    def parts(self) -> int:
+        """Partials a chunk at most (the scratch holds that many)."""
+        return max(self.blk(c * self.cl + self.cl - 1) - self.blk(c * self.cl)
+                   + 1 for c in range(self.total // self.cl))
+
+
 @functools.lru_cache(maxsize=None)
-def _chunks(k: int, n: int, sms: int) -> int:
-    """Input-dimension chunks of a ``k x n`` product: doubled while the
-    items (64-column strips x chunks) still fit the SMs twice over, and
-    until a chunk is at most 2048 rows; each chunk a multiple of 64."""
-    strips, c = n // 64, 1
-    while k % (2 * c * 64) == 0 and (
-            k // c > _MAX_CHUNK or strips * c * 2 <= sms):
-        c *= 2
-    return c
+def _part(k: int, n: int, blocks: int) -> _Part:
+    return _Part(k, n, blocks)
+
+
+def _partition(k: int, n: int, blocks: int):
+    """Each block's pieces of a ``k x n`` product, ``[(strip, k0, k1),
+    ...]`` in the order it streams them: input rows ``[k0, k1)`` of
+    64-column strip ``strip``, cut at strip and chunk edges, so every
+    piece's rows fit the kernel's activation chunk."""
+    pt = _part(k, n, blocks)
+    out = []
+    for b in range(blocks):
+        pieces, t, t1 = [], pt.start(b), pt.start(b + 1)
+        while t < t1:
+            te = min(t1, (t // pt.cl + 1) * pt.cl)
+            s, kt = divmod(t, pt.nk)
+            pieces.append((s, kt * _TILE, (kt + te - t) * _TILE))
+            t = te
+        out.append(pieces)
+    return out
+
+
+def _scratch_floats(bsz, h, hkv, d, f, rt, np_, parts):
+    """Floats of the kernel's scratch (its ``Layout``): each product's
+    partials, the attention items' partial rows (acc, then m and l), the
+    new token's scores and v, the attention output, x2 and its strips'
+    statistics, the gelu activations; areas 64-float aligned."""
+    def up64(x):
+        return -(-x // 64) * 64
+    pq, po, pu, pd = parts
+    heads = h // d
+
+    def floats(pt):
+        return (pt.total // pt.cl) * pt.parts * bsz * _TILE
+    items = bsz * hkv * rt * np_
+    total = up64(floats(pq))
+    total = up64(total + items * 16 * d)
+    total = up64(total + items * 16 * 2)
+    total = up64(total + bsz * heads)
+    total = up64(total + bsz * hkv * d)
+    total = up64(total + bsz * h // 2)
+    total = up64(total + floats(po))
+    total = up64(total + bsz * h)
+    total = up64(total + (h // _TILE) * bsz * 2)
+    total = up64(total + floats(pu))
+    total = up64(total + bsz * f // 2)
+    return up64(total + floats(pd))
+
+
+def _workspace(device) -> torch.Tensor:
+    """The kernel's grid-barrier word and strip counters, zeroed once per
+    device."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _WORK:
+        _WORK[idx] = torch.zeros(_WORK_INTS, dtype=torch.int32, device=device)
+    return _WORK[idx]
 
 
 def _check_cuda_tensors(name, x, named):
@@ -348,19 +438,12 @@ def _mega_cuda(x, w, k, v, lengths, k_scale, v_scale, tables, eps):
                             f"{tables.dtype} {tuple(tables.shape)}")
         named.append(("tables", tables))
         cap, bs, mb = 0, k.shape[1], tables.shape[1]
+    if tables is not None and bs % 16:
+        raise ValueError(f"{name} kernel needs a block size that is a "
+                         f"multiple of 16, got {bs}")
     _check_cuda_tensors(name, x, named)
-    sms = _sms(x.device)
-    kq, ko, ku, kd = (_chunks(h, nq, sms), _chunks(h, h, sms),
-                      _chunks(h, f, sms), _chunks(f, h, sms))
-    x_out = torch.empty_like(x)
-    k_new = torch.empty((bsz, hkv, d), dtype=x.dtype, device=x.device)
-    v_new = torch.empty_like(k_new)
-    scratch = torch.empty(bsz * (kq * nq + (3 + ko + kd) * h + ku * f),
-                          dtype=torch.float32, device=x.device)
-    ptrs = [x, *w, k, v, k_scale, v_scale, tables, lengths, x_out, k_new,
-            v_new, scratch]
-    dims = [bsz, h, hkv, d, f, cap, bs, mb, kq, ko, ku, kd,
-            _build.DTYPE_CODES[x.dtype]]
+    ptrs, dims, outs, _, _ = _launch_args(x, w, k, v, lengths, k_scale,
+                                          v_scale, tables)
     kernel = {(False, False): DECODE_MEGAKERNEL,
               (True, False): DECODE_MEGAKERNEL_Q,
               (False, True): PAGED_DECODE_MEGAKERNEL,
@@ -370,7 +453,38 @@ def _mega_cuda(x, w, k, v, lengths, k_scale, v_scale, tables, eps):
                *[None if t is None else t.data_ptr() for t in ptrs]),
            (ctypes.c_int * len(dims))(*dims), ctypes.c_float(eps),
            _build.stream_ptr(x))
-    return x_out, k_new, v_new
+    return outs
+
+
+def _launch_args(x, w, k, v, lengths, k_scale, v_scale, tables, extra=0):
+    """The kernel's C arguments for checked tensors: ``(ptrs, dims,
+    (x_out, k_new, v_new), scratch, scratch floats)``; ``extra`` floats
+    past the scratch (zeroed) are for a timing variant's stamps."""
+    bsz, h = x.shape
+    hkv, d = k.shape[2], k.shape[3]
+    f = w[8].shape[-1]
+    nq = h + 2 * hkv * d
+    grid = _sms(x.device)
+    parts = (_part(h, nq, grid), _part(h, h, grid), _part(h, f, grid),
+             _part(f, h, grid))
+    rt = -(-(h // d // hkv) // 16)
+    np_ = max(1, min(_MAX_PARTS, grid // (bsz * hkv * rt)))
+    total = _scratch_floats(bsz, h, hkv, d, f, rt, np_, parts)
+    if tables is None:
+        cap, bs, mb = k.shape[1], 0, 0
+    else:
+        cap, bs, mb = 0, k.shape[1], tables.shape[1]
+    x_out = torch.empty_like(x)
+    k_new = torch.empty((bsz, hkv, d), dtype=x.dtype, device=x.device)
+    v_new = torch.empty_like(k_new)
+    scratch = (torch.zeros if extra else torch.empty)(
+        total + extra, dtype=torch.float32, device=x.device)
+    ptrs = [x, *w, k, v, k_scale, v_scale, tables, lengths, x_out, k_new,
+            v_new, scratch, _workspace(x.device)]
+    dims = [bsz, h, hkv, d, f, cap, bs, mb, grid, np_,
+            *(pt.parts for pt in parts), total & 0x7FFFFFFF, total >> 31,
+            _build.DTYPE_CODES[x.dtype]]
+    return ptrs, dims, (x_out, k_new, v_new), scratch, total
 
 
 def decode_layer_step(x, w, k_cache, v_cache, lengths, k_scale=None,

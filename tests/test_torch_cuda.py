@@ -469,6 +469,63 @@ def test_window_int8_verify_on_the_code_ring(gen, lengths, w, h, hkv, d,
     _close(o, ref)
 
 
+@pytest.mark.parametrize("layout", [None, 128, 64, 16],
+                         ids=["dense", "bs128", "bs64", "bs16"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("lengths,w,h,hkv,d", [
+    ([0, 1, 15, 16, 63, 64, 128, 2043], 5, 16, 16, 128),  # B=8
+    ([2043], 5, 16, 16, 128),          # B=1: a cluster of CTAs a kv head
+    ([0, 1, 127, 2047], 1, 16, 1, 128),  # G = 16, W = 1, cap - W
+    ([129], 1, 16, 1, 128),            # B=1, G = 16
+    ([0, 1, 64, 700, 2043], 5, 12, 12, 64),  # D = 64
+    ([0, 16, 2047], 1, 16, 1, 64)],    # D = 64, G = 16
+    ids=["b8", "b1", "g16_w1", "b1_g16", "d64", "d64_g16"])
+def test_window_bf16_verify_on_the_ring(gen, lengths, w, h, hkv, d, dtype,
+                                        layout):
+    """Rows 8a and 9a in the verify regime (W G <= 16) on the K/V ring:
+    lengths 0, 1, at and around block edges and at capacity - W, B = 8
+    and 1, G = 1 and 16, D = 128 and 64, bf16 and fp16; every row within
+    1e-2 of the plain version in f32, two calls bitwise equal, one launch
+    each.  Paged tables carry a poisoned block id (far past the pool) in
+    every entry past the live ones: a kernel reading one faults."""
+    cap = 2048
+    b = len(lengths)
+    q = _rand((b, w, h, d), gen, dtype)
+    if layout is None:
+        k, v = _rand((b, cap, hkv, d), gen, dtype), _rand((b, cap, hkv, d), gen,
+                                                          dtype)
+        kern = da.WINDOW_ATTENTION
+    else:
+        need = [-(-min(n + w, cap) // layout) for n in lengths]
+        nb = 1 + sum(need)
+        k, v = (_rand((nb, layout, hkv, d), gen, dtype) for _ in range(2))
+        perm = 1 + torch.randperm(nb - 1, generator=torch.Generator().manual_seed(b))
+        tables = torch.full((b, cap // layout), 1 << 24, dtype=torch.int32)
+        used = 0
+        for i, n in enumerate(need):
+            tables[i, :n] = perm[used:used + n]
+            used += n
+        tables = tables.cuda()
+        kern = da.PAGED_WINDOW_ATTENTION
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    n = kern.launches
+    if layout is None:
+        o = da.decode_attention_window(q, k, v, lens)
+        again = da.decode_attention_window(q, k, v, lens)
+        ref = da._window_plain(q.float(), k.float(), v.float(), lens)
+    else:
+        o = da.paged_decode_attention_window(q, k, v, tables, lens)
+        again = da.paged_decode_attention_window(q, k, v, tables, lens)
+        live = torch.where(tables < nb, tables, torch.zeros_like(tables))
+        ref = da._paged_window_plain(q.float(), k.float(), v.float(), live,
+                                     lens)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 2
+    assert torch.equal(o, again)
+    _close(o, ref)
+
+
 @pytest.mark.parametrize("case", ["d96", "group", "bs8", "tables64"])
 def test_window_paths_raise_instead_of_falling_back(gen, case):
     """D=96, H % Hkv != 0, a block size of 8 and int64 tables raise on
@@ -628,24 +685,54 @@ def _mega_run(blk, case, plain=False):
     return mk.decode_layer_step_paged(x, w, k, v, tables, lens, ks, vs)
 
 
+@pytest.mark.parametrize("b", [1, 3, 8, 16])
 @pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("bs", [None, 128, 16], ids=["dense", "bs128",
                                                      "bs16"])
 @pytest.mark.parametrize("heads,hkv,h", [(2, 2, 256), (4, 1, 256),
                                          (16, 1, 1024), (4, 4, 256)],
                          ids=["mha128", "g4", "g16-d64", "mha-d64"])
-def test_megakernel_matches_plain(gen, heads, hkv, h, bs, quantized):
+def test_megakernel_matches_plain(gen, heads, hkv, h, bs, quantized, b):
     """Every output row (x_out per slot, k_new/v_new per (slot, kv
-    head)) within 1e-2 of its own scale of ``_mega_plain``: lengths 0, 1,
-    a block edge and one past it, cap - 1 and cap (dense)."""
+    head)) within 1e-2 of its own scale of ``_mega_plain`` at B = 1, 3,
+    8 and 16: lengths 0, 1, a block edge and one past it, cap - 1 and cap
+    (dense); a second call bitwise equal."""
     blk = _mega_block(gen, h, heads, hkv, 2 * h)
-    lengths = [0, 1, 127, 128, 255, 256 if bs is None else 200, 16, 129]
+    lengths = ([0, 1, 127, 128, 255, 256 if bs is None else 200, 16, 129,
+                64, 2, 250, 31, 100, 17, 254, 193] * 2)[:b]
+    if b == 1:
+        lengths = [255]
     case = _mega_case(gen, blk, lengths, quantized, bs)
     got = _mega_run(blk, case)
+    again = _mega_run(blk, case)
     ref = _mega_run(blk, case, plain=True)
-    for g, r in zip(got, ref):
+    for g, a, r in zip(got, again, ref):
         assert torch.isfinite(g).all()
+        assert torch.equal(g, a)
         _close(g, r)
+
+
+@pytest.mark.parametrize("bs,quantized", [(None, False), (16, True)],
+                         ids=["dense", "paged-int8"])
+def test_megakernel_replays_from_a_cuda_graph(gen, bs, quantized):
+    """One layer step captured in a CUDA graph and replayed equals an
+    eager call bitwise."""
+    blk = _mega_block(gen, 256, 2, 2, 512)
+    case = _mega_case(gen, blk, [3, 90, 255, 0, 17], quantized, bs)
+    eager = _mega_run(blk, case)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _mega_run(blk, case)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = _mega_run(blk, case)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    for e, r in zip(eager, replayed):
+        assert torch.equal(e, r)
 
 
 def test_megakernel_is_one_launch_and_reads_only(gen):
