@@ -10,8 +10,8 @@ before the result lines:
 2. build: every ``paddle_tpu_torch/csrc/*.cu`` compiled by nvcc, all in
    parallel, with the compiler's register and spill report; a spill in
    any kernel on the shared wgmma forward mainloop (the flash forward,
-   the window kernels' chunk regime) or on the int8 verify code ring
-   fails the phase;
+   the window kernels' chunk regime), on the int8 verify code ring or in
+   the int8 matmul (both regimes) fails the phase;
 3. kernels: each serving kernel against its plain PyTorch version on the
    card at the serving path's shapes (bf16 queries; int8 caches made by
    ``quantize_kv``, the plain version fed the same codes), with the
@@ -30,8 +30,10 @@ before the result lines:
    and 1024, G = 16, D=64 (fp16 q too) and blocks of 16, 48 and 128,
    each call twice (bitwise equal), timed in turns with SDPA at the
    verify shape (B=8 and B=1) and the chunk shape.  The int8 matmul at M in {8, 512, 4096}
-   over gpt3-1.3b's four projections (its output must EQUAL the plain
-   version's: exact int32 sums, the same f32 rescale), timed beside
+   over gpt3-1.3b's four projections and at edge widths (K, N) of (128,
+   128), (8192, 2048), (256, 384) at M in {8, 512} (its f32, bf16 and
+   fp16 outputs must EQUAL the plain version's: exact int32 sums, the
+   same f32 rescale; the regime and split of each shape printed), timed beside
    ``torch._int_mm`` + rescale (at M=8 on codes padded to 32 rows); the
    decode megakernel in its four instantiations (dense and paged, bf16
    and int8 caches) at gpt3-1.3b widths, B=8, with edge lengths, G = 16,
@@ -294,12 +296,17 @@ def phase_build():
         log(f"[build] {src}: {len(regs)} kernel instantiations, registers "
             f"per thread {min(regs, default=0)}-{max(regs, default=0)}, "
             f"spills: {spills or 'none'}")
-        if src not in FWD_SOURCES:
+        if src == "quantized_matmul.cu":
+            checked = [("int8 wgmma tiles", "prefill_kernel",
+                        " (setmaxnreg raises the two-warpgroup consumers')"),
+                       ("int8 split-K stream", "decode_kernel", "")]
+        elif src in FWD_SOURCES:
+            checked = [("wgmma forward mainloop", "attn_fwd_kernel",
+                        " (setmaxnreg raises the consumers')")]
+            if "window" in src:
+                checked.append(("verify ring", "verify_kernel", ""))
+        else:
             continue
-        checked = [("wgmma forward mainloop", "attn_fwd_kernel",
-                    " (setmaxnreg raises the consumers')")]
-        if "window" in src:
-            checked.append(("verify ring", "verify_kernel", ""))
         for what, kname, note in checked:
             found = [(r, sp) for fn, r, sp in kernels if kname in fn]
             bad = [sp for _, sp in found
@@ -311,8 +318,8 @@ def phase_build():
             spilled += [f"{src} {kname}: {sp}" for sp in bad]
     if spilled:
         raise SystemExit(f"build phase failed: a kernel on the forward "
-                         f"mainloop or the verify ring spills "
-                         f"registers: {spilled}")
+                         f"mainloop, the verify ring or the int8 matmul "
+                         f"spills registers: {spilled}")
 
 
 def _rand(shape, gen, dtype=torch.bfloat16):
@@ -1163,34 +1170,68 @@ def qmm_operands(gen, m, k, n):
     return qx.contiguous(), qw_t.contiguous(), sx, sw_t.reshape(1, n)
 
 
+# edge widths: one strip pair, the N = 384 edge, and the long down product
+# (which splits K at M = 512), each at decode and at a prefill bucket
+QMM_EDGE_SHAPES = [(128, 128), (8192, 2048), (256, 384)]
+
+
+def qmm_exact(qm, qx, qw_t, sx, sw, what):
+    """The kernel's f32, bf16 and fp16 outputs must EQUAL the plain
+    version's; returns the largest difference (0.0)."""
+    ref32 = qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.float32)
+    err = 0.0
+    for out in (torch.float32, torch.bfloat16, torch.float16):
+        got = qm._qmm_cuda(qx, qw_t, sx, sw, out)
+        torch.cuda.synchronize()
+        want = ref32.to(out)
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        if not torch.equal(got, want):
+            raise SystemExit(f"quantized_matmul kernel differs from the "
+                             f"plain version at {what} ({out}): max|diff| "
+                             f"{err:.3e}")
+    return err
+
+
+def qmm_plan_text(qm, m, k, n):
+    plan = qm._qmm_plan(m, n, k, torch.cuda.get_device_properties(0)
+                        .multi_processor_count)
+    if plan["regime"] == "decode":
+        return (f"decode regime: {plan['blocks']} blocks, up to "
+                f"{plan['pieces']} pieces a strip")
+    return (f"prefill regime: {plan['blocks']} blocks, tiles of "
+            f"{64 if m <= 64 else 128} x {plan['bn']}, {plan['splits']} "
+            f"k split{'s' if plan['splits'] > 1 else ''}")
+
+
 def phase_qmm_kernels(records):
     """Row 10 at M in {8, 512, 4096} (decode, a prefill bucket, a chunk
-    tick's 8 x 512 rows) over the four projections: the kernel's f32 and
-    bf16 outputs must EQUAL the plain version's (exact int32 sums, the
-    same f32 rescale order), then each shape timed beside the plain
-    version, ``torch._int_mm`` + the same rescale (a yardstick the port
-    never calls; cuBLASLt takes M > 16 only, so at M=8 the codes are
-    padded to 32 rows and the product cut back) and the bound: the larger of
-    2 M N K over the int8 peak and M K + K N + 4 (M + N) + 2 M N bytes over
-    the memory rate."""
+    tick's 8 x 512 rows) over the four projections, and the edge widths
+    ``QMM_EDGE_SHAPES`` at M in {8, 512}: the kernel's f32, bf16 and fp16
+    outputs must EQUAL the plain version's (exact int32 sums, the same f32
+    rescale), with the regime and split each shape took.  The twelve
+    projection shapes are then timed beside the plain version,
+    ``torch._int_mm`` + the same rescale (a yardstick the port never
+    calls; cuBLASLt takes M > 16 only, so at M=8 the codes are padded to
+    32 rows and the product cut back) and the bound: the larger of 2 M N
+    K over the int8 peak and M K + K N + 4 (M + N) + 2 M N bytes over the
+    memory rate.  Device ms from torch.profiler (the call's kernels);
+    call_ms from CUDA events around back-to-back calls (host wrapper
+    included)."""
     qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
+    for m in (8, 512):
+        for k, n in QMM_EDGE_SHAPES:
+            qx, qw_t, sx, sw = qmm_operands(gen, m, k, n)
+            qmm_exact(qm, qx, qw_t, sx, sw, f"M={m} K={k} N={n}")
+            log(f"[kernels] quantized_matmul edge M={m} K={k} N={n}: kernel "
+                f"== plain exactly (f32, bf16, fp16 out); "
+                f"{qmm_plan_text(qm, m, k, n)}")
     shapes = []
     for m in (8, 512, 4096):
         for k, n in QMM_SHAPES:
             qx, qw_t, sx, sw = qmm_operands(gen, m, k, n)
-            got32 = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
-            got16 = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
-            ref32 = qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.float32)
-            torch.cuda.synchronize()
-            exact = (torch.equal(got32, ref32)
-                     and torch.equal(got16, ref32.to(torch.bfloat16)))
-            err = (got32 - ref32).abs().max().item()
-            if not exact:
-                raise SystemExit(f"quantized_matmul kernel differs from the "
-                                 f"plain version at M={m} K={k} N={n}: "
-                                 f"max|diff| {err:.3e}")
+            err = qmm_exact(qm, qx, qw_t, sx, sw, f"M={m} K={k} N={n}")
             t_kernel = device_ms(lambda: qm._qmm_cuda(
                 qx, qw_t, sx, sw, torch.bfloat16), iters=50)
             t_call = min(cuda_ms(lambda: qm._qmm_cuda(
@@ -1207,30 +1248,33 @@ def phase_qmm_kernels(records):
             def lib():
                 return (torch._int_mm(qx_lib, qw_t.t())[:m].float() * sx
                         * sw).to(torch.bfloat16)
-            lib_exact = torch.equal(lib(), got16)
+            lib_exact = torch.equal(
+                lib(), qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16))
             t_lib = device_ms(lib, iters=50)
             ops = 2 * m * n * k
             nbytes = m * k + k * n + 4 * (m + n) + 2 * m * n
             b_ms, b_by = bound(ops, nbytes, PEAK_INT8_OPS)
+            plan = qmm_plan_text(qm, m, k, n)
             log(f"[kernels] quantized_matmul M={m} K={k} N={n}: kernel == "
-                f"plain exactly (f32 and bf16 out); device ms: kernel_ms="
-                f"{t_kernel:.4f} plain_ms={t_plain:.4f} library_ms="
+                f"plain exactly (f32, bf16, fp16 out); {plan}; device ms: "
+                f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} library_ms="
                 f"{t_lib:.4f} (torch._int_mm"
                 f"{' on the codes padded to 32 rows' if m <= 16 else ''} + "
                 f"rescale, equal: {lib_exact}) share of bound "
                 f"{b_ms / t_kernel:.3f}"
                 + f" bound_ms={b_ms:.4f} ({b_by}, {ops / 1e9:.2f} GOP, "
-                f"{nbytes / 1e6:.2f} MB); a call back to back with its host "
-                f"wrapper {t_call:.4f} ms (CUDA events)")
+                f"{nbytes / 1e6:.2f} MB); call_ms={t_call:.4f} (a call back "
+                f"to back with its host wrapper, CUDA events)")
             shapes.append(dict(m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
                                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
-                               call_ms=t_call))
-            del qx, qw_t, sx, sw, got32, got16, ref32
+                               call_ms=t_call, max_abs_err=err, plan=plan))
+            del qx, qw_t, sx, sw
     head = shapes[0]                     # decode's qkv product, M=8
     records["quantized_matmul"] = dict(
         name="quantized_matmul", route="cuda",
         source="paddle_tpu_torch/csrc/quantized_matmul.cu",
-        replaces="paddle_tpu/ops/quantized_matmul.py:181", max_abs_err=0.0,
+        replaces="paddle_tpu/ops/quantized_matmul.py:181",
+        max_abs_err=max(sh["max_abs_err"] for sh in shapes),
         max_row_rel_err=0.0, row_tol=0.0,
         **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms")},
@@ -1241,7 +1285,8 @@ def phase_qmm_kernels(records):
              "bound_ms, library_ms at the decode qkv product (M=8, K=2048, "
              "N=6144), where torch._int_mm takes no M <= 16: library_ms "
              "pads the codes to 32 rows; shapes holds all twelve; the "
-             "kernel must equal the plain version exactly (max_abs_err 0)")
+             "kernel must equal the plain version exactly (max_abs_err 0) "
+             "in f32, bf16 and fp16, at the edge widths too")
 
 
 def mega_block(gen, heads, hkv, d=None, h=2048, f=8192):
@@ -2344,7 +2389,7 @@ def report_profile(prof, steps, wall_ms, what):
     for ms, n, key in rows:
         if any(w in key for w in ("flash_", "decode_kernel", "window_kernel",
                                   "attn_fwd_kernel", "mega_kernel",
-                                  "qmm_kernel")):
+                                  "qmm::")):
             group = "port kernels"
         elif any(w in key for w in ("nvjet", "gemm", "cutlass", "xmma")):
             group = "library matmuls"

@@ -123,6 +123,35 @@ also at B=1 and 16:
   ``small_map``: block ids by arithmetic in place of the table walk, a
   pool map of 4096 blocks.
 
+The int8 matmul (kind ``qmm:``, ``quantized_matmul.cu``) at the twelve
+gpt3-1.3b shapes of ``chip_smoke.QMM_SHAPES`` (M in {8, 512, 4096} x qkv,
+out, up, down; bf16 out): each library is checked against the plain
+version (bitwise) at every shape it is timed at, then all are timed in
+turns, three rounds, best reported, each round one replay of a CUDA graph
+of calls straight into the C entry (200 calls at M=8, 50 at 512, 20 at
+4096):
+
+- ``qmm:committed``; ``qmm:prev``: the previous design (``mma.sync``
+  m16n8k32 fed by ``cp.async``, no split-K), from
+  ``build/baseline_csrc/``;
+- ``qmm:dec_stages4`` / ``qmm:dec_stages12``: the decode regime's ring
+  4 or 12 stages deep in place of 8 (M=8 only);
+- ``qmm:ring_small``: the prefill ring one stage shallower or more (2
+  stages of a 128 x 256 tile in place of 3, 3 of 128 x 128 in place of
+  5; M > 16 only);
+- ``qmm:no_store`` / ``qmm:no_mma`` / ``qmm:no_arrive``: without the
+  output stores (the TMA stores of the prefill regime, the stores and
+  rescale of the decode regime), the tensor-core products, or the
+  arrivals of a split sum (wrong results, timing only: dropped from the
+  check, timed anyway);
+- ``qmm:direct_store``: the prefill epilogue's first form, stores
+  straight from the registers (4 bytes a thread for 16-bit output) in
+  place of the staged TMA stores, with the ring of the committed kernel;
+- ``qmm:bn128`` / ``qmm:bn256``: every prefill tile 128 or 256 columns
+  wide, whatever the plan chose; ``qmm:no_split``: no k split (at the
+  shapes the plan splits, M=512 out and down).  These three run the
+  committed library with another plan (``_qmm_plan``'s overrides).
+
 Needs nvcc and one CUDA device; exits non-zero without them.
 """
 from __future__ import annotations
@@ -934,6 +963,62 @@ VARIANTS = {
     "pverify:warps4_stages6": ("paged_window_attention.cu", VQ,
                                _chain(_VQ_WARPS4, _vq_stages(6))),
 }
+QMM = "quantized_matmul.cu"
+VARIANTS.update({
+    "qmm:dec_stages4": (QMM, QMM, _edit("constexpr int kDecStages = 8;",
+                                        "constexpr int kDecStages = 4;")),
+    "qmm:dec_stages12": (QMM, QMM, _edit("constexpr int kDecStages = 8;",
+                                         "constexpr int kDecStages = 12;")),
+    "qmm:ring_small": (QMM, QMM, _edit("constexpr int kSmemBudget = 229376;",
+                                       "constexpr int kSmemBudget = 163840;")),
+    # work removed (wrong results, timing only): the output stores (the
+    # rescale goes with them), the tensor-core products, the arrivals of
+    # a split sum (partials still written, each piece rescales alone)
+    "qmm:no_store": (QMM, QMM, _chain(
+        _edit("          hopper::tma_store_2d(&p.tm_y,", "          if (p.M < 0) hopper::tma_store_2d(&p.tm_y,"),
+        _edit("          if (row < p.M)\n            store1(",
+              "          if (row < p.M && p.M < 0)\n            store1("))),
+    "qmm:no_mma": (QMM, QMM, _chain(
+        _edit("        WgmmaS8<BN>::ss(acc, ", "        if (p.M < 0) WgmmaS8<BN>::ss(acc, "),
+        _edit("        mma_s8(acc[nt], a, b);", "        if (p.M < 0) mma_s8(acc[nt], a, b);"))),
+    "qmm:no_arrive": (QMM, QMM, _edit(
+        "  hopper::named_sync(1, threads);\n  if (leader) {\n",
+        "  if (n > 0) return true;\n  hopper::named_sync(1, threads);\n  if (leader) {\n")),
+})
+# the first form of the prefill epilogue: stores straight from the
+# registers, 4 bytes (two 16-bit values) or 8 a thread
+_QMM_DIRECT = _chain(
+    _cut("    const uint32_t stg = base + R::kStagingAt + cw * kStaging;",
+         "        finish(c.n0 + pass * 128, 128, 32);\n      }\n    }\n",
+         """#pragma unroll
+    for (int q = 0; q < BN / 8; ++q) {
+      const int col = c.n0 + 8 * q + 2 * tig;
+      if (col >= p.N) continue;
+      const float w0 = p.sw[col], w1 = p.sw[col + 1];
+      if (r0 < p.M)
+        store2(p.y, static_cast<long>(r0) * p.N + col, p.dtype, rescale(acc[4 * q], s0, w0),
+               rescale(acc[4 * q + 1], s0, w1));
+      if (r0 + 8 < p.M)
+        store2(p.y, static_cast<long>(r0 + 8) * p.N + col, p.dtype,
+               rescale(acc[4 * q + 2], s1, w0), rescale(acc[4 * q + 3], s1, w1));
+    }
+"""),
+    _edit("// The arrival of one piece of a split sum", """__device__ __forceinline__ void store2(void* y, long idx, int dtype, float a, float b) {
+  if (dtype == 0)
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(y) + idx) =
+        __floats2bfloat162_rn(a, b);
+  else if (dtype == 1)
+    *reinterpret_cast<__half2*>(static_cast<__half*>(y) + idx) = __floats2half2_rn(a, b);
+  else
+    *reinterpret_cast<float2*>(static_cast<float*>(y) + idx) = make_float2(a, b);
+}
+
+// The arrival of one piece of a split sum"""))
+VARIANTS["qmm:direct_store"] = (QMM, QMM, _QMM_DIRECT)
+QMM_CUTS = ("qmm:no_store", "qmm:no_mma", "qmm:no_arrive")
+# the committed library under another plan
+QMM_PLANS = {"qmm:bn128": dict(bn=128), "qmm:bn256": dict(bn=256),
+             "qmm:no_split": dict(splits=1)}
 # the previous verify design, from a copy of its sources (see above)
 BASELINE = ROOT / "build" / "baseline_csrc"
 BASELINES = {"verify_q:prev": "window_attention_q.cu",
@@ -947,7 +1032,8 @@ BASELINES = {"verify_q:prev": "window_attention_q.cu",
              "chunk:prev": "window_attention.cu",
              "pchunk:prev": "paged_window_attention.cu",
              "chunk_q:prev": "window_attention_q.cu",
-             "pchunk_q:prev": "paged_window_attention_q.cu"}
+             "pchunk_q:prev": "paged_window_attention_q.cu",
+             "qmm:prev": QMM}
 COMMITTED = {"fwd:committed": "flash_fwd.cu",
              "chunk:committed": "window_attention.cu",
              "chunk_q:committed": "window_attention_q.cu",
@@ -960,7 +1046,8 @@ COMMITTED = {"fwd:committed": "flash_fwd.cu",
              "verify_q:committed": "window_attention_q.cu",
              "pverify_q:committed": "paged_window_attention_q.cu",
              "verify_q1:committed": "window_attention_q.cu",
-             "pverify_q1:committed": "paged_window_attention_q.cu"}
+             "pverify_q1:committed": "paged_window_attention_q.cu",
+             "qmm:committed": QMM}
 for _kind, (_src, _, _) in MEGA_KINDS.items():
     BASELINES[f"{_kind}:prev"] = _src
     COMMITTED[f"{_kind}:committed"] = _src
@@ -971,6 +1058,7 @@ SYMBOLS = {"flash_fwd.cu": ("flash_fwd", 6, 7),
            "window_attention_q.cu": ("window_attention_q", 7, 7),
            "paged_window_attention.cu": ("paged_window_attention", 6, 8),
            "paged_window_attention_q.cu": ("paged_window_attention_q", 8, 8),
+           QMM: ("quantized_matmul", 7, 9),
            **{src: (src[:-3], None, None) for src, _, _ in MEGA_KINDS.values()}}
 
 
@@ -1029,6 +1117,8 @@ def build(_build, only=()):
         if proc.returncode:
             raise SystemExit(log)
         symbol, n_ptr, n_int = SYMBOLS[source]
+        if name == "qmm:prev":      # the previous entry: no workspace, no plan
+            n_ptr, n_int = 5, 4
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
         if n_ptr is None:
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
@@ -1170,6 +1260,105 @@ def mega_main(fns, names):
                f"{[round(x, 4) for x in times[name, b]]}")
 
 
+def qmm_main(fns, names):
+    """Check each int8 matmul library (or plan) bitwise against the plain
+    version at the shapes it is timed at, then time all in turns (CUDA
+    graphs of calls into the C entry, three rounds, best)."""
+    from paddle_tpu_torch.ops import _build
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    counters = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+    operands = {}
+    runs = []
+    for name in names:
+        if name not in fns and name not in QMM_PLANS:
+            continue
+        for m in (8, 512, 4096):
+            if name.startswith("qmm:dec_") and m > 16:
+                continue
+            if (name in ("qmm:ring_small", "qmm:direct_store")
+                    or name in QMM_PLANS) and m <= 16:
+                continue
+            for k, n in cs.QMM_SHAPES:
+                if name == "qmm:no_split" and \
+                        qm._qmm_plan(m, n, k, sms)["splits"] == 1:
+                    continue
+                runs.append((name, m, k, n))
+                if (m, k, n) not in operands:
+                    operands[m, k, n] = cs.qmm_operands(gen, m, k, n)
+
+    def caller(name, m, k, n):
+        qx, qw_t, sx, sw = operands[m, k, n]
+        y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+        fn = fns["qmm:committed" if name in QMM_PLANS else name][1]
+        P = _build.ptr
+        if name == "qmm:prev":
+            head, tail, keep = (P(qx), P(qw_t), P(sx), P(sw), P(y)), \
+                (m, n, k, 0), ()
+        else:
+            plan = qm._qmm_plan(m, n, k, sms, **QMM_PLANS.get(name, {}))
+            work = torch.empty(max(1, plan["work_ints"]), dtype=torch.int32,
+                               device="cuda")
+            head = (P(qx), P(qw_t), P(sx), P(sw), P(y), P(work), P(counters))
+            tail = (m, n, k, 0, plan["blocks"], plan["bn"], plan["splits"],
+                    plan["work_ints"], counters.numel())
+            keep = (work,)
+        keep += (y,)
+
+        def call():
+            err = fn(*head, *tail, _build.stream_ptr(qx))
+            if err:
+                raise RuntimeError(f"{name} M={m} K={k} N={n}: launch failed "
+                                   f"with cudaError {err}")
+        call.keep = keep
+        return call, y
+
+    for name, m, k, n in list(runs):
+        call, y = caller(name, m, k, n)
+        qx, qw_t, sx, sw = operands[m, k, n]
+        ref = qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.bfloat16)
+        ok = True
+        for _ in range(3):          # repeated launches reduce right too
+            y.zero_()
+            call()
+            torch.cuda.synchronize()
+            ok = ok and torch.equal(y, ref)
+        if not ok and name in QMM_CUTS:
+            cs.log(f"[variants] {name} M={m} K={k} N={n}: differs (work "
+                   f"removed: timing only)")
+        elif not ok:
+            cs.log(f"[variants] {name} M={m} K={k} N={n}: differs from the "
+                   f"plain version: dropped")
+            runs.remove((name, m, k, n))
+    cs.log(f"[variants] qmm: {len(runs)} (library, shape) pairs equal the "
+           f"plain version bitwise")
+    iters = {8: 200, 512: 50, 4096: 20}
+    calls = {r: caller(*r)[0] for r in runs}
+    graphs = {}
+    for r in runs:
+        graphs[r] = cs.capture(calls[r], iters[r[1]])
+    times = {r: [] for r in runs}
+    for rnd in range(3):
+        for r in (runs if rnd % 2 == 0 else runs[::-1]):
+            try:
+                times[r].append(cs.replay_ms(graphs[r], iters[r[1]]))
+            except Exception:
+                cs.log(f"[variants] replay of {r} failed")
+                raise
+    for r in runs:
+        name, m, k, n = r
+        plan = ("the previous design" if name == "qmm:prev" else
+                qm._qmm_plan(m, n, k, sms, **QMM_PLANS.get(name, {})))
+        cs.log(f"[variants] {name} M={m} K={k} N={n}: best "
+               f"{min(times[r]):.4f} ms, rounds "
+               f"{[round(x, 4) for x in times[r]]}; "
+               + (plan if isinstance(plan, str) else
+                  f"{plan['regime']} blocks={plan['blocks']} bn={plan['bn']} "
+                  f"splits={plan['splits']}"))
+
+
 def main():
     cs.phase_device()
     from paddle_tpu_torch.ops import _build
@@ -1179,6 +1368,12 @@ def main():
     if mega_names:
         mega_main(fns, mega_names)
     for n in mega_names:
+        del fns[n]
+    qmm_names = [n for n in fns if n.startswith("qmm:")]
+    plans = [n for n in (sys.argv[1:] or QMM_PLANS) if n in QMM_PLANS]
+    if qmm_names or plans:
+        qmm_main(fns, qmm_names + plans)
+    for n in qmm_names:
         del fns[n]
     if not fns:
         return

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the wgmma / TMA kernels
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu, hopper_attn_fwd.cuh): mbarriers, TMA tile loads and the
-// host-side tensor-map encoding, wgmma descriptors and instructions, the
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu, hopper_attn_fwd.cuh, quantized_matmul.cu, and the
+// TMA rings of window_attention.cuh and decode_megakernel.cuh): mbarriers, TMA tile loads and
+// stores, the host-side tensor-map encoding, wgmma descriptors and instructions, the
 // accumulator-to-A-operand packing and setmaxnreg.
 //
 // Shared-memory tiles are written by TMA with 128-byte swizzle: a box of
@@ -129,6 +130,34 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// ---- TMA tile stores (from one thread; a bulk async-group per commit) -----
+
+// the box at coordinates (c0, c1) of `map` from shared address `src`;
+// elements past the tensor's edges are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most kPending of this thread's bulk groups still read shared memory
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// at most kPending of this thread's bulk groups not yet complete
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // A [B, S, H, D] tile of `rows` consecutive positions s0.. of head h in
@@ -388,6 +417,42 @@ inline bool map_2d(CUtensorMap* map, const void* base, bool fp16, int rows, int 
   const cuuint32_t unit[2] = {1, 1};
   return enc(map, fp16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
              const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major [rows, cols] 8-bit matrix (cols a multiple of 16), boxes of
+// 128 columns x `box_rows` rows (at most 256), 128-byte swizzle, zeros
+// past the edges: a box lands as `box_rows` lines of 128 bytes, the
+// 16-byte chunk c of line r at chunk c ^ (r % 8)
+inline bool map_2d_u8(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {128, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a row-major [rows, cols] matrix of bf16 (dtype 0), fp16 (1) or f32 (2),
+// boxes of 128 bytes of columns x `box_rows` rows, 128-byte swizzle, for
+// TMA stores (nothing written past the edges)
+inline bool map_2d_out(CUtensorMap* map, void* base, int dtype, int rows, int cols, int box_rows) {
+  EncodeTiledFn enc = encode_tiled();
+  if (!enc) return false;
+  const int esz = dtype == 2 ? 4 : 2;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * esz};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / esz), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUtensorMapDataType type = dtype == 0   ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                   : dtype == 1 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  return enc(map, type, 2, base, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

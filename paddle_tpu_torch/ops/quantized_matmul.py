@@ -15,9 +15,11 @@ exact int32 sums rescaled in f32 as ``(acc * sx) * sw``;
 'int8')`` and ``strategy.qat`` (that forward, a straight-through
 backward over the dequantized operands).  A CPU tensor runs the plain
 version ``_qmm_plain``; a CUDA tensor runs the hand-written kernel
-``csrc/quantized_matmul.cu`` (int8 tensor-core products) or raises.  The
+``csrc/quantized_matmul.cu`` or raises: at M <= 16 every SM streams a
+share of the weight codes (split-K, ``_Part``), above it int8 wgmma
+tiles on a TMA ring (``_qmm_plan``); both sum in exact int32.  The
 kernel takes the weight codes transposed, ``[N, K]``: the int8 tensor
-core product wants both operands K-contiguous.  Weights are quantized on
+core products want both operands K-contiguous.  Weights are quantized on
 every call, as the JAX package does.  The JAX module's TPU tile table
 (``get_qmm_tiles``, ``autotune_qmm_sweep``) and its backend probe
 (``quantized_matmul_available``) have no counterpart here.
@@ -30,6 +32,7 @@ natively, so fp8 is its own later item (ROADMAP.md, Queue 2) and raises
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -156,8 +159,12 @@ def kv_zeros(shape, mode: Optional[str], dtype: torch.dtype, device):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 QUANTIZED_MATMUL = _build.CudaKernel(
-    "quantized_matmul.cu", "quantized_matmul", [_P] * 5 + [_I] * 4 + [_P])
+    "quantized_matmul.cu", "quantized_matmul", [_P] * 7 + [_I] * 9 + [_P])
 _OUT_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_BK = 128            # k bytes a unit or a stage
+_STRIP = 64          # decode: output columns a unit
+_DEC_WARPS = 4       # decode: consumer warps (int32 partials in their fragment order)
+_DECODE_M = 16       # M at or below: the decode regime
 
 
 def _qmm_plain(qx, qw, sx, sw, out_dtype):
@@ -168,6 +175,147 @@ def _qmm_plain(qx, qw, sx, sw, out_dtype):
     wide = torch.float64 if qx.is_cuda else torch.int64
     acc = torch.matmul(qx.to(wide), qw.to(wide))
     return (acc.float() * sx * sw).to(out_dtype)
+
+
+class _Part:
+    """The decode regime's split of a ``k x n`` product over ``blocks``
+    (the kernel's ``qmm::Part``): unit ``t`` is k-tile ``t % nk`` (128
+    bytes) of 64-column strip ``t // nk``; block ``b`` streams units
+    ``[start(b), start(b + 1))``, so blocks differ by one unit at most.
+    The pieces of a strip belong to blocks ``blk(s nk) .. blk(s nk + nk -
+    1)``; block ``b``'s piece writes partial ``b - blk(s nk)``."""
+
+    def __init__(self, n: int, k: int, blocks: int):
+        self.nk = k // _BK
+        self.strips = n // _STRIP
+        self.total = self.strips * self.nk
+        self.blocks = blocks
+
+    def start(self, b: int) -> int:
+        return b * self.total // self.blocks
+
+    def blk(self, t: int) -> int:
+        """The block whose run holds unit t."""
+        return ((t + 1) * self.blocks - 1) // self.total
+
+    def pieces(self, strip: int) -> int:
+        return (self.blk(strip * self.nk + self.nk - 1)
+                - self.blk(strip * self.nk) + 1)
+
+    def max_pieces(self) -> int:
+        return max(self.pieces(s) for s in range(self.strips))
+
+
+def _decode_pieces(n: int, k: int, blocks: int):
+    """Each block's pieces in the decode regime, ``[(strip, kt0, kt1,
+    slot), ...]`` in the order it streams them: k-tiles ``[kt0, kt1)`` of
+    ``strip``, whose partial goes to ``slot`` of that strip."""
+    pt = _Part(n, k, blocks)
+    out = []
+    for b in range(blocks):
+        pieces, t, t1 = [], pt.start(b), pt.start(b + 1)
+        while t < t1:
+            strip, kt = divmod(t, pt.nk)
+            te = min(t1, (strip + 1) * pt.nk)
+            pieces.append((strip, kt, kt + te - t, b - pt.blk(strip * pt.nk)))
+            t = te
+        out.append(pieces)
+    return out
+
+
+def _prefill_items(m: int, n: int, k: int, blocks: int, bn: int,
+                   splits: int):
+    """Each block's items in the prefill regime (the kernel's ``Item``),
+    ``[(m0, n0, kt0, kt1, split), ...]``: output tile rows ``[m0, m0 +
+    BM)`` x columns ``[n0, n0 + bn)``, k-tiles ``[kt0, kt1)``; item ``i``
+    goes to block ``i % blocks``, m fastest, then n, splits innermost."""
+    bm = 64 if m <= 64 else 128
+    mt, nk = -(-m // bm), k // _BK
+    items = mt * -(-n // bn) * splits
+    out = [[] for _ in range(blocks)]
+    for it in range(items):
+        tile, split = divmod(it, splits)
+        out[it % blocks].append(((tile % mt) * bm, (tile // mt) * bn,
+                                 split * nk // splits,
+                                 (split + 1) * nk // splits, split))
+    return out
+
+
+def _split_steps(bm: int) -> int:
+    """k-tiles a split of a ``bm``-row tile at least: its int32 partial
+    (written, then read by the last split) must stay small beside the
+    stages it loads.  A 128 x 128 tile's 64 KB partial against 32 KB a
+    stage: on an H100, splitting the gpt3-1.3b out product at M=512 (K =
+    2048, 8 k-tiles a split) ran 15% slower than not, the down product
+    (32 a split) about a quarter faster.  A 64-row tile streams weights
+    (the bytes bound it) and splits down to 4."""
+    return 4 if bm == 64 else 16
+
+
+@functools.lru_cache(maxsize=None)
+def _qmm_plan(m: int, n: int, k: int, sms: int, bn: Optional[int] = None,
+              splits: Optional[int] = None) -> dict:
+    """The launch plan of the kernel (``bn``, ``splits`` override the
+    choice above M = 16): its regime, blocks, tile width, k splits, and the
+    int32 of partials and counters it needs (cached: read it, do not
+    change it).  Decode (M <= 16): one block per SM over the 64-column x
+    128-byte units.  Prefill: tiles of 64 (M <= 64) or 128 rows x 256
+    columns where those fill half the SMs and N divides, else 128; K split
+    so that tiles x splits fill the SMs when the tiles fill less than half
+    of them, every split at least ``_split_steps(bm)`` k-tiles."""
+    if m <= _DECODE_M:
+        pt = _Part(n, k, 1)
+        blocks = min(pt.total, sms)
+        pieces = _Part(n, k, blocks).max_pieces()
+        nt = 1 if m <= 8 else 2
+        multi = pieces > 1
+        return dict(regime="decode", blocks=blocks, bn=_STRIP, splits=1,
+                    pieces=pieces,
+                    work_ints=(pt.strips * pieces * _DEC_WARPS * nt * 32 * 4
+                               if multi else 0),
+                    counters=pt.strips if multi else 0)
+    bm = 64 if m <= 64 else 128
+    mt, nk = -(-m // bm), k // _BK
+    if bn is None:
+        bn = 256 if n % 256 == 0 and mt * (n // 256) * 2 >= sms else 128
+    tiles = mt * -(-n // bn)
+    if splits is None:
+        splits = 1 if tiles * 2 >= sms else \
+            max(1, min(sms // tiles, nk // _split_steps(bm)))
+    return dict(regime="prefill", blocks=min(tiles * splits, sms), bn=bn,
+                splits=splits, pieces=1,
+                work_ints=tiles * splits * bm * bn if splits > 1 else 0,
+                counters=tiles if splits > 1 else 0)
+
+
+_SMS: dict = {}
+_COUNTERS: dict = {}
+
+
+def _sm_count(device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """Zeroed int32 arrival counters for a launch on the current stream:
+    one buffer per (device, stream), which every launch leaves zeroed (see
+    the kernel's source note).  Under CUDA-graph capture on a stream that
+    has none yet, a buffer zeroed inside the graph (a memset node, in the
+    graph's own memory) and not kept."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _COUNTERS.get(key)
+    if buf is not None and buf.numel() >= n:
+        return buf
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(n, dtype=torch.int32, device=device)
+    _COUNTERS[key] = buf = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                       device=device)
+    return buf
 
 
 def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
@@ -199,10 +347,19 @@ def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"quantized_matmul kernel needs contiguous, "
                              f"16-byte aligned {name}")
+    plan = _qmm_plan(m, n, k, _sm_count(qx.device))
     y = torch.empty((m, n), dtype=out_dtype, device=qx.device)
+    work = torch.empty(plan["work_ints"], dtype=torch.int32,
+                       device=qx.device) if plan["work_ints"] else None
+    counters = _counters(qx.device, plan["counters"]) \
+        if plan["counters"] else None
     QUANTIZED_MATMUL(_build.ptr(qx), _build.ptr(qw_t), _build.ptr(sx),
-                     _build.ptr(sw), _build.ptr(y), m, n, k,
-                     _OUT_CODES[out_dtype], _build.stream_ptr(qx))
+                     _build.ptr(sw), _build.ptr(y), _build.ptr(work),
+                     _build.ptr(counters), m, n, k, _OUT_CODES[out_dtype],
+                     plan["blocks"], plan["bn"], plan["splits"],
+                     plan["work_ints"],
+                     0 if counters is None else counters.numel(),
+                     _build.stream_ptr(qx))
     return y
 
 

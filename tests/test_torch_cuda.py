@@ -603,23 +603,101 @@ def test_engines_sync_once_per_tick_on_the_card(gen, kw, monkeypatch):
 
 # ---- int8 matmul (exact) and the decode megakernel -----------------------------
 
-@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("m", [1, 8, 33, 512])
-def test_qmm_kernel_equals_plain(gen, m, out):
-    """Exact int32 sums and the same f32 rescale: bitwise equal."""
-    x = _rand((m, 256), gen)
-    w = (torch.randn((256, 384), generator=gen, device="cuda") * 0.05
+QMM_OUT = [torch.float32, torch.bfloat16, torch.float16]
+QMM_OUT_IDS = ["f32", "bf16", "fp16"]
+
+
+def _qmm_operands(gen, m, k, n):
+    x = _rand((m, k), gen)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.05
          ).bfloat16()
     qx, sx = qm.quantize_channel(x, axis=1)
     qw_t, sw_t = qm.quantize_channel(w.t(), axis=1)
-    qw_t, sw = qw_t.contiguous(), sw_t.reshape(1, 384)
+    return x, w, qx, qw_t.contiguous(), sx, sw_t.reshape(1, n)
+
+
+@pytest.mark.parametrize("out", QMM_OUT, ids=QMM_OUT_IDS)
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 33, 64, 65, 129, 512, 1000])
+def test_qmm_kernel_equals_plain(gen, m, out):
+    """Exact int32 sums and the same f32 rescale: bitwise equal, in both
+    regimes (M <= 16 split over every SM, wgmma tiles of 64 or 128 rows
+    above) and across ragged row tiles."""
+    x, w, qx, qw_t, sx, sw = _qmm_operands(gen, m, 256, 384)
     got = qm._qmm_cuda(qx, qw_t, sx, sw, out)
     assert torch.equal(got, qm._qmm_plain(qx, qw_t.t(), sx, sw, out))
     # the public op on the card equals the CPU's from the same inputs:
     # the same codes and scales (true division on both), exact sums
     assert torch.equal(qm.quantized_matmul(x, w, out_dtype=out).cpu(),
                        qm.quantized_matmul(x.cpu(), w.cpu(), out_dtype=out))
+
+
+@pytest.mark.parametrize("out", QMM_OUT, ids=QMM_OUT_IDS)
+@pytest.mark.parametrize("m", [8, 512])
+@pytest.mark.parametrize("k,n", [(128, 128), (8192, 2048), (256, 384)])
+def test_qmm_kernel_shapes_equal_plain(gen, k, n, m, out):
+    """Edge widths (one strip pair, the N = 384 edge) and the long down
+    product, whose M = 512 plan splits K: bitwise the plain version."""
+    _, _, qx, qw_t, sx, sw = _qmm_operands(gen, m, k, n)
+    plan = qm._qmm_plan(m, n, k, qm._sm_count(qx.device))
+    if (m, k) == (512, 8192):
+        assert plan["splits"] > 1
+    assert torch.equal(qm._qmm_cuda(qx, qw_t, sx, sw, out),
+                       qm._qmm_plain(qx, qw_t.t(), sx, sw, out))
+
+
+@pytest.mark.parametrize("bn,splits", [(256, 1), (256, 2), (128, 2),
+                                       (128, 1)])
+@pytest.mark.parametrize("m", [17, 100, 300])
+def test_qmm_kernel_forced_plans_equal_plain(gen, monkeypatch, m, bn, splits):
+    """Every tile width over N = 384 (a 256-wide tile leaves a 128-wide
+    edge, filled by TMA with zeros and not written) with and without a K
+    split, through plans the wrapper would not choose here."""
+    plan = qm._qmm_plan
+    monkeypatch.setattr(qm, "_qmm_plan", lambda m_, n_, k_, sms: plan(
+        m_, n_, k_, sms, bn, splits))
+    _, _, qx, qw_t, sx, sw = _qmm_operands(gen, m, 256, 384)
+    got = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+    assert torch.equal(got, qm._qmm_plain(qx, qw_t.t(), sx, sw,
+                                          torch.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8192, 2048), (16, 2048, 6144),
+                                   (512, 8192, 2048), (4096, 2048, 2048)])
+def test_qmm_kernel_repeats_bitwise(gen, m, k, n):
+    """Two calls give the same bits (the split sums are integer, and the
+    counters every launch leaves zeroed let the next one reduce right)."""
+    _, _, qx, qw_t, sx, sw = _qmm_operands(gen, m, k, n)
+    a = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    b = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "fresh"])
+@pytest.mark.parametrize("m,k,n", [(8, 8192, 2048), (512, 8192, 2048)])
+def test_qmm_kernel_graph_replays_equal_eager(gen, m, k, n, warm):
+    """A captured call (decode regime, and the prefill split) replays three
+    times equal to eager.  Captured on the stream of the eager call
+    (warm), it shares that stream's arrival counters, which every launch
+    leaves at zero; captured on a fresh stream, the graph zeroes counters
+    of its own."""
+    _, _, qx, qw_t, sx, sw = _qmm_operands(gen, m, k, n)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream if warm else None):
+            out = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    with torch.cuda.stream(stream):
+        again = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(again, eager)
 
 
 def test_fake_quant_matmul_backward_on_the_card(gen):
