@@ -94,16 +94,38 @@ before the result lines:
    prefill and decode step, tokens/s and greedy agreement with bf16;
    teacher-forced megakernel steps (dense, paged, bf16, int8) and the
    int8-compute model against its own forward;
-13. profile: device time against wall time of steady decode steps
+13. serve-lifecycle: a dense bf16 engine after ``warmup`` over its
+   prompts' buckets: a 2 s deadline cuts a 10 000-token request, two
+   ``deadline_s=0.0`` requests queued behind 8 busy slots come back
+   empty, the rest whole; ``drain()`` after two steps (in-flight slots
+   finish, the queue comes back in FIFO order); SIGTERM under a
+   ``PreemptionGuard`` (``run()`` returns, the never-admitted requests
+   in ``undelivered``); ``drain(timeout_s=0.0)`` force-retires live
+   slots; each part one host read per decode step and admission and
+   launches as in serve; serve-loadtest: ``run_loadtest`` (open-loop
+   Poisson arrivals) on warmed engines, each window's report (tokens/s,
+   offered and achieved rps, TTFT and ITL p50/p99, occupancy, prefix
+   hit rate, preemptions, timed-out requests) printed beside the card's
+   name and power limit: A paged bf16 with the prefix cache, 48
+   requests at 2 rps (all tokens, no timeout, prefix hits, leak-free
+   after ``drain()``), B the same engine, 16 requests at 200 rps with
+   ``deadline_s=0.0`` (all time out empty), C 24 requests without a
+   shared prefix at 2 rps on a dense engine with ``prefill_chunk=512``
+   beside a monolithic one (ITL p99 of both, no prefill stall when
+   chunked); warmup-check: a child process (``--warmup-check``) builds
+   gpt3-1.3b at 2 layers, warms a dense and a paged engine and serves 8
+   requests through each: no CUDA library may load or build after the
+   warmups;
+14. profile: device time against wall time of steady decode steps
    (torch.profiler), the top kernels by device time, for the dense, the
    paged, and the int8 dense and paged engines, a chunked step, a spec
    tick and two megakernel decode steps (dense bf16, paged int8);
-14. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
+15. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
    one 2 x 512 batch through ``SpmdTrainer``: every parameter gradient
    of the kernel path against the same step with the plain attention
    swapped in by this script; train-qat: one such step with
    ``strategy.qat`` (the int8 matmul under autograd, finite gradients);
-15. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
+16. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
    fused cross-entropy, Adam, batch 4 x 2048, fed by
    ``DevicePrefetcher``: 2 warm-up and 6 measured steps on one repeated
    batch (finite and falling loss, no host sync, 24 launches of each
@@ -1522,15 +1544,12 @@ def cache_bytes(cache):
 
 def drive(tag, eng, prompts, new_tokens, sample_every=5):
     """Queue ``prompts`` (every ``sample_every``-th one sampled at
-    temperature 0.8, top-p 0.9; the rest greedy), reset every launch count
-    and the peak-memory counter, run the engine dry and read both back.
-    Checks every request's token count, finite cache contents, one host
-    sync per decode step and, per layer, one launch of the decode kernel
-    the engine's cache calls for in every decode step and one of the
-    flash kernel in every prefill without a cached prefix.  Returns
-    ``(launches by kernel, stats, problems)``."""
-    from paddle_tpu_torch.ops import KERNELS
-    cfg = eng.model.cfg
+    temperature 0.8, top-p 0.9; the rest greedy), reset the peak-memory
+    counter and run the engine dry through ``measured`` (launch counts
+    reset just before, read just after, host reads counted).  Checks
+    every request's token count and finite cache contents besides
+    ``measured``'s host-sync and launch checks.  Returns ``(launches by
+    kernel, stats, problems)``."""
     rids = {}
     for i, p in enumerate(prompts):
         sampled = sample_every and i % sample_every == sample_every - 1
@@ -1540,16 +1559,12 @@ def drive(tag, eng, prompts, new_tokens, sample_every=5):
         rids[rid] = len(p)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for kernel in KERNELS.values():
-        kernel.launches = 0
     t0 = time.perf_counter()
-    results = eng.run()
-    torch.cuda.synchronize()
+    results, launches, _, problems = measured(tag, eng, eng.run)
     wall = time.perf_counter() - t0
     # read before the finiteness check below, whose temporaries are as
     # large as the cache
     peak = torch.cuda.max_memory_allocated()
-    launches = {k.symbol: k.launches for k in KERNELS.values()}
     st = eng.stats()
     counts = [len(results[r]) for r in rids]
     cache = eng.cache
@@ -1570,31 +1585,81 @@ def drive(tag, eng, prompts, new_tokens, sample_every=5):
         log(f"[{tag}] prefill bucket {bk}: n={v['count']} "
             f"mean_ms={v['mean_ms']:.3f}")
     log(f"[{tag}] kv_layout={st['kv_layout']} kv_dtype={st['kv_dtype']} "
-        f"cache_bytes={cache_bytes(cache)} max_memory_allocated={peak} bytes; "
-        f"host_syncs decode={st['decode_host_syncs']} "
-        f"prefill={st['prefill_host_syncs']}; launches {launches}")
-    layers = cfg.num_layers
-    decode_key = ("paged_decode_attention" if st["kv_layout"] == "paged"
-                  else "decode_attention")
-    if st["kv_dtype"] == "int8":
-        decode_key += "_q"
-    cold = st["prefills"] - st.get("prefix_hit_queries", 0)
-    problems = []
+        f"cache_bytes={cache_bytes(cache)} max_memory_allocated={peak} bytes")
     if counts != [new_tokens] * len(prompts):
         problems.append(f"token counts {counts} != {new_tokens} each")
     if not finite:
         problems.append("non-finite values in the KV cache")
-    if launches["flash_fwd"] != layers * cold:
-        problems.append(f"flash launches {launches['flash_fwd']} != "
-                        f"{layers} x {cold} prefills without a cached prefix")
-    for key, n in launches.items():
-        want = layers * st["decode_steps"] if key == decode_key else 0
-        if key != "flash_fwd" and n != want:
-            problems.append(f"{key} launches {n} != {want}")
-    if st["decode_host_syncs"] != st["decode_steps"]:
-        problems.append(f"{st['decode_host_syncs']} host syncs over "
-                        f"{st['decode_steps']} decode steps")
     return launches, st, problems
+
+
+class HostReads:
+    """Counts every device-to-host read the engine makes (``cpu``,
+    ``item``, ``tolist``, ``numpy`` of any tensor) while active."""
+
+    NAMES = ("cpu", "item", "tolist", "numpy")
+
+    def __init__(self):
+        self.n = 0
+        self._orig = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            orig = self._orig[name] = getattr(torch.Tensor, name)
+
+            def counted(t, *a, _orig=orig, **k):
+                self.n += 1
+                return _orig(t, *a, **k)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self._orig.items():
+            setattr(torch.Tensor, name, orig)
+        return False
+
+
+def measured(tag, eng, fn):
+    """Run ``fn()`` with every launch count at 0 and every host read
+    counted; returns ``(result, launches, counter deltas, problems)``.
+    Checks one host read per decode step and per admission (per
+    graduating chunk tick when chunked) and, per layer, one launch of the
+    decode kernel of the engine's cache in every decode step, one flash
+    launch in every prefill without a cached prefix (one window launch in
+    every chunk tick when chunked) and no other launch."""
+    from paddle_tpu_torch.ops import KERNELS
+    layers = eng.model.cfg.num_layers
+    before = dict(eng._timings)
+    hits0 = eng._prefix.hit_queries if eng._prefix is not None else 0
+    torch.cuda.synchronize()
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    with HostReads() as reads:
+        out = fn()
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    d = {k: v - before[k] for k, v in eng._timings.items()}
+    hits = (eng._prefix.hit_queries if eng._prefix is not None else 0) - hits0
+    st = eng.stats()
+    want = {decode_key(st): layers * d["decode_steps"]}
+    if eng._chunked:
+        want[window_key(st)] = layers * d["chunk_ticks"]
+    else:
+        want["flash_fwd"] = layers * (d["prefills"] - hits)
+    problems = [f"{key} launches {n} != {want.get(key, 0)}"
+                for key, n in launches.items() if n != want.get(key, 0)]
+    syncs = d["decode_host_syncs"] + d["prefill_host_syncs"]
+    if not (d["decode_host_syncs"] == d["decode_steps"] and reads.n == syncs):
+        problems.append(f"{reads.n} host reads, {d['decode_host_syncs']} "
+                        f"decode syncs over {d['decode_steps']} decode "
+                        f"steps, {d['prefill_host_syncs']} prefill syncs")
+    if eng._chunked and d["prefill_host_syncs"] != d["chunk_graduation_ticks"]:
+        problems.append("a chunk tick synced without graduating a slot")
+    log(f"[{tag}] decode_steps={d['decode_steps']} prefills={d['prefills']} "
+        f"chunk_ticks={d['chunk_ticks']} host reads={reads.n} (decode "
+        f"{d['decode_host_syncs']}, prefill {d['prefill_host_syncs']}); "
+        f"launches {{{', '.join(f'{k}: {n}' for k, n in launches.items() if n)}}}")
+    return out, launches, d, problems
 
 
 def finish(tag, problems):
@@ -2084,6 +2149,295 @@ def phase_serve_quant(model):
             problems.append(f"{key} launches {n} != {want_l.get(key, 0)}")
     finish("serve-quant", problems)
     return launches
+
+
+def add_launches(total, launches):
+    for key, n in launches.items():
+        total[key] = total.get(key, 0) + n
+
+
+def phase_serve_lifecycle(model):
+    """The request lifecycle on a dense bf16 engine with 8 slots after
+    ``warmup`` over the buckets its prompts use: (1) deadlines: serve's 16
+    prompts, the 32-token one with 10 000 new tokens and a 2 s deadline,
+    two more with ``deadline_s=0.0`` queued behind the 8 busy slots, the
+    rest 32 new tokens; (2) drain after two steps of 12 more requests:
+    the in-flight slots finish, the other 4 come back in FIFO order; (3)
+    SIGTERM under a ``PreemptionGuard`` after one step: ``run()`` returns
+    with the never-admitted requests in ``undelivered``; (4)
+    ``drain(timeout_s=0.0)`` force-retires live slots with partial output.
+    Each part: one host read per decode step and admission, launches as
+    ``drive`` counts them."""
+    import os
+    import signal
+    from paddle_tpu_torch.distributed import PreemptionGuard
+    from paddle_tpu_torch.inference import InferenceEngine
+    tag = "serve-lifecycle"
+    vocab = model.cfg.vocab_size
+    prompts = serve_prompts(vocab)
+    eng = InferenceEngine(model, batch_slots=8, seed=7, device="cuda")
+    buckets = sorted({eng._bucket_for(len(p)) for p in prompts})
+    t0 = time.perf_counter()
+    eng.warmup(buckets)
+    log(f"[{tag}] warmup over buckets {buckets}: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    total = {}
+
+    # (1) deadlines
+    def deadlines():
+        rids = []
+        for i, p in enumerate(prompts):
+            kw = dict(max_new_tokens=32)
+            if i == 0:
+                kw = dict(max_new_tokens=10_000, deadline_s=2.0)
+            elif i in (8, 9):
+                kw["deadline_s"] = 0.0
+            rids.append(eng.add_request(p, **kw))
+        eng.run()
+        return rids
+    rids, launches, d, problems = measured(f"{tag} deadlines", eng,
+                                           deadlines)
+    add_launches(total, launches)
+    recs = [eng.request_stats[r] for r in rids]
+    long, queued = recs[0], [recs[8], recs[9]]
+    rest = [r for i, r in enumerate(recs) if i not in (0, 8, 9)]
+    log(f"[{tag}] deadlines: long request timed_out={long['timed_out']} "
+        f"tokens={long['tokens']} ttft_ms={long['ttft_ms']}; queued "
+        f"{[(r['timed_out'], r['tokens'], r['ttft_ms']) for r in queued]}; "
+        f"deadline_retirements={d['deadline_retirements']}; others' tokens "
+        f"{[r['tokens'] for r in rest]}")
+    if not (long["timed_out"] and 0 < long["tokens"] < 10_000):
+        problems.append(f"long request {long['timed_out']} "
+                        f"{long['tokens']} tokens")
+    if any(not r["timed_out"] or r["tokens"] or r["ttft_ms"] is not None
+           for r in queued):
+        problems.append("a queued request did not expire empty")
+    if d["deadline_retirements"] != 3:
+        problems.append(f"deadline_retirements {d['deadline_retirements']}")
+    if any(r["timed_out"] or r["tokens"] != 32 for r in rest):
+        problems.append("a request without a deadline came back short")
+
+    # (2) drain
+    rng = np.random.RandomState(31)
+    more = random_prompts(rng, vocab, rng.randint(32, 1537, size=12))
+
+    def drain():
+        ids = [eng.add_request(p, max_new_tokens=32) for p in more]
+        eng.step()
+        eng.step()
+        return ids, eng.drain()
+    (ids, leftover), launches, _, bad = measured(f"{tag} drain", eng, drain)
+    add_launches(total, launches)
+    problems += bad
+    done = [len(eng.results[r]) for r in ids[:8]]
+    log(f"[{tag}] drain: in-flight tokens {done}; leftover "
+        f"{[r.rid for r in leftover]} (queued {ids[8:]})")
+    if done != [32] * 8 or [r.rid for r in leftover] != ids[8:]:
+        problems.append("drain did not finish the slots or keep FIFO order")
+
+    # (3) the guard
+    def guarded():
+        ids = [eng.add_request(p, max_new_tokens=32) for p in more]
+        with PreemptionGuard() as g:
+            eng.attach_preemption_guard(g)
+            eng.step()
+            os.kill(os.getpid(), signal.SIGTERM)
+            eng.run()
+        eng.attach_preemption_guard(None)
+        return ids, g.preempted
+    (ids, fired), launches, _, bad = measured(f"{tag} guard", eng, guarded)
+    add_launches(total, launches)
+    problems += bad
+    undelivered = [r.rid for r in eng.undelivered]
+    done = [len(eng.results[r]) for r in ids[:8]]
+    log(f"[{tag}] guard: fired={fired}, in-flight tokens {done}, undelivered "
+        f"{undelivered} (never admitted {ids[8:]})")
+    if not fired or undelivered != ids[8:] or done != [32] * 8:
+        problems.append("the guard's drain")
+
+    # (4) drain with a timeout
+    def forced():
+        ids = [eng.add_request(p, max_new_tokens=1000) for p in more[:3]]
+        eng.step()
+        eng.step()
+        return ids, eng.drain(timeout_s=0.0)
+    (ids, leftover), launches, d, bad = measured(f"{tag} drain-timeout",
+                                                 eng, forced)
+    add_launches(total, launches)
+    problems += bad
+    recs = [eng.request_stats[r] for r in ids]
+    log(f"[{tag}] drain(timeout_s=0.0): drain_forced_retirements="
+        f"{d['drain_forced_retirements']}, records "
+        f"{[(r['timed_out'], r['tokens']) for r in recs]}")
+    if (leftover or d["drain_forced_retirements"] != 3
+            or any(not r["timed_out"] or not 0 < r["tokens"] < 1000
+                   for r in recs)):
+        problems.append("drain(timeout_s=0.0) did not force-retire")
+    finish(tag, problems)
+    return total
+
+
+def report_line(tag, rep, smi):
+    keys = ("tokens_per_sec", "offered_rps", "achieved_rps", "ttft_ms_p50",
+            "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99", "slot_occupancy",
+            "block_occupancy", "prefix_hit_rate", "preemptions",
+            "timed_out_requests", "num_requests", "tokens_generated",
+            "wall_s", "deadline_s")
+    log(f"[{tag}] report " + json.dumps({k: rep.get(k) for k in keys})
+        + f" (card: {smi})")
+
+
+def loadtest_workload(vocab, **over):
+    from paddle_tpu_torch.inference import SharedPrefixWorkload
+    kw = dict(seed=11, shared_frac=0.5, prefix_len=1024, tail_len=(32, 512),
+              max_new=(16, 64))
+    kw.update(over)
+    return SharedPrefixWorkload(vocab, **kw)
+
+
+def planned_tokens(vocab, n, **over):
+    wl = loadtest_workload(vocab, **over)
+    return sum(wl.sample()[1] for _ in range(n))
+
+
+def phase_serve_loadtest(model, smi):
+    """Open-loop Poisson load through ``run_loadtest`` on warmed engines.
+    A: a paged bf16 engine (blocks of 128, prefix cache, 8 slots),
+    ``SharedPrefixWorkload(50304, seed=11, shared_frac=0.5,
+    prefix_len=1024, tail_len=(32, 512), max_new=(16, 64))``, 48 requests
+    at 2 rps with a 120 s deadline: every request returns its tokens,
+    none times out, prefix hits, a leak-free pool after ``drain()``.  B:
+    the same engine, 16 requests at 200 rps with ``deadline_s=0.0``: all
+    16 time out in the queue, no token.  C: the workload without a
+    prefix, 24 requests at 2 rps, on a dense bf16 engine with
+    ``prefill_chunk=512`` beside a monolithic one: ITL p99 of both, no
+    prefill stall when chunked.  Each window's report on its own line."""
+    from paddle_tpu_torch.inference import InferenceEngine, run_loadtest
+    tag = "serve-loadtest"
+    vocab = model.cfg.vocab_size
+    total = {}
+    problems = []
+    eng = InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                          kv_block_size=128, prefix_cache=True, seed=11,
+                          device="cuda")
+    t0 = time.perf_counter()
+    eng.warmup(eng.buckets)
+    log(f"[{tag}] paged warmup over {eng.buckets}: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    rep, launches, _, bad = measured(f"{tag} A", eng, lambda: run_loadtest(
+        eng, 48, 2.0, workload=loadtest_workload(vocab), deadline_s=120.0))
+    add_launches(total, launches)
+    problems += bad
+    report_line(f"{tag} A", rep, smi)
+    want = planned_tokens(vocab, 48)
+    if rep["tokens_generated"] != want or rep["num_requests"] != 48:
+        problems.append(f"A: {rep['tokens_generated']} tokens of {want}")
+    if rep["timed_out_requests"] or not rep["prefix_hit_rate"] > 0:
+        problems.append("A: timed out requests or no prefix hit")
+    eng.drain()          # checks the pool leak-free
+    log(f"[{tag}] A: pool leak-free after drain()")
+
+    rep, launches, _, bad = measured(f"{tag} B", eng, lambda: run_loadtest(
+        eng, 16, 200.0, workload=loadtest_workload(vocab), deadline_s=0.0))
+    add_launches(total, launches)
+    problems += bad
+    report_line(f"{tag} B", rep, smi)
+    if rep["timed_out_requests"] != 16 or rep["tokens_generated"]:
+        problems.append("B: not every request expired empty")
+    eng.drain()
+    log(f"[{tag}] B: pool leak-free after drain()")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    itl = {}
+    for name, kw in (("C chunked", dict(prefill_chunk=512)),
+                     ("C monolithic", {})):
+        eng = InferenceEngine(model, batch_slots=8, seed=13, device="cuda",
+                              **kw)
+        eng.warmup(eng.buckets)
+        rep, launches, _, bad = measured(
+            f"{tag} {name}", eng, lambda: run_loadtest(
+                eng, 24, 2.0, workload=loadtest_workload(
+                    vocab, shared_frac=0.0, prefix_len=0), deadline_s=120.0))
+        add_launches(total, launches)
+        problems += bad
+        report_line(f"{tag} {name}", rep, smi)
+        st = eng.stats()
+        itl[name] = (rep["itl_ms_p99"], st["prefill_stall_ms"])
+        want = planned_tokens(vocab, 24, shared_frac=0.0, prefix_len=0)
+        if rep["tokens_generated"] != want or rep["timed_out_requests"]:
+            problems.append(f"{name}: {rep['tokens_generated']} tokens of "
+                            f"{want}, {rep['timed_out_requests']} timed out")
+        if kw and st["prefill_stall_ms"] != 0:
+            problems.append(f"{name}: prefill_stall_ms "
+                            f"{st['prefill_stall_ms']}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[{tag}] C: itl_ms_p99 chunked {itl['C chunked'][0]} against "
+        f"monolithic {itl['C monolithic'][0]} (prefill_stall_ms "
+        f"{itl['C chunked'][1]} against {itl['C monolithic'][1]}; "
+        f"card: {smi})")
+    finish(tag, problems)
+    return total
+
+
+def warmup_check():
+    """In a fresh process: gpt3-1.3b at 2 layers on the card, ``warmup()``
+    on a dense and a paged engine, then 8 requests through each; fails if
+    serving loaded or built any CUDA library after the warmups."""
+    import dataclasses
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_configs
+    from paddle_tpu_torch.ops import _build
+    cfg = dataclasses.replace(gpt_configs()["gpt3-1.3b"], num_layers=2)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=prandom.seed(1234, "cuda"))
+    engines = [InferenceEngine(model, batch_slots=8, device="cuda"),
+               InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                               kv_block_size=128, device="cuda")]
+    for eng in engines:
+        eng.warmup()
+    libs, logs = sorted(_build._LIBS), sorted(_build._LOGS)
+    builds = []
+    orig = _build.build
+    _build.build = lambda *a, **k: builds.append(a) or orig(*a, **k)
+    try:
+        rng = np.random.RandomState(41)
+        prompts = random_prompts(rng, cfg.vocab_size,
+                                 rng.randint(32, 1537, size=8))
+        for eng in engines:
+            rids = [eng.add_request(p, max_new_tokens=16) for p in prompts]
+            out = eng.run()
+            if [len(out[r]) for r in rids] != [16] * 8:
+                raise SystemExit("warmup-check: short streams")
+    finally:
+        _build.build = orig
+    torch.cuda.synchronize()
+    after = sorted(_build._LIBS)
+    log(f"[warmup-check] libraries after warmup {libs}; after serving "
+        f"{after}; builds after warmup {len(builds)}; built in this process "
+        f"{logs}")
+    if after != libs or builds or sorted(_build._LOGS) != logs:
+        raise SystemExit("warmup-check: serving loaded or built a library "
+                         "after warmup")
+    log("[warmup-check] ok")
+
+
+def phase_warmup_child():
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, __file__, "--warmup-check"],
+                          capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"  {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(f"warmup-check child failed (exit "
+                         f"{proc.returncode})")
+    log(f"[warmup-check] child ok in {time.perf_counter() - t0:.1f} s")
 
 
 def _padded(ids, start, stop, bucket):
@@ -2628,7 +2982,7 @@ def phase_train():
 
 
 def main():
-    name, count, _ = phase_device()
+    name, count, smi = phase_device()
     t0 = time.perf_counter()
     phase_build()
     records = phase_kernels()
@@ -2651,6 +3005,13 @@ def main():
     paths["serve-quant"] = phase_serve_quant(model)
     gc.collect()
     torch.cuda.empty_cache()
+    paths["serve-lifecycle"] = phase_serve_lifecycle(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths["serve-loadtest"] = phase_serve_loadtest(model, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_warmup_child()
     phase_teacher_forced(model)
     phase_teacher_mega_quant(model)
     phase_profile(model)
@@ -2683,4 +3044,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--warmup-check"]:
+        warmup_check()
+    else:
+        main()

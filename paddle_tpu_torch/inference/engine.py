@@ -45,8 +45,24 @@ draft proposes K tokens and the target verifies K+1 in one window step;
 greedy streams stay token-identical to the non-speculative engine,
 sampled ones follow the rejection rule.  One host sync per tick.
 
-Left for later slices: deadlines, drain, guards, telemetry, environment
-knobs, autotune hooks and the HBM ledger.
+Request lifecycle: ``deadline_s`` on ``add_request``/``generate`` bounds
+a request's time from enqueue (a queued request past it is delivered
+empty, a live one retired with its partial tokens; both flagged
+``timed_out``); the sweep at the top of every ``step()`` reads only the
+host clock.  ``drain(timeout_s)`` closes admission, finishes the
+in-flight slots (force-retiring them once ``timeout_s`` passes) and
+hands back the queue; an attached ``PreemptionGuard``
+(``distributed.resilience``) makes ``run``/``generate``/
+``step_or_raise`` drain once it fires and park the queue in
+``undelivered``.  Every finished request leaves a record in
+``request_stats`` (TTFT, queued ms, decode tokens/s, inter-token gaps,
+preemptions, ``timed_out``), which ``stats()`` pools into TTFT and ITL
+percentiles.  ``warmup()`` runs every kernel and library the serving
+path calls once with throwaway tokens, so traffic loads and builds
+nothing.
+
+Left for later slices: telemetry, environment knobs, autotune hooks and
+the HBM ledger.
 """
 from __future__ import annotations
 
@@ -86,7 +102,8 @@ class Request:
 
     _ids = itertools.count()
 
-    def __init__(self, prompt, max_new_tokens, eos_id, temperature, top_p):
+    def __init__(self, prompt, max_new_tokens, eos_id, temperature, top_p,
+                 deadline_s: Optional[float] = None):
         self.rid = next(Request._ids)
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         if self.prompt.size == 0:
@@ -97,6 +114,24 @@ class Request:
         self.top_p = float(top_p)
         self.generated: List[int] = []
         self.slot: Optional[int] = None
+        # absolute perf_counter deadline: past it the request is retired
+        # with what it generated and flagged timed_out
+        self.deadline: Optional[float] = None if deadline_s is None \
+            else time.perf_counter() + float(deadline_s)
+        self.timed_out = False
+        # latency accounting: decode time summed over activations only
+        # (a preempted request's requeue wait is not decode time) and
+        # queue time over waits only
+        self.t_enqueue = time.perf_counter()
+        self.t_admit: Optional[float] = None
+        self.t_first: Optional[float] = None
+        self.t_finish: Optional[float] = None
+        self.active_s = 0.0
+        self.t_live: Optional[float] = None
+        self.queued_s = 0.0
+        self.t_queue_since = self.t_enqueue
+        # delivery time of every token (first token and each commit)
+        self.token_times: List[float] = []
         # preemption: a preempted request resumes through a prefill over
         # prompt + generated so far (this field), keeping `generated`
         self.resume_prompt: Optional[np.ndarray] = None
@@ -197,12 +232,21 @@ class InferenceEngine:
         self._d_temps = torch.zeros(b, dtype=torch.float32, device=self.device)
         self._d_top_ps = torch.ones(b, dtype=torch.float32, device=self.device)
         self.results: Dict[int, np.ndarray] = {}
+        self.request_stats: Dict[int, dict] = {}
+        self._request_stats_cap = 4096     # bounded per-request history
+        self._results_cap = 65536          # results eviction safety net
+        # drain / preemption guard: while draining, admission is closed
+        self._draining = False
+        self._guard = None
+        self._guard_timeout: Optional[float] = None
+        self.undelivered: List[Request] = []
         self._timings = {
             "prefill_ms": 0.0, "decode_ms": 0.0, "prefills": 0,
             "prefill_tokens": 0, "decode_steps": 0, "tokens_generated": 0,
             "decode_host_syncs": 0, "prefill_host_syncs": 0,
             "preemptions": 0, "memory_capped_retirements": 0,
-            "block_occupancy_sum": 0.0,
+            "deadline_retirements": 0, "drain_forced_retirements": 0,
+            "occupancy_sum": 0.0, "block_occupancy_sum": 0.0,
             # decode-step wall time spent in monolithic admission prefills
             # while other streams waited (0 when chunked)
             "prefill_stall_ms": 0.0,
@@ -286,10 +330,14 @@ class InferenceEngine:
     # ---- public API ---------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int = 32,
                     eos_id: Optional[int] = None, temperature: float = 0.0,
-                    top_p: float = 1.0) -> int:
+                    top_p: float = 1.0,
+                    deadline_s: Optional[float] = None) -> int:
         """Queue a request; returns its id.  Admitted into a free slot
-        (dense) or free blocks (paged) at the next ``step()``."""
-        req = Request(prompt, max_new_tokens, eos_id, temperature, top_p)
+        (dense) or free blocks (paged) at the next ``step()``.  Past
+        ``deadline_s`` seconds from now (queueing included) it is retired
+        with what it generated and reported ``timed_out``."""
+        req = Request(prompt, max_new_tokens, eos_id, temperature, top_p,
+                      deadline_s=deadline_s)
         if req.prompt.size > self.buckets[-1]:
             raise ValueError(f"prompt of {req.prompt.size} tokens exceeds "
                              f"the largest prefill bucket "
@@ -316,12 +364,19 @@ class InferenceEngine:
 
     def generate(self, prompt, max_new_tokens: int = 32,
                  eos_id: Optional[int] = None, temperature: float = 0.0,
-                 top_p: float = 1.0) -> np.ndarray:
+                 top_p: float = 1.0,
+                 deadline_s: Optional[float] = None) -> np.ndarray:
         """Blocking single-request generation through the admission
-        queue (waits for capacity while in-flight requests decode)."""
+        queue (waits for capacity while in-flight requests decode).  With
+        ``deadline_s`` the wait is bounded: past it the partial (possibly
+        empty) generation comes back.  A fired guard drains the engine
+        and returns what exists."""
         rid = self.add_request(prompt, max_new_tokens, eos_id, temperature,
-                               top_p)
+                               top_p, deadline_s=deadline_s)
         while rid not in self.results:
+            if self._guard is not None and self._guard.preempted:
+                self.undelivered.extend(self.drain(self._guard_timeout))
+                return self.results.get(rid, np.zeros(0, np.int32))
             self.step_or_raise()
         return self.results[rid]
 
@@ -375,6 +430,12 @@ class InferenceEngine:
         req.resume_prompt = np.concatenate(
             [req.prompt, np.asarray(req.generated, np.int32)])
         req.preemptions += 1
+        now = time.perf_counter()
+        # a still-prefilling victim never went live: no activation to close
+        if req.t_live is not None:
+            req.active_s += now - req.t_live
+        req.t_live = None
+        req.t_queue_since = now
         self._timings["preemptions"] += 1
         self._release_slot(req)
         self._queue.appendleft(req)
@@ -448,7 +509,7 @@ class InferenceEngine:
     def _admit_dense(self, req: Request, slot: int):
         """Prefill the bucket-padded prompt into ``slot`` and sample the
         first token from its logits."""
-        t0 = time.perf_counter()
+        t0 = req.t_admit = time.perf_counter()
         prompt = req.effective_prompt()
         plen = prompt.size
         bucket = self._bucket_for(plen)
@@ -533,7 +594,7 @@ class InferenceEngine:
                                     counters)
         if blocks is None:
             return None
-        t0 = time.perf_counter()
+        t0 = req.t_admit = time.perf_counter()
         self._timings["prefill_tokens"] += bucket
         row = np.zeros(self.blocks_per_slot, np.int32)
         row[:len(blocks)] = blocks
@@ -574,6 +635,12 @@ class InferenceEngine:
         with torch.no_grad():
             tok_d = self._sample(logits, temps, top_ps)
         tok = tok_d.tolist()[0]
+        now = time.perf_counter()
+        if req.t_first is None:
+            req.t_first = now
+        req.t_live = now
+        req.token_times.append(now)
+        req.queued_s += req.t_admit - req.t_queue_since
         self._timings["prefill_host_syncs"] += 1
         self._timings["prefills"] += 1
         req.slot = slot
@@ -612,6 +679,8 @@ class InferenceEngine:
             self._tables[slot, :] = 0
             self._tables[slot, :len(blocks)] = blocks
             plen0 = prefix_len
+        now = req.t_admit = time.perf_counter()
+        req.queued_s += now - req.t_queue_since
         req.prefilling = True
         req.prefill_pos = plen0
         req.slot = slot
@@ -722,6 +791,11 @@ class InferenceEngine:
     def _graduate(self, req: Request, slot: int, tok: int):
         """The slot's prompt completed: commit its first token and make
         the slot live on the decode step."""
+        now = time.perf_counter()
+        if req.t_first is None:
+            req.t_first = now
+        req.t_live = now
+        req.token_times.append(now)
         req.prefilling = False
         self._timings["prefills"] += 1
         req.generated.append(tok)
@@ -754,9 +828,78 @@ class InferenceEngine:
                 or len(req.generated) >= req.max_new_tokens or full):
             self._retire(req)
 
-    def _retire(self, req: Request):
+    def _deliver(self, req: Request):
+        """The one place results and request records are written: every
+        finished request (normal, deadline, drain-forced) goes through
+        the bounded-history caps.  ``results`` is the delivery channel:
+        a step()-driven server pops what it consumes."""
         self.results[req.rid] = np.asarray(req.generated, np.int32)
+        self.request_stats[req.rid] = self._request_record(req)
+        while len(self.request_stats) > self._request_stats_cap:
+            self.request_stats.pop(next(iter(self.request_stats)))
+        while len(self.results) > self._results_cap:
+            self.results.pop(next(iter(self.results)))
+
+    def _retire(self, req: Request):
+        req.t_finish = time.perf_counter()
+        # a deadline or drain can retire a still-prefilling slot, which
+        # never went live
+        if req.t_live is not None:
+            req.active_s += req.t_finish - req.t_live
+        self._deliver(req)
         self._release_slot(req)
+
+    def _request_record(self, req: Request) -> dict:
+        n = len(req.generated)
+        # inter-token gaps between delivery times (first token included)
+        gaps = (np.diff(np.asarray(req.token_times)) * 1e3
+                if len(req.token_times) > 1 else np.zeros(0, np.float64))
+        return {
+            "prompt_tokens": int(req.prompt.size),
+            "tokens": n,
+            # a queue-expired request never produced a token: no TTFT
+            "ttft_ms": round((req.t_first - req.t_enqueue) * 1e3, 3)
+            if req.t_first is not None else None,
+            "queued_ms": round(req.queued_s * 1e3, 3),
+            # over active decode time only, requeue waits excluded
+            "decode_tokens_per_sec": round((n - 1) / req.active_s, 2)
+            if n > 1 and req.active_s > 0 else None,
+            "itl_ms_p50": round(float(np.percentile(gaps, 50)), 3)
+            if gaps.size else None,
+            "itl_ms_p99": round(float(np.percentile(gaps, 99)), 3)
+            if gaps.size else None,
+            # raw gaps (bounded), for a harness that corrects the first
+            # one for arrival lateness and pools across requests
+            "itl_gaps_ms": [round(float(g), 3) for g in gaps[:512]],
+            "preemptions": req.preemptions,
+            "timed_out": req.timed_out,
+        }
+
+    def expire_queued_request(self, req: Request, now: float):
+        """Deliver a queued request as deadline-expired (it never took a
+        slot, so nothing is freed)."""
+        req.timed_out = True
+        req.t_finish = now
+        req.queued_s += now - req.t_queue_since
+        self._timings["deadline_retirements"] += 1
+        self._deliver(req)
+
+    def _retire_expired(self):
+        """The per-step deadline sweep, on the host clock alone: queued
+        requests past their deadline are delivered empty, bound ones are
+        retired with the tokens they have (slot and blocks freed)."""
+        now = time.perf_counter()
+        expired = [r for r in self._queue
+                   if r.deadline is not None and now >= r.deadline]
+        for r in expired:
+            self._queue.remove(r)
+            self.expire_queued_request(r, now)
+        for req in list(self._slots):
+            if (req is not None and req.deadline is not None
+                    and now >= req.deadline):
+                req.timed_out = True
+                self._timings["deadline_retirements"] += 1
+                self._retire(req)
 
     # ---- the loop -----------------------------------------------------
     @property
@@ -771,10 +914,19 @@ class InferenceEngine:
     def blocks_in_use(self) -> Optional[int]:
         return self._alloc.num_in_use if self._alloc else None
 
+    @property
+    def _admitting(self) -> bool:
+        """Admission gate: closed while draining (``drain()`` or a fired
+        guard); in-flight slots finish, the queue waits."""
+        return not self._draining and (
+            self._guard is None or not self._guard.preempted)
+
     def _admit(self) -> int:
         """Admit queued requests into free slots in FIFO order; returns
         the admissions (each produced its first token unless chunked)."""
         admitted = 0
+        if not self._admitting:
+            return 0
         for slot in range(self.batch_slots):
             if self._slots[slot] is not None or not self._queue:
                 continue
@@ -814,6 +966,7 @@ class InferenceEngine:
         """Admit queued requests, run a chunk tick when chunked, then
         decode one token (or run one spec tick) for every live slot.
         Returns the tokens produced this step (first tokens included)."""
+        self._retire_expired()
         t_admit = time.perf_counter()
         had_live = self._live() > 0
         admitted = self._admit()
@@ -825,6 +978,8 @@ class InferenceEngine:
                 self._timings["prefill_stall_ms"] += \
                     (time.perf_counter() - t_admit) * 1e3
         chunked_now = False
+        # not gated on admission: a draining engine finishes the prompts
+        # already bound to slots
         if self._chunked:
             ticks = self._timings["chunk_ticks"]
             produced += self._chunk_tick()
@@ -841,6 +996,7 @@ class InferenceEngine:
                 return produced
             self._timings["block_occupancy_sum"] += \
                 self._alloc.num_in_use / self._alloc.capacity
+        self._timings["occupancy_sum"] += self._live() / self.batch_slots
         t0 = time.perf_counter()
         with torch.no_grad():
             if paged:
@@ -856,6 +1012,7 @@ class InferenceEngine:
         # sampled ids for retirement
         nxt_host = nxt.tolist()
         self._note_decode_step(t0, chunked_now)
+        commit_now = time.perf_counter()
         for slot, req in enumerate(self._slots):
             # a still-prefilling row was inactive: its token is garbage
             if req is None or req.prefilling:
@@ -863,6 +1020,7 @@ class InferenceEngine:
             tok = nxt_host[slot]
             self._slot_len[slot] += 1        # the token just appended
             req.generated.append(tok)
+            req.token_times.append(commit_now)
             produced += 1
             self._timings["tokens_generated"] += 1
             self._retire_if_done(req, tok)
@@ -895,9 +1053,11 @@ class InferenceEngine:
         if self.kv_layout == "paged":
             self._timings["block_occupancy_sum"] += \
                 self._alloc.num_in_use / self._alloc.capacity
+        self._timings["occupancy_sum"] += live / self.batch_slots
         t0 = time.perf_counter()
         out = self._spec.tick().tolist()     # the tick's one host sync
         self._note_decode_step(t0, chunked_now)
+        commit_now = time.perf_counter()
         self._timings["spec_ticks"] += 1
         self._timings["spec_slot_ticks"] += live
         produced = 0
@@ -912,6 +1072,7 @@ class InferenceEngine:
             retired = False
             for tok in out[slot][:n_emit]:
                 req.generated.append(tok)
+                req.token_times.append(commit_now)
                 emitted.append(tok)
                 produced += 1
                 self._timings["tokens_generated"] += 1
@@ -927,19 +1088,168 @@ class InferenceEngine:
 
     def step_or_raise(self) -> int:
         """``step()``, turning a wedged scheduler into an error: no
-        progress, nothing active and a non-empty queue never resolves."""
+        progress, nothing active and a non-empty queue never resolves.
+        Once an attached guard fired, it drains instead (in-flight slots
+        finish, the queue parks in ``undelivered``), so a driver that
+        only steps never spins on a preempted engine."""
+        if (self._guard is not None and self._guard.preempted
+                and not self._draining):
+            self.undelivered.extend(self.drain(self._guard_timeout))
+            return 0
         produced = self.step()
-        if produced == 0 and self.num_active == 0 and self._queue:
+        if (produced == 0 and self.num_active == 0 and self._queue
+                and self._admitting):
             raise RuntimeError("admission stalled: queued requests but no "
                                "free capacity and nothing active to retire")
         return produced
 
     def run(self) -> Dict[int, np.ndarray]:
         """Step until every queued request finished; returns
-        ``{request id: generated token ids}``."""
+        ``{request id: generated token ids}``.  With a guard attached, a
+        signal mid-run switches to a drain: in-flight slots finish and
+        the still-queued requests land in ``undelivered``."""
         while self.has_work:
+            if self._guard is not None and self._guard.preempted:
+                self.undelivered.extend(self.drain(self._guard_timeout))
+                break
             self.step_or_raise()
         return self.results
+
+    def attach_preemption_guard(self, guard,
+                                drain_timeout_s: Optional[float] = None):
+        """Hook a ``distributed.resilience.PreemptionGuard``: once it
+        fires, ``run``/``generate``/``step_or_raise`` stop admitting,
+        finish the in-flight slots (bounded by ``drain_timeout_s``) and
+        return."""
+        self._guard = guard
+        self._guard_timeout = drain_timeout_s
+        return self
+
+    def drain(self, timeout_s: Optional[float] = None) -> List[Request]:
+        """Graceful shutdown: close admission, step until every in-flight
+        slot retires (once ``timeout_s`` has passed the rest are
+        force-retired with their partial output and flagged
+        ``timed_out``), and return the still-queued requests in FIFO
+        order.  Checks the pool leak-free (which flushes the prefix
+        cache)."""
+        self._draining = True
+        t0 = time.perf_counter()
+        try:
+            while self.num_active > 0:
+                if (timeout_s is not None
+                        and time.perf_counter() - t0 > timeout_s):
+                    for req in [r for r in self._slots if r is not None]:
+                        self._timings["drain_forced_retirements"] += 1
+                        req.timed_out = True
+                        self._retire(req)
+                    break
+                self.step()
+            leftover = list(self._queue)
+            self._queue.clear()
+            self.check_leak_free()
+            return leftover
+        finally:
+            self._draining = False
+
+    # ---- warmup ---------------------------------------------------------
+    def warmup(self, buckets: Optional[List[int]] = None):
+        """Run every kernel, library and lazy first-use step of the
+        serving path once with throwaway tokens before traffic arrives:
+        the prefill of each of ``buckets`` (default: the smallest; paged
+        with a prefix cache also over a one-block prefix), or the chunk
+        step when chunked; the samplers; the decode step (composed or
+        megakernel); and, speculating, the draft's prefills and a tick.
+        Loads each CUDA library (building it if missing), the int8
+        matmul's plans and the megakernel's tensor maps.  Leaves the
+        engine clean: lengths 0, warmup blocks back in the pool and never
+        in the radix cache."""
+        if self.num_active or self._queue:
+            raise RuntimeError("warmup() must run before traffic")
+        with torch.no_grad():
+            if self._chunked:
+                self._warmup_chunked()
+            elif self.kv_layout == "paged":
+                self._warmup_paged(buckets)
+            else:
+                self._warmup_dense(buckets)
+            if self._spec is not None:
+                self._spec.warmup()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self
+
+    def _zeros(self, *shape, dtype=torch.int64) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _warm_sample(self, logits):
+        rows = logits.shape[0]
+        self._sample(logits, self._zeros(rows, dtype=torch.float32),
+                     torch.ones(rows, device=self.device))
+
+    def _warm_decode(self):
+        """A decode step and its sampler with every slot inactive (dense)
+        or on all-null tables at length 0 (paged): the writes land above
+        length 0 or in the null block."""
+        b = self.batch_slots
+        if self.kv_layout == "paged":
+            self._stage_paged()
+            logits, _ = self.model.decode_step_paged(
+                self._zeros(b), self.cache, self._d_tables, self._d_lens)
+        else:
+            logits, _ = self.model.decode_step(self._zeros(b), self.cache,
+                                               self._d_active)
+        self._sample(logits, self._d_temps, self._d_top_ps)
+
+    def _warmup_dense(self, buckets):
+        for b in buckets or [self.buckets[0]]:
+            logits, _ = self.model.prefill(self._zeros(1, b), self.cache, 0,
+                                           1)
+        self._warm_sample(logits)
+        self._warm_decode()
+        self.cache.lengths.zero_()
+
+    def _warmup_paged(self, buckets):
+        bs = self.block_size
+        fit = min(self.blocks_per_slot, self._alloc.capacity)
+        logits = None
+        for b in buckets or [self.buckets[0]]:
+            n = blocks_for(b, bs)
+            # a bucket larger than the pool is never admitted
+            if n > self._alloc.capacity:
+                continue
+            # the radix-hit prefill reads a one-block prefix first
+            hit = self._prefix is not None and n + 1 <= fit
+            blocks = self._alloc.alloc(n + hit)
+            if blocks is None:
+                raise RuntimeError("warmup needs an empty pool")
+            row = np.zeros(self.blocks_per_slot, np.int32)
+            row[:len(blocks)] = blocks
+            row_d = torch.from_numpy(row).to(self.device)
+            ids = self._zeros(1, b)
+            logits, _ = self.model.prefill_paged(ids, self.cache, row_d, 0, 1)
+            if hit:
+                self.model.prefill_paged(ids, self.cache, row_d, bs, 1)
+            self._alloc.decref(blocks)
+        if logits is not None:
+            self._warm_sample(logits)
+        self._warm_decode()
+
+    def _warmup_chunked(self):
+        """The chunk step over all-zero tokens, advances and lengths (its
+        writes land above length 0 or in the null block), the batch-wide
+        graduation sampler and the decode step."""
+        b, c = self.batch_slots, self.prefill_chunk
+        toks = self._zeros(b, c)
+        lens = self._zeros(b, dtype=torch.int32)
+        adv = self._zeros(b, dtype=torch.int32)
+        if self.kv_layout == "paged":
+            logits, _ = self.model.prefill_chunk_paged(
+                toks, self.cache, self._zeros(*self._tables.shape,
+                                              dtype=torch.int32), lens, adv)
+        else:
+            logits, _ = self.model.prefill_chunk(toks, self.cache, lens, adv)
+        self._sample(logits, self._d_temps, self._d_top_ps)
+        self._warm_decode()
 
     # ---- paged pool upkeep --------------------------------------------
     def prefix_summary(self) -> Optional[dict]:
@@ -970,6 +1280,8 @@ class InferenceEngine:
         t = self._timings
         s = dict(t)
         s.pop("block_occupancy_sum")
+        s["slot_occupancy"] = round(t["occupancy_sum"]
+                                    / max(t["decode_steps"], 1), 4)
         s["host_syncs"] = t["decode_host_syncs"] + t["prefill_host_syncs"]
         decode_s = t["decode_ms"] / 1e3
         s["decode_tokens_per_sec"] = (t["tokens_generated"] / decode_s
@@ -1013,4 +1325,20 @@ class InferenceEngine:
         else:
             s.pop("preemptions")
             s.pop("memory_capped_retirements")
+        # per-request records; a queue-expired request has no TTFT and is
+        # counted, not averaged
+        s["per_request"] = dict(self.request_stats)
+        ttfts = [r["ttft_ms"] for r in self.request_stats.values()
+                 if r["ttft_ms"] is not None]
+        if ttfts:
+            p50, p99 = np.percentile(ttfts, [50, 99])
+            s["ttft_ms_p50"] = round(float(p50), 3)
+            s["ttft_ms_p99"] = round(float(p99), 3)
+        # inter-token gaps pooled across finished requests
+        gaps = [g for r in self.request_stats.values()
+                for g in r["itl_gaps_ms"]]
+        if gaps:
+            p50, p99 = np.percentile(gaps, [50, 99])
+            s["itl_ms_p50"] = round(float(p50), 3)
+            s["itl_ms_p99"] = round(float(p99), 3)
         return s

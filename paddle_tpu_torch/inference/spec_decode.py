@@ -230,6 +230,19 @@ class SpecDecoder:
         self._draft_rollback(n_acc, active)
         return torch.cat([toks, n_emit[:, None]], dim=1)
 
+    @torch.no_grad()
+    def warmup(self):
+        """One draft prefill per engine bucket and one tick with every
+        slot inactive before traffic, then both caches' lengths zeroed
+        (the paged target's lengths are host state, already 0)."""
+        eng = self.engine
+        for b in eng.buckets:
+            self.draft.prefill(eng._zeros(1, b), self.draft_cache, 0, 1)
+        self.tick()
+        self.draft_cache.lengths.zero_()
+        if eng.kv_layout != "paged":
+            eng.cache.lengths.zero_()
+
     # ---- host-side hooks the engine calls -------------------------------
     def on_admit(self, req, slot: int, first_tok: int):
         """``req`` was just prefilled into ``slot`` on the target: prefill

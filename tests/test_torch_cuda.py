@@ -601,6 +601,48 @@ def test_engines_sync_once_per_tick_on_the_card(gen, kw, monkeypatch):
         da.PAGED_WINDOW_ATTENTION, da.PAGED_WINDOW_ATTENTION_Q)) > launches
 
 
+def test_deadline_and_drain_on_the_card(gen, monkeypatch):
+    """A 2-layer engine on the card after ``warmup()``: a queued request
+    with ``deadline_s=0.0`` comes back empty, a live one whose deadline
+    passed with its partial tokens, ``drain()`` finishes the in-flight
+    slots and returns the queue in FIFO order, and every device-to-host
+    read is a decode step's or an admission's."""
+    import time
+    eng = _tiny_engine().warmup()
+    rng = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 512, (n,), generator=rng).numpy()
+               for n in (20, 100, 70, 5, 150, 33, 64, 90)]
+    reads = {"n": 0}
+    for name in ("cpu", "item", "tolist", "numpy"):
+        orig = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _orig=orig, **k):
+            reads["n"] += 1
+            return _orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    live = eng.add_request(prompts[0], max_new_tokens=200, deadline_s=60.0)
+    expired = eng.add_request(prompts[1], max_new_tokens=8, deadline_s=0.0)
+    busy = [eng.add_request(p, max_new_tokens=12) for p in prompts[2:5]]
+    for _ in range(3):
+        eng.step_or_raise()
+    eng._slots[0].deadline = time.perf_counter()        # already passed
+    eng.step_or_raise()
+    queued = [eng.add_request(p, max_new_tokens=12) for p in prompts[5:]]
+    leftover = eng.drain()
+    monkeypatch.undo()
+    st = eng.stats()
+    rec_live, rec_exp = eng.request_stats[live], eng.request_stats[expired]
+    assert rec_live["timed_out"] and 0 < rec_live["tokens"] < 200
+    assert rec_exp["timed_out"] and rec_exp["tokens"] == 0
+    assert rec_exp["ttft_ms"] is None
+    assert st["deadline_retirements"] == 2
+    assert all(len(eng.results[r]) == 12 for r in busy)
+    assert [r.rid for r in leftover] == queued
+    assert reads["n"] == st["host_syncs"] == \
+        st["decode_steps"] + st["prefill_host_syncs"]
+    assert st["decode_host_syncs"] == st["decode_steps"] > 0
+
+
 # ---- int8 matmul (exact) and the decode megakernel -----------------------------
 
 QMM_OUT = [torch.float32, torch.bfloat16, torch.float16]
