@@ -132,7 +132,30 @@ before the result lines:
    flash kernel per step, f32 masters; step ms, tokens/s, MFU, peak
    memory), one profiled step (device busy share, top kernels), then 2
    steps without and 2 with ``enable_recompute()`` from one saved state
-   (equal losses, 48 forward launches per step, lower peak).
+   (equal losses, 48 forward launches per step, lower peak);
+17. train-fp16 (the training slice's main path): the same model and
+   batch with fp16 AMP and dynamic loss scaling (scale 32768 at first):
+   2 warm-up and 6 measured steps with no host sync, 24 launches of each
+   flash kernel a step (fp16), finite loss on each step kept, falling;
+   step ms, tokens/s, MFU and peak beside the bf16 step's; then 2 layers
+   with ``PADDLE_FAULT_NAN_STEP``: the poisoned step skipped, the
+   optimizer's t held, the scale halved after two overflows in a row;
+18. train-recompute-policies: full width and depth, bf16, 2 steps each
+   from one held state without recompute and under 'full',
+   'dots_no_batch', 'dots', 'everything' (equal losses, ordered peaks,
+   step ms and peak GB each);
+19. train-merge: ``k_steps=2`` over the two 2 x 2048 halves of a 4 x
+   2048 batch against one 4 x 2048 step (parameter changes within 5e-2,
+   no host sync);
+20. train-anomaly: 'skip' at full depth with ``PADDLE_FAULT_NAN_STEP=3``
+   (one skipped step, no host sync until ``stats``, peak against the
+   raise run), 'rollback' at 2 layers on a data-keyed blow-up (one
+   rollback, one host sync a step, the snapshot's bytes and cost), and
+   ``FLAGS_check_nan_inf`` at 2 layers (raises naming the gradients);
+21. train-checkpoint: 2 layers at full width (the depth cut for disk and
+   time): ``save(manifest=True)``, a fresh trainer ``load``s it and
+   continues bitwise, ``CheckpointManager(keep_last=2)`` over 3
+   asynchronous saves; bytes and seconds.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -566,7 +589,7 @@ def phase_kernels():
     # flash: gpt3-1.3b prefill shapes (B=1, H=16, D=128) at buckets and
     # ragged lengths across a 128-row tile, GQA, D=64, fp16, key masks
     # (one leaving a causal row with no key), full attention, and the
-    # training shape (B=4, S=2048)
+    # training shape (B=4, S=2048) in bf16 and in fp16 (train-fp16's)
     worst, errs = [], []
     for args, kw in (((2, 130, 16, 16, 128), {}),
                      ((1, 256, 16, 4, 128), {}),
@@ -576,7 +599,8 @@ def phase_kernels():
                      ((2, 130, 8, 2, 64), dict(mask=True,
                                                dtype=torch.float16)),
                      ((2, 200, 16, 16, 128), dict(dtype=torch.float16)),
-                     ((4, 2048, 16, 16, 128), {})):
+                     ((4, 2048, 16, 16, 128), {}),
+                     ((4, 2048, 16, 16, 128), dict(dtype=torch.float16))):
         *_, e, w = check_flash(gen, *args, **kw)
         errs.append(e)
         worst.append(w)
@@ -960,17 +984,19 @@ def _dequant(codes, scale, dtype=torch.bfloat16):
 
 
 def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
-              dtype=torch.bfloat16):
+              dtype=torch.bfloat16, do_scale=1.0):
     """The dq and dk/dv kernels against the plain backward on the same
     inputs and the forward kernel's own o and lse, per row, and the dq
     kernel's delta against the plain delta per row; each kernel runs
-    twice and must give bitwise-equal results (no atomics).  Returns the
+    twice and must give bitwise-equal results (no atomics).  The upstream
+    gradient ``do`` is standard normal times ``do_scale``.  Returns the
     inputs and ``{kernel: (max abs error, worst row ratio)}``."""
     fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
     q = _rand((b, s, h, d), gen, dtype)
     k = _rand((b, s, hkv, d), gen, dtype)
     v = _rand((b, s, hkv, d), gen, dtype)
-    do = _rand((b, s, h, d), gen, dtype)
+    do = (torch.randn((b, s, h, d), generator=gen, device="cuda")
+          * do_scale).to(dtype)
     kv_mask = None
     if mask:
         kv_mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
@@ -994,7 +1020,8 @@ def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
     finite = all(torch.isfinite(g).all().item() for g in got)
     ok = same and finite and delta_ok and all(r[2] for r in res.values())
     log(f"[train-kernels] flash bwd B={b} S={s} H={h} Hkv={hkv} D={d} "
-        f"causal={causal} mask={mask} {str(dtype)[6:]}: " + " ".join(
+        f"causal={causal} mask={mask} {str(dtype)[6:]} do x {do_scale:g}: "
+        + " ".join(
             f"max|{n}-plain|={r[0]:.3e} worst row {r[1]:.3e}"
             for n, r in res.items()) +
         f" (tol {TOL_BWD} per row); max|delta-plain|="
@@ -1034,11 +1061,17 @@ def phase_train_kernels(records):
              (2, 256, 8, 8, 64, False, True, fp16),
              (1, 2048, 16, 1, 128, True, False),       # G = 16
              (1, 2048, 16, 16, 128, True, False),
+             # train-fp16's shape: do as drawn, then an upstream gradient
+             # of std 2^-6 times the default loss scale 2^15 (|do| up to
+             # ~2.5e3, in fp16 range), the scaled backward the step runs
+             (4, 2048, 16, 16, 128, True, False, fp16),
+             (4, 2048, 16, 16, 128, True, False, fp16, 2.0 ** 15 / 2 ** 6),
              (4, 2048, 16, 16, 128, True, False)]     # the training shape
     for case in cases:
         tensors, errs = check_bwd(gen, *case[:5], causal=case[5],
                                   mask=case[6], dtype=case[7]
-                                  if len(case) > 7 else torch.bfloat16)
+                                  if len(case) > 7 else torch.bfloat16,
+                                  do_scale=case[8] if len(case) > 8 else 1.0)
         for key, e in errs.items():
             worst[key].append(e)
     q, k, v, o, lse, do = tensors
@@ -2759,10 +2792,14 @@ def report_profile(prof, steps, wall_ms, what):
         log(f"[profile]   {ms:.4f} ms/step  x{n:.1f}  {key[:90]}")
 
 
-def make_trainer(cfg, seed, optimizer, qat=False):
+def make_trainer(cfg, seed, optimizer, qat=False, anomaly_policy="raise",
+                 wrap_loss=None, **strategy):
     """A gpt3-1.3b-width model with f32 masters (random weights from
     ``seed``) behind ``SpmdTrainer`` with bf16 AMP, as the JAX package's
-    bench.py sets it up (``qat``: with ``strategy.qat``)."""
+    bench.py sets it up (``qat``: with ``strategy.qat``; ``strategy``:
+    more DistributedStrategy settings, e.g. ``amp_configs``;
+    ``wrap_loss(criterion)``: the loss function to use instead of the
+    criterion itself)."""
     from paddle_tpu_torch.core import random as prandom
     from paddle_tpu_torch.distributed import SpmdTrainer
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
@@ -2773,9 +2810,16 @@ def make_trainer(cfg, seed, optimizer, qat=False):
     st = DistributedStrategy()
     st.amp = True
     st.qat = qat
+    for key, val in strategy.items():
+        setattr(st, key, val)
     crit = GPTPretrainingCriterion()
-    return model, SpmdTrainer(model, optimizer, lambda o, lab: crit(o, lab),
-                              strategy=st, anomaly_policy="raise")
+    if wrap_loss is None:
+        def loss_fn(o, lab):
+            return crit(o, lab)
+    else:
+        loss_fn = wrap_loss(crit)
+    return model, SpmdTrainer(model, optimizer, loss_fn, strategy=st,
+                              anomaly_policy=anomaly_policy)
 
 
 def token_batch(rng, vocab, b, s):
@@ -2978,7 +3022,497 @@ def phase_train():
     if not ok:
         raise SystemExit("recompute check failed")
     log("[train] ok")
-    return launches
+    return {"launches": launches, "step_ms": step_ms, "peak": peak}
+
+
+def del_all():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def zero_launches():
+    from paddle_tpu_torch.ops import KERNELS
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_launches():
+    from paddle_tpu_torch.ops import KERNELS
+    return {k.symbol: k.launches for k in KERNELS.values()}
+
+
+FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def full_cfg(layers=None):
+    """gpt3-1.3b with the fused cross-entropy (``layers``: depth cut)."""
+    from paddle_tpu_torch.models import gpt_configs
+    cfg = gpt_configs()["gpt3-1.3b"]
+    cfg.fused_ce = True
+    if layers is not None:
+        cfg.num_layers = layers
+    return cfg
+
+
+class HeldState:
+    """The trainer's parameters, optimizer accumulators and step count in
+    pinned host memory, put back by ``restore()`` (every policy run of a
+    phase starts from the same state)."""
+
+    def __init__(self, trainer):
+        self.trainer = trainer
+        opt = trainer.optimizer
+        self.live = list(trainer.model.parameters()) + [
+            t for n in sorted(opt._accumulators)
+            for t in opt._accumulators[n].values()]
+        self.host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in self.live]
+        for h, t in zip(self.host, self.live):
+            h.copy_(t.detach(), non_blocking=True)
+        torch.cuda.synchronize()
+        self.steps = (trainer._step_count, opt._step_count)
+
+    def restore(self):
+        with torch.no_grad():
+            for t, h in zip(self.live, self.host):
+                t.copy_(h, non_blocking=True)
+        torch.cuda.synchronize()
+        self.trainer._step_count, self.trainer.optimizer._step_count = \
+            self.steps
+
+
+def phase_train_fp16(bf16, smi):
+    """The slice's main path: gpt3-1.3b at full width and depth with fp16
+    AMP and dynamic loss scaling (the default scaler, init 32768), fused
+    CE, Adam, 4 x 2048 from DevicePrefetcher: 2 warm-up and 6 measured
+    steps with no host sync, 24 launches of each flash kernel a step
+    (the fp16 instantiations: the compute copies are fp16), finite loss
+    on every step not skipped, falling over the run; then a 2-layer run
+    with PADDLE_FAULT_NAN_STEP armed: the poisoned step is skipped, the
+    optimizer's t held, and two overflows in a row halve the scale."""
+    import os
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import async_dispatch
+    from paddle_tpu_torch.io import DevicePrefetcher
+    cfg = full_cfg()
+    b, s, n_warm, n_meas = 4, 2048, 2, 6
+    model, trainer = make_trainer(cfg, 4321, topt.Adam(learning_rate=1e-4),
+                                  amp_configs={"use_bf16": False})
+    assert trainer.fp16_scaling and trainer.amp_dtype == torch.float16
+    batch = token_batch(np.random.RandomState(0), cfg.vocab_size, b, s)
+    feed = DevicePrefetcher(itertools.repeat(batch, n_warm + n_meas),
+                            device="cuda", timings=trainer._timings)
+    results, found = [], []
+    for i, (ids, labels) in enumerate(feed):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            async_dispatch.reset_host_sync_count()
+            t0 = time.perf_counter()
+        results.append(trainer.train_step(ids, labels))
+        found.append(trainer._scaler_state["found_inf"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = async_dispatch.host_sync_count()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(r) for r in results]
+    skipped = [bool(f) for f in found]
+    stats = trainer.stats                 # the scaler, read once
+    scale = trainer.loss_scale
+    step_ms = wall * 1e3 / n_meas
+    tokens_s = n_meas * b * s / wall
+    mfu = cfg.flops_per_token(s) * tokens_s / PEAK_BF16_FLOPS
+    log(f"[train-fp16] {smi}: gpt3-1.3b, f32 masters, fp16 AMP (init scale "
+        f"32768), fused CE, Adam lr 1e-4, batch {b} x {s}: losses "
+        f"{[round(x, 4) for x in losses]} (first {n_warm} warm-up), skipped "
+        f"{skipped}, scale now {scale}, skipped_steps "
+        f"{stats['skipped_steps']}")
+    log(f"[train-fp16] {n_meas} steps in {wall:.3f} s: step_ms={step_ms:.3f} "
+        f"(bf16 in this call {bf16['step_ms']:.3f}) tokens_per_s="
+        f"{tokens_s:.1f} MFU={mfu:.4f} max_memory_allocated={peak} bytes "
+        f"(bf16 {bf16['peak']}) host_syncs={syncs} launches {launches}")
+    kept = [x for x, sk in zip(losses, skipped) if not sk]
+    problems = []
+    if syncs:
+        problems.append(f"{syncs} host syncs in the measured steps")
+    if not all(np.isfinite(kept)) or len(kept) < 2 or not kept[-1] < kept[0]:
+        problems.append(f"losses of the steps kept not finite and falling: "
+                        f"{kept}")
+    for key in FLASH:
+        if launches[key] != cfg.num_layers * n_meas:
+            problems.append(f"{key} launches {launches[key]} != "
+                            f"{cfg.num_layers} x {n_meas}")
+    if stats["skipped_steps"] != sum(skipped):
+        problems.append(f"skipped_steps {stats['skipped_steps']} != "
+                        f"{sum(skipped)}")
+    if problems:
+        raise SystemExit("train-fp16 failed: " + "; ".join(problems))
+    del model, trainer, feed, results, found
+    del_all()
+
+    # the fault: poisoned step 2, re-armed for step 3 (two in a row)
+    os.environ["PADDLE_FAULT_NAN_STEP"] = "2"
+    try:
+        model, trainer = make_trainer(full_cfg(2), 77,
+                                      topt.Adam(learning_rate=1e-4),
+                                      amp_configs={"use_bf16": False,
+                                                   "init_loss_scaling": 1024.0})
+    finally:
+        del os.environ["PADDLE_FAULT_NAN_STEP"]
+    ids, labels = token_batch(np.random.RandomState(3), cfg.vocab_size, 2,
+                              512)
+    seen = []
+    for step in range(1, 5):
+        if step == 3:
+            trainer._fault_nan_step = 3
+        before = {n: p.detach().clone() for n, p in
+                  list(model.named_parameters())[:2]}
+        trainer.train_step(ids, labels)
+        sc = {k: v.item() for k, v in trainer._scaler_state.items()}
+        same = all(torch.equal(p, before[n]) for n, p in
+                   list(model.named_parameters())[:2])
+        seen.append((step, sc["found_inf"], sc["t"], sc["scale"], sc["bad"],
+                     same))
+    want = [(1, False, 1, 1024.0, 0, False), (2, True, 1, 1024.0, 1, True),
+            (3, True, 1, 512.0, 0, True), (4, False, 2, 512.0, 0, False)]
+    ok = seen == want
+    log(f"[train-fp16] 2 layers, PADDLE_FAULT_NAN_STEP=2 then 3: (step, "
+        f"found_inf, t, scale, bad, parameters unchanged) {seen} "
+        f"{'ok' if ok else 'FAIL, want ' + str(want)}")
+    if not ok:
+        raise SystemExit("train-fp16 fault check failed")
+    log("[train-fp16] ok")
+    return {"train-fp16": launches}
+
+
+POLICIES = (None, "full", "dots_no_batch", "dots", "everything")
+
+
+def phase_train_recompute_policies(bf16, smi):
+    """gpt3-1.3b at full width and depth, bf16 AMP, 4 x 2048: from one
+    held state, 2 steps each without recompute and under 'full',
+    'dots_no_batch', 'dots' and 'everything'.  Losses equal within the
+    recompute tolerance; peaks above the resident state ordered full <=
+    dots_no_batch <= dots <= everything.  'everything' runs the blocks
+    without recompute (keeping every residual is no recompute), the same
+    code path as none, so its peak is not checked against none's.  The
+    forward kernel launched twice a layer and step under 'full',
+    'dots_no_batch' and 'dots' (the backward's re-run launches it again:
+    a kernel is no aten op a policy could keep)."""
+    from paddle_tpu_torch import optimizer as topt
+    cfg = full_cfg()
+    model, trainer = make_trainer(cfg, 4321, topt.Adam(learning_rate=1e-4))
+    ids, labels = token_batch(np.random.RandomState(0), cfg.vocab_size, 4,
+                              2048)
+    trainer.train_step(ids, labels)       # accumulators exist, warm
+    torch.cuda.synchronize()
+    held = HeldState(trainer)
+    rows, paths = {}, {}
+    for policy in POLICIES:
+        held.restore()
+        if policy is None:
+            model.gpt._recompute = False
+        else:
+            model.enable_recompute(policy)
+        # the allocator keeps its cached blocks between runs, so no run
+        # pays for growing the pool (the peaks count allocated bytes)
+        zero_launches()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = [trainer.train_step(ids, labels) for _ in range(2)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / 2
+        rows[policy] = ([float(r) for r in out],
+                        torch.cuda.max_memory_allocated() - base, ms)
+        paths[f"train-recompute-{policy or 'none'}"] = read_launches()
+    model.gpt._recompute = False
+    ref = rows[None][0]
+    problems = []
+    for policy, (losses, peak, ms) in rows.items():
+        diff = max(abs(x - y) / abs(y) for x, y in zip(losses, ref))
+        launches = paths[f"train-recompute-{policy or 'none'}"]
+        fwd = launches["flash_fwd"]
+        log(f"[train-recompute-policies] {smi}: {policy or 'none'}: losses "
+            f"{losses} (worst relative diff {diff:.3e}, bitwise "
+            f"{losses == ref}), step_ms={ms:.3f}, peak above the resident "
+            f"state {peak} bytes ({peak / 1e9:.2f} GB), flash_fwd "
+            f"launches {fwd}")
+        if diff > TOL_RECOMPUTE:
+            problems.append(f"{policy}: losses {losses} vs {ref}")
+        # 'everything' keeps every residual: no recompute, no re-launch
+        want = 2 * cfg.num_layers * (1 if policy in (None, "everything")
+                                     else 2)
+        if fwd != want or launches["flash_bwd_dq"] != 2 * cfg.num_layers:
+            problems.append(f"{policy}: launches {launches}")
+    peak = {p: rows[p][1] for p in POLICIES}
+    if not (peak["full"] <= peak["dots_no_batch"] <= peak["dots"]
+            <= peak["everything"]):
+        problems.append(f"peaks out of order: {peak}")
+    if problems:
+        raise SystemExit("train-recompute-policies failed: "
+                         + "; ".join(problems))
+    log("[train-recompute-policies] ok")
+    return paths
+
+
+def phase_train_merge(bf16, smi):
+    """gpt3-1.3b at full width and depth, bf16 AMP: gradient merge
+    (k_steps=2) over the two 2 x 2048 halves of a 4 x 2048 batch against
+    one 4 x 2048 step from the same parameters (SGD at learning rate 1,
+    so a parameter's change is its gradient): each change within the
+    train-parity tolerance of the big step's, no host sync."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import SpmdTrainer, async_dispatch
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    cfg = full_cfg()
+    model, big = make_trainer(cfg, 4321, topt.SGD(learning_rate=1.0))
+    st = DistributedStrategy()
+    st.amp = True
+    st.gradient_merge = True
+    st.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    merged = SpmdTrainer(model, topt.SGD(learning_rate=1.0), big.loss_fn,
+                         strategy=st)
+    ids, labels = token_batch(np.random.RandomState(5), cfg.vocab_size, 4,
+                              2048)
+    params = dict(model.named_parameters())
+    start = {n: p.detach().clone() for n, p in params.items()}
+    zero_launches()
+    async_dispatch.reset_host_sync_count()
+    t0 = time.perf_counter()
+    out = [merged.train_step(ids[2 * i:2 * i + 2], labels[2 * i:2 * i + 2])
+           for i in range(2)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    syncs = async_dispatch.host_sync_count()
+    launches = read_launches()
+    moved = {n: start[n] - p.detach() for n, p in params.items()}
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(start[n])
+    loss_big = float(big.train_step(ids, labels))
+    ratios = {n: ((start[n] - p.detach() - moved[n]).abs().max()
+                  / (start[n] - p.detach()).abs().max().clamp_min(1e-30)
+                  ).item() for n, p in params.items()}
+    worst = max(ratios, key=ratios.get)
+    halves = [float(r) for r in out]
+    ok = (syncs == 0 and all(r <= TOL_GRAD for r in ratios.values())
+          and merged.optimizer._step_count == 1
+          and abs(sum(halves) / 2 - loss_big) <= 1e-2
+          and all(launches[k] == 2 * cfg.num_layers for k in FLASH))
+    log(f"[train-merge] {smi}: gpt3-1.3b, bf16 AMP, k_steps=2 over 2 x "
+        f"2048 halves: losses {halves} (mean {sum(halves) / 2:.6f}) vs "
+        f"one 4 x 2048 step {loss_big:.6f}; {len(ratios)} parameter "
+        f"changes, worst max|diff|/max|big| {ratios[worst]:.3e} ({worst}), "
+        f"median {float(np.median(list(ratios.values()))):.3e} (tol "
+        f"{TOL_GRAD}); two micro-steps {ms:.3f} ms, host_syncs={syncs}, "
+        f"launches {launches} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train-merge failed")
+    return {"train-merge": launches}
+
+
+SENTINEL = 50303      # the last token id: the rollback run's bad batch
+
+
+def bomb_loss(crit):
+    """The criterion times 3e38 on a batch whose first label is the
+    sentinel: a data-keyed blow-up (the loss overflows to inf), as the
+    JAX rollback test's ``_BombNet``."""
+    def loss_fn(o, lab):
+        blow = (lab[0, 0] == SENTINEL).float() * 3.0e38
+        return crit(o, lab) * (1.0 + blow)
+    return loss_fn
+
+
+def phase_train_anomaly(bf16, smi):
+    """skip at full depth with PADDLE_FAULT_NAN_STEP=3 (one skipped step,
+    no host sync until stats is read, the peak against the raise run's);
+    rollback at 2 layers on a data-keyed blow-up (one rollback, one host
+    sync a step, the run equal to one that never saw the batch; the
+    snapshot's bytes and its cost a step); FLAGS_check_nan_inf at 2
+    layers (raises naming every poisoned gradient)."""
+    import os
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.core import flags, errors
+    from paddle_tpu_torch.distributed import async_dispatch
+    cfg = full_cfg()
+    ids, labels = token_batch(np.random.RandomState(0), cfg.vocab_size, 4,
+                              2048)
+    os.environ["PADDLE_FAULT_NAN_STEP"] = "3"
+    try:
+        model, trainer = make_trainer(cfg, 4321,
+                                      topt.Adam(learning_rate=1e-4),
+                                      anomaly_policy="skip")
+    finally:
+        del os.environ["PADDLE_FAULT_NAN_STEP"]
+    trainer.train_step(ids, labels)
+    torch.cuda.synchronize()
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    async_dispatch.reset_host_sync_count()
+    t0 = time.perf_counter()
+    out = [trainer.train_step(ids, labels) for _ in range(4)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 4
+    syncs = async_dispatch.host_sync_count()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    stats = trainer.stats
+    losses = [float(r) for r in out]
+    ok = (syncs == 0 and stats["skipped_steps"] == 1
+          and int(trainer._anomaly_state["t"]) == 4
+          and all(np.isfinite(losses))
+          and all(launches[k] == 4 * cfg.num_layers for k in FLASH))
+    log(f"[train-anomaly] {smi}: skip, gpt3-1.3b full depth, bf16 AMP, Adam, "
+        f"4 x 2048, PADDLE_FAULT_NAN_STEP=3: losses {losses}, "
+        f"skipped_steps {stats['skipped_steps']}, host syncs before stats "
+        f"{syncs}, step_ms={ms:.3f} (raise run {bf16['step_ms']:.3f}), "
+        f"max_memory_allocated={peak} bytes (raise run {bf16['peak']}: the "
+        f"select costs {peak - bf16['peak']} bytes) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train-anomaly skip failed")
+    paths = {"train-anomaly-skip": launches}
+    del model, trainer, out
+    del_all()
+
+    # rollback at 2 layers: batch 3 of 5 carries the sentinel
+    small = full_cfg(2)
+    rng = np.random.RandomState(9)
+    batches = [token_batch(rng, small.vocab_size, 2, 512) for _ in range(5)]
+    bad = (batches[2][0], batches[2][1].copy())
+    bad[1][0, 0] = SENTINEL
+
+    def run(policy, feed):
+        model, tr = make_trainer(small, 11, topt.Adam(learning_rate=1e-4),
+                                 anomaly_policy=policy, wrap_loss=bomb_loss)
+        tr.train_step(*batches[0])          # warm
+        torch.cuda.synchronize()
+        async_dispatch.reset_host_sync_count()
+        t0 = time.perf_counter()
+        for x, y in feed:
+            tr.train_step(x, y)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / len(feed)
+        syncs = async_dispatch.host_sync_count()
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        return tr, ms, syncs, params
+
+    clean, clean_ms, _, p_clean = run("raise", [b for i, b in
+                                                enumerate(batches) if i != 2])
+    del clean
+    rb, rb_ms, rb_syncs, p_rb = run("rollback", [bad if i == 2 else b for
+                                                i, b in enumerate(batches)])
+    same = all(torch.equal(p_rb[n], p_clean[n]) for n in p_clean)
+    diff = max(((p_rb[n] - p_clean[n]).abs().max()
+                / p_clean[n].abs().max().clamp_min(1e-30)).item()
+               for n in p_clean)
+    ok = (rb.stats["rollback_steps"] == 1 and rb._step_count == 5
+          and rb_syncs == 5 and diff <= TOL_RECOMPUTE)
+    log(f"[train-anomaly] {smi}: rollback, gpt3-1.3b width, 2 layers, 2 x "
+        f"512, sentinel batch 3 of 5: rollback_steps "
+        f"{rb.stats['rollback_steps']}, steps counted {rb._step_count}, "
+        f"host syncs {rb_syncs} for 5 steps; parameters against the run "
+        f"that never saw the batch: bitwise {same}, worst relative "
+        f"{diff:.3e}; snapshot {rb.snapshot_bytes} bytes, step_ms="
+        f"{rb_ms:.3f} against {clean_ms:.3f} under 'raise' "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train-anomaly rollback failed")
+    del rb, p_rb, p_clean
+    del_all()
+
+    # FLAGS_check_nan_inf: every gradient poisoned on step 1
+    flags.set_flags({"FLAGS_check_nan_inf": True})
+    os.environ["PADDLE_FAULT_NAN_STEP"] = "1"
+    try:
+        model, tr = make_trainer(small, 12, topt.SGD(learning_rate=0.0))
+    finally:
+        del os.environ["PADDLE_FAULT_NAN_STEP"]
+        flags.set_flags({"FLAGS_check_nan_inf": False})
+    try:
+        tr.train_step(*batches[0])
+        named = None
+    except errors.PreconditionNotMetError as e:
+        named = str(e)
+    want = [f"{n}@GRAD" for n, _ in model.named_parameters()]
+    ok = named is not None and all(w in named for w in want) and \
+        "'loss'" not in named
+    log(f"[train-anomaly] FLAGS_check_nan_inf, 2 layers, gradients poisoned "
+        f"on step 1: raised {named is not None}, names all {len(want)} "
+        f"gradients and not the loss: {ok} "
+        f"({(named or '')[:120]}...) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train-anomaly nan guard failed")
+    log("[train-anomaly] ok")
+    return paths
+
+
+def phase_train_checkpoint(bf16, smi):
+    """gpt3-1.3b width at 2 layers (the depth cut only for disk and
+    time), bf16 AMP, Adam: save(manifest=True) after 2 steps, a fresh
+    trainer loads it and its next 2 losses equal the uninterrupted
+    trainer's bitwise; a CheckpointManager(keep_last=2) over 3 async
+    saves keeps the newest 2, both valid.  Bytes and seconds printed."""
+    import os
+    import shutil
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import CheckpointManager, checkpoint
+    small = full_cfg(2)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.RandomState(4)
+    batches = [token_batch(rng, small.vocab_size, 2, 512) for _ in range(4)]
+    try:
+        _, a = make_trainer(small, 21, topt.Adam(learning_rate=1e-4))
+        for bt in batches[:2]:
+            a.train_step(*bt)
+        path = os.path.join(root, "ck")
+        t0 = time.perf_counter()
+        a.save(path, extra={"phase": "train-checkpoint"}, manifest=True)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        rest_a = [float(a.train_step(*bt)) for bt in batches[2:]]
+        _, b = make_trainer(small, 22, topt.Adam(learning_rate=1e-4))
+        t0 = time.perf_counter()
+        extra = b.load(path)
+        load_s = time.perf_counter() - t0
+        rest_b = [float(b.train_step(*bt)) for bt in batches[2:]]
+        del b
+        mgr = CheckpointManager(os.path.join(root, "managed"), keep_last=2)
+        t0 = time.perf_counter()
+        snap_ms = []
+        for bt in batches[:3]:
+            a.train_step(*bt)
+            mgr.save(a)
+            snap_ms.append(mgr.last_snapshot_ms)
+        mgr.wait()
+        mgr_s = time.perf_counter() - t0
+        kept = sorted(os.listdir(os.path.join(root, "managed")))
+        valid = all(checkpoint.validate_checkpoint(
+            os.path.join(root, "managed", k)) for k in kept)
+        ok = (rest_a == rest_b and extra == {"phase": "train-checkpoint"}
+              and kept == ["ckpt-6", "ckpt-7"] and valid)
+        log(f"[train-checkpoint] {smi}: gpt3-1.3b width, 2 layers, Adam: "
+            f"save(manifest=True) {nbytes} bytes in {save_s:.3f} s "
+            f"({nbytes / save_s / 1e9:.3f} GB/s), load {load_s:.3f} s; "
+            f"next 2 losses {rest_b} resumed vs {rest_a} uninterrupted "
+            f"(bitwise {rest_a == rest_b}); CheckpointManager(keep_last=2) "
+            f"over 3 async saves: kept {kept}, valid {valid}, snapshots "
+            f"{[round(x, 1) for x in snap_ms]} ms on the training thread, "
+            f"{mgr_s:.3f} s in all, last commit {mgr.last_commit_ms:.1f} ms "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("train-checkpoint failed")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {}
 
 
 def main():
@@ -3024,7 +3558,13 @@ def main():
     paths["train-qat"] = phase_train_qat()
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train"] = phase_train()
+    bf16 = phase_train()
+    paths["train"] = bf16["launches"]
+    for phase in (phase_train_fp16, phase_train_recompute_policies,
+                  phase_train_merge, phase_train_anomaly,
+                  phase_train_checkpoint):
+        del_all()
+        paths.update(phase(bf16, smi))
     for key, rec in records.items():
         by_path = {p: n[key] for p, n in paths.items() if n[key]}
         rec["launches"] = sum(by_path.values())

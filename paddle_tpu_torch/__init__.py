@@ -11,12 +11,14 @@ raise without one; pass ``device="cpu"`` to run on the CPU.
 Ported so far: single-GPU GPT serving on the dense KV cache
 (``models.gpt``, ``inference.engine``) with the flash-attention forward
 and decode-attention kernels, and the single-GPU GPT training step
-(``distributed.SpmdTrainer``, ``optimizer``, ``io.DevicePrefetcher``,
+(``distributed.SpmdTrainer``: bf16 or fp16 AMP with dynamic loss
+scaling, gradient merge, selective recompute, the skip / rollback
+anomaly policies, checkpoints; ``optimizer``, ``io.DevicePrefetcher``,
 the fused cross-entropy) with the flash-attention backward kernels.
 """
-from . import (core, device, distributed, inference, io, models, nn, ops,
-               optimizer)
+from . import (amp, core, device, distributed, inference, io, models, nn,
+               ops, optimizer, testing)
 from .device import resolve_device
 
-__all__ = ["core", "device", "distributed", "inference", "io", "models",
-           "nn", "ops", "optimizer", "resolve_device"]
+__all__ = ["amp", "core", "device", "distributed", "inference", "io",
+           "models", "nn", "ops", "optimizer", "resolve_device", "testing"]

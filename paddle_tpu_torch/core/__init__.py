@@ -1,3 +1,4 @@
-from . import random
+from . import errors, flags, random
+from .flags import get_flags, set_flags
 
-__all__ = ["random"]
+__all__ = ["errors", "flags", "random", "get_flags", "set_flags"]

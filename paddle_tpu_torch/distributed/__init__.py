@@ -1,11 +1,13 @@
-from . import async_dispatch, fleet
+from . import async_dispatch, checkpoint, fleet
 from .async_dispatch import StepResult
+from .checkpoint import latest_checkpoint
 from .parallel_layers import (ColumnParallelLinear, RowParallelLinear,
                               VocabParallelEmbedding)
 from .recompute import recompute
-from .resilience import PreemptionGuard
+from .resilience import CheckpointManager, PreemptionGuard
 from .spmd import SpmdTrainer
 
-__all__ = ["async_dispatch", "fleet", "recompute", "ColumnParallelLinear",
-           "RowParallelLinear", "VocabParallelEmbedding", "SpmdTrainer",
-           "StepResult", "PreemptionGuard"]
+__all__ = ["async_dispatch", "checkpoint", "fleet", "recompute",
+           "ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding", "SpmdTrainer", "StepResult",
+           "PreemptionGuard", "CheckpointManager", "latest_checkpoint"]

@@ -1,7 +1,8 @@
 """DistributedStrategy (counterpart of
 ``paddle_tpu/distributed/fleet/strategy.py``): the JAX package's on/off
 flags with their defaults, and the settings the port's ``SpmdTrainer``
-reads.  The trainer honors ``amp`` (bf16), ``recompute`` and ``qat``
+reads.  The trainer honors ``amp`` (bf16, or fp16 with dynamic loss
+scaling), ``recompute`` (every policy), ``qat`` and ``gradient_merge``,
 and raises on every other enabled flag but the three that are moot on
 one device."""
 from __future__ import annotations
@@ -13,17 +14,29 @@ __all__ = ["DistributedStrategy"]
 
 _DEFAULTS: Dict[str, Any] = {
     "amp": False,
-    # bf16 needs no loss scaling; fp16 with dynamic loss scaling (the
-    # JAX package's other amp_configs keys) is not ported
-    "amp_configs": {"use_bf16": True},
+    # bf16 needs no loss scaling; use_bf16=False is fp16 with dynamic
+    # loss scaling under these settings (use_dynamic_loss_scaling and the
+    # white/black lists are the JAX package's keys and read by neither
+    # trainer)
+    "amp_configs": {
+        "init_loss_scaling": 32768.0, "incr_every_n_steps": 1000,
+        "decr_every_n_nan_or_inf": 2, "incr_ratio": 2.0, "decr_ratio": 0.5,
+        "min_loss_scaling": 1.0, "use_dynamic_loss_scaling": True,
+        "custom_white_list": [], "custom_black_list": [],
+        "use_pure_fp16": False, "use_bf16": True,
+    },
     "recompute": False,
     "recompute_configs": {"policy": "dots", "scan_layers": False},
     # quantization-aware training: every block linear through the int8
     # fake-quant matmul
     "qat": False,
     "qat_configs": {"quantize": "int8"},
+    # k micro-steps accumulate their gradients; the update runs every
+    # k-th step (divided by k under avg)
+    "gradient_merge": False,
+    "gradient_merge_configs": {"k_steps": 1, "avg": True},
     # flags of the JAX package's trainers that this one refuses for now
-    "sharding": False, "gradient_merge": False,
+    "sharding": False,
     "tensor_parallel": False, "pipeline": False, "sequence_parallel": False,
     "expert_parallel": False, "lamb": False, "lars": False,
     "localsgd": False, "adaptive_localsgd": False, "dgc": False,

@@ -1,50 +1,80 @@
 """Activation recompute (counterpart of
 ``paddle_tpu/distributed/recompute.py``).
 
-``recompute(fn, *args)`` runs ``fn`` without keeping its inner
-activations; the backward runs its forward again
-(``torch.utils.checkpoint``, non-reentrant).  Only full recompute is
-ported: the JAX package's selective policies (``jax.checkpoint_policies``
-that keep matmul outputs) raise here instead of silently recomputing
-everything.
+``recompute(fn, *args, policy=None)`` runs ``fn`` without keeping its
+inner activations; the backward runs its forward again
+(``torch.utils.checkpoint``, non-reentrant).  ``policy`` names what the
+region keeps instead of recomputing, as the JAX package's
+``jax.checkpoint_policies`` do:
+
+- ``None`` / ``'full'`` / ``'nothing'``: keep nothing (full recompute);
+- ``'dots'``: keep the outputs of the matrix products ``aten.mm``,
+  ``aten.addmm``, ``aten.bmm`` and ``aten.baddbmm``;
+- ``'dots_no_batch'``: keep only the unbatched ones, ``mm`` and
+  ``addmm`` (the block linears; the CPU's plain attention products are
+  batched);
+- ``'everything'``: keep every op's output.  Keeping every residual is
+  running without recompute (under ``jax.checkpoint`` too, XLA then keeps
+  only the residuals the backward reads), so ``recompute`` calls the
+  function plainly.
+
+The two dots policies run as ``torch.utils.checkpoint``'s
+``create_selective_checkpoint_contexts``, which sees aten ops only.  A
+hand-written kernel (the flash attention forward) is a ctypes launch
+into a buffer from ``torch.empty``: it is no aten op, so the backward's
+re-run launches it again, as JAX recomputes a ``pallas_call`` under
+``checkpoint_dots``.
 
 A module's parameters and buffers enter the checkpointed region as
 inputs, bound as they are at the forward.  Under
-``torch.func.functional_call`` (the trainer's bf16 copies of the f32
-masters) the module holds the swapped-in tensors only while the call
-runs; the backward's re-run gets the same tensors back from the inputs
-instead of whatever the module holds by then.
+``torch.func.functional_call`` (the trainer's half-precision copies of
+the f32 masters) the module holds the swapped-in tensors only while the
+call runs; the backward's re-run gets the same tensors back from the
+inputs instead of whatever the module holds by then.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
-__all__ = ["recompute", "check_policy"]
+__all__ = ["recompute", "checkpoint_policy", "POLICIES"]
 
-# the JAX package's named policies other than full recompute
-_SELECTIVE = ("dots", "dots_no_batch", "nothing", "everything")
+POLICIES = ("full", "dots", "dots_no_batch", "nothing", "everything")
+
+_aten = torch.ops.aten
+_DOTS = {"dots": frozenset({_aten.mm.default, _aten.addmm.default,
+                            _aten.bmm.default, _aten.baddbmm.default}),
+         "dots_no_batch": frozenset({_aten.mm.default,
+                                     _aten.addmm.default})}
 
 
-def check_policy(policy: Optional[str]) -> None:
-    """Accept full recompute (``None`` or ``'full'``); raise on anything
-    else."""
-    if policy is None or policy == "full":
-        return
-    if policy in _SELECTIVE:
-        raise NotImplementedError(
-            f"recompute policy {policy!r} (selective save) is not ported "
-            f"yet; only full recompute (policy=None or 'full') is: see "
-            f"ROADMAP.md, Queue 1")
-    raise ValueError(f"unknown recompute policy {policy!r}")
+def _policy_fn(name: str, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS[name] \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_policy(name: Optional[str]) -> Optional[Callable]:
+    """The selective policy function for a
+    ``strategy.recompute_configs['policy']`` name (``(ctx, op, *args,
+    **kwargs) -> CheckpointPolicy``), or None where no selective policy
+    runs: full recompute (``None``, ``'full'``, ``'nothing'``) or none at
+    all (``'everything'``).  An unknown name raises ``ValueError``."""
+    if name is not None and name not in POLICIES:
+        raise ValueError(f"unknown recompute policy {name!r}")
+    return functools.partial(_policy_fn, name) if name in _DOTS else None
 
 
 def recompute(function, *args, policy: Optional[str] = None, **kwargs):
     """Run ``function(*args, **kwargs)`` and recompute it in the
-    backward instead of saving its activations."""
-    check_policy(policy)
+    backward, keeping what ``policy`` names."""
+    policy_fn = checkpoint_policy(policy)
+    if policy == "everything":
+        return function(*args, **kwargs)
     if isinstance(function, torch.nn.Module):
         module = function
         named = dict(module.named_parameters())
@@ -57,5 +87,8 @@ def recompute(function, *args, policy: Optional[str] = None, **kwargs):
                                               flat[len(names):], kw)
 
         args = (*tensors, *args)
+    if policy_fn is not None:
+        kwargs["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy_fn)
     return torch.utils.checkpoint.checkpoint(function, *args,
                                              use_reentrant=False, **kwargs)

@@ -4,11 +4,12 @@
 The JAX trainer compiles forward, backward and the optimizer update into
 one XLA executable; here one ``train_step`` runs them eagerly on the
 model's device:
-- under ``strategy.amp`` (bf16) the floating parameters are cast to
-  bf16 copies of the f32 masters and the floating inputs to bf16, and
-  the model runs through ``torch.func.functional_call`` over those
-  copies (not ``torch.autocast``, which casts per op and would not
-  match the JAX package's numbers).  A tied embedding has one bf16 copy
+- under ``strategy.amp`` the floating parameters are cast to bf16 (or,
+  with ``amp_configs['use_bf16'] = False``, fp16) copies of the f32
+  masters and the floating inputs to the same dtype, and the model runs
+  through ``torch.func.functional_call`` over those copies (not
+  ``torch.autocast``, which casts per op and would not match the JAX
+  package's numbers).  A tied embedding has one half-precision copy
   serving both its uses, so autograd sums its two gradients into the
   one f32 master;
 - the loss (f32) goes backward into the masters' ``.grad`` and the
@@ -16,23 +17,53 @@ model's device:
 - nothing is read back to the host: the step returns a lazy
   ``StepResult`` whose ``float()`` is the one counted host sync.
 
+The JAX trainer's step variants, each a few device ops here:
+- **gradient merge** (``strategy.gradient_merge``, ``k_steps`` k > 1):
+  each step adds its gradients to f32 buffers (``buf + g``); every k-th
+  step updates from them (times ``1/k`` under ``avg``) and zeroes them.
+  The optimizer's step count is ``steps // k``;
+- **fp16 dynamic loss scaling**: the loss is multiplied by the device
+  scale before the backward, the gradients divided by it in f32 and
+  checked for nan/inf in one pass; the update is selected per parameter
+  (``Optimizer.apply_gradients(skip=found_inf)``) and the optimizer's
+  step ``t`` does not advance on a skipped step; then the scale state
+  machine (``(scale, good, bad, t, found_inf)``, JAX ``spmd.py:994``)
+  moves on the device;
+- **anomaly_policy='skip'**: the same select on a non-finite loss or
+  gradient, with an on-device ``skipped`` counter;
+- **anomaly_policy='rollback'**: before each step a copy of the
+  parameters and optimizer state goes to one pinned host buffer; a
+  non-finite step restores it and rewinds the step count.  The flags are
+  read every step, so the state a step starts from is always good.  One
+  host read per step;
+- **FLAGS_check_nan_inf** (read when the trainer is built): one finite
+  flag per checked tensor, read once per step, raising with the bad
+  tensors' names.  Under fp16 only a non-finite unscaled loss raises
+  (gradient overflow is the scaler's signal).
+
+The merge, fp16 and skip paths read nothing back per step; rollback and
+the nan guard read one flag vector.  ``loss_scale``, ``last_step_skipped``
+and ``stats`` read the device state and count a host sync each.
+
 Every enabled strategy flag is either supported or raises, as in the
-JAX trainer.  Supported here: ``amp`` with bf16, ``recompute`` (full
-recompute; a selective policy raises) and ``qat`` (the model's
-``enable_quantize(qat_configs['quantize'])``: every block linear through
-the int8 fake-quant matmul).  Multi-device flags, gradient merge and fp16
-loss scaling raise with a pointer to ROADMAP.md, as do the ``skip`` and
-``rollback`` anomaly policies.
+JAX trainer.  Supported here: ``amp``, ``recompute`` (every policy of
+``distributed.recompute``; policy ``None`` is full recompute, as the JAX
+trainer's when its tuning table holds nothing), ``qat`` (the model's
+``enable_quantize(qat_configs['quantize'])``) and ``gradient_merge``.
+Multi-device flags raise with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from .async_dispatch import StepResult
+from ..core.errors import PreconditionNotMetError
+from ..core.flags import GLOBAL_FLAGS
+from ..testing import faults
+from .async_dispatch import StepResult, record_host_sync
 from .fleet.strategy import DistributedStrategy
 
 __all__ = ["SpmdTrainer"]
@@ -41,6 +72,7 @@ __all__ = ["SpmdTrainer"]
 # reduce, no unused-parameter bookkeeping under autograd)
 _MOOT = {"find_unused_parameters", "fuse_all_reduce_ops",
          "use_hierarchical_allreduce"}
+_SUPPORTED = {"amp", "recompute", "qat", "gradient_merge"}
 
 
 class SpmdTrainer:
@@ -53,10 +85,11 @@ class SpmdTrainer:
         optimizer updates in place).
     optimizer : ``paddle_tpu_torch.optimizer.Optimizer``.
     loss_fn : callable(outputs, *labels) -> scalar tensor.
-    strategy : ``DistributedStrategy``; ``amp`` (bf16), ``recompute`` and
-        ``qat`` are honored, any other enabled flag raises.
-    anomaly_policy : ``'raise'`` (default; a non-finite loss is left for
-        the caller to see, with no per-step check and so no host sync).
+    strategy : ``DistributedStrategy``; ``amp``, ``recompute``, ``qat``
+        and ``gradient_merge`` are honored, any other enabled flag raises.
+    anomaly_policy : ``'raise'`` (default: a non-finite loss is left for
+        the caller to see, checked only under ``FLAGS_check_nan_inf``),
+        ``'skip'`` or ``'rollback'``.
     """
 
     def __init__(self, model: torch.nn.Module, optimizer,
@@ -73,29 +106,59 @@ class SpmdTrainer:
         self._timings = {"data_wait_ms": 0.0, "h2d_ms": 0.0,
                          "dispatch_ms": 0.0, "sync_ms": 0.0,
                          "steps_timed": 0}
+        self._step_count = 0
 
         st = self.strategy
         for key, val in st.to_dict().items():
-            if val is True and key not in {"amp", "recompute", "qat"} | _MOOT:
+            if val is True and key not in _SUPPORTED | _MOOT:
                 raise NotImplementedError(
                     f"DistributedStrategy.{key} is not supported by the "
                     f"port's single-GPU trainer yet (see ROADMAP.md); "
-                    f"supported flags: ['amp', 'recompute', 'qat']")
+                    f"supported flags: {sorted(_SUPPORTED)}")
+        self.k_steps = int(st.gradient_merge_configs.get("k_steps", 1)) \
+            if st.gradient_merge else 1
+        self.gm_avg = bool(st.gradient_merge_configs.get("avg", True))
         self.amp_enabled = bool(st.amp)
-        if self.amp_enabled and not st.amp_configs.get("use_bf16", True):
+        ac = st.amp_configs
+        self.fp16_scaling = self.amp_enabled and not ac.get("use_bf16", True)
+        self.amp_dtype = torch.float16 if self.fp16_scaling \
+            else torch.bfloat16
+        self._scaler_cfg = {
+            "init_loss_scaling": float(ac.get("init_loss_scaling", 2.**15)),
+            "incr_ratio": float(ac.get("incr_ratio", 2.0)),
+            "decr_ratio": float(ac.get("decr_ratio", 0.5)),
+            "incr_every_n_steps": int(ac.get("incr_every_n_steps", 1000)),
+            "decr_every_n_nan_or_inf": int(
+                ac.get("decr_every_n_nan_or_inf", 2)),
+            "min_loss_scaling": float(ac.get("min_loss_scaling", 1.0)),
+        }
+        if self.fp16_scaling and self.k_steps > 1:
             raise NotImplementedError(
-                "fp16 AMP with dynamic loss scaling is not ported yet (see "
-                "ROADMAP.md); use bf16 (amp_configs use_bf16=True)")
-        self.amp_dtype = torch.bfloat16
+                "fp16 loss scaling with gradient_merge (k_steps > 1) is "
+                "not supported; use bf16 AMP or k_steps == 1")
 
+        self._check_nan_inf = bool(GLOBAL_FLAGS.get("check_nan_inf"))
         self.anomaly_policy = anomaly_policy or "raise"
         if self.anomaly_policy not in ("raise", "skip", "rollback"):
             raise ValueError(f"anomaly_policy must be raise|skip|rollback, "
                              f"got {self.anomaly_policy!r}")
-        if self.anomaly_policy != "raise":
+        if self.anomaly_policy == "rollback" and (
+                self.fp16_scaling or self.k_steps > 1):
             raise NotImplementedError(
-                f"anomaly_policy={self.anomaly_policy!r} is not ported yet "
-                f"(see ROADMAP.md); use 'raise'")
+                "anomaly_policy='rollback' is not supported with fp16 "
+                "loss scaling or gradient_merge; use 'skip' (fp16 "
+                "already skips overflowed steps)")
+        if self.anomaly_policy != "raise":
+            # the policy owns non-finite handling
+            self._check_nan_inf = False
+        # fp16's scaler already skips; the anomaly state drives f32/bf16
+        self._anom_skip = (self.anomaly_policy == "skip" and
+                           not self.fp16_scaling)
+        self._anom_rollback = self.anomaly_policy == "rollback"
+        self._rollback_count = 0
+        # rollback's host copy of the state the step in flight started from
+        self._snapshot = None
+        self._fault_nan_step = faults.nan_poison_step()
 
         if st.recompute:
             if st.recompute_configs.get("scan_layers"):
@@ -106,7 +169,8 @@ class SpmdTrainer:
                 raise NotImplementedError(
                     "strategy.recompute=True but the model has no "
                     "enable_recompute()")
-            model.enable_recompute(st.recompute_configs.get("policy"))
+            model.enable_recompute(st.recompute_configs.get("policy")
+                                   or "full")
 
         # quantization-aware training: every block linear runs the int8
         # fake-quant matmul (quantized forward, straight-through backward);
@@ -120,9 +184,42 @@ class SpmdTrainer:
             model.enable_quantize(st.qat_configs.get("quantize", "int8"))
 
         self._params = dict(model.named_parameters())
+        self._train = {n: p for n, p in self._params.items()
+                       if p.requires_grad}
         first = next(iter(self._params.values()), None)
         self.device = first.device if first is not None \
             else torch.device("cpu")
+        optimizer.init_state(self._train)
+
+        def scalar(v, dtype):
+            return torch.tensor(v, dtype=dtype, device=self.device)
+
+        # the fp16 scaler's state lives on the device, so the whole
+        # scale / unscale / check / update runs without a host read
+        self._scaler_state = None
+        if self.fp16_scaling:
+            self._scaler_state = {
+                "scale": scalar(self._scaler_cfg["init_loss_scaling"],
+                                torch.float32),
+                "good": scalar(0, torch.int32),
+                "bad": scalar(0, torch.int32),
+                # the optimizer's step count: not advanced on a skipped
+                # step
+                "t": scalar(0, torch.int32),
+                "found_inf": scalar(False, torch.bool),
+            }
+        # skip's state (f32/bf16): the optimizer's step count and the
+        # skipped steps.  A trainer holds either this or the scaler's, so
+        # one device step count ``t`` at most
+        self._anomaly_state = None
+        if self._anom_skip:
+            self._anomaly_state = {"t": scalar(0, torch.int32),
+                                   "skipped": scalar(0, torch.int32)}
+        # gradient merge's buffers, one per parameter
+        self._grad_buf = None
+        if self.k_steps > 1:
+            self._grad_buf = {n: torch.zeros_like(p)
+                              for n, p in self._params.items()}
 
     # ------------------------------------------------------------------
     @property
@@ -145,8 +242,8 @@ class SpmdTrainer:
         return out
 
     def _compute_params(self):
-        """The parameters the forward runs on: bf16 copies of the
-        floating masters under AMP (differentiable casts), else the
+        """The parameters the forward runs on: half-precision copies of
+        the floating masters under AMP (differentiable casts), else the
         masters themselves."""
         if not self.amp_enabled:
             return dict(self._params)
@@ -168,11 +265,136 @@ class SpmdTrainer:
         finally:
             self.model.train(was)
 
+    def _grads(self, inputs, labels, scale=None):
+        """Forward, loss and backward: ``(loss, {name: gradient})`` over
+        the trainable parameters (zeros for one that got none).  With
+        ``scale`` the backward runs on ``loss * scale`` and the gradients
+        come back scaled."""
+        for p in self._params.values():
+            p.grad = None
+        outs = self._run(inputs, training=True)
+        loss = self.loss_fn(outs, *labels).float()
+        (loss if scale is None else loss * scale).backward()
+        return loss.detach(), {
+            n: p.grad if p.grad is not None else torch.zeros_like(p)
+            for n, p in self._train.items()}
+
+    def _poison_grads(self, grads, step_no: int):
+        """Fault injection (``PADDLE_FAULT_NAN_STEP``): NaN every floating
+        gradient on the armed step.  The step number is host state, so
+        only the armed step does any work."""
+        if self._fault_nan_step is None or step_no != self._fault_nan_step:
+            return grads
+        for g in grads.values():
+            if g.is_floating_point():
+                g.fill_(float("nan"))
+        return grads
+
+    def _found_inf(self, grads, inv_scale=None) -> torch.Tensor:
+        """Bool scalar: any gradient non-finite.  The gradients are
+        multiplied by ``inv_scale`` in the same pass (by 1 without it,
+        which leaves every value as it was)."""
+        found = torch.zeros(1, dtype=torch.float32, device=self.device)
+        inv = torch.ones(1, dtype=torch.float32, device=self.device) \
+            if inv_scale is None else inv_scale.reshape(1)
+        torch._amp_foreach_non_finite_check_and_unscale_(
+            list(grads.values()), found, inv)
+        return found[0] > 0
+
+    def _nanguard_names(self) -> List[str]:
+        return ["loss"] + [f"{n}@GRAD" for n in sorted(self._train)]
+
+    def _nanguard_vec(self, loss, grads) -> torch.Tensor:
+        """One bool per checked tensor (loss, then the gradients by
+        sorted name): True = holds nan/inf."""
+        flags = [~torch.isfinite(loss)]
+        flags += [~torch.isfinite(grads[n]).all() for n in sorted(grads)]
+        return torch.stack(flags)
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """A counted host read of device state (a step's flags, the
+        scaler, the skip counter)."""
+        t0 = time.perf_counter()
+        out = t.cpu().numpy()
+        record_host_sync()
+        self._timings["sync_ms"] += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def _raise_nonfinite(self, bad: np.ndarray, names: List[str]):
+        if bad.any():
+            names = [n for n, b in zip(names, bad) if b]
+            raise PreconditionNotMetError(
+                f"FLAGS_check_nan_inf: nan/inf detected in train step: "
+                f"{names}")
+
+    # ---- fp16 loss scaling -------------------------------------------
+    def _next_scale(self, found_inf, t):
+        """The dynamic scale state machine (JAX ``spmd.py:994-1016``): a
+        streak of ``incr_every_n_steps`` finite steps multiplies the
+        scale by ``incr_ratio`` unless that overflows f32;
+        ``decr_every_n_nan_or_inf`` non-finite steps in a row multiply
+        it by ``decr_ratio``, down to ``min_loss_scaling``."""
+        cfg, sc = self._scaler_cfg, self._scaler_state
+        scale = sc["scale"]
+        good = torch.where(found_inf, 0, sc["good"] + 1)
+        bad = torch.where(found_inf, sc["bad"] + 1, 0)
+        incr = good >= cfg["incr_every_n_steps"]
+        decr = bad >= cfg["decr_every_n_nan_or_inf"]
+        grown = scale * cfg["incr_ratio"]
+        grown = torch.where(torch.isfinite(grown), grown, scale)
+        new_scale = torch.where(incr, grown, scale)
+        new_scale = torch.where(
+            decr, torch.clamp_min(scale * cfg["decr_ratio"],
+                                  cfg["min_loss_scaling"]), new_scale)
+        return {"scale": new_scale,
+                "good": torch.where(incr, 0, good).to(torch.int32),
+                "bad": torch.where(decr, 0, bad).to(torch.int32),
+                "t": t.to(torch.int32), "found_inf": found_inf}
+
+    # ---- anomaly_policy='rollback' -----------------------------------
+    def _state_tensors(self) -> List[torch.Tensor]:
+        """The tensors a rollback restores: every parameter, then every
+        optimizer accumulator, in a fixed order."""
+        out = list(self._params.values())
+        for n in self._train:
+            out += list(self.optimizer._accumulators[n].values())
+        return out
+
+    def _take_snapshot(self):
+        """Queue copies of the training state into the host buffer
+        (pinned on the card, so the copies run on the step's stream ahead
+        of its update, without a host wait); the buffer is made on first
+        use and then reused."""
+        live = self._state_tensors()
+        if self._snapshot is None:
+            pin = self.device.type == "cuda"
+            self._snapshot = {"tensors": [
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+                for t in live]}
+        for h, t in zip(self._snapshot["tensors"], live):
+            h.copy_(t.detach(), non_blocking=True)
+        self._snapshot["step"] = self._step_count
+
+    def _restore_snapshot(self):
+        snap = self._snapshot
+        with torch.no_grad():
+            for t, h in zip(self._state_tensors(), snap["tensors"]):
+                t.copy_(h, non_blocking=True)
+        self._step_count = snap["step"]
+        self.optimizer._step_count = snap["step"]
+
+    @property
+    def snapshot_bytes(self) -> int:
+        """Bytes of one rollback snapshot (the state it copies)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self._state_tensors())
+
     # ------------------------------------------------------------------
     def train_step(self, inputs, labels) -> StepResult:
-        """One step: forward, loss, backward into the masters, optimizer
-        update.  inputs/labels: an array or tensor, or a tuple of them.
-        Returns a lazy ``StepResult`` (no host sync until it is read)."""
+        """One step: forward, loss, backward, and the optimizer update
+        (every ``k_steps``-th step under gradient merge).  inputs/labels:
+        an array or tensor, or a tuple of them.  Returns a lazy
+        ``StepResult``."""
         inputs = tuple(inputs) if isinstance(inputs, (tuple, list)) \
             else (inputs,)
         labels = tuple(labels) if isinstance(labels, (tuple, list)) \
@@ -180,23 +402,103 @@ class SpmdTrainer:
         batch = self.shard_batch(inputs + labels)
         inputs, labels = batch[:len(inputs)], batch[len(inputs):]
         t0 = time.perf_counter()
-        for p in self._params.values():
-            p.grad = None
-        outs = self._run(inputs, training=True)
-        loss = self.loss_fn(outs, *labels).float()
-        loss.backward()
-        train = {n: p for n, p in self._params.items() if p.requires_grad}
-        # the step number lives on the optimizer, so its state_dict
-        # carries it (Adam's bias corrections read it)
-        step = self.optimizer._step_count + 1
-        self.optimizer.apply_gradients(
-            train, {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                    for n, p in train.items()},
-            lr=self.optimizer.get_lr(), step=step)
-        self.optimizer._step_count = step
+        if self.k_steps == 1:
+            loss, flags = self._fused_step(inputs, labels)
+        else:
+            loss, flags = self._merge_step(inputs, labels)
         self._timings["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
         self._timings["steps_timed"] += 1
-        return StepResult(loss.detach(), timings=self._timings)
+        if self._anom_rollback:
+            # the policy's price: one host read a step
+            if self._read(flags).any():
+                self._rollback_count += 1
+                self._restore_snapshot()
+        elif flags is not None:
+            self._raise_nonfinite(
+                self._read(flags),
+                ["loss"] if self.fp16_scaling else self._nanguard_names())
+        return StepResult(loss, timings=self._timings)
+
+    def _fused_step(self, inputs, labels):
+        """forward + backward + update (k_steps == 1); returns the loss
+        and the flags the host reads (None when it reads none)."""
+        step_no = self._step_count + 1
+        if self._anom_rollback:
+            self._take_snapshot()
+        lr = self.optimizer.get_lr()
+        flags = None
+        if self.fp16_scaling or self._anom_skip:
+            # the update is selected per parameter on the device and the
+            # optimizer's step count held on a bad step: no host read
+            state = self._scaler_state if self.fp16_scaling \
+                else self._anomaly_state
+            scale = state["scale"] if self.fp16_scaling else None
+            loss, grads = self._grads(inputs, labels, scale=scale)
+            grads = self._poison_grads(grads, step_no)
+            if self.fp16_scaling:
+                bad = self._found_inf(grads, 1.0 / scale)
+            else:
+                bad = self._found_inf(grads) | ~torch.isfinite(loss)
+            t = torch.where(bad, state["t"], state["t"] + 1)
+            self.optimizer.apply_gradients(self._train, grads, lr=lr,
+                                           step=t, skip=bad)
+            if self.fp16_scaling:
+                self._scaler_state = self._next_scale(bad, t)
+            else:
+                self._anomaly_state = {
+                    "t": t, "skipped": state["skipped"] + bad.to(torch.int32)}
+            if self._check_nan_inf:
+                # fp16 only: gradient overflow is the scaler's signal; a
+                # non-finite unscaled loss is a real divergence
+                flags = (~torch.isfinite(loss))[None]
+        else:
+            loss, grads = self._grads(inputs, labels)
+            grads = self._poison_grads(grads, step_no)
+            if self._check_nan_inf or self._anom_rollback:
+                flags = self._nanguard_vec(loss, grads)
+            # the step number lives on the optimizer, so its state_dict
+            # carries it (Adam's bias corrections read it)
+            self.optimizer.apply_gradients(self._train, grads, lr=lr,
+                                           step=step_no)
+        self._step_count = step_no
+        self.optimizer._step_count = step_no
+        return loss, flags
+
+    def _merge_step(self, inputs, labels):
+        """Gradient merge: add this step's gradients to the buffers; on
+        every k-th step update from them and zero them."""
+        loss, grads = self._grads(inputs, labels)
+        flags = self._nanguard_vec(loss, grads) if self._check_nan_inf \
+            else None
+        buf = self._grad_buf
+        with torch.no_grad():
+            if self._anom_skip:
+                # a non-finite micro-batch never enters the buffers; the
+                # update still divides by k
+                an = self._anomaly_state
+                bad = self._found_inf(grads) | ~torch.isfinite(loss)
+                for n, g in grads.items():
+                    buf[n].copy_(torch.where(bad, buf[n], buf[n] + g))
+                self._anomaly_state = {
+                    "t": an["t"],
+                    "skipped": an["skipped"] + bad.to(torch.int32)}
+            else:
+                for n, g in grads.items():
+                    buf[n].add_(g)
+        self._step_count += 1
+        if self._step_count % self.k_steps == 0:
+            with torch.no_grad():
+                if self.gm_avg:
+                    for n in grads:
+                        buf[n].mul_(1.0 / self.k_steps)
+                self.optimizer.apply_gradients(
+                    self._train, {n: buf[n] for n in self._train},
+                    lr=self.optimizer.get_lr(),
+                    step=self._step_count // self.k_steps)
+                for b in buf.values():
+                    b.zero_()
+            self.optimizer._step_count = self._step_count // self.k_steps
+        return loss, flags
 
     @torch.no_grad()
     def eval_step(self, inputs):
@@ -206,13 +508,65 @@ class SpmdTrainer:
             else (inputs,)
         return self._run(self.shard_batch(inputs), training=False)
 
+    # ---- state -------------------------------------------------------
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The parameters and buffers by name (the model's own
+        tensors)."""
+        sd = dict(self.params)
+        sd.update({n: b for n, b in self.model.named_buffers()
+                   if b is not None})
+        return sd
+
+    def save(self, path: str, extra=None, manifest: bool = False) -> str:
+        """Checkpoint the whole training state (parameters, optimizer
+        state, step count, LR scheduler, and the gradient-merge buffers,
+        the fp16 scaler or the skip counters where they exist).
+        ``manifest=True`` writes the checked directory format
+        (``distributed.checkpoint.write_checkpoint``)."""
+        from .checkpoint import save_trainer
+        return save_trainer(self, path, extra=extra, manifest=manifest)
+
+    def load(self, path: str) -> dict:
+        """Restore a ``save()`` checkpoint (either format, also one the
+        JAX package wrote); returns its ``extra`` dict."""
+        from .checkpoint import load_trainer
+        return load_trainer(self, path)
+
+    @property
+    def loss_scale(self) -> Optional[float]:
+        """The current dynamic loss scale (None unless fp16 AMP); reading
+        it is a host sync."""
+        if self._scaler_state is None:
+            return None
+        return float(self._read(self._scaler_state["scale"]))
+
+    @property
+    def last_step_skipped(self) -> bool:
+        """True when the last fp16 step overflowed and was skipped;
+        reading it is a host sync."""
+        if self._scaler_state is None:
+            return False
+        return bool(self._read(self._scaler_state["found_inf"]))
+
     @property
     def stats(self) -> dict:
-        """Step-time breakdown in milliseconds, cumulative since
-        construction: ``data_wait_ms`` (consumer blocked on a
-        prefetcher), ``h2d_ms`` (host time placing batches),
-        ``dispatch_ms`` (host time of the steps: the device runs behind
-        it), ``sync_ms`` (blocked read-backs), ``steps_timed``."""
-        s = {"anomaly_policy": self.anomaly_policy}
+        """The anomaly policy, ``rollback_steps``, ``skipped_steps``
+        (skip: the device counter; fp16: steps whose optimizer count did
+        not advance; reading either is a host sync) and the step-time
+        breakdown in milliseconds, cumulative since construction:
+        ``data_wait_ms`` (consumer blocked on a prefetcher), ``h2d_ms``
+        (host time placing batches), ``dispatch_ms`` (host time of the
+        steps: the device runs behind it), ``sync_ms`` (blocked
+        read-backs), ``steps_timed``."""
+        s = {"anomaly_policy": self.anomaly_policy,
+             "rollback_steps": self._rollback_count}
+        if self._anomaly_state is not None:
+            s["skipped_steps"] = int(
+                self._read(self._anomaly_state["skipped"]))
+        elif self._scaler_state is not None:
+            s["skipped_steps"] = self._step_count - int(
+                self._read(self._scaler_state["t"]))
+        else:
+            s["skipped_steps"] = 0
         s.update(self._timings)
         return s

@@ -5,6 +5,10 @@ jax_model.named_parameters()}``.  Both packages name and lay out GPT
 parameters identically (linear weights ``[in, out]``, embeddings
 ``[vocab, hidden]``), so every JAX name maps to the port parameter of
 the same name and NO tensor is transposed.
+
+``trainer_state_from_paddle_tpu`` carries a whole training state, the
+dict the JAX package's ``snapshot_trainer`` makes (and its checkpoints
+pickle), into the port's ``restore_trainer``.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-__all__ = ["params_from_paddle_tpu", "load_paddle_tpu_params"]
+__all__ = ["params_from_paddle_tpu", "load_paddle_tpu_params",
+           "trainer_state_from_paddle_tpu"]
 
 # every GPT parameter name the port defines
 _NAME = re.compile(
@@ -62,3 +67,42 @@ def load_paddle_tpu_params(model: torch.nn.Module,
                 p.data = p.data.to(dtype)
             p.copy_(t.to(device=p.device, dtype=p.dtype))
     return model
+
+
+# the JAX state's record of its mesh and shardings: no meaning on one
+# device
+_TOPOLOGY_KEYS = ("mesh_axes", "sharding_specs")
+
+
+def _owned(tree):
+    if isinstance(tree, dict):
+        return {k: _owned(v) for k, v in tree.items()}
+    return np.array(tree, copy=True)
+
+
+def trainer_state_from_paddle_tpu(state: dict) -> dict:
+    """The port's trainer state from a JAX ``snapshot_trainer`` dict
+    (numpy): parameters, Adam moments and gradient-merge buffers under
+    the same parameter names, the step count, the LR scheduler's state,
+    the fp16 scaler and the skip counters.  Every parameter name must
+    be one the port defines (``KeyError`` otherwise); the mesh record of
+    a version-2 state is dropped.  Arrays are copied, so the result
+    shares no memory with ``state``."""
+    if state.get("format") != "paddle_tpu_trainer_ckpt_v1":
+        raise ValueError("not a paddle_tpu trainer state")
+    names = set(state["params"]) | set(state["opt_state"]) | \
+        set(state.get("grad_buf") or ())
+    unknown = sorted(n for n in names if not _NAME.match(n))
+    if unknown:
+        raise KeyError(f"no paddle_tpu_torch parameter for: {unknown}")
+    out = {k: v for k, v in state.items() if k not in _TOPOLOGY_KEYS}
+    out["version"] = 1
+    for key in ("params", "opt_state", "buffers", "grad_buf", "scaler",
+                "anomaly"):
+        if key in state:
+            out[key] = _owned(state[key])
+    out["step_count"] = int(state["step_count"])
+    if "lr_scheduler" in state:
+        out["lr_scheduler"] = dict(state["lr_scheduler"])
+    out["extra"] = dict(state.get("extra") or {})
+    return out

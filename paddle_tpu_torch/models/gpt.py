@@ -40,7 +40,7 @@ from torch import nn
 
 from ..core import random as prandom
 from ..device import resolve_device
-from ..distributed.recompute import check_policy, recompute
+from ..distributed.recompute import checkpoint_policy, recompute
 from ..distributed.parallel_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
                                            VocabParallelEmbedding)
@@ -526,14 +526,17 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
                               device=device, dtype=dtype)
         self._recompute = False
+        self._recompute_policy = None
 
     def enable_recompute(self, policy=None):
         """Recompute every block in the backward when training
-        (``torch.utils.checkpoint``): only full recompute is ported; a
-        selective policy name raises (``distributed.recompute``).
-        Parameter names are unchanged."""
-        check_policy(policy)
+        (``torch.utils.checkpoint``), keeping what ``policy`` names
+        (``distributed.recompute.POLICIES``; ``None`` is full recompute,
+        an unknown name raises ``ValueError``).  Parameter names are
+        unchanged."""
+        checkpoint_policy(policy)
         self._recompute = True
+        self._recompute_policy = policy
         return self
 
     def enable_quantize(self, mode: Optional[str] = "int8"):
@@ -577,8 +580,8 @@ class GPTModel(nn.Module):
         pos = torch.arange(s, device=input_ids.device)[None, :]
         x = self._embed(input_ids, pos)
         for blk in self.blocks:
-            x = recompute(blk, x) if self._recompute and self.training \
-                else blk(x)
+            x = recompute(blk, x, policy=self._recompute_policy) \
+                if self._recompute and self.training else blk(x)
         return self.ln_f(x)
 
     # ---- serving path: static KV cache --------------------------------

@@ -12,12 +12,21 @@ Both apply, in the JAX order, gradient clipping, then coupled L2 decay
 Unlike JAX, which returns new arrays, the port updates each parameter
 and its accumulators IN PLACE (no second copy of the optimizer state
 during a step); the new value is cast back to the parameter's dtype.
-Learning rate and bias corrections are Python floats, so a step reads
-nothing back from the device.
+The learning rate is a Python float and the step count a Python int or
+an int32 device tensor (the trainer's under fp16 AMP and the ``skip``
+anomaly policy, which does not advance on a skipped step), so a step
+reads nothing back from the device.
+
+``apply_gradients(..., skip=bad)`` with a device bool scalar keeps each
+parameter and its accumulators as they were where ``bad`` is set: one
+parameter at a time, its old values are copied aside, the update runs
+in place, and ``torch.where(bad, old, new)`` writes the result over
+it (the JAX trainer's select, at the cost of one parameter's copies
+instead of a second optimizer state).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
@@ -69,31 +78,52 @@ class Optimizer:
         return {name: torch.zeros_like(p) for name in self._accum_names}
 
     def _update(self, p: torch.Tensor, g: torch.Tensor,
-                state: Dict[str, torch.Tensor], lr: float, step: int):
+                state: Dict[str, torch.Tensor], lr: float,
+                step: Union[int, torch.Tensor]):
         """Update ``p`` and ``state`` in place."""
         raise NotImplementedError
+
+    def init_state(self, params: Dict[str, torch.Tensor]) -> None:
+        """Create the accumulators of every ``params[n]`` not yet
+        tracked (the trainer does so when it is built, so a checkpoint
+        can be restored before the first step)."""
+        for n, p in params.items():
+            if n not in self._accumulators:
+                self._accumulators[n] = self._init_accumulators(p)
 
     # ---- both paths ----------------------------------------------------
     @torch.no_grad()
     def apply_gradients(self, params: Dict[str, torch.Tensor],
                         grads: Dict[str, torch.Tensor],
                         lr: Optional[float] = None,
-                        step: Optional[int] = None) -> None:
+                        step: Union[int, torch.Tensor, None] = None,
+                        skip: Optional[torch.Tensor] = None) -> None:
         """Clip, decay, update: every ``params[n]`` in place from
-        ``grads[n]``; accumulators live on the optimizer by name."""
+        ``grads[n]``; accumulators live on the optimizer by name.
+        ``skip``: a device bool scalar; where it is set every parameter
+        and accumulator keeps its old value."""
         lr = self.get_lr() if lr is None else float(lr)
-        step = (self._step_count + 1) if step is None else int(step)
+        if step is None:
+            step = self._step_count + 1
+        elif not torch.is_tensor(step):
+            step = int(step)
         if self._grad_clip is not None:
             grads = self._grad_clip.clip_arrays(grads)
         if self._weight_decay is not None and not self._decoupled_wd:
             grads = {n: g + self._weight_decay * params[n]
                      for n, g in grads.items()}
+        self.init_state(params)
         for n, p in params.items():
-            state = self._accumulators.get(n)
-            if state is None:
-                state = self._accumulators[n] = self._init_accumulators(p)
+            state = self._accumulators[n]
             self._cur_param_name = n
+            if skip is None:
+                self._update(p, grads[n], state, lr, step)
+                continue
+            live = [p, *state.values()]
+            old = [t.clone() for t in live]
             self._update(p, grads[n], state, lr, step)
+            for t, o in zip(live, old):
+                torch.where(skip, o, t, out=t)
 
     def step(self):
         """Eager update of the parameters given at construction from

@@ -6,11 +6,10 @@ tensor ops.  Adam in particular is not ``torch.optim.Adam``: it folds
 both bias corrections into one step size,
 ``p -= lr * sqrt(1 - b2^t) / (1 - b1^t) * m1 / (sqrt(m2) + eps)``, so
 eps sits outside the bias correction; the two drift apart over steps.
-Moments are kept in f32.
+Moments are kept in f32, and the bias corrections are computed in f32
+as the JAX step computes them (on the device for a device step count).
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -52,19 +51,37 @@ class Adam(Optimizer):
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._step_size_key = self._step_size_val = None
 
     def _init_accumulators(self, p):
         return {n: torch.zeros_like(p, dtype=torch.float32)
                 for n in self._accum_names}
+
+    def _step_size(self, lr, step):
+        """``lr * sqrt(1 - b2^t) / (1 - b1^t)`` in f32, as the JAX step
+        computes it (``1 - b2^t`` loses digits to cancellation in f32, so
+        the precision shows in the parameters): on the device for a
+        device count, else once per step on the host."""
+        if torch.is_tensor(step):
+            t = step.float()
+        elif self._step_size_key == (lr, step):
+            return self._step_size_val
+        else:
+            t = torch.tensor(float(step))
+        bc1 = 1.0 - torch.pow(self._beta1, t)
+        bc2 = 1.0 - torch.pow(self._beta2, t)
+        size = lr * torch.sqrt(bc2) / bc1
+        if torch.is_tensor(step):
+            return size
+        self._step_size_key, self._step_size_val = (lr, step), size.item()
+        return self._step_size_val
 
     def _update(self, p, g, state, lr, step):
         g32 = g.float()
         m1, m2 = state["moment1"], state["moment2"]
         m1.mul_(self._beta1).add_(g32, alpha=1 - self._beta1)
         m2.mul_(self._beta2).addcmul_(g32, g32, value=1 - self._beta2)
-        bc1 = 1.0 - self._beta1 ** step
-        bc2 = 1.0 - self._beta2 ** step
-        step_size = lr * math.sqrt(bc2) / bc1
+        step_size = self._step_size(lr, step)
         new_p = p.float() - step_size * m1 / (m2.sqrt() + self._epsilon)
         p.copy_(self._extra_decay(new_p, p, lr))
 

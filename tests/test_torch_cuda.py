@@ -940,3 +940,65 @@ def test_megakernel_engine_on_the_card(gen, kw):
     assert kern.launches - n0 == 2 * st["decode_steps"]
     assert da.DECODE_ATTENTION.launches + \
         da.PAGED_DECODE_ATTENTION_Q.launches == d0
+
+
+def _train_pair_model(gen, **strategy):
+    """A 2-layer GPT (D = 128) on the card behind ``SpmdTrainer`` with
+    AMP; ``strategy`` keys are set on its DistributedStrategy."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    cfg = GPTConfig(vocab_size=1024, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256, fused_ce=True)
+    model = GPTForCausalLM(cfg, device="cuda",
+                           generator=prandom.seed(7, "cuda"))
+    st = DistributedStrategy()
+    st.amp = True
+    for k, v in strategy.items():
+        setattr(st, k, v)
+    crit = GPTPretrainingCriterion()
+    return model, SpmdTrainer(model, topt.Adam(learning_rate=1e-3),
+                              lambda o, lab: crit(o, lab), strategy=st)
+
+
+def _token_batch(gen, b=2, s=256, v=1024):
+    ids = torch.randint(0, v, (b, s), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    return ids, torch.roll(ids, -1, 1)
+
+
+def test_fp16_train_step_runs_the_kernels_without_a_host_sync(gen):
+    from paddle_tpu_torch.distributed import async_dispatch
+    from paddle_tpu_torch.ops import KERNELS
+    model, tr = _train_pair_model(
+        gen, amp_configs={"use_bf16": False, "init_loss_scaling": 1024.0})
+    batches = [_token_batch(gen) for _ in range(3)]
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    async_dispatch.reset_host_sync_count()
+    results = [tr.train_step(*b) for b in batches]
+    assert async_dispatch.host_sync_count() == 0
+    for src in ("flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu"):
+        assert KERNELS[src].launches == 2 * 3, src
+    losses = [float(r) for r in results]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert tr.amp_dtype == torch.float16 and tr.loss_scale == 1024.0
+    assert tr.stats["skipped_steps"] == 0
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def test_dots_recompute_gradients_equal_no_recompute_on_the_card(gen):
+    ids, labels = _token_batch(gen)
+    grads = []
+    for strategy in ({}, {"recompute": True,
+                          "recompute_configs": {"policy": "dots"}}):
+        model, tr = _train_pair_model(gen, **strategy)
+        tr.train_step(ids, labels)
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    assert model.gpt._recompute_policy == "dots"
+    for n, g in grads[0].items():
+        assert torch.equal(grads[1][n], g), n

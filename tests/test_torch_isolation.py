@@ -62,6 +62,31 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "[]"
 
 
+# the training-step slice's modules, each loaded alone
+NEW_MODULES = ["paddle_tpu_torch.core.flags", "paddle_tpu_torch.testing.faults",
+               "paddle_tpu_torch.amp", "paddle_tpu_torch.amp.grad_scaler",
+               "paddle_tpu_torch.distributed.checkpoint",
+               "paddle_tpu_torch.distributed.resilience"]
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_module_alone_loads_no_jax(module):
+    path = ROOT / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = ROOT / module.replace(".", "/") / "__init__.py"
+    assert not [m for m in imported_modules(path) if _forbidden(m)]
+    code = ("import sys, importlib; before = set(sys.modules); "
+            f"importlib.import_module({module!r}); "
+            "print(sorted(m for m in set(sys.modules) - before "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu')))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_card_path_names_no_library_attention_or_compile():
     for path in PORT_FILES:
         text = path.read_text()
