@@ -112,10 +112,19 @@ before the result lines:
    ``deadline_s=0.0`` (all time out empty), C 24 requests without a
    shared prefix at 2 rps on a dense engine with ``prefill_chunk=512``
    beside a monolithic one (ITL p99 of both, no prefill stall when
-   chunked); warmup-check: a child process (``--warmup-check``) builds
+   chunked); serve-telemetry: the dense and the paged bf16 engine after
+   ``warmup()``, serve's 16 prompts with 32 greedy new tokens, telemetry
+   off and then on (tracer, metrics, flight recorder, a 120 s watchdog,
+   ``PADDLE_TPU_PROFILE=8:12``), each run under a capture over decode
+   ticks 8-11: the same streams, host reads, ``host_sync_count()`` delta
+   and blocking CUDA calls per tick on and off, the request tracks, the
+   layout's decode kernel by name in the capture, the registry against
+   ``stats()``, the ledger against the tensors' bytes, a forced
+   flight-recorder bundle; tokens/s on and off in turns;
+   warmup-check: a child process (``--warmup-check``) builds
    gpt3-1.3b at 2 layers, warms a dense and a paged engine and serves 8
-   requests through each: no CUDA library may load or build after the
-   warmups;
+   requests through each with the tracer, metrics and watchdog armed: no
+   CUDA library may load or build after the warmups;
 14. profile: device time against wall time of steady decode steps
    (torch.profiler), the top kernels by device time, for the dense, the
    paged, and the int8 dense and paged engines, a chunked step, a spec
@@ -155,17 +164,24 @@ before the result lines:
 21. train-checkpoint: 2 layers at full width (the depth cut for disk and
    time): ``save(manifest=True)``, a fresh trainer ``load``s it and
    continues bitwise, ``CheckpointManager(keep_last=2)`` over 3
-   asynchronous saves; bytes and seconds.
+   asynchronous saves; bytes and seconds;
+22. train-telemetry: train's bf16 trainer built twice, telemetry off
+   and on, 3 steps each after a warm-up (no host sync; the on trainer's
+   ``h2d``, ``dispatch`` and ``sync`` spans, ``train_steps_total``, a
+   capture over steps 2-3 naming the flash forward and both backward
+   kernels), step ms in turns; a 2-layer rollback run's bundle.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import importlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2201,7 +2217,6 @@ def phase_serve_lifecycle(model):
     ``drain(timeout_s=0.0)`` force-retires live slots with partial output.
     Each part: one host read per decode step and admission, launches as
     ``drive`` counts them."""
-    import os
     import signal
     from paddle_tpu_torch.distributed import PreemptionGuard
     from paddle_tpu_torch.inference import InferenceEngine
@@ -2417,14 +2432,292 @@ def phase_serve_loadtest(model, smi):
     return total
 
 
+TELEMETRY_ENV = {
+    True: {"PADDLE_TPU_METRICS": "1", "PADDLE_TPU_FLIGHTREC": "1",
+           "PADDLE_TPU_WATCHDOG_S": "120"},
+    False: {"PADDLE_TPU_METRICS": "0", "PADDLE_TPU_FLIGHTREC": "0",
+            "PADDLE_TPU_WATCHDOG_S": ""},
+}
+
+
+@contextlib.contextmanager
+def telemetry(on):
+    """Telemetry on (the metrics registry, the flight recorder, a 120 s
+    stall watchdog, the span tracer armed) or off (all four off) for the
+    block; the previous settings come back after it."""
+    from paddle_tpu_torch.observability import spans
+    env = TELEMETRY_ENV[on]
+    old = {k: os.environ.get(k) for k in env}
+    tr = spans.tracer()
+    was = tr.active
+    os.environ.update(env)
+    tr.active = on
+    try:
+        yield
+    finally:
+        tr.active = was
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def count_window_prefills(eng):
+    """Note the engine's prefill count when its capture window opens and
+    closes (``{"_start": n, "_stop": m}``)."""
+    w, seen = eng._profile, {}
+    for name in ("_start", "_stop"):
+        def wrapped(orig=getattr(w, name), name=name):
+            seen[name] = eng._timings["prefills"]
+            orig()
+        setattr(w, name, wrapped)
+    return seen
+
+
+BLOCKING_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize")
+
+
+def read_capture(path, steps):
+    """A torch.profiler Chrome trace (the one a capture window wrote):
+    device kernel names, kernel ms and wall ms (first event to last) per
+    step, the busy share, and per step the blocking runtime calls and
+    the device-to-pageable copies."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    wall = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) / 1e3
+    busy = sum(e["dur"] for e in kernels) / 1e3
+    return {
+        "names": sorted({e["name"] for e in kernels}),
+        "kernel_ms": busy / steps, "wall_ms": wall / steps,
+        "busy_share": busy / wall,
+        "blocking": sum(e.get("cat") == "cuda_runtime"
+                        and e["name"] in BLOCKING_CALLS
+                        for e in events) / steps,
+        "pageable": sum(e.get("cat") == "gpu_memcpy" and "Pageable"
+                        in e["name"] for e in events) / steps,
+    }
+
+
+def has_kernel(names, *parts):
+    return any(all(p in n for p in parts) for n in names)
+
+
+def timed_run(eng, prompts, new_tokens):
+    """One greedy run of ``prompts`` on a warmed engine (the radix cache
+    flushed first); returns tokens/s and the streams."""
+    eng.flush_prefix_cache()
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [out.pop(r).tolist() for r in rids]
+    return sum(map(len, streams)) / wall, streams
+
+
+def phase_serve_telemetry(model, smi):
+    """Telemetry on the serving path: gpt3-1.3b (full width and depth),
+    8 slots, serve's 16 prompts with 32 new greedy tokens, a dense and a
+    paged (blocks of 128) bf16 engine after ``warmup()``, each run with
+    telemetry off and then on (tracer, metrics, flight recorder, a 120 s
+    watchdog and ``PADDLE_TPU_PROFILE=8:12:<dir>``: a capture over decode
+    ticks 8-11).  The off run carries the same capture window, as the
+    measuring instrument only.  Checks: identical greedy streams, one
+    host read per decode step and admission and the same
+    ``host_sync_count()`` delta on and off; the same blocking CUDA
+    runtime calls and device-to-pageable copies per tick in both
+    captures; the tracer's export validates with one track per request
+    (queued, prefill, decode); the capture holds the layout's decode
+    kernel (and the flash forward where an admission fell in the
+    window); the registry's tick, token and prefill counters equal
+    ``stats()``; the ledger's params and KV-cache bytes equal the
+    tensors'; ``stats()["doctor"]`` is a list; a forced flight-recorder
+    dump loads back with the decode ticks in its ring.  Then tokens/s on
+    and off in turns (three rounds of off, on, on, off), beside the
+    card."""
+    import shutil
+    from paddle_tpu_torch.distributed import async_dispatch
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.observability import ProfileWindow, flightrec, spans
+    tag = "serve-telemetry"
+    prompts = serve_prompts(model.cfg.vocab_size)
+    new = 32
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_telemetry")
+    shutil.rmtree(root, ignore_errors=True)
+    paths, problems, ratios = {}, [], {}
+    tr = spans.tracer()
+    try:
+        for layout in ("dense", "paged"):
+            kw = dict(kv_layout="paged", kv_block_size=128) \
+                if layout == "paged" else {}
+            runs = {}
+            engines = {}
+            for on in (False, True):
+                side = "on" if on else "off"
+                logdir = os.path.join(root, f"{layout}-{side}")
+                with telemetry(on):
+                    os.environ["PADDLE_TPU_PROFILE"] = f"8:12:{logdir}"
+                    try:
+                        eng = InferenceEngine(model, batch_slots=8, seed=7,
+                                              device="cuda", **kw)
+                    finally:
+                        del os.environ["PADDLE_TPU_PROFILE"]
+                    eng.warmup(eng.buckets)
+                    engines[on] = eng
+                    if not (isinstance(eng._profile, ProfileWindow)
+                            and (eng._profile.start, eng._profile.stop)
+                            == (8, 12)):
+                        problems.append(f"{layout} {side}: no capture "
+                                        f"window from PADDLE_TPU_PROFILE")
+                    window = count_window_prefills(eng)
+                    tr.clear()
+                    flightrec.recorder().ring.clear()
+                    rids = [eng.add_request(p, max_new_tokens=new)
+                            for p in prompts]
+                    s0 = async_dispatch.host_sync_count()
+                    out, launches, d, bad = measured(
+                        f"{tag} {layout} {side}", eng, eng.run)
+                    syncs = async_dispatch.host_sync_count() - s0
+                    problems += bad
+                    paths[f"{tag}-{layout}-{side}"] = launches
+                    st = eng.stats()
+                    cap = read_capture(eng._profile.trace_path, 4)
+                    runs[on] = dict(streams=[out[r].tolist() for r in rids],
+                                    syncs=syncs, d=d, st=st, cap=cap,
+                                    window=dict(window))
+                    log(f"[{tag}] {layout} {side}: capture "
+                        f"{eng._profile.trace_path}: per decode tick "
+                        f"{cap['kernel_ms']:.3f} ms of device kernels in "
+                        f"{cap['wall_ms']:.3f} ms (busy share "
+                        f"{cap['busy_share']:.3f}), {cap['blocking']:.2f} "
+                        f"blocking runtime calls and {cap['pageable']:.2f} "
+                        f"device-to-pageable copies; {len(cap['names'])} "
+                        f"kernel names; host_sync_count delta {syncs} over "
+                        f"{d['decode_steps']} decode steps and "
+                        f"{d['prefills']} admissions; prefills at the "
+                        f"window's open/close {window} (card: {smi})")
+                    if on:
+                        problems += check_serve_telemetry(
+                            tag, layout, eng, st, d, cap, window, rids,
+                            root)
+            off, on_ = runs[False], runs[True]
+            if on_["streams"] != off["streams"]:
+                problems.append(f"{layout}: streams differ on and off")
+            for name, r in (("off", off), ("on", on_)):
+                if r["d"]["decode_host_syncs"] != r["d"]["decode_steps"]:
+                    problems.append(f"{layout} {name}: decode syncs "
+                                    f"{r['d']['decode_host_syncs']} over "
+                                    f"{r['d']['decode_steps']} steps")
+            if on_["syncs"] != off["syncs"]:
+                problems.append(f"{layout}: host_sync_count delta "
+                                f"{on_['syncs']} on, {off['syncs']} off")
+            keys = ("blocking", "pageable")
+            if [on_["cap"][k] for k in keys] != [off["cap"][k] for k in keys] \
+                    or not off["cap"]["blocking"] >= 1:
+                problems.append(f"{layout}: blocking calls per tick on "
+                                f"{[on_['cap'][k] for k in keys]}, off "
+                                f"{[off['cap'][k] for k in keys]}")
+            # tokens/s in turns on the warmed engines: three rounds of
+            # off, on, on, off
+            tps = {False: [], True: []}
+            for on in (False, True, True, False) * 3:
+                with telemetry(on):
+                    rate, streams = timed_run(engines[on], prompts, new)
+                tps[on].append(rate)
+                if streams != off["streams"]:
+                    problems.append(f"{layout}: a timed run's streams "
+                                    f"differ")
+            ratios[layout] = np.median(tps[True]) / np.median(tps[False])
+            log(f"[{tag}] {layout}: tokens/s in turns (median) off "
+                f"{[round(x, 1) for x in tps[False]]}, on "
+                f"{[round(x, 1) for x in tps[True]]}: on/off "
+                f"{ratios[layout]:.4f} (card: {smi})")
+            for eng in engines.values():
+                if eng.watchdog is not None:
+                    eng.watchdog.disarm()
+            del engines, eng
+            del_all()
+    finally:
+        tr.stop()
+        tr.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    finish(tag, problems)
+    return paths
+
+
+def check_serve_telemetry(tag, layout, eng, st, d, cap, window, rids, root):
+    """The telemetry-on run's own checks (see phase_serve_telemetry)."""
+    from paddle_tpu_torch.observability import (flightrec, spans,
+                                                validate_chrome_trace)
+    problems = []
+    doc = spans.tracer().chrome_trace()
+    n = validate_chrome_trace(doc)
+    tracks = {}
+    for e in doc["traceEvents"]:
+        if e.get("pid") == spans.PID_REQUESTS and e["ph"] in ("X", "i"):
+            tracks.setdefault(e["tid"], []).append(e["name"])
+    if sorted(tracks) != sorted(rids) or any(
+            t[:3] != ["queued", "prefill", "decode"]
+            for t in tracks.values()):
+        problems.append(f"{layout}: request tracks {tracks}")
+    ticks = sum(e["name"] == "decode_tick" for e in doc["traceEvents"])
+    paged = layout == "paged"
+    decode = has_kernel(cap["names"], "decode_attn::decode_kernel",
+                        "true>" if paged else "false>")
+    flash = has_kernel(cap["names"], "attn_fwd_kernel")
+    admitted = window["_stop"] - window["_start"]
+    if not decode or (admitted and not flash):
+        problems.append(f"{layout}: capture kernels {cap['names']}")
+    registry = (eng._m_ticks.value, eng._m_tokens.value,
+                eng._m_prefills.value)
+    want = (st["decode_steps"], st["tokens_generated"], st["prefills"])
+    if registry != want or ticks != d["decode_steps"]:
+        problems.append(f"{layout}: registry {registry} != stats {want}, "
+                        f"{ticks} decode_tick spans")
+    mine = {t["category"]: t["bytes"] for t in st["hbm"]["tracked"]
+            if t["name"] == eng.telemetry_label}
+    params = sum(p.numel() * p.element_size()
+                 for p in eng.model.parameters())
+    if (mine.get("params"), mine.get("kv_cache")) != \
+            (params, cache_bytes(eng.cache)):
+        problems.append(f"{layout}: ledger {mine}")
+    if not isinstance(st["doctor"], list) or eng.watchdog is None \
+            or eng.watchdog.stalls:
+        problems.append(f"{layout}: doctor {st['doctor']!r}, watchdog "
+                        f"{eng.watchdog}")
+    path = flightrec.dump("smoke", directory=root)
+    ring = [e["kind"] for e in
+            flightrec.load_bundle(path)["bundle"]["ring"]]
+    if ring.count("decode_tick") != min(d["decode_steps"], 256):
+        problems.append(f"{layout}: bundle ring {ring[:8]}...")
+    log(f"[{tag}] {layout} on: {n} trace events, {len(tracks)} request "
+        f"tracks, {ticks} decode_tick spans; registry ticks/tokens/prefills "
+        f"{registry}; ledger params {mine.get('params')} kv_cache "
+        f"{mine.get('kv_cache')} bytes (capacity "
+        f"{st['hbm']['capacity_bytes']}); doctor {st['doctor']}; bundle "
+        f"{path} with {len(ring)} ring entries; decode kernel in the "
+        f"capture {decode}, flash forward {flash} ({admitted} admissions "
+        f"in the window)")
+    return problems
+
+
 def warmup_check():
     """In a fresh process: gpt3-1.3b at 2 layers on the card, ``warmup()``
     on a dense and a paged engine, then 8 requests through each; fails if
-    serving loaded or built any CUDA library after the warmups."""
+    serving loaded or built any CUDA library after the warmups.  The
+    parent arms the tracer, the metrics and the watchdog (no capture
+    window): telemetry must load nothing either."""
     import dataclasses
     from paddle_tpu_torch.core import random as prandom
     from paddle_tpu_torch.inference import InferenceEngine
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_configs
+    from paddle_tpu_torch.observability import spans
     from paddle_tpu_torch.ops import _build
     cfg = dataclasses.replace(gpt_configs()["gpt3-1.3b"], num_layers=2)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
@@ -2457,13 +2750,24 @@ def warmup_check():
     if after != libs or builds or sorted(_build._LOGS) != logs:
         raise SystemExit("warmup-check: serving loaded or built a library "
                          "after warmup")
+    armed = (spans.tracer().active, len(spans.tracer()) > 0,
+             [eng.watchdog is not None for eng in engines],
+             [eng._m_ticks.value > 0 for eng in engines])
+    log(f"[warmup-check] telemetry armed: tracer active, spans recorded, "
+        f"watchdogs, registry ticks {armed}")
+    if armed != (True, True, [True, True], [True, True]):
+        raise SystemExit("warmup-check: telemetry was not armed")
     log("[warmup-check] ok")
 
 
 def phase_warmup_child():
     t0 = time.perf_counter()
+    env = dict(os.environ, PADDLE_TPU_SPANS="1", PADDLE_TPU_METRICS="1",
+               PADDLE_TPU_WATCHDOG_S="120")
+    env.pop("PADDLE_TPU_PROFILE", None)
     proc = subprocess.run([sys.executable, __file__, "--warmup-check"],
-                          capture_output=True, text=True, timeout=600)
+                          capture_output=True, text=True, timeout=600,
+                          env=env)
     for line in proc.stdout.splitlines():
         log(f"  {line}")
     if proc.returncode != 0:
@@ -3090,7 +3394,6 @@ def phase_train_fp16(bf16, smi):
     on every step not skipped, falling over the run; then a 2-layer run
     with PADDLE_FAULT_NAN_STEP armed: the poisoned step is skipped, the
     optimizer's t held, and two overflows in a row halve the scale."""
-    import os
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.distributed import async_dispatch
     from paddle_tpu_torch.io import DevicePrefetcher
@@ -3334,7 +3637,6 @@ def phase_train_anomaly(bf16, smi):
     sync a step, the run equal to one that never saw the batch; the
     snapshot's bytes and its cost a step); FLAGS_check_nan_inf at 2
     layers (raises naming every poisoned gradient)."""
-    import os
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.core import flags, errors
     from paddle_tpu_torch.distributed import async_dispatch
@@ -3457,7 +3759,6 @@ def phase_train_checkpoint(bf16, smi):
     trainer loads it and its next 2 losses equal the uninterrupted
     trainer's bitwise; a CheckpointManager(keep_last=2) over 3 async
     saves keeps the newest 2, both valid.  Bytes and seconds printed."""
-    import os
     import shutil
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.distributed import CheckpointManager, checkpoint
@@ -3515,6 +3816,137 @@ def phase_train_checkpoint(bf16, smi):
     return {}
 
 
+def phase_train_telemetry(bf16, smi):
+    """Telemetry on the training path: the bf16 trainer of ``train``
+    (gpt3-1.3b, full depth, 4 x 2048, Adam) built twice from one seed,
+    with telemetry off and on (tracer, metrics, flight recorder, a 120 s
+    watchdog, ``PADDLE_TPU_PROFILE=2:4:<dir>``).  Each takes a warm-up
+    step, then 3 steps: no host sync in either, the on trainer's
+    ``h2d``, ``dispatch`` and (reading the loss) ``sync`` spans,
+    ``train_steps_total`` moved by the step count, its capture over
+    steps 2-3 holding the flash forward and both backward kernels by
+    name; then step ms off and on in turns (off, on, on, off, 2 steps
+    each).  Last, at 2 layers and 2 x 512 (the depth cut for time, as
+    train-anomaly's), a rollback run leaves a ``rollback`` bundle whose
+    events end in ``anomaly_rollback``, read back by the bundle
+    reader."""
+    import shutil
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import async_dispatch
+    from paddle_tpu_torch.observability import flightrec, spans
+    tag = "train-telemetry"
+    cfg = full_cfg()
+    ids, labels = token_batch(np.random.RandomState(0), cfg.vocab_size, 4,
+                              2048)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_train_telemetry")
+    shutil.rmtree(root, ignore_errors=True)
+    tr = spans.tracer()
+    problems, paths, trainers = [], {}, {}
+    try:
+        for on in (False, True):
+            with telemetry(on):
+                if on:
+                    os.environ["PADDLE_TPU_PROFILE"] = f"2:4:{root}"
+                try:
+                    trainers[on] = make_trainer(
+                        cfg, 4321, topt.Adam(learning_rate=1e-4))[1]
+                finally:
+                    os.environ.pop("PADDLE_TPU_PROFILE", None)
+                trainers[on].train_step(ids, labels)          # warm-up
+        for on in (False, True):
+            trainer = trainers[on]
+            with telemetry(on):
+                tr.clear()
+                steps0 = trainer._m_steps.value
+                torch.cuda.synchronize()
+                zero_launches()
+                async_dispatch.reset_host_sync_count()
+                out = [trainer.train_step(ids, labels) for _ in range(3)]
+                torch.cuda.synchronize()
+                syncs = async_dispatch.host_sync_count()
+                launches = read_launches()
+                if on:
+                    trainer._profile.close()     # after steps 2 and 3
+                loss = float(out[-1])
+                names = {e["name"] for e in tr.chrome_trace()["traceEvents"]
+                         if e["ph"] == "X"}
+            side = "on" if on else "off"
+            paths[f"{tag}-{side}"] = launches
+            ok = (syncs == 0 and np.isfinite(loss)
+                  and all(launches[k] == 3 * cfg.num_layers for k in FLASH))
+            if on:
+                cap = read_capture(trainer._profile.trace_path, 2)
+                kernels = [has_kernel(cap["names"], k) for k in (
+                    "attn_fwd_kernel", "flash_bwd_dq_kernel",
+                    "flash_bwd_dkv_kernel")]
+                ok = (ok and {"h2d", "dispatch", "sync"} <= names
+                      and trainer._m_steps.value - steps0 == 3
+                      and all(kernels) and trainer.watchdog is not None
+                      and not trainer.watchdog.stalls)
+                log(f"[{tag}] on: capture {trainer._profile.trace_path}: "
+                    f"per step {cap['kernel_ms']:.3f} ms of device kernels "
+                    f"in {cap['wall_ms']:.3f} ms (busy share "
+                    f"{cap['busy_share']:.3f}); flash fwd/dq/dkv in it "
+                    f"{kernels}; spans {sorted(names)}; train_steps_total "
+                    f"+{trainer._m_steps.value - steps0:g}; doctor "
+                    f"{trainer.stats['doctor']} (card: {smi})")
+            log(f"[{tag}] {side}: 3 steps, host syncs {syncs}, last loss "
+                f"{loss:.4f}, launches {launches} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                problems.append(f"{side} run")
+        ms = {False: [], True: []}
+        for on in (False, True, True, False):
+            with telemetry(on):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(2):
+                    trainers[on].train_step(ids, labels)
+                torch.cuda.synchronize()
+            ms[on].append((time.perf_counter() - t0) * 1e3 / 2)
+        log(f"[{tag}] step ms in turns off {[round(x, 3) for x in ms[False]]}"
+            f", on {[round(x, 3) for x in ms[True]]}: on/off "
+            f"{np.mean(ms[True]) / np.mean(ms[False]):.4f} (train phase "
+            f"{bf16['step_ms']:.3f}; card: {smi})")
+        for trainer in trainers.values():
+            if trainer.watchdog is not None:
+                trainer.watchdog.disarm()
+        del trainers, trainer, out
+        del_all()
+
+        small = full_cfg(2)
+        rng = np.random.RandomState(9)
+        batches = [token_batch(rng, small.vocab_size, 2, 512)
+                   for _ in range(3)]
+        batches[1][1][0, 0] = SENTINEL
+        os.environ["PADDLE_TPU_FLIGHTREC_DIR"] = root
+        try:
+            with telemetry(True):
+                _, rb = make_trainer(small, 11, topt.Adam(learning_rate=1e-4),
+                                     anomaly_policy="rollback",
+                                     wrap_loss=bomb_loss)
+                for x, y in batches:
+                    rb.train_step(x, y)
+        finally:
+            del os.environ["PADDLE_TPU_FLIGHTREC_DIR"]
+        found = flightrec.find_bundles(root, reason="rollback")
+        events = [[e["kind"] for e in
+                   flightrec.load_bundle(p)["bundle"]["events"]]
+                  for p in found]
+        ok = (rb.stats["rollback_steps"] == 1 and len(found) == 1
+              and events[0][-1] == "anomaly_rollback")
+        log(f"[{tag}] rollback, 2 layers, 2 x 512: bundles {found}, events "
+            f"{events} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append("rollback bundle")
+    finally:
+        tr.stop()
+        tr.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    finish(tag, problems)
+    return paths
+
+
 def main():
     name, count, smi = phase_device()
     t0 = time.perf_counter()
@@ -3545,6 +3977,7 @@ def main():
     paths["serve-loadtest"] = phase_serve_loadtest(model, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(phase_serve_telemetry(model, smi))
     phase_warmup_child()
     phase_teacher_forced(model)
     phase_teacher_mega_quant(model)
@@ -3562,7 +3995,7 @@ def main():
     paths["train"] = bf16["launches"]
     for phase in (phase_train_fp16, phase_train_recompute_policies,
                   phase_train_merge, phase_train_anomaly,
-                  phase_train_checkpoint):
+                  phase_train_checkpoint, phase_train_telemetry):
         del_all()
         paths.update(phase(bf16, smi))
     for key, rec in records.items():

@@ -14,11 +14,16 @@ and decode-attention kernels, and the single-GPU GPT training step
 (``distributed.SpmdTrainer``: bf16 or fp16 AMP with dynamic loss
 scaling, gradient merge, selective recompute, the skip / rollback
 anomaly policies, checkpoints; ``optimizer``, ``io.DevicePrefetcher``,
-the fused cross-entropy) with the flash-attention backward kernels.
+the fused cross-entropy) with the flash-attention backward kernels, and
+their telemetry (``observability``: the metrics registry, spans, capture
+windows, the flight recorder, the stall watchdog, the step-kind
+registry and HBM ledger, the doctor and the SLO monitor; ``profiler``:
+``RecordEvent``, ``torch.profiler`` capture control, ``StepTimer``).
 """
 from . import (amp, core, device, distributed, inference, io, models, nn,
-               ops, optimizer, testing)
+               observability, ops, optimizer, profiler, testing)
 from .device import resolve_device
 
 __all__ = ["amp", "core", "device", "distributed", "inference", "io",
-           "models", "nn", "ops", "optimizer", "resolve_device", "testing"]
+           "models", "nn", "observability", "ops", "optimizer", "profiler",
+           "resolve_device", "testing"]

@@ -25,6 +25,11 @@ Two on-disk formats:
 The JAX package's version-2 states also record the mesh and each leaf's
 sharding; on one device that record is read and ignored, and the port
 writes version 1 (no record).
+
+Telemetry: ``save_trainer`` counts ``checkpoint_saves_total`` (label
+``format``) and sets ``checkpoint_save_ms``, ``load_trainer`` counts
+``checkpoint_restores_total`` and sets ``checkpoint_restore_ms``; the
+flight recorder notes each save and restore.
 """
 from __future__ import annotations
 
@@ -33,11 +38,14 @@ import json
 import os
 import pickle
 import shutil
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..observability import flightrec as _flightrec
+from ..observability import metrics as _metrics
 from ..optimizer.lr import LRScheduler
 
 __all__ = ["save_trainer", "load_trainer", "latest_checkpoint",
@@ -175,6 +183,9 @@ def restore_trainer(trainer, state: dict) -> dict:
     lr = getattr(opt, "_lr", None)
     if isinstance(lr, LRScheduler) and "lr_scheduler" in state:
         lr.set_state_dict(state["lr_scheduler"])
+    # one device: a checkpoint is never resharded
+    _flightrec.note_event("checkpoint_restore", step=trainer._step_count,
+                          resharded=False)
     return state.get("extra", {})
 
 
@@ -340,21 +351,36 @@ def save_trainer(trainer, path: str, extra: Optional[dict] = None,
                  manifest: bool = False) -> str:
     """Persist a trainer's whole training state: the single file, or
     with ``manifest=True`` the checked directory."""
+    t0 = time.perf_counter()
     state = snapshot_trainer(trainer, extra=extra)
     if manifest:
         write_checkpoint(state, path)
     else:
         _write_file(state, path)
+    ms = (time.perf_counter() - t0) * 1e3
+    _metrics.counter("checkpoint_saves_total", "trainer checkpoints "
+                     "written", labels=("format",)).labels(
+        format="manifest" if manifest else "pickle").inc()
+    _metrics.gauge("checkpoint_save_ms", "last checkpoint save wall "
+                   "time").set(ms)
+    _flightrec.note_event("checkpoint_save", path=str(path),
+                          ms=round(ms, 2))
     return path
 
 
 def load_trainer(trainer, path: str) -> dict:
     """Restore a checkpoint of either format into a built trainer;
     returns its ``extra`` dict."""
+    t0 = time.perf_counter()
     state = read_checkpoint(path)
     if not isinstance(state, dict) or state.get("format") != _FORMAT:
         raise ValueError(f"{path} is not a {_FORMAT} checkpoint")
-    return restore_trainer(trainer, state)
+    out = restore_trainer(trainer, state)
+    _metrics.counter("checkpoint_restores_total",
+                     "trainer checkpoints restored").inc()
+    _metrics.gauge("checkpoint_restore_ms", "last checkpoint restore "
+                   "wall time").set((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def latest_checkpoint(directory: str, prefix: str = "ckpt-",

@@ -8,8 +8,8 @@ loop or a serving engine polls, so the in-flight work drains and the
 process exits cleanly.  ``InferenceEngine.attach_preemption_guard``
 hooks it into serving: once it fires, the engine stops admitting,
 finishes its in-flight slots and parks the queue in ``undelivered``.
-The JAX package's guard also dumps its flight recorder when the signal
-arrives; the port has no flight recorder yet.
+When the signal arrives the guard notes a ``preemption`` event and dumps
+a ``sigterm`` flight-recorder bundle before anything drains.
 """
 from __future__ import annotations
 
@@ -56,6 +56,11 @@ class PreemptionGuard:
             return
         self.signum = signum
         self._event.set()
+        # the black box before the drain: the bundle exists even if the
+        # drain or the checkpoint after it wedges (dump never raises)
+        from ..observability import flightrec
+        flightrec.note_event("preemption", signum=int(signum))
+        flightrec.dump("sigterm")
 
     def install(self) -> "PreemptionGuard":
         if threading.current_thread() is not threading.main_thread():

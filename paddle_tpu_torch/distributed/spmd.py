@@ -45,6 +45,16 @@ The merge, fp16 and skip paths read nothing back per step; rollback and
 the nan guard read one flag vector.  ``loss_scale``, ``last_step_skipped``
 and ``stats`` read the device state and count a host sync each.
 
+Telemetry (``observability``, host arithmetic only, no device read): a
+``StepTimer`` and the ``train_*`` metrics (label ``trainer="spmd"``); with
+the span tracer armed the ``h2d``, ``dispatch`` and ``sync`` spans; a
+flight-recorder record per step, and on a rollback an
+``anomaly_rollback`` event and a ``rollback`` bundle; the stall watchdog
+(``PADDLE_TPU_WATCHDOG_S``) beaten per step; a ``PADDLE_TPU_PROFILE``
+capture window over steps; the step-kind registry and the HBM ledger's
+params, optimizer-state, buffer and gradient-merge lines;
+``stats["exec_profile"]``, ``["hbm"]`` and ``["doctor"]``.
+
 Every enabled strategy flag is either supported or raises, as in the
 JAX trainer.  Supported here: ``amp``, ``recompute`` (every policy of
 ``distributed.recompute``; policy ``None`` is full recompute, as the JAX
@@ -54,6 +64,7 @@ Multi-device flags raise with a pointer to ROADMAP.md.
 """
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -62,6 +73,14 @@ import torch
 
 from ..core.errors import PreconditionNotMetError
 from ..core.flags import GLOBAL_FLAGS
+from ..observability import doctor as _doctor
+from ..observability import exec_registry as _exec_registry
+from ..observability import flightrec as _flightrec
+from ..observability import metrics as _metrics
+from ..observability import spans as _spans
+from ..observability import watchdog as _watchdog
+from ..observability.capture import ProfileWindow
+from ..profiler import StepTimer
 from ..testing import faults
 from .async_dispatch import StepResult, record_host_sync
 from .fleet.strategy import DistributedStrategy
@@ -73,6 +92,8 @@ __all__ = ["SpmdTrainer"]
 _MOOT = {"find_unused_parameters", "fuse_all_reduce_ops",
          "use_hierarchical_allreduce"}
 _SUPPORTED = {"amp", "recompute", "qat", "gradient_merge"}
+# one telemetry label per trainer
+_TRAINER_IDS = itertools.count()
 
 
 class SpmdTrainer:
@@ -220,6 +241,43 @@ class SpmdTrainer:
         if self.k_steps > 1:
             self._grad_buf = {n: torch.zeros_like(p)
                               for n, p in self._params.items()}
+        self._init_telemetry()
+
+    def _init_telemetry(self):
+        """The step timer, registry children bound once, the capture
+        window over steps, the ledger's lines and the crash hooks; the
+        watchdog starts on the first step when ``PADDLE_TPU_WATCHDOG_S``
+        arms it."""
+        self.step_timer = StepTimer(warmup=1)
+        self.step_timer.start()
+        self._profile = ProfileWindow.from_env(kind="train")
+        lbl = {"trainer": "spmd"}
+        self._m_steps = _metrics.counter(
+            "train_steps_total", "completed train steps",
+            labels=("trainer",)).labels(**lbl)
+        self._m_step_ms = _metrics.gauge(
+            "train_step_time_ms", "last per-step wall time (host)",
+            labels=("trainer",)).labels(**lbl)
+        self._m_step_hist = _metrics.histogram(
+            "train_step_ms", "per-step wall time",
+            labels=("trainer",)).labels(**lbl)
+        _flightrec.install()
+        self.watchdog: Optional[_watchdog.Watchdog] = None
+        self._wd_checked = False
+        self.telemetry_label = f"s{next(_TRAINER_IDS)}"
+        self._exec_component = f"trainer:{self.telemetry_label}"
+        label = self.telemetry_label
+        tb = _exec_registry.tree_bytes
+        _exec_registry.track_bytes(self, "params", label, tb(self._params))
+        _exec_registry.track_bytes(
+            self, "opt_state", label,
+            tb([self.optimizer._accumulators[n] for n in self._train]))
+        buffers = [b for _, b in self.model.named_buffers()]
+        if buffers:
+            _exec_registry.track_bytes(self, "buffers", label, tb(buffers))
+        if self._grad_buf is not None:
+            _exec_registry.track_bytes(self, "grad_buffer", label,
+                                       tb(self._grad_buf))
 
     # ------------------------------------------------------------------
     @property
@@ -238,8 +296,19 @@ class SpmdTrainer:
         already there (a DevicePrefetcher's batches) pass through."""
         t0 = time.perf_counter()
         out = tuple(self._put(x) for x in batch)
-        self._timings["h2d_ms"] += (time.perf_counter() - t0) * 1e3
+        dt = (time.perf_counter() - t0) * 1e3
+        self._timings["h2d_ms"] += dt
+        self._span("h2d", dt)
         return out
+
+    @staticmethod
+    def _span(name: str, dt_ms: float, **args):
+        """A train phase's host span of ``dt_ms`` ending now."""
+        tr = _spans.tracer()
+        if tr.active:
+            now = tr.now_us()
+            tr.complete(name, now - dt_ms * 1e3, dt_ms * 1e3, cat="train",
+                        args=args or None)
 
     def _compute_params(self):
         """The parameters the forward runs on: half-precision copies of
@@ -317,7 +386,9 @@ class SpmdTrainer:
         t0 = time.perf_counter()
         out = t.cpu().numpy()
         record_host_sync()
-        self._timings["sync_ms"] += (time.perf_counter() - t0) * 1e3
+        dt = (time.perf_counter() - t0) * 1e3
+        self._timings["sync_ms"] += dt
+        self._span("sync", dt)
         return out
 
     def _raise_nonfinite(self, bad: np.ndarray, names: List[str]):
@@ -395,6 +466,10 @@ class SpmdTrainer:
         (every ``k_steps``-th step under gradient merge).  inputs/labels:
         an array or tensor, or a tuple of them.  Returns a lazy
         ``StepResult``."""
+        self._watchdog_beat()
+        if self._profile is not None:
+            # PADDLE_TPU_PROFILE=start:stop over train steps
+            self._profile.on_step(self._step_count)
         inputs = tuple(inputs) if isinstance(inputs, (tuple, list)) \
             else (inputs,)
         labels = tuple(labels) if isinstance(labels, (tuple, list)) \
@@ -403,21 +478,57 @@ class SpmdTrainer:
         inputs, labels = batch[:len(inputs)], batch[len(inputs):]
         t0 = time.perf_counter()
         if self.k_steps == 1:
+            key = ("fused", len(inputs), len(labels))
             loss, flags = self._fused_step(inputs, labels)
         else:
+            key = ("accum", len(inputs), len(labels))
             loss, flags = self._merge_step(inputs, labels)
-        self._timings["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
+        dt = (time.perf_counter() - t0) * 1e3
+        self._timings["dispatch_ms"] += dt
         self._timings["steps_timed"] += 1
+        _exec_registry.registry().note_call(
+            self._exec_component, key, "train_step", dt, owner=self,
+            meta={"amp": self.amp_enabled, "k_steps": self.k_steps})
+        self._span("dispatch", dt, key=str(key))
         if self._anom_rollback:
             # the policy's price: one host read a step
             if self._read(flags).any():
                 self._rollback_count += 1
+                # the bundle shows the state the anomaly was found in
+                _flightrec.note_event("anomaly_rollback",
+                                      step=self._step_count,
+                                      rollback_count=self._rollback_count)
+                _flightrec.dump("rollback")
                 self._restore_snapshot()
         elif flags is not None:
             self._raise_nonfinite(
                 self._read(flags),
                 ["loss"] if self.fp16_scaling else self._nanguard_names())
+        self._telemetry_step_end()
         return StepResult(loss, timings=self._timings)
+
+    def _watchdog_beat(self):
+        """Start the stall watchdog on the first step when
+        ``PADDLE_TPU_WATCHDOG_S`` arms it, then beat it."""
+        if not self._wd_checked:
+            self._wd_checked = True
+            t = _watchdog.watchdog_seconds()
+            if t is not None:
+                self.watchdog = _watchdog.Watchdog(
+                    t, label="spmd_train").arm()
+        if self.watchdog is not None:
+            self.watchdog.beat()
+
+    def _telemetry_step_end(self):
+        """The step's tail: the wall timer, its metrics and the
+        flight-recorder record (host arithmetic on bound children)."""
+        self.step_timer.tick()
+        self._m_steps.inc()
+        last = self.step_timer.last_ms
+        if last is not None:
+            self._m_step_ms.set(last)
+            self._m_step_hist.observe(last)
+        _flightrec.record("train_step", dur_ms=last, step=self._step_count)
 
     def _fused_step(self, inputs, labels):
         """forward + backward + update (k_steps == 1); returns the loss
@@ -503,7 +614,10 @@ class SpmdTrainer:
     @torch.no_grad()
     def eval_step(self, inputs):
         """Forward in eval mode (AMP casts as in training); returns the
-        outputs."""
+        outputs.  An eval loop is progress too: it beats an armed
+        watchdog (and never arms one)."""
+        if self.watchdog is not None:
+            self.watchdog.beat()
         inputs = tuple(inputs) if isinstance(inputs, (tuple, list)) \
             else (inputs,)
         return self._run(self.shard_batch(inputs), training=False)
@@ -557,7 +671,10 @@ class SpmdTrainer:
         ``data_wait_ms`` (consumer blocked on a prefetcher), ``h2d_ms``
         (host time placing batches), ``dispatch_ms`` (host time of the
         steps: the device runs behind it), ``sync_ms`` (blocked
-        read-backs), ``steps_timed``."""
+        read-backs), ``steps_timed``; the step timer's ``step_time_ms``
+        (last) and ``step_time_mean_ms``, the registry digest
+        ``exec_profile``, the HBM ledger ``hbm`` and the ``doctor``'s
+        verdicts."""
         s = {"anomaly_policy": self.anomaly_policy,
              "rollback_steps": self._rollback_count}
         if self._anomaly_state is not None:
@@ -569,4 +686,12 @@ class SpmdTrainer:
         else:
             s["skipped_steps"] = 0
         s.update(self._timings)
+        timer = self.step_timer
+        s["step_time_ms"] = round(timer.last_ms, 3) \
+            if timer.last_ms is not None else None
+        s["step_time_mean_ms"] = round(timer.mean_ms, 3) \
+            if timer.mean_ms is not None else None
+        s["exec_profile"] = _exec_registry.profile(self._exec_component)
+        s["hbm"] = _exec_registry.ledger().snapshot()
+        s["doctor"] = _doctor.diagnose(s, kind="train")
         return s

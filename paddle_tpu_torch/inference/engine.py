@@ -10,8 +10,9 @@ Requests are admitted between decode steps and retire on EOS, on
 Sampling (greedy, temperature, static top-k, per-slot top-p) runs on
 the engine's device with its own ``torch.Generator``, and the sampled
 ids are the ONE device-to-host copy of a decode step
-(``stats()['decode_host_syncs']``).  An admission costs one more, for
-its first token.
+(``stats()['decode_host_syncs']``, also counted by
+``distributed.async_dispatch.record_host_sync``).  An admission costs one
+more, for its first token.
 
 ``kv_layout='paged'`` (Kwon et al., *PagedAttention*): the cache is a
 block pool (``inference.paged_kv``) and each slot holds a block table,
@@ -61,8 +62,19 @@ percentiles.  ``warmup()`` runs every kernel and library the serving
 path calls once with throwaway tokens, so traffic loads and builds
 nothing.
 
-Left for later slices: telemetry, environment knobs, autotune hooks and
-the HBM ledger.
+Telemetry (``observability``), all host arithmetic on values the engine
+already holds, no device read: the ``serve_*`` counters, histogram and
+gauges (label ``engine="eN"``); with the span tracer armed a
+``decode_tick`` or ``spec_tick`` span per tick and one track per request
+(``queued``, ``prefill``, ``decode``, a ``preempt`` instant); a
+flight-recorder record per decode, chunk and spec tick; the stall
+watchdog (``PADDLE_TPU_WATCHDOG_S``), beaten per step and parked while
+the engine has no work; a ``PADDLE_TPU_PROFILE`` capture window over
+decode ticks; the step-kind registry and the HBM ledger's params, KV
+cache and draft lines; ``stats()["exec_profile"]``, ``["hbm"]`` and
+``["doctor"]``.
+
+Left for later slices: environment knobs and autotune hooks.
 """
 from __future__ import annotations
 
@@ -75,6 +87,14 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, same_device
+from ..distributed.async_dispatch import record_host_sync
+from ..observability import doctor as _doctor
+from ..observability import exec_registry as _exec_registry
+from ..observability import flightrec as _flightrec
+from ..observability import metrics as _metrics
+from ..observability import spans as _spans
+from ..observability import watchdog as _watchdog
+from ..observability.capture import ProfileWindow
 from ..ops.decode_megakernel import megakernel_enabled
 from ..ops.quantized_matmul import resolve_kv_quant
 from .paged_kv import (BlockAllocator, blocks_for, blocks_to_extend,
@@ -167,6 +187,8 @@ class InferenceEngine:
     device (raises without one); the model must live on the engine's
     device.
     """
+
+    _engine_ids = itertools.count()
 
     def __init__(self, model, batch_slots: int = 8,
                  max_seq_len: Optional[int] = None,
@@ -265,6 +287,68 @@ class InferenceEngine:
                                  "itself is a valid one)")
             self._spec = SpecDecoder(self, draft_model, sk)
         self.spec_k = self._spec.k if self._spec else 0
+        self._init_telemetry()
+
+    def _init_telemetry(self):
+        """Registry children bound once (a tick costs attribute
+        arithmetic), the tracer handle (gated on ``.active``), the capture
+        window over decode ticks, the ledger's lines, the crash hooks; the
+        watchdog starts on the first step when ``PADDLE_TPU_WATCHDOG_S``
+        arms it."""
+        self.telemetry_label = f"e{next(InferenceEngine._engine_ids)}"
+        self._exec_component = f"engine:{self.telemetry_label}"
+        self._exec_meta = {"kv_layout": self.kv_layout,
+                           "kv_dtype": self.kv_dtype or "dense",
+                           "batch_slots": self.batch_slots}
+        label = self.telemetry_label
+        cache = self.cache
+        _exec_registry.track_bytes(self, "params", label,
+                                   _exec_registry.tree_bytes(self.model))
+        _exec_registry.track_bytes(
+            self, "kv_cache", label,
+            _exec_registry.tree_bytes(
+                [cache.k, cache.v, cache.k_scale, cache.v_scale]),
+            layout=self.kv_layout, kv_dtype=self.kv_dtype or "dense")
+        if self._spec is not None:
+            dc = self._spec.draft_cache
+            _exec_registry.track_bytes(
+                self, "spec_draft", label,
+                _exec_registry.tree_bytes(self._spec.draft)
+                + _exec_registry.tree_bytes([dc.k, dc.v]))
+        self._tracer = _spans.tracer()
+        self._profile = ProfileWindow.from_env(kind="serve")
+
+        def child(make, name, help, **extra):
+            return make(name, help, labels=("engine",) + tuple(extra)
+                        ).labels(engine=label, **extra)
+
+        c, g = _metrics.counter, _metrics.gauge
+        self._m_ticks = child(c, "serve_decode_ticks_total",
+                              "decode steps/ticks")
+        self._m_tokens = child(c, "serve_tokens_total", "generated tokens")
+        self._m_prefills = child(c, "serve_prefills_total",
+                                 "admission prefills")
+        self._m_preempts = child(c, "serve_preemptions_total",
+                                 "requests preempted to queue")
+        self._m_req_ok = child(c, "serve_requests_total",
+                               "finished requests", outcome="ok")
+        self._m_req_to = child(c, "serve_requests_total",
+                               "finished requests", outcome="timed_out")
+        self._m_ttft = child(_metrics.histogram, "serve_ttft_ms",
+                             "enqueue -> first token")
+        self._m_queue = child(g, "serve_queue_depth", "queued requests")
+        self._m_active = child(g, "serve_active_slots",
+                               "occupied decode slots")
+        _flightrec.install()
+        self.watchdog: Optional[_watchdog.Watchdog] = None
+        self._wd_checked = False
+
+    def _exec(self, key, kind: str, dt_ms: float):
+        """The step kind's registry entry (its first call's time includes
+        the libraries' loads)."""
+        _exec_registry.registry().note_call(
+            self._exec_component, key, kind, dt_ms, meta=self._exec_meta,
+            owner=self)
 
     # ---- paged layout setup -------------------------------------------
     def _init_paged(self, kv_block_size, kv_num_blocks, prefix_cache):
@@ -434,6 +518,17 @@ class InferenceEngine:
         # a still-prefilling victim never went live: no activation to close
         if req.t_live is not None:
             req.active_s += now - req.t_live
+        self._m_preempts.inc()
+        if self._tracer.active:
+            if req.t_live is not None:
+                self._span_request("decode", req, req.t_live, now,
+                                   tokens=len(req.generated), preempted=True)
+            else:
+                self._span_request("prefill", req, req.t_admit, now,
+                                   chunk_pos=req.prefill_pos, preempted=True)
+            self._tracer.instant("preempt", pid=_spans.PID_REQUESTS,
+                                 tid=req.rid, cat="request",
+                                 ts_us=self._tracer.to_us(now))
         req.t_live = None
         req.t_queue_since = now
         self._timings["preemptions"] += 1
@@ -519,10 +614,11 @@ class InferenceEngine:
         self._record_admission(req, slot, plen, logits)
         self._note_prefill(bucket, t0)
 
-    def _note_prefill(self, bucket: int, t0: float):
+    def _note_prefill(self, bucket: int, t0: float, family: str = "prefill"):
         ms = (time.perf_counter() - t0) * 1e3
         self._timings["prefill_ms"] += ms
         self._bucket_ms.setdefault(bucket, []).append(ms)
+        self._exec((family, bucket), "prefill", ms)
 
     def _admit_paged(self, req: Request, slot: int) -> bool:
         """Paged admission: one prefill, then the slot adoption."""
@@ -602,7 +698,7 @@ class InferenceEngine:
             self._ids_on_device(suffix, bucket), self.cache,
             torch.from_numpy(row).to(self.device, non_blocking=True),
             prefix_len, suffix.size)
-        self._note_prefill(bucket, t0)
+        self._note_prefill(bucket, t0, "prefill_paged")
         # blocks past the real prompt held only bucket padding
         plen = int(prefix_len + suffix.size)
         keep = blocks_for(plen, bs)
@@ -630,19 +726,28 @@ class InferenceEngine:
     def _record_admission(self, req: Request, slot: int, plen: int, logits):
         """Sample the first token from the prefill logits and bind the
         request to its slot."""
+        t0 = time.perf_counter()
         temps = torch.full((1,), req.temperature, device=self.device)
         top_ps = torch.full((1,), req.top_p, device=self.device)
         with torch.no_grad():
             tok_d = self._sample(logits, temps, top_ps)
         tok = tok_d.tolist()[0]
         now = time.perf_counter()
+        self._exec(("sample", 1), "sample", (now - t0) * 1e3)
         if req.t_first is None:
             req.t_first = now
+            self._m_ttft.observe((now - req.t_enqueue) * 1e3)
         req.t_live = now
         req.token_times.append(now)
         req.queued_s += req.t_admit - req.t_queue_since
         self._timings["prefill_host_syncs"] += 1
+        record_host_sync()
         self._timings["prefills"] += 1
+        self._m_prefills.inc()
+        if self._tracer.active:
+            # the request's track, from timestamps already held
+            self._span_queued(req)
+            self._span_request("prefill", req, req.t_admit, now, slot=slot)
         req.slot = slot
         req.admit_seq = next(self._admit_counter)
         self._slots[slot] = req
@@ -689,7 +794,22 @@ class InferenceEngine:
         self._slot_len[slot] = plen0
         self._d_temps[slot] = req.temperature
         self._d_top_ps[slot] = req.top_p
+        if self._tracer.active:
+            self._span_queued(req)
         return True
+
+    def _span_queued(self, req: Request):
+        self._span_request("queued", req, req.t_queue_since, req.t_admit,
+                           prompt_tokens=int(req.prompt.size),
+                           resume=req.resume_prompt is not None)
+
+    def _span_request(self, name: str, req: Request, t0: float, t1: float,
+                      **args):
+        """One lifecycle span on the request's own track."""
+        tr = self._tracer
+        ts = tr.to_us(t0)
+        tr.complete(name, ts, tr.to_us(t1) - ts, pid=_spans.PID_REQUESTS,
+                    tid=req.rid, cat="request", args=args)
 
     def _ensure_chunk_room(self, req: Request, adv: int) -> int:
         """Grow ``req``'s blocks to cover its next ``adv`` prompt tokens
@@ -782,10 +902,16 @@ class InferenceEngine:
                 nxt = self._sample(logits, self._d_temps, self._d_top_ps)
             toks = nxt.tolist()
             self._timings["prefill_host_syncs"] += 1
+            record_host_sync()
             self._timings["chunk_graduation_ticks"] += 1
             for slot, req in grads:
                 self._graduate(req, slot, toks[slot])
-        self._timings["prefill_ms"] += (time.perf_counter() - t0) * 1e3
+        ms = (time.perf_counter() - t0) * 1e3
+        self._timings["prefill_ms"] += ms
+        self._exec(("prefill_chunk_paged" if self.kv_layout == "paged"
+                    else "prefill_chunk", c), "prefill", ms)
+        _flightrec.record("chunk_tick", dur_ms=ms, prefilling=len(pre),
+                          tokens=int(advance.sum()), graduated=len(grads))
         return len(grads)
 
     def _graduate(self, req: Request, slot: int, tok: int):
@@ -794,10 +920,15 @@ class InferenceEngine:
         now = time.perf_counter()
         if req.t_first is None:
             req.t_first = now
+            self._m_ttft.observe((now - req.t_enqueue) * 1e3)
         req.t_live = now
         req.token_times.append(now)
         req.prefilling = False
         self._timings["prefills"] += 1
+        self._m_prefills.inc()
+        if self._tracer.active:
+            self._span_request("prefill", req, req.t_admit, now, slot=slot,
+                               chunked=True)
         req.generated.append(tok)
         self._d_next[slot] = tok
         self._d_active[slot] = 1
@@ -835,6 +966,7 @@ class InferenceEngine:
         a step()-driven server pops what it consumes."""
         self.results[req.rid] = np.asarray(req.generated, np.int32)
         self.request_stats[req.rid] = self._request_record(req)
+        (self._m_req_to if req.timed_out else self._m_req_ok).inc()
         while len(self.request_stats) > self._request_stats_cap:
             self.request_stats.pop(next(iter(self.request_stats)))
         while len(self.results) > self._results_cap:
@@ -846,6 +978,12 @@ class InferenceEngine:
         # never went live
         if req.t_live is not None:
             req.active_s += req.t_finish - req.t_live
+            if self._tracer.active:
+                # the last activation's span closes the request's track
+                self._span_request("decode", req, req.t_live, req.t_finish,
+                                   tokens=len(req.generated),
+                                   preemptions=req.preemptions,
+                                   timed_out=req.timed_out)
         self._deliver(req)
         self._release_slot(req)
 
@@ -966,6 +1104,29 @@ class InferenceEngine:
         """Admit queued requests, run a chunk tick when chunked, then
         decode one token (or run one spec tick) for every live slot.
         Returns the tokens produced this step (first tokens included)."""
+        self._watchdog_beat()
+        if self._profile is not None:
+            # PADDLE_TPU_PROFILE=start:stop over decode ticks
+            self._profile.on_step(self._timings["decode_steps"])
+        self._m_queue.set(len(self._queue))
+        produced = self._step()
+        if self.watchdog is not None and not self.has_work:
+            self.watchdog.idle()        # a quiet server is not a stall
+        return produced
+
+    def _watchdog_beat(self):
+        """Start the stall watchdog on the first step when
+        ``PADDLE_TPU_WATCHDOG_S`` arms it, then beat it."""
+        if not self._wd_checked:
+            self._wd_checked = True
+            t = _watchdog.watchdog_seconds()
+            if t is not None:
+                self.watchdog = _watchdog.Watchdog(
+                    t, label=f"decode_{self.telemetry_label}").arm()
+        if self.watchdog is not None:
+            self.watchdog.beat()
+
+    def _step(self) -> int:
         self._retire_expired()
         t_admit = time.perf_counter()
         had_live = self._live() > 0
@@ -996,7 +1157,9 @@ class InferenceEngine:
                 return produced
             self._timings["block_occupancy_sum"] += \
                 self._alloc.num_in_use / self._alloc.capacity
-        self._timings["occupancy_sum"] += self._live() / self.batch_slots
+        live = self._live()
+        self._timings["occupancy_sum"] += live / self.batch_slots
+        self._m_active.set(live)
         t0 = time.perf_counter()
         with torch.no_grad():
             if paged:
@@ -1011,7 +1174,10 @@ class InferenceEngine:
         # the ONE device->host copy of the step: the scheduler needs the
         # sampled ids for retirement
         nxt_host = nxt.tolist()
-        self._note_decode_step(t0, chunked_now)
+        self._note_decode_step(t0, chunked_now, ("decode", 0),
+                               "megakernel_decode"
+                               if megakernel_enabled(self.model.cfg)
+                               else "decode")
         commit_now = time.perf_counter()
         for slot, req in enumerate(self._slots):
             # a still-prefilling row was inactive: its token is garbage
@@ -1024,13 +1190,32 @@ class InferenceEngine:
             produced += 1
             self._timings["tokens_generated"] += 1
             self._retire_if_done(req, tok)
+        self._note_tick("decode_tick", t0, live, active=live)
         return produced
 
-    def _note_decode_step(self, t0: float, chunked_now: bool):
+    def _note_decode_step(self, t0: float, chunked_now: bool, key,
+                          kind: str):
+        ms = (time.perf_counter() - t0) * 1e3
         self._timings["decode_host_syncs"] += 1
+        record_host_sync()
         self._timings["decode_steps"] += 1
         self._timings["decode_steps_with_chunk"] += int(chunked_now)
-        self._timings["decode_ms"] += (time.perf_counter() - t0) * 1e3
+        self._timings["decode_ms"] += ms
+        self._exec(key, kind, ms)
+
+    def _note_tick(self, kind: str, t0: float, tokens: int, **args):
+        """A decode or spec tick's counters, its host span (``args`` as
+        the span's) and its flight-recorder record."""
+        self._m_ticks.inc()
+        self._m_tokens.inc(tokens)
+        now = time.perf_counter()
+        if self._tracer.active:
+            tr = self._tracer
+            ts = tr.to_us(t0)
+            tr.complete(kind, ts, tr.to_us(now) - ts, cat="serve", args=args)
+        _flightrec.record(kind, dur_ms=(now - t0) * 1e3,
+                          tick=self._timings["decode_steps"], tokens=tokens,
+                          **args)
 
     def _step_spec(self, chunked_now: bool) -> int:
         """One speculative tick for every live slot; commits each slot's
@@ -1054,9 +1239,11 @@ class InferenceEngine:
             self._timings["block_occupancy_sum"] += \
                 self._alloc.num_in_use / self._alloc.capacity
         self._timings["occupancy_sum"] += live / self.batch_slots
+        self._m_active.set(live)
         t0 = time.perf_counter()
         out = self._spec.tick().tolist()     # the tick's one host sync
-        self._note_decode_step(t0, chunked_now)
+        self._note_decode_step(t0, chunked_now, ("spec_tick", k),
+                               "spec_verify")
         commit_now = time.perf_counter()
         self._timings["spec_ticks"] += 1
         self._timings["spec_slot_ticks"] += live
@@ -1084,6 +1271,8 @@ class InferenceEngine:
             self._timings["spec_tokens_committed"] += len(emitted)
             if not retired and emitted:
                 self._spec.after_commit(slot, emitted)
+        self._note_tick("spec_tick", t0, produced, active=live,
+                        committed=produced, k=k)
         return produced
 
     def step_or_raise(self) -> int:
@@ -1341,4 +1530,9 @@ class InferenceEngine:
             p50, p99 = np.percentile(gaps, [50, 99])
             s["itl_ms_p50"] = round(float(p50), 3)
             s["itl_ms_p99"] = round(float(p99), 3)
+        # host dict reads, no device read: the roofline digest (None in
+        # the port), the HBM ledger and the doctor's verdicts
+        s["exec_profile"] = _exec_registry.profile(self._exec_component)
+        s["hbm"] = _exec_registry.ledger().snapshot()
+        s["doctor"] = _doctor.diagnose(s, kind="serve")
         return s

@@ -16,8 +16,10 @@ same ``np.random.RandomState`` sequence as the JAX package's, so a seed
 gives the same prompts in both.
 
 Everything here is host-side scheduling around ``engine.step()``.  The
-JAX report's ``slo`` and ``doctor`` keys (observability) and its MoE
-columns are not produced: the port has neither yet.
+report carries the window's SLO verdict (``slo``, from an
+``observability.SLOMonitor``) and the doctor's verdicts over the
+engine's stats and the window's columns (``doctor``).  The JAX report's
+MoE columns are not produced: the port has no MoE model yet.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ import time
 from typing import List, Optional
 
 import numpy as np
+
+from ..observability import doctor as _doctor
+from ..observability.slo import SLOMonitor
 
 __all__ = ["SharedPrefixWorkload", "run_loadtest"]
 
@@ -65,7 +70,8 @@ def _pct(values, q, digits=3):
 def run_loadtest(engine, num_requests: int, rate_rps: float,
                  workload: Optional[SharedPrefixWorkload] = None,
                  seed: int = 0, eos_id: Optional[int] = None,
-                 deadline_s: Optional[float] = None) -> dict:
+                 deadline_s: Optional[float] = None,
+                 slo_monitor: Optional[SLOMonitor] = None) -> dict:
     """Open-loop Poisson load test against a warmed engine.
 
     Arrival times are drawn up front (exponential gaps at ``rate_rps``);
@@ -78,8 +84,10 @@ def run_loadtest(engine, num_requests: int, rate_rps: float,
     decode tokens/s p50, wall-clock tokens/s, offered and achieved
     request rate, slot (and paged: block) occupancy, prefix hit rate,
     preemptions and, with ``deadline_s`` on every request, the requests
-    that missed it (``timed_out_requests``).  Counters are scoped to this
-    window, so an engine can be reused.
+    that missed it (``timed_out_requests``), the SLO verdict over the
+    window's TTFTs (``slo``: ``slo_monitor``, default a fresh
+    ``SLOMonitor``) and the doctor's verdicts (``doctor``).  Counters are
+    scoped to this window, so an engine can be reused.
     """
     workload = workload or SharedPrefixWorkload(
         engine.model.cfg.vocab_size, seed=seed)
@@ -165,6 +173,12 @@ def run_loadtest(engine, num_requests: int, rate_rps: float,
         "timed_out_requests": sum(1 for r in recs if r["timed_out"]),
         "kv_layout": st["kv_layout"],
     }
+    # the SLO verdict over this window's corrected TTFTs: reported,
+    # never asserted
+    mon = slo_monitor or SLOMonitor()
+    for t in ttfts:
+        mon.observe(t)
+    report["slo"] = mon.check()
     for k in ("kv_block_size", "kv_blocks_total"):
         if k in st:
             report[k] = st[k]
@@ -178,4 +192,10 @@ def run_loadtest(engine, num_requests: int, rate_rps: float,
         report["prefix_queries"] = dq
         report["prefix_hit_rate"] = round(dh / dq, 4) if dq else 0.0
         report["prefix_hit_blocks"] = pc.hit_blocks - pc_snap[2]
+    # the doctor over the engine's steady signals with this window's
+    # columns on top
+    merged = {k: v for k, v in st.items()
+              if k not in ("per_request", "doctor")}
+    merged.update(report)
+    report["doctor"] = _doctor.diagnose(merged, kind="serve")
     return report

@@ -17,15 +17,19 @@ cache (``prefix_cache.py``) free.
   so no kernel sees an out-of-range index, and whatever lands there is
   masked by the per-slot lengths.
 
-Block tables and lengths are host state of the engine.
+Block tables and lengths are host state of the engine.  Each pool
+reports ``kv_blocks_in_use`` and ``kv_blocks_capacity`` to the metrics
+registry (label ``pool="pN"``).
 """
 from __future__ import annotations
 
+import itertools
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ..observability import metrics as _metrics
 from ..ops.quantized_matmul import kv_zeros, resolve_kv_quant
 
 __all__ = ["PagedKVCache", "BlockAllocator", "init_paged_cache",
@@ -109,6 +113,8 @@ class BlockAllocator:
     radix cache) holds a block; ``decref`` frees at zero.
     """
 
+    _ids = itertools.count()
+
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 2:
             raise ValueError("need at least 2 blocks (block 0 is the "
@@ -121,6 +127,14 @@ class BlockAllocator:
         # alloc attempts (successes and refusals): a blocked head-of-line
         # request must not be re-probed every step
         self.probes = 0
+        # pool pressure: one gauge set per alloc and decref
+        pool = f"p{next(BlockAllocator._ids)}"
+        self._m_in_use = _metrics.gauge(
+            "kv_blocks_in_use", "paged KV blocks held",
+            labels=("pool",)).labels(pool=pool)
+        _metrics.gauge("kv_blocks_capacity", "allocatable pool blocks",
+                       labels=("pool",)).labels(pool=pool).set(
+            self.capacity)
 
     @property
     def capacity(self) -> int:
@@ -147,6 +161,7 @@ class BlockAllocator:
         out = [self._free.pop() for _ in range(n)]
         for b in out:
             self._refs[b] = 1
+        self._m_in_use.set(self.capacity - len(self._free))
         return out
 
     def incref(self, blocks) -> None:
@@ -163,6 +178,7 @@ class BlockAllocator:
             self._refs[b] = r
             if r == 0:
                 self._free.append(b)
+        self._m_in_use.set(self.capacity - len(self._free))
 
     def check_leak_free(self) -> None:
         """Raise unless every block is back on the free list."""

@@ -13,7 +13,8 @@ batches are only converted to tensors.
 Timings: the consumer adds ``data_wait_ms`` (blocked on the queue) and
 each batch's ``h2d_ms`` (the thread's host time pinning and enqueuing
 its copies) to ``timings`` when it takes the batch, so only the
-consuming thread writes the dict.  Worker exceptions surface on the
+consuming thread writes the dict; with the span tracer armed each wait
+is also a ``data_wait`` span.  Worker exceptions surface on the
 consumer at the failed batch; ``close()`` (also on early loop exit)
 stops and joins the thread.
 """
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import spans as _spans
 
 __all__ = ["DevicePrefetcher"]
 
@@ -119,8 +121,13 @@ class DevicePrefetcher:
             while True:
                 t0 = time.perf_counter()
                 kind, payload = self._q.get()
-                self._timings["data_wait_ms"] += \
-                    (time.perf_counter() - t0) * 1e3
+                dt = (time.perf_counter() - t0) * 1e3
+                self._timings["data_wait_ms"] += dt
+                tr = _spans.tracer()
+                if tr.active:
+                    now = tr.now_us()
+                    tr.complete("data_wait", now - dt * 1e3, dt * 1e3,
+                                cat="train")
                 if kind == _END:
                     return
                 if kind == _ERROR:

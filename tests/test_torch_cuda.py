@@ -1002,3 +1002,60 @@ def test_dots_recompute_gradients_equal_no_recompute_on_the_card(gen):
     assert model.gpt._recompute_policy == "dots"
     for n, g in grads[0].items():
         assert torch.equal(grads[1][n], g), n
+
+
+def _capture_kernel_names(path):
+    import json
+    with open(path) as f:
+        return {e["name"] for e in json.load(f)["traceEvents"]
+                if e.get("ph") == "X" and e.get("cat") == "kernel"}
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             kv_block_size=16)],
+                         ids=["dense", "paged"])
+def test_capture_window_names_the_serving_kernels(gen, kw, tmp_path,
+                                                  monkeypatch):
+    """``PADDLE_TPU_PROFILE`` over decode ticks 2-5 of a small engine on
+    the card, with an admission inside the window: the capture's Chrome
+    trace holds the decode kernel of the layout and the flash forward
+    by their device names, and telemetry keeps one host sync a step."""
+    from paddle_tpu_torch.observability import spans
+    monkeypatch.setenv("PADDLE_TPU_PROFILE", f"2:5:{tmp_path}")
+    eng = _tiny_engine(**kw)
+    assert eng._profile is not None
+    rng = torch.Generator().manual_seed(5)
+    for n, new in ((20, 3), (100, 12), (70, 12), (5, 12), (150, 12)):
+        eng.add_request(torch.randint(0, 512, (n,), generator=rng).numpy(),
+                        max_new_tokens=new)
+    tr = spans.tracer()
+    tr.clear()
+    tr.start()
+    try:
+        out = eng.run()
+    finally:
+        tr.stop()
+        tr.clear()
+    st = eng.stats()
+    assert len(out) == 5 and st["decode_host_syncs"] == st["decode_steps"]
+    names = _capture_kernel_names(eng._profile.trace_path)
+    paged = "true>" if kw else "false>"
+    assert any("decode_kernel" in n and paged in n for n in names), names
+    assert any("attn_fwd_kernel" in n for n in names), names
+
+
+def test_capture_window_names_the_training_kernels(gen, tmp_path):
+    """A capture window over train steps 1-2 of a 2-layer GPT on the
+    card holds the flash forward and both backward kernels by name."""
+    from paddle_tpu_torch.observability import ProfileWindow
+    _, tr = _train_pair_model(gen)
+    tr._profile = ProfileWindow(1, 3, log_dir=str(tmp_path))
+    batch = _token_batch(gen)
+    for _ in range(4):
+        tr.train_step(*batch)
+    torch.cuda.synchronize()
+    assert tr._profile.done
+    names = _capture_kernel_names(tr._profile.trace_path)
+    for part in ("attn_fwd_kernel", "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv_kernel"):
+        assert any(part in n for n in names), (part, names)

@@ -3,8 +3,8 @@ CPU.
 
 ``SharedPrefixWorkload`` must draw the JAX workload's prompts for the
 same seed; ``run_loadtest``'s report must carry the JAX report's keys
-(less ``slo`` and ``doctor``, which wait for the port's observability,
-and the MoE columns: the port has no MoE) with the same deterministic
+(``slo`` and ``doctor`` included; the MoE columns are absent from both
+for a dense model) with the same deterministic
 values (requests, tokens, timed-out requests); the timed-out column and
 the ITL columns behave as in the JAX tests.  Times are only held to be
 ordered and non-negative.
@@ -32,7 +32,6 @@ FORMS = {
                   kv_block_size=4),
     "chunked": dict(batch_slots=2, prefill_buckets=[16], prefill_chunk=4),
 }
-NOT_PORTED = {"slo", "doctor"}
 WORKLOAD = dict(seed=0, shared_frac=0.5, prefix_len=8, tail_len=(3, 6),
                 max_new=(2, 4))
 
@@ -75,7 +74,8 @@ def test_workload_draws_jax_prompts(vocab, kw):
 @pytest.mark.parametrize("form", list(FORMS))
 def test_report_has_jax_keys_and_values(models, form):
     """The same workload at 200 rps through both engines: the port's
-    report has the JAX keys less ``slo`` and ``doctor``, the same
+    report has the JAX keys, an ``slo`` verdict of the same keys and a
+    ``doctor`` verdict list, the same
     requests, tokens and timed-out count, ordered percentiles and a
     window-scoped prefix hit rate; a drained paged pool is leak-free."""
     jeng, eng = both(models, form)
@@ -85,7 +85,10 @@ def test_report_has_jax_keys_and_values(models, form):
         97, **WORKLOAD), deadline_s=30.0)
     moe = {k for k in want if k.startswith("moe_") or k == "ep"}
     assert moe == set()          # a dense model reports no MoE columns
-    assert set(got) == set(want) - NOT_PORTED
+    assert set(got) == set(want)
+    assert set(got["slo"]) == set(want["slo"])
+    assert got["slo"]["window"] == want["slo"]["window"] == 8
+    assert isinstance(got["doctor"], list)
     for key in ("num_requests", "tokens_generated", "timed_out_requests",
                 "offered_rps", "deadline_s", "kv_layout", "kv_block_size",
                 "kv_blocks_total", "prefix_queries"):
