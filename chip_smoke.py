@@ -169,7 +169,33 @@ before the result lines:
    and on, 3 steps each after a warm-up (no host sync; the on trainer's
    ``h2d``, ``dispatch`` and ``sync`` spans, ``train_steps_total``, a
    capture over steps 2-3 naming the flash forward and both backward
-   kernels), step ms in turns; a 2-layer rollback run's bundle.
+   kernels), step ms in turns; a 2-layer rollback run's bundle;
+23. serve-moe (after profile): GPT-MoE at gpt3-1.3b widths and depth,
+   every second FFN a top-2 layer of 8 experts at capacity factor 2.0
+   (4.13 B params, random bf16 weights, seed 1234): serve's 16 prompts
+   (serve-paged's for the paged engines) with 32 new tokens through 8
+   slots on the dense, paged, int8 dense and paged, chunked (512) and
+   speculative (K = 4, a gpt3-125m draft) engines and with
+   ``enable_decode_megakernel()`` asked for (no megakernel launch: the
+   composed step runs).  Each: launches as in serve, one host read per
+   decode step or spec tick and admission (serve-moe: as many as the
+   dense serve phase on the same prompts), load + dropped = assigned,
+   the ``moe_experts`` ledger line = 12 x 8 x (2 H F + F + H) x 2
+   bytes; tokens/s against serve's; a ``run_loadtest`` window (16
+   requests at 2 rps, paged bf16) with its ``moe_*`` columns;
+   the teacher-forced checks (every cache path and window, bf16 and
+   int8, within TOL_TEACHER / TOL_TEACHER_INT8) at capacity factor E /
+   k, where routing is per token (``teacher_moe``); a profiled decode step
+   split into attention kernels, expert products, gating / dispatch /
+   combine and the rest;
+24. train-moe (last): the same model at 12 layers (6 MoE; 24 do not fit
+   with Adam's state, reckoned first), f32 masters, bf16 AMP, fused CE,
+   Adam, 4 x 2048: 2 warm-up and 4 measured steps (finite losses with
+   the aux term > 0, 12 launches of each flash kernel a step, no host
+   sync; step ms, tokens/s, peak; no MFU: ``flops_per_token`` counts no
+   experts), one profiled step, then one step without and one under
+   'full' recompute at learning rate 0 (losses within TOL_RECOMPUTE, a
+   lower peak).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1621,6 +1647,7 @@ def drive(tag, eng, prompts, new_tokens, sample_every=5):
                  for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)
                  if t is not None and t.is_floating_point())
     tokens = sum(counts)
+    TOKENS_PER_S[tag] = tokens / wall
     log(f"[{tag}] {len(prompts)} requests, prompt lengths "
         f"{sorted(rids.values())}, buckets used "
         f"{sorted(st['prefill_ms_by_bucket'])}")
@@ -1640,6 +1667,12 @@ def drive(tag, eng, prompts, new_tokens, sample_every=5):
     if not finite:
         problems.append("non-finite values in the KV cache")
     return launches, st, problems
+
+
+# tokens/s of each drive() run and host reads of each measured() run, by
+# tag: serve-moe holds its own against the dense serve phase's
+TOKENS_PER_S = {}
+HOST_READS = {}
 
 
 class HostReads:
@@ -1668,11 +1701,12 @@ class HostReads:
         return False
 
 
-def measured(tag, eng, fn):
+def measured(tag, eng, fn, extra_reads=0):
     """Run ``fn()`` with every launch count at 0 and every host read
     counted; returns ``(result, launches, counter deltas, problems)``.
     Checks one host read per decode step and per admission (per
-    graduating chunk tick when chunked) and, per layer, one launch of the
+    graduating chunk tick when chunked; ``extra_reads`` more for reads
+    ``fn`` makes outside the steps) and, per layer, one launch of the
     decode kernel of the engine's cache in every decode step, one flash
     launch in every prefill without a cached prefix (one window launch in
     every chunk tick when chunked) and no other launch."""
@@ -1686,6 +1720,7 @@ def measured(tag, eng, fn):
     with HostReads() as reads:
         out = fn()
     torch.cuda.synchronize()
+    HOST_READS[tag] = reads.n
     launches = {k.symbol: k.launches for k in KERNELS.values()}
     d = {k: v - before[k] for k, v in eng._timings.items()}
     hits = (eng._prefix.hit_queries if eng._prefix is not None else 0) - hits0
@@ -1698,7 +1733,8 @@ def measured(tag, eng, fn):
     problems = [f"{key} launches {n} != {want.get(key, 0)}"
                 for key, n in launches.items() if n != want.get(key, 0)]
     syncs = d["decode_host_syncs"] + d["prefill_host_syncs"]
-    if not (d["decode_host_syncs"] == d["decode_steps"] and reads.n == syncs):
+    if not (d["decode_host_syncs"] == d["decode_steps"]
+            and reads.n == syncs + extra_reads):
         problems.append(f"{reads.n} host reads, {d['decode_host_syncs']} "
                         f"decode syncs over {d['decode_steps']} decode "
                         f"steps, {d['prefill_host_syncs']} prefill syncs")
@@ -1733,13 +1769,10 @@ def phase_serve(model):
     del scratch
     torch.cuda.synchronize()
 
-    rng = np.random.RandomState(7)
-    plens = rng.randint(32, 1537, size=16)
-    plens[:4] = [32, 100, 700, 1536]        # at least four buckets
     eng = InferenceEngine(model, batch_slots=8, top_k=50, seed=7,
                           device="cuda")
-    launches, _, problems = drive(
-        "serve", eng, random_prompts(rng, cfg.vocab_size, plens), 32)
+    launches, _, problems = drive("serve", eng, serve_prompts(cfg.vocab_size),
+                                  32)
     finish("serve", problems)
     return launches
 
@@ -1750,13 +1783,7 @@ def phase_serve_paged(model):
     512 tokens of their own, interleaved with 8 random prompts of 32 to
     1536 tokens."""
     from paddle_tpu_torch.inference import InferenceEngine
-    vocab = model.cfg.vocab_size
-    rng = np.random.RandomState(17)
-    prefix = rng.randint(0, vocab, size=1024)
-    shared = [np.concatenate([prefix, p]) for p in random_prompts(
-        rng, vocab, rng.randint(32, 513, size=8))]
-    other = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
-    prompts = [p for pair in zip(shared, other) for p in pair]
+    prompts = paged_prompts(model.cfg.vocab_size)
     eng = InferenceEngine(model, batch_slots=8, kv_layout="paged",
                           kv_block_size=128, prefix_cache=True, top_k=50,
                           seed=17, device="cuda")
@@ -1927,20 +1954,10 @@ def phase_serve_chunked(model):
     form."""
     from paddle_tpu_torch.inference import InferenceEngine
     vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
-    rng = np.random.RandomState(7)
-    plens = rng.randint(32, 1537, size=16)
-    plens[:4] = [32, 100, 700, 1536]
-    dense_prompts = random_prompts(rng, vocab, plens)
-    rng = np.random.RandomState(17)
-    prefix = rng.randint(0, vocab, size=1024)
-    shared = [np.concatenate([prefix, p]) for p in random_prompts(
-        rng, vocab, rng.randint(32, 513, size=8))]
-    other = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
-    paged_prompts = [p for pair in zip(shared, other) for p in pair]
     out = {}
     for tag, prompts, kw in (
-            ("serve-chunked-dense", dense_prompts, {}),
-            ("serve-chunked-paged-int8", paged_prompts,
+            ("serve-chunked-dense", serve_prompts(vocab), {}),
+            ("serve-chunked-paged-int8", paged_prompts(vocab),
              dict(kv_layout="paged", kv_block_size=128, kv_dtype="int8"))):
         want, _, _, _ = run_engine(f"{tag} (monolithic)", InferenceEngine(
             model, batch_slots=8, device="cuda", **kw), prompts, 32)
@@ -2077,6 +2094,16 @@ def serve_prompts(vocab):
     plens = rng.randint(32, 1537, size=16)
     plens[:4] = [32, 100, 700, 1536]        # at least four buckets
     return random_prompts(rng, vocab, plens)
+
+
+def paged_prompts(vocab):
+    """serve-paged's 16 prompts: 8 share a 1024-token prefix."""
+    rng = np.random.RandomState(17)
+    prefix = rng.randint(0, vocab, size=1024)
+    shared = [np.concatenate([prefix, p]) for p in random_prompts(
+        rng, vocab, rng.randint(32, 513, size=8))]
+    other = random_prompts(rng, vocab, rng.randint(32, 1537, size=8))
+    return [p for pair in zip(shared, other) for p in pair]
 
 
 def int8_prompts(vocab, paged):
@@ -2708,8 +2735,9 @@ def check_serve_telemetry(tag, layout, eng, st, d, cap, window, rids, root):
 
 
 def warmup_check():
-    """In a fresh process: gpt3-1.3b at 2 layers on the card, ``warmup()``
-    on a dense and a paged engine, then 8 requests through each; fails if
+    """In a fresh process: gpt3-1.3b at 2 layers on the card and the same
+    with its second block MoE, ``warmup()`` on a dense and a paged engine
+    of each, then 8 requests through each engine; fails if
     serving loaded or built any CUDA library after the warmups.  The
     parent arms the tracer, the metrics and the watchdog (no capture
     window): telemetry must load nothing either."""
@@ -2722,9 +2750,14 @@ def warmup_check():
     cfg = dataclasses.replace(gpt_configs()["gpt3-1.3b"], num_layers=2)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=prandom.seed(1234, "cuda"))
-    engines = [InferenceEngine(model, batch_slots=8, device="cuda"),
-               InferenceEngine(model, batch_slots=8, kv_layout="paged",
-                               kv_block_size=128, device="cuda")]
+    # and a 2-layer GPT-MoE (its second block MoE): warmup runs the MoE
+    # layer (router, dispatch, expert products, combine) on each path
+    moe = GPTForCausalLM(moe_cfg(layers=2), device="cuda",
+                         dtype=torch.bfloat16,
+                         generator=prandom.seed(1234, "cuda"))
+    engines = [InferenceEngine(m, batch_slots=8, device="cuda", **kw)
+               for m in (model, moe)
+               for kw in ({}, dict(kv_layout="paged", kv_block_size=128))]
     for eng in engines:
         eng.warmup()
     libs, logs = sorted(_build._LIBS), sorted(_build._LOGS)
@@ -2755,7 +2788,7 @@ def warmup_check():
              [eng._m_ticks.value > 0 for eng in engines])
     log(f"[warmup-check] telemetry armed: tracer active, spans recorded, "
         f"watchdogs, registry ticks {armed}")
-    if armed != (True, True, [True, True], [True, True]):
+    if armed != (True, True, [True] * 4, [True] * 4):
         raise SystemExit("warmup-check: telemetry was not armed")
     log("[warmup-check] ok")
 
@@ -3947,6 +3980,433 @@ def phase_train_telemetry(bf16, smi):
     return paths
 
 
+# ---- GPT-MoE: gpt3-1.3b widths, every other FFN a top-2 expert layer --------
+MOE = dict(moe_num_experts=8, moe_top_k=2, moe_every_n_layers=2,
+           moe_capacity_factor=2.0)
+
+
+def moe_cfg(layers=None, fused_ce=False):
+    """gpt3-1.3b's widths (hidden 2048, 16 heads of 128, FFN 8192, vocab
+    50304) with GShard's layout: every second FFN is a top-2 layer of 8
+    experts at capacity factor 2.0 (``layers``: depth cut)."""
+    import dataclasses
+    from paddle_tpu_torch.models import gpt_configs
+    cfg = dataclasses.replace(gpt_configs()["gpt3-1.3b"], fused_ce=fused_ce,
+                              **MOE)
+    if layers is not None:
+        cfg.num_layers = layers
+    return cfg
+
+
+def moe_expert_bytes(cfg, itemsize):
+    """The expert tensors' bytes: E x (2 H F + F + H) per MoE layer."""
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    h, f = cfg.hidden_size, cfg.ffn_hidden_size
+    return n_moe * cfg.moe_num_experts * (2 * h * f + f + h) * itemsize
+
+
+def check_moe_stats(tag, eng, problems):
+    """The engine's expert stats: load + dropped = assigned (counts), and
+    its ``moe_experts`` ledger line is the expert tensors' bytes."""
+    from paddle_tpu_torch.observability import exec_registry
+    st = eng.stats()
+    load = st["moe_expert_load"]
+    assigned, dropped = st["moe_assigned_tokens"], st["moe_dropped_tokens"]
+    lines = [r["bytes"] for r in exec_registry.ledger().snapshot()["tracked"]
+             if r["category"] == "moe_experts"
+             and r["name"] == eng.telemetry_label]
+    want = moe_expert_bytes(eng.model.cfg, 2)
+    log(f"[{tag}] expert load {load} assigned {assigned} dropped {dropped} "
+        f"dropped_rate {st['moe_dropped_rate']} load_skew "
+        f"{st['moe_load_skew']}; moe_experts ledger line {lines} bytes "
+        f"(want {want}); stats decode_megakernel {st['decode_megakernel']}")
+    if load is None or sum(load) + dropped != assigned or assigned <= 0:
+        problems.append(f"load {load} + dropped {dropped} != assigned "
+                        f"{assigned}")
+    if lines != [want]:
+        problems.append(f"moe_experts ledger line {lines} != [{want}]")
+    if st["decode_megakernel"]:
+        problems.append("stats report the megakernel on a MoE model")
+    return st
+
+
+def build_moe_model(layers=None):
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.models import GPTForCausalLM
+    cfg = moe_cfg(layers)
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=prandom.seed(1234, "cuda"))
+    model.eval()
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    log(f"[serve-moe] gpt3-1.3b widths, {cfg.num_layers} layers ({n_moe} MoE "
+        f"of {cfg.moe_num_experts} experts, top-{cfg.moe_top_k}, capacity "
+        f"factor {cfg.moe_capacity_factor}): {n / 1e9:.3f} B params bf16 "
+        f"({n * 2 / 1e9:.2f} GB), init {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+class Ranges:
+    """While active, ``MoELayer._fn_dense`` and the expert FFN run inside
+    ``torch.profiler.record_function`` ranges (``moe_layer``,
+    ``moe_experts``), so a capture can split a step's device time."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.distributed import moe
+        self._saved = (moe.MoELayer._fn_dense, moe.ExpertParallelFFN.forward)
+
+        def ranged(name, fn):
+            def inner(*a, **k):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **k)
+            return inner
+        moe.MoELayer._fn_dense = ranged("moe_layer", self._saved[0])
+        moe.ExpertParallelFFN.forward = ranged("moe_experts", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.distributed import moe
+        moe.MoELayer._fn_dense, moe.ExpertParallelFFN.forward = self._saved
+        return False
+
+
+def profile_moe_decode(model, smi):
+    """A steady MoE decode step (8 active slots of ~520-token prompts):
+    wall time of 5 steps on the host clock, 5 steps under torch.profiler
+    (busy share, top kernels), then 5 more with the MoE ranges on for
+    the split: attention kernels, expert products (the kernels launched
+    inside ``moe_experts``), gating / dispatch / combine (the rest of
+    ``moe_layer``'s kernels) and everything else.  The ranges' own
+    device-side rows (the span from their first to last kernel, idle
+    gaps included) are left out of every sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.inference import InferenceEngine
+    eng = InferenceEngine(model, batch_slots=8, device="cuda")
+    rng = np.random.RandomState(13)
+    for _ in range(8):
+        eng.add_request(rng.randint(0, model.cfg.vocab_size, size=512),
+                        max_new_tokens=20)
+    for _ in range(3):
+        eng.step()
+    steps = 5
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for _ in range(steps):
+            eng.step()
+    what = "MoE dense bf16 decode step (8 active, ~520-token slots)"
+    report_profile(prof, steps, wall_ms, what)
+    with Ranges(), profile(activities=acts) as prof:
+        for _ in range(steps):
+            eng.step()
+    del eng
+    ranges = ("moe_layer", "moe_experts")
+    events = prof.key_averages()
+    kernels = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in ranges) / steps / 1e3
+    attn = sum(e.self_device_time_total for e in events
+               if e.device_type == DeviceType.CUDA
+               and "decode_kernel" in e.key) / steps / 1e3
+    inside = {e.key: e.device_time_total / steps / 1e3 for e in events
+              if e.key in ranges and e.device_type == DeviceType.CPU}
+    if kernels == 0 or not inside.get("moe_layer"):
+        log(f"[serve-moe] decode step split: not measured (no device time "
+            f"under the ranges); wall {wall_ms:.3f} ms")
+        return
+    experts = inside.get("moe_experts", 0.0)
+    log(f"[serve-moe] decode step split (device ms a step, of {kernels:.3f} "
+        f"ms of kernels; unprofiled wall {wall_ms:.3f} ms): attention "
+        f"kernels {attn:.3f}, expert products {experts:.3f}, gating/"
+        f"dispatch/combine {inside['moe_layer'] - experts:.3f}, the rest "
+        f"{kernels - attn - inside['moe_layer']:.3f} (card: {smi})")
+
+
+def phase_serve_moe(smi):
+    """GPT-MoE serving at gpt3-1.3b widths and depth (24 layers, 12 MoE):
+    serve's 16 prompts (and serve-paged's, 8 sharing a 1024-token prefix)
+    with 32 new tokens through 8 slots on the dense, paged, int8 dense
+    and paged, chunked (512) and speculative (K = 4, gpt3-125m draft)
+    engines, and with ``enable_decode_megakernel()`` asked for (the
+    composed step runs: a MoE model has no fused one); a load-test window
+    on the warmed paged engine; teacher-forced prefill + decode; a
+    profiled decode step.  Per engine: launches as in serve, one host
+    read per decode step or spec tick and admission, load + dropped =
+    assigned, the ``moe_experts`` ledger line."""
+    model = build_moe_model()
+    out = serve_moe_engines(model, smi)
+    out.update(serve_moe_spec(model))
+    out.update(serve_moe_loadtest(model, smi))
+    teacher_moe(model)
+    profile_moe_decode(model, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def teacher_moe(model):
+    """``phase_teacher_forced`` on the MoE model with every layer's
+    capacity factor raised to E / k for the check.  Capacity is per
+    group (a batch row's tokens in one call), so at 2.0 the forward over
+    the whole sequence drops other assignments than a bucket-padded
+    prefill, a chunk or a verify window does (the JAX package routes the
+    same way; the CPU tests hold the drops to JAX's); at E / k no expert
+    can overflow (a token's k choices are distinct experts), routing is
+    per token, and every cache path must reproduce the forward."""
+    cf = model.cfg.moe_num_experts / model.cfg.moe_top_k
+    layers = [blk.mlp for blk in model.gpt.blocks if blk.is_moe]
+    log(f"[serve-moe] teacher-forced checks at capacity factor {cf} "
+        f"(routing per token, no drop):")
+    for m in layers:
+        m.capacity_factor = cf
+    try:
+        phase_teacher_forced(model)
+    finally:
+        for m in layers:
+            m.capacity_factor = model.cfg.moe_capacity_factor
+
+
+def serve_moe_engines(model, smi):
+    """serve-moe's closed-loop engines but the speculative one."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    vocab = model.cfg.vocab_size
+    dense_p, paged_p = serve_prompts(vocab), paged_prompts(vocab)
+    out = {}
+    engines = (
+        ("serve-moe", dense_p, dict(top_k=50, seed=7), False),
+        ("serve-moe-paged", paged_p, dict(kv_layout="paged",
+                                          kv_block_size=128, top_k=50,
+                                          seed=17), False),
+        ("serve-moe-int8-dense", dense_p, dict(kv_dtype="int8"), False),
+        ("serve-moe-int8-paged", paged_p, dict(kv_layout="paged",
+                                               kv_block_size=128,
+                                               kv_dtype="int8"), False),
+        ("serve-moe-chunked", dense_p, dict(prefill_chunk=512), False),
+        ("serve-moe-mega", dense_p, {}, True))
+    for tag, prompts, kw, mega in engines:
+        model.enable_decode_megakernel(mega)
+        eng = InferenceEngine(model, batch_slots=8, device="cuda", **kw)
+        launches, st, problems = drive(tag, eng, prompts, 32)
+        check_moe_stats(tag, eng, problems)
+        if mega and any(n for k, n in launches.items() if "megakernel" in k):
+            problems.append("a megakernel launched on a MoE model")
+        if tag == "serve-moe":
+            log(f"[{tag}] tokens/s {TOKENS_PER_S[tag]:.1f} against the dense "
+                f"gpt3-1.3b serve phase's {TOKENS_PER_S['serve']:.1f} (ratio "
+                f"{TOKENS_PER_S[tag] / TOKENS_PER_S['serve']:.3f}); host reads "
+                f"{HOST_READS[tag]} against the dense engine's "
+                f"{HOST_READS['serve']} on the same prompts (card: {smi})")
+            if HOST_READS[tag] != HOST_READS["serve"]:
+                problems.append("host reads differ from the dense engine's")
+        if "paged" in tag:
+            eng.check_leak_free()
+        finish(tag, problems)
+        out[tag] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    model.enable_decode_megakernel(False)
+    return out
+
+
+def serve_moe_spec(model):
+    """A dense gpt3-125m draft proposes for the MoE target (K = 4)."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    layers = model.cfg.num_layers
+    dense_p = serve_prompts(model.cfg.vocab_size)
+    tag, k = "serve-moe-spec", 4
+    draft = build_draft()
+    eng = InferenceEngine(model, batch_slots=8, spec_k=k, draft_model=draft,
+                          device="cuda")
+    with HostReads() as reads:
+        got, launches, st, _ = run_engine(tag, eng, dense_p, 32)
+    ticks = st["spec_ticks"]
+    log(f"[{tag}] spec_ticks={ticks} accepted_tokens_per_tick="
+        f"{st['accepted_tokens_per_tick']:.4f} host reads {reads.n}")
+    problems = []
+    if [len(x) for x in got] != [32] * len(dense_p):
+        problems.append(f"stream lengths {[len(x) for x in got]}")
+    # + 1: run_engine's stats() reads the expert-load accumulator
+    if not (st["decode_host_syncs"] == st["decode_steps"] == ticks > 0
+            and reads.n == ticks + st["prefills"] + 1):
+        problems.append(f"{reads.n} host reads over {ticks} ticks and "
+                        f"{st['prefills']} prefills")
+    d_layers = draft.cfg.num_layers
+    want_l = {"window_attention": (layers + d_layers) * ticks,
+              "decode_attention": d_layers * (k - 1) * ticks,
+              "flash_fwd": (layers + d_layers) * st["prefills"]}
+    for key, n in launches.items():
+        if n != want_l.get(key, 0):
+            problems.append(f"{key} launches {n} != {want_l.get(key, 0)}")
+    check_moe_stats(tag, eng, problems)
+    finish(tag, problems)
+    del eng, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {tag: launches}
+
+
+def serve_moe_loadtest(model, smi):
+    """One load-test window on the warmed paged MoE engine."""
+    from paddle_tpu_torch.inference import InferenceEngine, run_loadtest
+    vocab = model.cfg.vocab_size
+    tag = "serve-moe-loadtest"
+    eng = InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                          kv_block_size=128, seed=11, device="cuda")
+    eng.warmup(eng.buckets)
+    # one read of the expert-load accumulator, by the report's stats()
+    # (the window starts before any traffic: nothing to read then)
+    rep, launches, _, problems = measured(tag, eng, lambda: run_loadtest(
+        eng, 16, 2.0, workload=loadtest_workload(vocab), deadline_s=120.0),
+        extra_reads=1)
+    report_line(tag, rep, smi)
+    cols = {k: rep.get(k) for k in ("moe_num_experts", "ep",
+                                    "moe_assigned_tokens", "moe_dropped_rate",
+                                    "moe_expert_load", "moe_load_skew")}
+    log(f"[{tag}] moe columns {json.dumps(cols)}")
+    want = planned_tokens(vocab, 16)
+    if rep["tokens_generated"] != want or rep["timed_out_requests"]:
+        problems.append(f"{rep['tokens_generated']} tokens of {want}")
+    # the rate is rounded to 1e-4
+    if None in cols.values() or cols["ep"] != 1 or \
+            abs(sum(cols["moe_expert_load"]) - cols["moe_assigned_tokens"]
+                * (1 - cols["moe_dropped_rate"])) > \
+            5e-5 * cols["moe_assigned_tokens"] + 1:
+        problems.append(f"moe columns {cols}")
+    eng.drain()
+    check_moe_stats(tag, eng, problems)
+    finish(tag, problems)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {tag: launches}
+
+
+def phase_train_moe(bf16, smi):
+    """GPT-MoE training at gpt3-1.3b widths with the depth cut to 12
+    layers (6 MoE): bf16 AMP, Adam, fused CE, 4 x 2048, 2 warm-up and 4
+    measured steps: finite losses with the router's aux term in them (> 0),
+    12 launches of each flash kernel a step, no host sync; step ms,
+    tokens/s, peak and the busy share of one profiled step; then one step
+    without and one under 'full' recompute at learning rate 0 (same
+    weights): losses within TOL_RECOMPUTE, a lower peak."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import async_dispatch
+    cfg = moe_cfg(layers=12, fused_ce=True)
+    b, s, n_warm, n_meas = 4, 2048, 2, 4
+    tag = "train-moe"
+    n_full = gpt_params(moe_cfg())
+    log(f"[{tag}] state bytes reckoned first (f32 master, Adam m and v, "
+        f"f32 gradient, bf16 copy: 18 B a parameter, before activations): "
+        f"24 layers {n_full / 1e9:.3f} B params = {n_full * 18 / 1e9:.1f} "
+        f"GB; 12 layers {gpt_params(cfg) / 1e9:.3f} B = "
+        f"{gpt_params(cfg) * 18 / 1e9:.1f} GB; the card holds "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+    t0 = time.perf_counter()
+    model, trainer = make_trainer(cfg, 4321, topt.Adam(learning_rate=1e-4))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != gpt_params(cfg):
+        raise SystemExit(f"{tag}: {n_params} params, reckoned "
+                         f"{gpt_params(cfg)}")
+    log(f"[{tag}] {cfg.num_layers} layers, {n_params / 1e9:.3f} B params f32, "
+        f"bf16 AMP, fused CE, Adam lr 1e-4, batch {b} x {s}, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    ids, labels = (torch.from_numpy(a).cuda() for a in token_batch(
+        np.random.RandomState(0), cfg.vocab_size, b, s))
+    moe_layers = [blk.mlp for blk in model.gpt.blocks if blk.is_moe]
+    results = []
+    for i in range(n_warm + n_meas):
+        if i == n_warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            async_dispatch.reset_host_sync_count()
+            t0 = time.perf_counter()
+        results.append(trainer.train_step(ids, labels))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = async_dispatch.host_sync_count()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(r) for r in results]
+    aux = sum(m.last_aux_loss.float() for m in moe_layers).item()
+    step_ms = wall * 1e3 / n_meas
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]} (first {n_warm} "
+        f"warm-up); the last step's aux term {aux:.6f} over "
+        f"{len(moe_layers)} MoE layers")
+    log(f"[{tag}] {n_meas} steps in {wall:.3f} s: step_ms={step_ms:.3f} "
+        f"tokens_per_s={n_meas * b * s / wall:.1f} max_memory_allocated="
+        f"{peak} bytes host_syncs={syncs} (dense gpt3-1.3b train step_ms "
+        f"{bf16['step_ms']:.3f}; card: {smi}); no MFU: flops_per_token "
+        f"counts no experts")
+    problems = []
+    if not all(np.isfinite(losses)) or not aux > 0:
+        problems.append(f"losses {losses}, aux {aux}")
+    if syncs != 0:
+        problems.append(f"{syncs} host syncs in the measured steps")
+    for key in FLASH:
+        if launches[key] != cfg.num_layers * n_meas:
+            problems.append(f"{key} launches {launches[key]} != "
+                            f"{cfg.num_layers} x {n_meas}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(ids, labels)
+        torch.cuda.synchronize()
+    report_profile(prof, 1, step_ms, f"{tag} step (12 layers, 4 x 2048)")
+
+    # recompute at learning rate 0: both steps run on the same weights
+    trainer.optimizer.set_lr(0.0)
+
+    def one_step():
+        zero_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = float(trainer.train_step(ids, labels))
+        torch.cuda.synchronize()
+        return (loss, torch.cuda.max_memory_allocated() - base,
+                read_launches()["flash_fwd"])
+
+    plain, plain_peak, _ = one_step()
+    model.enable_recompute("full")
+    rec, rec_peak, rec_fwd = one_step()
+    diff = abs(rec - plain) / abs(plain)
+    ok = (rec_fwd == 2 * cfg.num_layers and diff <= TOL_RECOMPUTE
+          and rec_peak < plain_peak)
+    log(f"[{tag}] full recompute: loss {rec:.6f} vs {plain:.6f} without "
+        f"(relative diff {diff:.3e}, tol {TOL_RECOMPUTE}); flash_fwd "
+        f"launches {rec_fwd}; peak above the resident state {rec_peak} vs "
+        f"{plain_peak} bytes without {'ok' if ok else 'FAIL'}")
+    if not ok:
+        problems.append("recompute")
+    finish(tag, problems)
+    del model, trainer, moe_layers
+    return {tag: launches}
+
+
+def gpt_params(cfg):
+    """Parameters of a GPT(-MoE) config: embeddings, blocks (an expert
+    layer holds E FFNs and a router), final norm."""
+    h, f, v = cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
+    kv = cfg.num_kv_heads * cfg.head_dim
+    attn = h * (h + 2 * kv) + (h + 2 * kv) + h * h + h + 4 * h
+    mlp = 2 * h * f + f + h
+    n = v * h + cfg.max_seq_len * h + 2 * h
+    for i in range(cfg.num_layers):
+        n += attn + (cfg.moe_num_experts * mlp + h * cfg.moe_num_experts
+                     if cfg.is_moe_layer(i) else mlp)
+    return n
+
+
 def main():
     name, count, smi = phase_device()
     t0 = time.perf_counter()
@@ -3985,6 +4445,7 @@ def main():
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(phase_serve_moe(smi))
     phase_train_parity()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3995,7 +4456,8 @@ def main():
     paths["train"] = bf16["launches"]
     for phase in (phase_train_fp16, phase_train_recompute_policies,
                   phase_train_merge, phase_train_anomaly,
-                  phase_train_checkpoint, phase_train_telemetry):
+                  phase_train_checkpoint, phase_train_telemetry,
+                  phase_train_moe):
         del_all()
         paths.update(phase(bf16, smi))
     for key, rec in records.items():

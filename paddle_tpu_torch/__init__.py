@@ -18,7 +18,9 @@ the fused cross-entropy) with the flash-attention backward kernels, and
 their telemetry (``observability``: the metrics registry, spans, capture
 windows, the flight recorder, the stall watchdog, the step-kind
 registry and HBM ledger, the doctor and the SLO monitor; ``profiler``:
-``RecordEvent``, ``torch.profiler`` capture control, ``StepTimer``).
+``RecordEvent``, ``torch.profiler`` capture control, ``StepTimer``), and
+GPT mixture of experts on both paths with every expert on the one GPU
+(``distributed.moe``).
 """
 from . import (amp, core, device, distributed, inference, io, models, nn,
                observability, ops, optimizer, profiler, testing)

@@ -25,6 +25,12 @@ into a buffer from ``torch.empty``: it is no aten op, so the backward's
 re-run launches it again, as JAX recomputes a ``pallas_call`` under
 ``checkpoint_dots``.
 
+An auxiliary loss (a MoE router's) made inside the region is collected
+there and returned as one of the region's outputs, then handed to the
+caller's open collector (``distributed.moe.add_aux_loss``) with its
+gradient path intact; the backward's re-run collects into its own list,
+which is thrown away, so nothing is appended twice.
+
 A module's parameters and buffers enter the checkpointed region as
 inputs, bound as they are at the forward.  Under
 ``torch.func.functional_call`` (the trainer's half-precision copies of
@@ -41,6 +47,8 @@ import torch
 import torch.utils.checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
+
+from .moe import add_aux_loss, collect_aux_losses
 
 __all__ = ["recompute", "checkpoint_policy", "POLICIES"]
 
@@ -90,5 +98,14 @@ def recompute(function, *args, policy: Optional[str] = None, **kwargs):
     if policy_fn is not None:
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, policy_fn)
-    return torch.utils.checkpoint.checkpoint(function, *args,
-                                             use_reentrant=False, **kwargs)
+
+    def region(*a, **kw):
+        with collect_aux_losses() as aux:
+            out = function(*a, **kw)
+        return out, tuple(aux)
+
+    out, aux = torch.utils.checkpoint.checkpoint(
+        region, *args, use_reentrant=False, **kwargs)
+    for loss in aux:
+        add_aux_loss(loss)
+    return out

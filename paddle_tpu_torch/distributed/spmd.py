@@ -12,8 +12,9 @@ model's device:
   package's numbers).  A tied embedding has one half-precision copy
   serving both its uses, so autograd sums its two gradients into the
   one f32 master;
-- the loss (f32) goes backward into the masters' ``.grad`` and the
-  optimizer updates them (``Optimizer.apply_gradients``);
+- the loss (f32, plus the auxiliary losses the forward's MoE routers
+  add through ``distributed.moe.collect_aux_losses``) goes backward into
+  the masters' ``.grad`` and the optimizer updates them (``Optimizer.apply_gradients``);
 - nothing is read back to the host: the step returns a lazy
   ``StepResult`` whose ``float()`` is the one counted host sync.
 
@@ -84,6 +85,7 @@ from ..profiler import StepTimer
 from ..testing import faults
 from .async_dispatch import StepResult, record_host_sync
 from .fleet.strategy import DistributedStrategy
+from .moe import collect_aux_losses
 
 __all__ = ["SpmdTrainer"]
 
@@ -338,11 +340,16 @@ class SpmdTrainer:
         """Forward, loss and backward: ``(loss, {name: gradient})`` over
         the trainable parameters (zeros for one that got none).  With
         ``scale`` the backward runs on ``loss * scale`` and the gradients
-        come back scaled."""
+        come back scaled.  The auxiliary losses the forward's layers
+        add (MoE routers) join the f32 loss before any scaling, as in
+        the JAX trainer."""
         for p in self._params.values():
             p.grad = None
-        outs = self._run(inputs, training=True)
+        with collect_aux_losses() as aux:
+            outs = self._run(inputs, training=True)
         loss = self.loss_fn(outs, *labels).float()
+        for a in aux:
+            loss = loss + a.float()
         (loss if scale is None else loss * scale).backward()
         return loss.detach(), {
             n: p.grad if p.grad is not None else torch.zeros_like(p)

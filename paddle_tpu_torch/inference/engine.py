@@ -74,10 +74,22 @@ decode ticks; the step-kind registry and the HBM ledger's params, KV
 cache and draft lines; ``stats()["exec_profile"]``, ``["hbm"]`` and
 ``["doctor"]``.
 
+A MoE model (``GPTConfig.moe_num_experts > 0``) serves on every path
+above.  Each model call of traffic (prefill, paged prefill, decode step,
+chunk tick, the target's verify window) runs under
+``distributed.moe.collect_expert_stats``; its kept-token load per expert
+is added to a device accumulator and its assigned count (``top_k x B x
+S`` per MoE layer, known from shapes) to a host counter, so the stats
+add no host read.  ``stats()`` reads the accumulator once and reports
+``moe_expert_load``, ``moe_dropped_rate`` and ``moe_load_skew``; the HBM
+ledger carries a ``moe_experts`` line.  Warmup's throwaway tokens are
+not counted.
+
 Left for later slices: environment knobs and autotune hooks.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
 from collections import deque
@@ -88,6 +100,7 @@ import torch
 
 from ..device import resolve_device, same_device
 from ..distributed.async_dispatch import record_host_sync
+from ..distributed.moe import collect_expert_stats, fold_expert_stats
 from ..observability import doctor as _doctor
 from ..observability import exec_registry as _exec_registry
 from ..observability import flightrec as _flightrec
@@ -95,7 +108,6 @@ from ..observability import metrics as _metrics
 from ..observability import spans as _spans
 from ..observability import watchdog as _watchdog
 from ..observability.capture import ProfileWindow
-from ..ops.decode_megakernel import megakernel_enabled
 from ..ops.quantized_matmul import resolve_kv_quant
 from .paged_kv import (BlockAllocator, blocks_for, blocks_to_extend,
                        init_paged_cache)
@@ -278,6 +290,14 @@ class InferenceEngine:
             "spec_slot_ticks": 0, "spec_capacity_retirements": 0,
         }
         self._bucket_ms: Dict[int, List[float]] = {}
+        # expert balance: kept-token load per expert summed on the device
+        # (f64, so a long-lived server loses no counts), the assigned
+        # count on the host
+        self._is_moe = cfg.moe_num_experts > 0
+        self._moe_load_d = torch.zeros(
+            cfg.moe_num_experts, dtype=torch.float64, device=self.device) \
+            if self._is_moe else None
+        self._moe_assigned = 0.0
         sk = resolve_spec_k(spec_k)
         self._spec: Optional[SpecDecoder] = None
         if sk > 0:
@@ -315,6 +335,15 @@ class InferenceEngine:
                 self, "spec_draft", label,
                 _exec_registry.tree_bytes(self._spec.draft)
                 + _exec_registry.tree_bytes([dc.k, dc.v]))
+        if self._is_moe:
+            # the expert FFN weights' residency (one device holds all E;
+            # the router's gate is not one)
+            _exec_registry.track_bytes(
+                self, "moe_experts", label,
+                _exec_registry.tree_bytes(
+                    [p for n, p in self.model.named_parameters()
+                     if ".experts." in n]),
+                ep=1, num_experts=int(self.model.cfg.moe_num_experts))
         self._tracer = _spans.tracer()
         self._profile = ProfileWindow.from_env(kind="serve")
 
@@ -342,6 +371,31 @@ class InferenceEngine:
         _flightrec.install()
         self.watchdog: Optional[_watchdog.Watchdog] = None
         self._wd_checked = False
+
+    # ---- MoE expert balance -------------------------------------------
+    @contextlib.contextmanager
+    def _expert_stats(self):
+        """Around one model call of traffic: the MoE layers' kept-token
+        loads go to the device accumulator (no host read), their assigned
+        counts to the host counter.  A dense model opens nothing."""
+        if not self._is_moe:
+            yield
+            return
+        with collect_expert_stats() as bucket:
+            yield
+        folded = fold_expert_stats(bucket)
+        if folded is not None:
+            self._moe_load_d += folded["load"]
+            self._moe_assigned += folded["assigned"]
+
+    def moe_load(self) -> Optional[np.ndarray]:
+        """The kept-token load per expert summed over traffic, read from
+        the device (float64 ``[E]``); None for a dense model or before
+        any traffic."""
+        if not self._moe_assigned:
+            return None
+        # one read (a copy on the CPU too)
+        return np.asarray(self._moe_load_d.tolist(), np.float64)
 
     def _exec(self, key, kind: str, dt_ms: float):
         """The step kind's registry entry (its first call's time includes
@@ -608,8 +662,9 @@ class InferenceEngine:
         prompt = req.effective_prompt()
         plen = prompt.size
         bucket = self._bucket_for(plen)
-        logits, _ = self.model.prefill(self._ids_on_device(prompt, bucket),
-                                       self.cache, slot, plen)
+        with self._expert_stats():
+            logits, _ = self.model.prefill(
+                self._ids_on_device(prompt, bucket), self.cache, slot, plen)
         self._timings["prefill_tokens"] += bucket
         self._record_admission(req, slot, plen, logits)
         self._note_prefill(bucket, t0)
@@ -694,10 +749,11 @@ class InferenceEngine:
         self._timings["prefill_tokens"] += bucket
         row = np.zeros(self.blocks_per_slot, np.int32)
         row[:len(blocks)] = blocks
-        logits, _ = self.model.prefill_paged(
-            self._ids_on_device(suffix, bucket), self.cache,
-            torch.from_numpy(row).to(self.device, non_blocking=True),
-            prefix_len, suffix.size)
+        with self._expert_stats():
+            logits, _ = self.model.prefill_paged(
+                self._ids_on_device(suffix, bucket), self.cache,
+                torch.from_numpy(row).to(self.device, non_blocking=True),
+                prefix_len, suffix.size)
         self._note_prefill(bucket, t0, "prefill_paged")
         # blocks past the real prompt held only bucket padding
         plen = int(prefix_len + suffix.size)
@@ -869,7 +925,7 @@ class InferenceEngine:
         dev = self.device
         lens = torch.from_numpy(self._slot_len.astype(np.int32)).to(
             dev, non_blocking=True)
-        with torch.no_grad():
+        with torch.no_grad(), self._expert_stats():
             tok_d = torch.from_numpy(tokens).to(dev, non_blocking=True)
             adv_d = torch.from_numpy(advance).to(dev, non_blocking=True)
             if self.kv_layout == "paged":
@@ -1162,21 +1218,25 @@ class InferenceEngine:
         self._m_active.set(live)
         t0 = time.perf_counter()
         with torch.no_grad():
-            if paged:
-                self._stage_paged()
-                logits, _ = self.model.decode_step_paged(
-                    self._d_next, self.cache, self._d_tables, self._d_lens)
-            else:
-                logits, _ = self.model.decode_step(self._d_next, self.cache,
-                                                   self._d_active)
+            with self._expert_stats():
+                if paged:
+                    self._stage_paged()
+                    logits, _ = self.model.decode_step_paged(
+                        self._d_next, self.cache, self._d_tables,
+                        self._d_lens)
+                else:
+                    logits, _ = self.model.decode_step(
+                        self._d_next, self.cache, self._d_active)
             nxt = self._sample(logits, self._d_temps, self._d_top_ps)
-        self._d_next = nxt
+        # an idle row keeps its last token, as the JAX engine's host
+        # mirror does (the row's routing counts in a MoE model's stats)
+        self._d_next = torch.where(self._d_active > 0, nxt, self._d_next)
         # the ONE device->host copy of the step: the scheduler needs the
         # sampled ids for retirement
         nxt_host = nxt.tolist()
         self._note_decode_step(t0, chunked_now, ("decode", 0),
                                "megakernel_decode"
-                               if megakernel_enabled(self.model.cfg)
+                               if self.model.gpt._megakernel_active()
                                else "decode")
         commit_now = time.perf_counter()
         for slot, req in enumerate(self._slots):
@@ -1463,6 +1523,29 @@ class InferenceEngine:
             self.flush_prefix_cache()
             self._alloc.check_leak_free()
 
+    def _moe_stats(self) -> dict:
+        """The expert-balance columns of ``stats()``, as the JAX engine
+        reports them: the load per expert, the assigned and dropped
+        (capacity-overflow) assignments, the dropped rate and the
+        max / mean skew.  One host read of the device accumulator."""
+        load = self.moe_load()
+        assigned = self._moe_assigned
+        dropped = max(0.0, assigned - float(load.sum())) \
+            if load is not None else 0.0
+        s = {"moe_num_experts": int(self.model.cfg.moe_num_experts),
+             "ep": 1,
+             "moe_assigned_tokens": round(assigned, 3),
+             "moe_dropped_tokens": round(dropped, 3),
+             "moe_expert_load": [round(float(v), 1) for v in load]
+             if load is not None else None,
+             "moe_dropped_rate": round(dropped / assigned, 4)
+             if assigned else 0.0,
+             "moe_load_skew": None}
+        if load is not None and float(load.sum()) > 0:
+            s["moe_load_skew"] = round(
+                float(load.max()) / max(float(load.mean()), 1e-9), 3)
+        return s
+
     def stats(self) -> dict:
         """Cumulative wall-clock and counters.  Every step ends in a
         device-to-host copy, so the host clock measures device work."""
@@ -1485,8 +1568,8 @@ class InferenceEngine:
         s["kv_dtype"] = self.kv_dtype or "dense"
         s["chunked_prefill"] = self._chunked
         # whether decode steps run the fused per-layer op (one device: the
-        # JAX engine's tp == 1 case)
-        s["decode_megakernel"] = megakernel_enabled(self.model.cfg)
+        # JAX engine's tp == 1 case; a MoE model keeps the composed step)
+        s["decode_megakernel"] = self.model.gpt._megakernel_active()
         s["prefill_chunk"] = self.prefill_chunk
         spec_keys = ("spec_ticks", "spec_tokens_committed", "spec_slot_ticks",
                      "spec_capacity_retirements")
@@ -1514,6 +1597,8 @@ class InferenceEngine:
         else:
             s.pop("preemptions")
             s.pop("memory_capped_retirements")
+        if self._is_moe:
+            s.update(self._moe_stats())
         # per-request records; a queue-expired request has no TTFT and is
         # counted, not averaged
         s["per_request"] = dict(self.request_stats)

@@ -18,8 +18,10 @@ gives the same prompts in both.
 Everything here is host-side scheduling around ``engine.step()``.  The
 report carries the window's SLO verdict (``slo``, from an
 ``observability.SLOMonitor``) and the doctor's verdicts over the
-engine's stats and the window's columns (``doctor``).  The JAX report's
-MoE columns are not produced: the port has no MoE model yet.
+engine's stats and the window's columns (``doctor``).  A MoE engine's
+report carries the window's expert-balance columns (``moe_*``, ``ep``
+= 1), from the engine's accumulator read at the window's start and by
+the closing ``stats()``.
 """
 from __future__ import annotations
 
@@ -67,6 +69,28 @@ def _pct(values, q, digits=3):
     return round(float(np.percentile(values, q)), digits) if values else None
 
 
+def _moe_window(engine, st, load0, assigned0) -> dict:
+    """The window's expert-balance columns (the JAX report's): assigned
+    assignments, dropped rate, load per expert and max / mean skew."""
+    assigned = engine._moe_assigned - assigned0
+    out = {"moe_num_experts": st["moe_num_experts"], "ep": st["ep"],
+           "moe_assigned_tokens": round(assigned, 1),
+           "moe_dropped_rate": 0.0}
+    # the stats' load per expert: counts, exact after rounding to 0.1
+    if st["moe_expert_load"] is None:
+        return out
+    wload = np.asarray(st["moe_expert_load"], np.float64) - \
+        (load0 if load0 is not None else 0.0)
+    dropped = max(0.0, assigned - float(wload.sum()))
+    out["moe_dropped_rate"] = round(dropped / assigned, 4) \
+        if assigned > 0 else 0.0
+    out["moe_expert_load"] = [round(float(v), 1) for v in wload]
+    mean = float(wload.mean())
+    out["moe_load_skew"] = round(float(wload.max()) / mean, 3) \
+        if mean > 0 else None
+    return out
+
+
 def run_loadtest(engine, num_requests: int, rate_rps: float,
                  workload: Optional[SharedPrefixWorkload] = None,
                  seed: int = 0, eos_id: Optional[int] = None,
@@ -92,6 +116,8 @@ def run_loadtest(engine, num_requests: int, rate_rps: float,
     workload = workload or SharedPrefixWorkload(
         engine.model.cfg.vocab_size, seed=seed)
     t_snap = dict(engine._timings)
+    moe_snap = (engine.moe_load(), engine._moe_assigned) \
+        if engine._is_moe else None
     pc = engine._prefix
     pc_snap = (pc.queries, pc.hit_queries, pc.hit_blocks) \
         if pc is not None else None
@@ -192,6 +218,8 @@ def run_loadtest(engine, num_requests: int, rate_rps: float,
         report["prefix_queries"] = dq
         report["prefix_hit_rate"] = round(dh / dq, 4) if dq else 0.0
         report["prefix_hit_blocks"] = pc.hit_blocks - pc_snap[2]
+    if moe_snap is not None:
+        report.update(_moe_window(engine, st, *moe_snap))
     # the doctor over the engine's steady signals with this window's
     # columns on top
     merged = {k: v for k, v in st.items()

@@ -36,6 +36,7 @@ non-speculative engine would.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
@@ -201,12 +202,15 @@ class SpecDecoder:
 
     # ---- the tick -------------------------------------------------------
     @torch.no_grad()
-    def tick(self) -> torch.Tensor:
+    def tick(self, accum_moe: bool = True) -> torch.Tensor:
         """One spec tick over the engine's slots (live ones by the
         engine's device activity mask); returns ``out [B, K+2]`` on the
         device: the K+1 committed-stream tokens and the committed count
         per slot.  Dense targets advance ``cache.lengths`` by that count
-        here; paged targets' lengths are the scheduler's host state."""
+        here; paged targets' lengths are the scheduler's host state.  A
+        MoE target's verify window adds to the engine's expert stats
+        (the draft's calls never do); ``accum_moe=False`` (warmup) leaves
+        them out."""
         eng = self.engine
         self._d_win.copy_(self._h_win, non_blocking=True)
         self._d_nprev.copy_(self._h_nprev, non_blocking=True)
@@ -215,12 +219,13 @@ class SpecDecoder:
         t0 = torch.gather(self._d_win, 1,
                           torch.clamp(self._d_nprev - 1, min=0)[:, None])
         window = torch.cat([t0, drafts], dim=1)                  # [B, K+1]
-        if eng.kv_layout == "paged":
-            eng._stage_paged()
-            logits_t, _ = eng.model.verify_step_paged(
-                window, eng.cache, eng._d_tables, eng._d_lens)
-        else:
-            logits_t, _ = eng.model.verify_step(window, eng.cache)
+        with eng._expert_stats() if accum_moe else contextlib.nullcontext():
+            if eng.kv_layout == "paged":
+                eng._stage_paged()
+                logits_t, _ = eng.model.verify_step_paged(
+                    window, eng.cache, eng._d_tables, eng._d_lens)
+            else:
+                logits_t, _ = eng.model.verify_step(window, eng.cache)
         toks, n_acc, n_emit = self._accept(drafts, q, logits_t, active, temps,
                                            top_ps)
         if eng.kv_layout != "paged":
@@ -238,7 +243,7 @@ class SpecDecoder:
         eng = self.engine
         for b in eng.buckets:
             self.draft.prefill(eng._zeros(1, b), self.draft_cache, 0, 1)
-        self.tick()
+        self.tick(accum_moe=False)
         self.draft_cache.lengths.zero_()
         if eng.kv_layout != "paged":
             eng.cache.lengths.zero_()

@@ -3,8 +3,9 @@
 The input is ``{name: np.asarray(p.data) for name, p in
 jax_model.named_parameters()}``.  Both packages name and lay out GPT
 parameters identically (linear weights ``[in, out]``, embeddings
-``[vocab, hidden]``), so every JAX name maps to the port parameter of
-the same name and NO tensor is transposed.
+``[vocab, hidden]``, a MoE layer's ``gate [H, E]`` and stacked expert
+weights ``experts.w_up [E, H, F]`` ...), so every JAX name maps to the
+port parameter of the same name and NO tensor is transposed.
 
 ``trainer_state_from_paddle_tpu`` carries a whole training state, the
 dict the JAX package's ``snapshot_trainer`` makes (and its checkpoints
@@ -26,6 +27,7 @@ _NAME = re.compile(
     r"^(gpt\.(wte|wpe|ln_f)\.(weight|bias)"
     r"|gpt\.blocks\.\d+\.(ln_1|ln_2|attn\.qkv_proj|attn\.out_proj"
     r"|mlp\.up_proj|mlp\.down_proj)\.(weight|bias)"
+    r"|gpt\.blocks\.\d+\.mlp\.(gate|experts\.(w_up|b_up|w_down|b_down))"
     r"|lm_head\.weight)$")
 
 

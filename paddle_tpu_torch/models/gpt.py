@@ -40,6 +40,7 @@ from torch import nn
 
 from ..core import random as prandom
 from ..device import resolve_device
+from ..distributed.moe import MoELayer
 from ..distributed.recompute import checkpoint_policy, recompute
 from ..distributed.parallel_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
@@ -166,6 +167,15 @@ class GPTConfig:
     # serving: each decode step runs every layer as one fused op
     # (ops.decode_layer_step); PADDLE_TPU_DECODE_MEGAKERNEL overrides
     decode_megakernel: bool = False
+    # mixture of experts (0 experts = dense): every moe_every_n_layers-th
+    # block's MLP is a distributed.moe.MoELayer
+    moe_num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_every_n_layers: int = 1
+    moe_aux_loss_coeff: float = 0.01
+    moe_z_loss_coeff: float = 0.0
+    ep_axis: str = "ep"
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:
@@ -174,6 +184,23 @@ class GPTConfig:
             self.num_kv_heads = self.num_heads
         if self.quantize is not None:
             _check_mode(self.quantize)
+            if self.moe_num_experts > 0:
+                # the expert FFNs are batched products, not the block
+                # linears: they would stay full precision while the
+                # config said int8
+                raise NotImplementedError(
+                    f"quantize={self.quantize!r} COMPUTE with MoE is "
+                    f"not supported: expert FFN matmuls (the dominant "
+                    f"MoE FLOPs) have no quantized path yet, and "
+                    f"quantizing only attention would misattribute the "
+                    f"measured MFU. Quantized KV CACHES are orthogonal "
+                    f"and do work with MoE engines — pass "
+                    f"kv_dtype='int8' to InferenceEngine/init_kv_cache "
+                    f"instead")
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        return (self.moe_num_experts > 0 and
+                (layer_idx + 1) % self.moe_every_n_layers == 0)
 
     @property
     def head_dim(self):
@@ -396,9 +423,12 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    """Pre-LN decoder block."""
+    """Pre-LN decoder block.  Where the config marks the layer as MoE the
+    MLP is a ``distributed.moe.MoELayer`` (the switch-transformer
+    block)."""
 
-    def __init__(self, config: GPTConfig, *, device, dtype, generator):
+    def __init__(self, config: GPTConfig, layer_idx: int = 0, *, device,
+                 dtype, generator):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln_1 = LayerNorm(config.hidden_size,
@@ -406,7 +436,23 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(config, generator=generator, **kw)
         self.ln_2 = LayerNorm(config.hidden_size,
                               config.layer_norm_epsilon, **kw)
-        self.mlp = GPTMLP(config, generator=generator, **kw)
+        self.is_moe = config.is_moe_layer(layer_idx)
+        if self.is_moe:
+            self.mlp = MoELayer(
+                config.hidden_size, config.ffn_hidden_size,
+                num_experts=config.moe_num_experts, top_k=config.moe_top_k,
+                capacity_factor=config.moe_capacity_factor,
+                aux_loss_coeff=config.moe_aux_loss_coeff,
+                z_loss_coeff=config.moe_z_loss_coeff,
+                ep_axis=config.ep_axis,
+                weight_init=I.Normal(0.0, config.initializer_range),
+                # depth-scaled residual-out init, as GPTMLP.down_proj
+                down_weight_init=I.Normal(0.0, config.initializer_range
+                                          / math.sqrt(2.0
+                                                      * config.num_layers)),
+                generator=generator, **kw)
+        else:
+            self.mlp = GPTMLP(config, generator=generator, **kw)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -522,7 +568,7 @@ class GPTModel(nn.Module):
                              **kw)
         self.drop = Dropout(config.dropout)
         self.blocks = nn.ModuleList(
-            [GPTBlock(config, **kw) for _ in range(config.num_layers)])
+            [GPTBlock(config, i, **kw) for i in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
                               device=device, dtype=dtype)
         self._recompute = False
@@ -546,10 +592,19 @@ class GPTModel(nn.Module):
         names and dtypes are untouched."""
         if mode is not None:
             _check_mode(mode)
+            if self.cfg.moe_num_experts > 0:
+                raise NotImplementedError(
+                    "enable_quantize on a MoE model is not supported: "
+                    "expert FFN matmuls have no quantized COMPUTE path "
+                    "yet (see GPTConfig.quantize). Quantized KV caches "
+                    "are orthogonal and do work — pass kv_dtype='int8' "
+                    "to InferenceEngine/init_kv_cache instead")
         self.cfg = replace(self.cfg, quantize=mode)
         for blk in self.blocks:
-            for lin in (blk.attn.qkv_proj, blk.attn.out_proj,
-                        blk.mlp.up_proj, blk.mlp.down_proj):
+            lins = [blk.attn.qkv_proj, blk.attn.out_proj]
+            if not blk.is_moe:
+                lins += [blk.mlp.up_proj, blk.mlp.down_proj]
+            for lin in lins:
                 lin.quantize = mode
         return self
 
@@ -563,10 +618,13 @@ class GPTModel(nn.Module):
 
     def _megakernel_active(self) -> bool:
         """The fused decode step runs: the knob is armed (config or
-        ``PADDLE_TPU_DECODE_MEGAKERNEL``), no dropout is live, and every
-        block carries its biases."""
+        ``PADDLE_TPU_DECODE_MEGAKERNEL``), the model is dense (MoE blocks
+        keep the composed step), no dropout is live, and every block
+        carries its biases."""
         cfg = self.cfg
         if not megakernel_enabled(cfg):
+            return False
+        if cfg.moe_num_experts > 0:
             return False
         if self.training and (cfg.dropout > 0 or cfg.attn_dropout > 0):
             return False

@@ -1059,3 +1059,83 @@ def test_capture_window_names_the_training_kernels(gen, tmp_path):
     for part in ("attn_fwd_kernel", "flash_bwd_dq_kernel",
                  "flash_bwd_dkv_kernel"):
         assert any(part in n for n in names), (part, names)
+
+
+# ---- mixture of experts (no kernel of its own: index ops and bmm) --------
+def _moe_pair(gen, e=8, h=64, f=128, cf=1.0):
+    """A MoE layer on the CPU (random biases too) and its copy on the
+    card."""
+    import copy
+    from paddle_tpu_torch.distributed.moe import MoELayer
+    cpu = MoELayer(h, f, e, top_k=2, capacity_factor=cf, device="cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(torch.randn(p.shape, generator=gen,
+                               device="cuda").cpu() * 0.05)
+    return cpu, copy.deepcopy(cpu).cuda()
+
+
+def test_moe_layer_on_the_card_equals_the_cpu(gen):
+    """Same weights and input, f32: the card's output within 1e-4 of the
+    CPU's largest |y| (cuBLAS against the CPU's products, summed in
+    another order), the same expert load (routing is discrete), aux
+    within 1e-6."""
+    from paddle_tpu_torch.distributed import moe
+    cpu, dev = _moe_pair(gen)
+    x = torch.randn((4, 96, 64), generator=gen, device="cuda")
+    y_c, aux_c, _, load_c = cpu._fn_dense(x.cpu())
+    y_d, aux_d, _, load_d = dev._fn_dense(x)
+    assert torch.equal(load_d.cpu(), load_c)
+    assert load_c.sum() < 2 * 4 * 96                  # capacity drops
+    err = (y_d.cpu() - y_c).abs().max().item()
+    assert err <= 1e-4 * y_c.abs().max().item(), err
+    assert abs(aux_d.item() - aux_c.item()) <= 1e-6
+    assert moe.moe_capacity(96, 8, 2, 1.0) == 24
+
+
+def test_moe_layer_makes_no_host_sync(gen):
+    """Forward and backward run with CUDA's sync debug mode at 'error'
+    (any synchronizing call raises) and leave the port's host-sync count
+    where it was."""
+    from paddle_tpu_torch.distributed import async_dispatch, moe
+    _, dev = _moe_pair(gen)
+    x = torch.randn((4, 96, 64), generator=gen, device="cuda",
+                    requires_grad=True)
+    n0 = async_dispatch.host_sync_count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with moe.collect_aux_losses() as aux, \
+                moe.collect_expert_stats() as stats:
+            y = dev(x)
+        (y.square().sum() + aux[0]).backward()
+        folded = moe.fold_expert_stats(stats)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert async_dispatch.host_sync_count() == n0
+    assert folded["assigned"] == 2 * 4 * 96 and folded["load"].is_cuda
+    assert dev.gate.grad.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_graph_replays_equal_eager(gen, dtype):
+    """One MoE forward captured in a CUDA graph (fixed shapes, no host
+    read) replays on a new input equal to the eager forward on it."""
+    _, dev = _moe_pair(gen)
+    dev = dev.to(dtype)
+    static = torch.randn((4, 96, 64), generator=gen, device="cuda").to(dtype)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.no_grad(), torch.cuda.stream(side):
+        for _ in range(2):
+            dev(static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.no_grad(), torch.cuda.graph(graph):
+        out = dev(static)
+    fresh = torch.randn((4, 96, 64), generator=gen, device="cuda").to(dtype)
+    static.copy_(fresh)
+    graph.replay()
+    with torch.no_grad():
+        want = dev(fresh)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
