@@ -40,7 +40,14 @@ before the result lines:
    D=64 and blocks of 16, timed at 8 x 2048 beside the port's composed
    layer step, with each product's split over the SMs printed.  The int8
    matmul is timed on the device clock (torch.profiler), the megakernel
-   from CUDA-graph replays, the host's launch gaps outlasting both;
+   from CUDA-graph replays, the host's launch gaps outlasting both.
+   kernels-f8: the e4m3 forms (rows 5f, 7f, 8bf, 9bf at the int8 rows'
+   cases and timing shapes, TOL_OUT per row, library SDPA over the
+   dequantized bf16 cache; row 10f at the twelve gpt3-1.3b shapes and the
+   edge widths, within TOL_QMM_F8 of each row's max |y|, its 16-bit
+   outputs its f32 output rounded, two calls and a CUDA-graph replay at
+   M = 8 and 512 bitwise equal to eager, timed beside
+   ``torch._scaled_mm`` with row and column scales);
 4. train-kernels: the flash backward kernels (dq, dk/dv) the same way at
    the training shape (B=4, S=2048, H=16, D=128, causal), ragged S, GQA
    (G = 16 at S=2048), D=64, fp16 and a key mask with a fully masked
@@ -82,9 +89,10 @@ before the result lines:
 11. teacher-forced: prefill + decode steps reproduce ``model.forward``
    over the same tokens within the stated tolerance, on the dense cache,
    the paged cache cold and over a cached prefix (hit path), and the
-   int8 dense and paged caches; chunked prefill (dense and paged) and a
-   K+1 verify window (against the forward and 5 decode steps) the same
-   way; the hit prefill timed against the cold one;
+   int8 and fp8 dense and paged caches (fp8 within TOL_TEACHER_FP8);
+   chunked prefill (dense and paged) and a K+1 verify window (against the
+   forward and 5 decode steps) the same way; the hit prefill timed
+   against the cold one;
 12. serve-mega: ``enable_decode_megakernel()`` on the dense and paged,
    bf16 and int8 engines, each beside its composed engine: one
    megakernel launch per layer per decode step and no decode attention
@@ -93,7 +101,16 @@ before the result lines:
    beside the bf16 engine: four int8 matmul launches per layer per
    prefill and decode step, tokens/s and greedy agreement with bf16;
    teacher-forced megakernel steps (dense, paged, bf16, int8) and the
-   int8-compute model against its own forward;
+   int8-compute model against its own forward; serve-fp8:
+   ``kv_dtype='fp8'`` on the dense engine (beside the dense int8 engine:
+   tokens/s, equal cache bytes), the paged one with prefix hits, chunked
+   (512, paged) and speculative (K = 4, a gpt3-125m draft) engines
+   against the plain fp8 engines' greedy streams, and the megakernel
+   asked for (the composed step: row 11 launches 0 times), each with the
+   e4m3 kernels' launches only and one host sync a decode step or tick;
+   serve-quant-fp8: ``enable_quantize('fp8')`` over fp8 caches, dense
+   and paged (row 10f four times a layer a step), tokens/s beside
+   serve-quant's int8 compute and bf16;
 13. serve-lifecycle: a dense bf16 engine after ``warmup`` over its
    prompts' buckets: a 2 s deadline cuts a 10 000-token request, two
    ``deadline_s=0.0`` requests queued behind 8 busy slots come back
@@ -134,6 +151,11 @@ before the result lines:
    of the kernel path against the same step with the plain attention
    swapped in by this script; train-qat: one such step with
    ``strategy.qat`` (the int8 matmul under autograd, finite gradients);
+   train-qat-fp8: ``qat_configs={'quantize': 'fp8'}``, one such step
+   against the same step with row 10f's plain version swapped in
+   (gradients within TOL_GRAD_FP8), then full width and depth, 4 x 2048,
+   Adam, a warm-up and 3 steps (finite falling losses, no host sync, row
+   10f four times a layer a step);
 16. train: gpt3-1.3b at full width and depth, f32 masters, bf16 AMP,
    fused cross-entropy, Adam, batch 4 x 2048, fed by
    ``DevicePrefetcher``: 2 warm-up and 6 measured steps on one repeated
@@ -247,6 +269,13 @@ TOL_TEACHER = 5e-2  # x max|forward logits| of each position
 # decode smoke holds int8 to 5% of the logit scale against its own fp
 # decode, and the forward here is a third path
 TOL_TEACHER_INT8 = 1e-1  # x max|forward logits| of each position
+# the fp8 (e4m3) cache keeps 3 mantissa bits of each element (relative
+# 2^-4 of itself, where int8 keeps 2^-8 of the vector's amax): the int8
+# bound times the JAX package's own fp8 / int8 teacher-forced error ratio
+# (5.41 at 2 layers, hidden 128, 24 + 16 tokens on the CPU:
+# tests/test_torch_fp8.py::test_error_ratio_sets_tol_teacher_fp8), 0.541
+# rounded up
+TOL_TEACHER_FP8 = 0.55  # x max|forward logits| of each position
 # flash backward: p and ds are rounded to bf16 in series before their
 # products and each gradient to bf16 at the end, against the plain
 # version in f32 on the same bf16 inputs (and the kernel's own o, lse):
@@ -269,6 +298,15 @@ TOL_CE_GRAD = 1e-2  # x max|reference gradient|, per tensor
 # o to bf16 where the plain attention keeps f32, and every later bf16
 # product rounds on top
 TOL_GRAD = 5e-2     # x max|plain gradient|, per parameter
+# fp8 QAT parity: an e4m3 activation code on a rounding boundary moves by
+# one e4m3 step (2^-3 relative, 32x a bf16 step) when its input differs
+# in the last bit, so the fp8 step's gradients depend on the order of the
+# product's f32 sums: two plain orders (f32 and f64 sums) of one 2-layer
+# step differed by up to 2.5e-2 per parameter (median 1.3e-2), and the
+# kernel (tensor-core partial sums of 128 products) by 4.3e-2 from the
+# f64 order (measured on one H100 80GB HBM3 at 700 W).  Twice
+# TOL_GRAD, as the int8 cache's teacher bound is twice the bf16 one
+TOL_GRAD_FP8 = 1e-1  # x max|plain gradient|, per parameter
 # recompute runs the same kernels on the same inputs again
 TOL_RECOMPUTE = 1e-3  # x |loss without recompute|, per step
 
@@ -346,7 +384,8 @@ def phase_device():
 # window sources, on the verify ring (verify_kernel); a spill in one of
 # those kernels fails the build phase
 FWD_SOURCES = ("flash_fwd.cu", "window_attention.cu", "window_attention_q.cu",
-               "paged_window_attention.cu", "paged_window_attention_q.cu")
+               "paged_window_attention.cu", "paged_window_attention_q.cu",
+               "window_attention_f8.cu", "paged_window_attention_f8.cu")
 
 
 def ptxas_kernels(log_text):
@@ -383,10 +422,11 @@ def phase_build():
         log(f"[build] {src}: {len(regs)} kernel instantiations, registers "
             f"per thread {min(regs, default=0)}-{max(regs, default=0)}, "
             f"spills: {spills or 'none'}")
-        if src == "quantized_matmul.cu":
-            checked = [("int8 wgmma tiles", "prefill_kernel",
+        if src in ("quantized_matmul.cu", "quantized_matmul_f8.cu"):
+            kind = "e4m3" if "f8" in src else "int8"
+            checked = [(f"{kind} wgmma tiles", "prefill_kernel",
                         " (setmaxnreg raises the two-warpgroup consumers')"),
-                       ("int8 split-K stream", "decode_kernel", "")]
+                       (f"{kind} split-K stream", "decode_kernel", "")]
         elif src in FWD_SOURCES:
             checked = [("wgmma forward mainloop", "attn_fwd_kernel",
                         " (setmaxnreg raises the consumers')")]
@@ -405,8 +445,8 @@ def phase_build():
             spilled += [f"{src} {kname}: {sp}" for sp in bad]
     if spilled:
         raise SystemExit(f"build phase failed: a kernel on the forward "
-                         f"mainloop, the verify ring or the int8 matmul "
-                         f"spills registers: {spilled}")
+                         f"mainloop, the verify ring or the int8 or e4m3 "
+                         f"matmul spills registers: {spilled}")
 
 
 def _rand(shape, gen, dtype=torch.bfloat16):
@@ -468,17 +508,27 @@ def check_flash(gen, b, s, h, hkv, d, causal=True, mask=False,
     return q, k, v, err_o, worst_o
 
 
-def _int8(x):
-    """bf16 values -> (int8 codes, f32 scales) as the int8 cache stores
-    them (``quantize_kv``)."""
+def _quantize(x, quantized=True):
+    """bf16 values -> (codes, f32 scales) as a quantized cache stores
+    them (``quantize_kv``): int8 codes, or e4m3 codes where ``quantized``
+    is ``'fp8'``."""
     qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
-    return qm.quantize_kv(x)
+    return qm.quantize_kv(x, "fp8" if quantized == "fp8" else "int8")
+
+
+def _tag(quantized):
+    """A kernel name's suffix for a cache kind (False, None or an engine's
+    'dense': 16-bit; True or 'int8': int8; 'fp8': e4m3): '', '_q', '_f8'."""
+    if quantized == "fp8":
+        return "_f8"
+    return "_q" if quantized is True or quantized == "int8" else ""
 
 
 def _kv_for_plain(k, v):
-    """What the plain versions take beside an f32 q: the int8 codes as
+    """What the plain versions take beside an f32 q: int8 or e4m3 codes as
     they are (dequantized in f32 inside), bf16 caches widened to f32."""
-    return (k, v) if k.dtype == torch.int8 else (k.float(), v.float())
+    return (k, v) if k.dtype in (torch.int8, torch.float8_e4m3fn) \
+        else (k.float(), v.float())
 
 
 def check_decode(gen, lengths, cap, h, hkv, d, quantized=False):
@@ -489,7 +539,7 @@ def check_decode(gen, lengths, cap, h, hkv, d, quantized=False):
     vc = _rand((b, cap, hkv, d), gen)
     ks = vs = None
     if quantized:
-        (kc, ks), (vc, vs) = _int8(kc), _int8(vc)
+        (kc, ks), (vc, vs) = (_quantize(x, quantized) for x in (kc, vc))
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     o = da.decode_attention(q, kc, vc, lens, ks, vs)
     ro = da._decode_plain(q.float(), *_kv_for_plain(kc, vc), lens, ks, vs)
@@ -498,12 +548,12 @@ def check_decode(gen, lengths, cap, h, hkv, d, quantized=False):
     zero_ok = all(o[i].abs().max().item() == 0.0
                   for i, n in enumerate(lengths) if n == 0)
     ok = ok_rows and zero_ok and torch.isfinite(o).all().item()
-    log(f"[kernels] decode{'_q' if quantized else ''} B={b} cap={cap} H={h} "
+    log(f"[kernels] decode{_tag(quantized)} B={b} cap={cap} H={h} "
         f"Hkv={hkv} D={d} lengths={lengths}: max|o-plain|={err:.3e} worst "
         f"(slot, head) |o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
         f"zeros_for_len0={zero_ok} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"decode kernel (int8={quantized}) disagrees with "
+        raise SystemExit(f"decode kernel (codes={quantized}) disagrees with "
                          f"its plain version at B={b} H={h} Hkv={hkv} D={d}")
     return (q, kc, vc, lens, ks, vs), err, worst
 
@@ -532,7 +582,7 @@ def paged_inputs(gen, lengths, bs, h, hkv, d, quantized, mb=None,
                         dtype=torch.int32, device="cuda")
     ks = vs = None
     if quantized:
-        (k, ks), (v, vs) = _int8(k), _int8(v)
+        (k, ks), (v, vs) = (_quantize(x, quantized) for x in (k, v))
     return q, k, v, tables, lens, ks, vs
 
 
@@ -546,13 +596,13 @@ def check_paged(gen, lengths, bs, h, hkv, d, quantized=False, **kw):
     torch.cuda.synchronize()
     err, worst, ok_rows = row_errors(o, ro)
     ok = ok_rows and torch.isfinite(o).all().item()
-    log(f"[kernels] paged{'_q' if quantized else ''} bs={bs} B={q.shape[0]} "
+    log(f"[kernels] paged{_tag(quantized)} bs={bs} B={q.shape[0]} "
         f"MB={tables.shape[1]} NB={k.shape[0]} H={h} Hkv={hkv} D={d} "
         f"lengths={lens.tolist()}: max|o-plain|={err:.3e} worst (slot, head) "
         f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"paged decode kernel (int8={quantized}) disagrees "
+        raise SystemExit(f"paged decode kernel (codes={quantized}) disagrees "
                          f"with its plain version at bs={bs} H={h} Hkv={hkv} "
                          f"D={d} lengths={lengths}")
     return (q, k, v, tables, lens, ks, vs), err, worst
@@ -698,19 +748,47 @@ def phase_kernels():
              "shape (B=4, S=2048)")
     del q, k, v
 
-    # dense decode, bf16 (row 4) and int8 (row 5): batch_slots=8 over the
-    # 2048-token cache, boundary lengths, GQA, G = 16 (16 query heads over
-    # one kv head), D=64; then the timing shape, 8 full slots
-    mixed = [0, 1, 127, 128, 1000, 2048, 64, 1537]
-    full = [2048] * 8
-    dense_cases = [(mixed, 2048, 16, 16, 128), (mixed, 2048, 16, 4, 128),
-                   ([1, 300, 2048], 2048, 16, 1, 128),
-                   ([0, 5, 300, 512], 512, 8, 8, 64),
-                   (full, 2048, 16, 16, 128)]
-    for key, line, quantized in (("decode_attention", 126, False),
-                                 ("decode_attention_q", 190, True)):
+    decode_rows(gen, records, (("decode_attention", 126, False),
+                               ("decode_attention_q", 190, True)))
+    paged_rows(gen, records, (("paged_decode_attention", 364, False),
+                              ("paged_decode_attention_q", 469, True)))
+    return records
+
+
+# dense decode cases (rows 4, 5, 5f): batch_slots=8 over the 2048-token
+# cache, boundary lengths, GQA, G = 16 (16 query heads over one kv head),
+# D=64; then the timing shape, 8 full slots
+MIXED = [0, 1, 127, 128, 1000, 2048, 64, 1537]
+FULL = [2048] * 8
+DENSE_CASES = [(MIXED, 2048, 16, 16, 128), (MIXED, 2048, 16, 4, 128),
+               ([1, 300, 2048], 2048, 16, 1, 128),
+               ([0, 5, 300, 512], 512, 8, 8, 64),
+               (FULL, 2048, 16, 16, 128)]
+# paged decode cases (rows 6, 7, 7f): block size 128 as the engine
+# serves, and 16 / 32 for the layout's edges; shuffled blocks, a length of
+# one, exact block multiples, ragged and null-block tails, an inactive
+# slot, GQA, G = 16, D=64; then the timing shape, 8 full slots of 16
+# blocks in a pool of 129
+PAGED_CASES = [
+    dict(lengths=[1, 128, 1000, 2048, 256, 1537, 64], bs=128, h=16, hkv=16,
+         d=128, mb=16, inactive=True),
+    dict(lengths=[1, 300, 2048, 129], bs=128, h=16, hkv=4, d=128,
+         inactive=True),
+    dict(lengths=[5, 2048, 700], bs=128, h=16, hkv=1, d=128),
+    dict(lengths=[1, 16, 100, 512, 31], bs=16, h=8, hkv=8, d=64, mb=40,
+         inactive=True),
+    dict(lengths=[64, 33, 480], bs=32, h=16, hkv=4, d=128),
+    dict(lengths=FULL, bs=128, h=16, hkv=16, d=128, spare=0),
+]
+
+
+def decode_rows(gen, records, rows):
+    """Each dense decode kernel of ``rows`` ((key, line of the JAX
+    function it computes, cache kind)) at every DENSE_CASES case, then
+    timed at the last."""
+    for key, line, quantized in rows:
         errs, worst = [], []
-        for case in dense_cases:
+        for case in DENSE_CASES:
             tensors, err, w = check_decode(gen, *case, quantized=quantized)
             errs.append(err)
             worst.append(w)
@@ -721,26 +799,13 @@ def phase_kernels():
                                        sdpa_args(q, dense_k, dense_v, lens))
         del tensors, q, kc, vc, dense_k, dense_v
 
-    # paged decode, bf16 (row 6) and int8 (row 7): block size 128 as the
-    # engine serves, and 16 / 32 for the layout's edges; shuffled blocks,
-    # a length of one, exact block multiples, ragged and null-block tails,
-    # an inactive slot, GQA, G = 16, D=64; then the timing shape, 8 full
-    # slots of 16 blocks in a pool of 129
-    paged_cases = [
-        (dict(lengths=[1, 128, 1000, 2048, 256, 1537, 64], bs=128, h=16,
-              hkv=16, d=128, mb=16, inactive=True)),
-        (dict(lengths=[1, 300, 2048, 129], bs=128, h=16, hkv=4, d=128,
-              inactive=True)),
-        (dict(lengths=[5, 2048, 700], bs=128, h=16, hkv=1, d=128)),
-        (dict(lengths=[1, 16, 100, 512, 31], bs=16, h=8, hkv=8, d=64,
-              mb=40, inactive=True)),
-        (dict(lengths=[64, 33, 480], bs=32, h=16, hkv=4, d=128)),
-        (dict(lengths=full, bs=128, h=16, hkv=16, d=128, spare=0)),
-    ]
-    for key, line, quantized in (("paged_decode_attention", 364, False),
-                                 ("paged_decode_attention_q", 469, True)):
+
+def paged_rows(gen, records, rows):
+    """Each paged decode kernel of ``rows`` at every PAGED_CASES case,
+    then timed at the last."""
+    for key, line, quantized in rows:
         errs, worst = [], []
-        for case in paged_cases:
+        for case in PAGED_CASES:
             tensors, err, w = check_paged(gen, quantized=quantized, **case)
             errs.append(err)
             worst.append(w)
@@ -757,7 +822,6 @@ def phase_kernels():
         records[key] = time_decode_row(key, line, tensors, True, errs, worst,
                                        sdpa_args(q, dense_k, dense_v, lens))
         del tensors, q, k, v, dense_k, dense_v
-    return records
 
 
 def window_inputs(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048,
@@ -790,7 +854,7 @@ def window_inputs(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048,
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     ks = vs = None
     if quantized:
-        (k, ks), (v, vs) = _int8(k), _int8(v)
+        (k, ks), (v, vs) = (_quantize(x, quantized) for x in (k, v))
     return q, k, v, tables, lens, ks, vs
 
 
@@ -826,15 +890,15 @@ def check_window(gen, lengths, w, h, hkv, d, quantized=False, bs=None,
     err, worst, ok_rows = row_errors(o, ro)
     same = torch.equal(o, again)
     ok = ok_rows and same and torch.isfinite(o).all().item()
-    log(f"[kernels] {'paged_' if bs else ''}window{'_q' if quantized else ''}"
+    log(f"[kernels] {'paged_' if bs else ''}window{_tag(quantized)}"
         f"{f' bs={bs}' if bs else ''} B={len(lengths)} W={w} H={h} Hkv={hkv} "
         f"D={d} {str(dtype).split('.')[-1]} cap={cap} lengths={lengths}: "
         f"max|o-plain|={err:.3e} worst row "
         f"|o-plain|/max|plain row|={worst:.3e} (tol {TOL_OUT}) "
         f"deterministic={same} {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"window kernel (paged={bool(bs)}, int8={quantized}) "
-                         f"disagrees with its plain version at W={w} H={h} "
+        raise SystemExit(f"window kernel (paged={bool(bs)}, codes={quantized})"
+                         f" disagrees with its plain version at W={w} H={h} "
                          f"Hkv={hkv} D={d} bs={bs} lengths={lengths}")
     return err, worst
 
@@ -995,17 +1059,20 @@ def time_window(key, line, bs, quantized, gen, errs, worst):
     return rec
 
 
-def phase_window_kernels(records):
-    """The four window kernels (rows 8a, 8b, 9a, 9b) against their plain
+WINDOW_ROWS = (("window_attention", 628, False, False),
+               ("window_attention_q", 668, False, True),
+               ("paged_window_attention", 836, True, False),
+               ("paged_window_attention_q", 883, True, True))
+
+
+def phase_window_kernels(records, rows=WINDOW_ROWS):
+    """The window kernels of ``rows`` ((key, line of the JAX function,
+    paged, cache kind); default rows 8a, 8b, 9a, 9b) against their plain
     versions at every case of WINDOW_CASES, dense and paged (each case's
     block sizes), each call twice (bitwise equal), then timed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    for key, line, paged, quantized in (
-            ("window_attention", 628, False, False),
-            ("window_attention_q", 668, False, True),
-            ("paged_window_attention", 836, True, False),
-            ("paged_window_attention_q", 883, True, True)):
+    for key, line, paged, quantized in rows:
         errs, worst = [], []
         for case in WINDOW_CASES:
             case = dict(case)
@@ -1255,15 +1322,16 @@ def phase_fused_ce(gen):
 QMM_SHAPES = [(2048, 6144), (2048, 2048), (2048, 8192), (8192, 2048)]
 
 
-def qmm_operands(gen, m, k, n):
-    """int8 operands as ``quantized_matmul`` makes them on the card from
-    bf16 x ``[M, K]`` and w ``[K, N]``: row-scaled codes of x, the weight
-    codes transposed ``[N, K]`` with one scale per column."""
+def qmm_operands(gen, m, k, n, mode="int8"):
+    """int8 (or ``mode`` 'fp8': e4m3) operands as ``quantized_matmul``
+    makes them on the card from bf16 x ``[M, K]`` and w ``[K, N]``:
+    row-scaled codes of x, the weight codes transposed ``[N, K]`` with one
+    scale per column."""
     qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
     x = _rand((m, k), gen)
     w = (torch.randn((k, n), generator=gen, device="cuda") * 0.02).bfloat16()
-    qx, sx = qm.quantize_channel(x, axis=1)
-    qw_t, sw_t = qm.quantize_channel(w.t(), axis=1)
+    qx, sx = qm.quantize_channel(x, axis=1, dtype=mode)
+    qw_t, sw_t = qm.quantize_channel(w.t(), axis=1, dtype=mode)
     return qx.contiguous(), qw_t.contiguous(), sx, sw_t.reshape(1, n)
 
 
@@ -1289,9 +1357,10 @@ def qmm_exact(qm, qx, qw_t, sx, sw, what):
     return err
 
 
-def qmm_plan_text(qm, m, k, n):
+def qmm_plan_text(qm, m, k, n, f8=False):
     plan = qm._qmm_plan(m, n, k, torch.cuda.get_device_properties(0)
-                        .multi_processor_count)
+                        .multi_processor_count,
+                        bn=128 if f8 and m > 16 else None)
     if plan["regime"] == "decode":
         return (f"decode regime: {plan['blocks']} blocks, up to "
                 f"{plan['pieces']} pieces a strip")
@@ -1386,6 +1455,195 @@ def phase_qmm_kernels(records):
              "in f32, bf16 and fp16, at the edge widths too")
 
 
+# kernels-f8: the e4m3 forms of rows 5, 7, 8b, 9b and 10.  None has a
+# TPU kernel: the JAX package's fp8 paths ride its composites, whose
+# lines the records name
+F8_WINDOW_ROWS = (("window_attention_f8", 746, False, "fp8"),
+                  ("paged_window_attention_f8", 984, True, "fp8"))
+PEAK_FP8_FLOPS = 1979e12
+# the e4m3 matmul sums its exact f32 products in f32, 128 at a time on the
+# tensor cores and then in registers, where the plain version sums them in
+# cuBLAS's f32 order: f32 rounding of sums of up to 8192 terms, each row
+# held to its own largest |y| (its 16-bit outputs must be its own f32
+# output rounded)
+TOL_QMM_F8 = 1e-3   # x max|plain y| of each row, f32 output
+
+
+def qmm_f8_check(qm, qx, qw_t, sx, sw, what):
+    """Row 10f against the plain version: f32 output within TOL_QMM_F8 of
+    each row's max |y|, two calls bitwise equal, bf16 and fp16 outputs
+    the f32 output rounded.  Returns (max |diff|, worst row ratio)."""
+    ref = qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.float32)
+    got = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+    again = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+    rounded = all(torch.equal(qm._qmm_cuda(qx, qw_t, sx, sw, out),
+                              got.to(out))
+                  for out in (torch.bfloat16, torch.float16))
+    torch.cuda.synchronize()
+    err = (got - ref).abs().amax(-1)
+    worst = (err / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+    ok = (worst <= TOL_QMM_F8 and torch.equal(got, again) and rounded
+          and bool(torch.isfinite(got).all().item()))
+    if not ok:
+        raise SystemExit(f"quantized_matmul_f8 kernel disagrees with the "
+                         f"plain version at {what}: worst row "
+                         f"{worst:.3e} (tol {TOL_QMM_F8}), repeatable="
+                         f"{torch.equal(got, again)}, 16-bit outputs the "
+                         f"f32 output rounded={rounded}")
+    return err.max().item(), worst
+
+
+def qmm_f8_graph(qm, qx, qw_t, sx, sw, what):
+    """A CUDA-graph replay of row 10f equals the eager call bit for bit
+    (the split sums added in piece order)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(out, eager):
+            raise SystemExit(f"quantized_matmul_f8 graph replay differs "
+                             f"from eager at {what}")
+    log(f"[kernels-f8] quantized_matmul_f8 {what}: 3 graph replays equal "
+        f"to eager bit for bit")
+
+
+def scaled_mm_lib(qx, qw_t, sx, sw, m):
+    """The library yardstick of row 10f (the port never calls it):
+    ``torch._scaled_mm`` with row and column scales into bf16; cuBLASLt
+    wants M a multiple of 16, so decode rows are padded with zero codes
+    (scale 1) and the product cut back.  None (with the reason logged)
+    where this PyTorch has no row-wise e4m3 scaling."""
+    pad = -m % 16
+    a, sa = qx, sx
+    if pad:
+        a = torch.zeros((m + pad, qx.shape[1]), dtype=qx.dtype,
+                        device=qx.device)
+        a[:m] = qx
+        sa = torch.ones((m + pad, 1), dtype=sx.dtype, device=sx.device)
+        sa[:m] = sx
+
+    def lib():
+        return torch._scaled_mm(a, qw_t.t(), scale_a=sa, scale_b=sw,
+                                out_dtype=torch.bfloat16)[:m]
+    try:
+        lib()
+    except RuntimeError as err:
+        log(f"[kernels-f8] torch._scaled_mm with row-wise scales refused "
+            f"here: {str(err).splitlines()[0]}")
+        return None
+    return lib
+
+
+def phase_qmm_f8(records):
+    """Row 10f at the twelve gpt3-1.3b shapes (M in {8, 512, 4096} over
+    the four projections) and the edge widths at M in {8, 512}, through
+    ``qmm_f8_check``; graph replays at M = 8 (a strip split over blocks)
+    and M = 512 (split-K); the twelve shapes timed on the device clock
+    beside the plain version and ``torch._scaled_mm``; bound: the larger
+    of 2 M N K over the e4m3 peak and M K + K N + 4 (M + N) + 2 M N bytes
+    over the memory rate."""
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    errs, worst = [], []
+    for m in (8, 512):
+        for k, n in QMM_EDGE_SHAPES:
+            ops = qmm_operands(gen, m, k, n, "fp8")
+            e, w = qmm_f8_check(qm, *ops, f"M={m} K={k} N={n}")
+            errs.append(e)
+            worst.append(w)
+            log(f"[kernels-f8] quantized_matmul_f8 edge M={m} K={k} N={n}: "
+                f"worst row {w:.3e} (tol {TOL_QMM_F8}); "
+                f"{qmm_plan_text(qm, m, k, n, f8=True)}")
+    for m in (8, 512):
+        qmm_f8_graph(qm, *qmm_operands(gen, m, 8192, 2048, "fp8"),
+                     f"M={m} K=8192 N=2048 "
+                     f"({qmm_plan_text(qm, m, 8192, 2048, f8=True)})")
+    shapes = []
+    for m in (8, 512, 4096):
+        for k, n in QMM_SHAPES:
+            qx, qw_t, sx, sw = qmm_operands(gen, m, k, n, "fp8")
+            e, w = qmm_f8_check(qm, qx, qw_t, sx, sw, f"M={m} K={k} N={n}")
+            errs.append(e)
+            worst.append(w)
+            t_kernel = device_ms(lambda: qm._qmm_cuda(
+                qx, qw_t, sx, sw, torch.bfloat16), iters=50)
+            t_plain = device_ms(lambda: qm._qmm_plain(
+                qx, qw_t.t(), sx, sw, torch.bfloat16), iters=3, warmup=1)
+            lib = scaled_mm_lib(qx, qw_t, sx, sw, m)
+            t_lib = lib_diff = None
+            if lib is not None:
+                t_lib = device_ms(lib, iters=50)
+                ref = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+                lib_diff = ((lib().float() - ref).abs().max()
+                            / ref.abs().max()).item()
+            ops = 2 * m * n * k
+            nbytes = m * k + k * n + 4 * (m + n) + 2 * m * n
+            b_ms, b_by = bound(ops, nbytes, PEAK_FP8_FLOPS)
+            plan = qmm_plan_text(qm, m, k, n, f8=True)
+            log(f"[kernels-f8] quantized_matmul_f8 M={m} K={k} N={n}: worst "
+                f"row {w:.3e} (tol {TOL_QMM_F8}); {plan}; device ms: "
+                f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} "
+                f"library_ms={t_lib if t_lib is None else round(t_lib, 4)} "
+                f"(torch._scaled_mm, row/column scales"
+                f"{', codes padded to 16 rows' if m % 16 else ''}; max|diff| "
+                f"to the kernel / max|y| {lib_diff}) bound_ms={b_ms:.4f} "
+                f"({b_by}, {ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB) "
+                f"share of bound {b_ms / t_kernel:.3f}")
+            shapes.append(dict(m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
+                               library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                               max_abs_err=e, max_row_rel_err=w, plan=plan))
+            del qx, qw_t, sx, sw
+    head = shapes[0]
+    records["quantized_matmul_f8"] = dict(
+        name="quantized_matmul_f8", route="cuda",
+        source="paddle_tpu_torch/csrc/quantized_matmul_f8.cu",
+        replaces="paddle_tpu/ops/quantized_matmul.py:153",
+        max_abs_err=max(errs), max_row_rel_err=max(worst),
+        row_tol=TOL_QMM_F8,
+        **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms")},
+        shapes=shapes,
+        note="no TPU kernel: the JAX package's fp8 compute is its "
+             "composite _qmm_composite (replaces names it); device time "
+             "per call (torch.profiler); ms, plain_ms, bound_ms, "
+             "library_ms at the decode qkv product (M=8, K=2048, N=6144); "
+             "shapes holds all twelve; errors of the f32 output against "
+             "the plain version, per row")
+
+
+def phase_f8_kernels(records):
+    """kernels-f8: rows 5f and 7f (dense and paged decode over e4m3
+    caches) at the cases of rows 5 and 7, rows 8bf and 9bf (the window
+    kernels over e4m3 caches) at every WINDOW_CASES case, each held to
+    TOL_OUT per row against its plain version fed the same codes and
+    timed as its int8 row (library: SDPA over the dequantized bf16
+    cache), and row 10f (``phase_qmm_f8``).  The JAX functions named in
+    ``replaces`` are the composites JAX runs for fp8."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    decode_rows(gen, records, (("decode_attention_f8", 268, "fp8"),))
+    paged_rows(gen, records, (("paged_decode_attention_f8", 451, "fp8"),))
+    phase_window_kernels(records, F8_WINDOW_ROWS)
+    for key in ("decode_attention_f8", "paged_decode_attention_f8",
+                "window_attention_f8", "paged_window_attention_f8"):
+        records[key]["note"] = (records[key].get("note", "") + "; " if
+                                records[key].get("note") else "") + (
+            "no TPU kernel: replaces names the JAX composite that JAX runs "
+            "for fp8 caches")
+    phase_qmm_f8(records)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def mega_block(gen, heads, hkv, d=None, h=2048, f=8192):
     """One GPTBlock at gpt3-1.3b widths (or the given heads, kv heads)
     with random weights (normal 0.02) and random biases and LayerNorm
@@ -1419,7 +1677,7 @@ def mega_inputs(gen, blk, lengths, quantized, bs=None, cap=2048,
         v = _rand((len(lengths), cap, hkv, d), gen)
         ks = vs = None
         if quantized:
-            (k, ks), (v, vs) = _int8(k), _int8(v)
+            (k, ks), (v, vs) = _quantize(k), _quantize(v)
         return x, k, v, None, lens, ks, vs
     _, k, v, tables, _, ks, vs = paged_inputs(
         gen, lengths, bs, cfg.num_heads, hkv, d, quantized, mb=cap // bs,
@@ -1912,8 +2170,9 @@ def compare_greedy(tag, model, prompts, got, want, tol):
             problems.append(f"request {i}: lengths {len(g)} vs {len(w)} "
                             f"with equal tokens")
             continue
-        ids = torch.tensor(np.concatenate([prompts[i], w[:t]])[None],
-                           device="cuda")
+        ids = torch.tensor(np.concatenate(
+            [prompts[i], np.asarray(w[:t], dtype=np.int64)])[None],
+            device="cuda")
         with torch.no_grad():
             last = model(ids)[0, -1].float()
         top2 = torch.topk(last, 2).values
@@ -1933,13 +2192,13 @@ def compare_greedy(tag, model, prompts, got, want, tol):
 def window_key(st):
     key = ("paged_window_attention" if st["kv_layout"] == "paged"
            else "window_attention")
-    return key + ("_q" if st["kv_dtype"] == "int8" else "")
+    return key + _tag(st["kv_dtype"])
 
 
 def decode_key(st):
     key = ("paged_decode_attention" if st["kv_layout"] == "paged"
            else "decode_attention")
-    return key + ("_q" if st["kv_dtype"] == "int8" else "")
+    return key + _tag(st["kv_dtype"])
 
 
 def phase_serve_chunked(model):
@@ -2200,6 +2459,8 @@ def phase_serve_quant(model):
     finally:
         model.enable_quantize(None)
     tokens = sum(len(x) for x in got)
+    TOKENS_PER_S["serve-quant (bf16)"] = tokens / wall_b
+    TOKENS_PER_S["serve-quant"] = tokens / wall
     same = sum(g == w for g, w in zip(got, want))
     agree = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
     first = [next((j for j, (a, b) in enumerate(zip(g, w)) if a != b), None)
@@ -2224,6 +2485,297 @@ def phase_serve_quant(model):
         if n != want_l.get(key, 0):
             problems.append(f"{key} launches {n} != {want_l.get(key, 0)}")
     finish("serve-quant", problems)
+    return launches
+
+
+def check_launches(tag, launches, want, problems):
+    """Every kernel's launches equal ``want`` (0 where it names none)."""
+    for key, n in launches.items():
+        if n != want.get(key, 0):
+            problems.append(f"{tag}: {key} launches {n} != {want.get(key, 0)}")
+
+
+def phase_serve_fp8(model):
+    """serve-fp8: ``kv_dtype='fp8'`` behind gpt3-1.3b, 8 slots, 32 new
+    greedy tokens: the dense engine (serve's 16 prompts of 32-1536 tokens)
+    beside the dense int8 engine in the same call (tokens/s, cache bytes:
+    equal, one byte a code); the paged engine with the radix cache
+    (serve-paged's prompts: prefix hits); ``prefill_chunk=512`` on the
+    paged engine and ``spec_k=4`` with a gpt3-125m draft on the dense one,
+    each against the plain fp8 engine of its layout; and
+    ``enable_decode_megakernel()`` over the dense fp8 cache, which keeps
+    the composed step as in the JAX package (row 11 launches 0 times).
+    Each: every request's tokens, one host sync per decode step or spec
+    tick and per admission (chunked: per graduating tick), the e4m3
+    kernels' launches per layer and no int8 attention launch, leak-free
+    pools, greedy streams equal to the plain engine's but at a near-tie
+    (``TOL_TEACHER_FP8``)."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    vocab, layers = model.cfg.vocab_size, model.cfg.num_layers
+    dense_p, paged_p = serve_prompts(vocab), paged_prompts(vocab)
+    paged_kw = dict(kv_layout="paged", kv_block_size=128)
+    out, problems = {}, []
+
+    def syncs_ok(tag, st, chunked=False):
+        prefill = st["chunk_graduation_ticks"] if chunked else st["prefills"]
+        if not (st["decode_host_syncs"] == st["decode_steps"]
+                and st["prefill_host_syncs"] == prefill):
+            problems.append(f"{tag}: {st['decode_host_syncs']} decode syncs "
+                            f"over {st['decode_steps']} steps, "
+                            f"{st['prefill_host_syncs']} prefill syncs")
+
+    def lengths_ok(tag, got, n):
+        if [len(x) for x in got] != [32] * n:
+            problems.append(f"{tag}: stream lengths {[len(x) for x in got]}")
+
+    # the plain engines: dense fp8 beside dense int8, then paged fp8
+    want = {}
+    walls = {}
+    for tag, kw, prompts in (("serve-fp8-dense", {}, dense_p),
+                             ("serve-fp8-int8-dense", {}, dense_p),
+                             ("serve-fp8-paged", paged_kw, paged_p)):
+        kv = "int8" if "int8" in tag else "fp8"
+        eng = InferenceEngine(model, batch_slots=8, kv_dtype=kv,
+                              device="cuda", **kw)
+        got, launches, st, walls[tag] = run_engine(tag, eng, prompts, 32)
+        lengths_ok(tag, got, len(prompts))
+        syncs_ok(tag, st)
+        hits = st.get("prefix_hit_queries", 0)
+        check_launches(tag, launches, {
+            decode_key(st): layers * st["decode_steps"],
+            "flash_fwd": layers * (st["prefills"] - hits)}, problems)
+        log(f"[{tag}] kv_dtype={st['kv_dtype']} cache_bytes="
+            f"{cache_bytes(eng.cache)} prefix_hit_queries={hits}")
+        if kw:
+            if hits < 1:
+                problems.append(f"{tag}: no prefix hit")
+            eng.check_leak_free()
+        if kv == "fp8":
+            want[tag] = got
+            out[tag] = launches
+        walls[tag] = (walls[tag], sum(len(x) for x in got),
+                      cache_bytes(eng.cache))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    (w8, n8, b8), (wi, ni, bi) = walls["serve-fp8-dense"], \
+        walls["serve-fp8-int8-dense"]
+    log(f"[serve-fp8] dense tokens/s fp8 {n8 / w8:.1f} against int8 "
+        f"{ni / wi:.1f} in the same call (ratio {(n8 / w8) / (ni / wi):.3f});"
+        f" cache bytes fp8 {b8} int8 {bi}")
+    if b8 != bi:
+        problems.append(f"fp8 cache bytes {b8} != int8's {bi}")
+
+    # chunked (paged) and speculative (dense) fp8 engines
+    draft = build_draft()
+    for tag, kw, prompts, base in (
+            ("serve-fp8-chunked-paged", dict(prefill_chunk=512, **paged_kw),
+             paged_p, "serve-fp8-paged"),
+            ("serve-fp8-spec", dict(spec_k=4, draft_model=draft), dense_p,
+             "serve-fp8-dense")):
+        eng = InferenceEngine(model, batch_slots=8, kv_dtype="fp8",
+                              device="cuda", **kw)
+        got, launches, st, _ = run_engine(tag, eng, prompts, 32)
+        lengths_ok(tag, got, len(prompts))
+        problems += compare_greedy(tag, model, prompts, got, want[base],
+                                   TOL_TEACHER_FP8)
+        if "spec" in tag:
+            ticks, dl = st["spec_ticks"], draft.cfg.num_layers
+            if not st["decode_host_syncs"] == st["decode_steps"] == ticks > 0:
+                problems.append(f"{tag}: not one host sync per spec tick")
+            check_launches(tag, launches, {
+                window_key(st): layers * ticks,
+                "window_attention": dl * ticks,
+                "decode_attention": dl * 3 * ticks,
+                "flash_fwd": (layers + dl) * st["prefills"]}, problems)
+            log(f"[{tag}] spec_ticks={ticks} accepted_tokens_per_tick="
+                f"{st['accepted_tokens_per_tick']:.4f}")
+        else:
+            syncs_ok(tag, st, chunked=True)
+            check_launches(tag, launches, {
+                window_key(st): layers * st["chunk_ticks"],
+                decode_key(st): layers * st["decode_steps"]}, problems)
+            eng.check_leak_free()
+        out[tag] = launches
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del draft
+
+    # the megakernel asked for over an fp8 cache: the composed step
+    tag = "serve-fp8-mega"
+    model.enable_decode_megakernel(True)
+    try:
+        eng = InferenceEngine(model, batch_slots=8, kv_dtype="fp8",
+                              device="cuda")
+        got, launches, st, _ = run_engine(tag, eng, dense_p, 32)
+    finally:
+        model.enable_decode_megakernel(False)
+    lengths_ok(tag, got, len(dense_p))
+    syncs_ok(tag, st)
+    problems += compare_greedy(tag, model, dense_p, got,
+                               want["serve-fp8-dense"], TOL_TEACHER_FP8)
+    check_launches(tag, launches, {
+        "decode_attention_f8": layers * st["decode_steps"],
+        "flash_fwd": layers * st["prefills"]}, problems)
+    out[tag] = launches
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    finish("serve-fp8", problems)
+    return out
+
+
+def phase_serve_quant_fp8(model):
+    """serve-quant-fp8: ``enable_quantize('fp8')`` over an fp8 cache,
+    dense and paged (serve's prompts, 32 new greedy tokens, 8 slots):
+    row 10f four times a layer a prefill and a decode step, the e4m3
+    attention kernels, one host sync a decode step and an admission;
+    tokens/s beside serve-quant's int8-compute and bf16 engines (same
+    call, same prompts)."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    layers = model.cfg.num_layers
+    prompts = serve_prompts(model.cfg.vocab_size)
+    problems, out = [], {}
+    model.enable_quantize("fp8")
+    try:
+        for layout in ("dense", "paged"):
+            tag = f"serve-quant-fp8-{layout}"
+            eng = InferenceEngine(model, batch_slots=8, kv_dtype="fp8",
+                                  kv_layout=layout, device="cuda")
+            got, launches, st, wall = run_engine(tag, eng, prompts, 32)
+            tokens = sum(len(x) for x in got)
+            TOKENS_PER_S[tag] = tokens / wall
+            if [len(x) for x in got] != [32] * len(prompts):
+                problems.append(f"{tag}: stream lengths")
+            if not (st["decode_host_syncs"] == st["decode_steps"]
+                    and st["prefill_host_syncs"] == st["prefills"]):
+                problems.append(f"{tag}: host syncs")
+            hits = st.get("prefix_hit_queries", 0)
+            check_launches(tag, launches, {
+                "quantized_matmul_f8": 4 * layers * (st["prefills"]
+                                                     + st["decode_steps"]),
+                decode_key(st): layers * st["decode_steps"],
+                "flash_fwd": layers * (st["prefills"] - hits)}, problems)
+            if layout == "paged":
+                eng.check_leak_free()
+            out = {k: out.get(k, 0) + n for k, n in launches.items()}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        model.enable_quantize(None)
+    bf16 = TOKENS_PER_S.get("serve-quant (bf16)", float("nan"))
+    int8 = TOKENS_PER_S.get("serve-quant", float("nan"))
+    for layout in ("dense", "paged"):
+        fp8 = TOKENS_PER_S[f"serve-quant-fp8-{layout}"]
+        log(f"[serve-quant-fp8] {layout}: fp8 compute + fp8 cache tokens/s "
+            f"{fp8:.1f}; serve-quant's int8 compute {int8:.1f}, bf16 "
+            f"{bf16:.1f} (fp8 / bf16 {fp8 / bf16:.3f}, int8 / bf16 "
+            f"{int8 / bf16:.3f})")
+    finish("serve-quant-fp8", problems)
+    return out
+
+
+def phase_train_qat_fp8():
+    """train-qat-fp8: ``strategy.qat`` with ``qat_configs={'quantize':
+    'fp8'}``.  Parity: gpt3-1.3b width at 2 layers, bf16 AMP, one 2 x 512
+    step at learning rate 0 through row 10f against the same step with
+    its plain version swapped in here (the wrapper's CUDA path pointed at
+    ``_qmm_plain``): losses within 1e-2, every gradient within
+    TOL_GRAD_FP8; the plain version with f64 sums is printed beside both
+    as the floor that the order of the sums sets.
+    Then full width and depth, 4 x 2048, bf16 AMP, Adam, one warm-up and
+    3 measured steps: finite falling losses, no host sync, row 10f four
+    times a layer a step in the forward and rows 1-3 once."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import async_dispatch
+    qm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    fp8 = {"quantize": "fp8"}
+    cfg = full_cfg(2)
+    model, trainer = make_trainer(cfg, 99, topt.SGD(learning_rate=0.0),
+                                  qat=True, qat_configs=fp8)
+    ids, labels = token_batch(np.random.RandomState(21), cfg.vocab_size, 2,
+                              512)
+
+    def step():
+        zero_launches()
+        loss = float(trainer.train_step(ids, labels))
+        grads = {n: p.grad.detach().clone()
+                 for n, p in model.named_parameters()}
+        return loss, grads, read_launches()["quantized_matmul_f8"]
+
+    loss_k, grads_k, n_k = step()
+    saved = qm._qmm_cuda
+    try:
+        qm._qmm_cuda = lambda qx, qw_t, sx, sw, out: qm._qmm_plain(
+            qx, qw_t.t(), sx, sw, out)
+        loss_p, grads_p, n_p = step()
+        qm._qmm_cuda = lambda qx, qw_t, sx, sw, out: (torch.matmul(
+            qx.double(), qw_t.t().double()).float() * sx * sw).to(out)
+        loss_64, grads_64, _ = step()
+    finally:
+        qm._qmm_cuda = saved
+
+    def ratios(got, ref):
+        return {n: ((got[n] - ref[n]).abs().max()
+                    / ref[n].abs().max().clamp_min(1e-30)).item()
+                for n in got}
+    r_k, r_floor = ratios(grads_k, grads_p), ratios(grads_64, grads_p)
+    r_k64 = ratios(grads_k, grads_64)
+    worst = max(r_k, key=r_k.get)
+    ok = (model.cfg.quantize == "fp8" and n_k == 4 * cfg.num_layers
+          and n_p == 0 and np.isfinite(loss_k)
+          and abs(loss_k - loss_p) <= 1e-2
+          and all(r <= TOL_GRAD_FP8 for r in r_k.values()))
+    log(f"[train-qat-fp8] parity: {cfg.num_layers} layers, bf16 AMP, 2 x 512: "
+        f"loss kernel {loss_k:.6f} plain {loss_p:.6f} plain with f64 sums "
+        f"{loss_64:.6f}; gradient max|diff|/max|plain| kernel: worst "
+        f"{r_k[worst]:.3e} ({worst}), median "
+        f"{float(np.median(list(r_k.values()))):.3e} (tol {TOL_GRAD_FP8}); "
+        f"f64 sums (the floor): worst {max(r_floor.values()):.3e}, median "
+        f"{float(np.median(list(r_floor.values()))):.3e}; kernel against "
+        f"f64 sums: worst {max(r_k64.values()):.3e}; row 10f launches {n_k} "
+        f"(plain steps {n_p}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("train-qat-fp8 parity failed")
+    del model, trainer, grads_k, grads_p, grads_64
+    del_all()
+
+    cfg = full_cfg()
+    model, trainer = make_trainer(cfg, 4321, topt.Adam(learning_rate=1e-4),
+                                  qat=True, qat_configs=fp8)
+    b, s, n_meas = 4, 2048, 3
+    batch = token_batch(np.random.RandomState(0), cfg.vocab_size, b, s)
+    ids, labels = (torch.from_numpy(x).cuda() for x in batch)
+    losses = [float(trainer.train_step(ids, labels))]      # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    async_dispatch.reset_host_sync_count()
+    t0 = time.perf_counter()
+    results = [trainer.train_step(ids, labels) for _ in range(n_meas)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = async_dispatch.host_sync_count()
+    launches = read_launches()
+    losses += [float(r) for r in results]
+    layers = cfg.num_layers
+    problems = []
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[1]):
+        problems.append(f"losses not finite and falling: {losses}")
+    if syncs:
+        problems.append(f"{syncs} host syncs in the measured steps")
+    check_launches("train-qat-fp8", launches, {
+        "quantized_matmul_f8": 4 * layers * n_meas,
+        **{k: layers * n_meas for k in FLASH}}, problems)
+    log(f"[train-qat-fp8] gpt3-1.3b, {layers} layers, strategy.qat fp8, bf16 "
+        f"AMP, Adam, {b} x {s}: losses {[round(x, 4) for x in losses]} "
+        f"(first a warm-up); step_ms={wall * 1e3 / n_meas:.3f} host_syncs="
+        f"{syncs}; launches "
+        f"{{{', '.join(f'{k}: {n}' for k, n in launches.items() if n)}}}")
+    finish("train-qat-fp8", problems)
+    del model, trainer
+    del_all()
     return launches
 
 
@@ -2833,11 +3385,12 @@ def teacher_check(what, got, ref, first, tol):
         raise SystemExit(f"teacher-forced check failed: {what}")
 
 
-def phase_teacher_forced(model):
+def phase_teacher_forced(model, kv_dtypes=(None, "int8", "fp8")):
     """Prefill + decode steps against one no-cache forward over the same
     tokens: the dense cache, then the paged cache cold (flash prefill)
     and over a cached 1024-token prefix (the composite hit path), each in
-    bf16 and int8; then the hit prefill timed against the cold one."""
+    bf16, int8 and fp8 (``kv_dtypes``); then the hit prefill timed against
+    the cold one."""
     from paddle_tpu_torch.inference.paged_kv import init_paged_cache
     cfg = model.cfg
     rng = np.random.RandomState(11)
@@ -2849,9 +3402,10 @@ def phase_teacher_forced(model):
     bs, mb = 128, cfg.max_seq_len // 128
     with torch.no_grad():
         ref = model(ids).float()                       # [1, S, V]
-        for kv_dtype in (None, "int8"):
-            tol = TOL_TEACHER if kv_dtype is None else TOL_TEACHER_INT8
-            name = "bf16" if kv_dtype is None else "int8"
+        for kv_dtype in kv_dtypes:
+            tol = {None: TOL_TEACHER, "int8": TOL_TEACHER_INT8,
+                   "fp8": TOL_TEACHER_FP8}[kv_dtype]
+            name = kv_dtype or "bf16"
             cache = model.init_kv_cache(1, kv_dtype=kv_dtype)
             got = [model.prefill(_padded(ids, 0, plen, 256), cache, 0,
                                  plen)[0]]
@@ -4167,7 +4721,7 @@ def teacher_moe(model):
     for m in layers:
         m.capacity_factor = cf
     try:
-        phase_teacher_forced(model)
+        phase_teacher_forced(model, (None, "int8"))
     finally:
         for m in layers:
             m.capacity_factor = model.cfg.moe_capacity_factor
@@ -4414,6 +4968,7 @@ def main():
     records = phase_kernels()
     phase_window_kernels(records)
     phase_qmm_kernels(records)
+    phase_f8_kernels(records)
     phase_mega_kernels(records)
     phase_train_kernels(records)
     model = build_model()
@@ -4429,6 +4984,10 @@ def main():
     paths.update(phase_serve_spec(model))
     paths.update(phase_serve_mega(model))
     paths["serve-quant"] = phase_serve_quant(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.update(phase_serve_fp8(model))
+    paths["serve-quant-fp8"] = phase_serve_quant_fp8(model)
     gc.collect()
     torch.cuda.empty_cache()
     paths["serve-lifecycle"] = phase_serve_lifecycle(model)
@@ -4452,6 +5011,7 @@ def main():
     paths["train-qat"] = phase_train_qat()
     gc.collect()
     torch.cuda.empty_cache()
+    paths["train-qat-fp8"] = phase_train_qat_fp8()
     bf16 = phase_train()
     paths["train"] = bf16["launches"]
     for phase in (phase_train_fp16, phase_train_recompute_policies,
@@ -4466,6 +5026,10 @@ def main():
         rec["launches_by_path"] = by_path
         if not by_path:
             raise SystemExit(f"{key} was launched on no path")
+    # the fp8 cache keeps the megakernel engine on the composed step
+    for key in ("decode_megakernel", "decode_megakernel_q",
+                "paged_decode_megakernel", "paged_decode_megakernel_q"):
+        records[key]["serve_fp8_mega_launches"] = paths["serve-fp8-mega"][key]
     log(f"[done] {time.perf_counter() - t0:.1f} s after the device check")
     keys = ["name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "max_row_rel_err", "row_tol",

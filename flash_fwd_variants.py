@@ -523,9 +523,11 @@ _NO_SCALES = _edit("val[u] = j < kN && k0 + j < p.cap ? scl[row * p.Hkv + hk]",
 _NO_CONVERT = _edit("for (int u = ct; u < kN * (D / 16); u += 96) {",
                     "for (int u = ct; u < 0; u += 96) {")
 
-_VQ_NO_CONVERT = _edit(
-    "  return hopper::pack2<T>(code(wa, ia) * fa, code(wb, ib) * fb);",
-    "  return wa + wb;")
+_VQ_NO_CONVERT = _chain(
+    _edit("  return hopper::pack2<T>(Code<KV>::at(wa, ia) * fa, "
+          "Code<KV>::at(wb, ib) * fb);", "  return wa + wb;"),
+    _edit("  const float2 c = Code<KV>::pair(w, i);\n"
+          "  return hopper::pack2<T>(c.x * f, c.y * f);", "  return w;"))
 _VQ_NO_SCALES = _edit("          if (j < 2 * kTileN)\n            cp_async4(",
                       "          if (j < 0)\n            cp_async4(")
 # the scales loaded to the producer's registers one tile ahead and stored
@@ -964,24 +966,27 @@ VARIANTS = {
                                _chain(_VQ_WARPS4, _vq_stages(6))),
 }
 QMM = "quantized_matmul.cu"
+QMM_H = "quantized_matmul.cuh"  # the kernels' body, shared with the e4m3 source
 VARIANTS.update({
-    "qmm:dec_stages4": (QMM, QMM, _edit("constexpr int kDecStages = 8;",
+    "qmm:dec_stages4": (QMM, QMM_H, _edit("constexpr int kDecStages = 8;",
                                         "constexpr int kDecStages = 4;")),
-    "qmm:dec_stages12": (QMM, QMM, _edit("constexpr int kDecStages = 8;",
+    "qmm:dec_stages12": (QMM, QMM_H, _edit("constexpr int kDecStages = 8;",
                                          "constexpr int kDecStages = 12;")),
-    "qmm:ring_small": (QMM, QMM, _edit("constexpr int kSmemBudget = 229376;",
+    "qmm:ring_small": (QMM, QMM_H, _edit("constexpr int kSmemBudget = 229376;",
                                        "constexpr int kSmemBudget = 163840;")),
     # work removed (wrong results, timing only): the output stores (the
     # rescale goes with them), the tensor-core products, the arrivals of
     # a split sum (partials still written, each piece rescales alone)
-    "qmm:no_store": (QMM, QMM, _chain(
+    "qmm:no_store": (QMM, QMM_H, _chain(
         _edit("          hopper::tma_store_2d(&p.tm_y,", "          if (p.M < 0) hopper::tma_store_2d(&p.tm_y,"),
         _edit("          if (row < p.M)\n            store1(",
               "          if (row < p.M && p.M < 0)\n            store1("))),
-    "qmm:no_mma": (QMM, QMM, _chain(
-        _edit("        WgmmaS8<BN>::ss(acc, ", "        if (p.M < 0) WgmmaS8<BN>::ss(acc, "),
-        _edit("        mma_s8(acc[nt], a, b);", "        if (p.M < 0) mma_s8(acc[nt], a, b);"))),
-    "qmm:no_arrive": (QMM, QMM, _edit(
+    "qmm:no_mma": (QMM, QMM_H, _chain(
+        _edit("          Cd::template wgmma<BN>(acc, ",
+              "          if (p.M < 0) Cd::template wgmma<BN>(acc, "),
+        _edit("          Cd::mma(dst[nt], a, b);",
+              "          if (p.M < 0) Cd::mma(dst[nt], a, b);"))),
+    "qmm:no_arrive": (QMM, QMM_H, _edit(
         "  hopper::named_sync(1, threads);\n  if (leader) {\n",
         "  if (n > 0) return true;\n  hopper::named_sync(1, threads);\n  if (leader) {\n")),
 })
@@ -1014,7 +1019,7 @@ _QMM_DIRECT = _chain(
 }
 
 // The arrival of one piece of a split sum"""))
-VARIANTS["qmm:direct_store"] = (QMM, QMM, _QMM_DIRECT)
+VARIANTS["qmm:direct_store"] = (QMM, QMM_H, _QMM_DIRECT)
 QMM_CUTS = ("qmm:no_store", "qmm:no_mma", "qmm:no_arrive")
 # the committed library under another plan
 QMM_PLANS = {"qmm:bn128": dict(bn=128), "qmm:bn256": dict(bn=256),

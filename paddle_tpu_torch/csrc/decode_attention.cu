@@ -25,5 +25,5 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int H, int Hkv, int D, int dtype, void* stream) {
   decode_attn::Args a{q, k, v, nullptr, nullptr, nullptr, lengths, o,
                       B, S, H, Hkv, D, 0, 0, dtype, stream};
-  return decode_attn::run<false, false>(a);
+  return decode_attn::run<void, false>(a);
 }

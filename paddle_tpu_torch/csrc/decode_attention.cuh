@@ -3,7 +3,8 @@
 // paged_decode_attention_q.cu): one kernel template over the cache layout
 // (dense slot rows [B, S, Hkv, D], or pool blocks [NB, bs, Hkv, D]
 // reached through a block table [B, MB]) and the value type (bf16/fp16,
-// or int8 codes with one f32 scale per (position, kv head)).
+// or int8 or e4m3 codes with one f32 scale per (position, kv head); the
+// e4m3 forms are decode_attention_f8.cu and paged_decode_attention_f8.cu).
 //
 // Contract of every variant (the JAX package's): q [B, H, D] is the new
 // token's query per slot, the cache already holds its k/v, lengths[b]
@@ -14,15 +15,15 @@
 // Design: bandwidth-bound (about G FLOP per byte), so each block reads
 // only the positions below lengths[b] and keeps many 16-byte loads in
 // flight.  One block per (kv head, query chunk, slot) holds up to GC query
-// rows of the kv head's group (GC <= 8 for 16-bit values, <= 4 for int8,
-// whose 16-byte vector carries 16 values; a group larger than GC is
+// rows of the kv head's group (GC <= 8 for 16-bit values, <= 4 for 8-bit
+// codes, whose 16-byte vector carries 16 values; a group larger than GC is
 // split over several blocks that each stream the kv head, so any G
 // works).  Its warps split the sequence; D / kVec lanes share a position,
 // one 16-byte vector each, and an unrolled batch of loads starts before
-// any arithmetic.  int8 values are converted in registers and the scale
-// is applied once per position to the dot product and to p, so the
-// arithmetic stays f32.  The paged variants copy the slot's table entries
-// below ceil(len / bs) into shared memory once.  Each position slot keeps
+// any arithmetic.  8-bit codes are converted in registers (kv_codes.cuh)
+// and the scale is applied once per position to the dot product and to
+// p, so the arithmetic stays f32.  The paged variants copy the slot's
+// table entries below ceil(len / bs) into shared memory once.  Each position slot keeps
 // its own (m, l, acc) and the slots merge through shared memory in a
 // fixed order, so results do not depend on scheduling.
 #pragma once
@@ -34,7 +35,11 @@
 
 #include <type_traits>
 
+#include "kv_codes.cuh"
+
 namespace decode_attn {
+
+using kv_codes::Code;
 
 constexpr float kNeg = -1e30f;
 
@@ -83,6 +88,22 @@ struct Vec<int8_t> {
   }
 };
 
+template <>
+struct Vec<__nv_fp8_e4m3> {
+  static constexpr int kN = 16;
+  __device__ static __forceinline__ void to_float(const uint4& raw, float* out) {
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; j += 2) {
+        const float2 f = Code<__nv_fp8_e4m3>::pair(w[i], j);
+        out[4 * i + j] = f.x;
+        out[4 * i + j + 1] = f.y;
+      }
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -96,12 +117,12 @@ __device__ __forceinline__ __half from_float<__half>(float x) {
 
 // Small groups (the MHA serving shape) run 16 warps with 4 loads each in
 // flight per lane: one block per (kv head, slot) is all the parallelism
-// there is, so the block itself must hide the memory latency.  An int8
-// lane holds 16 values (twice a 16-bit lane's), so int8 takes 16 warps,
+// there is, so the block itself must hide the memory latency.  An 8-bit
+// lane holds 16 values (twice a 16-bit lane's), so codes take 16 warps,
 // and their 128-register cap, only for one query row.
 template <typename KV, int GC>
 struct Shape {
-  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr bool kQuant = Code<KV>::kQuant;
   static constexpr int kWarps = GC <= (kQuant ? 1 : 2) ? 16 : 8;
   static constexpr int kUnroll = GC <= 2 ? 4 : 2;
   static constexpr int kThreads = kWarps * 32;
@@ -112,7 +133,7 @@ struct Params {
   const T* q;
   const KV* k;
   const KV* v;
-  const float* ks;      // int8 only: [B, S, Hkv] dense, [NB, bs, Hkv] paged
+  const float* ks;      // codes only: [B, S, Hkv] dense, [NB, bs, Hkv] paged
   const float* vs;
   const int* tables;    // paged only: [B, mb]
   const int* lengths;   // [B]
@@ -349,7 +370,7 @@ int launch(const Args& a, int n_chunks, int bs_shift) {
 // a larger group is split over ceil(G / GC) blocks per kv head.
 template <typename T, typename KV, int D, bool kPaged>
 int by_group(const Args& a, int bs_shift) {
-  constexpr int kMaxGC = std::is_same<KV, int8_t>::value ? 4 : 8;
+  constexpr int kMaxGC = Code<KV>::kQuant ? 4 : 8;
   const int G = a.H / a.Hkv;
   int gc = 1;
   while (gc < G && gc < kMaxGC) gc <<= 1;
@@ -364,9 +385,10 @@ int by_group(const Args& a, int bs_shift) {
   }
 }
 
-// The entry points' dispatch: value type (KV = T, or int8 codes when
-// kQuant), dtype of q and o, D in {64, 128}.  Returns a cudaError_t.
-template <bool kQuant, bool kPaged>
+// The entry points' dispatch: value type (KV = T when C is void, else
+// the codes C: int8_t or __nv_fp8_e4m3), dtype of q and o, D in {64,
+// 128}.  Returns a cudaError_t.
+template <typename C, bool kPaged>
 int run(const Args& a) {
   if (a.B <= 0 || a.Hkv <= 0 || a.H <= 0 || a.H % a.Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -381,8 +403,9 @@ int run(const Args& a) {
   }
   using BF = __nv_bfloat16;
   using FH = __half;
-  using KB = typename std::conditional<kQuant, int8_t, BF>::type;
-  using KH = typename std::conditional<kQuant, int8_t, FH>::type;
+  constexpr bool kQuant = !std::is_void<C>::value;
+  using KB = typename std::conditional<kQuant, C, BF>::type;
+  using KH = typename std::conditional<kQuant, C, FH>::type;
   if (a.dtype == 0 && a.D == 128) return by_group<BF, KB, 128, kPaged>(a, bs_shift);
   if (a.dtype == 0 && a.D == 64) return by_group<BF, KB, 64, kPaged>(a, bs_shift);
   if (a.dtype == 1 && a.D == 128) return by_group<FH, KH, 128, kPaged>(a, bs_shift);

@@ -26,5 +26,5 @@ extern "C" int decode_attention_q(const void* q, const void* k, const void* v,
                                   int H, int Hkv, int D, int dtype, void* stream) {
   decode_attn::Args a{q, k, v, k_scale, v_scale, nullptr, lengths, o,
                       B, S, H, Hkv, D, 0, 0, dtype, stream};
-  return decode_attn::run<true, false>(a);
+  return decode_attn::run<int8_t, false>(a);
 }

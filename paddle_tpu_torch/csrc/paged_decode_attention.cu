@@ -31,5 +31,5 @@ extern "C" int paged_decode_attention(const void* q, const void* k_pool,
                                       int dtype, void* stream) {
   decode_attn::Args a{q, k_pool, v_pool, nullptr, nullptr, tables, lengths, o,
                       B, 0, H, Hkv, D, bs, MB, dtype, stream};
-  return decode_attn::run<false, true>(a);
+  return decode_attn::run<void, true>(a);
 }

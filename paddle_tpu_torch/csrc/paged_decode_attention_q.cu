@@ -27,5 +27,5 @@ extern "C" int paged_decode_attention_q(const void* q, const void* k_pool,
                                         int dtype, void* stream) {
   decode_attn::Args a{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o,
                       B, 0, H, Hkv, D, bs, MB, dtype, stream};
-  return decode_attn::run<true, true>(a);
+  return decode_attn::run<int8_t, true>(a);
 }

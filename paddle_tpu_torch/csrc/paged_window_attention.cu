@@ -30,5 +30,5 @@ extern "C" int paged_window_attention(const void* q, const void* k_pool,
                                       int D, int dtype, void* stream) {
   window_attn::Args a{q, k_pool, v_pool, nullptr, nullptr, tables, lengths, o,
                       B, W, 0, H, Hkv, D, bs, MB, dtype, stream};
-  return window_attn::run<false, true>(a);
+  return window_attn::run<void, true>(a);
 }

@@ -31,5 +31,5 @@ extern "C" int paged_window_attention_q(const void* q, const void* k_pool,
                                         int D, int dtype, void* stream) {
   window_attn::Args a{q, k_pool, v_pool, k_scale, v_scale, tables, lengths, o,
                       B, W, 0, H, Hkv, D, bs, MB, dtype, stream};
-  return window_attn::run<true, true>(a);
+  return window_attn::run<int8_t, true>(a);
 }

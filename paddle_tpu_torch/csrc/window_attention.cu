@@ -31,5 +31,5 @@ extern "C" int window_attention(const void* q, const void* k, const void* v,
                                 void* stream) {
   window_attn::Args a{q, k, v, nullptr, nullptr, nullptr, lengths, o,
                       B, W, S, H, Hkv, D, 0, 0, dtype, stream};
-  return window_attn::run<false, false>(a);
+  return window_attn::run<void, false>(a);
 }

@@ -3,7 +3,9 @@
 // paged_window_attention_q.cu): kernel templates over the cache layout
 // (dense slot rows [B, S, Hkv, D], or pool blocks [NB, bs, Hkv, D] reached
 // through a block table [B, MB]) and the value type (bf16/fp16, or int8
-// codes with one f32 scale per (position, kv head)).
+// or e4m3 codes with one f32 scale per (position, kv head); the e4m3
+// forms are window_attention_f8.cu and paged_window_attention_f8.cu, read
+// through kv_codes.cuh where int8 takes a byte permute).
 //
 // Contract of every variant (the JAX package's decode_attention_window and
 // paged_decode_attention_window): q [B, W, H, D] holds W consecutive new
@@ -61,12 +63,14 @@
 #include <type_traits>
 
 #include "hopper_attn_fwd.cuh"
+#include "kv_codes.cuh"
 #include "mma_tile.cuh"
 
 namespace window_attn {
 
 using flash::kNeg;
 using flash::Mma;
+using kv_codes::Code;
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -103,7 +107,7 @@ inline int pool_seg(int bs) { return bs % 128 == 0 ? 128 : bs % 64 == 0 ? 64 : 1
 
 template <typename T, typename KV, int D, bool kPaged>
 struct ChunkPolicy {
-  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr bool kQuant = Code<KV>::kQuant;
   struct Params {
     CUtensorMap tm_k, tm_v;  // 16-bit swizzled, or int8 codes unswizzled
     const T* q;
@@ -286,24 +290,21 @@ struct ChunkPolicy {
           const float* sc = reinterpret_cast<const float*>(codes + kN * D);
           unsigned char* dst = ring.at(which ? ring.v(s) : ring.k(s));
           // code x scale in f32, rounded once to T, 16 codes a step; the
-          // code reaches f32 exactly without the quarter-rate I2F:
-          // 0x4B0000uu is 2^23 + uu, uu = code + 128
+          // code reaches f32 exactly (kv_codes.cuh: int8 by byte permute
+          // without the quarter-rate I2F, e4m3 by cvt, two codes at once)
+          using Cd = Code<KV>;
           for (int u = ct; u < kN * (D / 16); u += 96) {
             const int line = u / (D / 16);
             const int c16 = u % (D / 16);
             const uint4 raw = *reinterpret_cast<const uint4*>(codes + line * D + c16 * 16);
             const float f = sc[line];
-            const uint32_t w4[4] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u,
-                                    raw.z ^ 0x80808080u, raw.w ^ 0x80808080u};
+            const uint32_t w4[4] = {Cd::prep(raw.x), Cd::prep(raw.y), Cd::prep(raw.z),
+                                    Cd::prep(raw.w)};
             uint32_t packed[8];
 #pragma unroll
             for (int j = 0; j < 8; ++j) {
-              const uint32_t sel = 0x7540u + 2 * (j % 2);
-              const float lo =
-                  __uint_as_float(__byte_perm(w4[j / 2], 0x4B000000u, sel)) - 8388736.f;
-              const float hi =
-                  __uint_as_float(__byte_perm(w4[j / 2], 0x4B000000u, sel + 1)) - 8388736.f;
-              packed[j] = hopper::pack2<T>(lo * f, hi * f);
+              const float2 c = Cd::pair(w4[j / 2], 2 * (j % 2));
+              packed[j] = hopper::pack2<T>(c.x * f, c.y * f);
             }
             *reinterpret_cast<uint4*>(dst + attn_fwd::sw_chunk(kN, line, 2 * c16)) =
                 make_uint4(packed[0], packed[1], packed[2], packed[3]);
@@ -425,9 +426,10 @@ int chunk_launch(const Args& a) {
 //   so a thread reads D / 8 contiguous bytes of each of its four key rows
 //   (2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of the warp's 16) and byte t
 //   of each is tile t's B fragment.
-// A code becomes f32 exactly by byte permute (0x4B0000uu = 2^23 + uu,
-// uu = code + 128) and one subtraction, in place of the quarter-rate
-// I2F; then code x scale in f32, rounded once to T (the contract).
+// An int8 code becomes f32 exactly by byte permute (0x4B0000uu = 2^23 +
+// uu, uu = code + 128) and one subtraction, in place of the quarter-rate
+// I2F; an e4m3 code by cvt.rn.f16x2.e4m3x2 (kv_codes.cuh); then code x
+// scale in f32, rounded once to T (the contract).
 //
 // When B * Hkv leaves SMs idle, the key tiles of a (slot, kv head) split
 // over a thread block cluster of nsplit CTAs; each CTA merges its warps'
@@ -446,7 +448,7 @@ constexpr int kMaxSplit = 8;           // CTAs a cluster (portable limit)
 // byte offsets from the 1024-aligned base of dynamic shared memory
 template <typename KV, int D>
 struct Layout {
-  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr bool kQuant = Code<KV>::kQuant;
   static constexpr int kCodes = kTileN * D * static_cast<int>(sizeof(KV));  // one tensor a stage
   static constexpr int kStage = (2 * kCodes + (kQuant ? 2 * kTileN * 4 : 0) + 1023) / 1024 * 1024;
   static constexpr int kRing = kStages * kStage;
@@ -501,16 +503,19 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t* r, uint32_t addr) {
                : "r"(addr));
 }
 
-// byte i of a code word (bytes already XOR 0x80) as the exact f32 code
-__device__ __forceinline__ float code(uint32_t w, int i) {
-  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540u + i)) - 8388736.f;
-}
-
-// code a x scale fa (low half) and code b x scale fb, rounded to T
-template <typename T>
+// code a x scale fa (low half) and code b x scale fb, rounded to T (byte
+// ia of the prepared word wa, ib of wb: kv_codes.cuh)
+template <typename T, typename KV>
 __device__ __forceinline__ uint32_t dq2(uint32_t wa, int ia, float fa,
                                         uint32_t wb, int ib, float fb) {
-  return hopper::pack2<T>(code(wa, ia) * fa, code(wb, ib) * fb);
+  return hopper::pack2<T>(Code<KV>::at(wa, ia) * fa, Code<KV>::at(wb, ib) * fb);
+}
+
+// codes i, i + 1 of the prepared word w, both x scale f, rounded to T
+template <typename T, typename KV>
+__device__ __forceinline__ uint32_t dq2_pair(uint32_t w, int i, float f) {
+  const float2 c = Code<KV>::pair(w, i);
+  return hopper::pack2<T>(c.x * f, c.y * f);
 }
 
 // One consumer warp over 16 query rows: its Q fragments and its online
@@ -522,7 +527,7 @@ __device__ __forceinline__ uint32_t dq2(uint32_t wa, int ia, float fa,
 // phase runs the same warps.
 template <typename T, typename KV, int D>
 struct Warp16 {
-  static constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  static constexpr bool kQuant = Code<KV>::kQuant;
   uint32_t qf[D / 16][4];
   float acc[D / 8][4];
   float m_i[2];
@@ -582,8 +587,8 @@ struct Warp16 {
         }
 #pragma unroll
         for (int c = 0; c < D / 16; ++c) {
-          const uint32_t x = w[c] ^ 0x80808080u;
-          const uint32_t bf[2] = {dq2<T>(x, 0, f, x, 1, f), dq2<T>(x, 2, f, x, 3, f)};
+          const uint32_t x = Code<KV>::prep(w[c]);
+          const uint32_t bf[2] = {dq2_pair<T, KV>(x, 0, f), dq2_pair<T, KV>(x, 2, f)};
           Mma<T>::run(sf[j], qf[c], bf);
         }
       }
@@ -659,19 +664,20 @@ struct Warp16 {
       for (int e = 0; e < 4; ++e) {
         const int line = l0 + 2 * tig + (e & 1) + 8 * (e >> 1);
         fv[e] = sv[line];
+        using Cd = Code<KV>;
         if constexpr (D == 128) {
           const uint4 x = *reinterpret_cast<const uint4*>(cv + line * 128 + ((gid ^ (line & 7)) << 4));
-          v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
-          v[e][2] = x.z ^ 0x80808080u; v[e][3] = x.w ^ 0x80808080u;
+          v[e][0] = Cd::prep(x.x); v[e][1] = Cd::prep(x.y);
+          v[e][2] = Cd::prep(x.z); v[e][3] = Cd::prep(x.w);
         } else {
           const uint2 x = *reinterpret_cast<const uint2*>(cv + line * D + gid * 8);
-          v[e][0] = x.x ^ 0x80808080u; v[e][1] = x.y ^ 0x80808080u;
+          v[e][0] = Cd::prep(x.x); v[e][1] = Cd::prep(x.y);
         }
       }
 #pragma unroll
       for (int t = 0; t < D / 8; ++t) {
-        const uint32_t bf[2] = {dq2<T>(v[0][t / 4], t % 4, fv[0], v[1][t / 4], t % 4, fv[1]),
-                                dq2<T>(v[2][t / 4], t % 4, fv[2], v[3][t / 4], t % 4, fv[3])};
+        const uint32_t bf[2] = {dq2<T, KV>(v[0][t / 4], t % 4, fv[0], v[1][t / 4], t % 4, fv[1]),
+                                dq2<T, KV>(v[2][t / 4], t % 4, fv[2], v[3][t / 4], t % 4, fv[3])};
         Mma<T>::run(acc[t], pa, bf);
       }
     } else {
@@ -1008,7 +1014,7 @@ inline int split_for(int pairs, int cap) {
 
 template <typename T, typename KV, int D, bool kPaged>
 int launch(const Args& a) {
-  constexpr bool kQuant = std::is_same<KV, int8_t>::value;
+  constexpr bool kQuant = Code<KV>::kQuant;
   Params<T> p;
   const int cap = kPaged ? a.mb * a.bs : a.S;
   // a pool's block count is not passed: its map spans every block id a
@@ -1069,9 +1075,10 @@ int by_rows(const Args& a) {
   return chunk_launch<T, KV, D, kPaged>(a);
 }
 
-// The entry points' dispatch: value type (KV = T, or int8 codes when
-// kQuant), dtype of q and o, D in {64, 128}.  Returns a cudaError_t.
-template <bool kQuant, bool kPaged>
+// The entry points' dispatch: value type (KV = T when C is void, else
+// the codes C: int8_t or __nv_fp8_e4m3), dtype of q and o, D in {64,
+// 128}.  Returns a cudaError_t.
+template <typename C, bool kPaged>
 int run(const Args& a) {
   if (a.B <= 0 || a.W <= 0 || a.Hkv <= 0 || a.H <= 0 || a.H % a.Hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1083,8 +1090,9 @@ int run(const Args& a) {
   }
   using BF = __nv_bfloat16;
   using FH = __half;
-  using KB = typename std::conditional<kQuant, int8_t, BF>::type;
-  using KH = typename std::conditional<kQuant, int8_t, FH>::type;
+  constexpr bool kQuant = !std::is_void<C>::value;
+  using KB = typename std::conditional<kQuant, C, BF>::type;
+  using KH = typename std::conditional<kQuant, C, FH>::type;
   if (a.dtype == 0 && a.D == 128) return by_rows<BF, KB, 128, kPaged>(a);
   if (a.dtype == 0 && a.D == 64) return by_rows<BF, KB, 64, kPaged>(a);
   if (a.dtype == 1 && a.D == 128) return by_rows<FH, KH, 128, kPaged>(a);

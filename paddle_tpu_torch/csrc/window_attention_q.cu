@@ -36,5 +36,5 @@ extern "C" int window_attention_q(const void* q, const void* k, const void* v,
                                   void* stream) {
   window_attn::Args a{q, k, v, k_scale, v_scale, nullptr, lengths, o,
                       B, W, S, H, Hkv, D, 0, 0, dtype, stream};
-  return window_attn::run<true, false>(a);
+  return window_attn::run<int8_t, false>(a);
 }

@@ -28,7 +28,7 @@ _DEFAULTS: Dict[str, Any] = {
     "recompute": False,
     "recompute_configs": {"policy": "dots", "scan_layers": False},
     # quantization-aware training: every block linear through the int8
-    # fake-quant matmul
+    # (or, with {"quantize": "fp8"}, e4m3) fake-quant matmul
     "qat": False,
     "qat_configs": {"quantize": "int8"},
     # k micro-steps accumulate their gradients; the update runs every

@@ -196,8 +196,9 @@ class SpmdTrainer:
                                    or "full")
 
         # quantization-aware training: every block linear runs the int8
-        # fake-quant matmul (quantized forward, straight-through backward);
-        # parameters and optimizer are untouched
+        # or e4m3 fake-quant matmul (qat_configs['quantize']; quantized
+        # forward, straight-through backward); parameters and optimizer
+        # are untouched
         if st.qat:
             if not hasattr(model, "enable_quantize"):
                 raise NotImplementedError(

@@ -24,9 +24,11 @@ cached blocks, then PREEMPTS the youngest request back onto the queue
 deadlocking.  Block tables and lengths are host state; each paged decode
 step stages them in pinned memory and copies them to the device without
 a sync (the previous step's sync has finished the previous copy before
-the host writes the staging buffers again).  ``kv_dtype='int8'`` stores
-either layout as int8 codes with per-(position, head) f32 scales, read
-by the int8 decode kernels.
+the host writes the staging buffers again).  ``kv_dtype='int8'`` or
+``'fp8'`` (``PADDLE_TPU_KV_DTYPE``) stores either layout as int8 or e4m3
+codes with per-(position, head) f32 scales, read by the int8 or e4m3
+attention kernels; an fp8 cache keeps a megakernel-enabled model on the
+composed decode step, as in the JAX package.
 
 ``prefill_chunk=C`` (Sarathi-style chunked prefill): admission binds a
 request to a slot without running a prefill; each ``step()`` then feeds
@@ -192,7 +194,7 @@ class InferenceEngine:
     positions) or ``'paged'`` (a pool of ``kv_num_blocks`` blocks of
     ``kv_block_size`` positions, default the dense-equivalent memory,
     with a radix prefix cache unless ``prefix_cache=False``).
-    ``kv_dtype='int8'`` quantizes either cache.  ``prefill_chunk=C > 0``
+    ``kv_dtype='int8'`` or ``'fp8'`` quantizes either cache.  ``prefill_chunk=C > 0``
     admits by chunks of C prompt tokens per step; ``spec_k=K`` with a
     ``draft_model`` (a ``GPTForCausalLM`` of the same vocabulary on the
     same device) decodes speculatively.  ``device=None`` means the CUDA
@@ -1408,8 +1410,8 @@ class InferenceEngine:
         with a prefix cache also over a one-block prefix), or the chunk
         step when chunked; the samplers; the decode step (composed or
         megakernel); and, speculating, the draft's prefills and a tick.
-        Loads each CUDA library (building it if missing), the int8
-        matmul's plans and the megakernel's tensor maps.  Leaves the
+        Loads each CUDA library (building it if missing), the int8 or
+        e4m3 matmul's plans and the megakernel's tensor maps.  Leaves the
         engine clean: lengths 0, warmup blocks back in the pool and never
         in the radix cache."""
         if self.num_active or self._queue:

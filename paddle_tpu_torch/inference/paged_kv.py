@@ -52,7 +52,8 @@ class PagedKVCache:
     """Device half of the paged cache: ``k``/``v`` are
     ``[layers, num_blocks, block_size, kv_heads, head_dim]`` block pools.
 
-    Quantized form (``kv_dtype='int8'``): int8 value pools and
+    Quantized form (``kv_dtype='int8'`` or ``'fp8'``): int8 or e4m3 value
+    pools and
     ``k_scale``/``v_scale``, the per-(position, head) f32 scale pools
     ``[layers, num_blocks, block_size, kv_heads]``.  Full-precision pools
     (``k_scale is None``) are the default."""
@@ -92,9 +93,9 @@ def init_paged_cache(model, num_blocks: int, block_size: int,
                      kv_dtype: Optional[str] = None) -> PagedKVCache:
     """Zeroed block pools for ``model`` (a GPTForCausalLM or GPTModel) in
     its embedding's dtype, on its device.  ``num_blocks`` INCLUDES the
-    null block 0.  ``kv_dtype='int8'`` (default from
-    ``PADDLE_TPU_KV_DTYPE``) allocates int8 value pools plus f32 scale
-    pools."""
+    null block 0.  ``kv_dtype='int8'`` or ``'fp8'`` (default from
+    ``PADDLE_TPU_KV_DTYPE``) allocates int8 or e4m3 value pools plus f32
+    scale pools."""
     gpt = getattr(model, "gpt", model)
     cfg = gpt.cfg
     w = gpt.wte.weight

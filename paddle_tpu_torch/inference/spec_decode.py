@@ -9,8 +9,8 @@ Per tick, for every live slot:
    ``verify_step``, and its last real logit row proposes draft token 1;
 2. propose: K-1 single-token draft decode steps propose the rest;
 3. verify: the target runs ONE window step over ``[last committed, d_1
-   .. d_K]``, writing all K+1 k/v into its cache (dense or paged, fp or
-   int8);
+   .. d_K]``, writing all K+1 k/v into its cache (dense or paged, fp,
+   int8 or fp8);
 4. accept: greedy slots keep the longest prefix with ``d_i == argmax
    p_{i-1}`` plus one target token, so the stream is token-identical to
    the non-speculative engine; sampled slots run the rejection rule over

@@ -1,8 +1,8 @@
 """GPT decoder on one GPU (counterpart of ``paddle_tpu/models/gpt.py``:
 the single-device serving paths over the dense and the paged KV cache,
-full precision or int8, with the W-token window steps of speculative
-decoding and chunked prefill, the fused per-layer decode step, int8
-quantized compute, the no-cache forward and the training surface:
+full precision, int8 or fp8 (e4m3), with the W-token window steps of
+speculative decoding and chunked prefill, the fused per-layer decode
+step, int8 and fp8 quantized compute, the no-cache forward and the training surface:
 recompute, the fused-CE head and ``GPTPretrainingCriterion``).
 
 Parameters keep the JAX package's names and ``[in, out]`` layout
@@ -10,15 +10,15 @@ Parameters keep the JAX package's names and ``[in, out]`` layout
 a ``paddle_tpu`` model's weights one to one.  Attention goes through
 ``ops.flash_attention`` (prefill without a cached prefix, no-cache
 forward), ``ops.decode_attention`` and ``ops.paged_decode_attention``
-(decode, full precision or int8), ``ops.decode_attention_window`` and
+(decode, full precision, int8 or e4m3), ``ops.decode_attention_window`` and
 ``ops.paged_decode_attention_window`` (verify windows and prefill
 chunks): hand-written kernels on the card,
 their plain versions on the CPU; under autograd the flash backward runs
 the dq and dk/dv kernels.  A paged prefill over a cached prefix attends
 through ``masked_attention``, a plain masked composite, as the JAX
 package does through its XLA composite.  The projections are
-``torch.matmul``, or ``ops.fake_quant_matmul`` (the int8 kernel on the
-card) under ``quantize='int8'``.  With ``decode_megakernel`` a decode
+``torch.matmul``, or ``ops.fake_quant_matmul`` (the int8 or e4m3 kernel
+on the card) under ``quantize='int8'`` or ``'fp8'``.  With ``decode_megakernel`` a decode
 step runs each layer as one ``ops.decode_layer_step(_paged)`` call (one
 kernel launch on the card) and writes the returned k/v itself.
 
@@ -63,7 +63,8 @@ class StaticKVCache:
     """Preallocated serving KV cache: ``k``/``v`` are
     ``[layers, batch_slots, capacity, kv_heads, head_dim]`` and
     ``lengths`` is ``[batch_slots]`` int32, the valid tokens per slot.
-    Quantized form (``kv_dtype='int8'``): int8 ``k``/``v`` and
+    Quantized form (``kv_dtype='int8'`` or ``'fp8'``): int8 or e4m3
+    (``torch.float8_e4m3fn``) ``k``/``v`` and
     ``k_scale``/``v_scale``, per-(position, head) f32 scales
     ``[layers, batch_slots, capacity, kv_heads]``.
 
@@ -159,8 +160,8 @@ class GPTConfig:
     # (ops.fused_cross_entropy): no [B, S, V] logits.  Needs tied
     # embeddings.
     fused_ce: bool = False
-    # quantized compute: 'int8' routes every block linear (qkv, out, up,
-    # down) through ops.fake_quant_matmul (quantized forward, straight-
+    # quantized compute: 'int8' or 'fp8' routes every block linear (qkv,
+    # out, up, down) through ops.fake_quant_matmul (quantized forward, straight-
     # through backward); embeddings and the LM head stay full precision.
     # None keeps the unquantized products.
     quantize: Optional[str] = None
@@ -187,7 +188,7 @@ class GPTConfig:
             if self.moe_num_experts > 0:
                 # the expert FFNs are batched products, not the block
                 # linears: they would stay full precision while the
-                # config said int8
+                # config said int8 or fp8
                 raise NotImplementedError(
                     f"quantize={self.quantize!r} COMPUTE with MoE is "
                     f"not supported: expert FFN matmuls (the dominant "
@@ -195,7 +196,8 @@ class GPTConfig:
                     f"quantizing only attention would misattribute the "
                     f"measured MFU. Quantized KV CACHES are orthogonal "
                     f"and do work with MoE engines — pass "
-                    f"kv_dtype='int8' to InferenceEngine/init_kv_cache "
+                    f"kv_dtype='int8' or 'fp8' to InferenceEngine/"
+                    f"init_kv_cache "
                     f"instead")
 
     def is_moe_layer(self, layer_idx: int) -> bool:
@@ -598,6 +600,7 @@ class GPTModel(nn.Module):
                     "expert FFN matmuls have no quantized COMPUTE path "
                     "yet (see GPTConfig.quantize). Quantized KV caches "
                     "are orthogonal and do work — pass kv_dtype='int8' "
+                    "or 'fp8' "
                     "to InferenceEngine/init_kv_cache instead")
         self.cfg = replace(self.cfg, quantize=mode)
         for blk in self.blocks:
@@ -647,8 +650,9 @@ class GPTModel(nn.Module):
                       kv_dtype: Optional[str] = None) -> StaticKVCache:
         """Zeroed cache ``[layers, batch_slots, capacity, Hkv, D]``
         (capacity defaults to max_seq_len) in the embedding's dtype.
-        ``kv_dtype='int8'`` (default from ``PADDLE_TPU_KV_DTYPE``) stores
-        int8 codes plus per-(position, head) f32 scales."""
+        ``kv_dtype='int8'`` or ``'fp8'`` (default from
+        ``PADDLE_TPU_KV_DTYPE``) stores int8 or e4m3 codes plus
+        per-(position, head) f32 scales."""
         cfg = self.cfg
         cap = int(capacity or cfg.max_seq_len)
         w = self.wte.weight
@@ -667,8 +671,9 @@ class GPTModel(nn.Module):
         padded) prompt ``input_ids [1, s]``, every layer's k/v written at
         ``(layer, slot, 0:s)`` and ``lengths[slot] = prompt_len``.  The
         padding's k/v lie past the recorded length, so no later decode
-        step reads them.  A quantized cache stores int8 codes; attention
-        ran on the full-precision k/v.  Returns hidden ``[1, s, hidden]``."""
+        step reads them.  A quantized cache stores int8 or e4m3 codes;
+        attention ran on the full-precision k/v.  Returns hidden ``[1, s,
+        hidden]``."""
         s = input_ids.shape[1]
         if s > cache.capacity:
             raise ValueError(f"prefill of {s} tokens exceeds the cache "
@@ -761,9 +766,9 @@ class GPTModel(nn.Module):
         onward of the prompt; ``table_row [MB]`` int32 maps the slot's
         positions to pool blocks (cached prefix blocks, fresh blocks for
         the suffix, null block 0 beyond).  Per layer: read the prefix's
-        k/v through the table (dequantized into f32 from an int8 pool),
-        attend, and write the s new k/v at positions ``prefix_len + i``
-        in place (quantized on an int8 pool).  Returns hidden
+        k/v through the table (dequantized into f32 from an int8 or e4m3
+        pool), attend, and write the s new k/v at positions ``prefix_len
+        + i`` in place (quantized on a quantized pool).  Returns hidden
         ``[1, s, hidden]``."""
         cfg = self.cfg
         s = input_ids.shape[1]

@@ -1,13 +1,16 @@
 """Kernel ops of the ported paths: each a hand-written CUDA kernel for
 Hopper with its plain PyTorch version beside it (see ``_build``), the
-fused cross-entropy (plain products, no kernel of its own), the int8
-matmul and the KV quantization helpers."""
-from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_Q,
-                               PAGED_DECODE_ATTENTION,
+fused cross-entropy (plain products, no kernel of its own), the int8 and
+e4m3 matmul and the KV quantization helpers."""
+from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_F8,
+                               DECODE_ATTENTION_Q, PAGED_DECODE_ATTENTION,
+                               PAGED_DECODE_ATTENTION_F8,
                                PAGED_DECODE_ATTENTION_Q,
                                PAGED_WINDOW_ATTENTION,
+                               PAGED_WINDOW_ATTENTION_F8,
                                PAGED_WINDOW_ATTENTION_Q, WINDOW_ATTENTION,
-                               WINDOW_ATTENTION_Q, chunk_prefill_attention,
+                               WINDOW_ATTENTION_F8, WINDOW_ATTENTION_Q,
+                               chunk_prefill_attention,
                                decode_attention, decode_attention_window,
                                paged_chunk_prefill_attention,
                                paged_decode_attention,
@@ -19,7 +22,8 @@ from .decode_megakernel import (DECODE_MEGAKERNEL, DECODE_MEGAKERNEL_Q,
                                 PAGED_DECODE_MEGAKERNEL,
                                 PAGED_DECODE_MEGAKERNEL_Q, decode_layer_step,
                                 decode_layer_step_paged)
-from .quantized_matmul import (QUANTIZED_MATMUL, dequantize_kv,
+from .quantized_matmul import (QUANTIZED_MATMUL, QUANTIZED_MATMUL_F8,
+                               dequantize_kv,
                                fake_quant_matmul, quantize_kv,
                                quantized_matmul)
 
@@ -36,7 +40,10 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "DECODE_ATTENTION", "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
            "PAGED_DECODE_ATTENTION_Q", "WINDOW_ATTENTION",
            "WINDOW_ATTENTION_Q", "PAGED_WINDOW_ATTENTION",
-           "PAGED_WINDOW_ATTENTION_Q", "FLASH_FWD", "FLASH_BWD_DQ",
+           "PAGED_WINDOW_ATTENTION_Q", "DECODE_ATTENTION_F8",
+           "PAGED_DECODE_ATTENTION_F8", "WINDOW_ATTENTION_F8",
+           "PAGED_WINDOW_ATTENTION_F8", "QUANTIZED_MATMUL_F8",
+           "FLASH_FWD", "FLASH_BWD_DQ",
            "FLASH_BWD_DKV", "KERNELS"]
 
 # every kernel of the package by source file, for builds and launch counts
@@ -51,6 +58,11 @@ KERNELS = {"flash_fwd.cu": FLASH_FWD, "flash_bwd_dq.cu": FLASH_BWD_DQ,
            "paged_window_attention.cu": PAGED_WINDOW_ATTENTION,
            "paged_window_attention_q.cu": PAGED_WINDOW_ATTENTION_Q,
            "quantized_matmul.cu": QUANTIZED_MATMUL,
+           "decode_attention_f8.cu": DECODE_ATTENTION_F8,
+           "paged_decode_attention_f8.cu": PAGED_DECODE_ATTENTION_F8,
+           "window_attention_f8.cu": WINDOW_ATTENTION_F8,
+           "paged_window_attention_f8.cu": PAGED_WINDOW_ATTENTION_F8,
+           "quantized_matmul_f8.cu": QUANTIZED_MATMUL_F8,
            "decode_megakernel.cu": DECODE_MEGAKERNEL,
            "decode_megakernel_q.cu": DECODE_MEGAKERNEL_Q,
            "paged_decode_megakernel.cu": PAGED_DECODE_MEGAKERNEL,

@@ -1,6 +1,6 @@
-"""Decode attention over a dense or a paged KV cache, full precision or
-int8, for one new token per slot or a window of W: hand-written Hopper
-kernels + plain versions.
+"""Decode attention over a dense or a paged KV cache, full precision,
+int8 or fp8 (e4m3), for one new token per slot or a window of W:
+hand-written Hopper kernels + plain versions.
 
 Counterpart of ``paddle_tpu/ops/decode_attention.py`` (single-token and
 window paths).
@@ -15,14 +15,18 @@ one.  GQA native (``h = hk * G + g``, any ``G = H / Hkv``).
   ``pool[tables[b, t // bs], t % bs]``; entries past a slot's extent
   point at the null block 0);
 - with ``k_scale``/``v_scale`` (``[B, S, Hkv]`` dense, ``[NB, bs, Hkv]``
-  paged, f32) the caches hold int8 codes of ``ops.quantized_matmul.
-  quantize_kv``, dequantized inside the kernels.
+  paged, f32) the caches hold int8 or e4m3 (``torch.float8_e4m3fn``)
+  codes of ``ops.quantized_matmul.quantize_kv``, dequantized inside the
+  kernels.  The JAX package has TPU kernels for int8 caches only; its
+  fp8 caches ride the composites, which the e4m3 kernels here
+  (``*_f8.cu``) compute.
 
 Dispatch: a CPU tensor goes to the plain version (``_decode_plain``,
 ``_paged_plain``); a CUDA tensor goes to its kernel in ``csrc/``
 (``decode_attention.cu``, ``decode_attention_q.cu``,
-``paged_decode_attention.cu``, ``paged_decode_attention_q.cu``) or the
-call raises.  The kernels take bf16/fp16 q, D in {64, 128}, bs a
+``paged_decode_attention.cu``, ``paged_decode_attention_q.cu`` and the
+e4m3 ``decode_attention_f8.cu``, ``paged_decode_attention_f8.cu``) or
+the call raises.  The kernels take bf16/fp16 q, D in {64, 128}, bs a
 multiple of 16, contiguous 16-byte-aligned tensors and int32 lengths and
 tables, and read only the positions below ``lengths[b]``.
 
@@ -35,7 +39,8 @@ counting the tokens cached BEFORE the window; query i attends
 ``decode_attention`` with ``lengths + 1``.  Plain versions
 ``_window_plain`` and ``_paged_window_plain``; kernels
 ``window_attention.cu``, ``window_attention_q.cu``,
-``paged_window_attention.cu`` and ``paged_window_attention_q.cu``.
+``paged_window_attention.cu`` and ``paged_window_attention_q.cu``, and
+the e4m3 ``window_attention_f8.cu`` and ``paged_window_attention_f8.cu``.
 ``chunk_prefill_attention`` and ``paged_chunk_prefill_attention`` name
 the same functions for the chunked-prefill path.
 """
@@ -47,6 +52,7 @@ import math
 import torch
 
 from . import _build
+from .quantized_matmul import CODE_DTYPES
 
 __all__ = ["decode_attention", "paged_decode_attention",
            "decode_attention_window", "paged_decode_attention_window",
@@ -54,7 +60,9 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "DECODE_ATTENTION", "DECODE_ATTENTION_Q", "PAGED_DECODE_ATTENTION",
            "PAGED_DECODE_ATTENTION_Q", "WINDOW_ATTENTION",
            "WINDOW_ATTENTION_Q", "PAGED_WINDOW_ATTENTION",
-           "PAGED_WINDOW_ATTENTION_Q"]
+           "PAGED_WINDOW_ATTENTION_Q", "DECODE_ATTENTION_F8",
+           "PAGED_DECODE_ATTENTION_F8", "WINDOW_ATTENTION_F8",
+           "PAGED_WINDOW_ATTENTION_F8"]
 
 _NEG = -1e30
 
@@ -79,11 +87,29 @@ PAGED_WINDOW_ATTENTION = _build.CudaKernel(
 PAGED_WINDOW_ATTENTION_Q = _build.CudaKernel(
     "paged_window_attention_q.cu", "paged_window_attention_q",
     [_P] * 8 + [_I] * 8 + [_P])
+# the e4m3 forms: the same arguments as the int8 ones
+DECODE_ATTENTION_F8 = _build.CudaKernel(
+    "decode_attention_f8.cu", "decode_attention_f8",
+    [_P] * 7 + [_I] * 6 + [_P])
+PAGED_DECODE_ATTENTION_F8 = _build.CudaKernel(
+    "paged_decode_attention_f8.cu", "paged_decode_attention_f8",
+    [_P] * 8 + [_I] * 7 + [_P])
+WINDOW_ATTENTION_F8 = _build.CudaKernel(
+    "window_attention_f8.cu", "window_attention_f8",
+    [_P] * 7 + [_I] * 7 + [_P])
+PAGED_WINDOW_ATTENTION_F8 = _build.CudaKernel(
+    "paged_window_attention_f8.cu", "paged_window_attention_f8",
+    [_P] * 8 + [_I] * 8 + [_P])
+
+
+def _quant_kernel(k, int8_kernel, f8_kernel):
+    """The kernel of a quantized cache's code dtype (checked before)."""
+    return f8_kernel if k.dtype == torch.float8_e4m3fn else int8_kernel
 
 
 def _dequant_cache(cache, scale, dtype):
-    """int8 cache values ``[..., Hkv, D]`` × per-(position, head) scales
-    ``[..., Hkv]`` -> ``dtype`` (the JAX ``_dequant_cache``)."""
+    """int8 or e4m3 cache values ``[..., Hkv, D]`` × per-(position, head)
+    scales ``[..., Hkv]`` -> ``dtype`` (the JAX ``_dequant_cache``)."""
     return (cache.float() * scale[..., None].float()).to(dtype)
 
 
@@ -133,8 +159,9 @@ def _check_cuda(name, q, k, v, lengths, k_scale, v_scale, scale_shape,
                 tables=None):
     """Raise on anything the kernel does not take: q bf16/fp16 ``[B, H,
     D]`` (``[B, W, H, D]`` for the window kernels) with D in {64, 128};
-    k/v of one shape with ``H % Hkv == 0``, in q's dtype (int8 with
-    scales of ``scale_shape`` f32); int32 lengths ``[B]`` (and tables
+    k/v of one shape with ``H % Hkv == 0``, in q's dtype (int8 or e4m3
+    codes with scales of ``scale_shape`` f32); int32 lengths ``[B]`` (and
+    tables
     ``[B, MB]``); every tensor on q's device, contiguous, 16-byte
     aligned."""
     b, h, d = q.shape[0], q.shape[-2], q.shape[-1]
@@ -148,7 +175,8 @@ def _check_cuda(name, q, k, v, lengths, k_scale, v_scale, scale_shape,
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name} kernel takes a bf16/fp16 q, got {q.dtype}")
     quantized = k_scale is not None
-    want = torch.int8 if quantized else q.dtype
+    want = (k.dtype if k.dtype in CODE_DTYPES else torch.int8) \
+        if quantized else q.dtype
     if k.dtype != want or v.dtype != want:
         raise TypeError(f"{name} kernel needs {want} caches here, got "
                         f"{k.dtype}, {v.dtype}")
@@ -195,10 +223,11 @@ def _decode_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
                          _build.ptr(v_cache), _build.ptr(lengths),
                          _build.ptr(o), *dims)
     else:
-        DECODE_ATTENTION_Q(_build.ptr(q), _build.ptr(k_cache),
-                           _build.ptr(v_cache), _build.ptr(k_scale),
-                           _build.ptr(v_scale), _build.ptr(lengths),
-                           _build.ptr(o), *dims)
+        kernel = _quant_kernel(k_cache, DECODE_ATTENTION_Q,
+                               DECODE_ATTENTION_F8)
+        kernel(_build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+               _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(lengths),
+               _build.ptr(o), *dims)
     return o
 
 
@@ -221,10 +250,11 @@ def _paged_cuda(q, k_pool, v_pool, tables, lengths, k_scale, v_scale):
                                _build.ptr(v_pool), _build.ptr(tables),
                                _build.ptr(lengths), _build.ptr(o), *dims)
     else:
-        PAGED_DECODE_ATTENTION_Q(_build.ptr(q), _build.ptr(k_pool),
-                                 _build.ptr(v_pool), _build.ptr(k_scale),
-                                 _build.ptr(v_scale), _build.ptr(tables),
-                                 _build.ptr(lengths), _build.ptr(o), *dims)
+        kernel = _quant_kernel(k_pool, PAGED_DECODE_ATTENTION_Q,
+                               PAGED_DECODE_ATTENTION_F8)
+        kernel(_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+               _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tables),
+               _build.ptr(lengths), _build.ptr(o), *dims)
     return o
 
 
@@ -237,7 +267,7 @@ def _device_of(name, q):
 def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
                      v_scale=None) -> torch.Tensor:
     """Attention of each slot's new token over its first ``lengths[b]``
-    positions of a dense cache (int8 with ``k_scale``/``v_scale``);
+    positions of a dense cache (int8 or e4m3 with ``k_scale``/``v_scale``);
     returns ``[B, H, D]``.  CPU tensors run the plain version; CUDA
     tensors run the kernel or raise."""
     if _device_of("decode_attention", q) == "cpu":
@@ -248,7 +278,7 @@ def decode_attention(q, k_cache, v_cache, lengths, k_scale=None,
 def paged_decode_attention(q, k_pool, v_pool, tables, lengths, k_scale=None,
                            v_scale=None) -> torch.Tensor:
     """Attention of each slot's new token over its first ``lengths[b]``
-    positions, read from the block pools through ``tables`` (int8 with
+    positions, read from the block pools through ``tables`` (int8 / e4m3 with
     ``k_scale``/``v_scale`` scale pools); returns ``[B, H, D]``.  CPU
     tensors run the plain version; CUDA tensors run the kernel or raise."""
     if _device_of("paged_decode_attention", q) == "cpu":
@@ -262,7 +292,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, lengths, k_scale=None,
 def _window_plain(q, k_cache, v_cache, lengths, k_scale=None,
                   v_scale=None) -> torch.Tensor:
     """Reference math in f32, mirroring the JAX ``_window_composite``:
-    int8 caches are dequantized to q's dtype first, then query i of slot
+    int8 / e4m3 caches are dequantized to q's dtype first, then query i of slot
     b takes a softmax over positions ``j < lengths[b] + i + 1``."""
     if k_scale is not None:
         k_cache = _dequant_cache(k_cache, k_scale, q.dtype)
@@ -318,10 +348,11 @@ def _window_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale):
                          _build.ptr(v_cache), _build.ptr(lengths),
                          _build.ptr(o), *dims)
     else:
-        WINDOW_ATTENTION_Q(_build.ptr(q), _build.ptr(k_cache),
-                           _build.ptr(v_cache), _build.ptr(k_scale),
-                           _build.ptr(v_scale), _build.ptr(lengths),
-                           _build.ptr(o), *dims)
+        kernel = _quant_kernel(k_cache, WINDOW_ATTENTION_Q,
+                               WINDOW_ATTENTION_F8)
+        kernel(_build.ptr(q), _build.ptr(k_cache), _build.ptr(v_cache),
+               _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(lengths),
+               _build.ptr(o), *dims)
     return o
 
 
@@ -346,10 +377,11 @@ def _paged_window_cuda(q, k_pool, v_pool, tables, lengths, k_scale,
                                _build.ptr(v_pool), _build.ptr(tables),
                                _build.ptr(lengths), _build.ptr(o), *dims)
     else:
-        PAGED_WINDOW_ATTENTION_Q(_build.ptr(q), _build.ptr(k_pool),
-                                 _build.ptr(v_pool), _build.ptr(k_scale),
-                                 _build.ptr(v_scale), _build.ptr(tables),
-                                 _build.ptr(lengths), _build.ptr(o), *dims)
+        kernel = _quant_kernel(k_pool, PAGED_WINDOW_ATTENTION_Q,
+                               PAGED_WINDOW_ATTENTION_F8)
+        kernel(_build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+               _build.ptr(k_scale), _build.ptr(v_scale), _build.ptr(tables),
+               _build.ptr(lengths), _build.ptr(o), *dims)
     return o
 
 
@@ -358,7 +390,7 @@ def decode_attention_window(q, k_cache, v_cache, lengths, k_scale=None,
     """Attention of W new tokens per slot over a dense cache: q ``[B, W,
     H, D]``, caches ``[B, S, Hkv, D]`` that already hold the window's
     k/v at ``lengths[b] + i``, lengths ``[B]`` int32 EXCLUDING the
-    window; query i attends ``j <= lengths[b] + i``.  int8 caches with
+    window; query i attends ``j <= lengths[b] + i``.  int8 / e4m3 caches with
     ``k_scale``/``v_scale`` ``[B, S, Hkv]``.  Returns ``[B, W, H, D]``.
     CPU tensors run the plain version; CUDA tensors run the kernel or
     raise."""
@@ -370,7 +402,7 @@ def decode_attention_window(q, k_cache, v_cache, lengths, k_scale=None,
 def paged_decode_attention_window(q, k_pool, v_pool, tables, lengths,
                                   k_scale=None, v_scale=None) -> torch.Tensor:
     """The window attention over block pools read through ``tables``
-    (int8 with ``[NB, bs, Hkv]`` scale pools); lengths EXCLUDING the
+    (int8 / e4m3 with ``[NB, bs, Hkv]`` scale pools); lengths EXCLUDING the
     window.  Returns ``[B, W, H, D]``.  CPU tensors run the plain
     version; CUDA tensors run the kernel or raise."""
     if _device_of("paged_decode_attention_window", q) == "cpu":

@@ -20,7 +20,8 @@ for the caller to write where the composed path writes them.  The new
 token is attended from the qkv product (through the int8 round trip on an
 int8 cache), so the op reads the cache and writes nothing into it.
 
-Dispatch: with ``quantize`` set (int8 compute), the composed route
+Dispatch: with ``quantize`` set (int8 or fp8 compute), or over an e4m3
+cache (the kernel reads bf16/fp16 or int8 caches), the composed route
 ``_composite`` runs, as in the JAX package: its projections go through
 ``ops.quantized_matmul`` and its attention through ``ops.decode_attention``
 or ``ops.paged_decode_attention`` (kernels on the card), and it writes the
@@ -188,7 +189,7 @@ def _mega_plain(x, w, k, v, lengths, k_scale=None, v_scale=None,
 
 def _mm(x2, w, bias, quantize):
     """The composed path's projection: ``x2 @ w`` or, with ``quantize``,
-    ``quantized_matmul`` (the int8 kernel on the card)."""
+    ``quantized_matmul`` (the int8 or e4m3 kernel on the card)."""
     y = quantized_matmul(x2, w, dtype=quantize, out_dtype=x2.dtype) \
         if quantize else torch.matmul(x2, w)
     return y if bias is None else y + bias
@@ -209,6 +210,13 @@ def _split_qkv(qkv, h, hkv, d):
     return (qkv[:, :h].reshape(bsz, heads, d).contiguous(),
             qkv[:, h:h + kvd].reshape(bsz, hkv, d).contiguous(),
             qkv[:, h + kvd:].reshape(bsz, hkv, d).contiguous())
+
+
+def _composed(quantize, k, k_scale) -> bool:
+    """The composed route runs (the JAX ``_fused_supported`` is False):
+    quantized compute, or a quantized cache whose codes are not int8
+    (fp8 caches ride the composite)."""
+    return bool(quantize) or (k_scale is not None and k.dtype != torch.int8)
 
 
 def _composite(x, w, attend, *, quantize, eps, hkv, d):
@@ -495,9 +503,9 @@ def decode_layer_step(x, w, k_cache, v_cache, lengths, k_scale=None,
     ``(x_out [B, H], k_new [B, Hkv, D], v_new)``; the caller writes the new
     k/v at ``min(lengths[b], cap - 1)``.  ``quantize`` takes the composed
     route; otherwise CPU tensors run the plain version and CUDA tensors
-    the kernel or raise."""
+    the kernel or raise.  An e4m3 cache takes the composed route too."""
     hkv, d = k_cache.shape[2], k_cache.shape[3]
-    if quantize:
+    if _composed(quantize, k_cache, k_scale):
         attend = functools.partial(_dense_attend, k_cache=k_cache,
                                    v_cache=v_cache, lengths=lengths,
                                    k_scale=k_scale, v_scale=v_scale)
@@ -518,7 +526,7 @@ def decode_layer_step_paged(x, w, k_pool, v_pool, tables, lengths,
     pools); lengths EXCLUDE the new token.  The caller writes the new k/v
     at ``(tables[b, lengths[b] // bs], lengths[b] % bs)``."""
     hkv, d = k_pool.shape[2], k_pool.shape[3]
-    if quantize:
+    if _composed(quantize, k_pool, k_scale):
         attend = functools.partial(_paged_attend, k_pool=k_pool,
                                    v_pool=v_pool, tables=tables,
                                    lengths=lengths, k_scale=k_scale,

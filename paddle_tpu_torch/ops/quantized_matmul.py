@@ -1,33 +1,39 @@
-"""int8 quantized compute and KV-cache quantization (counterpart of
-``paddle_tpu/ops/quantized_matmul.py``).
+"""int8 and fp8 (e4m3) quantized compute and KV-cache quantization
+(counterpart of ``paddle_tpu/ops/quantized_matmul.py``).
 
 Symmetric amax scaling at per-(position, head) granularity: each
 ``head_dim`` vector of a key or value gets one f32 scale
-``max(amax, 1e-8) / 127`` and is stored as int8 codes
+``max(amax, 1e-8) / qmax`` and is stored as codes: int8 (``qmax`` 127)
 ``clip(round(x / scale), -127, 127)`` (``torch.round`` rounds half to
-even, as ``jnp.round`` does).  The decode kernels stream the codes and
-scales and dequantize in registers; the composites dequantize first.
+even, as ``jnp.round`` does), or e4m3 (``qmax`` 448, ``torch.
+float8_e4m3fn``) by a plain cast of ``x / scale``, round to nearest
+even with no clip, as the JAX package's ``astype`` does.  The decode
+kernels stream the codes and scales and dequantize in registers; the
+composites dequantize first.
 
 The matmul half: :func:`quantized_matmul` computes ``x @ w`` through
-int8 codes, activations scaled per row and weights per output column,
-exact int32 sums rescaled in f32 as ``(acc * sx) * sw``;
+8-bit codes, activations scaled per row and weights per output column,
+int8 sums exact in int32 and e4m3 sums in f32, rescaled in f32 as
+``(acc * sx) * sw``;
 :func:`fake_quant_matmul` is the training op of ``GPTConfig(quantize=
 'int8')`` and ``strategy.qat`` (that forward, a straight-through
 backward over the dequantized operands).  A CPU tensor runs the plain
 version ``_qmm_plain``; a CUDA tensor runs the hand-written kernel
 ``csrc/quantized_matmul.cu`` or raises: at M <= 16 every SM streams a
 share of the weight codes (split-K, ``_Part``), above it int8 wgmma
-tiles on a TMA ring (``_qmm_plan``); both sum in exact int32.  The
-kernel takes the weight codes transposed, ``[N, K]``: the int8 tensor
-core products want both operands K-contiguous.  Weights are quantized on
+tiles on a TMA ring (``_qmm_plan``); both sum in exact int32.  e4m3
+codes run the same two regimes in ``csrc/quantized_matmul_f8.cu``
+(e4m3 tensor-core products, each 128-deep k-tile's sum added into f32
+registers; split-K pieces added in piece order).  The kernels take the
+weight codes transposed, ``[N, K]``: the 8-bit tensor core products
+want both operands K-contiguous.  Weights are quantized on
 every call, as the JAX package does.  The JAX module's TPU tile table
 (``get_qmm_tiles``, ``autotune_qmm_sweep``) and its backend probe
 (``quantized_matmul_available``) have no counterpart here.
 
-Only ``'int8'`` is served.  ``'fp8'`` (e4m3) is a mode name of the JAX
-package, where it rides the composite with no kernel; the card has e4m3
-natively, so fp8 is its own later item (ROADMAP.md, Queue 2) and raises
-``NotImplementedError`` here.
+``'fp8'`` has no TPU kernel in the JAX package (it rides the composite
+``_qmm_composite``); the card has e4m3 tensor cores, so here it gets its
+own kernel like int8.
 """
 from __future__ import annotations
 
@@ -44,40 +50,39 @@ __all__ = ["QUANT_DTYPES", "kv_storage_dtype", "kv_quant_mode",
            "resolve_kv_quant", "quantize_channel", "quantize_kv",
            "dequantize_kv", "write_kv", "quantized_matmul",
            "fake_quant_matmul",
-           "QUANTIZED_MATMUL"]
+           "QUANTIZED_MATMUL", "QUANTIZED_MATMUL_F8"]
 
 QUANT_DTYPES = ("int8", "fp8")
 _EPS = 1e-8
+
+
+_STORAGE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+CODE_DTYPES = tuple(_STORAGE.values())
 
 
 def _check_mode(dtype: str) -> str:
     if dtype not in QUANT_DTYPES:
         raise ValueError(f"quantize dtype must be one of {QUANT_DTYPES}, "
                          f"got {dtype!r}")
-    if dtype == "fp8":
-        raise NotImplementedError(
-            "fp8 (e4m3) quantization is not ported yet: the JAX package "
-            "serves it through its composite only; see ROADMAP.md, Queue 2 "
-            "(fp8) — use 'int8'")
     return dtype
 
 
 def _qmax(dtype: str) -> float:
-    """Largest code of the mode: ±127 for int8."""
-    _check_mode(dtype)
-    return 127.0
+    """Largest code of the mode: ±127 for int8, ±448 (the largest finite
+    e4m3) for fp8."""
+    return 127.0 if _check_mode(dtype) == "int8" else 448.0
 
 
 def kv_storage_dtype(dtype: str) -> torch.dtype:
     """The storage dtype of a quantized KV cache."""
-    _check_mode(dtype)
-    return torch.int8
+    return _STORAGE[_check_mode(dtype)]
 
 
 def kv_quant_mode(storage_dtype: torch.dtype) -> str:
     """Inverse of :func:`kv_storage_dtype`."""
-    if storage_dtype == torch.int8:
-        return "int8"
+    for mode, dt in _STORAGE.items():
+        if storage_dtype == dt:
+            return mode
     raise ValueError(f"not a quantized KV storage dtype: {storage_dtype}")
 
 
@@ -94,9 +99,13 @@ def resolve_kv_quant(name: Optional[str] = None) -> Optional[str]:
     return _check_mode(name)
 
 
-def _cast_q(x_scaled: torch.Tensor) -> torch.Tensor:
-    """Scaled values -> int8 codes: round half to even, clip to ±127."""
-    return torch.clamp(torch.round(x_scaled), -127.0, 127.0).to(torch.int8)
+def _cast_q(x_scaled: torch.Tensor, dtype: str = "int8") -> torch.Tensor:
+    """Scaled values -> codes: int8 rounds half to even and clips to
+    ±127; e4m3 is a plain cast (round to nearest even), as JAX's."""
+    if dtype == "int8":
+        return torch.clamp(torch.round(x_scaled), -127.0,
+                           127.0).to(torch.int8)
+    return x_scaled.to(torch.float8_e4m3fn)
 
 
 def quantize_channel(x: torch.Tensor, axis: int, dtype: str = "int8"):
@@ -109,12 +118,12 @@ def quantize_channel(x: torch.Tensor, axis: int, dtype: str = "int8"):
     # of a scalar divisor, which can land one ulp off the quotient the CPU
     # and the JAX package compute
     scale = amax / torch.full_like(amax, _qmax(dtype))
-    return _cast_q(xf / scale), scale
+    return _cast_q(xf / scale, dtype), scale
 
 
 def quantize_kv(x: torch.Tensor, dtype: str = "int8"):
-    """``x [..., head_dim]`` -> ``(q [..., head_dim] int8, scale [...]
-    f32)`` with ``q.float() * scale[..., None] ≈ x``."""
+    """``x [..., head_dim]`` -> ``(q [..., head_dim] codes (int8 or
+    e4m3), scale [...] f32)`` with ``q.float() * scale[..., None] ≈ x``."""
     q, scale = quantize_channel(x, axis=-1, dtype=dtype)
     return q, scale[..., 0]
 
@@ -128,15 +137,17 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor,
 
 def write_kv(k_dst, v_dst, ks_dst, vs_dst, index, k, v):
     """Store k/v ``[..., Hkv, D]`` at ``k_dst[index]``/``v_dst[index]``
-    (in place), dense or paged: as they are, or as int8 codes with their
-    scales when the cache is quantized (``ks_dst`` not None)."""
+    (in place), dense or paged: as they are, or as int8 / e4m3 codes (the
+    cache's dtype) with their scales when the cache is quantized
+    (``ks_dst`` not None)."""
     if ks_dst is None:
         k_dst[index] = k.to(k_dst.dtype)
         v_dst[index] = v.to(v_dst.dtype)
         return
     # k and v quantized together: one pass of the quantizer's small
     # elementwise kernels instead of two, on the per-step decode path
-    codes, scales = quantize_kv(torch.stack([k, v]))
+    codes, scales = quantize_kv(torch.stack([k, v]),
+                                kv_quant_mode(k_dst.dtype))
     k_dst[index], ks_dst[index] = codes[0], scales[0]
     v_dst[index], vs_dst[index] = codes[1], scales[1]
 
@@ -155,11 +166,15 @@ def kv_zeros(shape, mode: Optional[str], dtype: torch.dtype, device):
             torch.zeros(shape[:-1], dtype=torch.float32, device=device))
 
 
-# ---- quantized compute: int8 x int8 -> exact int32 -> f32 rescale ------
+# ---- quantized compute: 8-bit codes -> int32 (int8) or f32 (e4m3) sums
+# -> f32 rescale -------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 QUANTIZED_MATMUL = _build.CudaKernel(
     "quantized_matmul.cu", "quantized_matmul", [_P] * 7 + [_I] * 9 + [_P])
+QUANTIZED_MATMUL_F8 = _build.CudaKernel(
+    "quantized_matmul_f8.cu", "quantized_matmul_f8",
+    [_P] * 7 + [_I] * 9 + [_P])
 _OUT_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _BK = 128            # k bytes a unit or a stage
 _STRIP = 64          # decode: output columns a unit
@@ -168,12 +183,16 @@ _DECODE_M = 16       # M at or below: the decode regime
 
 
 def _qmm_plain(qx, qw, sx, sw, out_dtype):
-    """The JAX ``_qmm_composite``: ``qx [M, K] @ qw [K, N]`` in exact
-    integer arithmetic (int64 on the CPU; float64 on the card, exact below
-    2^53), then ``(acc.float() * sx) * sw`` in f32, cast to
+    """The JAX ``_qmm_composite``: ``qx [M, K] @ qw [K, N]``, int8 codes
+    in exact integer arithmetic (int64 on the CPU; float64 on the card,
+    exact below 2^53), e4m3 codes in f32 (each product exact, the sum
+    rounded as f32), then ``(acc.float() * sx) * sw`` in f32, cast to
     ``out_dtype``."""
-    wide = torch.float64 if qx.is_cuda else torch.int64
-    acc = torch.matmul(qx.to(wide), qw.to(wide))
+    if qx.dtype == torch.float8_e4m3fn:
+        acc = torch.matmul(qx.float(), qw.float())
+    else:
+        wide = torch.float64 if qx.is_cuda else torch.int64
+        acc = torch.matmul(qx.to(wide), qw.to(wide))
     return (acc.float() * sx * sw).to(out_dtype)
 
 
@@ -319,10 +338,13 @@ def _counters(device, n: int) -> torch.Tensor:
 
 
 def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
-    """The kernel on int8 ``qx [M, K]`` and transposed weight codes
-    ``qw_t [N, K]``, f32 ``sx [M, 1]`` and ``sw [1, N]``; raises on what it
-    does not take: N and K multiples of 128, out dtype bf16/fp16/f32,
-    contiguous 16-byte aligned tensors on one device."""
+    """The kernel on int8 or e4m3 ``qx [M, K]`` and transposed weight
+    codes ``qw_t [N, K]`` of the same dtype, f32 ``sx [M, 1]`` and ``sw
+    [1, N]``; raises on what it does not take: N and K multiples of 128,
+    out dtype bf16/fp16/f32, contiguous 16-byte aligned tensors on one
+    device.  e4m3 tiles above M = 16 are 128 columns wide: the f32 sum
+    the kernel keeps beside the tensor cores' takes the registers a
+    256-wide tile would need."""
     m, k = qx.shape
     n = qw_t.shape[0]
     if qw_t.shape[1] != k or tuple(sx.shape) != (m, 1) \
@@ -336,7 +358,11 @@ def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
     if out_dtype not in _OUT_CODES:
         raise TypeError(f"quantized_matmul kernel writes bf16/fp16/f32, not "
                         f"{out_dtype}")
-    for name, t, dt in (("qx", qx, torch.int8), ("qw_t", qw_t, torch.int8),
+    if qx.dtype not in CODE_DTYPES:
+        raise TypeError(f"quantized_matmul kernel needs int8 or e4m3 qx, got "
+                        f"{qx.dtype}")
+    codes = qx.dtype
+    for name, t, dt in (("qx", qx, codes), ("qw_t", qw_t, codes),
                         ("sx", sx, torch.float32), ("sw", sw, torch.float32)):
         if t.dtype != dt:
             raise TypeError(f"quantized_matmul kernel needs {dt} {name}, got "
@@ -347,13 +373,17 @@ def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"quantized_matmul kernel needs contiguous, "
                              f"16-byte aligned {name}")
-    plan = _qmm_plan(m, n, k, _sm_count(qx.device))
+    sms = _sm_count(qx.device)
+    f8 = codes == torch.float8_e4m3fn
+    plan = _qmm_plan(m, n, k, sms, 128) if f8 and m > _DECODE_M \
+        else _qmm_plan(m, n, k, sms)
     y = torch.empty((m, n), dtype=out_dtype, device=qx.device)
     work = torch.empty(plan["work_ints"], dtype=torch.int32,
                        device=qx.device) if plan["work_ints"] else None
     counters = _counters(qx.device, plan["counters"]) \
         if plan["counters"] else None
-    QUANTIZED_MATMUL(_build.ptr(qx), _build.ptr(qw_t), _build.ptr(sx),
+    kernel = QUANTIZED_MATMUL_F8 if f8 else QUANTIZED_MATMUL
+    kernel(_build.ptr(qx), _build.ptr(qw_t), _build.ptr(sx),
                      _build.ptr(sw), _build.ptr(y), _build.ptr(work),
                      _build.ptr(counters), m, n, k, _OUT_CODES[out_dtype],
                      plan["blocks"], plan["bn"], plan["splits"],
@@ -389,9 +419,10 @@ def _qmm_forward(x, w, dtype, out_dtype):
 
 
 def quantized_matmul(x, w, dtype: str = "int8", out_dtype=None):
-    """``x [..., K] @ w [K, N]`` through ``dtype`` quantization:
-    activations amax-scaled per row, weights per output column, the int8
-    product's exact sums rescaled to ``out_dtype`` (default ``x.dtype``).
+    """``x [..., K] @ w [K, N]`` through ``dtype`` quantization
+    (``'int8'`` or ``'fp8'``): activations amax-scaled per row, weights
+    per output column, the 8-bit product's sums (exact int32, or f32)
+    rescaled to ``out_dtype`` (default ``x.dtype``).
     CPU tensors run the plain version; CUDA tensors run the kernel or
     raise."""
     y, *_ = _qmm_forward(x, w, dtype, out_dtype or x.dtype)

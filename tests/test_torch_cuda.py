@@ -17,7 +17,12 @@ are held to the same 1e-2: they dequantize code x scale in f32, and so
 does the plain version fed the same codes and an f32 q.  The window
 kernels (1e-2 as well) dequantize int8 codes to bf16 before their
 products, as the TPU kernel does; their plain version runs in f32 over
-the same bf16 values.
+the same bf16 values.  The e4m3 kernels (rows 5f-9bf) are held to the
+same 1e-2 on the same grounds (every e4m3 code is exact in f16 and f32);
+the e4m3 matmul (row 10f) to 1e-3 of each row's max |y| in f32 (exact
+products, f32 sums in another order than the plain version's), its
+16-bit outputs its f32 output rounded, and its graph replays to eager
+bit for bit.
 """
 import importlib
 
@@ -876,8 +881,20 @@ def test_megakernel_raises_instead_of_falling_back(gen, case):
     x, k, v, tables, lens, ks, vs = _mega_case(gen, blk, [5, 9], False)
     w = list(blk._megakernel_weights())
     if case == "fp8":
-        with pytest.raises(NotImplementedError):
-            mk.decode_layer_step(x, w, k, v, lens, quantize="fp8")
+        # fp8 compute, and an e4m3 cache, take the composed step (as in the
+        # JAX package) on the e4m3 kernels: no megakernel launch
+        mega = (mk.DECODE_MEGAKERNEL.launches, mk.DECODE_MEGAKERNEL_Q.launches)
+        n_mm, n_da = qm.QUANTIZED_MATMUL_F8.launches, \
+            da.DECODE_ATTENTION_F8.launches
+        mk.decode_layer_step(x, w, k.clone(), v.clone(), lens, quantize="fp8")
+        (k8, ks8), (v8, vs8) = qm.quantize_kv(k, "fp8"), qm.quantize_kv(v, "fp8")
+        out = mk.decode_layer_step(x, w, k8, v8, lens, ks8, vs8)
+        torch.cuda.synchronize()
+        assert (mk.DECODE_MEGAKERNEL.launches,
+                mk.DECODE_MEGAKERNEL_Q.launches) == mega
+        assert qm.QUANTIZED_MATMUL_F8.launches == n_mm + 4
+        assert da.DECODE_ATTENTION_F8.launches == n_da + 1
+        assert all(torch.isfinite(t).all() for t in out)
         return
     if case == "d96":
         blk = _mega_block(gen, 384, 4, 4, 512)
@@ -1139,3 +1156,277 @@ def test_moe_layer_graph_replays_equal_eager(gen, dtype):
         want = dev(fresh)
     torch.cuda.synchronize()
     assert torch.equal(out, want)
+
+
+# ---- the e4m3 kernels: rows 5f, 7f, 8bf, 9bf, 10f --------------------------
+
+def _f8(x):
+    """bf16 values -> e4m3 codes and f32 scales (``quantize_kv(x,
+    'fp8')``)."""
+    return qm.quantize_kv(x, "fp8")
+
+
+def _f8_window_case(gen, lengths, w, h, hkv, d, bs=None, cap=2048):
+    """``_window_case``'s bf16 caches (or pools) turned into e4m3 codes."""
+    q, k, v, tables, lens, _, _ = _window_case(gen, lengths, w, h, hkv, d,
+                                               False, bs, cap)
+    (k, ks), (v, vs) = _f8(k), _f8(v)
+    return q, k, v, tables, lens, ks, vs
+
+
+@pytest.mark.parametrize("h,hkv,d", [(16, 16, 128), (16, 4, 128), (8, 8, 64),
+                                     (16, 1, 128)])
+def test_decode_f8_kernel_matches_plain(gen, h, hkv, d):
+    """Row 5f: e4m3 codes widened in the kernel, each scale applied to the
+    f32 dot and to p; the plain version fed the same codes in f32."""
+    lengths = [0, 1, 63, 64, 500, 1024]
+    q = _rand((len(lengths), h, d), gen)
+    kc, ks = _f8(_rand((len(lengths), 1024, hkv, d), gen))
+    vc, vs = _f8(_rand((len(lengths), 1024, hkv, d), gen))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    n, n8 = da.DECODE_ATTENTION_F8.launches, da.DECODE_ATTENTION_Q.launches
+    o = da.decode_attention(q, kc, vc, lens, ks, vs)
+    assert da.DECODE_ATTENTION_F8.launches == n + 1
+    assert da.DECODE_ATTENTION_Q.launches == n8
+    _close(o, da._decode_plain(q.float(), kc, vc, lens, ks, vs))
+    assert o[0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("bs,h,hkv,d", [(128, 16, 16, 128), (16, 16, 4, 128),
+                                        (32, 8, 8, 64), (128, 16, 1, 128)])
+def test_paged_f8_kernel_matches_plain(gen, bs, h, hkv, d):
+    """Row 7f: shuffled blocks, a length of one, an exact block multiple,
+    a ragged tail and an inactive slot over e4m3 pools."""
+    lengths = [1, 4 * bs, 3 * bs + 5, 0]
+    q, k, v, tables, lens, _ = _paged_case(gen, lengths, 40, bs, h, hkv, d,
+                                           False)
+    (k, ks), (v, vs) = _f8(k), _f8(v)
+    n = da.PAGED_DECODE_ATTENTION_F8.launches
+    o = da.paged_decode_attention(q, k, v, tables, lens, ks, vs)
+    assert da.PAGED_DECODE_ATTENTION_F8.launches == n + 1
+    _close(o, da._paged_plain(q.float(), k, v, tables, lens, ks, vs))
+
+
+@pytest.mark.parametrize("bs", [None, 128, 16, 48], ids=["dense", "bs128",
+                                                         "bs16", "bs48"])
+@pytest.mark.parametrize("lengths,w,h,hkv,d", [
+    ([0, 1, 63, 64, 65, 700, 1400, 1531], 5, 16, 16, 128),  # the verify
+    ([2043 - 512], 5, 16, 16, 128),               # B=1: a cluster of CTAs
+    ([0, 300, 1531], 5, 16, 1, 128),              # G = 16
+    ([0, 64, 1000], 512, 16, 16, 128),            # a prefill chunk
+    ([0, 37, 1200], 64, 16, 1, 128),              # W G = 1024
+    ([0, 700, 1531], 5, 12, 12, 64)])             # the draft's heads
+def test_window_f8_kernels_match_plain(gen, lengths, w, h, hkv, d, bs):
+    """Rows 8bf and 9bf in both regimes: every row within 1e-2 of the
+    plain version over the codes dequantized to q's dtype (as the
+    kernels and the JAX composite dequantize them), two calls bitwise
+    equal, one launch each, no int8 launch (cap 1536, so blocks of 48
+    tile it)."""
+    cap = 1536
+    q, k, v, tables, lens, ks, vs = _f8_window_case(gen, lengths, w, h, hkv,
+                                                    d, bs, cap)
+    kp = qm.dequantize_kv(k, ks, torch.bfloat16).float()
+    vp = qm.dequantize_kv(v, vs, torch.bfloat16).float()
+    q8 = (da.WINDOW_ATTENTION_Q.launches, da.PAGED_WINDOW_ATTENTION_Q.launches)
+    if bs is None:
+        kern = da.WINDOW_ATTENTION_F8
+        n = kern.launches
+        o = da.decode_attention_window(q, k, v, lens, ks, vs)
+        again = da.decode_attention_window(q, k, v, lens, ks, vs)
+        ref = da._window_plain(q.float(), kp, vp, lens)
+    else:
+        kern = da.PAGED_WINDOW_ATTENTION_F8
+        n = kern.launches
+        o = da.paged_decode_attention_window(q, k, v, tables, lens, ks, vs)
+        again = da.paged_decode_attention_window(q, k, v, tables, lens, ks,
+                                                 vs)
+        ref = da._paged_window_plain(q.float(), kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert kern.launches == n + 2
+    assert q8 == (da.WINDOW_ATTENTION_Q.launches,
+                  da.PAGED_WINDOW_ATTENTION_Q.launches)
+    assert torch.equal(o, again)
+    _close(o, ref)
+
+
+@pytest.mark.parametrize("case", ["mixed", "d96", "layout", "group"])
+def test_f8_attention_paths_raise_instead_of_falling_back(gen, case):
+    """e4m3 K with int8 V, D=96, blocks of 8 and H % Hkv != 0 raise on the
+    card before any launch, in all four entry points."""
+    b, h, hkv, d, bs = 2, 8, 4, 64, 16
+    if case == "d96":
+        d = 96
+    elif case == "layout":
+        bs = 8
+    elif case == "group":
+        hkv = 3
+    q = _rand((b, h, d), gen)
+    k, ks = _f8(_rand((6, bs, hkv, d), gen))
+    v = k.view(torch.int8) if case == "mixed" else k
+    tables = torch.ones((b, 2), dtype=torch.int32, device="cuda")
+    lens = torch.full((b,), 5, dtype=torch.int32, device="cuda")
+    kerns = (da.DECODE_ATTENTION_F8, da.PAGED_DECODE_ATTENTION_F8,
+             da.WINDOW_ATTENTION_F8, da.PAGED_WINDOW_ATTENTION_F8)
+    counts = [kern.launches for kern in kerns]
+    with pytest.raises((ValueError, TypeError)):
+        da.paged_decode_attention(q, k, v, tables, lens, ks, ks)
+    with pytest.raises((ValueError, TypeError)):
+        da.paged_decode_attention_window(q[:, None], k, v, tables, lens, ks,
+                                         ks)
+    if case != "layout":
+        dk = k.reshape(b, -1, hkv, d)
+        dv = v.reshape(b, -1, hkv, d)
+        ds = ks.reshape(b, -1, hkv)
+        with pytest.raises((ValueError, TypeError)):
+            da.decode_attention(q, dk, dv, lens, ds, ds)
+        with pytest.raises((ValueError, TypeError)):
+            da.decode_attention_window(q[:, None], dk, dv, lens, ds, ds)
+    assert counts == [kern.launches for kern in kerns]
+
+
+def _qmm_f8_operands(gen, m, k, n):
+    x = _rand((m, k), gen)
+    w = (torch.randn((k, n), generator=gen, device="cuda") * 0.05
+         ).bfloat16()
+    qx, sx = qm.quantize_channel(x, axis=1, dtype="fp8")
+    qw_t, sw_t = qm.quantize_channel(w.t(), axis=1, dtype="fp8")
+    return x, w, qx, qw_t.contiguous(), sx, sw_t.reshape(1, n)
+
+
+def _qmm_f8_close(got, ref):
+    """Each row within 1e-3 of its own max |y| (f32 sums in two orders)."""
+    err = (got.float() - ref).abs().amax(-1)
+    assert bool((err <= 1e-3 * ref.abs().amax(-1)).all())
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17, 64, 65, 129, 512, 1000])
+@pytest.mark.parametrize("k,n", [(256, 384), (8192, 2048), (2048, 6144)])
+def test_qmm_f8_kernel_matches_plain(gen, m, k, n):
+    """Row 10f in both regimes: f32 output within 1e-3 of each row's max
+    |y| of the plain version, its bf16 and fp16 outputs the f32 output
+    rounded, two calls bitwise equal, one launch a call."""
+    _, _, qx, qw_t, sx, sw = _qmm_f8_operands(gen, m, k, n)
+    launches = qm.QUANTIZED_MATMUL_F8.launches
+    got = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+    assert qm.QUANTIZED_MATMUL_F8.launches == launches + 1
+    _qmm_f8_close(got, qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.float32))
+    assert torch.equal(qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32), got)
+    for out in (torch.bfloat16, torch.float16):
+        assert torch.equal(qm._qmm_cuda(qx, qw_t, sx, sw, out), got.to(out))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("m", [17, 100, 300])
+def test_qmm_f8_kernel_forced_splits_match_plain(gen, monkeypatch, m, splits):
+    """Every split of K (the pieces added in split order) over N = 384
+    (a 128-wide tile each third), through plans the wrapper would not
+    choose here."""
+    plan = qm._qmm_plan
+    monkeypatch.setattr(qm, "_qmm_plan", lambda m_, n_, k_, sms, bn=None: plan(
+        m_, n_, k_, sms, bn, splits))
+    _, _, qx, qw_t, sx, sw = _qmm_f8_operands(gen, m, 768, 384)
+    got = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
+    _qmm_f8_close(got, qm._qmm_plain(qx, qw_t.t(), sx, sw, torch.float32))
+    assert torch.equal(qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32), got)
+
+
+@pytest.mark.parametrize("warm", [True, False], ids=["warm", "fresh"])
+@pytest.mark.parametrize("m,k,n", [(8, 8192, 2048), (512, 8192, 2048)])
+def test_qmm_f8_kernel_graph_replays_equal_eager(gen, m, k, n, warm):
+    """Row 10f from a CUDA graph equals eager bit for bit: at M = 8 a
+    strip's pieces (several blocks) and at M = 512 the K splits are added
+    in piece order, whoever arrives last."""
+    _, _, qx, qw_t, sx, sw = _qmm_f8_operands(gen, m, k, n)
+    plan = qm._qmm_plan(m, n, k, qm._sm_count(qx.device),
+                        bn=None if m <= 16 else 128)
+    assert plan["pieces"] > 1 or plan["splits"] > 1
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        eager = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream if warm else None):
+            out = qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(stream)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("case", ["mixed", "width", "bn256", "layout"])
+def test_qmm_f8_kernel_raises_instead_of_falling_back(gen, monkeypatch, case):
+    """e4m3 activations with int8 weights, N not a multiple of 128, a
+    256-wide prefill tile (the e4m3 kernel has 128-wide tiles only: the
+    launch is refused and the wrapper raises) and a strided weight raise
+    on the card, and nothing is launched."""
+    _, _, qx, qw_t, sx, sw = _qmm_f8_operands(gen, 64, 256, 384)
+    n = qm.QUANTIZED_MATMUL_F8.launches
+    if case == "mixed":
+        qw_t = qw_t.view(torch.int8)
+    elif case == "width":
+        qw_t, sw = qw_t[:96].contiguous(), sw[:, :96].contiguous()
+    elif case == "bn256":
+        plan = qm._qmm_plan
+        monkeypatch.setattr(qm, "_qmm_plan", lambda m_, n_, k_, sms, bn=None:
+                            plan(m_, n_, k_, sms, 256, 1))
+        qw_t, sw = (torch.cat([qw_t.view(torch.uint8)] * 2)
+                    .view(torch.float8_e4m3fn), torch.cat([sw, sw], 1))
+    else:
+        qw_t = qw_t.t().contiguous().t()
+    with pytest.raises((ValueError, TypeError, RuntimeError)):
+        qm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16)
+    assert qm.QUANTIZED_MATMUL_F8.launches == n
+
+
+def test_fake_quant_matmul_f8_on_the_card(gen):
+    """fp8 QAT's op on the card: its forward within 1e-3 of the CPU's on
+    the same inputs (the same codes; f32 sums in other orders), its
+    straight-through gradients within 1e-5."""
+    x = torch.randn((4, 9, 128), generator=gen, device="cuda")
+    w = torch.randn((128, 256), generator=gen, device="cuda") * 0.1
+    g = torch.randn((4, 9, 256), generator=gen, device="cuda")
+    outs, grads = [], []
+    for dev in ("cuda", "cpu"):
+        xs, ws = (a.detach().to(dev, copy=True).requires_grad_()
+                  for a in (x, w))
+        y = qm.fake_quant_matmul(xs, ws, "fp8")
+        (y * g.to(dev)).sum().backward()
+        outs.append(y.detach().cpu())
+        grads.append((xs.grad.cpu(), ws.grad.cpu()))
+    assert (outs[0] - outs[1]).abs().max() <= 1e-3 * outs[1].abs().max()
+    for a, b in zip(*grads):
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_layout="paged",
+                                             kv_block_size=16)],
+                         ids=["dense", "paged"])
+def test_fp8_engine_on_the_card(gen, kw):
+    """A 2-layer fp8-cache engine with fp8 compute on the card: the e4m3
+    kernels only (four row-10f launches a layer a step, one row 5f / 7f a
+    layer a decode step), one host sync a decode step."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.ops import KERNELS
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256, quantize="fp8")
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=gen).eval()
+    eng = InferenceEngine(model, batch_slots=2, kv_dtype="fp8",
+                          device="cuda", **kw)
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    rng = torch.Generator().manual_seed(0)
+    rids = [eng.add_request(torch.randint(0, 512, (n,), generator=rng)
+                            .numpy(), max_new_tokens=6) for n in (5, 40)]
+    out = eng.run()
+    st = eng.stats()
+    assert all(len(out[r]) == 6 for r in rids)
+    launches = {k.symbol: k.launches for k in KERNELS.values() if k.launches}
+    decode = ("paged_" if kw else "") + "decode_attention_f8"
+    assert launches == {
+        "quantized_matmul_f8": 4 * 2 * (st["prefills"] + st["decode_steps"]),
+        decode: 2 * st["decode_steps"], "flash_fwd": 2 * st["prefills"]}
+    assert st["decode_host_syncs"] == st["decode_steps"]

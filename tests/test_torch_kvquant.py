@@ -139,13 +139,18 @@ def test_kv_mode_names_match_jax(monkeypatch):
 
 
 def test_fp8_raises_not_implemented(mha):
+    """fp8 was refused before it was ported; now ``'fp8'`` resolves and
+    allocates e4m3 storage with f32 scales, dense and paged."""
     _, tm = mha
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqm.resolve_kv_quant("fp8")
-    with pytest.raises(NotImplementedError):
-        tm.init_kv_cache(2, kv_dtype="fp8")
-    with pytest.raises(NotImplementedError):
-        InferenceEngine(tm, kv_layout="paged", kv_dtype="fp8", device="cpu")
+    assert tqm.resolve_kv_quant("fp8") == "fp8"
+    assert tqm.kv_storage_dtype("fp8") == torch.float8_e4m3fn
+    cache = tm.init_kv_cache(2, kv_dtype="fp8")
+    assert cache.quantized and cache.k.dtype == torch.float8_e4m3fn
+    assert cache.k_scale.dtype == torch.float32
+    eng = InferenceEngine(tm, kv_layout="paged", kv_dtype="fp8",
+                          device="cpu")
+    assert eng.cache.k.dtype == eng.cache.v.dtype == torch.float8_e4m3fn
+    assert eng.stats()["kv_dtype"] == "fp8"
 
 
 # ---- decode attention over int8 caches ---------------------------------

@@ -130,11 +130,14 @@ def test_fake_quant_matmul_grads_match_jax():
 
 
 def test_fp8_compute_raises_not_implemented():
+    """fp8 compute was refused before it was ported; now it computes what
+    the JAX composite computes, and an unknown mode still raises."""
     x, w = operands(4, 128, 128, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tqm.quantized_matmul(t(x), t(w), dtype="fp8")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GPTConfig(**TINY, quantize="fp8")
+    np.testing.assert_array_equal(
+        tqm.quantized_matmul(t(x), t(w), dtype="fp8").numpy(),
+        np.asarray(jqm.quantized_matmul(jnp.asarray(x), jnp.asarray(w),
+                                        dtype="fp8")))
+    assert GPTConfig(**TINY, quantize="fp8").quantize == "fp8"
     with pytest.raises(ValueError, match="quantize dtype"):
         GPTConfig(**TINY, quantize="int4")
 

@@ -296,16 +296,12 @@ def test_trainer_with_recompute_strategy_matches_plain_step(amp):
         torch.testing.assert_close(p, tr.params[n], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("flag", ["sharding", "qat", "tensor_parallel",
+@pytest.mark.parametrize("flag", ["sharding", "tensor_parallel",
                                   "pipeline", "lamb"])
 def test_unsupported_strategy_flags_raise(flag):
     _, tm = build_pair()
     st = DistributedStrategy()
-    if flag == "qat":
-        st.qat = True                # int8 is ported; fp8 compute is not
-        st.qat_configs = {"quantize": "fp8"}
-    else:
-        setattr(st, flag, True)
+    setattr(st, flag, True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SpmdTrainer(tm, topt.Adam(), lambda o, l: o, strategy=st)
 
