@@ -192,7 +192,22 @@ before the result lines:
    ``h2d``, ``dispatch`` and ``sync`` spans, ``train_steps_total``, a
    capture over steps 2-3 naming the flash forward and both backward
    kernels), step ms in turns; a 2-layer rollback run's bundle;
-23. serve-moe (after profile): GPT-MoE at gpt3-1.3b widths and depth,
+23. serve-decoding (after profile): the decoding API over gpt3-1.3b's
+   KV cache.  Two prompts of 256 and 768 tokens sharing their last token
+   (the ``bos_id``), each slot prefilled without it: ``beam_search``
+   (4 beams, 32 steps) over a bf16, an int8 and an fp8 cache of 8 slots
+   sized prompt + 32 (the flash kernel once a layer a prefill, the
+   cache's decode kernel once a layer a step, one host read a step after
+   the first; every beam's score against its tokens' log-probabilities
+   under one no-cache forward, within TOL_BEAM_SCORE, and against its
+   tokens replayed through the decode step over a fresh cache, within
+   TOL_BEAM_REPLAY), ``greedy_search``
+   over the bf16 cache (equal to the search with one beam, and to the
+   engine's greedy streams but at a near-tie), ``viterbi_decode`` at
+   B=8, T=256, N=64 against a float64 numpy Viterbi (equal paths),
+   ``dynamic_decode`` over a tanh cell at V = 50304 (each beam rescored
+   in f64 on the host); steps per second of each;
+24. serve-moe: GPT-MoE at gpt3-1.3b widths and depth,
    every second FFN a top-2 layer of 8 experts at capacity factor 2.0
    (4.13 B params, random bf16 weights, seed 1234): serve's 16 prompts
    (serve-paged's for the paged engines) with 32 new tokens through 8
@@ -210,7 +225,17 @@ before the result lines:
    k, where routing is per token (``teacher_moe``); a profiled decode step
    split into attention kernels, expert products, gating / dispatch /
    combine and the rest;
-24. train-moe (last): the same model at 12 layers (6 MoE; 24 do not fit
+25. train-optimizers: Adagrad, RMSProp (centered), Adadelta, Adamax,
+   Lamb, Lars, LookAhead(Adam) and ModelAverage, with L1 / L2
+   regularizers and global-norm clip where they take them: one update
+   each at gpt3-1.3b width, 2 layers, on one 2 x 512 step's gradients,
+   against the same update on f64 CPU copies (TOL_OPT_UPDATE per
+   parameter and accumulator, no host read); then Lamb and
+   LookAhead(Adam) with an EMA of the masters at full depth, 4 x 2048,
+   bf16 AMP: a warm-up and 3 steps (finite falling losses, no host sync
+   or read, each flash kernel once a layer a step), step ms beside
+   Adam's;
+26. train-moe (last): the same model at 12 layers (6 MoE; 24 do not fit
    with Adam's state, reckoned first), f32 masters, bf16 AMP, fused CE,
    Adam, 4 x 2048: 2 warm-up and 4 measured steps (finite losses with
    the aux term > 0, 12 launches of each flash kernel a step, no host
@@ -221,6 +246,12 @@ before the result lines:
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
+
+Two measurements from which bounds above are set run apart:
+``python3 chip_smoke.py --fp8-teacher-error`` (the plain fp8 path's
+teacher error, for TOL_TEACHER_FP8) and ``python3 chip_smoke.py
+--beam-fault`` (serve-decoding's beam searches with wrong cache regathers
+planted, which must fail TOL_BEAM_SCORE).
 """
 from __future__ import annotations
 
@@ -270,12 +301,50 @@ TOL_TEACHER = 5e-2  # x max|forward logits| of each position
 # decode, and the forward here is a third path
 TOL_TEACHER_INT8 = 1e-1  # x max|forward logits| of each position
 # the fp8 (e4m3) cache keeps 3 mantissa bits of each element (relative
-# 2^-4 of itself, where int8 keeps 2^-8 of the vector's amax): the int8
-# bound times the JAX package's own fp8 / int8 teacher-forced error ratio
-# (5.41 at 2 layers, hidden 128, 24 + 16 tokens on the CPU:
-# tests/test_torch_fp8.py::test_error_ratio_sets_tol_teacher_fp8), 0.541
-# rounded up
-TOL_TEACHER_FP8 = 0.55  # x max|forward logits| of each position
+# 2^-4 of itself, where int8 keeps 2^-8 of the vector's amax).  Measured
+# without the e4m3 kernels (``python3 chip_smoke.py --fp8-teacher-error``:
+# the fp8 teacher checks with rows 5f, 7f, 8bf and 9bf's plain versions
+# swapped in, gpt3-1.3b at full depth, weight seeds 1234, 1 and 2, on one
+# H100 80GB HBM3 at 700 W) the worst position of any check was
+# FP8_TEACHER_WORST (the chunked prefill, seed 2); the bound is twice
+# that, rounded up to two significant digits
+FP8_TEACHER_WORST = 3.1915e-2
+TOL_TEACHER_FP8 = 0.064  # x max|forward logits| of each position
+# serve-decoding: a beam's score (its summed log-probabilities) against
+# the same tokens' log-probabilities under one no-cache forward of prompt
+# + beam, as a share of the sum over its positions of each position's
+# max |forward logit|.  Measured on gpt3-1.3b at full depth (one H100
+# 80GB HBM3 at 700 W) the worst beam of the bf16, int8 and fp8 caches
+# read BEAM_SCORE_WORST, 3.3228e-4 and 2.0925e-4; the bound is ten times
+# the worst, rounded up to two significant digits, for all three cache
+# forms.  ``python3 chip_smoke.py --beam-fault`` plants wrong cache
+# regathers and shows that the check fails them at this bound
+BEAM_SCORE_WORST = 8.2808e-4
+TOL_BEAM_SCORE = 8.3e-3
+# The same score against the beam's tokens replayed one step at a time
+# through the same decode step over a fresh cache of the same slots
+# (``beam_replay_check``): the same kernels at the same shapes, so only a
+# beam that read another slot's history moves it.  The right searches
+# read exactly 0 with all three cache forms (``--beam-fault``, same card);
+# the smallest planted fault that changed a final beam's history read
+# 2.7895e-6 (the int8 cache not regathered), so the bound sits below it
+TOL_BEAM_REPLAY = 1e-6
+# viterbi_decode at B=8, T=256, N=64 against a float64 numpy Viterbi:
+# potentials and transitions are multiples of 1/64 below 4 in magnitude,
+# so every partial sum is exact in f32 and the paths must be equal (ties
+# fall to the first index on both sides); scores within 1e-5 relative
+TOL_VITERBI = 1e-5
+# dynamic_decode (f32 cell, V = 50304): each beam's score against the
+# same tokens rescored on the host in f64 through the same cell (no TF32
+# on either side): f32 rounding of 16 steps of 256-wide products and
+# 50304-wide log-softmaxes, relative to |score|
+TOL_DYNAMIC = 1e-4
+# train-optimizers: one update of every new rule on the card (f32)
+# against the same update on f64 CPU copies of the same parameters and
+# gradients: f32 rounding of the update, of the norms (Lamb, Lars, the
+# clip) over up to 103 M elements and of beta ** t; per parameter,
+# max |card - cpu| / max |cpu|
+TOL_OPT_UPDATE = 1e-5
 # flash backward: p and ds are rounded to bf16 in series before their
 # products and each gradient to bf16 at the end, against the plain
 # version in f32 on the same bf16 inputs (and the kernel's own o, lse):
@@ -1853,13 +1922,13 @@ def phase_mega_kernels(records):
         torch.cuda.empty_cache()
 
 
-def build_model():
+def build_model(seed=1234):
     from paddle_tpu_torch.core import random as prandom
     from paddle_tpu_torch.models import GPTForCausalLM, gpt_configs
     cfg = gpt_configs()["gpt3-1.3b"]
     t0 = time.perf_counter()
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
-                           generator=prandom.seed(1234, "cuda"))
+                           generator=prandom.seed(seed, "cuda"))
     model.eval()
     torch.cuda.synchronize()
     n = sum(p.numel() for p in model.parameters())
@@ -1935,20 +2004,23 @@ HOST_READS = {}
 
 class HostReads:
     """Counts every device-to-host read the engine makes (``cpu``,
-    ``item``, ``tolist``, ``numpy`` of any tensor) while active."""
+    ``item``, ``tolist``, ``numpy`` of any tensor) while active
+    (``device_only``: of tensors on the card only)."""
 
     NAMES = ("cpu", "item", "tolist", "numpy")
 
-    def __init__(self):
+    def __init__(self, device_only=False):
         self.n = 0
         self._orig = {}
+        self.device_only = device_only
 
     def __enter__(self):
         for name in self.NAMES:
             orig = self._orig[name] = getattr(torch.Tensor, name)
 
             def counted(t, *a, _orig=orig, **k):
-                self.n += 1
+                if not self.device_only or t.device.type != "cpu":
+                    self.n += 1
                 return _orig(t, *a, **k)
             setattr(torch.Tensor, name, counted)
         return self
@@ -3368,6 +3440,11 @@ def _padded(ids, start, stop, bucket):
     return out
 
 
+# (check, worst) of every teacher-forced check run, for the fp8 error
+# measurement (``--fp8-teacher-error``)
+TEACHER_WORST = []
+
+
 def teacher_check(what, got, ref, first, tol):
     """Logits of prefill + decode (``got [steps, V]``) against the
     forward's at positions ``first ...``, each row against its own
@@ -3376,6 +3453,7 @@ def teacher_check(what, got, ref, first, tol):
     want = ref[0, first:first + got.shape[0]]
     err = (got - want).abs().amax(-1)
     worst = (err / want.abs().amax(-1)).max().item()
+    TEACHER_WORST.append((what, worst))
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
     ok = bool(torch.isfinite(got).all().item()) and worst <= tol
     log(f"[teacher] {what}: max|diff|={err.max().item():.4e}, worst position "
@@ -3385,7 +3463,8 @@ def teacher_check(what, got, ref, first, tol):
         raise SystemExit(f"teacher-forced check failed: {what}")
 
 
-def phase_teacher_forced(model, kv_dtypes=(None, "int8", "fp8")):
+def phase_teacher_forced(model, kv_dtypes=(None, "int8", "fp8"),
+                         tol_fp8=None):
     """Prefill + decode steps against one no-cache forward over the same
     tokens: the dense cache, then the paged cache cold (flash prefill)
     and over a cached 1024-token prefix (the composite hit path), each in
@@ -3404,7 +3483,7 @@ def phase_teacher_forced(model, kv_dtypes=(None, "int8", "fp8")):
         ref = model(ids).float()                       # [1, S, V]
         for kv_dtype in kv_dtypes:
             tol = {None: TOL_TEACHER, "int8": TOL_TEACHER_INT8,
-                   "fp8": TOL_TEACHER_FP8}[kv_dtype]
+                   "fp8": tol_fp8 or TOL_TEACHER_FP8}[kv_dtype]
             name = kv_dtype or "bf16"
             cache = model.init_kv_cache(1, kv_dtype=kv_dtype)
             got = [model.prefill(_padded(ids, 0, plen, 256), cache, 0,
@@ -3487,6 +3566,7 @@ def phase_teacher_forced(model, kv_dtypes=(None, "int8", "fp8")):
                              for t in range(plen, plen + 5)]).float()
             err = (win[0].float() - seq).abs().amax(-1)
             worst = (err / seq.abs().amax(-1)).max().item()
+            TEACHER_WORST.append((f"{name} verify vs decode", worst))
             log(f"[teacher] {name} dense verify window (K+1 = 5 after "
                 f"{plen} tokens) vs 5 sequential decode steps: worst position "
                 f"max|diff|/max|logit|={worst:.4e} (tol {tol}) "
@@ -3524,6 +3604,47 @@ def phase_teacher_forced(model, kv_dtypes=(None, "int8", "fp8")):
                 f"{hit_prefix}-token prefix (bucket 128, composite) "
                 f"{t_hit:.3f} ms (host clock, mean of 5)")
             del pool
+
+
+FP8_ERROR_SEEDS = (1234, 1, 2)
+
+
+def fp8_teacher_error():
+    """``python3 chip_smoke.py --fp8-teacher-error``: the teacher-forced
+    error of an fp8 cache at full width and depth without the e4m3
+    kernels.  For each weight seed of ``FP8_ERROR_SEEDS`` the fp8 teacher
+    checks of ``phase_teacher_forced`` run with the four attention entry
+    points swapped for their plain versions (rows 5f, 7f, 8bf and 9bf's
+    math in f32 on the card's tensors) and no bound; prints the worst of
+    each check and of all, from which ``TOL_TEACHER_FP8`` is set."""
+    from paddle_tpu_torch import ops
+    da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+    phase_device()
+    phase_build()
+    plain = {"decode_attention": da._decode_plain,
+             "paged_decode_attention": da._paged_plain,
+             "decode_attention_window": da._window_plain,
+             "paged_decode_attention_window": da._paged_window_plain}
+    kept = {n: getattr(ops, n) for n in plain}
+    worst = {}
+    try:
+        for n, fn in plain.items():
+            setattr(ops, n, fn)
+        for seed in FP8_ERROR_SEEDS:
+            model = build_model(seed)
+            TEACHER_WORST.clear()
+            phase_teacher_forced(model, ("fp8",), tol_fp8=float("inf"))
+            worst[seed] = max(w for _, w in TEACHER_WORST)
+            log(f"[fp8-teacher-error] seed {seed}: worst "
+                f"{worst[seed]:.4e} ({max(TEACHER_WORST, key=lambda x: x[1])[0]})")
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        for n, fn in kept.items():
+            setattr(ops, n, fn)
+    log(f"[fp8-teacher-error] worst over seeds {list(worst)}: "
+        f"{max(worst.values()):.4e}")
 
 
 def phase_teacher_mega_quant(model):
@@ -3586,6 +3707,368 @@ def phase_teacher_mega_quant(model):
                 f"agreement {agree.item():.4f} over {ids.shape[1]} positions")
         finally:
             model.enable_quantize(None)
+
+
+def viterbi_np(em, tr, lengths):
+    """Viterbi over float64 numpy arrays, row by row, with the decoding
+    API's conventions: tag N-2 starts and tag N-1 ends each path, and
+    positions from a row's last one on keep its last tag."""
+    b, t, n = em.shape
+    scores, paths = np.zeros(b), np.zeros((b, t), np.int64)
+    for i in range(b):
+        L = int(lengths[i])
+        alpha = em[i, 0] + tr[n - 2]
+        back = np.zeros((L, n), np.int64)
+        for j in range(1, L):
+            cand = alpha[:, None] + tr
+            back[j] = cand.argmax(axis=0)
+            alpha = cand.max(axis=0) + em[i, j]
+        final = alpha + tr[:, n - 1]
+        tag = int(final.argmax())
+        scores[i] = final[tag]
+        paths[i, L - 1:] = tag
+        for j in range(L - 1, 0, -1):
+            tag = int(back[j, tag])
+            paths[i, j - 1] = tag
+    return scores, paths
+
+
+def decoding_prompts(vocab):
+    """Two prompts of 256 and 768 tokens whose last token is one shared
+    id (the search's ``bos_id``)."""
+    rng = np.random.RandomState(31)
+    shared = int(rng.randint(0, vocab))
+    return [np.concatenate([rng.randint(0, vocab, n - 1), [shared]])
+            for n in (256, 768)], shared
+
+
+def prefilled_cache(model, prompts, k, kv_dtype, max_len):
+    """A cache of ``len(prompts) * k`` slots sized prompt + ``max_len``,
+    slot ``b * k + j`` prefilled with prompt b without its last token."""
+    cache = model.init_kv_cache(len(prompts) * k,
+                                capacity=max(map(len, prompts)) + max_len,
+                                kv_dtype=kv_dtype)
+    for b, p in enumerate(prompts):
+        ids = torch.from_numpy(p[:-1][None]).cuda()
+        for j in range(k):
+            model.prefill(ids, cache, b * k + j, len(p) - 1)
+    return cache
+
+
+def counted_search(tag, model, search, k, kv_dtype, prompts, max_len):
+    """Prefill a fresh cache and run ``search(step_fn, cache)`` with every
+    launch count at 0 and every host read counted; checks the launches
+    (the flash kernel once a layer per prefill, the cache form's decode
+    kernel once a layer per step, nothing else) and one host read per
+    step after the first.  Returns ``(output, launches, steps, problems)``."""
+    from paddle_tpu_torch.text import gpt_step_fn
+    layers = model.cfg.num_layers
+    torch.cuda.synchronize()
+    zero_launches()
+    cache = prefilled_cache(model, prompts, k, kv_dtype, max_len)
+    step = gpt_step_fn(model)
+    calls = []
+
+    def counted(tokens, state):
+        calls.append(1)
+        return step(tokens, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with HostReads() as reads:
+        out = search(counted, cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    steps = len(calls)
+    problems = []
+    check_launches(tag, launches, {
+        "decode_attention" + _tag(kv_dtype): layers * steps,
+        "flash_fwd": layers * len(prompts) * k}, problems)
+    early = steps < max_len
+    if reads.n != steps - 1 + early:
+        problems.append(f"{tag}: {reads.n} host reads over {steps} steps")
+    log(f"[{tag}] {steps} steps in {wall:.3f} s: {steps / wall:.2f} steps/s "
+        f"({len(prompts) * k} slots, cache {kv_dtype or 'bf16'} of "
+        f"{cache.capacity} positions); host reads {reads.n}; launches "
+        f"{{{', '.join(f'{n}: {v}' for n, v in launches.items() if v)}}}")
+    del cache
+    return out, launches, steps, problems
+
+
+def beam_score_check(tag, model, prompts, seqs, scores, eos, tol):
+    """Each beam's score against its tokens' log-probabilities under one
+    no-cache forward of prompt + beam (up to its first EOS), within
+    ``tol`` x the sum of those positions' max |logit|.  Returns the
+    problems and the worst share read."""
+    worst = 0.0
+    problems = []
+    for b, p in enumerate(prompts):
+        beams = seqs[b].long()                       # [K, T]
+        k, t = beams.shape
+        ids = torch.cat([torch.from_numpy(p).cuda()[None].expand(k, -1),
+                         beams[:, :-1]], dim=1)
+        with torch.no_grad():
+            logits = model(ids)[:, len(p) - 1:].float()   # [K, T, V]
+        logp = torch.log_softmax(logits, dim=-1).gather(
+            2, beams[..., None])[..., 0]
+        is_eos = beams == eos
+        first = torch.where(is_eos.any(1), is_eos.int().argmax(1),
+                            torch.full_like(beams[:, 0], t - 1))
+        live = torch.arange(t, device="cuda")[None] <= first[:, None]
+        ref = (logp * live).sum(1)
+        scale = (logits.abs().amax(-1) * live).sum(1)
+        err = (scores[b] - ref).abs()
+        worst = max(worst, (err / scale).max().item())
+        if not bool((err <= tol * scale).all()):
+            problems.append(f"{tag}: row {b} scores {scores[b].tolist()} vs "
+                            f"forward {ref.tolist()}")
+    log(f"[{tag}] beam scores vs one no-cache forward: worst "
+        f"|diff| / sum of max|logit| {worst:.4e} (tol {tol})")
+    return problems, worst
+
+
+def beam_replay_check(tag, model, prompts, bos, seqs, scores, kv_dtype,
+                      eos, tol):
+    """Each beam's score against its own tokens fed back one step at a
+    time through ``gpt_step_fn`` over a fresh cache of the search's slots
+    (beam j of prompt b in slot b * K + j; no search, no regather): the
+    same kernels at the same shapes over the history the beam should
+    have read, its log-probabilities summed in the search's order (up to
+    its first EOS).  Within ``tol`` x the sum of those positions' max
+    |logit|; returns the problems and the worst share read."""
+    from paddle_tpu_torch.text import gpt_step_fn
+    b, k, t = seqs.shape
+    beams = seqs.reshape(b * k, t).long()
+    is_eos = beams == eos
+    first = torch.where(is_eos.any(1), is_eos.int().argmax(1),
+                        torch.full_like(beams[:, 0], t - 1))
+    cache = prefilled_cache(model, prompts, k, kv_dtype, t)
+    step = gpt_step_fn(model)
+    tokens = torch.full((b * k,), bos, dtype=torch.int32, device="cuda")
+    cum = torch.zeros(b * k, device="cuda")
+    scale = torch.zeros(b * k, device="cuda")
+    with torch.no_grad():
+        for i in range(t):
+            logits, cache = step(tokens, cache)
+            logits = logits.float()
+            logp = torch.log_softmax(logits, dim=-1).gather(
+                1, beams[:, i:i + 1])[:, 0]
+            live = i <= first
+            cum = cum + torch.where(live, logp, 0.0)
+            scale += torch.where(live, logits.abs().amax(-1), 0.0)
+            tokens = beams[:, i].to(torch.int32)
+    del cache
+    err = (scores.reshape(-1) - cum).abs()
+    worst = (err / scale).max().item()
+    problems = []
+    if not bool((err <= tol * scale).all()):
+        problems.append(f"{tag}: scores {scores.tolist()} vs replay "
+                        f"{cum.view(b, k).tolist()}")
+    log(f"[{tag}] beam scores vs each beam replayed over a fresh cache: "
+        f"worst |diff| / sum of max|logit| {worst:.4e} (tol {tol})")
+    return problems, worst
+
+
+BEAM_FAULTS = {
+    # the cache is not regathered: each slot keeps its own history while
+    # the beam's tokens follow its parents
+    # (it moves a returned beam's score only where that beam's lineage
+    # changed slots, which some searches' data do not do)
+    "no-regather": lambda parents, k: torch.arange(
+        parents.numel(), device=parents.device),
+    # the right parents, but the prompts' rows swapped: each beam reads a
+    # beam of the other prompt
+    "swap-prompts": lambda parents, k: parents.roll(k),
+    # the right parents, but reversed within each prompt's row: beam j
+    # reads the history of beam k - 1 - j of its own prompt
+    "reverse-beams": lambda parents, k: parents.view(-1, k).flip(1)
+    .reshape(-1),
+}
+
+
+def beam_fault_check():
+    """``python3 chip_smoke.py --beam-fault``: serve-decoding's beam
+    searches (bf16, int8 and fp8 caches) run once as they are and once
+    with each fault of ``BEAM_FAULTS`` planted in the cache regather;
+    prints each search's worst beam-score share under the no-cache
+    forward and under the replay, and at how many steps some beam's
+    parent was another slot (counted on the card, no host read in the
+    search).  Exits non-zero if a right search fails ``TOL_BEAM_SCORE``
+    or ``TOL_BEAM_REPLAY``, or a search whose beams read the wrong prompt
+    or the wrong beam passes the replay's ("no-regather" is reported and
+    not judged)."""
+    from paddle_tpu_torch.text import beam_search
+    dec = importlib.import_module("paddle_tpu_torch.text.decoding")
+    phase_device()
+    phase_build()
+    model = build_model()
+    B, K, T = 2, 4, 32
+    eos = model.cfg.vocab_size - 1
+    prompts, bos = decoding_prompts(model.cfg.vocab_size)
+    right = dec._regather
+    wrong = []
+    try:
+        for kv_dtype in (None, "int8", "fp8"):
+            for fault in (None, *BEAM_FAULTS):
+                tag = f"beam-fault-{kv_dtype or 'bf16'}-{fault or 'none'}"
+                moved = torch.zeros((), dtype=torch.int32, device="cuda")
+                plant = BEAM_FAULTS.get(fault, lambda par, k: par)
+
+                def regather(st, par, bk, plant=plant, moved=moved):
+                    moved.add_((par != torch.arange(
+                        bk, device=par.device)).any().int())
+                    return right(st, plant(par, K), bk)
+                dec._regather = regather
+                (seqs, scores), _, steps, pr = counted_search(
+                    tag, model,
+                    lambda f, c: beam_search(f, c, B, K, T, bos, eos), K,
+                    kv_dtype, prompts, T)
+                dec._regather = right
+                fwd = bool(beam_score_check(tag, model, prompts, seqs,
+                                            scores, eos,
+                                            TOL_BEAM_SCORE)[0])
+                rep = bool(beam_replay_check(tag, model, prompts, bos, seqs,
+                                             scores, kv_dtype, eos,
+                                             TOL_BEAM_REPLAY)[0])
+                log(f"[{tag}] forward check {'failed' if fwd else 'passed'}"
+                    f", replay check {'failed' if rep else 'passed'}; some "
+                    f"beam's parent another slot at {int(moved)} of {steps} "
+                    f"steps")
+                if pr or (fault is None and (fwd or rep)) or (
+                        fault not in (None, "no-regather") and not rep):
+                    wrong.append(tag)
+    finally:
+        dec._regather = right
+    if wrong:
+        raise SystemExit(f"beam-fault: the checks misjudged {wrong}")
+    log("[beam-fault] every wrong-prompt and wrong-beam fault failed the "
+        "replay check; every right search passed both checks")
+
+
+def phase_serve_decoding(model):
+    """The decoding API over the port's KV cache on gpt3-1.3b: beam
+    search (2 prompts of 256 and 768 tokens, 4 beams, 32 steps) over a
+    bf16, an int8 and an fp8 cache of 8 slots; greedy search; beam search
+    with one beam against greedy; greedy against the engine's greedy
+    streams; Viterbi at B=8, T=256, N=64 against a float64 numpy Viterbi;
+    ``dynamic_decode`` over a callable cell at V = 50304."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+    from paddle_tpu_torch.text import (beam_search, greedy_search,
+                                       viterbi_decode)
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    B, K, T = 2, 4, 32
+    eos = cfg.vocab_size - 1
+    prompts, bos = decoding_prompts(cfg.vocab_size)
+    out, problems = {}, []
+    for kv_dtype in (None, "int8", "fp8"):
+        tag = f"serve-decoding-{kv_dtype or 'bf16'}"
+        (seqs, scores), launches, steps, pr = counted_search(
+            tag, model, lambda f, c: beam_search(f, c, B, K, T, bos, eos),
+            K, kv_dtype, prompts, T)
+        problems += pr
+        out[tag] = launches
+        if tuple(seqs.shape) != (B, K, T) or seqs.dtype != torch.int32 \
+                or not bool((scores[:, :-1] >= scores[:, 1:]).all()):
+            problems.append(f"{tag}: sequences {tuple(seqs.shape)} "
+                            f"{seqs.dtype}, scores {scores.tolist()}")
+        problems += beam_score_check(tag, model, prompts, seqs, scores, eos,
+                                     TOL_BEAM_SCORE)[0]
+        problems += beam_replay_check(tag, model, prompts, bos, seqs, scores,
+                                      kv_dtype, eos, TOL_BEAM_REPLAY)[0]
+    tag = "serve-decoding-greedy"
+    greedy, out[tag], _, pr = counted_search(
+        tag, model, lambda f, c: greedy_search(f, c, B, T, bos, eos), 1,
+        None, prompts, T)
+    problems += pr
+    (beam1, _), _, _, pr = counted_search(
+        "serve-decoding-beam1", model,
+        lambda f, c: beam_search(f, c, B, 1, T, bos, eos), 1, None, prompts,
+        T)
+    problems += pr
+    if not torch.equal(beam1[:, 0], greedy):
+        problems.append("beam search with one beam differs from greedy")
+    log(f"[{tag}] beam search with K = 1 equals greedy token for token: "
+        f"{torch.equal(beam1[:, 0], greedy)}")
+    eng = InferenceEngine(model, batch_slots=2, device="cuda")
+    want, _, _, _ = run_engine("serve-decoding-engine", eng, prompts, T)
+    got = []
+    for row in greedy.tolist():
+        got.append(row[:row.index(eos) + 1] if eos in row else row)
+    want = [w[:len(g)] for g, w in zip(got, want)]
+    problems += compare_greedy(tag, model, prompts, got, want, TOL_TEACHER)
+    del eng
+
+    # Viterbi: exact f32 sums (multiples of 1/64), so equal paths
+    rng = np.random.RandomState(41)
+    em = rng.randint(-255, 256, (8, 256, 64)) / 64.0
+    tr = rng.randint(-255, 256, (64, 64)) / 64.0
+    lengths = rng.randint(1, 257, 8)
+    lengths[0] = 256
+    ref_s, ref_p = viterbi_np(em, tr, lengths)
+    args = (torch.from_numpy(em).float().cuda(),
+            torch.from_numpy(tr).float().cuda(),
+            torch.from_numpy(lengths).cuda())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vs, vp = viterbi_decode(*args)
+    torch.cuda.synchronize()
+    v_ms = (time.perf_counter() - t0) * 1e3
+    rel = float(np.max(np.abs(vs.cpu().double().numpy() - ref_s)
+                       / np.abs(ref_s)))
+    same = bool((vp.cpu().numpy() == ref_p).all())
+    log(f"[serve-decoding-viterbi] B=8 T=256 N=64 (lengths "
+        f"{lengths.tolist()}): {v_ms:.3f} ms ({255 / v_ms * 1e3:.1f} "
+        f"steps/s, host clock); paths equal to float64 numpy: {same}; "
+        f"worst score relative diff {rel:.3e} (tol {TOL_VITERBI})")
+    if not (same and rel <= TOL_VITERBI and vp.dtype == torch.int32):
+        problems.append("viterbi_decode differs from the numpy Viterbi")
+
+    # dynamic_decode over a tanh cell, V = 50304, checked by rescoring
+    # each beam on the host in f64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    V, H = cfg.vocab_size, 256
+    w = {n: torch.randn(shape, generator=g, device="cuda") * sc
+         for n, shape, sc in (("emb", (V, H), 0.5), ("w", (H, H), 1 / 16),
+                              ("u", (H, H), 1 / 16), ("out", (H, V), 0.25),
+                              ("h0", (2, H), 0.3))}
+
+    def cell(x, h):
+        h = torch.tanh(x @ w["w"] + h @ w["u"])
+        return h, h
+    dec = BeamSearchDecoder(cell, bos, eos, K,
+                            embedding_fn=lambda t: w["emb"][t.long()],
+                            output_fn=lambda o: o @ w["out"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, dscores, dlen = dynamic_decode(dec, w["h0"], max_step_num=16,
+                                        output_time_major=True,
+                                        return_length=True)
+    torch.cuda.synchronize()
+    d_s = time.perf_counter() - t0
+    w64 = {n: t.double().cpu() for n, t in w.items()}
+    ids_c, len_c = ids.cpu(), dlen.cpu()
+    worst = 0.0
+    for b in range(B):
+        for j in range(K):
+            h, tok, total = w64["h0"][b], bos, 0.0
+            for t in range(int(len_c[b, j])):
+                h = torch.tanh(w64["emb"][tok] @ w64["w"] + h @ w64["u"])
+                tok = int(ids_c[t, b, j])
+                total += torch.log_softmax(h @ w64["out"], -1)[tok].item()
+            worst = max(worst, abs(float(dscores[b, j]) - total) / abs(total))
+    shape_ok = (tuple(ids.shape) == (16, B, K) and dlen.dtype == torch.int64
+                and bool((dscores[:, :-1] >= dscores[:, 1:]).all()))
+    log(f"[serve-decoding-dynamic] dynamic_decode, tanh cell H={H}, V={V}, "
+        f"{K} beams, 16 steps: {16 / d_s:.2f} steps/s (host clock); ids "
+        f"{tuple(ids.shape)} lengths {dlen.tolist()}; worst relative diff "
+        f"to the f64 host rescoring {worst:.3e} (tol {TOL_DYNAMIC})")
+    if not (shape_ok and worst <= TOL_DYNAMIC):
+        problems.append("dynamic_decode: shapes or scores off")
+    log(f"[serve-decoding] phase {time.perf_counter() - t_phase:.1f} s")
+    finish("serve-decoding", problems)
+    return out
 
 
 def phase_profile(model):
@@ -4539,6 +5022,170 @@ MOE = dict(moe_num_experts=8, moe_top_k=2, moe_every_n_layers=2,
            moe_capacity_factor=2.0)
 
 
+def new_rules():
+    """Every update rule of the port's later optimizer slice, each with an
+    L1 or L2 regularizer and global-norm clip where its JAX signature
+    takes them."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch import regularizer as reg
+    from paddle_tpu_torch.incubate import LookAhead, ModelAverage
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+
+    def clip():
+        return ClipGradByGlobalNorm(1.0)
+    return {
+        "adagrad-l1": lambda: topt.Adagrad(
+            1e-2, weight_decay=reg.L1Decay(1e-4), grad_clip=clip()),
+        "rmsprop-centered-l2": lambda: topt.RMSProp(
+            1e-3, momentum=0.9, centered=True,
+            weight_decay=reg.L2Decay(1e-4), grad_clip=clip()),
+        "adadelta-l1": lambda: topt.Adadelta(
+            1.0, weight_decay=reg.L1Decay(1e-4), grad_clip=clip()),
+        "adamax-l2": lambda: topt.Adamax(
+            1e-3, weight_decay=reg.L2Decay(1e-4), grad_clip=clip()),
+        "lamb": lambda: topt.Lamb(1e-3, grad_clip=clip()),
+        "lars": lambda: topt.Lars(0.1, grad_clip=clip()),
+        "lookahead-adam-l2": lambda: LookAhead(topt.Adam(
+            1e-3, weight_decay=reg.L2Decay(1e-4), grad_clip=clip()), k=1),
+        "modelaverage": lambda: ModelAverage(0.5, min_average_window=1,
+                                             max_average_window=2),
+    }
+
+
+def rel_diff(card, cpu):
+    """max |card - cpu| / max |cpu| of one tensor (0 for equal zeros)."""
+    ref = cpu.double()
+    err = (card.detach().cpu().double() - ref).abs().max().item()
+    return err / max(ref.abs().max().item(), 1e-30)
+
+
+def phase_train_optimizers(bf16, smi):
+    """train-optimizers: every new rule's update on the card against the
+    same update on f64 CPU copies (gpt3-1.3b width at 2 layers, the
+    gradients of one 2 x 512 bf16 AMP step); then Lamb and LookAhead(Adam)
+    with an EMA of the masters at full depth, 4 x 2048, bf16 AMP: a
+    warm-up and 3 measured steps (finite falling losses, no host read,
+    each flash kernel once a layer a step), step ms beside Adam's."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import async_dispatch
+    from paddle_tpu_torch.incubate import LookAhead
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    t_phase = time.perf_counter()
+    problems = []
+    zero_launches()
+    cfg = full_cfg(2)
+    model, trainer = make_trainer(cfg, 77, topt.SGD(learning_rate=0.0))
+    ids, labels = token_batch(np.random.RandomState(23), cfg.vocab_size, 2,
+                              512)
+    trainer.train_step(ids, labels)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model, trainer
+    del_all()
+    cpu_p = {n: t.double().cpu() for n, t in params.items()}
+    cpu_g = {n: t.double().cpu() for n, t in grads.items()}
+    step = torch.tensor(1, dtype=torch.int32, device="cuda")
+    for name, make in new_rules().items():
+        card, host = make(), make()
+        p_card = {n: t.clone() for n, t in params.items()}
+        p_host = {n: t.clone() for n, t in cpu_p.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with HostReads(device_only=True) as reads:
+            card.apply_gradients(p_card, grads, step=step)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        host.apply_gradients(p_host, cpu_g, step=1)
+        worst = {n: rel_diff(p_card[n], p_host[n]) for n in params}
+        for n, accs in card._accumulators.items():
+            for a, t in accs.items():
+                ref = host._accumulators[n][a]
+                worst[f"{n}@{a}"] = rel_diff(t, ref) \
+                    if t.is_floating_point() else \
+                    float(not torch.equal(t.cpu(), ref.cpu()))
+        key = max(worst, key=worst.get)
+        ok = worst[key] <= TOL_OPT_UPDATE and reads.n == 0
+        log(f"[train-optimizers] {name}: one update of {len(params)} "
+            f"parameters on the card in {ms:.3f} ms (host clock, first call) "
+            f"vs f64 on the CPU: worst max|diff|/max|cpu| {worst[key]:.3e} "
+            f"({key}; tol {TOL_OPT_UPDATE}); host reads {reads.n} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            problems.append(f"{name} update differs or reads back")
+        del card, host, p_card, p_host
+    del params, grads, cpu_p, cpu_g
+    del_all()
+
+    # full depth: Lamb and LookAhead(Adam), each with an EMA of the masters
+    cfg = full_cfg()
+    layers, n_meas = cfg.num_layers, 3
+    ids, labels = token_batch(np.random.RandomState(0), cfg.vocab_size, 4,
+                              2048)
+    total = {}
+    for name, make in (
+            ("lamb", lambda: topt.Lamb(
+                1e-3, grad_clip=ClipGradByGlobalNorm(1.0))),
+            ("lookahead-adam", lambda: LookAhead(
+                topt.Adam(learning_rate=1e-4), alpha=0.5, k=2))):
+        model, trainer = make_trainer(cfg, 4321, make())
+        ema = topt.ExponentialMovingAverage(0.999, thres_steps=True)
+        state = ema.init_state(trainer.params)
+        results = [trainer.train_step(ids, labels)]
+        ema.update_state(trainer.params, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        async_dispatch.reset_host_sync_count()
+        # Adam reads its host step size (a CPU scalar) back once a step
+        with HostReads(device_only=True) as reads:
+            t0 = time.perf_counter()
+            for _ in range(n_meas):
+                results.append(trainer.train_step(ids, labels))
+                ema.update_state(trainer.params, state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        syncs = async_dispatch.host_sync_count()
+        launches = read_launches()
+        add_launches(total, launches)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(r) for r in results]
+        avg = ema.averaged(trainer.params, state)
+        ema_ok = int(state["t"]) == n_meas + 1 and all(
+            bool(torch.isfinite(a).all()) for a in avg.values())
+        del avg
+        ema_ms = cuda_ms(lambda: ema.update_state(trainer.params, state),
+                         iters=3, warmup=0)
+        acc_bytes = sum(t.numel() * t.element_size()
+                        for accs in trainer.optimizer._accumulators.values()
+                        for t in accs.values())
+        step_ms = wall * 1e3 / n_meas
+        log(f"[train-optimizers] {name} + EMA of the masters, gpt3-1.3b, "
+            f"4 x 2048, bf16 AMP: losses {[round(x, 4) for x in losses]} "
+            f"(first a warm-up); step_ms={step_ms:.3f} with the EMA update "
+            f"(EMA alone {ema_ms:.3f} ms; Adam's step in the train phase of "
+            f"this call {bf16['step_ms']:.3f} ms); optimizer state "
+            f"{acc_bytes} bytes, EMA {4 * sum(p.numel() for p in model.parameters())} "
+            f"bytes, max_memory_allocated={peak} bytes; host syncs {syncs}, "
+            f"host reads {reads.n}; launches "
+            f"{{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}} "
+            f"({smi})")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            problems.append(f"{name}: losses not finite and falling: {losses}")
+        if syncs or reads.n:
+            problems.append(f"{name}: {syncs} host syncs, {reads.n} host reads")
+        if not ema_ok:
+            problems.append(f"{name}: EMA step count or averages off")
+        for key in FLASH:
+            if launches[key] != layers * n_meas:
+                problems.append(f"{name}: {key} launches {launches[key]} != "
+                                f"{layers} x {n_meas}")
+        del model, trainer, ema, state
+        del_all()
+    log(f"[train-optimizers] phase {time.perf_counter() - t_phase:.1f} s")
+    finish("train-optimizers", problems)
+    return {"train-optimizers": total}
+
+
 def moe_cfg(layers=None, fused_ce=False):
     """gpt3-1.3b's widths (hidden 2048, 16 heads of 128, FFN 8192, vocab
     50304) with GShard's layout: every second FFN is a top-2 layer of 8
@@ -5001,6 +5648,7 @@ def main():
     phase_teacher_forced(model)
     phase_teacher_mega_quant(model)
     phase_profile(model)
+    paths.update(phase_serve_decoding(model))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -5017,7 +5665,7 @@ def main():
     for phase in (phase_train_fp16, phase_train_recompute_policies,
                   phase_train_merge, phase_train_anomaly,
                   phase_train_checkpoint, phase_train_telemetry,
-                  phase_train_moe):
+                  phase_train_optimizers, phase_train_moe):
         del_all()
         paths.update(phase(bf16, smi))
     for key, rec in records.items():
@@ -5045,5 +5693,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--warmup-check"]:
         warmup_check()
+    elif sys.argv[1:] == ["--fp8-teacher-error"]:
+        fp8_teacher_error()
+    elif sys.argv[1:] == ["--beam-fault"]:
+        beam_fault_check()
     else:
         main()

@@ -20,12 +20,19 @@ windows, the flight recorder, the stall watchdog, the step-kind
 registry and HBM ledger, the doctor and the SLO monitor; ``profiler``:
 ``RecordEvent``, ``torch.profiler`` capture control, ``StepTimer``), and
 GPT mixture of experts on both paths with every expert on the one GPU
-(``distributed.moe``).
+(``distributed.moe``), the decoding API over the KV cache
+(``text.decoding``: beam and greedy search, ``gather_tree``, Viterbi;
+``nn.decode``: ``BeamSearchDecoder``, ``dynamic_decode``) and the whole
+optimizer package (``optimizer``: ten update rules, fifteen schedules,
+the parameter EMA; ``regularizer``; ``incubate``: LookAhead,
+ModelAverage).
 """
-from . import (amp, core, device, distributed, inference, io, models, nn,
-               observability, ops, optimizer, profiler, testing)
+from . import (amp, core, device, distributed, incubate, inference, io,
+               models, nn, observability, ops, optimizer, profiler,
+               regularizer, testing, text)
 from .device import resolve_device
 
-__all__ = ["amp", "core", "device", "distributed", "inference", "io",
-           "models", "nn", "observability", "ops", "optimizer", "profiler",
-           "resolve_device", "testing"]
+__all__ = ["amp", "core", "device", "distributed", "incubate",
+           "inference", "io", "models", "nn", "observability", "ops",
+           "optimizer", "profiler", "regularizer", "resolve_device",
+           "testing", "text"]

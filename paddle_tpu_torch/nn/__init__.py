@@ -1,7 +1,9 @@
-from . import clip, functional, initializer
+from . import clip, decode, functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .decode import BeamSearchDecoder, dynamic_decode
 from .layer import Dropout, Embedding, LayerNorm
 
-__all__ = ["clip", "functional", "initializer", "ClipGradByGlobalNorm",
-           "ClipGradByNorm", "ClipGradByValue", "Dropout", "Embedding",
+__all__ = ["clip", "decode", "functional", "initializer",
+           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
+           "BeamSearchDecoder", "dynamic_decode", "Dropout", "Embedding",
            "LayerNorm"]

@@ -1,7 +1,11 @@
-"""Optimizers and learning-rate schedules (counterpart of
-``paddle_tpu/optimizer``)."""
+"""Optimizers, learning-rate schedules and the parameter EMA
+(counterpart of ``paddle_tpu/optimizer``)."""
 from . import lr
+from .ema import ExponentialMovingAverage
 from .optimizer import Optimizer
-from .optimizers import SGD, Adam, AdamW, Momentum
+from .optimizers import (SGD, Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb,
+                         Lars, Momentum, RMSProp)
 
-__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adagrad", "RMSProp",
+           "Adadelta", "Adam", "AdamW", "Adamax", "Lamb", "Lars",
+           "ExponentialMovingAverage"]

@@ -1,20 +1,29 @@
 """Learning-rate schedulers (counterpart of ``paddle_tpu/optimizer/lr.py``:
-``LRScheduler``, ``LinearWarmup`` and ``CosineAnnealingDecay``).
+``LRScheduler`` and its 15 schedules).
 
 Host-side float math: the rate enters each step as a Python float, so
 a schedule never reads anything back from the device.
+``ReduceOnPlateau.step(metrics)`` takes a Python number (or a host
+tensor): reading a device loss back is the caller's one read.
 """
 from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
+import torch
+
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "LinearWarmup",
+           "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+           "ReduceOnPlateau", "CosineAnnealingDecay", "MultiplicativeDecay",
+           "OneCycleLR", "CyclicLR"]
 
 
 class LRScheduler:
-    def __init__(self, learning_rate=0.1, last_epoch=-1):
+    def __init__(self, learning_rate=0.1, last_epoch=-1, verbose=False):
         self.base_lr = float(learning_rate)
         self.last_epoch = last_epoch
+        self.verbose = verbose
         self.last_lr = self.base_lr
         self.step()
 
@@ -27,6 +36,8 @@ class LRScheduler:
         else:
             self.last_epoch = epoch
         self.last_lr = self.get_lr()
+        if self.verbose:
+            print(f"Epoch {self.last_epoch}: lr set to {self.last_lr}")
 
     def get_lr(self) -> float:
         raise NotImplementedError
@@ -38,6 +49,77 @@ class LRScheduler:
     def set_state_dict(self, state_dict):
         self.__dict__.update(state_dict)
 
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    """lr = d_model^-0.5 * min(step^-0.5, step * warmup^-1.5)."""
+
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0,
+                 last_epoch=-1, verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        a = step ** -0.5
+        b = self.warmup_steps ** -1.5 * step
+        return self.base_lr * (self.d_model ** -0.5) * min(a, b)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / float(self.decay_steps)) or 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, self.decay_steps)
+        return (self.base_lr - self.end_lr) * \
+            (1 - step / float(decay_steps)) ** self.power + self.end_lr
+
 
 class LinearWarmup(LRScheduler):
     """Linear ramp from ``start_lr`` to ``end_lr`` over ``warmup_steps``,
@@ -45,12 +127,12 @@ class LinearWarmup(LRScheduler):
     0 after the warmup)."""
 
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
-                 last_epoch=-1):
+                 last_epoch=-1, verbose=False):
         self.lr_after = learning_rate
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
-        super().__init__(start_lr, last_epoch)
+        super().__init__(start_lr, last_epoch, verbose)
 
     def get_lr(self):
         if self.last_epoch < self.warmup_steps:
@@ -62,12 +144,185 @@ class LinearWarmup(LRScheduler):
         return float(self.lr_after)
 
 
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if m <= self.last_epoch)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1,
+                 verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
 class CosineAnnealingDecay(LRScheduler):
-    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1):
+    def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
+                 verbose=False):
         self.T_max = T_max
         self.eta_min = eta_min
-        super().__init__(learning_rate, last_epoch)
+        super().__init__(learning_rate, last_epoch, verbose)
 
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * \
             (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.epsilon = epsilon
+        self.best = None
+        self.num_bad_epochs = 0
+        self.cooldown_counter = 0
+        super().__init__(learning_rate, -1, verbose)
+
+    def get_lr(self):
+        return self.last_lr if hasattr(self, "last_lr") else self.base_lr
+
+    def step(self, metrics=None, epoch=None):
+        if not hasattr(self, "last_lr"):
+            self.last_lr = self.base_lr
+        self.last_epoch += 1
+        if metrics is None:
+            return
+        if torch.is_tensor(metrics) and metrics.device.type != "cpu":
+            raise TypeError("ReduceOnPlateau.step takes a Python number: "
+                            "read a device loss back first (float(loss))")
+        m = float(metrics)
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            return
+        if self.best is None or self._is_better(m):
+            self.best = m
+            self.num_bad_epochs = 0
+        else:
+            self.num_bad_epochs += 1
+        if self.num_bad_epochs > self.patience:
+            new_lr = max(self.last_lr * self.factor, self.min_lr)
+            if self.last_lr - new_lr > self.epsilon:
+                self.last_lr = new_lr
+                if self.verbose:
+                    print(f"ReduceOnPlateau: lr -> {new_lr}")
+            self.cooldown_counter = self.cooldown
+            self.num_bad_epochs = 0
+
+    def _is_better(self, m):
+        if self.mode == "min":
+            if self.threshold_mode == "rel":
+                return m < self.best * (1 - self.threshold)
+            return m < self.best - self.threshold
+        if self.threshold_mode == "rel":
+            return m > self.best * (1 + self.threshold)
+        return m > self.best + self.threshold
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        self.anneal = anneal_strategy
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def _interp(self, start, end, pct):
+        if self.anneal == "cos":
+            return end + (start - end) * (1 + math.cos(math.pi * pct)) / 2
+        return (end - start) * pct + start
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = int(self.phase_pct * self.total_steps)
+        if step <= up and up > 0:
+            return self._interp(self.initial_lr, self.max_lr, step / up)
+        denom = max(self.total_steps - up, 1)
+        return self._interp(self.max_lr, self.end_lr, (step - up) / denom)
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate,
+                 step_size_up=2000, step_size_down=None, mode="triangular",
+                 exp_gamma=1.0, scale_fn=None, scale_mode="cycle",
+                 last_epoch=-1, verbose=False):
+        self.max_lr = max_learning_rate
+        self.step_up = step_size_up
+        self.step_down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        self._scale_fn = scale_fn
+        self.scale_mode = scale_mode
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.step_up + self.step_down
+        cycle = math.floor(1 + self.last_epoch / total)
+        x = self.last_epoch - (cycle - 1) * total
+        pct = x / self.step_up if x <= self.step_up else \
+            1 - (x - self.step_up) / self.step_down
+        base_height = (self.max_lr - self.base_lr) * pct
+        if self._scale_fn is not None:
+            arg = cycle if self.scale_mode == "cycle" else self.last_epoch
+            scale = self._scale_fn(arg)
+        elif self.mode == "triangular":
+            scale = 1.0
+        elif self.mode == "triangular2":
+            scale = 1 / (2 ** (cycle - 1))
+        else:  # exp_range
+            scale = self.exp_gamma ** self.last_epoch
+        return self.base_lr + base_height * scale

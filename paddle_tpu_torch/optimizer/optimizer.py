@@ -7,8 +7,10 @@ step)``, used two ways as in the JAX package:
 - by the trainer through ``apply_gradients(params, grads)`` over dicts
   keyed by structured parameter name.
 
-Both apply, in the JAX order, gradient clipping, then coupled L2 decay
-(``weight_decay`` as a float: ``g + coeff * p``), then the update.
+Both apply, in the JAX order, gradient clipping, then coupled decay
+(``weight_decay``: an ``L1Decay`` / ``L2Decay`` regularizer, a float
+meaning ``L2Decay``; in the eager path a parameter's own
+``regularizer`` attribute overrides it), then the update.
 Unlike JAX, which returns new arrays, the port updates each parameter
 and its accumulators IN PLACE (no second copy of the optimizer state
 during a step); the new value is cast back to the parameter's dtype.
@@ -30,6 +32,7 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 
+from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
@@ -46,17 +49,22 @@ class Optimizer:
         self._parameters = list(parameters) if parameters is not None \
             else None
         self._grad_clip = grad_clip
-        if weight_decay is not None and \
-                not isinstance(weight_decay, (int, float)):
-            raise TypeError(f"weight_decay must be a float (coupled L2 "
-                            f"coefficient), got {type(weight_decay)}")
-        self._weight_decay = None if weight_decay is None \
-            else float(weight_decay)
+        if isinstance(weight_decay, (int, float)):
+            weight_decay = L2Decay(weight_decay)
+        elif weight_decay is not None and \
+                not isinstance(weight_decay, WeightDecayRegularizer):
+            raise TypeError(f"weight_decay must be a float or an L1Decay / "
+                            f"L2Decay, got {type(weight_decay)}")
+        self._weight_decay = weight_decay
         self._accumulators: Dict[str, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
-        # the name of the parameter being updated (AdamW's
-        # apply_decay_param_fun reads it)
+        # the name and, in the eager path, the object of the parameter
+        # being updated (AdamW's apply_decay_param_fun and Lamb's
+        # exclude_from_weight_decay_fn read them)
         self._cur_param_name: Optional[str] = None
+        self._cur_param = None
+        # the eager parameters by name while step() runs
+        self._param_objs: Dict[str, torch.Tensor] = {}
         self._lr_scheduler = self._lr if isinstance(
             self._lr, LRScheduler) else None
 
@@ -109,13 +117,14 @@ class Optimizer:
             step = int(step)
         if self._grad_clip is not None:
             grads = self._grad_clip.clip_arrays(grads)
-        if self._weight_decay is not None and not self._decoupled_wd:
-            grads = {n: g + self._weight_decay * params[n]
+        if not self._decoupled_wd:
+            grads = {n: self._decay(n, params[n], g)
                      for n, g in grads.items()}
         self.init_state(params)
         for n, p in params.items():
             state = self._accumulators[n]
             self._cur_param_name = n
+            self._cur_param = self._param_objs.get(n)
             if skip is None:
                 self._update(p, grads[n], state, lr, step)
                 continue
@@ -124,6 +133,13 @@ class Optimizer:
             self._update(p, grads[n], state, lr, step)
             for t, o in zip(live, old):
                 torch.where(skip, o, t, out=t)
+
+    def _decay(self, name, p, g):
+        """Coupled decay of ``g``: the eager parameter's own
+        ``regularizer`` if it has one, else the optimizer's."""
+        reg = getattr(self._param_objs.get(name), "regularizer", None) \
+            or self._weight_decay
+        return g if reg is None else reg.apply(p, g)
 
     def step(self):
         """Eager update of the parameters given at construction from
@@ -134,8 +150,13 @@ class Optimizer:
                              "eager use")
         live = {str(i): p for i, p in enumerate(self._parameters)
                 if p.grad is not None and p.requires_grad}
-        self.apply_gradients(live, {n: p.grad for n, p in live.items()},
-                             step=self._step_count + 1)
+        self._param_objs = live
+        try:
+            self.apply_gradients(live, {n: p.grad for n, p in live.items()},
+                                 step=self._step_count + 1)
+        finally:
+            self._param_objs = {}
+            self._cur_param = None
         self._step_count += 1
 
     def clear_grad(self, set_to_zero: bool = False):

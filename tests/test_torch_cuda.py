@@ -1430,3 +1430,62 @@ def test_fp8_engine_on_the_card(gen, kw):
         "quantized_matmul_f8": 4 * 2 * (st["prefills"] + st["decode_steps"]),
         decode: 2 * st["decode_steps"], "flash_fwd": 2 * st["prefills"]}
     assert st["decode_host_syncs"] == st["decode_steps"]
+
+
+# ---- decoding API and optimizers on the card ---------------------------
+
+def test_beam_search_tie_order_on_the_card(gen):
+    """Equal totals in one row of the top-k: the card's search keeps
+    ``lax.top_k``'s order (the lower flat index first), as the CPU search
+    does, over a vocabulary of 50304 with 4 beams (the t = 0 rows of
+    beams 1-3 tie at -1e9 in f32, and so do finished beams)."""
+    dec = importlib.import_module("paddle_tpu_torch.text.decoding")
+    v, eos, bos = 50304, 0, 1
+    table = torch.full((8, v), -5.0)
+    table[bos, 3] = table[bos, 5] = table[bos, 7] = 2.0
+    table[3:8, eos] = 1.0
+
+    def step(tokens, state):
+        return table.to(tokens.device)[tokens.long().clamp(max=7)], state
+    seqs, scores = {}, {}
+    for device in ("cpu", "cuda"):
+        s, sc = dec.beam_search(step, (), 2, 4, 5, bos, eos, device=device)
+        seqs[device], scores[device] = s.cpu(), sc.cpu()
+    assert torch.equal(seqs["cuda"], seqs["cpu"])
+    torch.testing.assert_close(scores["cuda"], scores["cpu"])
+    assert seqs["cuda"][0, :3, 0].tolist() == [3, 5, 7]
+
+
+@pytest.mark.parametrize("rule", ["lamb", "lars", "adamax", "lookahead"])
+def test_optimizer_with_device_step_on_the_card(gen, rule):
+    """Lamb, Lars, Adamax and LookAhead(Adam) with the step count an
+    int32 tensor on the card: the same update as on the CPU (f64 copies,
+    rtol 1e-5), and no host read."""
+    topt = importlib.import_module("paddle_tpu_torch.optimizer")
+    inc = importlib.import_module("paddle_tpu_torch.incubate")
+    make = {"lamb": lambda: topt.Lamb(1e-2, lamb_weight_decay=0.05),
+            "lars": lambda: topt.Lars(0.1, lars_coeff=0.01),
+            "adamax": lambda: topt.Adamax(1e-2),
+            "lookahead": lambda: inc.LookAhead(topt.Adam(1e-2), k=2)}[rule]
+    p = {"w": torch.randn(64, 32, generator=gen, device="cuda"),
+         "b": torch.randn(32, generator=gen, device="cuda")}
+    ref = {n: t.double().cpu() for n, t in p.items()}
+    on_card, on_cpu = make(), make()
+    for step in range(1, 4):
+        g = {n: torch.randn(t.shape, generator=gen, device="cuda")
+             for n, t in p.items()}
+        reads = []
+        orig = torch.Tensor.item
+        torch.Tensor.item = lambda t, *a, **k: reads.append(1) or orig(t)
+        try:
+            on_card.apply_gradients(
+                p, g, step=torch.tensor(step, dtype=torch.int32,
+                                        device="cuda"))
+        finally:
+            torch.Tensor.item = orig
+        assert not reads
+        on_cpu.apply_gradients(ref, {n: t.double().cpu()
+                                     for n, t in g.items()}, step=step)
+    for n in p:
+        torch.testing.assert_close(p[n].cpu().double(), ref[n], rtol=1e-5,
+                                   atol=1e-6)
