@@ -55,7 +55,17 @@ before the result lines:
    the dq kernel writes against the plain delta; each kernel timed, and
    the whole backward call in turns with the library's backward; the
    fused cross-entropy at the training shape against full f32 logits,
-   and its time;
+   and its time; dropout-kernels: ``csrc/philox.cuh``'s Philox4x32-10
+   words against ``curand_Philox4x32_10`` and ``ops/_philox.py``, the
+   keep bits of whole calls dumped by ``csrc/philox_check.cu`` against
+   the plain ``keep_mask``; rows 1-3's dropout forms at p = DROP_P
+   against their plain versions on the same (seed, offset) pair at the
+   training shape (bf16, fp16) and edge shapes (ragged S, key masks, GQA,
+   G = 16, D=64) at the rows' tolerances, each twice (bitwise equal);
+   every kernel's keep bits read out exactly (one-hot operands, q = 0)
+   and equal to the plain bits; each form timed at the training shape in
+   turns with its p = 0 kernel, beside its plain version and SDPA with
+   ``dropout_p``;
 5. serve: gpt3-1.3b in bf16 (random weights from a seed, full width and
    depth) behind ``InferenceEngine(batch_slots=8)``, 16 requests of 32
    new tokens; checks token counts, finite cache contents, one host sync
@@ -164,6 +174,12 @@ before the result lines:
    memory), one profiled step (device busy share, top kernels), then 2
    steps without and 2 with ``enable_recompute()`` from one saved state
    (equal losses, 48 forward launches per step, lower peak);
+16b. train-dropout: the train model with ``attn_dropout = dropout =
+   DROP_P``, 3-step runs at p = 0 and p in turns: finite falling losses,
+   each dropout form 24 times a step and no p = 0 flash kernel, no host
+   sync, step ms, MFU and peak against p = 0 (the peak growing by at most
+   1.5 x the hidden dropouts' masks), then full recompute equal to none
+   under one generator seed;
 17. train-fp16 (the training slice's main path): the same model and
    batch with fp16 AMP and dynamic loss scaling (scale 32768 at first):
    2 warm-up and 6 measured steps with no host sync, 24 launches of each
@@ -1340,6 +1356,314 @@ def phase_train_kernels(records):
     phase_fused_ce(gen)
 
 
+# attention dropout: rows 1-3's dropout forms at DROP_P, Paddle's GPT
+# pretraining attention-probs dropout
+DROP_P = 0.1
+
+
+def check_dropout(gen, b, s, h, hkv, d, causal=True, mask=False,
+                  dtype=torch.bfloat16):
+    """The three dropout forms against their plain versions fed the same
+    (seed, offset) pair: o per row within TOL_OUT and lse within TOL_LSE
+    (row 1), dq, dk, dv per row within TOL_BWD (rows 2-3, BWD_FLOOR) and
+    delta within TOL_DELTA, each kernel called twice (bitwise equal).
+    Returns ``{record key: (max abs error, worst row ratio)}``."""
+    from paddle_tpu_torch.core import random as prandom
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    q = _rand((b, s, h, d), gen, dtype)
+    k = _rand((b, s, hkv, d), gen, dtype)
+    v = _rand((b, s, hkv, d), gen, dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    kv_mask = None
+    if mask:
+        kv_mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
+                   ).float()
+        kv_mask[-1, 0] = 0.0
+    pair = prandom.philox_pair("cuda", gen)
+    o, lse = fa._flash_cuda(q, k, v, causal, kv_mask, DROP_P, pair)
+    o2, lse2 = fa._flash_cuda(q, k, v, causal, kv_mask, DROP_P, pair)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, DROP_P,
+                             pair)
+    again = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, DROP_P,
+                               pair)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ro, rlse = fa._flash_plain(qf, kf, vf, causal, kv_mask, DROP_P, pair)
+    ref = fa._flash_bwd_plain(qf, kf, vf, o.float(), lse, do.float(), causal,
+                              kv_mask, DROP_P, pair)
+    ref_delta = fa._flash_bwd_delta_plain(o.float(), do.float())
+    delta_scale = fa._flash_bwd_delta_plain(o.float().abs(),
+                                            do.float().abs())
+    torch.cuda.synchronize()
+    err_o, worst_o, ok_o = row_errors(o, ro)
+    worst_l = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
+    res = {n: row_errors(g, r, TOL_BWD, BWD_FLOOR)
+           for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
+    d_err = (got[3] - ref_delta).abs()
+    d_ratio = (d_err / delta_scale.clamp_min(1e-30)).max().item()
+    same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+            and all(torch.equal(x, y) for x, y in zip(got, again)))
+    finite = all(torch.isfinite(t).all().item() for t in (o, *got))
+    ok = (ok_o and worst_l <= TOL_LSE and all(r[2] for r in res.values())
+          and bool((d_err <= TOL_DELTA * delta_scale).all()) and same
+          and finite)
+    log(f"[dropout-kernels] p={DROP_P} B={b} S={s} H={h} Hkv={hkv} D={d} "
+        f"causal={causal} mask={mask} {str(dtype)[6:]}: max|o-plain|="
+        f"{err_o:.3e} worst row {worst_o:.3e} (tol {TOL_OUT}); lse worst row "
+        f"{worst_l:.3e} (tol {TOL_LSE}); " + " ".join(
+            f"max|{n}-plain|={r[0]:.3e} worst row {r[1]:.3e}"
+            for n, r in res.items()) +
+        f" (tol {TOL_BWD}); delta worst row {d_ratio:.3e} (tol {TOL_DELTA}); "
+        f"deterministic={same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"flash dropout kernels disagree with their plain "
+                         f"versions at B={b} S={s} H={h} Hkv={hkv} D={d} "
+                         f"{dtype}")
+    return {"flash_fwd_dropout": (err_o, worst_o),
+            "flash_bwd_dq_dropout": res["dq"][:2],
+            "flash_bwd_dkv_dropout": (max(res["dk"][0], res["dv"][0]),
+                                      max(res["dk"][1], res["dv"][1]))}
+
+
+def check_keep_readout(gen, b, s, h, hkv, d, dtype=torch.bfloat16):
+    """Each dropout kernel's keep bits, read out exactly and held to the
+    plain version's bit for bit (a few wrong bits would hide inside a
+    tolerance).  q = 0 makes p uniform over the visible keys; keys are
+    read a window of D at a time (a key mask shows only the window, or do
+    is non-zero only on the window's queries and one query head a kv
+    head), with one-hot rows so that each output element is one
+    element's p, kept or exactly 0:
+    - forward: v_j = e_(j - w0): o[i, d] = z(i, w0 + d) / (n (1 - p));
+    - dq: k_j = e_(j - w0), v = do = e_0, o = 0 (delta = 0):
+      dq[i, d] = scale z(i, w0 + d) p / (1 - p);
+    - dk/dv: do_i = e_(i - w0) on one head g of each group, o = 0:
+      dv[j, d] = z(w0 + d, j) / (S (1 - p)).
+    Returns the number of bits compared."""
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.ops import _philox
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    g_size = h // hkv
+    pair = prandom.philox_pair("cuda", gen)
+    want = _philox.keep_mask(pair, b, h, s, s, DROP_P)      # [B, H, S, S]
+    eye = torch.eye(d, device="cuda", dtype=dtype)
+    zq = torch.zeros((b, s, h, d), device="cuda", dtype=dtype)
+    e0 = torch.zeros((b, s, h, d), device="cuda", dtype=dtype)
+    e0[..., 0] = 1
+    k_rand = _rand((b, s, hkv, d), gen, dtype)
+    fwd_bits = torch.zeros_like(want)
+    dq_bits = torch.zeros_like(want)
+    dkv_bits = torch.zeros_like(want)
+    _, lse_all = fa._flash_cuda(zq, k_rand, k_rand, False, None)
+    for w0 in range(0, s, d):
+        n = min(d, s - w0)
+        onehot = torch.zeros((b, s, hkv, d), device="cuda", dtype=dtype)
+        onehot[:, w0:w0 + n] = eye[:n][None, :, None, :]
+        window = torch.zeros((b, s), device="cuda")
+        window[:, w0:w0 + n] = 1.0
+        o, lse = fa._flash_cuda(zq, k_rand, onehot, False, window, DROP_P,
+                                pair)
+        fwd_bits[..., w0:w0 + n] = (o[..., :n] != 0).permute(0, 2, 1, 3)
+        v_e0 = e0[:, :, :hkv].contiguous()
+        dq = fa._flash_bwd_cuda(zq, onehot, v_e0, torch.zeros_like(zq), lse,
+                                e0, False, window, DROP_P, pair)[0]
+        dq_bits[..., w0:w0 + n] = (dq[..., :n] != 0).permute(0, 2, 1, 3)
+        for g in range(g_size):
+            do = torch.zeros_like(zq)
+            for hk in range(hkv):
+                do[:, w0:w0 + n, hk * g_size + g] = eye[:n][None]
+            dv = fa._flash_bwd_cuda(zq, k_rand, k_rand, torch.zeros_like(zq),
+                                    lse_all, do, False, None, DROP_P,
+                                    pair)[2]
+            # dv [B, S(keys), Hkv, D]: element d is query w0 + d of head
+            # hk * G + g
+            read = (dv[..., :n] != 0).permute(0, 2, 3, 1)  # [B, Hkv, n, S]
+            dkv_bits[:, g::g_size, w0:w0 + n, :] = read
+    torch.cuda.synchronize()
+    bad = {name: int((got != want).sum().item())
+           for name, got in (("forward", fwd_bits), ("dq", dq_bits),
+                             ("dk/dv", dkv_bits))}
+    rate = want.float().mean().item()
+    ok = not any(bad.values())
+    log(f"[dropout-kernels] keep bits read out of each kernel B={b} S={s} "
+        f"H={h} Hkv={hkv} D={d} {str(dtype)[6:]}: {want.numel()} bits a "
+        f"kernel, wrong bits {bad}, kept share {rate:.5f} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"dropout kernel keep bits differ from the plain "
+                         f"version's: {bad}")
+    return want.numel()
+
+
+def phase_dropout_bits():
+    """philox.cuh on the card: raw words against ``curand_Philox4x32_10``
+    (curand_kernel.h) and against ``ops/_philox.py``, at Random123's
+    known-answer counters and 4096 random ones; the check entry's keep
+    bits of whole attention calls against ``keep_mask``."""
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.ops import _philox
+    rng = np.random.RandomState(17)
+    kat = np.array([[0] * 6, [0xFFFFFFFF] * 6,
+                    [0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344,
+                     0xa4093822, 0x299f31d0]], dtype=np.uint64)
+    rand = rng.randint(0, 1 << 32, size=(4096, 6), dtype=np.uint64)
+    inputs = np.concatenate([kat, rand]).astype(np.uint32)
+    words = _philox.philox_words_cuda(
+        torch.from_numpy(inputs.view(np.int32)).cuda())
+    torch.cuda.synchronize()
+    card = words.cpu().numpy().view(np.uint32)
+    plain = np.stack([w.numpy() for w in _philox.philox4x32_10(
+        *(torch.from_numpy(inputs[:, c].astype(np.int64)) for c in range(6)))],
+        1).astype(np.uint32)
+    same_curand = bool((card[:, :4] == card[:, 4:]).all())
+    same_plain = bool((card[:, :4] == plain).all())
+    kat_ok = [f"{x:08x}" for x in card[0, :4]] == [
+        "6627e8d5", "e169c58d", "bc57ac4c", "9b00dbd8"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    dumps = []
+    for b, h, s, sk in ((1, 4, 333, 333), (2, 16, 2048, 2048)):
+        pair = prandom.philox_pair("cuda", gen)
+        got = _philox.keep_bits_cuda(pair, b, h, s, sk, DROP_P)
+        want = _philox.keep_mask(pair, b, h, s, sk, DROP_P)
+        dumps.append((b, h, s, int((got != want).sum().item()),
+                      got.float().mean().item()))
+    ok = same_curand and same_plain and kat_ok and not any(
+        x[3] for x in dumps)
+    log(f"[dropout-bits] philox.cuh words of {len(inputs)} counters: equal "
+        f"to curand_Philox4x32_10 {same_curand}, to ops/_philox.py "
+        f"{same_plain}, counter 0 key 0 -> "
+        f"{' '.join(f'{x:08x}' for x in card[0, :4])} ({kat_ok}); keep "
+        f"bits dumped by philox_check.cu against keep_mask (B, H, S, wrong, "
+        f"kept share): {dumps} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("dropout bits on the card differ")
+
+
+def phase_dropout_kernels(records):
+    """Rows 1-3's dropout forms: the bit checks, then each form against
+    its plain version at the training shape and edge shapes (bf16 and
+    fp16), the keep bits read out of each kernel exactly, then timed at
+    the training shape in turns with the p = 0 kernels, beside the plain
+    versions and SDPA with dropout_p (other bits: only a time)."""
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.ops import _build
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    F = torch.nn.functional
+    phase_dropout_bits()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    fp16 = torch.float16
+    worst = {}
+    for args, kw in (((1, 48, 16, 16, 128), {}),
+                     ((2, 333, 16, 4, 128), dict(mask=True)),
+                     ((2, 200, 8, 2, 64), dict(causal=False, mask=True)),
+                     ((2, 256, 8, 8, 64), dict(dtype=fp16)),
+                     ((1, 2048, 16, 1, 128), {}),             # G = 16
+                     ((4, 2048, 16, 16, 128), dict(dtype=fp16)),
+                     ((4, 2048, 16, 16, 128), {})):          # training shape
+        for key, e in check_dropout(gen, *args, **kw).items():
+            worst.setdefault(key, []).append(e)
+    n_bits = sum(check_keep_readout(gen, *args, **kw) for args, kw in (
+        ((2, 333, 4, 2, 128), {}), ((1, 200, 4, 1, 64), dict(dtype=fp16)),
+        ((2, 2048, 16, 16, 128), {})))
+    log(f"[dropout-kernels] {n_bits} keep bits a kernel read out, all equal "
+        f"to the plain version's")
+
+    b, s, h, d = 4, 2048, 16, 128
+    q, k, v, do = (_rand((b, s, h, d), gen) for _ in range(4))
+    pair = prandom.philox_pair("cuda", gen)
+    o, lse = fa._flash_cuda(q, k, v, True, None, DROP_P, pair)
+    o0, lse0 = fa._flash_cuda(q, k, v, True, None)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    qkv = [_build.ptr(x) for x in (q, k, v)]
+    dims = (b, s, h, h, d, 1, _build.DTYPE_CODES[q.dtype])
+    st = _build.stream_ptr(q)
+    drop = fa._drop_args(DROP_P, pair)
+
+    def dq_call(p, oo, ll):
+        args = (*qkv, _build.ptr(oo), _build.ptr(do), _build.ptr(ll),
+                _build.ptr(None), _build.ptr(dq), _build.ptr(delta), *dims)
+        return (lambda: fa.FLASH_BWD_DQ_DROPOUT(*args, *drop, st)) if p \
+            else (lambda: fa.FLASH_BWD_DQ(*args, st))
+
+    def dkv_call(p, ll):
+        args = (*qkv, _build.ptr(do), _build.ptr(ll), _build.ptr(delta),
+                _build.ptr(None), _build.ptr(dk), _build.ptr(dv), *dims)
+        return (lambda: fa.FLASH_BWD_DKV_DROPOUT(*args, *drop, st)) if p \
+            else (lambda: fa.FLASH_BWD_DKV(*args, st))
+
+    def turns(plain_fn, drop_fn, iters=50):
+        """(p = 0 ms, dropout ms): plain, drop, drop, plain, twice; best
+        window of each."""
+        a, z = [], []
+        for _ in range(2):
+            a.append(cuda_ms(plain_fn, iters=iters))
+            z += [cuda_ms(drop_fn, iters=iters) for _ in range(2)]
+            a.append(cuda_ms(plain_fn, iters=iters))
+        return min(a), min(z)
+
+    fwd0, fwdp = turns(lambda: fa._flash_cuda(q, k, v, True, None),
+                       lambda: fa._flash_cuda(q, k, v, True, None, DROP_P,
+                                              pair))
+    dq0, dqp = turns(dq_call(0, o0, lse0), dq_call(DROP_P, o, lse))
+    dkv0, dkvp = turns(dkv_call(0, lse0), dkv_call(DROP_P, lse))
+    t_plain_f = cuda_ms(lambda: fa._flash_plain(q, k, v, True, None, DROP_P,
+                                                pair), iters=3, warmup=1)
+    t_plain_b = cuda_ms(lambda: fa._flash_bwd_plain(
+        q, k, v, o, lse, do, True, None, DROP_P, pair), iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              dropout_p=DROP_P)
+
+    lib_f = min(cuda_ms(lib_fwd, iters=50) for _ in range(2))
+    lib_b = min(cuda_ms(lambda: torch.autograd.grad(
+        lib_fwd(), (qt, kt, vt), dot)) - cuda_ms(lib_fwd) for _ in range(2))
+    pairs = b * h * (s * (s + 1) // 2)
+    calls = pairs // 8                       # Philox calls a pass
+    row_bytes = b * h * s * 4
+    rows = (("flash_fwd_dropout", "flash_fwd", fwdp, fwd0, 4 * d * pairs,
+             2 * (2 * q.numel() + k.numel() + v.numel()) + row_bytes + 16,
+             t_plain_f, lib_f, 72),
+            ("flash_bwd_dq_dropout", "flash_bwd_dq", dqp, dq0,
+             3 * 2 * d * pairs,
+             2 * (4 * q.numel() + 2 * k.numel()) + 2 * row_bytes + 16,
+             t_plain_b, lib_b, 133),
+            ("flash_bwd_dkv_dropout", "flash_bwd_dkv", dkvp, dkv0,
+             4 * 2 * d * pairs,
+             2 * (2 * q.numel() + 4 * k.numel()) + 2 * row_bytes + 16,
+             t_plain_b, lib_b, 183))
+    for key, src, t, t0, flops, nbytes, t_plain, t_lib, line in rows:
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"[dropout-kernels] {key} timing B={b} S={s} H={h} D={d} causal "
+            f"p={DROP_P}: kernel_ms={t:.4f} (p = 0 in turns {t0:.4f}, "
+            f"+{t - t0:.4f} ms for {calls / 1e6:.1f} M Philox calls) "
+            f"bound_ms={b_ms:.4f} ({b_by}; share {b_ms / t:.3f}) plain_ms="
+            f"{t_plain:.4f} library_ms={t_lib:.4f} (SDPA dropout_p={DROP_P}"
+            f"{'' if key == 'flash_fwd_dropout' else ' backward'})")
+        records[key] = dict(
+            name=key, route="cuda",
+            source=f"paddle_tpu_torch/csrc/{src}.cu",
+            replaces=f"paddle_tpu/ops/flash_attention.py:{line}",
+            max_abs_err=max(e[0] for e in worst[key]),
+            max_row_rel_err=max(e[1] for e in worst[key]),
+            row_tol=TOL_OUT if key == "flash_fwd_dropout" else TOL_BWD,
+            ms=t, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=t_lib, p0_ms=t0, drop_p=DROP_P,
+            philox_calls=calls, keep_bits_read=n_bits,
+            note=f"{src}'s dropout form (its C entry {key}); the TPU "
+                 f"kernel takes no dropout, the JAX package drops in its "
+                 f"composite (nn/functional/attention.py:40-42); p0_ms is "
+                 f"the p = 0 kernel in turns; library_ms is SDPA with "
+                 f"dropout_p={DROP_P} (other bits, a time only)"
+                 + ("" if key == "flash_fwd_dropout" else
+                    "; plain_ms and library_ms compute dq, dk and dv "
+                    "together"))
+
+
 def phase_fused_ce(gen):
     """The blocked cross-entropy of the train step (N = 4 x 2048 rows,
     hidden 2048, vocab 50304, bf16 operands as under AMP) against the
@@ -2040,18 +2364,18 @@ def measured(tag, eng, fn, extra_reads=0):
     decode kernel of the engine's cache in every decode step, one flash
     launch in every prefill without a cached prefix (one window launch in
     every chunk tick when chunked) and no other launch."""
-    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.ops import LAUNCHERS
     layers = eng.model.cfg.num_layers
     before = dict(eng._timings)
     hits0 = eng._prefix.hit_queries if eng._prefix is not None else 0
     torch.cuda.synchronize()
-    for kernel in KERNELS.values():
+    for kernel in LAUNCHERS.values():
         kernel.launches = 0
     with HostReads() as reads:
         out = fn()
     torch.cuda.synchronize()
     HOST_READS[tag] = reads.n
-    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
     d = {k: v - before[k] for k, v in eng._timings.items()}
     hits = (eng._prefix.hit_queries if eng._prefix is not None else 0) - hits0
     st = eng.stats()
@@ -2192,19 +2516,19 @@ def run_engine(tag, eng, prompts, new_tokens, sampled=()):
     count, run the engine dry and read the counts back.  Returns
     ``(streams in prompt order, launches by kernel, stats, wall s)``;
     logs tokens/s, host syncs and launches."""
-    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.ops import LAUNCHERS
     rids = [eng.add_request(p, max_new_tokens=new_tokens,
                             temperature=0.8 if i in sampled else 0.0,
                             top_p=0.9 if i in sampled else 1.0)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
-    for kernel in KERNELS.values():
+    for kernel in LAUNCHERS.values():
         kernel.launches = 0
     t0 = time.perf_counter()
     results = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
     st = eng.stats()
     streams = [results[r].tolist() for r in rids]
     tokens = sum(len(x) for x in streams)
@@ -4255,18 +4579,18 @@ def phase_train_qat():
     two plain products), finite loss and gradients."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models import gpt_configs
-    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.ops import LAUNCHERS
     cfg = gpt_configs()["gpt3-1.3b"]
     cfg.num_layers, cfg.fused_ce = 2, True
     model, trainer = make_trainer(cfg, 99, topt.SGD(learning_rate=0.0),
                                   qat=True)
     ids, labels = token_batch(np.random.RandomState(21), cfg.vocab_size, 2,
                               512)
-    for kernel in KERNELS.values():
+    for kernel in LAUNCHERS.values():
         kernel.launches = 0
     loss = float(trainer.train_step(ids, labels))
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
     finite = all(bool(torch.isfinite(p.grad).all().item())
                  for p in model.parameters())
     gmax = max(p.grad.abs().max().item() for p in model.parameters())
@@ -4294,7 +4618,7 @@ def phase_train():
     from paddle_tpu_torch.distributed import async_dispatch
     from paddle_tpu_torch.io import DevicePrefetcher
     from paddle_tpu_torch.models import gpt_configs
-    from paddle_tpu_torch.ops import KERNELS
+    from paddle_tpu_torch.ops import LAUNCHERS
     cfg = gpt_configs()["gpt3-1.3b"]
     cfg.fused_ce = True
     b, s, n_warm, n_meas = 4, 2048, 2, 6
@@ -4313,14 +4637,14 @@ def phase_train():
         if i == n_warm:                  # the measured window starts
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            for kernel in KERNELS.values():
+            for kernel in LAUNCHERS.values():
                 kernel.launches = 0
             async_dispatch.reset_host_sync_count()
             t0 = time.perf_counter()
         results.append(trainer.train_step(ids, labels))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in KERNELS.values()}
+    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
     syncs = async_dispatch.host_sync_count()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(r) for r in results]
@@ -4365,7 +4689,7 @@ def phase_train():
               for k, v in trainer.optimizer.state_dict().items()}
 
     def two_steps():
-        for kernel in KERNELS.values():
+        for kernel in LAUNCHERS.values():
             kernel.launches = 0
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -4374,7 +4698,7 @@ def phase_train():
         torch.cuda.synchronize()
         return ([float(r) for r in out],
                 torch.cuda.max_memory_allocated() - base,
-                KERNELS["flash_fwd.cu"].launches)
+                LAUNCHERS["flash_fwd"].launches)
 
     plain, plain_peak, _ = two_steps()
     with torch.no_grad():
@@ -4405,14 +4729,14 @@ def del_all():
 
 
 def zero_launches():
-    from paddle_tpu_torch.ops import KERNELS
-    for kernel in KERNELS.values():
+    from paddle_tpu_torch.ops import LAUNCHERS
+    for kernel in LAUNCHERS.values():
         kernel.launches = 0
 
 
 def read_launches():
-    from paddle_tpu_torch.ops import KERNELS
-    return {k.symbol: k.launches for k in KERNELS.values()}
+    from paddle_tpu_torch.ops import LAUNCHERS
+    return {k.symbol: k.launches for k in LAUNCHERS.values()}
 
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -4558,6 +4882,142 @@ def phase_train_fp16(bf16, smi):
         raise SystemExit("train-fp16 fault check failed")
     log("[train-fp16] ok")
     return {"train-fp16": launches}
+
+
+def set_dropout(model, p):
+    """Every dropout of a GPT at rate ``p``: the hidden Dropout layers
+    and each attention's ``attn_dropout`` (one model run at p = 0 and at
+    p, in turns)."""
+    import dataclasses
+    from paddle_tpu_torch.models.gpt import GPTAttention
+    from paddle_tpu_torch.nn.layer.common import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = p
+        elif isinstance(m, GPTAttention):
+            m.cfg = dataclasses.replace(m.cfg, attn_dropout=p)
+
+
+def phase_train_dropout(bf16, smi):
+    """gpt3-1.3b at full width and depth with Paddle's pretraining
+    dropouts (``attn_dropout = dropout = DROP_P``), f32 masters, bf16 AMP,
+    fused CE, Adam, 4 x 2048: runs of 3 steps at p = 0 and at DROP_P in
+    turns (p = 0, p, p, p = 0) after a warm-up of each.  The dropout runs:
+    finite losses falling over the phase, each of rows 1-3's dropout
+    forms once a layer a step and no p = 0 flash kernel, no host sync;
+    step ms, MFU and peak beside the p = 0 runs', the peak growing by no
+    more than the hidden dropouts' masks (1 byte an element of 2 [B, S,
+    hidden] per layer and the embeddings', saved for their backward) with
+    slack: no attention mask is stored.  Then 2 steps without and 2 with
+    full recompute from one held state under one generator seed: equal
+    losses (the recomputed forward replays the pairs), the forward twice
+    a layer a step."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import async_dispatch
+    cfg = full_cfg()
+    cfg.attn_dropout = cfg.dropout = DROP_P
+    b, s, n = 4, 2048, 3
+    model, trainer = make_trainer(cfg, 4321, topt.Adam(learning_rate=1e-4))
+    ids, labels = (torch.from_numpy(x).cuda() for x in token_batch(
+        np.random.RandomState(0), cfg.vocab_size, b, s))
+    layers = cfg.num_layers
+    masks = (2 * layers + 1) * b * s * cfg.hidden_size   # bytes, bool
+    DROP = tuple(f"{k}_dropout" for k in FLASH)
+
+    def run(p, steps):
+        set_dropout(model, p)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        async_dispatch.reset_host_sync_count()
+        t0 = time.perf_counter()
+        out = [trainer.train_step(ids, labels) for _ in range(steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        syncs = async_dispatch.host_sync_count()
+        launches = read_launches()
+        return dict(losses=[float(r) for r in out],
+                    step_ms=wall * 1e3 / steps,
+                    mfu=cfg.flops_per_token(s) * steps * b * s / wall
+                    / PEAK_BF16_FLOPS,
+                    peak=torch.cuda.max_memory_allocated(), syncs=syncs,
+                    launches=launches)
+
+    run(DROP_P, 1)
+    run(0.0, 1)
+    runs = [(0.0, run(0.0, n)), (DROP_P, run(DROP_P, n)),
+            (DROP_P, run(DROP_P, n)), (0.0, run(0.0, n))]
+    problems = []
+    total = {}
+    for p, r in runs:
+        log(f"[train-dropout] {smi}: p={p} {n} steps: losses "
+            f"{[round(x, 4) for x in r['losses']]} step_ms={r['step_ms']:.3f} "
+            f"MFU={r['mfu']:.4f} max_memory_allocated={r['peak']} bytes "
+            f"host_syncs={r['syncs']} flash launches "
+            f"{ {k: r['launches'][k] for k in FLASH + DROP} }")
+        if r["syncs"]:
+            problems.append(f"p={p}: {r['syncs']} host syncs")
+        want_on, want_off = (DROP, FLASH) if p else (FLASH, DROP)
+        for key in want_on:
+            if r["launches"][key] != layers * n:
+                problems.append(f"p={p}: {key} launches "
+                                f"{r['launches'][key]} != {layers} x {n}")
+        for key in want_off:
+            if r["launches"][key]:
+                problems.append(f"p={p}: {key} launched")
+        if p:
+            add_launches(total, r["launches"])
+    drop_losses = runs[1][1]["losses"] + runs[2][1]["losses"]
+    if not all(np.isfinite(drop_losses)) or \
+            not drop_losses[-1] < drop_losses[0]:
+        problems.append(f"dropout losses not finite and falling: "
+                        f"{drop_losses}")
+    ms0 = min(runs[0][1]["step_ms"], runs[3][1]["step_ms"])
+    msp = min(runs[1][1]["step_ms"], runs[2][1]["step_ms"])
+    peak0 = max(runs[0][1]["peak"], runs[3][1]["peak"])
+    peakp = max(runs[1][1]["peak"], runs[2][1]["peak"])
+    grow = peakp - peak0
+    if grow > 1.5 * masks:
+        problems.append(f"peak grew by {grow} bytes, over 1.5 x the hidden "
+                        f"dropout masks' {masks}")
+    log(f"[train-dropout] {smi}: step_ms p={DROP_P} {msp:.3f} vs p=0 "
+        f"{ms0:.3f} (x {msp / ms0:.4f}; bf16 step of the train phase "
+        f"{bf16['step_ms']:.3f}), MFU {runs[1][1]['mfu']:.4f} / "
+        f"{runs[2][1]['mfu']:.4f} vs {runs[0][1]['mfu']:.4f} / "
+        f"{runs[3][1]['mfu']:.4f}; peak {peakp} vs {peak0} bytes: +{grow} "
+        f"(hidden dropout masks {masks} bytes)")
+
+    # recompute: the same 2 steps without and with 'full' under one seed
+    set_dropout(model, DROP_P)
+    held = HeldState(trainer)
+
+    def two_steps():
+        zero_launches()
+        torch.cuda.manual_seed(1234)
+        out = [trainer.train_step(ids, labels) for _ in range(2)]
+        torch.cuda.synchronize()
+        return [float(r) for r in out], read_launches()
+
+    plain, _ = two_steps()
+    held.restore()
+    model.enable_recompute()
+    rec, rec_launches = two_steps()
+    diff = max(abs(x - y) / abs(y) for x, y in zip(rec, plain))
+    rec_ok = (diff <= TOL_RECOMPUTE
+              and rec_launches["flash_fwd_dropout"] == 2 * layers * 2
+              and rec_launches["flash_bwd_dq_dropout"] == 2 * layers)
+    log(f"[train-dropout] recompute 'full' from one held state, one "
+        f"generator seed: losses {rec} vs {plain} without (worst relative "
+        f"diff {diff:.3e}, tol {TOL_RECOMPUTE}); flash_fwd_dropout launches "
+        f"{rec_launches['flash_fwd_dropout']} over 2 steps "
+        f"{'ok' if rec_ok else 'FAIL'}")
+    if not rec_ok:
+        problems.append("recompute with dropout differs")
+    if problems:
+        raise SystemExit("train-dropout failed: " + "; ".join(problems))
+    del model, trainer, held
+    log("[train-dropout] ok")
+    return {"train-dropout": total}
 
 
 POLICIES = (None, "full", "dots_no_batch", "dots", "everything")
@@ -5618,6 +6078,7 @@ def main():
     phase_f8_kernels(records)
     phase_mega_kernels(records)
     phase_train_kernels(records)
+    phase_dropout_kernels(records)
     model = build_model()
     paths = {}
     for tag, phase in (("serve", phase_serve),
@@ -5662,7 +6123,8 @@ def main():
     paths["train-qat-fp8"] = phase_train_qat_fp8()
     bf16 = phase_train()
     paths["train"] = bf16["launches"]
-    for phase in (phase_train_fp16, phase_train_recompute_policies,
+    for phase in (phase_train_dropout, phase_train_fp16,
+                  phase_train_recompute_policies,
                   phase_train_merge, phase_train_anomaly,
                   phase_train_checkpoint, phase_train_telemetry,
                   phase_train_optimizers, phase_train_moe):

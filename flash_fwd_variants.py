@@ -331,8 +331,9 @@ _PINGPONG = _chain(
     _edit("  for (int kt = 0; kt < pol.n_tiles; ++kt) {",
           '  if (c == 1) asm volatile("bar.arrive 3, 256;\\n" ::: "memory");\n'
           "  for (int kt = 0; kt < pol.n_tiles; ++kt) {"),
-    _edit("    const int k0 = kt * kBlockN;\n    if (k0 <= wr.hi) {",
-          "    const int k0 = kt * kBlockN;\n"
+    _edit("    hopper::mbar_wait(ring.full(s), (kt / kStages) & 1);\n"
+          "    if (k0 <= wr.hi) {",
+          "    hopper::mbar_wait(ring.full(s), (kt / kStages) & 1);\n"
           '    asm volatile("bar.sync %0, 256;\\n" ::"r"(3 + c) : "memory");\n'
           "    if (k0 <= wr.hi) {"),
     _edit("      hopper::wgmma_commit();\n      hopper::wgmma_wait<0>();\n"

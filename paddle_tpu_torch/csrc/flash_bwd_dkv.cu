@@ -34,9 +34,16 @@
 //   below the diagonal that hold S keys and queries and no key mask;
 // - under causal, blocks of the first key tiles (the longest query loops)
 //   are launched first, and each query loop starts at the diagonal.
+// Attention dropout (flash_bwd_dkv_dropout): the same kernel with kDrop
+// redraws the forward's keep bits z for each query tile of each query
+// head of the group (philox.cuh: the accumulator's rows are keys here, so
+// a thread and the lane four away draw one call each and swap half of
+// it), then dv += (z * p / (1 - p))^T do and ds = p * (z * dp / (1 - p) -
+// delta).
 #include <type_traits>
 
 #include "hopper_tile.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -64,7 +71,7 @@ struct Smem {
   static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                          const __grid_constant__ CUtensorMap tm_k,
@@ -74,7 +81,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                          const float* __restrict__ delta,
                          const float* __restrict__ kv_mask,
                          T* __restrict__ dk, T* __restrict__ dv, int B, int S,
-                         int H, int Hkv, int causal, float scale) {
+                         int H, int Hkv, int causal, float scale,
+                         const int64_t* __restrict__ philox,
+                         uint32_t drop_thr, float drop_scale) {
   using L = Smem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -173,13 +182,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t a_k = base + L::kK + c * 64 * 128;
     const uint32_t a_v = base + L::kV + c * 64 * 128;
 
+    philox::MaybeDropout<kDrop> drop(philox, b * H + hk * G, drop_thr);
+
     hopper::mbar_wait(bar_kv, 0);
     int it = 0;
     for (int g = 0; g < G; ++g) {
+      if constexpr (kDrop) drop.bh = b * H + hk * G + g;
       for (int qt = qt0; qt < n_qt; ++qt, ++it) {
         const int s = it % kStages;
-        hopper::mbar_wait(full(s), (it / kStages) & 1);
         const int q0 = qt * kBlockQ;
+        // the tile's keep bits (bit i: accumulator element i), drawn while
+        // its loads are in flight: this thread draws the call of its query
+        // column `odd` and the lane four away (gid ^ 1) the other; each
+        // keeps the two words of its own keys' parity and swaps the rest
+        uint32_t keep = 0u;
+        if constexpr (kDrop) {
+          const bool odd = gid & 1;
+          if (!(causal && q0 + kBlockQ - 1 < kw0)) {
+#pragma unroll
+            for (int g2 = 0; g2 < kBlockQ / 16; ++g2) {
+              const uint4 w =
+                  drop.call(q0 + 16 * g2 + 2 * tig + (odd ? 1 : 0), kr[0]);
+              const uint32_t m0 = odd ? w.z : w.x, m1 = odd ? w.w : w.y;
+              const uint32_t r0 = __shfl_xor_sync(0xffffffffu, odd ? w.x : w.z, 4);
+              const uint32_t r1 = __shfl_xor_sync(0xffffffffu, odd ? w.y : w.w, 4);
+              keep |= (odd ? drop.col_bits(r0, r1, m0, m1)
+                           : drop.col_bits(m0, m1, r0, r1))
+                      << (8 * g2);
+            }
+          }
+        }
+        hopper::mbar_wait(full(s), (it / kStages) & 1);
         if (!(causal && q0 + kBlockQ - 1 < kw0)) {
           const uint32_t sq = ring(s);
           const uint32_t sdo = sq + L::kTileQ;
@@ -233,8 +266,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const float sc = ok ? st[i] * scale_l2 : kNeg;
                 p = sc <= 0.5f * kNeg ? 0.f : hopper::ex2(sc - lc);
               }
-              st[i] = p;
-              dpt[i] = p * (dpt[i] - dc);
+              if constexpr (kDrop) {
+                const bool kp = (keep >> i) & 1u;
+                st[i] = kp ? p * drop_scale : 0.f;
+                dpt[i] = p * ((kp ? dpt[i] * drop_scale : 0.f) - dc);
+              } else {
+                st[i] = p;
+                dpt[i] = p * (dpt[i] - dc);
+              }
             }
           }
           uint32_t pa[4][4], da[4][4];
@@ -287,16 +326,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const void* lse, const void* delta, const void* kv_mask, void* dk,
            void* dv, int B, int S, int H, int Hkv, int causal,
+           const void* philox, int drop_thr, float drop_scale,
            cudaStream_t stream) {
   constexpr int smem = Smem<D>::kBytes + 1024;  // + alignment slack
   // above the 48 KB default: raised once per instantiation (on the device
   // current at the first launch)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<T, D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const bool fp16 = std::is_same<T, __half>::value;
@@ -308,12 +348,33 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       !hopper::map_bshd(&tv, v, fp16, B, S, Hkv, D, kBlockK))
     return static_cast<int>(cudaErrorNotSupported);
   const int n_kt = (S + kBlockK - 1) / kBlockK;
-  flash_bwd_dkv_kernel<T, D><<<n_kt * B * Hkv, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, D, kDrop><<<n_kt * B * Hkv, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(kv_mask),
       static_cast<T*>(dk), static_cast<T*>(dv), B, S, H, Hkv, causal,
-      1.f / sqrtf(static_cast<float>(D)));
+      1.f / sqrtf(static_cast<float>(D)), static_cast<const int64_t*>(philox),
+      static_cast<uint32_t>(drop_thr), drop_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDrop>
+int dispatch(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* kv_mask, void* dk,
+             void* dv, int B, int S, int H, int Hkv, int D, int causal,
+             int dtype, const void* philox, int drop_thr, float drop_scale,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && D == 128)
+    return launch<__nv_bfloat16, 128, kDrop>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 0 && D == 64)
+    return launch<__nv_bfloat16, 64, kDrop>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 1 && D == 128)
+    return launch<__half, 128, kDrop>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 1 && D == 64)
+    return launch<__half, 64, kDrop>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -327,16 +388,23 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* delta, const void* kv_mask, void* dk,
                              void* dv, int B, int S, int H, int Hkv, int D,
                              int causal, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+  return dispatch<false>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H,
+                         Hkv, D, causal, dtype, nullptr, 0, 1.f, stream);
+}
+
+// flash_bwd_dkv with attention dropout: delta from flash_bwd_dq_dropout;
+// philox, drop_thr and drop_scale as the forward got them.
+extern "C" int flash_bwd_dkv_dropout(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     const void* kv_mask, void* dk, void* dv,
+                                     int B, int S, int H, int Hkv, int D,
+                                     int causal, int dtype,
+                                     const void* philox, int drop_thr,
+                                     float drop_scale, void* stream) {
+  if (!philox || drop_thr < 0 || drop_thr > 65536)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, st);
-  if (dtype == 0 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, st);
-  if (dtype == 1 && D == 128)
-    return launch<__half, 128>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, st);
-  if (dtype == 1 && D == 64)
-    return launch<__half, 64>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H, Hkv, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, dout, lse, delta, kv_mask, dk, dv, B, S, H,
+                        Hkv, D, causal, dtype, philox, drop_thr, drop_scale,
+                        stream);
 }

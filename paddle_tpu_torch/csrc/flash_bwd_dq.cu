@@ -41,9 +41,14 @@
 //   launched first, and each key loop stops at the diagonal.
 // No atomics: each block writes its own dq and delta rows, so results are
 // deterministic.
+// Attention dropout (flash_bwd_dq_dropout): the same kernel with kDrop
+// redraws the forward's keep bits z (philox.cuh) for its tile before
+// waiting for it, and ds = p * (z * dp / (1 - p) - delta), delta from the
+// dropped o the forward saved.
 #include <type_traits>
 
 #include "hopper_tile.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -105,7 +110,7 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return s;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -114,7 +119,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                         const float* __restrict__ kv_mask,
                         const T* __restrict__ o, const float* __restrict__ lse,
                         T* __restrict__ dq, float* __restrict__ delta, int B,
-                        int S, int H, int Hkv, int causal, float scale) {
+                        int S, int H, int Hkv, int causal, float scale,
+                        const int64_t* __restrict__ philox, uint32_t drop_thr,
+                        float drop_scale) {
   using L = Smem<D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -246,11 +253,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     const uint32_t a_do = base + L::kDO + c * 64 * 128;
     const int first_row = q0 + c * 64;
     const int last_row = first_row + 63;
+    const philox::MaybeDropout<kDrop> drop(philox, b * H + h, drop_thr);
 
     for (int kt = 0; kt < n_kt; ++kt) {
       const int s = kt % kStages;
-      hopper::mbar_wait(full(s), (kt / kStages) & 1);
       const int k0 = kt * kBlockK;
+      // the tile's keep bits (bit i: accumulator element i), drawn while
+      // its loads are in flight
+      uint32_t keep = 0u;
+      if constexpr (kDrop) {
+        if (!(causal && k0 > last_row)) {
+#pragma unroll
+          for (int g2 = 0; g2 < kBlockK / 16; ++g2)
+            keep |= drop.row_bits(drop.call(qi[0], k0 + 16 * g2 + 2 * tig))
+                    << (8 * g2);
+        }
+      }
+      hopper::mbar_wait(full(s), (kt / kStages) & 1);
       // a tile above the diagonal for every row of this warpgroup is skipped
       if (!(causal && k0 > last_row)) {
         const uint32_t sk = ring(s);
@@ -285,7 +304,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           for (int i = 0; i < 32; ++i) {
             const int row = (i >> 1) & 1;
             const float p = hopper::ex2(fmaf(st[i], scale_l2, -lse_l2[row]));
-            st[i] = p * (dp[i] - dl_r[row]);
+            float dpi = dp[i];
+            if constexpr (kDrop) dpi = (keep >> i) & 1u ? dpi * drop_scale : 0.f;
+            st[i] = p * (dpi - dl_r[row]);
           }
         } else {
           const float* s_mask = reinterpret_cast<const float*>(
@@ -299,7 +320,9 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float sc = ok ? st[i] * scale_l2 : kNeg;
             const float p =
                 sc <= 0.5f * kNeg ? 0.f : hopper::ex2(sc - lse_l2[row]);
-            st[i] = p * (dp[i] - dl_r[row]);
+            float dpi = dp[i];
+            if constexpr (kDrop) dpi = (keep >> i) & 1u ? dpi * drop_scale : 0.f;
+            st[i] = p * (dpi - dl_r[row]);
           }
         }
         uint32_t dsa[4][4];
@@ -334,16 +357,17 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, const void* kv_mask, void* dq,
            void* delta, int B, int S, int H, int Hkv, int causal,
+           const void* philox, int drop_thr, float drop_scale,
            cudaStream_t stream) {
   constexpr int smem = Smem<D>::kBytes + 1024;  // + alignment slack
   // above the 48 KB default: raised once per instantiation (on the device
   // current at the first launch)
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_kernel<T, D, kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const bool fp16 = std::is_same<T, __half>::value;
@@ -355,12 +379,33 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       !hopper::map_bshd(&tv, v, fp16, B, S, Hkv, D, kBlockK))
     return static_cast<int>(cudaErrorNotSupported);
   const int n_qt = (S + kBlockQ - 1) / kBlockQ;
-  flash_bwd_dq_kernel<T, D><<<n_qt * B * H, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, D, kDrop><<<n_qt * B * H, kThreads, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(kv_mask),
       static_cast<const T*>(o), static_cast<const float*>(lse),
       static_cast<T*>(dq), static_cast<float*>(delta), B, S, H, Hkv, causal,
-      1.f / sqrtf(static_cast<float>(D)));
+      1.f / sqrtf(static_cast<float>(D)), static_cast<const int64_t*>(philox),
+      static_cast<uint32_t>(drop_thr), drop_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDrop>
+int dispatch(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, const void* kv_mask, void* dq,
+             void* delta, int B, int S, int H, int Hkv, int D, int causal,
+             int dtype, const void* philox, int drop_thr, float drop_scale,
+             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && D == 128)
+    return launch<__nv_bfloat16, 128, kDrop>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 0 && D == 64)
+    return launch<__nv_bfloat16, 64, kDrop>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 1 && D == 128)
+    return launch<__half, 128, kDrop>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 1 && D == 64)
+    return launch<__half, 64, kDrop>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -374,16 +419,24 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* kv_mask, void* dq, void* delta, int B,
                             int S, int H, int Hkv, int D, int causal,
                             int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+  return dispatch<false>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H,
+                         Hkv, D, causal, dtype, nullptr, 0, 1.f, stream);
+}
+
+// flash_bwd_dq with attention dropout: o is the forward's dropped output;
+// philox, drop_thr and drop_scale as the forward's flash_fwd_dropout got
+// them, so the keep bits are the forward's.
+extern "C" int flash_bwd_dq_dropout(const void* q, const void* k,
+                                    const void* v, const void* o,
+                                    const void* dout, const void* lse,
+                                    const void* kv_mask, void* dq,
+                                    void* delta, int B, int S, int H, int Hkv,
+                                    int D, int causal, int dtype,
+                                    const void* philox, int drop_thr,
+                                    float drop_scale, void* stream) {
+  if (!philox || drop_thr < 0 || drop_thr > 65536)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, st);
-  if (dtype == 0 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, st);
-  if (dtype == 1 && D == 128)
-    return launch<__half, 128>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, st);
-  if (dtype == 1 && D == 64)
-    return launch<__half, 64>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H, Hkv, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, o, dout, lse, kv_mask, dq, delta, B, S, H,
+                        Hkv, D, causal, dtype, philox, drop_thr, drop_scale,
+                        stream);
 }

@@ -24,6 +24,13 @@
 //   diagonal, the key edge S, or carry a key mask; under causal each
 //   consumer stops at its own diagonal and the last q tiles (the longest
 //   key loops) of every head are launched first.
+// Attention dropout (flash_fwd_dropout; the JAX package drops in its
+// composite, nn/functional/attention.py:_sdpa_reference, since the TPU
+// kernel takes none): the same kernel with kDropout, keep bits from
+// Philox4x32-10 of the (seed, offset) pair in device memory (philox.cuh),
+// about 13 integer operations an element (one call per 8 elements, drawn
+// while the tile's loads are in flight) against the 512 products of its
+// two D = 128 dot products.
 #include <type_traits>
 
 #include "hopper_attn_fwd.cuh"
@@ -33,7 +40,7 @@ namespace {
 using attn_fwd::kBlockM;
 using attn_fwd::kBlockN;
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 struct FlashPolicy {
   struct Params {
     CUtensorMap tm_q, tm_k, tm_v;
@@ -42,7 +49,11 @@ struct FlashPolicy {
     float* lse;
     int B, S, H, Hkv, causal;
     float scale;
+    const int64_t* philox;  // dropout: the (seed, offset) pair
+    uint32_t drop_thr;      // keep iff a 16-bit field >= drop_thr
+    float drop_scale;       // 1 / (1 - p)
   };
+  static constexpr bool kDropout = kDrop;
   static constexpr int kStages = 2;
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = 240;
@@ -142,11 +153,12 @@ struct FlashPolicy {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kDrop>
 int launch(const void* q, const void* k, const void* v, const void* kv_mask,
            void* o, void* lse, int B, int S, int H, int Hkv, int causal,
+           const void* philox, int drop_thr, float drop_scale,
            cudaStream_t stream) {
-  using P = FlashPolicy<T, D>;
+  using P = FlashPolicy<T, D, kDrop>;
   const bool fp16 = std::is_same<T, __half>::value;
   typename P::Params prm;
   // tensor maps hold the data pointers: encoded on every call
@@ -163,8 +175,30 @@ int launch(const void* q, const void* k, const void* v, const void* kv_mask,
   prm.Hkv = Hkv;
   prm.causal = causal;
   prm.scale = 1.f / sqrtf(static_cast<float>(D));
+  prm.philox = static_cast<const int64_t*>(philox);
+  prm.drop_thr = static_cast<uint32_t>(drop_thr);
+  prm.drop_scale = drop_scale;
   const int n_qt = (S + kBlockM - 1) / kBlockM;
   return attn_fwd::launch<T, D, P>(prm, n_qt * B * H, 0, stream);
+}
+
+template <bool kDrop>
+int dispatch(const void* q, const void* k, const void* v, const void* kv_mask,
+             void* o, void* lse, int B, int S, int H, int Hkv, int D,
+             int causal, int dtype, const void* philox, int drop_thr,
+             float drop_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0 && D == 128)
+    return launch<__nv_bfloat16, 128, kDrop>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 0 && D == 64)
+    return launch<__nv_bfloat16, 64, kDrop>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 1 && D == 128)
+    return launch<__half, 128, kDrop>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  if (dtype == 1 && D == 64)
+    return launch<__half, 64, kDrop>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, philox, drop_thr, drop_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -177,16 +211,22 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* kv_mask, void* o, void* lse, int B, int S,
                          int H, int Hkv, int D, int causal, int dtype,
                          void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+  return dispatch<false>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, D, causal,
+                         dtype, nullptr, 0, 1.f, stream);
+}
+
+// flash_fwd with attention dropout: philox the (seed, offset) int64 pair
+// in device memory, drop_thr = round(p * 65536) (an element is kept iff
+// its 16-bit Philox field is at least that), drop_scale = 1 / (1 - p).
+// o is the dropped output; lse is the softmax's, as without dropout.
+extern "C" int flash_fwd_dropout(const void* q, const void* k, const void* v,
+                                 const void* kv_mask, void* o, void* lse,
+                                 int B, int S, int H, int Hkv, int D,
+                                 int causal, int dtype, const void* philox,
+                                 int drop_thr, float drop_scale,
+                                 void* stream) {
+  if (!philox || drop_thr < 0 || drop_thr > 65536)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, st);
-  if (dtype == 0 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, st);
-  if (dtype == 1 && D == 128)
-    return launch<__half, 128>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, st);
-  if (dtype == 1 && D == 64)
-    return launch<__half, 64>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, causal, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, kv_mask, o, lse, B, S, H, Hkv, D, causal,
+                        dtype, philox, drop_thr, drop_scale, stream);
 }

@@ -33,9 +33,20 @@
 //   limit(row): a tile row's last visible key;
 //   out(row): where a tile row's output goes (null: not written);
 //   lse(row, value): the row's natural-log lse (a no-op where unused).
+// A policy with kDropout = true (the flash forward's dropout form) also
+// gives b, h and q0, and Params philox (the (seed, offset) pair),
+// drop_thr and drop_scale (1 / (1 - p)): each consumer thread draws its
+// tile's keep bits (philox.cuh) before it waits for the tile, zeroes the
+// dropped p after they entered the row sums l (the softmax normaliser
+// runs over every key) and before the P V product, and scales o by
+// drop_scale once, in the epilogue.  Policies without kDropout compile
+// to the mainloop without it.
 #pragma once
 
+#include <type_traits>
+
 #include "hopper_tile.cuh"
+#include "philox.cuh"
 
 namespace attn_fwd {
 
@@ -100,6 +111,26 @@ __device__ __forceinline__ uint32_t sw_chunk(int lines, int line, int ch) {
   return (ch >> 3) * lines * 128 + line * 128 + (((ch & 7) ^ (line & 7)) << 4);
 }
 
+// P::kDropout where the policy has it, else false
+template <class P, class = void>
+struct HasDropout : std::false_type {};
+template <class P>
+struct HasDropout<P, std::void_t<decltype(P::kDropout)>>
+    : std::integral_constant<bool, P::kDropout> {};
+
+// a thread's dropout state: empty without dropout
+template <bool kOn>
+struct DropState {
+  template <class Prm, class Pol>
+  __device__ DropState(const Prm&, const Pol&) {}
+};
+template <>
+struct DropState<true> : philox::Dropout {
+  template <class Prm, class Pol>
+  __device__ DropState(const Prm& prm, const Pol& pol)
+      : philox::Dropout(prm.philox, pol.b * prm.H + pol.h, prm.drop_thr) {}
+};
+
 // a consumer warpgroup's key range: tiles starting past `hi` are skipped;
 // tiles ending past `lo` (or every tile when `always`) are masked
 struct WgRows {
@@ -111,6 +142,7 @@ template <typename T, int D, class P>
 __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd_kernel(const __grid_constant__ typename P::Params prm) {
   constexpr int kStages = P::kStages;
+  constexpr bool kDrop = HasDropout<P>::value;
   using R = Ring<D, kStages, P::kExtra>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_u32(smem_raw);
@@ -155,11 +187,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   const uint32_t a_q = ring.q() + c * 64 * 128;
+  const DropState<kDrop> drop(prm, pol);
 
   for (int kt = 0; kt < pol.n_tiles; ++kt) {
     const int s = kt % kStages;
-    hopper::mbar_wait(ring.full(s), (kt / kStages) & 1);
     const int k0 = kt * kBlockN;
+    // the tile's keep bits, drawn while its loads are in flight: bit i is
+    // accumulator element i (one call per two 8-key groups)
+    uint32_t keep[2] = {0u, 0u};
+    if constexpr (kDrop) {
+      if (k0 <= wr.hi) {
+#pragma unroll
+        for (int g2 = 0; g2 < kBlockN / 16; ++g2)
+          keep[g2 >> 2] |= drop.row_bits(drop.call(
+                               pol.q0 + r0, k0 + 16 * g2 + 2 * tig))
+                           << (8 * (g2 & 3));
+      }
+    }
+    hopper::mbar_wait(ring.full(s), (kt / kStages) & 1);
     if (k0 <= wr.hi) {
       const uint32_t sk = ring.k(s), sv = ring.v(s);
       float st[64];
@@ -227,6 +272,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      if constexpr (kDrop) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          if (!((keep[i >> 5] >> (i & 31)) & 1u)) st[i] = 0.f;
+      }
 
       uint32_t pa[8][4];
 #pragma unroll
@@ -249,7 +299,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // reads them any more), then 16-byte vectors to device memory
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if constexpr (kDrop) inv *= prm.drop_scale;
     const int line = r0 + 8 * r;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)

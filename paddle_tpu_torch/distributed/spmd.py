@@ -34,7 +34,9 @@ The JAX trainer's step variants, each a few device ops here:
   gradient, with an on-device ``skipped`` counter;
 - **anomaly_policy='rollback'**: before each step a copy of the
   parameters and optimizer state goes to one pinned host buffer; a
-  non-finite step restores it and rewinds the step count.  The flags are
+  non-finite step restores it and rewinds the step count and the
+  device's default generator (dropout bits, a host-side state), so the
+  steps after a rollback draw what a run without the bad batch draws.  The flags are
   read every step, so the state a step starts from is always good.  One
   host read per step;
 - **FLAGS_check_nan_inf** (read when the trainer is built): one finite
@@ -453,6 +455,16 @@ class SpmdTrainer:
         for h, t in zip(self._snapshot["tensors"], live):
             h.copy_(t.detach(), non_blocking=True)
         self._snapshot["step"] = self._step_count
+        self._snapshot["rng"] = self._rng().get_state()
+
+    def _rng(self) -> torch.Generator:
+        """The device's default generator: the dropout layers' and the
+        attention-dropout pairs' source."""
+        if self.device.type == "cuda":
+            return torch.cuda.default_generators[
+                self.device.index if self.device.index is not None
+                else torch.cuda.current_device()]
+        return torch.default_generator
 
     def _restore_snapshot(self):
         snap = self._snapshot
@@ -461,6 +473,7 @@ class SpmdTrainer:
                 t.copy_(h, non_blocking=True)
         self._step_count = snap["step"]
         self.optimizer._step_count = snap["step"]
+        self._rng().set_state(snap["rng"])
 
     @property
     def snapshot_bytes(self) -> int:

@@ -247,7 +247,9 @@ def gpt_configs():
 
 class GPTAttention(nn.Module):
     """Causal self-attention: fused qkv projection, attention kernel,
-    output projection."""
+    output projection.  In training, ``attn_dropout`` drops attention
+    probabilities inside the flash kernels; the serving paths run in
+    eval and apply none."""
 
     def __init__(self, config: GPTConfig, *, device, dtype, generator):
         super().__init__()
@@ -280,11 +282,13 @@ class GPTAttention(nn.Module):
         return self.dropout(self.out_proj(out.reshape(b, s, -1)))
 
     def _attend_fresh(self, q, k, v):
-        """No-past causal attention through the flash kernels."""
+        """No-past causal attention through the flash kernels, with
+        ``attn_dropout`` in training."""
         if not self.cfg.use_flash_attention and q.is_cuda:
             raise NotImplementedError(
                 "use_flash_attention=False: the port has no library "
-                "attention on the card; its flash kernels are the attention")
+                "attention on the card; its flash kernels (attention "
+                "dropout included) are the attention")
         return F.flash_attention(q, k, v, dropout=self.cfg.attn_dropout,
                                  causal=q.shape[1] > 1,
                                  training=self.training)
@@ -332,6 +336,11 @@ class GPTAttention(nn.Module):
         q, k, v = self._qkv_arrays(x)
         if k_prefix is None or k_prefix.shape[0] == 0:
             out = self._attend_fresh(q, k, v)
+        elif self.training and self.cfg.attn_dropout > 0:
+            raise NotImplementedError(
+                "attention dropout over a cached prefix: the prefix "
+                "composite (masked_attention) applies none; prefix "
+                "prefills are a serving path, run them in eval")
         else:
             kf = torch.cat([k_prefix.to(q.dtype)[None], k], dim=1)
             vf = torch.cat([v_prefix.to(q.dtype)[None], v], dim=1)

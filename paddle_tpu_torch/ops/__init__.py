@@ -2,6 +2,7 @@
 Hopper with its plain PyTorch version beside it (see ``_build``), the
 fused cross-entropy (plain products, no kernel of its own), the int8 and
 e4m3 matmul and the KV quantization helpers."""
+from ._philox import KEEP_BITS, PHILOX_WORDS
 from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_F8,
                                DECODE_ATTENTION_Q, PAGED_DECODE_ATTENTION,
                                PAGED_DECODE_ATTENTION_F8,
@@ -15,8 +16,10 @@ from .decode_attention import (DECODE_ATTENTION, DECODE_ATTENTION_F8,
                                paged_chunk_prefill_attention,
                                paged_decode_attention,
                                paged_decode_attention_window)
-from .flash_attention import (FLASH_BWD_DKV, FLASH_BWD_DQ, FLASH_FWD,
-                              flash_attention, flash_attention_fwd)
+from .flash_attention import (FLASH_BWD_DKV, FLASH_BWD_DKV_DROPOUT,
+                              FLASH_BWD_DQ, FLASH_BWD_DQ_DROPOUT, FLASH_FWD,
+                              FLASH_FWD_DROPOUT, flash_attention,
+                              flash_attention_fwd)
 from .fused_cross_entropy import fused_linear_cross_entropy, pick_vocab_block
 from .decode_megakernel import (DECODE_MEGAKERNEL, DECODE_MEGAKERNEL_Q,
                                 PAGED_DECODE_MEGAKERNEL,
@@ -44,7 +47,9 @@ __all__ = ["decode_attention", "paged_decode_attention",
            "PAGED_DECODE_ATTENTION_F8", "WINDOW_ATTENTION_F8",
            "PAGED_WINDOW_ATTENTION_F8", "QUANTIZED_MATMUL_F8",
            "FLASH_FWD", "FLASH_BWD_DQ",
-           "FLASH_BWD_DKV", "KERNELS"]
+           "FLASH_BWD_DKV", "FLASH_FWD_DROPOUT", "FLASH_BWD_DQ_DROPOUT",
+           "FLASH_BWD_DKV_DROPOUT", "PHILOX_WORDS", "KEEP_BITS", "KERNELS",
+           "LAUNCHERS"]
 
 # every kernel of the package by source file, for builds and launch counts
 KERNELS = {"flash_fwd.cu": FLASH_FWD, "flash_bwd_dq.cu": FLASH_BWD_DQ,
@@ -66,4 +71,11 @@ KERNELS = {"flash_fwd.cu": FLASH_FWD, "flash_bwd_dq.cu": FLASH_BWD_DQ,
            "decode_megakernel.cu": DECODE_MEGAKERNEL,
            "decode_megakernel_q.cu": DECODE_MEGAKERNEL_Q,
            "paged_decode_megakernel.cu": PAGED_DECODE_MEGAKERNEL,
-           "paged_decode_megakernel_q.cu": PAGED_DECODE_MEGAKERNEL_Q}
+           "paged_decode_megakernel_q.cu": PAGED_DECODE_MEGAKERNEL_Q,
+           "philox_check.cu": KEEP_BITS}
+
+# every C entry point by symbol, for launch counts: a source's kernel in
+# KERNELS, the flash kernels' dropout forms beside it, the check entries
+LAUNCHERS = {k.symbol: k for k in (*KERNELS.values(), FLASH_FWD_DROPOUT,
+                                   FLASH_BWD_DQ_DROPOUT,
+                                   FLASH_BWD_DKV_DROPOUT, PHILOX_WORDS)}

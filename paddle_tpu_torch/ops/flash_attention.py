@@ -13,6 +13,21 @@ contiguous and calls the dq kernel, which also forms ``delta =
 rowsum(do * o)`` in f32 from the SAVED o (as the JAX ``_bwd_gqa`` does)
 and writes it out, then the dk/dv kernel, which reads that delta.
 
+Attention dropout (``dropout_p`` in [0, 1)): the JAX composite's
+``probs = where(keep, probs / (1 - p), 0)`` after the softmax, whose
+normaliser runs over every key, so lse is unchanged.  The keep bits are
+Philox4x32-10 of a ``(seed, offset)`` pair (``core.random.philox_pair``,
+an int64 ``[2]`` tensor drawn on the device per call, saved for the
+backward) and of the element's (b, h, i, j) alone (``_philox``): the
+forward kernel draws them and the dq and dk/dv kernels draw the same
+bits again; ``o`` is the dropped output, so delta = rowsum(do * o) and
+``ds = p * (keep * dp / (1 - p) - delta)``, ``dv += (keep * p / (1 -
+p))^T do``.  Each kernel's dropout form is its own entry point
+(``FLASH_FWD_DROPOUT``, ``FLASH_BWD_DQ_DROPOUT``,
+``FLASH_BWD_DKV_DROPOUT``, counted apart); at p = 0 the calls are the
+kernels without it.  The plain versions take the pair, or an explicit
+``keep [B, H, S, Sk]`` (tests feed the JAX package's own mask).
+
 Dispatch: CPU tensors run the plain versions (``_flash_plain``,
 ``_flash_bwd_plain``); CUDA tensors run the kernels in
 ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu`` and
@@ -28,10 +43,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from ..core import random as _random
+from . import _build, _philox
 
 __all__ = ["flash_attention", "flash_attention_fwd", "FLASH_FWD",
-           "FLASH_BWD_DQ", "FLASH_BWD_DKV"]
+           "FLASH_BWD_DQ", "FLASH_BWD_DKV", "FLASH_FWD_DROPOUT",
+           "FLASH_BWD_DQ_DROPOUT", "FLASH_BWD_DKV_DROPOUT"]
 
 _NEG = -1e30
 
@@ -44,6 +61,21 @@ FLASH_BWD_DQ = _build.CudaKernel(
 FLASH_BWD_DKV = _build.CudaKernel(
     "flash_bwd_dkv.cu", "flash_bwd_dkv",
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+# the dropout forms: the same arguments, then the (seed, offset) pair's
+# pointer, the keep threshold and 1 / (1 - p)
+_DROP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+FLASH_FWD_DROPOUT = _build.CudaKernel(
+    "flash_fwd.cu", "flash_fwd_dropout",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + _DROP_ARGS
+    + [ctypes.c_void_p])
+FLASH_BWD_DQ_DROPOUT = _build.CudaKernel(
+    "flash_bwd_dq.cu", "flash_bwd_dq_dropout",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + _DROP_ARGS
+    + [ctypes.c_void_p])
+FLASH_BWD_DKV_DROPOUT = _build.CudaKernel(
+    "flash_bwd_dkv.cu", "flash_bwd_dkv_dropout",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + _DROP_ARGS
+    + [ctypes.c_void_p])
 
 
 def _math_dtype(t: torch.Tensor) -> torch.dtype:
@@ -75,21 +107,42 @@ def _expand(t, h):
     return t if hkv == h else t.repeat_interleave(h // hkv, dim=2)
 
 
+def _kept(q, k, dropout_p, philox, keep):
+    """``keep / (1 - p)`` ``[B, H, S, Sk]`` in the math dtype: from the
+    explicit ``keep`` mask, else the Philox bits of the pair; None at
+    p = 0."""
+    if not dropout_p:
+        return None
+    if keep is None:
+        b, s, h, _ = q.shape
+        keep = _philox.keep_mask(philox, b, h, s, k.shape[1], dropout_p)
+    return keep.to(_math_dtype(q)) * (1.0 / (1.0 - dropout_p))
+
+
 def _flash_plain(q, k, v, causal: bool = False,
-                 kv_mask: Optional[torch.Tensor] = None
+                 kv_mask: Optional[torch.Tensor] = None,
+                 dropout_p: float = 0.0,
+                 philox: Optional[torch.Tensor] = None,
+                 keep: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reference math in f32 (f64 for f64 inputs), mirroring the JAX
     ``_composite``: scores masked to -1e30, fully masked rows give exact
     zeros.  Also returns the per-row lse ``[B, H, S]`` the kernel emits:
     ``m + log(max(l, 1e-30))`` with ``m`` the masked row max and ``l``
-    the sum of ``exp(s - m)`` over unmasked keys."""
+    the sum of ``exp(s - m)`` over unmasked keys.  With ``dropout_p`` the
+    normalised probabilities are kept by the pair's bits (or ``keep``)
+    and scaled by 1 / (1 - p) before the product with v."""
     scores, _ = _masked_scores(q, k, causal, kv_mask)
     vf = _expand(v.to(scores.dtype), q.shape[2])
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(scores <= _NEG / 2, torch.zeros_like(scores),
                     torch.exp(scores - m))
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vf)
+    probs = p / l
+    kept = _kept(q, k, dropout_p, philox, keep)
+    if kept is not None:
+        probs = probs * kept
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
     lse = (m + torch.log(l))[..., 0]
     return out.to(q.dtype), lse
 
@@ -103,13 +156,18 @@ def _flash_bwd_delta_plain(o, do) -> torch.Tensor:
 
 
 def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
-                     kv_mask: Optional[torch.Tensor] = None
+                     kv_mask: Optional[torch.Tensor] = None,
+                     dropout_p: float = 0.0,
+                     philox: Optional[torch.Tensor] = None,
+                     keep: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Reference backward in f32 (f64 for f64 inputs), the math of the
     JAX ``_bwd_gqa``: ``p = exp(s - lse)`` recomputed from the saved lse
     (0 where masked), ``delta = rowsum(do * o)`` from the saved o,
     ``ds = p * (dp - delta)``; dk and dv summed over each kv head's
-    group.  Returns ``(dq, dk, dv)`` in the dtypes of q, k and v."""
+    group.  With ``dropout_p`` (the forward's pair or ``keep``), z =
+    keep / (1 - p): ``ds = p * (z * dp - delta)`` and dv takes ``z * p``.
+    Returns ``(dq, dk, dv)`` in the dtypes of q, k and v."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     scores, kf = _masked_scores(q, k, causal, kv_mask)
@@ -120,19 +178,35 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool = False,
                     torch.exp(scores - lse.to(acc)[..., None]))
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     delta = _flash_bwd_delta_plain(of, dof)
-    ds = p * (dp - delta[..., None])
+    kept = _kept(q, k, dropout_p, philox, keep)
+    pv = p if kept is None else p * kept
+    ds = p * ((dp if kept is None else dp * kept) - delta[..., None])
     scale = 1.0 / math.sqrt(d)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dv = torch.einsum("bhqk,bqhd->bkhd", pv, dof)
     if hkv != h:        # query head h = hk * G + g: sum each group
         dk = dk.reshape(b, s, hkv, h // hkv, d).sum(3)
         dv = dv.reshape(b, s, hkv, h // hkv, d).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_cuda(q, k, v, kv_mask):
+def _check_dropout(dropout_p):
+    if not 0.0 <= dropout_p < 1.0:
+        raise ValueError(f"flash_attention: dropout must lie in [0, 1), "
+                         f"got {dropout_p}")
+
+
+def _check_cuda(q, k, v, kv_mask, dropout_p=0.0, philox=None):
     b, s, h, d = q.shape
+    _check_dropout(dropout_p)
+    if dropout_p and (philox is None or tuple(philox.shape) != (2,)
+                      or philox.dtype != torch.int64
+                      or philox.device != q.device
+                      or not philox.is_contiguous()):
+        raise ValueError(f"flash_attention kernel with dropout needs the "
+                         f"(seed, offset) pair as a contiguous int64 [2] "
+                         f"tensor on {q.device}")
     if k.dim() != 4 or v.shape != k.shape or k.shape[0] != b:
         raise ValueError(f"flash_attention: k/v must be [B, S, Hkv, D] like "
                          f"q {tuple(q.shape)}, got {tuple(k.shape)} and "
@@ -176,22 +250,35 @@ def _check_operand(name, t, q, shape, dtype):
                          f"{tuple(t.shape)} {t.dtype}")
 
 
-def _flash_cuda(q, k, v, causal, kv_mask):
-    _check_cuda(q, k, v, kv_mask)
+def _drop_args(dropout_p, philox):
+    """The dropout forms' extra arguments: the pair's pointer, the keep
+    threshold (``_philox.threshold``) and 1 / (1 - p)."""
+    return (_build.ptr(philox), _philox.threshold(dropout_p),
+            1.0 / (1.0 - dropout_p))
+
+
+def _flash_cuda(q, k, v, causal, kv_mask, dropout_p=0.0, philox=None):
+    _check_cuda(q, k, v, kv_mask, dropout_p, philox)
     b, s, h, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    FLASH_FWD(_build.ptr(q), _build.ptr(k), _build.ptr(v),
-              _build.ptr(kv_mask), _build.ptr(o), _build.ptr(lse),
-              b, s, h, k.shape[2], d, int(bool(causal)),
-              _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
+    args = (_build.ptr(q), _build.ptr(k), _build.ptr(v),
+            _build.ptr(kv_mask), _build.ptr(o), _build.ptr(lse),
+            b, s, h, k.shape[2], d, int(bool(causal)),
+            _build.DTYPE_CODES[q.dtype])
+    if dropout_p:
+        FLASH_FWD_DROPOUT(*args, *_drop_args(dropout_p, philox),
+                          _build.stream_ptr(q))
+    else:
+        FLASH_FWD(*args, _build.stream_ptr(q))
     return o, lse
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask):
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, dropout_p=0.0,
+                    philox=None):
     """``(dq, dk, dv, delta)`` from the two kernels; delta ``[B, H, S]``
     f32 is the dq kernel's rowsum ``do . o``."""
-    _check_cuda(q, k, v, kv_mask)
+    _check_cuda(q, k, v, kv_mask, dropout_p, philox)
     b, s, h, d = q.shape
     _check_operand("o", o, q, q.shape, q.dtype)
     _check_operand("do", do, q, q.shape, q.dtype)
@@ -204,59 +291,77 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask):
     delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     qkv = (_build.ptr(q), _build.ptr(k), _build.ptr(v))
     dims = (b, s, h, k.shape[2], d, int(bool(causal)),
-            _build.DTYPE_CODES[q.dtype], _build.stream_ptr(q))
-    FLASH_BWD_DQ(*qkv, _build.ptr(o), _build.ptr(do), _build.ptr(lse),
-                 _build.ptr(kv_mask), _build.ptr(dq), _build.ptr(delta), *dims)
-    FLASH_BWD_DKV(*qkv, _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
-                  _build.ptr(kv_mask), _build.ptr(dk), _build.ptr(dv), *dims)
+            _build.DTYPE_CODES[q.dtype])
+    tail = ((*_drop_args(dropout_p, philox), _build.stream_ptr(q))
+            if dropout_p else (_build.stream_ptr(q),))
+    dq_kernel, dkv_kernel = ((FLASH_BWD_DQ_DROPOUT, FLASH_BWD_DKV_DROPOUT)
+                             if dropout_p else (FLASH_BWD_DQ, FLASH_BWD_DKV))
+    dq_kernel(*qkv, _build.ptr(o), _build.ptr(do), _build.ptr(lse),
+              _build.ptr(kv_mask), _build.ptr(dq), _build.ptr(delta), *dims,
+              *tail)
+    dkv_kernel(*qkv, _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
+               _build.ptr(kv_mask), _build.ptr(dk), _build.ptr(dv), *dims,
+               *tail)
     return dq, dk, dv, delta
 
 
-def _fwd(q, k, v, causal, kv_mask):
+def _fwd(q, k, v, causal, kv_mask, dropout_p=0.0, philox=None):
     if q.device.type == "cpu":
-        return _flash_plain(q, k, v, causal, kv_mask)
-    return _flash_cuda(q, k, v, causal, kv_mask)
+        return _flash_plain(q, k, v, causal, kv_mask, dropout_p, philox)
+    return _flash_cuda(q, k, v, causal, kv_mask, dropout_p, philox)
 
 
-def _bwd(q, k, v, o, lse, do, causal, kv_mask):
+def _bwd(q, k, v, o, lse, do, causal, kv_mask, dropout_p=0.0, philox=None):
     if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, o, lse, do, causal, kv_mask)
-    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask)[:3]
+        return _flash_bwd_plain(q, k, v, o, lse, do, causal, kv_mask,
+                                dropout_p, philox)
+    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, dropout_p,
+                           philox)[:3]
 
 
 class _FlashAttention(torch.autograd.Function):
     """o and lse from the forward kernel; the backward recomputes p from
     the saved lse in the dq and dk/dv kernels (plain versions on the
-    CPU).  lse is an output without a gradient."""
+    CPU), and with dropout redraws the keep bits from the saved (seed,
+    offset) pair.  lse is an output without a gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal):
-        o, lse = _fwd(q, k, v, causal, kv_mask)
-        ctx.save_for_backward(q, k, v, o, lse, kv_mask)
+    def forward(ctx, q, k, v, kv_mask, causal, dropout_p, philox):
+        o, lse = _fwd(q, k, v, causal, kv_mask, dropout_p, philox)
+        ctx.save_for_backward(q, k, v, o, lse, kv_mask, philox)
         ctx.causal = causal
+        ctx.dropout_p = dropout_p
         ctx.mark_non_differentiable(lse)
         return o, lse
 
     @staticmethod
     def backward(ctx, do, _dlse):
-        q, k, v, o, lse, kv_mask = ctx.saved_tensors
+        q, k, v, o, lse, kv_mask, philox = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
-                          kv_mask)
-        return dq, dk, dv, None, None
+                          kv_mask, ctx.dropout_p, philox)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
-                        kv_mask: Optional[torch.Tensor] = None
+                        kv_mask: Optional[torch.Tensor] = None,
+                        dropout_p: float = 0.0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o [B, S, H, D], lse [B, H, S] f32)``, differentiable in q, k
     and v.  CPU tensors run the plain versions; CUDA tensors run the
-    kernels or raise."""
+    kernels or raise.  ``dropout_p`` in [0, 1) drops attention
+    probabilities with the bits of a fresh (seed, offset) pair from the
+    device's default generator."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal))
+    dropout_p = float(dropout_p)
+    _check_dropout(dropout_p)
+    philox = _random.philox_pair(q.device) if dropout_p else None
+    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal), dropout_p,
+                                 philox)
 
 
 def flash_attention(q, k, v, causal: bool = False,
-                    kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kv_mask: Optional[torch.Tensor] = None,
+                    dropout_p: float = 0.0) -> torch.Tensor:
     """Attention output ``[B, S, H, D]`` (see ``flash_attention_fwd``)."""
-    return flash_attention_fwd(q, k, v, causal, kv_mask)[0]
+    return flash_attention_fwd(q, k, v, causal, kv_mask, dropout_p)[0]

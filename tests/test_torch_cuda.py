@@ -321,6 +321,92 @@ def test_cuda_flash_attention_is_differentiable(gen):
         _close(t.grad, r, tol=2e-2, floor=1e-3)
 
 
+@pytest.mark.parametrize("s,h,hkv,d,causal,masked,dtype", [
+    (48, 16, 16, 128, True, False, "bfloat16"),
+    (333, 8, 2, 128, True, True, "bfloat16"),        # ragged, GQA
+    (200, 4, 1, 64, False, True, "float16"),
+    (512, 16, 1, 128, True, False, "float16")])      # G = 16
+def test_flash_dropout_kernels_match_plain(gen, s, h, hkv, d, causal,
+                                           masked, dtype):
+    """Rows 1-3's dropout forms (p = 0.1) against their plain versions
+    fed the same (seed, offset) pair: o within 1e-2 and dq, dk, dv within
+    2e-2 of each row's scale, as without dropout; each kernel
+    deterministic for a pair."""
+    from paddle_tpu_torch.core import random as prandom
+    b, p = 2, 0.1
+    q, k, v, do = _bwd_inputs(gen, b, s, h, hkv, d, getattr(torch, dtype))
+    mask = None
+    if masked:
+        mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3).float()
+        mask[:, 0] = 1.0
+    pair = prandom.philox_pair("cuda", gen)
+    n = [x.launches for x in (fa.FLASH_FWD_DROPOUT, fa.FLASH_BWD_DQ_DROPOUT,
+                              fa.FLASH_BWD_DKV_DROPOUT)]
+    o, lse = fa._flash_cuda(q, k, v, causal, mask, p, pair)
+    got = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, mask, p, pair)
+    again = fa._flash_bwd_cuda(q, k, v, o, lse, do, causal, mask, p, pair)
+    assert [x.launches for x in (fa.FLASH_FWD_DROPOUT,
+                                 fa.FLASH_BWD_DQ_DROPOUT,
+                                 fa.FLASH_BWD_DKV_DROPOUT)] == \
+        [n[0] + 1, n[1] + 2, n[2] + 2]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ro, rlse = fa._flash_plain(qf, kf, vf, causal, mask, p, pair)
+    _close(o, ro)
+    assert bool(((lse - rlse).abs() <= 1e-3 * rlse.abs().clamp_min(1.0)).all())
+    ref = fa._flash_bwd_plain(qf, kf, vf, o.float(), lse, do.float(), causal,
+                              mask, p, pair)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        _close(g, r, tol=2e-2, floor=1e-3)
+
+
+def test_flash_dropout_bits_on_the_card(gen):
+    """philox.cuh's words equal curand_Philox4x32_10's and the plain
+    version's; the keep bits it gives each element equal keep_mask's."""
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.ops import _philox
+    ins = torch.randint(-2 ** 31, 2 ** 31 - 1, (512, 6), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    ins[0] = 0
+    words = _philox.philox_words_cuda(ins).cpu().long() & 0xFFFFFFFF
+    assert torch.equal(words[:, :4], words[:, 4:])
+    plain = torch.stack(_philox.philox4x32_10(
+        *(ins[:, c].cpu().long() & 0xFFFFFFFF for c in range(6))), 1)
+    assert torch.equal(words[:, :4], plain)
+    assert words[0, :4].tolist() == [0x6627e8d5, 0xe169c58d, 0xbc57ac4c,
+                                     0x9b00dbd8]
+    pair = prandom.philox_pair("cuda", gen)
+    assert torch.equal(_philox.keep_bits_cuda(pair, 2, 3, 200, 200, 0.1),
+                       _philox.keep_mask(pair, 2, 3, 200, 200, 0.1))
+
+
+def test_cuda_flash_dropout_is_differentiable_and_fresh(gen):
+    """flash_attention with dropout_p on the card: the backward runs the
+    dropout forms with the forward's pair (gradients equal the plain
+    backward on the pair drawn from the same default-generator state),
+    and the next call draws other bits."""
+    from paddle_tpu_torch.core import random as prandom
+    b, s, h, hkv, d = 2, 96, 8, 4, 64
+    q, k, v = (_rand(shape, gen).requires_grad_() for shape in
+               ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d)))
+    torch.cuda.manual_seed(9)
+    out = fa.flash_attention(q, k, v, causal=True, dropout_p=0.1)
+    up = _rand((b, s, h, d), gen)
+    out.backward(up)
+    torch.cuda.manual_seed(9)
+    pair = prandom.philox_pair("cuda")
+    o, lse = fa._flash_cuda(q.detach(), k.detach(), v.detach(), True, None,
+                            0.1, pair)
+    assert torch.equal(o, out.detach())
+    ref = fa._flash_bwd_plain(q.detach().float(), k.detach().float(),
+                              v.detach().float(), o.float(), lse,
+                              up.float(), True, None, 0.1, pair)
+    for t, r in zip((q, k, v), ref):
+        _close(t.grad, r, tol=2e-2, floor=1e-3)
+    again = fa.flash_attention(q, k, v, causal=True, dropout_p=0.1)
+    assert not torch.equal(again, out)
+
+
 def _window_case(gen, lengths, w, h, hkv, d, quantized, bs=None, cap=2048,
                  dtype=torch.bfloat16):
     """q [B, W, H, D] (``dtype``) over a dense cache [B, cap, Hkv, D], or

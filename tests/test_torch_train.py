@@ -18,6 +18,8 @@ card uses.  Tolerances, stated per check:
   rounds its output; over two layers that leaves differences of a few
   2^-8 in the loss.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -354,18 +356,56 @@ def test_use_flash_attention_false_runs_plain_on_cpu():
 
 
 def test_attention_dropout_raises_in_training_only():
-    """Attention dropout is not ported: training with it raises; in eval
-    (where the JAX composite applies no dropout) the kernel path runs."""
+    """Attention dropout trains through the flash path
+    (``test_attention_dropout_trains``); what still raises, in training
+    only, is dropout over a cached prefix, whose composite applies none
+    (a serving path, which runs in eval).  In eval the JAX composite
+    applies no dropout either: the logits agree."""
     jm, tm = build_pair(attn_dropout=0.1)
     ids, labels = batch(4)
+    attn = tm.gpt.blocks[0].attn
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(1, 8, TINY["hidden_size"])
+                         .astype(np.float32))
+    kp, vp = (torch.from_numpy(rng.randn(5, TINY["num_heads"], 32)
+                               .astype(np.float32)) for _ in range(2))
     tm.train()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm(torch.from_numpy(ids).long())
+    with pytest.raises(NotImplementedError, match="cached prefix"):
+        attn.forward_prefill_paged(x, kp, vp)
     jm.eval()
     tm.eval()
+    assert attn.forward_prefill_paged(x, kp, vp)[0].shape == x.shape
     ref = np.asarray(jm(paddle.to_tensor(ids)).data)
     _close(tm(torch.from_numpy(ids).long()).detach().numpy(), ref, 1e-4,
            "logits")
+
+
+def test_attention_dropout_trains():
+    """Training with ``attn_dropout``: the loss and every gradient are
+    finite, another forward draws another mask (another loss), the
+    loss is the JAX model's training loss to within dropout's effect,
+    and with ``attn_dropout`` set back to 0 loss and gradients equal the
+    dropout-free model's."""
+    jm, tm = build_pair(attn_dropout=0.1)
+    _, ref = build_pair()
+    ids, labels = batch(6)
+    torch.manual_seed(0)
+    loss0, g0 = port_grads(tm, ids, labels)
+    loss1, _ = port_grads(tm, ids, labels)
+    assert np.isfinite(loss0) and loss0 != loss1
+    assert all(np.isfinite(g).all() for g in g0.values())
+    jm.train()
+    jloss = float(JaxCriterion()(jm(paddle.to_tensor(ids)),
+                                 paddle.to_tensor(labels)))
+    assert abs(loss0 - jloss) < 0.05 * abs(jloss)
+    loss_ref, g_ref = port_grads(ref, ids, labels)
+    assert loss_ref != loss0
+    for blk in tm.gpt.blocks:
+        blk.attn.cfg = dataclasses.replace(blk.attn.cfg, attn_dropout=0.0)
+    loss2, g2 = port_grads(tm, ids, labels)
+    assert loss2 == loss_ref
+    for n in g_ref:
+        np.testing.assert_array_equal(g2[n], g_ref[n], err_msg=n)
 
 
 @pytest.mark.parametrize("amp", [False, True])
