@@ -139,7 +139,23 @@ before the result lines:
    ``deadline_s=0.0`` (all time out empty), C 24 requests without a
    shared prefix at 2 rps on a dense engine with ``prefill_chunk=512``
    beside a monolithic one (ITL p99 of both, no prefill stall when
-   chunked); serve-telemetry: the dense and the paged bf16 engine after
+   chunked); serve-disagg: ``DisaggServingEngine`` (8 slots, blocks of
+   128, prefix cache) on serve-paged's prompts with 32 new tokens, bf16,
+   int8, and int8 with ``spec_k=4`` and a gpt3-125m draft, each against
+   its non-disaggregated engine (greedy streams, every request one
+   worker prefill and one handoff, the decode engine's own prefill never
+   timed, one host read a decode step or spec tick and admission,
+   prefix hits, leak-free after ``drain()``, launches by layer and
+   step); serve-fleet: two paged bf16 replicas (8 slots, blocks of 128,
+   seeds 21 and 22) behind ``Router``, ``MultiTenantWorkload(seed=5, 8
+   tenants, skew 1.2, 512-token prefixes)``, ``warm_fleet``, then
+   ``run_fleet_loadtest`` windows (48 requests at 2 rps under
+   ``prefix``, 24 through the RPC shim, 48 under ``round_robin`` on
+   fresh replicas; every planned token, no timeout, router hits under
+   ``prefix``, launches exact under the replicas' driver threads, both
+   pools leak-free after ``Router.drain()``), each window's report with
+   its fleet columns beside the card's name and power limit;
+   serve-telemetry: the dense and the paged bf16 engine after
    ``warmup()``, serve's 16 prompts with 32 greedy new tokens, telemetry
    off and then on (tracer, metrics, flight recorder, a 120 s watchdog,
    ``PADDLE_TPU_PROFILE=8:12``), each run under a capture over decode
@@ -2013,6 +2029,26 @@ def phase_qmm_f8(records):
              "the plain version, per row")
 
 
+def retime_5f(gen, records):
+    """Rows 5 (int8) and 5f (e4m3) again at their timing shape (8 full
+    slots of 2048 positions, 16 heads of 128), as CUDA-graph replays of
+    200 calls in turns (``in_turns``, 5 rounds, best of each), each with
+    its share of its bound (both read one byte a cached value).  Kept as
+    ``in_turns_ms`` beside each row's own timing."""
+    da = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
+    args = [check_decode(gen, FULL, 2048, 16, 16, 128, quantized)[0]
+            for quantized in (True, "fp8")]
+    times = in_turns([lambda a=a: da.decode_attention(*a) for a in args],
+                     200, rounds=5)
+    for key, t in zip(("decode_attention_q", "decode_attention_f8"), times):
+        rec = records[key]
+        rec["in_turns_ms"] = t
+        log(f"[kernels-f8] {key} in turns with the other: {t:.4f} ms "
+            f"(own timing {rec['ms']:.4f} ms), {rec['bound_ms'] / t:.4f} of "
+            f"its bound {rec['bound_ms']:.4f} ms")
+    del args
+
+
 def phase_f8_kernels(records):
     """kernels-f8: rows 5f and 7f (dense and paged decode over e4m3
     caches) at the cases of rows 5 and 7, rows 8bf and 9bf (the window
@@ -2024,6 +2060,7 @@ def phase_f8_kernels(records):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     decode_rows(gen, records, (("decode_attention_f8", 268, "fp8"),))
+    retime_5f(gen, records)
     paged_rows(gen, records, (("paged_decode_attention_f8", 451, "fp8"),))
     phase_window_kernels(records, F8_WINDOW_ROWS)
     for key in ("decode_attention_f8", "paged_decode_attention_f8",
@@ -3403,6 +3440,282 @@ def phase_serve_loadtest(model, smi):
         f"monolithic {itl['C monolithic'][0]} (prefill_stall_ms "
         f"{itl['C chunked'][1]} against {itl['C monolithic'][1]}; "
         f"card: {smi})")
+    finish(tag, problems)
+    return total
+
+
+def prefill_calls(eng, family):
+    """The prefills ``eng`` timed under ``family`` (its step-kind entries:
+    the first call is the entry's compile time, the rest its calls)."""
+    from paddle_tpu_torch.observability import exec_registry
+    return sum(e.calls + (e.compile_ms is not None)
+               for e in exec_registry.registry().entries(eng._exec_component)
+               if e.key[0] == family)
+
+
+def phase_serve_disagg(model):
+    """serve-disagg: ``DisaggServingEngine(model, batch_slots=8,
+    kv_block_size=128, prefix_cache=True)`` on serve-paged's 16 prompts
+    (8 share a 1024-token prefix) with 32 greedy new tokens: (a) bf16,
+    (b) int8, (b') int8 with ``spec_k=4`` and the gpt3-125m draft, each
+    against the non-disaggregated paged engine of the same form.  Checks
+    the greedy streams (``compare_greedy``), ``handoffs`` ==
+    ``prefill_worker_prefills`` == 16, every prefill timed under the
+    worker's ``disagg`` key and none under the decode engine's own
+    ``prefill_paged``, one host read a decode step or spec tick and
+    admission, prefix hits, a leak-free pool after ``drain()``, and each
+    kernel's launches: the target's decode (row 6 / 7) or verify window
+    (row 9b) once a layer a step, flash (row 1) once a layer a prefill
+    without a cached prefix, the draft's own kernels as in
+    serve-spec."""
+    from paddle_tpu_torch.inference import DisaggServingEngine, InferenceEngine
+    cfg = model.cfg
+    layers = cfg.num_layers
+    prompts = paged_prompts(cfg.vocab_size)
+    new, k = 32, 4
+    draft = None
+    out = {}
+    for tag, kv_dtype, spec in (("serve-disagg", None, False),
+                                ("serve-disagg-int8", "int8", False),
+                                ("serve-disagg-spec-int8", "int8", True)):
+        kw = dict(batch_slots=8, kv_block_size=128, prefix_cache=True,
+                  kv_dtype=kv_dtype, device="cuda")
+        if spec:
+            draft = build_draft()
+            kw.update(spec_k=k, draft_model=draft)
+        want, _, _, _ = run_engine(f"{tag} (plain)", InferenceEngine(
+            model, kv_layout="paged", **kw), prompts, new)
+        del_all()
+        dis = DisaggServingEngine(model, **kw)
+        rids = [dis.add_request(p, max_new_tokens=new) for p in prompts]
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        with HostReads() as reads:
+            results = dis.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        st = dis.stats()
+        got = [results[r].tolist() for r in rids]
+        tokens = sum(len(x) for x in got)
+        hits = st["prefix_hit_queries"]
+        steps = st["decode_steps"]
+        log(f"[{tag}] {len(prompts)} requests: tokens={tokens} "
+            f"wall_s={wall:.3f} tokens_per_s={tokens / wall:.1f} "
+            f"decode_steps={steps} mean_step_ms={st['decode_ms'] / steps:.3f}"
+            f" prefill_ms={st['prefill_ms']:.1f} handoffs={st['handoffs']} "
+            f"worker_prefills={st['prefill_worker_prefills']} prefix hits="
+            f"{hits} host reads={reads.n} (decode {st['decode_host_syncs']}, "
+            f"prefill {st['prefill_host_syncs']})")
+        log(f"[{tag}] launches {{{', '.join(f'{n}: {c}' for n, c in launches.items() if c)}}}")
+        problems = compare_greedy(tag, model, prompts, got, want,
+                                  TOL_TEACHER_INT8 if kv_dtype
+                                  else TOL_TEACHER)
+        if [len(x) for x in got] != [new] * len(prompts):
+            problems.append(f"stream lengths {[len(x) for x in got]}")
+        if not (st["handoffs"] == st["prefill_worker_prefills"]
+                == st["prefills"] == len(prompts)):
+            problems.append(f"handoffs {st['handoffs']}, worker prefills "
+                            f"{st['prefill_worker_prefills']}, admissions "
+                            f"{st['prefills']} for {len(prompts)} requests")
+        own, worker = (prefill_calls(dis.decode, "prefill_paged"),
+                       prefill_calls(dis.decode, "disagg"))
+        log(f"[{tag}] prefills timed: decode engine's own {own}, "
+            f"worker's {worker}")
+        if own or worker != len(prompts):
+            problems.append(f"prefills: {own} by the decode engine, "
+                            f"{worker} by the worker")
+        if not (st["decode_host_syncs"] == steps > 0
+                and reads.n == st["decode_host_syncs"]
+                + st["prefill_host_syncs"]):
+            problems.append(f"{reads.n} host reads over {steps} decode steps"
+                            f" and {st['prefill_host_syncs']} admissions")
+        if not hits > 0:
+            problems.append("no prefix hit")
+        want_l = {"flash_fwd": layers * (st["prefills"] - hits)}
+        if spec:
+            d_layers = draft.cfg.num_layers
+            ticks = st["spec_ticks"]
+            want_l[window_key(st)] = layers * ticks
+            want_l["window_attention"] = d_layers * ticks
+            want_l["decode_attention"] = d_layers * (k - 1) * ticks
+            want_l["flash_fwd"] += d_layers * st["prefills"]
+            log(f"[{tag}] spec_ticks={ticks} accepted_tokens_per_tick="
+                f"{st['accepted_tokens_per_tick']:.4f}")
+        else:
+            want_l[decode_key(st)] = layers * steps
+        check_launches(tag, launches, want_l, problems)
+        dis.drain()                  # checks the pool leak-free
+        dis.check_leak_free()
+        log(f"[{tag}] pool leak-free after drain()")
+        finish(tag, problems)
+        out[tag] = launches
+        del dis
+        del_all()
+    return out
+
+
+FLEET_WORKLOAD = dict(seed=5, num_tenants=8, skew=1.2, prefix_len=512,
+                      tail_len=(32, 256), max_new=(16, 32))
+
+
+def fleet_report_line(tag, rep, smi):
+    keys = ("policy", "rpc", "tokens_per_sec", "offered_rps", "achieved_rps",
+            "ttft_ms_p50", "ttft_ms_p99", "itl_ms_p50", "itl_ms_p99",
+            "requests_per_replica", "replica_occupancy", "router_hit_rate",
+            "prefix_queries", "prefix_hit_rate", "accepted_tokens_per_tick",
+            "preemptions", "timed_out_requests", "num_requests",
+            "tokens_generated", "decode_steps", "tenants_seen", "wall_s",
+            "deadline_s")
+    log(f"[{tag}] report " + json.dumps({k: rep.get(k) for k in keys})
+        + f" mean decode tick ms per replica "
+        f"{rep['straggler']['per_replica_ms']} (card: {smi})")
+
+
+def phase_serve_fleet(model, smi):
+    """serve-fleet: two paged bf16 replicas of the model (8 slots, blocks
+    of 128, prefix cache, seeds 21 and 22, warmed over every bucket)
+    behind ``Router``; ``MultiTenantWorkload(50304, seed=5,
+    num_tenants=8, skew=1.2, prefix_len=512, tail_len=(32, 256),
+    max_new=(16, 32))``, ``warm_fleet``, then ``run_fleet_loadtest``
+    windows with ``deadline_s=120``: 48 requests at 2 rps under
+    ``prefix``, 24 at 2 rps through the RPC shim (``rpc=True``, same
+    replicas), and 48 at 2 rps under ``round_robin`` on fresh replicas.
+    Each window: every planned token, no timeout, router hits under
+    ``prefix``, and with launch counts zeroed before it and read after,
+    flash once a layer a prefill without a cached prefix and the paged
+    decode kernel once a layer a decode step, summed over the replicas
+    that two driver threads stepped, and one host read a step and
+    admission.  Both replicas leak-free after ``Router.drain()``.
+    Nothing is gated on timing."""
+    from paddle_tpu_torch.inference import (InferenceEngine,
+                                            MultiTenantWorkload, Router,
+                                            run_fleet_loadtest, warm_fleet)
+    tag = "serve-fleet"
+    vocab = model.cfg.vocab_size
+    layers = model.cfg.num_layers
+    total, problems, summary = {}, [], {}
+
+    def planned(n):
+        wl = MultiTenantWorkload(vocab, **FLEET_WORKLOAD)
+        return sum(wl.sample()[2] for _ in range(n))
+
+    def window(name, router, n, rpc=False):
+        reps = router.replicas
+        before = [(dict(r._timings), r._prefix.hit_queries) for r in reps]
+        torch.cuda.synchronize()
+        zero_launches()
+        with HostReads() as reads:
+            rep = run_fleet_loadtest(
+                router, n, 2.0, workload=MultiTenantWorkload(
+                    vocab, **FLEET_WORKLOAD), deadline_s=120.0, rpc=rpc)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        add_launches(total, launches)
+        fleet_report_line(f"{tag} {name}", rep, smi)
+        d = [{key: r._timings[key] - t0[key] for key in
+              ("decode_steps", "prefills", "decode_host_syncs",
+               "prefill_host_syncs")} | {"hits": r._prefix.hit_queries - h0}
+             for r, (t0, h0) in zip(reps, before)]
+        want = {"flash_fwd": layers * sum(x["prefills"] - x["hits"]
+                                          for x in d),
+                "paged_decode_attention": layers * sum(x["decode_steps"]
+                                                       for x in d)}
+        check_launches(f"{tag} {name}", launches, want, problems)
+        syncs = sum(x["decode_host_syncs"] + x["prefill_host_syncs"]
+                    for x in d)
+        log(f"[{tag} {name}] per replica {d}; host reads {reads.n}; "
+            f"launches {{{', '.join(f'{k}: {c}' for k, c in launches.items() if c)}}}")
+        if reads.n != syncs or any(x["decode_host_syncs"]
+                                   != x["decode_steps"] for x in d):
+            problems.append(f"{name}: {reads.n} host reads, {syncs} syncs")
+        want_tokens = planned(n)
+        if rep["num_requests"] != n or rep["tokens_generated"] != want_tokens:
+            problems.append(f"{name}: {rep['num_requests']} requests, "
+                            f"{rep['tokens_generated']} tokens of "
+                            f"{want_tokens}")
+        if rep["timed_out_requests"]:
+            problems.append(f"{name}: {rep['timed_out_requests']} timed out")
+        if router.policy == "prefix" and not rep["router_hit_rate"] > 0:
+            problems.append(f"{name}: router hit rate 0 under prefix")
+        summary[name] = (rep["router_hit_rate"], rep["prefix_hit_rate"],
+                         rep["ttft_ms_p50"], rep["ttft_ms_p99"],
+                         rep["itl_ms_p99"])
+        return rep
+
+    def fleet(policy):
+        reps = [InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                                kv_block_size=128, prefix_cache=True,
+                                seed=seed, device="cuda")
+                for seed in (21, 22)]
+        for r in reps:
+            r.warmup(r.buckets)
+        router = Router(reps, policy=policy)
+        t0 = time.perf_counter()
+        warm_fleet(router, MultiTenantWorkload(vocab, **FLEET_WORKLOAD))
+        log(f"[{tag}] {policy}: warm_fleet {time.perf_counter() - t0:.2f} s,"
+            f" routed {router.stats()['routed_per_replica']}")
+        return router
+
+    def contention(router):
+        """Where a fleet step's time goes on one card: 8 fresh 200-token
+        prompts with 32 new tokens on replica 0 alone, then 8 on each
+        replica stepped in turn from one thread (``Router.run``), then 8
+        on each from a thread of its own; mean decode step ms per replica
+        and the wall of each run."""
+        import threading
+        rng = np.random.RandomState(41)
+        out = {}
+        for name, reps, threaded in (("alone", router.replicas[:1], False),
+                                     ("one thread", router.replicas, False),
+                                     ("two threads", router.replicas, True)):
+            before = [(r._timings["decode_ms"], r._timings["decode_steps"])
+                      for r in reps]
+            for r in reps:
+                for p in random_prompts(rng, vocab, [200] * 8):
+                    r.add_request(p, max_new_tokens=32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if threaded:
+                ths = [threading.Thread(target=r.run) for r in reps]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+            else:
+                Router(reps).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[name] = ([round((r._timings["decode_ms"] - ms)
+                                / (r._timings["decode_steps"] - n), 3)
+                          for r, (ms, n) in zip(reps, before)],
+                         round(wall, 3))
+            for r in reps:
+                r.results.clear()
+                r.request_stats.clear()
+        log(f"[{tag}] contention probe (mean decode step ms per replica, "
+            f"wall s) {out} (card: {smi})")
+
+    def drained(name, router):
+        if router.drain():
+            problems.append(f"{name}: drain left queued requests")
+        log(f"[{tag} {name}] both pools leak-free after Router.drain()")
+
+    router = fleet("prefix")
+    window("prefix", router, 48)
+    window("prefix rpc", router, 24, rpc=True)
+    contention(router)
+    drained("prefix", router)
+    del router
+    del_all()
+    router = fleet("round_robin")
+    window("round_robin", router, 48)
+    drained("round_robin", router)
+    del router
+    del_all()
+    log(f"[{tag}] (router hit rate, prefix hit rate, TTFT p50, TTFT p99, "
+        f"ITL p99 ms) by window: {summary} (card: {smi})")
     finish(tag, problems)
     return total
 
@@ -6104,6 +6417,10 @@ def main():
     paths["serve-loadtest"] = phase_serve_loadtest(model, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    paths.update(phase_serve_disagg(model))
+    del_all()
+    paths["serve-fleet"] = phase_serve_fleet(model, smi)
+    del_all()
     paths.update(phase_serve_telemetry(model, smi))
     phase_warmup_child()
     phase_teacher_forced(model)

@@ -87,12 +87,35 @@ add no host read.  ``stats()`` reads the accumulator once and reports
 ledger carries a ``moe_experts`` line.  Warmup's throwaway tokens are
 not counted.
 
-Left for later slices: environment knobs and autotune hooks.
+Environment knobs, read where an argument is left unset (an explicit
+argument wins), as the JAX engine reads them: ``PADDLE_TPU_DECODE_SLOTS``
+(``batch_slots``, default 8), ``PADDLE_TPU_KV_LAYOUT`` (``kv_layout``,
+default ``dense``), ``PADDLE_TPU_CHUNKED_PREFILL`` (``prefill_chunk``,
+default 0), ``PADDLE_TPU_KV_BLOCK_SIZE`` (default 128),
+``PADDLE_TPU_KV_BLOCKS`` (usable pool blocks, default the
+dense-equivalent pool), ``PADDLE_TPU_PREFIX_CACHE`` (``0`` turns the
+radix cache off), ``PADDLE_TPU_PREFILL_BUCKETS`` (a comma list, through
+``default_prefill_buckets``), ``PADDLE_TPU_KV_DTYPE`` and
+``PADDLE_TPU_SPEC_K`` (which needs a ``draft_model``).  The engine
+serves on one device: ``PADDLE_TPU_SERVE_TP`` or ``PADDLE_TPU_SERVE_EP``
+above 1 raises (tensor- and expert-parallel serving wait for the port's
+meshes).  ``PADDLE_TPU_INFER_DONATE`` (XLA buffer donation) has no
+counterpart in eager PyTorch and is not read.  Not ported: the JAX
+package's tuned bucket table and autotune hooks.
+
+Threads: every engine entry point runs its model calls under the
+model's own ``torch.no_grad`` methods (grad mode is per thread), and
+the op wrappers' shared state (kernel libraries, launch counts, the
+megakernel's and the int8 matmul's per-stream buffers) takes locks, so
+replicas in one process may each be driven from a thread of their own
+(``run_fleet_loadtest``).  One engine is not to be stepped from two
+threads at once.
 """
 from __future__ import annotations
 
 import contextlib
 import itertools
+import os
 import time
 from collections import deque
 from typing import Dict, List, Optional
@@ -121,14 +144,31 @@ __all__ = ["InferenceEngine", "Request", "default_prefill_buckets"]
 
 def default_prefill_buckets(max_seq_len: int, lo: int = 16) -> List[int]:
     """Powers of two from ``lo`` below ``max_seq_len``, then
-    ``max_seq_len`` itself."""
-    bks = []
-    b = lo
-    while b < max_seq_len:
-        bks.append(b)
-        b *= 2
-    bks.append(max_seq_len)
-    return bks
+    ``max_seq_len`` itself; ``PADDLE_TPU_PREFILL_BUCKETS="64,256,1024"``
+    replaces them (entries above ``max_seq_len`` dropped)."""
+    env = os.environ.get("PADDLE_TPU_PREFILL_BUCKETS", "").strip()
+    if env:
+        bks = sorted({int(x) for x in env.split(",") if x.strip()})
+    else:
+        bks = []
+        b = lo
+        while b < max_seq_len:
+            bks.append(b)
+            b *= 2
+        bks.append(max_seq_len)
+    return [b for b in bks if b <= max_seq_len] or [max_seq_len]
+
+
+def _check_single_device():
+    """Raise when ``PADDLE_TPU_SERVE_TP`` or ``PADDLE_TPU_SERVE_EP`` asks
+    for more than one device: the port serves on one."""
+    for name in ("PADDLE_TPU_SERVE_TP", "PADDLE_TPU_SERVE_EP"):
+        env = os.environ.get(name, "").strip()
+        if env and int(env) > 1:
+            raise NotImplementedError(
+                f"{name}={env}: tensor- and expert-parallel serving need "
+                f"device meshes, which the port does not have yet (ROADMAP "
+                f"Queue 1 item 3.1); the engine serves on one device")
 
 
 class Request:
@@ -190,8 +230,9 @@ class InferenceEngine:
         rid = eng.add_request(prompt_ids, max_new_tokens=64, eos_id=eos)
         outputs = eng.run()          # {rid: np.int32 generated tokens}
 
-    ``kv_layout``: ``'dense'`` (default; ``batch_slots x max_seq_len``
-    positions) or ``'paged'`` (a pool of ``kv_num_blocks`` blocks of
+    Unset arguments fall back to the environment knobs of the module
+    docstring.  ``kv_layout``: ``'dense'`` (default; ``batch_slots x
+    max_seq_len`` positions) or ``'paged'`` (a pool of ``kv_num_blocks`` blocks of
     ``kv_block_size`` positions, default the dense-equivalent memory,
     with a radix prefix cache unless ``prefix_cache=False``).
     ``kv_dtype='int8'`` or ``'fp8'`` quantizes either cache.  ``prefill_chunk=C > 0``
@@ -204,15 +245,18 @@ class InferenceEngine:
 
     _engine_ids = itertools.count()
 
-    def __init__(self, model, batch_slots: int = 8,
+    def __init__(self, model, batch_slots: Optional[int] = None,
                  max_seq_len: Optional[int] = None,
                  prefill_buckets: Optional[List[int]] = None,
                  top_k: int = 0, seed: int = 0, device=None,
-                 kv_layout: str = "dense", kv_block_size: int = 128,
+                 kv_layout: Optional[str] = None,
+                 kv_block_size: Optional[int] = None,
                  kv_num_blocks: Optional[int] = None,
-                 prefix_cache: bool = True, kv_dtype: Optional[str] = None,
-                 prefill_chunk: int = 0, spec_k: Optional[int] = None,
-                 draft_model=None):
+                 prefix_cache: Optional[bool] = None,
+                 kv_dtype: Optional[str] = None,
+                 prefill_chunk: Optional[int] = None,
+                 spec_k: Optional[int] = None, draft_model=None):
+        _check_single_device()
         self.device = resolve_device(device)
         if not same_device(model.device, self.device):
             raise ValueError(f"model is on {model.device}, engine on "
@@ -220,7 +264,8 @@ class InferenceEngine:
         model.eval()
         self.model = model
         cfg = model.cfg
-        self.batch_slots = int(batch_slots)
+        self.batch_slots = int(batch_slots or
+                               os.environ.get("PADDLE_TPU_DECODE_SLOTS", 8))
         self.max_seq_len = int(max_seq_len or cfg.max_seq_len)
         if self.max_seq_len > cfg.max_seq_len:
             raise ValueError(f"max_seq_len {self.max_seq_len} exceeds the "
@@ -228,11 +273,16 @@ class InferenceEngine:
         self.buckets = sorted(prefill_buckets or
                               default_prefill_buckets(self.max_seq_len))
         self.top_k = int(top_k)
+        kv_layout = kv_layout or os.environ.get("PADDLE_TPU_KV_LAYOUT",
+                                                "dense")
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"kv_layout must be dense|paged, got "
                              f"{kv_layout!r}")
         self.kv_layout = kv_layout
         self.kv_dtype = resolve_kv_quant(kv_dtype)
+        if prefill_chunk is None:
+            env = os.environ.get("PADDLE_TPU_CHUNKED_PREFILL", "").strip()
+            prefill_chunk = int(env) if env else 0
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
@@ -411,12 +461,14 @@ class InferenceEngine:
         """Block pool + allocator + host block tables + radix cache.  The
         default pool is dense-equivalent memory (batch_slots x
         ceil(max_seq_len / bs) blocks), plus the null block 0."""
-        bs = int(kv_block_size)
+        bs = int(kv_block_size or
+                 os.environ.get("PADDLE_TPU_KV_BLOCK_SIZE", 128))
         if bs < 1:
             raise ValueError(f"kv_block_size must be >= 1, got {bs}")
         self.block_size = bs
         self.blocks_per_slot = blocks_for(self.max_seq_len, bs)
-        usable = int(kv_num_blocks or 0) or \
+        usable = int(kv_num_blocks or
+                     os.environ.get("PADDLE_TPU_KV_BLOCKS", 0)) or \
             self.batch_slots * self.blocks_per_slot
         self.num_blocks = usable
         self.cache = init_paged_cache(self.model, usable + 1, bs,
@@ -437,6 +489,9 @@ class InferenceEngine:
                                    device=self.device)
         self._slot_blocks: List[List[int]] = \
             [[] for _ in range(self.batch_slots)]
+        if prefix_cache is None:
+            prefix_cache = os.environ.get("PADDLE_TPU_PREFIX_CACHE",
+                                          "1") != "0"
         self._prefix = RadixPrefixCache(self._alloc, bs) if prefix_cache \
             else None
 
@@ -726,13 +781,15 @@ class InferenceEngine:
             return None
         return list(shared) + new_blocks
 
-    def _paged_prefill(self, req: Request):
+    def _paged_prefill(self, req: Request, family: str = "prefill_paged"):
         """Match the radix cache, allocate blocks for the divergent
         suffix's bucket, prefill ONLY the suffix, then return the bucket
         padding's blocks and adopt the prompt's full blocks into the
         radix tree.  Returns ``(blocks, plen, logits)`` with the slot's
         references taken, or None when the pool cannot hold the request
-        yet."""
+        yet.  ``family`` keys the prefill's timing (``prefill_ms`` by
+        bucket and its step-kind entry): the engine's own admissions use
+        ``prefill_paged``, a disaggregated ``PrefillWorker`` ``disagg``."""
         bs = self.block_size
         prompt = req.effective_prompt()
         # the bucket-padded extent must fit the slot's table and the
@@ -756,7 +813,7 @@ class InferenceEngine:
                 self._ids_on_device(suffix, bucket), self.cache,
                 torch.from_numpy(row).to(self.device, non_blocking=True),
                 prefix_len, suffix.size)
-        self._note_prefill(bucket, t0, "prefill_paged")
+        self._note_prefill(bucket, t0, family)
         # blocks past the real prompt held only bucket padding
         plen = int(prefix_len + suffix.size)
         keep = blocks_for(plen, bs)

@@ -37,6 +37,7 @@ non-speculative engine would.
 from __future__ import annotations
 
 import contextlib
+import os
 from typing import Optional
 
 import numpy as np
@@ -48,11 +49,12 @@ __all__ = ["SpecDecoder", "resolve_spec_k"]
 
 
 def resolve_spec_k(spec_k: Optional[int]) -> int:
-    """Draft window size: the explicit argument, else 0 (off).  Kept
-    under the JAX package's name so that ``spec_k=None`` means the same
-    in both engines; the JAX version also reads ``PADDLE_TPU_SPEC_K``,
-    and the port reads no environment knobs."""
-    return 0 if spec_k is None else int(spec_k)
+    """Draft window size: the explicit argument, else
+    ``PADDLE_TPU_SPEC_K``, else 0 (off), as the JAX package resolves
+    it."""
+    if spec_k is not None:
+        return int(spec_k)
+    return int(os.environ.get("PADDLE_TPU_SPEC_K", 0) or 0)
 
 
 class SpecDecoder:

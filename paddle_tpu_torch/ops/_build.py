@@ -9,6 +9,9 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 source and the flags so an edited source never loads a stale library.
 Several sources build in parallel: one ``nvcc`` process each, all
 started together.  A failed build raises with the compiler's output.
+Building and loading hold one process-wide lock, so threads of one
+process (engine replicas each driven from its own thread) that reach a
+cold kernel at once run one ``nvcc`` and share one library.
 Nothing is imported from outside the repository; no PyTorch headers are
 compiled, so a build takes seconds.
 """
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -35,6 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOGS: Dict[str, str] = {}
+# held around every build and load: a build's temporary file is named by
+# the process only, and _LIBS is checked, then set
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -69,30 +76,34 @@ def build(sources: Optional[Iterable[str]] = None) -> Dict[str, float]:
     seconds each compile took (0.0 for a library already built)."""
     names = sorted(p.name for p in CSRC.glob("*.cu")) if sources is None \
         else list(sources)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    seconds = {n: 0.0 for n in names}
-    procs: List[tuple] = []
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
-        procs.append((name, out, tmp, time.perf_counter(),
-                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)))
-    failures = []
-    for name, out, tmp, t0, proc in procs:
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        _LOGS[name] = log
-        if proc.returncode != 0:
-            failures.append(f"nvcc {name} (exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return seconds
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        seconds = {n: 0.0 for n in names}
+        procs: List[tuple] = []
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / name)]
+            procs.append((name, out, tmp, time.perf_counter(),
+                          subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+        failures = []
+        for name, out, tmp, t0, proc in procs:
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            _LOGS[name] = log
+            if proc.returncode != 0:
+                failures.append(
+                    f"nvcc {name} (exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failures:
+            raise RuntimeError("CUDA kernel build failed:\n"
+                               + "\n".join(failures))
+        return seconds
 
 
 def build_log(source: str) -> str:
@@ -102,13 +113,14 @@ def build_log(source: str) -> str:
 
 
 def _load(source: str) -> ctypes.CDLL:
-    lib = _LIBS.get(source)
-    if lib is None:
-        path = library_path(source)
-        if not path.exists():
-            build([source])
-        lib = _LIBS[source] = ctypes.CDLL(str(path))
-    return lib
+    with _LOCK:
+        lib = _LIBS.get(source)
+        if lib is None:
+            path = library_path(source)
+            if not path.exists():
+                build([source])
+            lib = _LIBS[source] = ctypes.CDLL(str(path))
+        return lib
 
 
 class CudaKernel:
@@ -116,7 +128,9 @@ class CudaKernel:
 
     ``launches`` counts the launches this process made through it: it
     grows by one after each launch CUDA accepted, and nowhere
-    else, so a run can show that its path went through the kernel.
+    else, so a run can show that its path went through the kernel.  The
+    increment is a read-modify-write under a lock of its own, so the
+    count stays exact when replica threads launch at once.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -125,18 +139,25 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._count_lock = threading.Lock()
+
+    def _bind(self):
+        with _LOCK:
+            if self._fn is None:
+                fn = getattr(_load(self.source), self.symbol)
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                self._fn = fn
+        return self._fn
 
     def __call__(self, *args) -> None:
-        if self._fn is None:
-            fn = getattr(_load(self.source), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        err = self._fn(*args)
+        fn = self._fn if self._fn is not None else self._bind()
+        err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.symbol} ({self.source}): launch failed "
                                f"with cudaError {err}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

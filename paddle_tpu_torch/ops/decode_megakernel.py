@@ -50,6 +50,7 @@ import ctypes
 import functools
 import math
 import os
+import threading
 from typing import Dict
 
 import torch
@@ -88,7 +89,10 @@ _TILE = 64            # a weight tile: 64 input rows x 64 output columns
 _MAX_PARTS = 8        # position parts of one attention pair at most
 _WORK_INTS = 2 + 16384  # grid barrier + strip counters
 _SMS: Dict[int, int] = {}
-_WORK: Dict[int, torch.Tensor] = {}
+_WORK: Dict[tuple, torch.Tensor] = {}
+# guards insertions into _SMS, _WORK and _CHECKED (engine replicas launch
+# from threads of their own)
+_STATE_LOCK = threading.Lock()
 # layer weight sets already checked, by their data pointers, dtype and
 # device: a decode step checks its 24 layers' 12 arrays once, not per step
 _CHECKED: Dict[tuple, bool] = {}
@@ -272,7 +276,9 @@ def _sms(device) -> int:
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        with _STATE_LOCK:
+            _SMS[idx] = torch.cuda.get_device_properties(
+                idx).multi_processor_count
     return _SMS[idx]
 
 
@@ -356,13 +362,24 @@ def _scratch_floats(bsz, h, hkv, d, f, rt, np_, parts):
 
 
 def _workspace(device) -> torch.Tensor:
-    """The kernel's grid-barrier word and strip counters, zeroed once per
-    device."""
-    idx = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _WORK:
-        _WORK[idx] = torch.zeros(_WORK_INTS, dtype=torch.int32, device=device)
-    return _WORK[idx]
+    """The kernel's grid-barrier word and strip counters for a launch on
+    the current stream: one buffer per (device, stream), zeroed when made
+    (the kernel leaves it consistent for the next launch), so launches on
+    two streams never share a barrier.  Under CUDA-graph capture on a
+    stream that has none yet, a buffer zeroed inside the graph and not
+    kept, as row 10's counters."""
+    stream = torch.cuda.current_stream(device)
+    key = (stream.device_index, stream.cuda_stream)
+    buf = _WORK.get(key)
+    if buf is not None:
+        return buf
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(_WORK_INTS, dtype=torch.int32, device=device)
+    with _STATE_LOCK:
+        if key not in _WORK:
+            _WORK[key] = torch.zeros(_WORK_INTS, dtype=torch.int32,
+                                     device=device)
+        return _WORK[key]
 
 
 def _check_cuda_tensors(name, x, named):
@@ -413,9 +430,10 @@ def _mega_cuda(x, w, k, v, lengths, k_scale, v_scale, tables, eps):
     key = (tuple(t.data_ptr() for t in w), x.dtype, x.device, nq, f)
     if key not in _CHECKED:
         _check_weights(name, x, w, h, nq, f)
-        if len(_CHECKED) > 4096:
-            _CHECKED.clear()
-        _CHECKED[key] = True
+        with _STATE_LOCK:
+            if len(_CHECKED) > 4096:
+                _CHECKED.clear()
+            _CHECKED[key] = True
     quantized = k_scale is not None
     if (v_scale is None) == quantized:
         raise ValueError(f"{name}: pass both k_scale and v_scale or neither")

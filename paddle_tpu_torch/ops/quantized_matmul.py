@@ -40,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import threading
 from typing import Optional
 
 import torch
@@ -309,13 +310,18 @@ def _qmm_plan(m: int, n: int, k: int, sms: int, bn: Optional[int] = None,
 
 _SMS: dict = {}
 _COUNTERS: dict = {}
+# guards insertions into _SMS and _COUNTERS (engine replicas launch from
+# threads of their own)
+_STATE_LOCK = threading.Lock()
 
 
 def _sm_count(device) -> int:
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        with _STATE_LOCK:
+            _SMS[idx] = torch.cuda.get_device_properties(
+                idx).multi_processor_count
     return _SMS[idx]
 
 
@@ -332,8 +338,12 @@ def _counters(device, n: int) -> torch.Tensor:
         return buf
     if torch.cuda.is_current_stream_capturing():
         return torch.zeros(n, dtype=torch.int32, device=device)
-    _COUNTERS[key] = buf = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                       device=device)
+    with _STATE_LOCK:
+        buf = _COUNTERS.get(key)
+        if buf is None or buf.numel() < n:
+            _COUNTERS[key] = buf = torch.zeros(max(n, 1024),
+                                               dtype=torch.int32,
+                                               device=device)
     return buf
 
 

@@ -25,6 +25,7 @@ products, f32 sums in another order than the plain version's), its
 bit for bit.
 """
 import importlib
+import threading
 
 import pytest
 import torch
@@ -1575,3 +1576,84 @@ def test_optimizer_with_device_step_on_the_card(gen, rule):
     for n in p:
         torch.testing.assert_close(p[n].cpu().double(), ref[n], rtol=1e-5,
                                    atol=1e-6)
+
+
+# ---- kernel state under threads and streams ------------------------------------
+
+@pytest.mark.parametrize("kinds", [("dense", "paged"), ("dense", "dense"),
+                                   ("paged", "paged")],
+                         ids=["11a+11c", "11a+11a", "11c+11c"])
+def test_megakernel_on_two_streams_at_once(gen, kinds):
+    """Two threads, each on a stream of its own, launch the megakernel
+    (dense 11a / paged 11c, bf16) 20 times on different inputs at once:
+    each stream gets its own workspace, every output equals the first
+    launch's bitwise and ``_mega_plain`` within the row tolerance."""
+    mk = importlib.import_module("paddle_tpu_torch.ops.decode_megakernel")
+    blk = _mega_block(gen, 256, 2, 2, 512)
+    cases = [_mega_case(gen, blk, lens, False, None if kind == "dense"
+                        else 16)
+             for kind, lens in zip(kinds, ([3, 90, 255, 0, 17],
+                                           [200, 1, 64, 128, 33, 250]))]
+    refs = [_mega_run(blk, c, plain=True) for c in cases]
+    streams = [torch.cuda.Stream() for _ in cases]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    barrier = threading.Barrier(2)
+
+    def launch(i):
+        with torch.cuda.stream(streams[i]):
+            barrier.wait()
+            for _ in range(20):
+                outs[i].append(_mega_run(blk, cases[i]))
+            streams[i].synchronize()
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    keys = {(s.device_index, s.cuda_stream) for s in streams}
+    assert keys <= set(mk._WORK)
+    assert len({mk._WORK[k].data_ptr() for k in keys}) == 2
+    for got, ref in zip(outs, refs):
+        assert len(got) == 20
+        for out in got:
+            for g, first, r in zip(out, got[0], ref):
+                assert torch.equal(g, first)
+                _close(g, r)
+
+
+def test_cold_build_from_two_threads(gen, monkeypatch, tmp_path):
+    """Two threads load one cold source at once into an empty build
+    directory: one nvcc run, one library for both."""
+    from paddle_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    runs = []
+    popen = _build.subprocess.Popen
+
+    def counted(cmd, *a, **k):
+        runs.append(cmd)
+        return popen(cmd, *a, **k)
+    monkeypatch.setattr(_build.subprocess, "Popen", counted)
+    barrier = threading.Barrier(2)
+    libs = [None, None]
+
+    def load(i):
+        barrier.wait()
+        libs[i] = _build._load("philox_check.cu")
+
+    threads = [threading.Thread(target=load, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert len(runs) == 1
+    assert libs[0] is not None and libs[0] is libs[1]
+    assert _build.library_path("philox_check.cu").parent == tmp_path
+    assert [p.name for p in tmp_path.iterdir()] == \
+        [_build.library_path("philox_check.cu").name]

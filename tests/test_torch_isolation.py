@@ -66,7 +66,11 @@ def test_importing_the_port_loads_no_jax():
 NEW_MODULES = ["paddle_tpu_torch.core.flags", "paddle_tpu_torch.testing.faults",
                "paddle_tpu_torch.amp", "paddle_tpu_torch.amp.grad_scaler",
                "paddle_tpu_torch.distributed.checkpoint",
-               "paddle_tpu_torch.distributed.resilience"]
+               "paddle_tpu_torch.distributed.resilience",
+               # the serving fleet's
+               "paddle_tpu_torch.inference.router",
+               "paddle_tpu_torch.inference.disagg",
+               "paddle_tpu_torch.inference.loadgen"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
