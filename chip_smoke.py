@@ -267,14 +267,36 @@ before the result lines:
    bf16 AMP: a warm-up and 3 steps (finite falling losses, no host sync
    or read, each flash kernel once a layer a step), step ms beside
    Adam's;
-26. train-moe (last): the same model at 12 layers (6 MoE; 24 do not fit
+26. train-moe: the same model at 12 layers (6 MoE; 24 do not fit
    with Adam's state, reckoned first), f32 masters, bf16 AMP, fused CE,
    Adam, 4 x 2048: 2 warm-up and 4 measured steps (finite losses with
    the aux term > 0, 12 launches of each flash kernel a step, no host
    sync; step ms, tokens/s, peak; no MFU: ``flops_per_token`` counts no
    experts), one profiled step, then one step without and one under
    'full' recompute at learning rate 0 (losses within TOL_RECOMPUTE, a
-   lower peak).
+   lower peak);
+27. transformer-kernels (after dropout-kernels): rows 1-3 and their
+   dropout forms at Transformer-base's attention shape (B=16, S=256,
+   H=Hkv=8, D=64, non-causal, bf16) against their plain versions within
+   TOL_TB per row, each twice (bitwise equal), timed beside the plain
+   versions and SDPA (the rows' ``transformer_base`` record entries);
+28. train-transformer (the layer API's main path, after train-moe):
+   ``set_device('gpu')``, ``seed(1234)``, Transformer-base built from
+   Paddle layers (``nn.Transformer()`` at its defaults, one
+   Embedding(37000, 512) shared by source and target, sinusoidal
+   positions, Linear(512, 37000)), ``hapi.Model`` with Adam(0.9, 0.98,
+   1e-9) on NoamDecay(512, 4000) from its peak, label-smoothed
+   cross-entropy and Accuracy; ``fit`` over 2 epochs of 10 batches of
+   16 x 256 + 16 x 256 tokens (a copy task, seed 1234) inside
+   ``auto_cast(dtype='bfloat16')``, ``evaluate`` on 4, ``predict`` on
+   2, ``save`` / ``load`` into a fresh Model (equal evaluation); finite
+   falling loss, rows 1-3 (dropout forms) exactly 12 launches a step,
+   6 attention-composite calls a forward; step ms, target tokens/s and
+   peak beside the card;
+29. train-transformer-trainer: the same network through
+   ``prepare(strategy=...)`` with ``strategy.amp`` (``SpmdTrainer``) for
+   10 steps, the same launch and composite counts.  Every other path
+   must read 0 composite calls.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1194,7 +1216,7 @@ def _dequant(codes, scale, dtype=torch.bfloat16):
 
 
 def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
-              dtype=torch.bfloat16, do_scale=1.0):
+              dtype=torch.bfloat16, do_scale=1.0, tol=TOL_BWD):
     """The dq and dk/dv kernels against the plain backward on the same
     inputs and the forward kernel's own o and lse, per row, and the dq
     kernel's delta against the plain delta per row; each kernel runs
@@ -1222,7 +1244,7 @@ def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
                                             do.float().abs())
     torch.cuda.synchronize()
     same = all(torch.equal(x, y) for x, y in zip(got, again))
-    res = {n: row_errors(g, r, TOL_BWD, BWD_FLOOR)
+    res = {n: row_errors(g, r, tol, BWD_FLOOR)
            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
     d_err = (got[3] - ref_delta).abs()
     d_ratio = (d_err / delta_scale.clamp_min(1e-30)).max().item()
@@ -1234,7 +1256,7 @@ def check_bwd(gen, b, s, h, hkv, d, causal=True, mask=False,
         + " ".join(
             f"max|{n}-plain|={r[0]:.3e} worst row {r[1]:.3e}"
             for n, r in res.items()) +
-        f" (tol {TOL_BWD} per row); max|delta-plain|="
+        f" (tol {tol} per row); max|delta-plain|="
         f"{d_err.max().item():.3e} worst row {d_ratio:.3e} (tol "
         f"{TOL_DELTA} x rowsum|do o|) deterministic={same} "
         f"{'ok' if ok else 'FAIL'}")
@@ -1378,7 +1400,7 @@ DROP_P = 0.1
 
 
 def check_dropout(gen, b, s, h, hkv, d, causal=True, mask=False,
-                  dtype=torch.bfloat16):
+                  dtype=torch.bfloat16, bwd_tol=TOL_BWD):
     """The three dropout forms against their plain versions fed the same
     (seed, offset) pair: o per row within TOL_OUT and lse within TOL_LSE
     (row 1), dq, dk, dv per row within TOL_BWD (rows 2-3, BWD_FLOOR) and
@@ -1412,7 +1434,7 @@ def check_dropout(gen, b, s, h, hkv, d, causal=True, mask=False,
     torch.cuda.synchronize()
     err_o, worst_o, ok_o = row_errors(o, ro)
     worst_l = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
-    res = {n: row_errors(g, r, TOL_BWD, BWD_FLOOR)
+    res = {n: row_errors(g, r, bwd_tol, BWD_FLOOR)
            for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
     d_err = (got[3] - ref_delta).abs()
     d_ratio = (d_err / delta_scale.clamp_min(1e-30)).max().item()
@@ -1428,7 +1450,7 @@ def check_dropout(gen, b, s, h, hkv, d, causal=True, mask=False,
         f"{worst_l:.3e} (tol {TOL_LSE}); " + " ".join(
             f"max|{n}-plain|={r[0]:.3e} worst row {r[1]:.3e}"
             for n, r in res.items()) +
-        f" (tol {TOL_BWD}); delta worst row {d_ratio:.3e} (tol {TOL_DELTA}); "
+        f" (tol {bwd_tol}); delta worst row {d_ratio:.3e} (tol {TOL_DELTA}); "
         f"deterministic={same} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"flash dropout kernels disagree with their plain "
@@ -1554,6 +1576,50 @@ def phase_dropout_bits():
         raise SystemExit("dropout bits on the card differ")
 
 
+def flash_entry_calls(q, k, v, do, causal, p, pair):
+    """Zero-argument calls of rows 1-3 at q's shape with dropout ``p``
+    (0: the forms without it) and the (seed, offset) ``pair``: ``fwd``,
+    and ``dq`` and ``dkv`` by their C entries on that forward's o and
+    lse; ``plain_fwd`` and ``plain_bwd``, the plain versions (the
+    backward's computes dq, dk and dv together); ``lib_fwd`` and
+    ``lib_bwd``, SDPA at ``dropout_p=p`` and its forward + backward."""
+    from paddle_tpu_torch.ops import _build
+    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
+    F = torch.nn.functional
+    b, s, h, d = q.shape
+    o, lse = fa._flash_cuda(q, k, v, causal, None, p, pair)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
+    qkv = [_build.ptr(x) for x in (q, k, v)]
+    dims = (b, s, h, k.shape[2], d, int(causal), _build.DTYPE_CODES[q.dtype])
+    st = _build.stream_ptr(q)
+    tail = (*fa._drop_args(p, pair), st) if p else (st,)
+    dq_k = fa.FLASH_BWD_DQ_DROPOUT if p else fa.FLASH_BWD_DQ
+    dkv_k = fa.FLASH_BWD_DKV_DROPOUT if p else fa.FLASH_BWD_DKV
+    dq_args = (*qkv, _build.ptr(o), _build.ptr(do), _build.ptr(lse),
+               _build.ptr(None), _build.ptr(dq), _build.ptr(delta), *dims,
+               *tail)
+    dkv_args = (*qkv, _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
+                _build.ptr(None), _build.ptr(dk), _build.ptr(dv), *dims,
+                *tail)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              dropout_p=p)
+
+    return dict(
+        fwd=lambda: fa._flash_cuda(q, k, v, causal, None, p, pair),
+        dq=lambda: dq_k(*dq_args), dkv=lambda: dkv_k(*dkv_args),
+        plain_fwd=lambda: fa._flash_plain(q, k, v, causal, None, p, pair),
+        plain_bwd=lambda: fa._flash_bwd_plain(q, k, v, o, lse, do, causal,
+                                              None, p, pair),
+        lib_fwd=lib_fwd,
+        lib_bwd=lambda: torch.autograd.grad(lib_fwd(), (qt, kt, vt), dot))
+
+
 def phase_dropout_kernels(records):
     """Rows 1-3's dropout forms: the bit checks, then each form against
     its plain version at the training shape and edge shapes (bf16 and
@@ -1561,9 +1627,6 @@ def phase_dropout_kernels(records):
     the training shape in turns with the p = 0 kernels, beside the plain
     versions and SDPA with dropout_p (other bits: only a time)."""
     from paddle_tpu_torch.core import random as prandom
-    from paddle_tpu_torch.ops import _build
-    fa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
-    F = torch.nn.functional
     phase_dropout_bits()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
@@ -1587,26 +1650,8 @@ def phase_dropout_kernels(records):
     b, s, h, d = 4, 2048, 16, 128
     q, k, v, do = (_rand((b, s, h, d), gen) for _ in range(4))
     pair = prandom.philox_pair("cuda", gen)
-    o, lse = fa._flash_cuda(q, k, v, True, None, DROP_P, pair)
-    o0, lse0 = fa._flash_cuda(q, k, v, True, None)
-    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    delta = torch.empty((b, h, s), dtype=torch.float32, device="cuda")
-    qkv = [_build.ptr(x) for x in (q, k, v)]
-    dims = (b, s, h, h, d, 1, _build.DTYPE_CODES[q.dtype])
-    st = _build.stream_ptr(q)
-    drop = fa._drop_args(DROP_P, pair)
-
-    def dq_call(p, oo, ll):
-        args = (*qkv, _build.ptr(oo), _build.ptr(do), _build.ptr(ll),
-                _build.ptr(None), _build.ptr(dq), _build.ptr(delta), *dims)
-        return (lambda: fa.FLASH_BWD_DQ_DROPOUT(*args, *drop, st)) if p \
-            else (lambda: fa.FLASH_BWD_DQ(*args, st))
-
-    def dkv_call(p, ll):
-        args = (*qkv, _build.ptr(do), _build.ptr(ll), _build.ptr(delta),
-                _build.ptr(None), _build.ptr(dk), _build.ptr(dv), *dims)
-        return (lambda: fa.FLASH_BWD_DKV_DROPOUT(*args, *drop, st)) if p \
-            else (lambda: fa.FLASH_BWD_DKV(*args, st))
+    c0 = flash_entry_calls(q, k, v, do, True, 0.0, pair)
+    cp = flash_entry_calls(q, k, v, do, True, DROP_P, pair)
 
     def turns(plain_fn, drop_fn, iters=50):
         """(p = 0 ms, dropout ms): plain, drop, drop, plain, twice; best
@@ -1618,26 +1663,14 @@ def phase_dropout_kernels(records):
             a.append(cuda_ms(plain_fn, iters=iters))
         return min(a), min(z)
 
-    fwd0, fwdp = turns(lambda: fa._flash_cuda(q, k, v, True, None),
-                       lambda: fa._flash_cuda(q, k, v, True, None, DROP_P,
-                                              pair))
-    dq0, dqp = turns(dq_call(0, o0, lse0), dq_call(DROP_P, o, lse))
-    dkv0, dkvp = turns(dkv_call(0, lse0), dkv_call(DROP_P, lse))
-    t_plain_f = cuda_ms(lambda: fa._flash_plain(q, k, v, True, None, DROP_P,
-                                                pair), iters=3, warmup=1)
-    t_plain_b = cuda_ms(lambda: fa._flash_bwd_plain(
-        q, k, v, o, lse, do, True, None, DROP_P, pair), iters=3, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def lib_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              dropout_p=DROP_P)
-
-    lib_f = min(cuda_ms(lib_fwd, iters=50) for _ in range(2))
-    lib_b = min(cuda_ms(lambda: torch.autograd.grad(
-        lib_fwd(), (qt, kt, vt), dot)) - cuda_ms(lib_fwd) for _ in range(2))
+    fwd0, fwdp = turns(c0["fwd"], cp["fwd"])
+    dq0, dqp = turns(c0["dq"], cp["dq"])
+    dkv0, dkvp = turns(c0["dkv"], cp["dkv"])
+    t_plain_f = cuda_ms(cp["plain_fwd"], iters=3, warmup=1)
+    t_plain_b = cuda_ms(cp["plain_bwd"], iters=3, warmup=1)
+    lib_f = min(cuda_ms(cp["lib_fwd"], iters=50) for _ in range(2))
+    lib_b = min(cuda_ms(cp["lib_bwd"]) - cuda_ms(cp["lib_fwd"])
+                for _ in range(2))
     pairs = b * h * (s * (s + 1) // 2)
     calls = pairs // 8                       # Philox calls a pass
     row_bytes = b * h * s * 4
@@ -2401,18 +2434,16 @@ def measured(tag, eng, fn, extra_reads=0):
     decode kernel of the engine's cache in every decode step, one flash
     launch in every prefill without a cached prefix (one window launch in
     every chunk tick when chunked) and no other launch."""
-    from paddle_tpu_torch.ops import LAUNCHERS
     layers = eng.model.cfg.num_layers
     before = dict(eng._timings)
     hits0 = eng._prefix.hit_queries if eng._prefix is not None else 0
     torch.cuda.synchronize()
-    for kernel in LAUNCHERS.values():
-        kernel.launches = 0
+    zero_launches()
     with HostReads() as reads:
         out = fn()
     torch.cuda.synchronize()
     HOST_READS[tag] = reads.n
-    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
+    launches = read_launches()
     d = {k: v - before[k] for k, v in eng._timings.items()}
     hits = (eng._prefix.hit_queries if eng._prefix is not None else 0) - hits0
     st = eng.stats()
@@ -2553,19 +2584,17 @@ def run_engine(tag, eng, prompts, new_tokens, sampled=()):
     count, run the engine dry and read the counts back.  Returns
     ``(streams in prompt order, launches by kernel, stats, wall s)``;
     logs tokens/s, host syncs and launches."""
-    from paddle_tpu_torch.ops import LAUNCHERS
     rids = [eng.add_request(p, max_new_tokens=new_tokens,
                             temperature=0.8 if i in sampled else 0.0,
                             top_p=0.9 if i in sampled else 1.0)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
-    for kernel in LAUNCHERS.values():
-        kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     results = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
+    launches = read_launches()
     st = eng.stats()
     streams = [results[r].tolist() for r in rids]
     tokens = sum(len(x) for x in streams)
@@ -4892,18 +4921,16 @@ def phase_train_qat():
     two plain products), finite loss and gradients."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.models import gpt_configs
-    from paddle_tpu_torch.ops import LAUNCHERS
     cfg = gpt_configs()["gpt3-1.3b"]
     cfg.num_layers, cfg.fused_ce = 2, True
     model, trainer = make_trainer(cfg, 99, topt.SGD(learning_rate=0.0),
                                   qat=True)
     ids, labels = token_batch(np.random.RandomState(21), cfg.vocab_size, 2,
                               512)
-    for kernel in LAUNCHERS.values():
-        kernel.launches = 0
+    zero_launches()
     loss = float(trainer.train_step(ids, labels))
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
+    launches = read_launches()
     finite = all(bool(torch.isfinite(p.grad).all().item())
                  for p in model.parameters())
     gmax = max(p.grad.abs().max().item() for p in model.parameters())
@@ -4950,14 +4977,13 @@ def phase_train():
         if i == n_warm:                  # the measured window starts
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            for kernel in LAUNCHERS.values():
-                kernel.launches = 0
+            zero_launches()
             async_dispatch.reset_host_sync_count()
             t0 = time.perf_counter()
         results.append(trainer.train_step(ids, labels))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.symbol: k.launches for k in LAUNCHERS.values()}
+    launches = read_launches()
     syncs = async_dispatch.host_sync_count()
     peak = torch.cuda.max_memory_allocated()
     losses = [float(r) for r in results]
@@ -5002,8 +5028,7 @@ def phase_train():
               for k, v in trainer.optimizer.state_dict().items()}
 
     def two_steps():
-        for kernel in LAUNCHERS.values():
-            kernel.launches = 0
+        zero_launches()
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -5042,14 +5067,20 @@ def del_all():
 
 
 def zero_launches():
+    """Every kernel's launch count and the attention composite's call
+    count (``nn.functional.attention.COMPOSITE``) to 0."""
+    from paddle_tpu_torch.nn.functional.attention import COMPOSITE
     from paddle_tpu_torch.ops import LAUNCHERS
-    for kernel in LAUNCHERS.values():
+    for kernel in (*LAUNCHERS.values(), COMPOSITE):
         kernel.launches = 0
 
 
 def read_launches():
+    """``{symbol: launches}`` of every kernel, and the composite's calls
+    under ``COMPOSITE.symbol``."""
+    from paddle_tpu_torch.nn.functional.attention import COMPOSITE
     from paddle_tpu_torch.ops import LAUNCHERS
-    return {k.symbol: k.launches for k in LAUNCHERS.values()}
+    return {k.symbol: k.launches for k in (*LAUNCHERS.values(), COMPOSITE)}
 
 
 FLASH = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -6367,6 +6398,479 @@ def phase_train_moe(bf16, smi):
     return {tag: launches}
 
 
+# ---------------------------------------------------------------------------
+# Transformer-base through the layer API (nn.Transformer()'s defaults:
+# d_model 512, 8 heads of 64, 6 + 6 layers, ffn 2048, dropout 0.1, relu,
+# post-norm; Vaswani et al. 2017, Table 3 "base"), one shared embedding
+# over WMT'14 EN-DE's 37000-token BPE vocabulary, one card's share of a
+# batch: 16 x 256 source and 16 x 256 target tokens
+# ---------------------------------------------------------------------------
+TB_VOCAB, TB_B, TB_S, TB_HEADS, TB_D, TB_LAYERS = 37000, 16, 256, 8, 64, 6
+TB_STEPS, TB_EVAL, TB_PREDICT, TB_TRAINER_STEPS = 10, 4, 2, 10
+# rows 1-3 at the Transformer-base shape against their plain versions:
+# the same rounding as at the other shapes (TOL_OUT), held to 1e-2 per
+# row in the backward too
+TOL_TB = 1e-2
+# the composite's paths: every other path must read 0 composite calls
+TB_PATHS = ("train-transformer", "train-transformer-trainer")
+COMPOSITE_KEY = "attention_composite"
+
+
+def tb_timings(q, k, v, do, p):
+    """(fwd, dq, dk/dv, plain fwd, plain bwd, SDPA fwd, SDPA bwd) ms of
+    rows 1-3 at q's shape, non-causal, dropout ``p`` (0: the forms
+    without it): each kernel by its C entry.  At this shape a kernel
+    takes tens of microseconds, less than the host needs to launch it,
+    so the kernels and SDPA are timed on the device clock
+    (``device_ms``: their kernels' summed time, no launch gaps); the
+    plain versions by CUDA events."""
+    from paddle_tpu_torch.core import random as prandom
+    calls = flash_entry_calls(q, k, v, do, False, p,
+                              prandom.philox_pair("cuda"))
+    calls["dq"]()
+
+    def dev(fn, iters=50):
+        t = device_ms(fn, iters=iters)
+        if t is None:
+            raise SystemExit("transformer-kernels: the profiler recorded "
+                             "no device time")
+        return t
+
+    t_f, t_dq, t_dkv = (dev(calls[key]) for key in ("fwd", "dq", "dkv"))
+    t_pf, t_pb = (cuda_ms(calls[key], iters=3, warmup=1)
+                  for key in ("plain_fwd", "plain_bwd"))
+    t_lf = dev(calls["lib_fwd"])
+    t_lb = dev(calls["lib_bwd"]) - t_lf
+    return t_f, t_dq, t_dkv, t_pf, t_pb, t_lf, t_lb
+
+
+def phase_transformer_kernels(records):
+    """Rows 1-3 at the Transformer-base shape (B=16, S=256, H=Hkv=8,
+    D=64, non-causal, bf16): the forward, the dq and dk/dv kernels and
+    their dropout forms at p = DROP_P against the plain versions within
+    TOL_TB per row (each call twice, bitwise equal), then timed beside
+    the plain versions and SDPA; written into the rows' records as the
+    ``transformer_base`` shape entry (p = 0 on rows 1-3, p = DROP_P on
+    their dropout forms)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    shape = (TB_B, TB_S, TB_HEADS, TB_HEADS, TB_D)
+    *_, f_err, f_worst = check_flash(gen, *shape, causal=False)
+    _, b_errs = check_bwd(gen, *shape, causal=False, tol=TOL_TB)
+    d_errs = check_dropout(gen, *shape, causal=False, bwd_tol=TOL_TB)
+    errs = {"flash_fwd": (f_err, f_worst), **b_errs, **d_errs}
+    q, k, v, do = (_rand((TB_B, TB_S, TB_HEADS, TB_D), gen)
+                   for _ in range(4))
+    b, s, h, d = q.shape
+    pairs = b * h * s * s
+    row_bytes = b * h * s * 4
+    work = {"flash_fwd": (4 * d * pairs, 2 * (2 * q.numel() + k.numel()
+                                              + v.numel()) + row_bytes),
+            "flash_bwd_dq": (3 * 2 * d * pairs,
+                             2 * (4 * q.numel() + 2 * k.numel())
+                             + 2 * row_bytes),
+            "flash_bwd_dkv": (4 * 2 * d * pairs,
+                              2 * (2 * q.numel() + 4 * k.numel())
+                              + 2 * row_bytes)}
+    for p in (0.0, DROP_P):
+        t_f, t_dq, t_dkv, t_pf, t_pb, t_lf, t_lb = tb_timings(q, k, v, do, p)
+        for base, t, t_plain, t_lib in (
+                ("flash_fwd", t_f, t_pf, t_lf),
+                ("flash_bwd_dq", t_dq, t_pb, t_lb),
+                ("flash_bwd_dkv", t_dkv, t_pb, t_lb)):
+            key = f"{base}_dropout" if p else base
+            flops, nbytes = work[base]
+            b_ms, b_by = bound(flops, nbytes + (16 if p else 0))
+            log(f"[transformer-kernels] {key} B={b} S={s} H={h} D={d} "
+                f"non-causal p={p} (device clock): kernel_ms={t:.4f} "
+                f"bound_ms={b_ms:.4f} "
+                f"({b_by}; share {b_ms / t:.3f}) plain_ms={t_plain:.4f} "
+                f"library_ms={t_lib:.4f} (SDPA{' backward' if base != 'flash_fwd' else ''}"
+                f"{f', dropout_p={p}' if p else ''}; x {t / t_lib:.3f})")
+            err = errs[key]
+            records[key]["transformer_base"] = dict(
+                shape=[b, s, h, h, d], causal=False, dropout_p=p,
+                max_abs_err=err[0], max_row_rel_err=err[1],
+                row_tol=TOL_OUT if base == "flash_fwd" else TOL_TB, ms=t,
+                plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                bound_by=b_by, clock="device (torch.profiler); plain_ms "
+                                     "CUDA events")
+
+
+def tb_sinusoid(length, d):
+    """The paper's positional encodings ``[length, d]`` (f32)."""
+    pos = np.arange(length, dtype=np.float64)[:, None]
+    i = np.arange(d // 2, dtype=np.float64)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((length, d), np.float32)
+    out[:, 0::2], out[:, 1::2] = np.sin(ang), np.cos(ang)
+    return torch.from_numpy(out)
+
+
+def tb_network():
+    """Transformer-base from the port's layers: one Embedding(37000, 512)
+    shared by source and target, scaled by sqrt(512), plus sinusoidal
+    positions, dropout 0.1, ``nn.Transformer()`` at its defaults, and
+    Linear(512, 37000)."""
+    from paddle_tpu_torch import nn
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.d_model = 512
+            self.embedding = nn.Embedding(
+                TB_VOCAB, self.d_model,
+                weight_attr=nn.initializer.Normal(0.0, self.d_model ** -0.5))
+            self.dropout = nn.Dropout(0.1)
+            self.transformer = nn.Transformer()
+            self.project = nn.Linear(self.d_model, TB_VOCAB)
+            self.register_buffer("position",
+                                 tb_sinusoid(TB_S, self.d_model).cuda(),
+                                 persistable=False)
+
+        def embed(self, ids):
+            x = self.embedding(ids) * self.d_model ** 0.5
+            # the positions take the embedding's dtype (bf16 under the
+            # trainer's AMP copies)
+            return self.dropout(x + self.position[:ids.shape[1]].to(x.dtype))
+
+        def forward(self, src, tgt):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1])
+            return self.project(self.transformer(
+                self.embed(src), self.embed(tgt), tgt_mask=mask))
+
+    return TransformerBase()
+
+
+def tb_loss():
+    """``CrossEntropyLoss(soft_label=True)`` on
+    ``label_smooth(one_hot(y, 37000), epsilon=0.1)``."""
+    from paddle_tpu_torch import nn
+
+    class SmoothedCrossEntropy(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ce = nn.CrossEntropyLoss(soft_label=True)
+
+        def forward(self, logits, label):
+            soft = nn.functional.label_smooth(
+                nn.functional.one_hot(label, TB_VOCAB), epsilon=0.1)
+            return self.ce(logits, soft)
+
+    return SmoothedCrossEntropy()
+
+
+def tb_data(n, seed):
+    """A copy task: the decoder reads ``[1] + src[:-1]`` and must emit
+    ``src`` (token ids in [4, 37000))."""
+    from paddle_tpu_torch.io import TensorDataset
+    rng = np.random.RandomState(seed)
+    src = rng.randint(4, TB_VOCAB, (n, TB_S)).astype(np.int64)
+    tgt = np.concatenate([np.ones((n, 1), np.int64), src[:, :-1]], axis=1)
+    return TensorDataset([src, tgt, src])
+
+
+def tb_model(strategy=None):
+    import paddle_tpu_torch as paddle
+    net = tb_network()
+    sched = paddle.optimizer.lr.NoamDecay(d_model=512, warmup_steps=4000,
+                                          last_epoch=3999)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=net.parameters())
+    m = paddle.Model(net)
+    m.prepare(opt, tb_loss(), paddle.metric.Accuracy(), strategy=strategy)
+    return m, sched
+
+
+def tb_step_recorder(profile_step):
+    from paddle_tpu_torch.hapi import callbacks
+
+    class StepRecorder(callbacks.Callback):
+        """Per-step loss, ``ms`` (from the step's begin callback to its
+        end, after a device sync: the step's host and device work, not
+        the DataLoader's fetch and collate of its batch, which run
+        before the begin callback) and ``period_ms`` (from the previous
+        step's end to this one's: the fetch included).  Step
+        ``profile_step`` (counted over the whole fit) runs under
+        torch.profiler from the previous step's end to its own, fetch
+        included: ``profile`` holds the summary (``tb_step_profile``),
+        ``profile_cost_s`` the seconds the callbacks spent starting,
+        stopping and reading the profiler."""
+
+        def __init__(self):
+            super().__init__()
+            self.losses, self.ms, self.period_ms = [], [], []
+            self.profile, self._prof, self._end = None, None, None
+            self.profile_cost_s = 0.0
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(logs["loss"]))
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            self.ms.append((now - self._t0) * 1e3)
+            if self._end is not None:
+                self.period_ms.append((now - self._end) * 1e3)
+            if self._prof is not None:
+                self._prof.__exit__(None, None, None)
+                self.profile = tb_step_profile(self._prof,
+                                               (now - self._end) * 1e3)
+                self._prof = None
+            if len(self.losses) == profile_step:
+                from torch.profiler import ProfilerActivity, profile
+                self._prof = profile(activities=[ProfilerActivity.CPU,
+                                                 ProfilerActivity.CUDA])
+                self._prof.__enter__()
+            self._end = time.perf_counter()
+            self.profile_cost_s += self._end - now
+
+    return StepRecorder()
+
+
+def tb_step_profile(prof, wall_ms):
+    """One profiled step: the device's busy ms (the union of its kernel
+    and copy intervals), its idle share of the step's wall (profiler on),
+    and the five largest device kernels and host ops by self time; None
+    where the profiler recorded no device time."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return None
+    busy_us, cur_s, cur_e = 0.0, *spans[0]
+    for a, z in spans[1:]:
+        if a > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = a, z
+        else:
+            cur_e = max(cur_e, z)
+    busy_us += cur_e - cur_s
+    avg = prof.key_averages()
+
+    def top(dev, key):
+        rows = sorted((e for e in avg if (e.device_type == DeviceType.CUDA)
+                       == dev), key=lambda e: -getattr(e, key))[:5]
+        return [(e.key[:60], round(getattr(e, key) / 1e3, 3), e.count)
+                for e in rows]
+
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3,
+                idle_share=1.0 - busy_us / 1e3 / wall_ms,
+                device_events=len(spans),
+                top_device=top(True, "self_device_time_total"),
+                top_host=top(False, "self_cpu_time_total"))
+
+
+def tb_process_state():
+    """What earlier phases may leave behind: live threads, the caching
+    allocator's allocated and reserved bytes, objects the collector
+    tracks."""
+    import threading
+    names = sorted(t.name for t in threading.enumerate())
+    return (f"{len(names)} threads {names}; allocated "
+            f"{torch.cuda.memory_allocated()} reserved "
+            f"{torch.cuda.memory_reserved()} bytes; "
+            f"{len(gc.get_objects())} gc-tracked objects")
+
+
+def tb_timing_line(rec, steps, wall):
+    """Step ms and tokens/s of a fit: target tokens of every step over
+    the fit's wall (data, callbacks, the first steps and the profiled
+    step included; the profiler's start, stop and reading left out),
+    then the median step and period of the unprofiled steps after the
+    first two, and the profiled step."""
+    skip = {len(rec.losses) - 1}
+    ms = [t for i, t in enumerate(rec.ms) if i >= 2 and i not in skip]
+    per = [t for i, t in enumerate(rec.period_ms, start=1)
+           if i >= 2 and i not in skip]
+    step_ms, period_ms = float(np.median(ms)), float(np.median(per))
+    prof = rec.profile
+    wall -= rec.profile_cost_s
+    text = (f"{steps * TB_B * TB_S / wall:.0f} target tokens/s over the fit's "
+            f"wall ({steps} x {TB_B * TB_S} tokens in {wall:.3f} s, "
+            f"{rec.profile_cost_s:.3f} s of profiler start, stop and "
+            f"reading left out); step "
+            f"ms median {step_ms:.3f}, period ms median {period_ms:.3f} "
+            f"(steps 3 on, the profiled step left out; steps "
+            f"{[round(x, 2) for x in rec.ms]}, periods "
+            f"{[round(x, 2) for x in rec.period_ms]}); ")
+    if prof is None:
+        text += "profiled step: no device time recorded (not measured)"
+    else:
+        text += (f"profiled last step (fetch included, profiler on): wall "
+                 f"{prof['wall_ms']:.3f} ms, device busy "
+                 f"{prof['busy_ms']:.3f} ms, idle share "
+                 f"{prof['idle_share']:.3f} (against the median period: "
+                 f"{1.0 - prof['busy_ms'] / period_ms:.3f}), "
+                 f"{prof['device_events']} device events; top device "
+                 f"{prof['top_device']}; top host {prof['top_host']}")
+    return text
+
+
+def tb_counts(tag, launches, steps, forwards, problems, backward=True,
+              dropout=True):
+    """Rows 1-3 launches and composite calls of one run: 12 attention
+    forwards (6 encoder self, 6 decoder cross) and, in training, 12 of
+    each backward kernel per step, all in the dropout forms in training;
+    6 composite calls (the decoder's masked self-attention) a forward;
+    no other flash form."""
+    fwd = "flash_fwd_dropout" if dropout else "flash_fwd"
+    want = {fwd: 2 * TB_LAYERS * forwards, COMPOSITE_KEY: TB_LAYERS * forwards}
+    if backward:
+        for key in ("flash_bwd_dq", "flash_bwd_dkv"):
+            want[f"{key}_dropout" if dropout else key] = 2 * TB_LAYERS * steps
+    for key in (*FLASH, *(f"{k}_dropout" for k in FLASH), COMPOSITE_KEY):
+        if launches[key] != want.get(key, 0):
+            problems.append(f"{tag}: {key} {launches[key]} != "
+                            f"{want.get(key, 0)}")
+    return {k: launches[k] for k in want}
+
+
+def phase_train_transformer(smi):
+    """The slice's main path: ``set_device('gpu')``, ``seed(1234)``,
+    Transformer-base built from Paddle layers, ``Model.prepare(Adam
+    (0.9, 0.98, 1e-9) on NoamDecay(512, 4000) from its peak, the smoothed
+    cross-entropy, Accuracy())``, ``fit`` over 2 epochs of TB_STEPS
+    batches inside ``auto_cast(dtype='bfloat16')``, then ``evaluate`` on
+    TB_EVAL batches and ``predict`` on TB_PREDICT, then ``save`` and
+    ``load`` into a fresh Model, whose evaluation must equal the saved
+    one's.  Checks: finite losses, the mean of the last 5 below the mean
+    of the first 5; rows 1-3 (dropout forms) 12 launches a step each and
+    6 composite calls a forward in fit, the p = 0 forward 12 a forward in
+    evaluate and predict; tokens/s over the fit's wall, step ms, one
+    profiled step's device busy and idle share, and peak memory beside
+    the card."""
+    import shutil
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    problems = []
+    m, sched = tb_model()
+    n_params = sum(p.numel() for p in m.parameters())
+    train = tb_data(TB_STEPS * TB_B, 1234)
+    held = tb_data(TB_EVAL * TB_B, 1235)
+    steps = 2 * TB_STEPS
+    rec = tb_step_recorder(profile_step=steps - 1)
+    log(f"[train-transformer] at the start: {tb_process_state()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        m.fit(train, batch_size=TB_B, epochs=2, shuffle=False, verbose=0,
+              callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    fit_counts = tb_counts("fit", read_launches(), steps, steps, problems)
+    total = read_launches()
+    losses = rec.losses
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or \
+            not last < first:
+        problems.append(f"losses not finite and falling: {losses}")
+    timing = tb_timing_line(rec, steps, wall)
+    log(f"[train-transformer] {smi}: Transformer-base {n_params / 1e6:.2f} M "
+        f"params f32, auto_cast bf16, {TB_B} x {TB_S} + {TB_B} x {TB_S} "
+        f"tokens, Noam lr {sched.last_lr:.3e}: {steps} steps; losses "
+        f"{[round(x, 4) for x in losses]} (first 5 mean {first:.4f}, last "
+        f"5 {last:.4f}); {timing}; max_memory_allocated {peak} bytes; "
+        f"launches {fit_counts}")
+    zero_launches()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        ev = m.evaluate(held, batch_size=TB_B, verbose=0)
+    ev_counts = tb_counts("evaluate", read_launches(), 0, TB_EVAL, problems,
+                          backward=False, dropout=False)
+    add_launches(total, read_launches())
+    zero_launches()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        out = m.predict(tb_data(TB_PREDICT * TB_B, 1236), batch_size=TB_B)
+    pr_counts = tb_counts("predict", read_launches(), 0, TB_PREDICT,
+                          problems, backward=False, dropout=False)
+    add_launches(total, read_launches())
+    pred = out[0]
+    if len(pred) != TB_PREDICT or pred[0].shape != (TB_B, TB_S, TB_VOCAB) \
+            or not all(np.isfinite(x).all() for x in pred):
+        problems.append(f"predict: {[x.shape for x in pred]}")
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_transformer")
+    t1 = time.perf_counter()
+    m.save(os.path.join(ck_dir, "tb"))
+    t_save = time.perf_counter() - t1
+    fresh, _ = tb_model()
+    t1 = time.perf_counter()
+    fresh.load(os.path.join(ck_dir, "tb"))
+    t_load = time.perf_counter() - t1
+    zero_launches()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        ev2 = fresh.evaluate(held, batch_size=TB_B, verbose=0)
+    add_launches(total, read_launches())
+    nbytes = sum(os.path.getsize(os.path.join(ck_dir, f))
+                 for f in os.listdir(ck_dir))
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    if ev2 != ev or not np.isfinite(ev["loss"]):
+        problems.append(f"loaded model evaluates {ev2}, saved {ev}")
+    log(f"[train-transformer] evaluate {TB_EVAL} batches: {ev} (launches "
+        f"{ev_counts}); predict {TB_PREDICT} batches (launches {pr_counts}); "
+        f"save {t_save:.2f} s, load {t_load:.2f} s, {nbytes} bytes "
+        f"(.pdparams + .pdopt); the loaded model evaluates {ev2}")
+    del m, fresh
+    del_all()
+    if problems:
+        raise SystemExit("train-transformer failed: " + "; ".join(problems))
+    log("[train-transformer] ok")
+    return {"train-transformer": total}
+
+
+def phase_train_transformer_trainer(smi):
+    """The same network through ``prepare(strategy=...)`` with
+    ``strategy.amp`` (the port's ``SpmdTrainer``: bf16 copies of the f32
+    masters) for TB_TRAINER_STEPS steps: finite losses, rows 1-3's
+    dropout forms 12 launches a step each, 6 composite calls a step;
+    step ms, tokens/s and peak beside the card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    paddle.seed(1234)
+    strategy = DistributedStrategy()
+    strategy.amp = True
+    m, _ = tb_model(strategy)
+    rec = tb_step_recorder(profile_step=TB_TRAINER_STEPS - 1)
+    problems = []
+    log(f"[train-transformer-trainer] at the start: {tb_process_state()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    m.fit(tb_data(TB_TRAINER_STEPS * TB_B, 1234), batch_size=TB_B, epochs=1,
+          shuffle=False, verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    counts = tb_counts("trainer", launches, TB_TRAINER_STEPS,
+                       TB_TRAINER_STEPS, problems)
+    if not (m._trainer is not None and m._trainer.amp_enabled and
+            m._trainer.amp_dtype == torch.bfloat16):
+        problems.append("the trainer loop did not run bf16 AMP")
+    losses = rec.losses
+    if len(losses) != TB_TRAINER_STEPS or not np.all(np.isfinite(losses)):
+        problems.append(f"losses {losses}")
+    timing = tb_timing_line(rec, TB_TRAINER_STEPS, wall)
+    log(f"[train-transformer-trainer] {smi}: Transformer-base through "
+        f"SpmdTrainer (strategy.amp, bf16 copies): losses "
+        f"{[round(x, 4) for x in losses]}; {timing}; "
+        f"max_memory_allocated {peak} bytes; launches {counts}")
+    del m
+    del_all()
+    if problems:
+        raise SystemExit("train-transformer-trainer failed: "
+                         + "; ".join(problems))
+    log("[train-transformer-trainer] ok")
+    return {"train-transformer-trainer": launches}
+
+
 def gpt_params(cfg):
     """Parameters of a GPT(-MoE) config: embeddings, blocks (an expert
     layer holds E FFNs and a router), final norm."""
@@ -6392,6 +6896,7 @@ def main():
     phase_mega_kernels(records)
     phase_train_kernels(records)
     phase_dropout_kernels(records)
+    phase_transformer_kernels(records)
     model = build_model()
     paths = {}
     for tag, phase in (("serve", phase_serve),
@@ -6447,6 +6952,19 @@ def main():
                   phase_train_optimizers, phase_train_moe):
         del_all()
         paths.update(phase(bf16, smi))
+    for phase in (phase_train_transformer, phase_train_transformer_trainer):
+        del_all()
+        paths.update(phase(smi))
+    # only the layer API's masked attention takes the composite: every
+    # GPT path reads 0 composite calls
+    composite = {p: n.get(COMPOSITE_KEY, 0) for p, n in paths.items()}
+    stray = {p: c for p, c in composite.items() if c and p not in TB_PATHS}
+    log(f"[done] attention composite calls by path: "
+        f"{ {p: c for p, c in composite.items() if c} } (every other path "
+        f"0: {not stray})")
+    if stray:
+        raise SystemExit(f"paths outside the layer API took the attention "
+                         f"composite: {stray}")
     for key, rec in records.items():
         by_path = {p: n[key] for p, n in paths.items() if n[key]}
         rec["launches"] = sum(by_path.values())

@@ -25,14 +25,31 @@ GPT mixture of experts on both paths with every expert on the one GPU
 ``nn.decode``: ``BeamSearchDecoder``, ``dynamic_decode``) and the whole
 optimizer package (``optimizer``: ten update rules, fifteen schedules,
 the parameter EMA; ``regularizer``; ``incubate``: LookAhead,
-ModelAverage).
+ModelAverage), and Paddle's layer API on one GPU (``nn.Layer`` and the
+layer zoo, ``amp.auto_cast``, ``save`` / ``load``, ``io.DataLoader``,
+``metric``, ``hapi.Model``).
 """
-from . import (amp, core, device, distributed, incubate, inference, io,
-               models, nn, observability, ops, optimizer, profiler,
-               regularizer, testing, text)
-from .device import resolve_device
+from . import (amp, autograd, core, device, distributed, framework, hapi,
+               incubate, inference, io, metric, models, nn, observability,
+               ops, optimizer, profiler, regularizer, testing, text)
+from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
+                       set_grad_enabled)
+from .core.dtype import (bfloat16, bool_, float16, float32, float64,
+                         get_default_dtype, int8, int16, int32, int64,
+                         set_default_dtype, uint8)
+from .core.random import set_seed as seed
+from .core.tensor import Parameter, is_tensor, to_tensor
+from .device import get_device, resolve_device, set_device
+from .framework.io import load, save
+from .hapi import Model
+from .nn.layer_base import ParamAttr
 
-__all__ = ["amp", "core", "device", "distributed", "incubate",
-           "inference", "io", "models", "nn", "observability", "ops",
-           "optimizer", "profiler", "regularizer", "resolve_device",
-           "testing", "text"]
+__all__ = ["amp", "autograd", "core", "device", "distributed", "framework",
+           "hapi", "incubate", "inference", "io", "metric", "models", "nn",
+           "observability", "ops", "optimizer", "profiler", "regularizer",
+           "resolve_device", "testing", "text", "Model", "ParamAttr",
+           "Parameter", "to_tensor", "is_tensor", "save", "load", "seed",
+           "set_device", "get_device", "no_grad", "enable_grad", "grad",
+           "set_grad_enabled", "is_grad_enabled", "set_default_dtype",
+           "get_default_dtype", "bool_", "uint8", "int8", "int16", "int32",
+           "int64", "float16", "bfloat16", "float32", "float64"]

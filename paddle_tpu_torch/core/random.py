@@ -1,7 +1,11 @@
 """Explicit random generators (counterpart of ``paddle_tpu/core/random.py``).
 
 The JAX package keeps one global key; the port hands a
-``torch.Generator`` to whatever draws random numbers.
+``torch.Generator`` to whatever draws random numbers.  The layer API
+(``nn.Layer.create_parameter``) draws from one explicit generator per
+device, which ``set_seed`` (the package's ``seed``) reseeds together
+with torch's default generators (dropout bits, attention-dropout
+pairs).
 """
 from __future__ import annotations
 
@@ -11,7 +15,11 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["seed", "philox_pair"]
+__all__ = ["seed", "set_seed", "get_generator", "philox_pair"]
+
+# the layer API's generator per device, made at first use from _SEED
+_GENERATORS = {}
+_SEED = 0
 
 
 def seed(n: int, device=None) -> torch.Generator:
@@ -19,6 +27,26 @@ def seed(n: int, device=None) -> torch.Generator:
     ``n``."""
     g = torch.Generator(device=resolve_device(device))
     g.manual_seed(int(n))
+    return g
+
+
+def set_seed(n: int) -> None:
+    """``paddle.seed``: every device's layer-API generator restarts from
+    ``n``, and so do torch's default generators (CPU and CUDA)."""
+    global _SEED
+    _SEED = int(n)
+    _GENERATORS.clear()
+    torch.manual_seed(_SEED)
+
+
+def get_generator(device=None) -> torch.Generator:
+    """The layer API's generator on ``device`` (default: the CUDA
+    device), seeded by the last ``set_seed``."""
+    dev = resolve_device(device)
+    g = _GENERATORS.get(dev)
+    if g is None:
+        g = _GENERATORS[dev] = torch.Generator(device=dev)
+        g.manual_seed(_SEED)
     return g
 
 

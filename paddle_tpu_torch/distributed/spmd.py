@@ -100,6 +100,12 @@ _SUPPORTED = {"amp", "recompute", "qat", "gradient_merge"}
 _TRAINER_IDS = itertools.count()
 
 
+def _detached(outs):
+    if isinstance(outs, (tuple, list)):
+        return type(outs)(_detached(o) for o in outs)
+    return outs.detach() if torch.is_tensor(outs) else outs
+
+
 class SpmdTrainer:
     """One training step = forward + backward + optimizer update on the
     model's device.
@@ -184,6 +190,9 @@ class SpmdTrainer:
         # rollback's host copy of the state the step in flight started from
         self._snapshot = None
         self._fault_nan_step = faults.nan_poison_step()
+        # train_step(return_outputs=True) keeps the forward's outputs
+        self._keep_outputs = False
+        self._outputs = None
 
         if st.recompute:
             if st.recompute_configs.get("scan_layers"):
@@ -350,6 +359,8 @@ class SpmdTrainer:
             p.grad = None
         with collect_aux_losses() as aux:
             outs = self._run(inputs, training=True)
+        if self._keep_outputs:
+            self._outputs = _detached(outs)
         loss = self.loss_fn(outs, *labels).float()
         for a in aux:
             loss = loss + a.float()
@@ -482,11 +493,12 @@ class SpmdTrainer:
                    for t in self._state_tensors())
 
     # ------------------------------------------------------------------
-    def train_step(self, inputs, labels) -> StepResult:
+    def train_step(self, inputs, labels, return_outputs: bool = False):
         """One step: forward, loss, backward, and the optimizer update
         (every ``k_steps``-th step under gradient merge).  inputs/labels:
         an array or tensor, or a tuple of them.  Returns a lazy
-        ``StepResult``."""
+        ``StepResult``; with ``return_outputs`` also the forward's
+        outputs, detached (``hapi.Model``'s metrics read them)."""
         self._watchdog_beat()
         if self._profile is not None:
             # PADDLE_TPU_PROFILE=start:stop over train steps
@@ -498,6 +510,7 @@ class SpmdTrainer:
         batch = self.shard_batch(inputs + labels)
         inputs, labels = batch[:len(inputs)], batch[len(inputs):]
         t0 = time.perf_counter()
+        self._keep_outputs = return_outputs
         if self.k_steps == 1:
             key = ("fused", len(inputs), len(labels))
             loss, flags = self._fused_step(inputs, labels)
@@ -526,7 +539,11 @@ class SpmdTrainer:
                 self._read(flags),
                 ["loss"] if self.fp16_scaling else self._nanguard_names())
         self._telemetry_step_end()
-        return StepResult(loss, timings=self._timings)
+        result = StepResult(loss, timings=self._timings)
+        if return_outputs:
+            outs, self._outputs = self._outputs, None
+            return result, outs
+        return result
 
     def _watchdog_beat(self):
         """Start the stall watchdog on the first step when

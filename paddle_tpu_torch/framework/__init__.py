@@ -1,0 +1,7 @@
+"""``paddle.framework`` (counterpart of ``paddle_tpu/framework``): dtype
+defaults, ``seed``, ``save`` / ``load``."""
+from ..core.dtype import get_default_dtype, set_default_dtype
+from ..core.random import set_seed as seed
+from .io import load, save
+
+__all__ = ["get_default_dtype", "set_default_dtype", "seed", "save", "load"]

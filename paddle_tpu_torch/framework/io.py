@@ -1,0 +1,95 @@
+"""``paddle.save`` / ``paddle.load`` (counterpart of
+``paddle_tpu/framework/io.py``), for local paths.
+
+The file is the JAX package's: a pickle of the (nested) object with each
+tensor replaced by ``{"__paddle_tpu_tensor__": True, "data": ndarray,
+"name", "stop_gradient", "is_param"}``, so a ``.pdparams`` written by
+either package loads in the other.  bf16 tensors travel as
+``ml_dtypes.bfloat16`` arrays (the JAX package's numpy form), which
+needs ``ml_dtypes`` installed.  ``load`` puts tensors on the current
+device (``device.set_device``), or returns the arrays with
+``return_numpy=True``.  Remote file systems (``fs.py``) wait for a
+later slice (ROADMAP.md Queue 1 item 3.5).
+"""
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core.tensor import Parameter, from_numpy
+from ..device import current_device
+
+__all__ = ["save", "load"]
+
+_SENTINEL_KEY = "__paddle_tpu_tensor__"
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _pack(obj: Any):
+    if torch.is_tensor(obj):
+        return {_SENTINEL_KEY: True, "data": _to_numpy(obj),
+                "name": getattr(obj, "name", None),
+                "stop_gradient": not obj.requires_grad,
+                "is_param": isinstance(obj, torch.nn.Parameter)}
+    if isinstance(obj, dict):
+        return {k: _pack(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        packed = [_pack(v) for v in obj]
+        return type(obj)(packed) if type(obj) in (list, tuple) else packed
+    return obj
+
+
+def _unpack(obj: Any, return_numpy: bool, device):
+    if isinstance(obj, dict):
+        if obj.get(_SENTINEL_KEY):
+            if return_numpy:
+                return obj["data"]
+            t = from_numpy(obj["data"]).to(device)
+            if obj.get("is_param"):
+                return Parameter(t, name=obj.get("name"))
+            return t.requires_grad_(not obj.get("stop_gradient", True)) \
+                if t.is_floating_point() else t
+        return {k: _unpack(v, return_numpy, device) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        un = [_unpack(v, return_numpy, device) for v in obj]
+        return type(obj)(un) if type(obj) in (list, tuple) else un
+    return obj
+
+
+def _local(path) -> str:
+    path = str(path)
+    if "://" in path:
+        raise NotImplementedError(
+            f"{path}: remote file systems (framework/fs.py) come with a "
+            f"later slice (ROADMAP.md Queue 1 item 3.5); use a local path")
+    return path
+
+
+def save(obj, path, protocol=4, **configs):
+    """Pickle ``obj`` (a state dict, nested containers, a tensor) in the
+    JAX package's format."""
+    path = _local(path)
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(path, "wb") as f:
+        pickle.dump(_pack(obj), f, protocol=protocol)
+
+
+def load(path, return_numpy=False, **configs):
+    """Read what ``save`` (of either package) wrote."""
+    with open(_local(path), "rb") as f:
+        obj = pickle.load(f)
+    device = None if return_numpy else current_device()
+    return _unpack(obj, return_numpy, device)

@@ -261,7 +261,7 @@ class GPTAttention(nn.Module):
                   quantize=config.quantize)
         self.qkv_proj = ColumnParallelLinear(h, h + 2 * kv_dim, init, **kw)
         self.out_proj = RowParallelLinear(h, h, init, **kw)
-        self.dropout = Dropout(config.dropout)
+        self.dropout = Dropout(p=config.dropout)
 
     def _qkv_arrays(self, x):
         """qkv projection split into contiguous q ``[B, S, H, D]`` and
@@ -283,15 +283,18 @@ class GPTAttention(nn.Module):
 
     def _attend_fresh(self, q, k, v):
         """No-past causal attention through the flash kernels, with
-        ``attn_dropout`` in training."""
+        ``attn_dropout`` in training.  It calls ``ops.flash_attention``
+        itself, not the layer API's route: on the card a shape or dtype
+        the kernels do not take raises, and never falls to the
+        composite."""
         if not self.cfg.use_flash_attention and q.is_cuda:
             raise NotImplementedError(
                 "use_flash_attention=False: the port has no library "
                 "attention on the card; its flash kernels (attention "
                 "dropout included) are the attention")
-        return F.flash_attention(q, k, v, dropout=self.cfg.attn_dropout,
-                                 causal=q.shape[1] > 1,
-                                 training=self.training)
+        return ops.flash_attention(
+            q, k, v, causal=q.shape[1] > 1,
+            dropout_p=self.cfg.attn_dropout if self.training else 0.0)
 
     def forward(self, x):
         b, s = x.shape[0], x.shape[1]
@@ -426,7 +429,7 @@ class GPTMLP(nn.Module):
             config.ffn_hidden_size, config.hidden_size,
             I.Normal(0.0, config.initializer_range
                      / math.sqrt(2.0 * config.num_layers)), **kw)
-        self.dropout = Dropout(config.dropout)
+        self.dropout = Dropout(p=config.dropout)
 
     def forward(self, x):
         return self.dropout(self.down_proj(
@@ -443,10 +446,10 @@ class GPTBlock(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.ln_1 = LayerNorm(config.hidden_size,
-                              config.layer_norm_epsilon, **kw)
+                              epsilon=config.layer_norm_epsilon, **kw)
         self.attn = GPTAttention(config, generator=generator, **kw)
         self.ln_2 = LayerNorm(config.hidden_size,
-                              config.layer_norm_epsilon, **kw)
+                              epsilon=config.layer_norm_epsilon, **kw)
         self.is_moe = config.is_moe_layer(layer_idx)
         if self.is_moe:
             self.mlp = MoELayer(
@@ -575,12 +578,13 @@ class GPTModel(nn.Module):
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.wte = VocabParallelEmbedding(config.vocab_size,
                                           config.hidden_size, init, **kw)
-        self.wpe = Embedding(config.max_seq_len, config.hidden_size, init,
-                             **kw)
-        self.drop = Dropout(config.dropout)
+        self.wpe = Embedding(config.max_seq_len, config.hidden_size,
+                             weight_attr=init, **kw)
+        self.drop = Dropout(p=config.dropout)
         self.blocks = nn.ModuleList(
             [GPTBlock(config, i, **kw) for i in range(config.num_layers)])
-        self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_epsilon,
+        self.ln_f = LayerNorm(config.hidden_size,
+                              epsilon=config.layer_norm_epsilon,
                               device=device, dtype=dtype)
         self._recompute = False
         self._recompute_policy = None

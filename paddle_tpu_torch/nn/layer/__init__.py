@@ -1,4 +1,14 @@
-from .common import Dropout, Embedding
-from .norm import LayerNorm
+from .activation import *  # noqa: F401,F403
+from .activation import __all__ as _act
+from .common import *  # noqa: F401,F403
+from .common import __all__ as _common
+from .container import *  # noqa: F401,F403
+from .container import __all__ as _container
+from .loss import *  # noqa: F401,F403
+from .loss import __all__ as _loss
+from .norm import *  # noqa: F401,F403
+from .norm import __all__ as _norm
+from .transformer import *  # noqa: F401,F403
+from .transformer import __all__ as _transformer
 
-__all__ = ["Dropout", "Embedding", "LayerNorm"]
+__all__ = [*_act, *_common, *_container, *_loss, *_norm, *_transformer]

@@ -1,38 +1,286 @@
-"""Dropout and Embedding (counterpart of ``paddle_tpu/nn/layer/common.py``)."""
+"""Common layers (counterpart of ``paddle_tpu/nn/layer/common.py``):
+Linear, Embedding, the dropouts, Flatten, padding, upsampling,
+CosineSimilarity, Identity, Unfold / Fold, Bilinear, the pixel and
+channel shuffles.
+
+``Linear`` keeps Paddle's weight ``[in_features, out_features]``.  The
+layers GPT builds (``Dropout``, ``Embedding``) take the optional
+keywords ``device``, ``dtype`` and ``generator`` that pin where and from
+what their parameters are drawn.
+"""
 from __future__ import annotations
 
 import torch
-from torch import nn
 
+from .. import functional as F
 from .. import initializer as I
+from ..layer_base import Layer
 
-__all__ = ["Dropout", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
+           "AlphaDropout", "Flatten", "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D",
+           "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D",
+           "CosineSimilarity", "Identity", "Unfold", "Fold", "Bilinear",
+           "PixelShuffle", "PixelUnshuffle", "ChannelShuffle"]
 
 
-class Dropout(nn.Module):
-    """Inverted dropout; the identity in eval mode or at p == 0."""
-
-    def __init__(self, p: float = 0.5):
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
         super().__init__()
-        self.p = float(p)
 
     def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        return nn.functional.dropout(x, self.p, training=True)
+        return x
 
 
-class Embedding(nn.Module):
-    """Lookup table ``weight [num_embeddings, embedding_dim]``."""
+class Linear(Layer):
+    """``y = x W + b``, W ``[in_features, out_features]``."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int,
-                 weight_init: I.Initializer = None, *, device, dtype,
-                 generator):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None,
+                 generator=None):
+        super().__init__(dtype=dtype)
+        self._placement(device, generator)
+        self._in_features = in_features
+        self._out_features = out_features
+        self.weight = self.create_parameter(
+            [in_features, out_features], attr=weight_attr,
+            default_initializer=I.XavierUniform())
+        self.bias = self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return (f"in_features={self._in_features}, "
+                f"out_features={self._out_features}")
+
+
+class Embedding(Layer):
+    """Lookup table ``weight [num_embeddings, embedding_dim]`` (default
+    init N(0, 1)); the ``padding_idx`` row starts at zero and looks up
+    zeros.  ``sparse=True`` raises: SelectedRows gradients come with the
+    tensor slice (ROADMAP.md Queue 1 item 3.5)."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, *, device=None,
+                 dtype=None, generator=None):
+        super().__init__(dtype=dtype)
+        if sparse:
+            raise NotImplementedError(
+                "Embedding(sparse=True) needs SelectedRows gradients, which "
+                "come with the tensor slice (ROADMAP.md Queue 1 item 3.5)")
+        self._placement(device, generator)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx if padding_idx is None or \
+            padding_idx >= 0 else num_embeddings + padding_idx
+        self._sparse = sparse
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0))
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(Layer):
+    """Inverted dropout; the identity in eval mode or at p == 0."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
-        self.weight = I.make_parameter(
-            (num_embeddings, embedding_dim),
-            weight_init or I.Normal(0.0, 1.0), device=device, dtype=dtype,
-            generator=generator)
+        self.p = float(p)
+        self.axis = axis
+        self.mode = mode
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return nn.functional.embedding(ids, self.weight)
+    def forward(self, x):
+        return F.dropout(x, p=self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.alpha_dropout(x, p=self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)
+
+
+class _PadND(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding = padding
+        self.mode = mode
+        self.value = value
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_PadND):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value,
+                         "NCW" if data_format == "NCL" else "NWC")
+
+
+class Pad2D(_PadND):
+    pass
+
+
+class Pad3D(_PadND):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(_PadND):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0, data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0, data_format)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis = axis
+        self.eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self.axis, eps=self.eps)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.args = (output_sizes, kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, *self.args)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = self.create_parameter(
+            [out_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.r = upscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.r, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.r = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.r, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups = groups
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)

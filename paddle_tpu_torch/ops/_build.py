@@ -123,23 +123,36 @@ def _load(source: str) -> ctypes.CDLL:
         return lib
 
 
-class CudaKernel:
+class LaunchCounter:
+    """A count that a run resets and reads, as ``symbol: launches``.
+
+    ``add`` is a read-modify-write under a lock of its own, so the count
+    stays exact when replica threads add at once.
+    """
+
+    def __init__(self, symbol: str):
+        self.symbol = symbol
+        self.launches = 0
+        self._count_lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._count_lock:
+            self.launches += 1
+
+
+class CudaKernel(LaunchCounter):
     """One C entry point of a ``csrc`` source, built at first call.
 
     ``launches`` counts the launches this process made through it: it
-    grows by one after each launch CUDA accepted, and nowhere
-    else, so a run can show that its path went through the kernel.  The
-    increment is a read-modify-write under a lock of its own, so the
-    count stays exact when replica threads launch at once.
+    grows by one after each launch CUDA accepted, and nowhere else, so a
+    run can show that its path went through the kernel.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
+        super().__init__(symbol)
         self.source = source
-        self.symbol = symbol
         self.argtypes = argtypes
-        self.launches = 0
         self._fn = None
-        self._count_lock = threading.Lock()
 
     def _bind(self):
         with _LOCK:
@@ -156,8 +169,7 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol} ({self.source}): launch failed "
                                f"with cudaError {err}")
-        with self._count_lock:
-            self.launches += 1
+        self.add()
 
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -14,6 +14,9 @@ meaning ``L2Decay``; in the eager path a parameter's own
 Unlike JAX, which returns new arrays, the port updates each parameter
 and its accumulators IN PLACE (no second copy of the optimizer state
 during a step); the new value is cast back to the parameter's dtype.
+Each parameter's update runs at the learning rate times its own scale,
+``optimize_attr["learning_rate"]`` (``nn.ParamAttr(learning_rate=...)``),
+as in the JAX package.
 The learning rate is a Python float and the step count a Python int or
 an int32 device tensor (the trainer's under fp16 AMP and the ``skip``
 anomaly policy, which does not advance on a skipped step), so a step
@@ -36,6 +39,13 @@ from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
+
+
+def _lr_scale(p) -> float:
+    """A parameter's own learning-rate scale (``ParamAttr(learning_rate=
+    ...)``, kept in ``optimize_attr``); 1 for a plain tensor."""
+    attr = getattr(p, "optimize_attr", None)
+    return float(attr.get("learning_rate", 1.0)) if attr else 1.0
 
 
 class Optimizer:
@@ -125,12 +135,13 @@ class Optimizer:
             state = self._accumulators[n]
             self._cur_param_name = n
             self._cur_param = self._param_objs.get(n)
+            plr = lr * _lr_scale(p)
             if skip is None:
-                self._update(p, grads[n], state, lr, step)
+                self._update(p, grads[n], state, plr, step)
                 continue
             live = [p, *state.values()]
             old = [t.clone() for t in live]
-            self._update(p, grads[n], state, lr, step)
+            self._update(p, grads[n], state, plr, step)
             for t, o in zip(live, old):
                 torch.where(skip, o, t, out=t)
 

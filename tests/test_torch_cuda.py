@@ -1095,6 +1095,29 @@ def test_fp16_train_step_runs_the_kernels_without_a_host_sync(gen):
     assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
+@pytest.mark.parametrize("heads,dtype,err", [
+    (8, torch.bfloat16, ValueError),     # head dim 32
+    (4, torch.float32, TypeError)],      # head dim 64 in f32
+    ids=["d32", "f32"])
+def test_gpt_raises_where_the_kernels_do_not_take_its_attention(
+        gen, heads, dtype, err):
+    """GPT calls the flash kernels itself, never the layer API's route,
+    so a shape or dtype they do not take raises on the card instead of
+    running the composite."""
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn.functional import attention
+    cfg = GPTConfig(vocab_size=128, hidden_size=256, num_layers=1,
+                    num_heads=heads, max_seq_len=64)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=dtype,
+                           generator=prandom.seed(7, "cuda"))
+    ids = torch.randint(0, 128, (2, 64), generator=gen, device="cuda")
+    before = attention.COMPOSITE.launches
+    with pytest.raises(err, match="flash_attention kernel"):
+        model(ids)
+    assert attention.COMPOSITE.launches == before
+
+
 def test_dots_recompute_gradients_equal_no_recompute_on_the_card(gen):
     ids, labels = _token_batch(gen)
     grads = []
@@ -1657,3 +1680,101 @@ def test_cold_build_from_two_threads(gen, monkeypatch, tmp_path):
     assert _build.library_path("philox_check.cu").parent == tmp_path
     assert [p.name for p in tmp_path.iterdir()] == \
         [_build.library_path("philox_check.cu").name]
+
+
+# ---- the layer API's attention route (nn.MultiHeadAttention,
+# nn.Transformer) on the card ------------------------------------------
+
+def _on_cpu(build):
+    """``build()`` with the layer API's device set to the CPU, then the
+    device it had."""
+    from paddle_tpu_torch import device
+    import paddle_tpu_torch as tp
+    was = device._current
+    tp.set_device("cpu")
+    try:
+        return build()
+    finally:
+        device._current = was
+
+
+def _layer_pair(gen, build):
+    import copy
+    cpu = _on_cpu(build)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen,
+                                device="cuda").cpu() * 0.05 + p)
+    return cpu.eval(), copy.deepcopy(cpu).cuda().eval()
+
+
+def test_layer_api_attention_on_the_card_equals_the_cpu(gen):
+    """MultiHeadAttention (D=64, no mask: rows 1; a mask: the composite)
+    and a small Transformer (d_model 128, 2 heads of 64, 1 + 1 layers,
+    the causal target mask) under auto_cast bf16: the card's output
+    within 1e-2 of the CPU plain route's max |value|, row by row."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+    mha_cpu, mha = _layer_pair(gen, lambda: nn.MultiHeadAttention(128, 2))
+    tr_cpu, tr = _layer_pair(gen, lambda: nn.Transformer(
+        128, 2, 1, 1, 256, dropout=0.0))
+    x = torch.randn((2, 160, 128), generator=gen, device="cuda")
+    y = torch.randn((2, 96, 128), generator=gen, device="cuda")
+    mask = tr.generate_square_subsequent_mask(96)
+    with torch.no_grad(), tp.amp.auto_cast(dtype="bfloat16"):
+        pairs = [(mha(x), mha_cpu(x.cpu())),
+                 (mha(y, x, x), mha_cpu(y.cpu(), x.cpu(), x.cpu())),
+                 (mha(y, attn_mask=mask),
+                  mha_cpu(y.cpu(), attn_mask=mask.cpu())),
+                 (tr(x, y, tgt_mask=mask),
+                  tr_cpu(x.cpu(), y.cpu(), tgt_mask=mask.cpu()))]
+    for got, ref in pairs:
+        assert got.dtype == ref.dtype
+        _close(got.cpu(), ref.float(), floor=1.0)
+
+
+def test_layer_api_route_counts_on_the_card(gen):
+    """Unmasked bf16 attention at D=64 launches rows 1-3 (their dropout
+    forms in training); a masked one, an f32 one and one at D=32 call
+    the composite, which the counter counts."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn.functional import attention
+    counters = {"fwd": fa.FLASH_FWD, "dq": fa.FLASH_BWD_DQ,
+                "dkv": fa.FLASH_BWD_DKV, "fwd_p": fa.FLASH_FWD_DROPOUT,
+                "dq_p": fa.FLASH_BWD_DQ_DROPOUT,
+                "dkv_p": fa.FLASH_BWD_DKV_DROPOUT,
+                "composite": attention.COMPOSITE}
+
+    def count(fn):
+        before = {k: c.launches for k, c in counters.items()}
+        fn()
+        torch.cuda.synchronize()
+        return {k: c.launches - before[k] for k, c in counters.items()
+                if c.launches != before[k]}
+
+    _, mha = _layer_pair(gen, lambda: nn.MultiHeadAttention(128, 2))
+    _, narrow = _layer_pair(gen, lambda: nn.MultiHeadAttention(128, 4))
+    _, tr = _layer_pair(gen, lambda: nn.Transformer(
+        128, 2, 2, 2, 256, dropout=0.1))
+    x = torch.randn((2, 64, 128), generator=gen, device="cuda")
+    mask = tr.generate_square_subsequent_mask(64)
+    with torch.no_grad():
+        with tp.amp.auto_cast(dtype="bfloat16"):
+            assert count(lambda: mha(x)) == {"fwd": 1}
+            assert count(lambda: mha(x, attn_mask=mask)) == {"composite": 1}
+            assert count(lambda: narrow(x)) == {"composite": 1}   # D=32
+        assert count(lambda: mha(x)) == {"composite": 1}          # f32
+    tr.train()
+
+    def step():
+        with tp.amp.auto_cast(dtype="bfloat16"):
+            out = tr(x, x, tgt_mask=mask)
+        out.float().square().mean().backward()
+
+    assert count(step) == {"fwd_p": 4, "dq_p": 4, "dkv_p": 4,
+                           "composite": 2}
+    tr.eval()
+    with torch.no_grad(), tp.amp.auto_cast(dtype="bfloat16"):
+        assert count(lambda: tr(x, x, tgt_mask=mask)) == {
+            "fwd": 4, "composite": 2}

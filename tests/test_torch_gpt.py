@@ -175,5 +175,45 @@ def test_initializers_use_the_explicit_generator():
     assert a.abs().max().item() > 0.9 * limit
     n = draw(I.Normal(0.0, 0.02), 5)
     assert abs(n.std().item() - 0.02) < 0.002
-    with pytest.raises(ValueError):
-        I.XavierUniform()(torch.empty(2, 3, 4), prandom.seed(0, "cpu"))
+    # a 3-D weight (nn.Bilinear's [out, in1, in2]) takes the JAX
+    # package's receptive-field fans (in1 * in2 and out * in2), held
+    # from both sides like the 2-D draw above
+    from paddle_tpu.nn.initializer import Initializer as JaxInitializer
+    shape = (8, 16, 32)
+    fan_in, fan_out = JaxInitializer._fans(shape)
+    assert I.Initializer._fans(shape) == (fan_in, fan_out) == (512, 256)
+    w = I.XavierUniform()(torch.empty(*shape), prandom.seed(0, "cpu"))
+    limit = (6.0 / (fan_in + fan_out)) ** 0.5
+    assert w.abs().max().item() <= limit
+    assert w.abs().max().item() > 0.9 * limit
+
+
+def test_gpt_attention_calls_the_flash_op_not_the_layer_route(monkeypatch):
+    """GPT's attention calls ``ops.flash_attention`` itself: the layer
+    API's route (which sends shapes the kernels do not take to the
+    composite) is never on its path, so on the card such a GPT raises."""
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu_torch.nn.functional import attention
+
+    calls = []
+    op = ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        calls.append((tuple(q.shape), kw))
+        return op(q, k, v, **kw)
+
+    def refuse(*a, **kw):
+        raise AssertionError("GPT went through the layer API's route")
+
+    monkeypatch.setattr(ops, "flash_attention", recording)
+    monkeypatch.setattr(tF, "flash_attention", refuse)
+    monkeypatch.setattr(attention, "flash_attention", refuse)
+    tm = GPTForCausalLM(GPTConfig(**TINY), device="cpu")   # head dim 16
+    tm.eval()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, TINY["vocab_size"], (2, 8)))
+    with torch.no_grad():
+        assert torch.isfinite(tm(ids)).all()
+    assert calls == [((2, 8, 4, 16), dict(causal=True, dropout_p=0.0))] \
+        * TINY["num_layers"]

@@ -1,6 +1,7 @@
 """The port stands alone: paddle_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package, and the card path names no library
-attention and no torch.compile."""
+neither JAX nor the JAX package, and the card path uses no library
+attention (torch's SDPA, found by an AST check) and names no
+torch.compile."""
 import ast
 import os
 import subprocess
@@ -91,11 +92,136 @@ def test_module_alone_loads_no_jax(module):
     assert out.stdout.strip() == "[]"
 
 
+def _bound_modules(tree):
+    """``{name: dotted module}`` for every name an absolute import or a
+    plain ``name = a.b.c`` assignment binds to a module path."""
+    bound = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                if alias.asname:
+                    bound[alias.asname] = alias.name
+                else:
+                    top = alias.name.split(".")[0]
+                    bound[top] = top
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            for alias in node.names:
+                bound[alias.asname or alias.name] = \
+                    f"{node.module}.{alias.name}"
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 and \
+                isinstance(node.targets[0], ast.Name):
+            path = _dotted(node.value, bound)
+            if path is not None and path.split(".")[0] == "torch":
+                bound[node.targets[0].id] = path
+    return bound
+
+
+def _dotted(node, bound):
+    """The dotted path of a ``Name.attr.attr`` chain, its head resolved
+    through ``bound``; None for anything else."""
+    attrs = []
+    while isinstance(node, ast.Attribute):
+        attrs.append(node.attr)
+        node = node.value
+    if not isinstance(node, ast.Name):
+        return None
+    head = bound.get(node.id, node.id)
+    return ".".join([head] + attrs[::-1])
+
+
+_SDPA = "scaled_dot_product"
+
+
+def _torch_path(path):
+    return path is not None and path.split(".")[0] == "torch"
+
+
+def library_attention_uses(source: str):
+    """Every use of torch's SDPA in ``source``: any attribute chain
+    rooted at ``torch`` (under any alias of torch or of one of its
+    modules) that names ``scaled_dot_product*``, such as
+    ``torch.nn.functional.scaled_dot_product_attention``,
+    ``torch.ops.aten.(_)scaled_dot_product*`` or
+    ``torch._C._nn.scaled_dot_product_attention``; such an attribute of
+    anything that is not a plain name chain (``import_module(...).x``);
+    such a name imported from a torch module, or ``*`` imported from
+    one; and ``getattr`` with a ``scaled_dot_product*`` string.
+    Paddle's own ``nn.functional.scaled_dot_product_attention`` (a
+    relative import in the port) is not torch's."""
+    tree = ast.parse(source)
+    bound = _bound_modules(tree)
+    hits = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                _torch_path(node.module) and any(
+                    _SDPA in a.name or a.name == "*" for a in node.names):
+            hits.append((node.lineno, f"from {node.module} import"))
+        elif isinstance(node, ast.Call) and \
+                isinstance(node.func, ast.Name) and \
+                node.func.id == "getattr" and any(
+                    isinstance(a, ast.Constant) and isinstance(a.value, str)
+                    and _SDPA in a.value for a in node.args[1:2]):
+            hits.append((node.lineno, "getattr"))
+        elif isinstance(node, ast.Attribute) and _SDPA in node.attr:
+            path = _dotted(node, bound)
+            if path is None or _torch_path(path):
+                hits.append((node.lineno, path or node.attr))
+        elif isinstance(node, ast.Name) and _SDPA in bound.get(node.id, "") \
+                and _torch_path(bound[node.id]):
+            hits.append((node.lineno, bound[node.id]))
+    return hits
+
+
 def test_card_path_names_no_library_attention_or_compile():
     for path in PORT_FILES:
         text = path.read_text()
-        for word in ("scaled_dot_product_attention", "torch.compile"):
-            assert word not in text, f"{path.relative_to(ROOT)} names {word}"
+        assert "torch.compile" not in text, \
+            f"{path.relative_to(ROOT)} names torch.compile"
+        hits = library_attention_uses(text)
+        assert not hits, f"{path.relative_to(ROOT)} uses torch's SDPA: {hits}"
+
+
+@pytest.mark.parametrize("source", [
+    "import torch\ny = torch.nn.functional.scaled_dot_product_attention(q, k, v)\n",
+    "import torch\nimport torch.nn.functional as F\n"
+    "y = F.scaled_dot_product_attention(q, k, v)\n",
+    "from torch.nn import functional as F\n"
+    "y = F.scaled_dot_product_attention(q, k, v)\n",
+    "import torch\nF = torch.nn.functional\n"
+    "y = F.scaled_dot_product_attention(q, k, v)\n",
+    "from torch.nn.functional import scaled_dot_product_attention\n",
+    "from torch.nn.functional import scaled_dot_product_attention as a\n",
+    "import torch\ny = torch.ops.aten._scaled_dot_product_flash_attention("
+    "q, k, v)\n",
+    "import torch as th\n"
+    "y = th.ops.aten._scaled_dot_product_efficient_attention(q, k, v)\n",
+    "import torch\ny = torch.ops.aten.scaled_dot_product_attention(q, k, v)\n",
+    "import torch\ny = torch._C._nn.scaled_dot_product_attention(q, k, v)\n",
+    "from torch._C import _nn\ny = _nn.scaled_dot_product_attention(q, k, v)\n",
+    "from torch._C._nn import scaled_dot_product_attention\n",
+    "import torch.nn.functional as F\n"
+    "y = getattr(F, \"scaled_dot_product_attention\")(q, k, v)\n",
+    "import importlib\ny = importlib.import_module(\"torch.nn.functional\")"
+    ".scaled_dot_product_attention(q, k, v)\n",
+    "from torch.nn.functional import *\n"
+    "y = scaled_dot_product_attention(q, k, v)\n",
+], ids=["torch.nn.functional", "import-as-F", "from-torch.nn-import",
+        "F-assigned", "from-import", "from-import-as", "aten-flash",
+        "aten-efficient-aliased-torch", "aten-public", "torch._C._nn",
+        "_nn-imported", "from-torch._C._nn-import", "getattr-string",
+        "import_module-attribute", "star-import"])
+def test_library_attention_check_catches_planted_uses(source):
+    assert library_attention_uses(source)
+
+
+def test_library_attention_check_passes_paddle_sdpa():
+    source = ("from .. import functional as F\n"
+              "from .attention import scaled_dot_product_attention\n"
+              "y = F.scaled_dot_product_attention(q, k, v)\n"
+              "z = scaled_dot_product_attention(q, k, v)\n")
+    assert not library_attention_uses(source)
 
 
 def test_every_kernel_source_is_wrapped():
