@@ -6675,12 +6675,13 @@ def tb_process_state():
             f"{len(gc.get_objects())} gc-tracked objects")
 
 
-def tb_timing_line(rec, steps, wall):
-    """Step ms and tokens/s of a fit: target tokens of every step over
-    the fit's wall (data, callbacks, the first steps and the profiled
-    step included; the profiler's start, stop and reading left out),
-    then the median step and period of the unprofiled steps after the
-    first two, and the profiled step."""
+def tb_timing_line(rec, steps, wall, per_step=TB_B * TB_S,
+                   unit="target tokens"):
+    """Step ms and ``unit``/s of a fit (``per_step`` a step): every
+    step's over the fit's wall (data, callbacks, the first steps and the
+    profiled step included; the profiler's start, stop and reading left
+    out), then the median step and period of the unprofiled steps after
+    the first two, and the profiled step."""
     skip = {len(rec.losses) - 1}
     ms = [t for i, t in enumerate(rec.ms) if i >= 2 and i not in skip]
     per = [t for i, t in enumerate(rec.period_ms, start=1)
@@ -6688,8 +6689,8 @@ def tb_timing_line(rec, steps, wall):
     step_ms, period_ms = float(np.median(ms)), float(np.median(per))
     prof = rec.profile
     wall -= rec.profile_cost_s
-    text = (f"{steps * TB_B * TB_S / wall:.0f} target tokens/s over the fit's "
-            f"wall ({steps} x {TB_B * TB_S} tokens in {wall:.3f} s, "
+    text = (f"{steps * per_step / wall:.0f} {unit}/s over the fit's "
+            f"wall ({steps} x {per_step} {unit} in {wall:.3f} s, "
             f"{rec.profile_cost_s:.3f} s of profiler start, stop and "
             f"reading left out); step "
             f"ms median {step_ms:.3f}, period ms median {period_ms:.3f} "
@@ -6871,6 +6872,290 @@ def phase_train_transformer_trainer(smi):
     return {"train-transformer-trainer": launches}
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50 through the layer API (BASELINE.json config 2; He et al.
+# 2016: ImageNet at 224 x 224, 1000 classes, SGD with momentum 0.9,
+# learning rate 0.1, weight decay 1e-4), one card's share of a batch:
+# 128 images of FakeData (class prototypes plus noise, seed 1234)
+# ---------------------------------------------------------------------------
+RN_B, RN_SIDE, RN_CLASSES = 128, 224, 1000
+RN_STEPS, RN_EVAL, RN_PREDICT, RN_TRAINER_STEPS = 10, 2, 1, 5
+# H100 SXM's dense bf16 tensor-core peak (the MFU's denominator)
+RN_PEAK_FLOPS = 989e12
+# the trainer's first step against the eager loop's on the same weights
+# and batch: bf16 copies in both, the batch norms' f32 statistics read
+# activations that round to bf16 at other points (the eager loop keeps
+# f32 from each norm to the next convolution and along the residual
+# stream), so each running buffer agrees within bf16 steps of its scale
+# (``rn_scale``)
+TOL_RN_STATS = 5e-2
+_RN_DATA = []
+
+
+def rn_data():
+    """One FakeData (train, evaluate, predict batches one after another)
+    built once: its 1000 class prototypes take 0.6 GB and seconds of
+    host time."""
+    if not _RN_DATA:
+        from paddle_tpu_torch.vision.datasets import FakeData
+        _RN_DATA.append(FakeData(
+            size=(RN_STEPS + RN_EVAL + RN_PREDICT) * RN_B,
+            image_shape=(3, RN_SIDE, RN_SIDE), num_classes=RN_CLASSES,
+            seed=1234))
+    return _RN_DATA[0]
+
+
+def rn_split(start, batches):
+    from paddle_tpu_torch.io import Subset
+    return Subset(rn_data(), range(start * RN_B, (start + batches) * RN_B))
+
+
+def rn_model(strategy=None):
+    import paddle_tpu_torch as paddle
+    net = paddle.vision.models.resnet50(num_classes=RN_CLASSES)
+    opt = paddle.optimizer.Momentum(
+        learning_rate=0.1, momentum=0.9, parameters=net.parameters(),
+        weight_decay=paddle.regularizer.L2Decay(1e-4))
+    m = paddle.Model(net)
+    m.prepare(opt, paddle.nn.CrossEntropyLoss(),
+              paddle.metric.Accuracy(topk=(1, 5)), strategy=strategy)
+    return m
+
+
+def rn_stats(net):
+    """The batch norms' running buffers (copies)."""
+    return {n: b.detach().clone() for n, b in net.named_buffers()
+            if n.endswith(("_mean", "_variance"))}
+
+
+def rn_stats_moved(tag, before, after, problems):
+    """Every running buffer finite, and every one changed."""
+    bad = [n for n, b in after.items() if not torch.isfinite(b).all()]
+    still = [n for n, b in after.items() if torch.equal(b, before[n])]
+    if bad or still or len(after) != 106:
+        problems.append(f"{tag}: {len(after)} running buffers, non-finite "
+                        f"{bad[:4]}, unmoved {still[:4]}")
+
+
+def rn_scale(stats, name):
+    """A running buffer's scale: its largest variance, or for a mean
+    (a cancelling sum near 0) the square root of its layer's."""
+    var = stats[name.replace("_mean", "_variance")].max()
+    return float(var if name.endswith("_variance") else var.sqrt())
+
+
+def rn_zero_counts(tag, launches, problems):
+    moved = {k: n for k, n in launches.items() if n}
+    if moved:
+        problems.append(f"{tag}: kernel launches or composite calls {moved}")
+
+
+def rn_timing_line(rec, steps, wall, flops):
+    """``tb_timing_line`` in images, after images/s over the median
+    step and the MFU of both rates."""
+    skip = {len(rec.losses) - 1}
+    ms = float(np.median([t for i, t in enumerate(rec.ms)
+                          if i >= 2 and i not in skip]))
+    wall_ips = steps * RN_B / (wall - rec.profile_cost_s)
+    step_ips = RN_B / ms * 1e3
+    mfu = [3 * flops * ips / RN_PEAK_FLOPS for ips in (wall_ips, step_ips)]
+    return (f"{step_ips:.1f} images/s over the median step (MFU "
+            f"{mfu[1]:.4f}; over the fit's wall {mfu[0]:.4f}; MFU = 3 x "
+            f"{flops} flops an image x images/s / {RN_PEAK_FLOPS:.0f}); "
+            + tb_timing_line(rec, steps, wall, RN_B, "images"))
+
+
+def phase_train_resnet(smi):
+    """The vision slice's main path: ``set_device('gpu')``,
+    ``seed(1234)``, ``vision.models.resnet50()``, ``Model.prepare(
+    Momentum(0.1, 0.9, weight_decay=L2Decay(1e-4)), CrossEntropyLoss(),
+    Accuracy(topk=(1, 5)))``, ``fit`` over 2 epochs of RN_STEPS batches
+    of RN_B FakeData images inside ``auto_cast(dtype='bfloat16')``, then
+    ``evaluate`` on RN_EVAL batches and ``predict`` on RN_PREDICT (eval
+    mode: the running statistics), ``Model.summary`` and ``flops`` at one
+    224 x 224 image, ``save`` / ``load`` into a fresh Model, whose
+    evaluation must equal the saved one's.  Checks: finite losses, the
+    mean of the last 5 below the first 5's; every running buffer finite
+    and moved; no kernel launch and no attention-composite call; images/s,
+    step ms, MFU, one profiled step's device busy ms and idle share and
+    the peak beside the card."""
+    import io
+    import shutil
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    problems = []
+    t_data = time.perf_counter()
+    rn_data()
+    t_data = time.perf_counter() - t_data
+    m = rn_model()
+    n_params = sum(p.numel() for p in m.parameters())
+    flops = paddle.flops(m.network, [1, 3, RN_SIDE, RN_SIDE])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        summ = m.summary((1, 3, RN_SIDE, RN_SIDE))
+    rows = buf.getvalue().count("\n")
+    if summ["total_params"] != n_params or summ["trainable_params"] != n_params:
+        problems.append(f"summary {summ} against {n_params} parameters")
+    steps = 2 * RN_STEPS
+    rec = tb_step_recorder(profile_step=steps - 1)
+    before = rn_stats(m.network)
+    log(f"[train-resnet] at the start: {tb_process_state()}; FakeData "
+        f"{len(rn_data())} images built in {t_data:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        m.fit(rn_split(0, RN_STEPS), batch_size=RN_B, epochs=2,
+              shuffle=False, verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    total = read_launches()
+    rn_zero_counts("fit", total, problems)
+    rn_stats_moved("fit", before, rn_stats(m.network), problems)
+    losses = rec.losses
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or \
+            not last < first:
+        problems.append(f"losses not finite and falling: {losses}")
+    log(f"[train-resnet] {smi}: ResNet-50 {n_params / 1e6:.2f} M params f32 "
+        f"(summary: {summ}, {rows} lines), {flops} flops a 224 x 224 image "
+        f"(port's flops), auto_cast bf16, {RN_B} images of 3 x {RN_SIDE} x "
+        f"{RN_SIDE}: {steps} steps; losses {[round(x, 4) for x in losses]} "
+        f"(first 5 mean {first:.4f}, last 5 {last:.4f}); "
+        f"{rn_timing_line(rec, steps, wall, flops)}; max_memory_allocated "
+        f"{peak} bytes; kernel launches and composite calls all 0: "
+        f"{not any(total.values())}")
+    zero_launches()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        ev = m.evaluate(rn_split(RN_STEPS, RN_EVAL), batch_size=RN_B,
+                        verbose=0)
+        out = m.predict(rn_split(RN_STEPS + RN_EVAL, RN_PREDICT),
+                        batch_size=RN_B)
+    launches = read_launches()
+    rn_zero_counts("evaluate and predict", launches, problems)
+    add_launches(total, launches)
+    pred = out[0]
+    if len(pred) != RN_PREDICT or pred[0].shape != (RN_B, RN_CLASSES) or \
+            not all(np.isfinite(x).all() for x in pred):
+        problems.append(f"predict: {[x.shape for x in pred]}")
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_resnet")
+    t1 = time.perf_counter()
+    m.save(os.path.join(ck_dir, "rn"))
+    t_save = time.perf_counter() - t1
+    fresh = rn_model()
+    t1 = time.perf_counter()
+    fresh.load(os.path.join(ck_dir, "rn"))
+    t_load = time.perf_counter() - t1
+    same = all(torch.equal(a, b) for a, b in zip(
+        m.network.state_dict().values(), fresh.network.state_dict().values()))
+    zero_launches()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        ev2 = fresh.evaluate(rn_split(RN_STEPS, RN_EVAL), batch_size=RN_B,
+                             verbose=0)
+    launches = read_launches()
+    rn_zero_counts("the loaded model's evaluate", launches, problems)
+    add_launches(total, launches)
+    nbytes = sum(os.path.getsize(os.path.join(ck_dir, f))
+                 for f in os.listdir(ck_dir))
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    if ev2 != ev or not same or not np.isfinite(ev["loss"]):
+        problems.append(f"loaded model evaluates {ev2}, saved {ev}; state "
+                        f"equal {same}")
+    log(f"[train-resnet] evaluate {RN_EVAL} batches: {ev}; predict "
+        f"{RN_PREDICT} batch of {pred[0].shape}; save {t_save:.2f} s, load "
+        f"{t_load:.2f} s, {nbytes} bytes (.pdparams + .pdopt); the loaded "
+        f"model (parameters and running buffers equal: {same}) evaluates "
+        f"{ev2}")
+    del m, fresh
+    del_all()
+    if problems:
+        raise SystemExit("train-resnet failed: " + "; ".join(problems))
+    log("[train-resnet] ok")
+    return {"train-resnet": total}
+
+
+def phase_train_resnet_trainer(smi):
+    """ResNet-50 through ``prepare(strategy=...)`` with ``strategy.amp``
+    (the port's ``SpmdTrainer``: bf16 copies of the f32 masters, the
+    running buffers updated in place) for RN_TRAINER_STEPS steps.  Its
+    first step's running buffers are held to one eager ``train_batch``
+    of a twin on the same weights and batch under ``auto_cast`` within
+    TOL_RN_STATS; finite losses, every buffer moved, no kernel launch or
+    composite call; step ms, images/s, MFU and the peak beside the
+    card."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.hapi import callbacks
+    problems = []
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    strategy = DistributedStrategy()
+    strategy.amp = True
+    m = rn_model(strategy)
+    data = rn_split(0, RN_TRAINER_STEPS)
+    x = torch.stack([torch.from_numpy(data[i][0]) for i in range(RN_B)])
+    y = torch.as_tensor([int(data[i][1]) for i in range(RN_B)])
+    twin = rn_model()
+    twin.network.set_state_dict(m.network.state_dict())
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        twin.train_batch([x.cuda()], [y.cuda()])
+    eager = rn_stats(twin.network)
+    del twin
+    del_all()
+    before = rn_stats(m.network)
+
+    class FirstStep(callbacks.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if step == 0:
+                self.stats = rn_stats(m.network)
+
+    first = FirstStep()
+    rec = tb_step_recorder(profile_step=RN_TRAINER_STEPS - 1)
+    flops = paddle.flops(m.network, [1, 3, RN_SIDE, RN_SIDE])
+    log(f"[train-resnet-trainer] at the start: {tb_process_state()}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    m.fit(data, batch_size=RN_B, epochs=1, shuffle=False, verbose=0,
+          callbacks=[first, rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    rn_zero_counts("trainer", launches, problems)
+    rn_stats_moved("trainer", before, rn_stats(m.network), problems)
+    worst = max(float((first.stats[n] - b).abs().max() / rn_scale(eager, n))
+                for n, b in eager.items())
+    if not worst <= TOL_RN_STATS:
+        problems.append(f"first step's running buffers {worst:.3e} from the "
+                        f"eager loop's (tolerance {TOL_RN_STATS})")
+    if not (m._trainer is not None and m._trainer.amp_enabled and
+            m._trainer.amp_dtype == torch.bfloat16):
+        problems.append("the trainer loop did not run bf16 AMP")
+    losses = rec.losses
+    if len(losses) != RN_TRAINER_STEPS or not np.all(np.isfinite(losses)):
+        problems.append(f"losses {losses}")
+    log(f"[train-resnet-trainer] {smi}: ResNet-50 through SpmdTrainer "
+        f"(strategy.amp, bf16 copies): losses "
+        f"{[round(x, 4) for x in losses]}; first step's running buffers "
+        f"within {worst:.3e} (of each buffer's scale) of an eager "
+        f"train_batch's; {rn_timing_line(rec, RN_TRAINER_STEPS, wall, flops)}"
+        f"; max_memory_allocated {peak} bytes; kernel launches and "
+        f"composite calls all 0: {not any(launches.values())}")
+    del m
+    del_all()
+    if problems:
+        raise SystemExit("train-resnet-trainer failed: "
+                         + "; ".join(problems))
+    log("[train-resnet-trainer] ok")
+    return {"train-resnet-trainer": launches}
+
+
 def gpt_params(cfg):
     """Parameters of a GPT(-MoE) config: embeddings, blocks (an expert
     layer holds E FFNs and a router), final norm."""
@@ -6952,9 +7237,11 @@ def main():
                   phase_train_optimizers, phase_train_moe):
         del_all()
         paths.update(phase(bf16, smi))
-    for phase in (phase_train_transformer, phase_train_transformer_trainer):
+    for phase in (phase_train_transformer, phase_train_transformer_trainer,
+                  phase_train_resnet, phase_train_resnet_trainer):
         del_all()
         paths.update(phase(smi))
+    _RN_DATA.clear()
     # only the layer API's masked attention takes the composite: every
     # GPT path reads 0 composite calls
     composite = {p: n.get(COMPOSITE_KEY, 0) for p, n in paths.items()}

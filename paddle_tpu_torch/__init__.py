@@ -27,11 +27,13 @@ optimizer package (``optimizer``: ten update rules, fifteen schedules,
 the parameter EMA; ``regularizer``; ``incubate``: LookAhead,
 ModelAverage), and Paddle's layer API on one GPU (``nn.Layer`` and the
 layer zoo, ``amp.auto_cast``, ``save`` / ``load``, ``io.DataLoader``,
-``metric``, ``hapi.Model``).
+``metric``, ``hapi.Model``), and vision on one GPU (``nn``'s
+convolutions, pools and norms, ``vision.models``, ``vision.datasets``'
+synthetic data, ``vision.transforms``, ``summary`` / ``flops``).
 """
 from . import (amp, autograd, core, device, distributed, framework, hapi,
                incubate, inference, io, metric, models, nn, observability,
-               ops, optimizer, profiler, regularizer, testing, text)
+               ops, optimizer, profiler, regularizer, testing, text, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .core.dtype import (bfloat16, bool_, float16, float32, float64,
@@ -41,13 +43,14 @@ from .core.random import set_seed as seed
 from .core.tensor import Parameter, is_tensor, to_tensor
 from .device import get_device, resolve_device, set_device
 from .framework.io import load, save
-from .hapi import Model
+from .hapi import Model, flops, summary
 from .nn.layer_base import ParamAttr
 
 __all__ = ["amp", "autograd", "core", "device", "distributed", "framework",
            "hapi", "incubate", "inference", "io", "metric", "models", "nn",
            "observability", "ops", "optimizer", "profiler", "regularizer",
-           "resolve_device", "testing", "text", "Model", "ParamAttr",
+           "resolve_device", "testing", "text", "vision", "Model", "summary",
+           "flops", "ParamAttr",
            "Parameter", "to_tensor", "is_tensor", "save", "load", "seed",
            "set_device", "get_device", "no_grad", "enable_grad", "grad",
            "set_grad_enabled", "is_grad_enabled", "set_default_dtype",

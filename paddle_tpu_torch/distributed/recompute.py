@@ -29,17 +29,22 @@ An auxiliary loss (a MoE router's) made inside the region is collected
 there and returned as one of the region's outputs, then handed to the
 caller's open collector (``distributed.moe.add_aux_loss``) with its
 gradient path intact; the backward's re-run collects into its own list,
-which is thrown away, so nothing is appended twice.
+which is thrown away, so nothing is appended twice.  The re-run also
+runs inside ``nn.functional.norm.recompute_replay()``, so a batch norm
+in the region updates its running statistics once a step.
 
-A module's parameters and buffers enter the checkpointed region as
-inputs, bound as they are at the forward.  Under
-``torch.func.functional_call`` (the trainer's half-precision copies of
-the f32 masters) the module holds the swapped-in tensors only while the
-call runs; the backward's re-run gets the same tensors back from the
-inputs instead of whatever the module holds by then.
+A module's parameters enter the checkpointed region as inputs and its
+buffers through the region's closure, each bound as it is at the
+forward.  Under ``torch.func.functional_call`` (the trainer's
+half-precision copies of the f32 masters) the module holds the
+swapped-in tensors only while the call runs; the backward's re-run gets
+the same tensors back instead of whatever the module holds by then.  A
+buffer is no input of the region because a batch norm writes its
+running statistics in place, which a saved input may not take.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable, Optional
 
@@ -48,6 +53,7 @@ import torch.utils.checkpoint
 from torch.utils.checkpoint import (CheckpointPolicy,
                                     create_selective_checkpoint_contexts)
 
+from ..nn.functional.norm import recompute_replay
 from .moe import add_aux_loss, collect_aux_losses
 
 __all__ = ["recompute", "checkpoint_policy", "POLICIES"]
@@ -86,11 +92,12 @@ def recompute(function, *args, policy: Optional[str] = None, **kwargs):
     if isinstance(function, torch.nn.Module):
         module = function
         named = dict(module.named_parameters())
-        named.update(module.named_buffers())
         names, tensors = list(named), list(named.values())
+        buffers = dict(module.named_buffers())
 
         def function(*flat, **kw):
             bound = dict(zip(names, flat[:len(names)]))
+            bound.update(buffers)
             return torch.func.functional_call(module, bound,
                                               flat[len(names):], kw)
 
@@ -99,8 +106,13 @@ def recompute(function, *args, policy: Optional[str] = None, **kwargs):
         kwargs["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, policy_fn)
 
+    runs = []
+
     def region(*a, **kw):
-        with collect_aux_losses() as aux:
+        # every run after the first is the backward's replay
+        replay = recompute_replay() if runs else contextlib.nullcontext()
+        runs.append(1)
+        with collect_aux_losses() as aux, replay:
             out = function(*a, **kw)
         return out, tuple(aux)
 

@@ -46,6 +46,7 @@ from ..framework.io import save as fsave
 from ..io import DataLoader
 from ..metric.metrics import Metric
 from . import callbacks as cbks_mod
+from .model_summary import summary
 
 __all__ = ["Model"]
 
@@ -540,9 +541,8 @@ class Model:
         return self.network.parameters(*args, **kwargs)
 
     def summary(self, input_size=None, dtype=None):
-        raise NotImplementedError(
-            "Model.summary needs hapi/model_summary.py, which comes with "
-            "the vision slice (ROADMAP.md Queue 1 item 3.5)")
+        """``hapi.summary`` of the network."""
+        return summary(self.network, input_size, dtypes=dtype)
 
     # ---- helpers -----------------------------------------------------
     def _as_loader(self, data, batch_size, shuffle, drop_last, num_workers):

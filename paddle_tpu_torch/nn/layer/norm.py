@@ -1,10 +1,20 @@
-"""LayerNorm (counterpart of ``paddle_tpu/nn/layer/norm.py``).
+"""Normalization layers (counterpart of ``paddle_tpu/nn/layer/norm.py``):
+LayerNorm, the batch norms, SyncBatchNorm, GroupNorm, the instance
+norms, LocalResponseNorm, SpectralNorm and RMSNorm.
 
-The batch, group, instance, local-response, spectral and RMS norms of
-the JAX file come with the vision slice (ROADMAP.md Queue 1 item 3.5):
-their names exist here and raise."""
+A batch norm keeps its running statistics in the buffers ``_mean`` and
+``_variance`` (f32 zeros and ones), the JAX package's names, so
+``set_state_dict`` takes that package's state dict with its buffers.
+``SyncBatchNorm`` is the one-device form: a plain batch norm (the
+cross-device statistics come with the multi-GPU slice, ROADMAP.md
+Queue 1 item 3.1).
+"""
 from __future__ import annotations
 
+import torch
+
+from ...amp.auto_cast import cast_inputs
+from ...device import current_device
 from .. import functional as F
 from .. import initializer as I
 from ..layer_base import Layer
@@ -41,24 +51,235 @@ class LayerNorm(Layer):
         return f"normalized_shape={list(self.normalized_shape)}"
 
 
-def _waits(name: str):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"nn.{name} is not ported yet: it comes with the vision slice "
-            f"(ROADMAP.md Queue 1 item 3.5)")
-    return type(name, (Layer,), {"__init__": __init__,
-                                 "__module__": __name__})
+class _BatchNormBase(Layer):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = self.create_parameter(
+            [num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            [num_features], attr=bias_attr, is_bias=True)
+        dev = current_device()
+        self.register_buffer("_mean", torch.zeros(
+            num_features, dtype=torch.float32, device=dev))
+        self.register_buffer("_variance", torch.ones(
+            num_features, dtype=torch.float32, device=dev))
+
+    def forward(self, x):
+        return F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format,
+            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return f"num_features={self._num_features}"
 
 
-BatchNorm = _waits("BatchNorm")
-BatchNorm1D = _waits("BatchNorm1D")
-BatchNorm2D = _waits("BatchNorm2D")
-BatchNorm3D = _waits("BatchNorm3D")
-GroupNorm = _waits("GroupNorm")
-InstanceNorm1D = _waits("InstanceNorm1D")
-InstanceNorm2D = _waits("InstanceNorm2D")
-InstanceNorm3D = _waits("InstanceNorm3D")
-SyncBatchNorm = _waits("SyncBatchNorm")
-LocalResponseNorm = _waits("LocalResponseNorm")
-SpectralNorm = _waits("SpectralNorm")
-RMSNorm = _waits("RMSNorm")
+class BatchNorm(_BatchNormBase):
+    """The legacy ``fluid.dygraph.BatchNorm`` signature; ``act`` names
+    an activation functional applied after."""
+
+    def __init__(self, num_channels, act=None, momentum=0.9, epsilon=1e-5,
+                 param_attr=None, bias_attr=None, data_layout="NCHW",
+                 in_place=False, moving_mean_name=None,
+                 moving_variance_name=None,
+                 do_model_average_for_mean_and_var=True,
+                 use_global_stats=False, trainable_statistics=False):
+        super().__init__(num_channels, momentum, epsilon, param_attr,
+                         bias_attr, data_layout, use_global_stats or None)
+        self._act = act
+
+    def forward(self, x):
+        out = super().forward(x)
+        if self._act:
+            out = getattr(F, self._act)(out)
+        return out
+
+
+class BatchNorm1D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 use_global_stats=None, name=None):
+        fmt = "NCW" if data_format in ("NC", "NCL") else "NWC"
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, fmt, use_global_stats)
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats)
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Batch norm whose statistics would span the data-parallel
+    devices; on one device it is ``BatchNorm``."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every batch norm in it replaced by a
+        ``SyncBatchNorm`` sharing its parameters and buffers."""
+        out = layer
+        if isinstance(layer, _BatchNormBase) and \
+                not isinstance(layer, SyncBatchNorm):
+            out = SyncBatchNorm(layer._num_features, layer._momentum,
+                                layer._epsilon,
+                                data_format=layer._data_format)
+            out.weight = layer.weight
+            out.bias = layer.bias
+            out._mean = layer._mean
+            out._variance = layer._variance
+        for name, sub in list(layer.named_children()):
+            out._modules[name] = cls.convert_sync_batchnorm(sub)
+        return out
+
+
+class RMSNorm(Layer):
+    """``x * rsqrt(mean(x^2) + eps) * weight`` over the trailing
+    ``normalized_shape`` dims, in f32, cast back to the input dtype."""
+
+    def __init__(self, normalized_shape, epsilon=1e-6, weight_attr=None,
+                 name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+
+    def forward(self, x):
+        x, w = cast_inputs("rms_norm", x, self.weight)
+        dims = tuple(range(x.dim() - len(self._normalized_shape), x.dim()))
+        xf = x.float()
+        ms = (xf * xf).mean(dim=dims, keepdim=True)
+        return (xf * torch.rsqrt(ms + self._epsilon) * w).to(x.dtype)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            [num_channels], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            [num_channels], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class _InstanceNormBase(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self._data_format = data_format
+        if weight_attr is False or bias_attr is False:
+            self.weight = None
+            self.bias = None
+        else:
+            self.weight = self.create_parameter(
+                [num_features], attr=weight_attr,
+                default_initializer=I.Constant(1.0))
+            self.bias = self.create_parameter(
+                [num_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon,
+                               data_format=self._data_format)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, "NCW")
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 name=None):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args)
+
+
+class SpectralNorm(Layer):
+    """``weight / sigma``, sigma the largest singular value of
+    ``weight`` (``dim`` first, the rest flattened) by ``power_iters``
+    steps of power iteration from the kept vectors ``weight_u`` /
+    ``weight_v``; the iteration runs outside autograd and stores the
+    vectors back, so the gradient treats them as constants."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, dtype="float32"):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = eps
+        h = weight_shape[dim]
+        w = 1
+        for i, s in enumerate(weight_shape):
+            if i != dim:
+                w *= s
+        self.weight_u = self.create_parameter(
+            [h], default_initializer=I.Normal(0.0, 1.0))
+        self.weight_u.stop_gradient = True
+        self.weight_v = self.create_parameter(
+            [w], default_initializer=I.Normal(0.0, 1.0))
+        self.weight_v.stop_gradient = True
+
+    def forward(self, weight):
+        dim = self._dim
+        with torch.no_grad():
+            wm = weight.detach().movedim(dim, 0).reshape(weight.shape[dim],
+                                                         -1)
+            u, v = self.weight_u.detach(), self.weight_v.detach()
+            for _ in range(self._power_iters):
+                v = wm.T @ u
+                v = v / (torch.linalg.vector_norm(v) + self._eps)
+                u = wm @ v
+                u = u / (torch.linalg.vector_norm(u) + self._eps)
+            self.weight_u.copy_(u)
+            self.weight_v.copy_(v)
+        wm = weight.movedim(dim, 0).reshape(weight.shape[dim], -1)
+        return weight / (u @ wm @ v)

@@ -18,6 +18,8 @@ The Philox words are held to Random123's known answers, the keep bits
 to the kernels' own index arithmetic (emulated here tile by tile, as the
 forward, dq and dk/dv kernels draw them) and to binomial bounds.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np

@@ -11,6 +11,8 @@ Each test mirrors a JAX oracle (``tests/test_checkpoint_resume.py``,
   continuation, in f32: rtol 1e-5, atol 1e-6 (losses and parameters),
   the restored state itself bitwise.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import os
 import threading
 

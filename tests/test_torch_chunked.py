@@ -7,6 +7,8 @@ paged, fp or int8), for chunks of 1, 4 and 64 tokens, GQA, preemption
 and resume over progressively adopted radix blocks, and a budget
 switched between steps; and identical to the JAX package's engines on
 the same converted weights.  Host side: a chunk tick reads nothing back
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 from the device unless a slot graduates, and then once.
 """
 import numpy as np

@@ -1778,3 +1778,94 @@ def test_layer_api_route_counts_on_the_card(gen):
     with torch.no_grad(), tp.amp.auto_cast(dtype="bfloat16"):
         assert count(lambda: tr(x, x, tgt_mask=mask)) == {
             "fwd": 4, "composite": 2}
+
+
+# ---- vision ----------------------------------------------------------------
+
+@pytest.mark.parametrize("n,c,side", [(2, 8, 16), (4, 16, 15), (1, 4, 33)])
+def test_vision_ops_bf16_on_the_card_match_cpu_f32(gen, n, c, side):
+    """conv2d (stride 2, 'SAME'; a 3 x 3 with groups), max and average
+    pools (ceil_mode, exclusive), and batch norm in training under
+    auto_cast bf16 on the card against the same calls in f32 on the CPU:
+    within 2e-2 of each output's max |value| (bf16 operands, 2^-8 each;
+    the norms' statistics in f32 on both sides)."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.randn((n, c, side, side), generator=gen, device="cuda")
+    w = torch.randn((c, c // 2, 3, 3), generator=gen, device="cuda") * 0.2
+    w1 = torch.randn((2 * c, c, 3, 3), generator=gen, device="cuda") * 0.2
+    gamma = torch.rand((2 * c,), generator=gen, device="cuda") + 0.5
+    beta = torch.randn((2 * c,), generator=gen, device="cuda")
+
+    def run(x, w, w1, gamma, beta):
+        rm = torch.zeros(2 * c, device=x.device)
+        rv = torch.ones(2 * c, device=x.device)
+        y = F.conv2d(x, w1, stride=2, padding="SAME")
+        y = F.batch_norm(y, rm, rv, gamma, beta, training=True)
+        return [y, F.conv2d(x, w, padding=1, groups=2),
+                F.max_pool2d(y, 3, 2, 1, ceil_mode=True),
+                F.avg_pool2d(y, 3, 2, 1, ceil_mode=True),
+                F.adaptive_avg_pool2d(y, 3), rm, rv]
+
+    with tp.amp.auto_cast(dtype="bfloat16"):
+        card = run(x, w, w1, gamma, beta)
+    cpu = run(*(t.cpu() for t in (x, w, w1, gamma, beta)))
+    assert card[1].dtype == torch.bfloat16 and card[0].dtype == torch.float32
+    # a running mean (0.1 x a batch mean near 0) is held to 0.1 x its
+    # channels' largest batch standard deviation
+    batch_std = ((cpu[-1] - 0.9) / 0.1).max().sqrt()
+    scales = [ref.abs().max() for ref in cpu[:-2]] + [0.1 * batch_std,
+                                                      cpu[-1].abs().max()]
+    for got, ref, scale in zip(card, cpu, scales):
+        err = (got.float().cpu() - ref).abs().max()
+        assert err <= 2e-2 * scale, float(err / scale)
+
+
+@pytest.mark.parametrize("shape,fmt", [((8, 16, 12, 12), "NCHW"),
+                                       ((4, 10, 10, 24), "NHWC"),
+                                       ((64, 32), "NCHW")])
+def test_vision_batch_norm_running_stats_on_the_card_equal_cpu(gen, shape,
+                                                               fmt):
+    """Three training steps of Paddle's update (momentum 0.9, biased
+    variance) in f32 on the card against the CPU: within 1e-5 of each
+    buffer's scale."""
+    from paddle_tpu_torch.nn import functional as F
+    c = shape[-1] if fmt == "NHWC" else shape[1]
+    bufs = {d: [torch.zeros(c, device=d), torch.ones(c, device=d)]
+            for d in ("cuda", "cpu")}
+    for _ in range(3):
+        x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+        for d, (rm, rv) in bufs.items():
+            F.batch_norm(x.to(d), rm, rv, training=True, data_format=fmt)
+    for got, ref in zip(bufs["cuda"], bufs["cpu"]):
+        assert float((got.cpu() - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max().clamp_min(1.0))
+
+
+def test_vision_resnet18_train_batch_launches_no_kernel(gen):
+    """resnet18 through ``Model.train_batch`` on the card under auto_cast
+    bf16 (Momentum, CrossEntropyLoss): finite losses, moved running
+    statistics, and no launch of any hand-written kernel or of the
+    attention composite."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch.nn.functional.attention import COMPOSITE
+    from paddle_tpu_torch.ops import LAUNCHERS
+    tp.set_device("gpu")
+    tp.seed(3)
+    net = tp.vision.models.resnet18(num_classes=10)
+    m = tp.Model(net)
+    m.prepare(tp.optimizer.Momentum(learning_rate=0.01, momentum=0.9,
+                                    parameters=net.parameters()),
+              tp.nn.CrossEntropyLoss())
+    before = {k.symbol: k.launches for k in (*LAUNCHERS.values(), COMPOSITE)}
+    mean0 = net.bn1._mean.clone()
+    losses = []
+    with tp.amp.auto_cast(dtype="bfloat16"):
+        for _ in range(3):
+            x = torch.randn((8, 3, 64, 64), generator=gen, device="cuda")
+            y = torch.randint(0, 10, (8, 1), generator=gen, device="cuda")
+            losses.append(m.train_batch([x], [y])[0])
+    after = {k.symbol: k.launches for k in (*LAUNCHERS.values(), COMPOSITE)}
+    assert after == before
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert not torch.equal(net.bn1._mean, mean0)

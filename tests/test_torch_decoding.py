@@ -13,6 +13,8 @@ top-k's tie order shows.  The GPT searches run ``gpt_step_fn`` over a
 their logits differ by f32 rounding only, so the sequences must be
 equal and the scores within 1e-5 relative too.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

@@ -9,6 +9,8 @@ through the step-kind registry: every prefill of a disaggregated engine
 is timed under the worker's ``disagg`` key, none under
 ``prefill_paged``.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import time
 
 import numpy as np

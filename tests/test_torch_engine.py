@@ -5,6 +5,8 @@ bridge) and the same prompts; greedy decoding must give identical
 tokens.  The init range is raised from 0.02 to 0.2 so random weights
 produce varied tokens instead of one repeated id.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

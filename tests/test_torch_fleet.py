@@ -10,6 +10,8 @@ radix summaries at each arrival, so both fleets must evolve alike step
 by step.  Open-loop routing depends on timing and is held only to the
 load test's contract.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import sys
 import threading
 import time

@@ -8,6 +8,8 @@ process); the watchdog is driven with an injectable clock, and its
 monitor thread is polled with a generous deadline, so nothing asserts
 a wall time.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import os
 import subprocess
 import sys

@@ -20,6 +20,8 @@ ratio that sets chip_smoke's ``TOL_TEACHER_FP8``: the JAX model's own
 teacher-forced error over an fp8 cache against its error over an int8
 cache.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 import math
 import re

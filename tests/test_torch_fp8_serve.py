@@ -20,6 +20,8 @@ model's own rollout; a ``strategy.qat`` fp8 ``SpmdTrainer`` tracks the
 JAX trainer (SGD, 2 steps, losses at rtol 2e-4, parameters at 1e-5 of
 their scale).  ``run_loadtest`` on an fp8 engine.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

@@ -8,6 +8,8 @@ port runs its plain attention versions.  Tolerance: 1e-4 relative and
 absolute, the one tests/test_inference_engine.py uses for cache-vs-
 forward parity in f32.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

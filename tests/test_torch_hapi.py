@@ -2,6 +2,7 @@
 package's, on the CPU.
 
 ``Model.fit`` with SGD over 2 epochs x 3 batches (``shuffle=False``)
+import torch_cpu  # noqa: F401  (one intra-op thread)
 from the same weights: per-step losses, final parameters, ``Accuracy``,
 ``evaluate`` and ``predict`` equal to the JAX package's eager
 ``Model.fit``; ``ModelCheckpoint`` files load into the JAX network;

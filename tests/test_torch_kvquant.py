@@ -14,6 +14,8 @@ thousand may differ, scales at 1e-5.  Engine: greedy tokens identical to
 the JAX int8 engines, dense and paged, and an int8 prefix hit equal to
 the cold request.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np

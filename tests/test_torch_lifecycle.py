@@ -11,6 +11,8 @@ compared by position: request ids come from one counter per package.
 Only orderings, non-negative times and deterministic deadlines (0.0,
 one already passed, a generous 60.0) are asserted, never a wall time.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import os
 import signal
 import threading

@@ -9,6 +9,8 @@ values (requests, tokens, timed-out requests); the timed-out column and
 the ITL columns behave as in the JAX tests.  Times are only held to be
 ordered and non-negative.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

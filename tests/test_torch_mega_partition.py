@@ -10,6 +10,8 @@ must cover every (strip, k-tile) exactly once, be whole k-tiles inside
 one chunk of at most 2048 rows, give every block the same bytes to one
 weight tile, and index partials the scratch holds.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import pytest

@@ -16,6 +16,8 @@ equal caches, dense and paged, full precision and int8; engines give
 greedy tokens equal to the composed engines'; ``stats()`` reports the
 knob.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np

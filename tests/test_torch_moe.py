@@ -18,6 +18,8 @@ Tolerances, stated per check:
 - the trainer after 3 SGD steps: losses and parameters 1e-4 (SGD, since
   Adam's first steps amplify rounding).
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

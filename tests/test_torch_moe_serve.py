@@ -13,6 +13,8 @@ Tolerance: none.  Routing decisions are discrete and the streams equal;
 the loads are counts (exact), the rates and skews their ratios rounded
 as the JAX engine rounds them.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

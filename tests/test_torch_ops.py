@@ -6,8 +6,13 @@ tests hold them, in f32, to the JAX composites (``_composite``,
 (``_fwd_gqa``, ``_decode_gqa``), on the same numpy inputs.  f32 on both
 sides with highest-precision JAX matmuls, so the tolerances are f32
 rounding: 2e-5 on outputs (as tests/test_flash_attention.py), 1e-4
-absolute on lse (values up to ~10).
+absolute on lse (values up to ~10).  The JAX references run staged
+under ``jax.jit``, one program a shape: eagerly the composite compiles
+each op and interpret mode walks the kernel's grid from Python.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
+import functools
 import importlib
 
 import numpy as np
@@ -23,6 +28,38 @@ tfa = importlib.import_module("paddle_tpu_torch.ops.flash_attention")
 tda = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+
+_composite = jax.jit(jfa._composite, static_argnums=(3,))
+_fwd_gqa = jax.jit(jfa._fwd_gqa, static_argnums=(4,))
+_bwd_gqa = jax.jit(jfa._bwd_gqa, static_argnums=(7,))
+_decode_composite = jax.jit(jda._decode_composite)
+_decode_kernel = jax.jit(jda.decode_attention)
+
+
+@functools.partial(jax.jit, static_argnums=(5,))
+def _composite_vjp(q, k, v, do, mask, causal):
+    _, vjp = jax.vjp(lambda a, b, c: jfa._composite(a, b, c, causal, mask),
+                     q, k, v)
+    return vjp(do)
+
+
+@functools.partial(jax.jit, static_argnums=(3,))
+def _masked_lse(q, k, mask, causal):
+    """The masked log-sum-exp formed in JAX: -1e30 for masked scores,
+    ``m + log(max(l, 1e-30))``."""
+    s, h, d = q.shape[1], q.shape[2], q.shape[3]
+    kr = jnp.repeat(k, h // k.shape[2], axis=2)
+    sc = jnp.einsum("bqhd,bkhd->bhqk", q, kr, precision="highest") / np.sqrt(d)
+    keep = jnp.ones((s, s), bool)
+    if causal:
+        keep = jnp.tril(keep)
+    keep = keep[None, None]
+    if mask is not None:
+        keep = keep & (mask[:, None, None, :] > 0)
+    sc = jnp.where(keep, sc, -1e30)
+    mx = sc.max(-1)
+    l = jnp.where(sc <= -0.5e30, 0.0, jnp.exp(sc - mx[..., None])).sum(-1)
+    return mx + jnp.log(jnp.maximum(l, 1e-30))
 
 
 @pytest.fixture
@@ -56,13 +93,12 @@ def test_flash_plain_matches_jax(causal, g, s, interpret):
     q, k, v = make_qkv(b, s, hkv * g, hkv, d, seed=s + g)
     o, lse = tfa.flash_attention_fwd(torch.from_numpy(q), torch.from_numpy(k),
                                      torch.from_numpy(v), causal=causal)
-    ref = jfa._composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                         causal)
+    ref = _composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal)
     np.testing.assert_allclose(o.numpy(), np.asarray(ref), **TOL)
     # Pallas kernel in interpret mode: o and the per-row lse
     q4, k3, v3 = jfa._to_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    o4, lse4 = jfa._fwd_gqa(q4, k3, v3, jnp.ones((b, 1, s), jnp.float32),
-                            causal)
+    o4, lse4 = _fwd_gqa(q4, k3, v3, jnp.ones((b, 1, s), jnp.float32),
+                        causal)
     np.testing.assert_allclose(
         o.numpy(), np.asarray(jfa._from_gqa_q(o4, b, s, hkv * g, d)), **TOL)
     np.testing.assert_allclose(
@@ -78,12 +114,11 @@ def test_flash_plain_key_mask_matches_jax(causal, interpret):
     o, lse = tfa.flash_attention_fwd(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal, kv_mask=torch.from_numpy(m))
-    ref = jfa._composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                         causal, jnp.asarray(m))
+    ref = _composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                     jnp.asarray(m))
     np.testing.assert_allclose(o.numpy(), np.asarray(ref), **TOL)
     q4, k3, v3 = jfa._to_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    o4, lse4 = jfa._fwd_gqa(q4, k3, v3, jnp.asarray(m).reshape(b, 1, s),
-                            causal)
+    o4, lse4 = _fwd_gqa(q4, k3, v3, jnp.asarray(m).reshape(b, 1, s), causal)
     np.testing.assert_allclose(
         o.numpy(), np.asarray(jfa._from_gqa_q(o4, b, s, h, d)), **TOL)
     np.testing.assert_allclose(lse.numpy(),
@@ -108,23 +143,12 @@ def test_flash_plain_matches_jax_at_ragged_tiles(s, causal, masked):
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         causal=causal, kv_mask=None if m is None else torch.from_numpy(m))
     jm = None if m is None else jnp.asarray(m)
-    ref = jfa._composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                         causal, jm)
+    ref = _composite(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal,
+                     jm)
     np.testing.assert_allclose(o.numpy(), np.asarray(ref), **TOL)
-    kr = jnp.repeat(jnp.asarray(k), h // hkv, axis=2)
-    sc = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(q), kr,
-                    precision="highest") / np.sqrt(d)
-    keep = jnp.ones((s, s), bool)
-    if causal:
-        keep = jnp.tril(keep)
-    keep = keep[None, None]
-    if jm is not None:
-        keep = keep & (jm[:, None, None, :] > 0)
-    sc = jnp.where(keep, sc, -1e30)
-    mx = sc.max(-1)
-    l = jnp.where(sc <= -0.5e30, 0.0, jnp.exp(sc - mx[..., None])).sum(-1)
     np.testing.assert_allclose(
-        lse.numpy(), np.asarray(mx + jnp.log(jnp.maximum(l, 1e-30))),
+        lse.numpy(),
+        np.asarray(_masked_lse(jnp.asarray(q), jnp.asarray(k), jm, causal)),
         rtol=1e-5, atol=1e-4)
     if masked and causal:   # row 0 of the last batch row sees no key
         assert np.all(o.numpy()[-1, 0] == 0.0)
@@ -141,9 +165,8 @@ def test_decode_plain_matches_jax(hkv):
     out = tda.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
                                torch.from_numpy(v),
                                torch.from_numpy(lengths)).numpy()
-    ref = np.asarray(jda._decode_composite(jnp.asarray(q), jnp.asarray(k),
-                                           jnp.asarray(v),
-                                           jnp.asarray(lengths)))
+    ref = np.asarray(_decode_composite(jnp.asarray(q), jnp.asarray(k),
+                                       jnp.asarray(v), jnp.asarray(lengths)))
     # the composite averages uniformly over an empty slot; the kernels
     # (JAX's and the port's) give zeros there
     np.testing.assert_allclose(out[1:], ref[1:], **TOL)
@@ -151,7 +174,7 @@ def test_decode_plain_matches_jax(hkv):
     da_state = jda._STATE["interpret"]
     jda.set_interpret_mode(True)
     try:
-        kern = np.asarray(jda.decode_attention(
+        kern = np.asarray(_decode_kernel(
             jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
             jnp.asarray(lengths)))
     finally:
@@ -232,17 +255,17 @@ def _bwd_case(b, s, h, hkv, d, causal, seed, mask=None):
     grads = tfa._flash_bwd_plain(tq, tk, tv, o, lse, torch.from_numpy(do),
                                  causal, tm)
     jm = None if mask is None else jnp.asarray(mask)
-    _, vjp = jax.vjp(lambda a, bb, c: jfa._composite(a, bb, c, causal, jm),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    for name, got, ref in zip("qkv", grads, vjp(jnp.asarray(do))):
+    refs = _composite_vjp(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          jnp.asarray(do), jm, causal)
+    for name, got, ref in zip("qkv", grads, refs):
         _grad_close(got.numpy(), ref, f"d{name} vs vjp(_composite)")
     # the Pallas backward kernels in interpret mode, on the GQA layout
     q4, k3, v3 = jfa._to_gqa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     jmask = jnp.ones((b, 1, s), jnp.float32) if mask is None \
         else jnp.asarray(mask).reshape(b, 1, s)
-    o4, lse4 = jfa._fwd_gqa(q4, k3, v3, jmask, causal)
+    o4, lse4 = _fwd_gqa(q4, k3, v3, jmask, causal)
     do4 = jnp.swapaxes(jnp.asarray(do), 1, 2).reshape(b * hkv, h // hkv, s, d)
-    dq4, dk3, dv3 = jfa._bwd_gqa(q4, k3, v3, jmask, o4, lse4, do4, causal)
+    dq4, dk3, dv3 = _bwd_gqa(q4, k3, v3, jmask, o4, lse4, do4, causal)
     refs = (jfa._from_gqa_q(dq4, b, s, h, d),
             jnp.swapaxes(dk3.reshape(b, hkv, s, d), 1, 2),
             jnp.swapaxes(dv3.reshape(b, hkv, s, d), 1, 2))

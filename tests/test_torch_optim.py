@@ -14,6 +14,8 @@ Lars, with L1 / L2 regularizers) are held to the same rtol 1e-5 / atol
 ``beta ** t`` in f32 on the device where JAX, given a Python int, takes
 it in double.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 

@@ -11,6 +11,8 @@ rounding apart); LookAhead and ModelAverage rtol 1e-5, atol 1e-6 as
 trainer against the port's own eager loop, and a restored trainer
 against the one it was saved from: rtol 1e-6, atol 1e-7.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 import os
 

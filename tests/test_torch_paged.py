@@ -13,13 +13,18 @@ pool contents at every valid position equal to JAX's at 1e-5.  Engine:
 greedy tokens identical to the JAX engine in every scheduling regime of
 tests/test_paged_kv.py (mixed lengths, GQA, prefix hits, preemption,
 prefix shedding, memory-capped retirement, the head-of-line memo),
-with the same scheduler counters.
+with the same scheduler counters.  The JAX ops and model methods run
+staged under ``jax.jit`` (one compile a shape instead of one an eager
+op).
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -42,6 +47,19 @@ jqm = importlib.import_module("paddle_tpu.ops.quantized_matmul")
 tda = importlib.import_module("paddle_tpu_torch.ops.decode_attention")
 
 TOL = dict(rtol=2e-5, atol=2e-5)
+_paged_composite = jax.jit(jda._paged_composite)
+_paged_kernel = jax.jit(jda.paged_decode_attention)
+_JIT = {}
+
+
+def jit(model, method, **kw):
+    """The JAX model's method under ``jax.jit`` (one compile per shape
+    instead of one per eager op)."""
+    key = (id(model), method)
+    if key not in _JIT:
+        _JIT[key] = jax.jit(getattr(model, method), **kw)
+    return _JIT[key]
+
 LOGITS = dict(rtol=1e-4, atol=1e-4)
 TINY = dict(vocab_size=97, hidden_size=64, num_layers=2, num_heads=4,
             max_seq_len=64, initializer_range=0.2)
@@ -117,13 +135,13 @@ def test_paged_plain_matches_jax(hkv, quantized):
     out = tda.paged_decode_attention(*t).numpy()
     j = [jnp.asarray(x) if x is not None else None
          for x in (q, k, v, tables, lengths, ks, vs)]
-    ref = np.asarray(jda._paged_composite(*j))
+    ref = np.asarray(_paged_composite(*j))
     np.testing.assert_allclose(out, ref, **TOL)
     if not jda._fa._HAS_PLTPU:
         pytest.skip("pallas TPU backend unavailable: composite checked only")
     jda.set_interpret_mode(True)
     try:
-        kern = np.asarray(jda.paged_decode_attention(*j))
+        kern = np.asarray(_paged_kernel(*j))
     finally:
         jda.set_interpret_mode(None)
     np.testing.assert_allclose(out, kern, **TOL)
@@ -237,9 +255,9 @@ def test_prefill_paged_and_decode_match_jax(pair_name, kv_dtype, request):
         suffix = prompt[prefix:]
         ids = np.zeros((1, 16 if prefix == 0 else 8), np.int32)
         ids[0, :suffix.size] = suffix
-        jl, jc = jm.prefill_paged(jnp.asarray(ids), jc,
-                                  jnp.asarray(rows[slot]), prefix,
-                                  np.int32(suffix.size))
+        jl, jc = jit(jm, "prefill_paged", static_argnums=(3,))(
+            jnp.asarray(ids), jc, jnp.asarray(rows[slot]), prefix,
+            np.int32(suffix.size))
         tl, _ = tm.prefill_paged(torch.from_numpy(ids).long(), tc,
                                  torch.from_numpy(rows[slot]), prefix,
                                  suffix.size)
@@ -249,8 +267,8 @@ def test_prefill_paged_and_decode_match_jax(pair_name, kv_dtype, request):
         toks = rng.randint(1, 97, (2,)).astype(np.int32)
         if step == 1:
             rows[0, 2] = 5                  # slot 0 reaches position 16
-        jl, jc = jm.decode_step_paged(jnp.asarray(toks), jc,
-                                      jnp.asarray(rows), jnp.asarray(lengths))
+        jl, jc = jit(jm, "decode_step_paged")(
+            jnp.asarray(toks), jc, jnp.asarray(rows), jnp.asarray(lengths))
         tl, _ = tm.decode_step_paged(torch.from_numpy(toks).long(), tc,
                                      torch.from_numpy(rows),
                                      torch.from_numpy(lengths))

@@ -16,6 +16,8 @@ port's int8-compute engine equal the JAX model's own prefill + decode
 rollout; three ``SpmdTrainer`` steps with ``strategy.qat`` track the JAX
 trainer's losses at rtol 2e-4.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np

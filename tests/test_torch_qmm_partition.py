@@ -16,6 +16,8 @@ partials per piece or split, added per strip or tile in shuffled orders,
 then ``(acc * sx) * sw`` in f32) must equal ``_qmm_plain`` BITWISE in f32
 and bf16: integer sums are exact in any order.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np

@@ -11,6 +11,8 @@ token follows p (total variation against p, acceptance rate against
 the overlap of p and q, as tests/test_spec_decode.py holds the JAX
 rule), and a seeded engine replays its stream.  One host sync per tick.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ flight recorder, watchdog, a capture window) against off: identical
 tokens and an identical ``host_sync_count()`` delta.  No wall time is
 asserted.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import json
 import os
 

@@ -18,6 +18,8 @@ card uses.  Tolerances, stated per check:
   rounds its output; over two layers that leaves differences of a few
   2^-8 in the loss.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import dataclasses
 
 import numpy as np
@@ -154,14 +156,20 @@ def test_gpt_loss_and_grads_match_jax(kv, fused):
     mask = (np.random.RandomState(1).rand(*ids.shape) > 0.2
             ).astype(np.float32)
     jm.train()
-    out = jm(paddle.to_tensor(ids))
-    assert isinstance(out, tuple) == fused
-    jloss = JaxCriterion()(out, paddle.to_tensor(labels),
-                           paddle.to_tensor(mask))
-    jloss.backward()
+
+    def jax_run(i, l, m):
+        # the JAX tape, backward() included, staged under one jax.jit
+        out = jm(paddle.Tensor(i))
+        assert isinstance(out, tuple) == fused
+        jloss = JaxCriterion()(out, paddle.Tensor(l), paddle.Tensor(m))
+        jloss.backward()
+        return jloss.data, {n: p.grad.data for n, p in jm.named_parameters()}
+
+    jloss, jgrads = jax.jit(jax_run)(ids, labels, mask)
+    jm.clear_gradients()
     loss, grads = port_grads(tm, ids, labels, mask)
     np.testing.assert_allclose(loss, float(jloss), rtol=1e-4, atol=1e-4)
-    jgrads = {n: p.grad.numpy() for n, p in jm.named_parameters()}
+    jgrads = {n: np.asarray(g) for n, g in jgrads.items()}
     assert sorted(grads) == sorted(jgrads)
     for n, g in grads.items():
         _close(g, jgrads[n], 1e-4, n)

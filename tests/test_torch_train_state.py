@@ -15,6 +15,8 @@ the port's.  Tolerances, stated per check:
   (as ``tests/test_resilience.py``), and recompute against no recompute
   in the port: bitwise.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np

@@ -20,6 +20,8 @@ interpret-mode case included: forward 6.9e-7, gradients 7.1e-6, bf16
 composite also rounds its probabilities).  The JAX side of each parity
 case runs its tape (``backward()`` included) under one ``jax.jit``.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import jax

@@ -14,6 +14,8 @@ the paged version equals the dense one on the same contents.  Model:
 logits at 1e-4 and the caches at every valid position; chunks driven to
 the end of a prompt equal the monolithic prefill.
 """
+import torch_cpu  # noqa: F401  (one intra-op thread)
+from torch_cpu import unoptimized_jax_compiles  # noqa: F401
 import importlib
 
 import numpy as np
