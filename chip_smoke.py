@@ -296,7 +296,25 @@ before the result lines:
 29. train-transformer-trainer: the same network through
    ``prepare(strategy=...)`` with ``strategy.amp`` (``SpmdTrainer``) for
    10 steps, the same launch and composite counts.  Every other path
-   must read 0 composite calls.
+   must read 0 composite calls;
+30. workers: the DataLoader's fork workers over shared-memory rings on
+   four batches of FakeData, bitwise equal to ``num_workers=0``'s; under
+   ``PADDLE_FAULT_WORKER_KILL="1:1"`` the same batches with one restart,
+   and a ``RuntimeError`` naming worker 1 without restarts; no child or
+   ring left;
+31. train-resnet: ResNet-50 (B=128, 224 x 224, 1000 classes) through
+   ``Model.fit`` under ``auto_cast`` bf16, fed by
+   ``DataLoader(num_workers=W, shm_ring_capacity=RN_RING)`` (W from the
+   cores and ``/dev/shm``; the phase fails unless every epoch's frames
+   came from W fork workers), then evaluate, predict, summary, flops,
+   save / load; images/s over the step and the fit's wall, step and
+   period ms, fork, pop, unpickle and H2D ms;
+32. train-resnet-trainer: the same through ``SpmdTrainer``, fed the same
+   way;
+33. detect: every op of ``vision.ops`` at published detection shapes
+   (Faster R-CNN's RPN NMS and RoI heads, SSD300's priors, DCNv2's c5,
+   YOLOv3's three heads) on the card against the CPU, with each op's ms.
+   Rows 1-11 launch 0 times on phases 30-33.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -6890,6 +6908,18 @@ RN_PEAK_FLOPS = 989e12
 # (``rn_scale``)
 TOL_RN_STATS = 5e-2
 _RN_DATA = []
+# ResNet-50's feed: DataLoader fork workers over shared-memory rings.  One
+# batch is 128 x 3 x 224 x 224 f32 = 77 070 336 bytes plus its labels, and a
+# ring takes frames up to half its capacity (the default 32 MiB raises), so
+# each worker's ring holds 160 MiB
+RN_RING = 160 << 20
+RN_LOADER_TIMEOUT = 120  # s one pop may wait
+# the workers check: RN_CHECK_BATCHES batches of RN_CHECK_B images over two
+# workers, so worker 1 makes two batches and a kill after its first leaves
+# the second to a restart (with two batches it would push its only batch
+# and die with nothing left to lose)
+RN_CHECK_B, RN_CHECK_BATCHES = 32, 4
+_RN_WORKERS = []
 
 
 def rn_data():
@@ -6908,6 +6938,93 @@ def rn_data():
 def rn_split(start, batches):
     from paddle_tpu_torch.io import Subset
     return Subset(rn_data(), range(start * RN_B, (start + batches) * RN_B))
+
+
+def rn_workers(smi):
+    """The workers feeding ResNet-50: min(10, cores - 2), fewer where
+    /dev/shm cannot hold that many rings.  Fails where the ring's library
+    does not build, fork is missing or /dev/shm holds fewer than two rings:
+    the phases must not fall back to threads or to this process."""
+    if not _RN_WORKERS:
+        import multiprocessing as mp
+        import shutil
+        from paddle_tpu_torch.io.shm_ring import ShmRing, available
+        cores = len(os.sched_getaffinity(0))
+        shm = shutil.disk_usage("/dev/shm")
+        if not available():
+            raise SystemExit("workers: the shared-memory ring's library did "
+                             "not build (no C compiler?)")
+        if "fork" not in mp.get_all_start_methods():
+            raise SystemExit("workers: no fork start method")
+        ring = ShmRing.needed(RN_RING)
+        w = min(10, cores - 2, shm.free // ring)
+        log(f"[workers] {smi}: {cores} cores (os.sched_getaffinity), "
+            f"/dev/shm total {shm.total} free {shm.free} bytes, a ring "
+            f"{ring} bytes: W = {w} (min(10, cores - 2) = "
+            f"{min(10, cores - 2)}, /dev/shm holds {shm.free // ring})")
+        if w < 2:
+            raise SystemExit(f"workers: W = {w}: /dev/shm ({shm.free} bytes "
+                             f"free) or the cores ({cores}) are too few")
+        _RN_WORKERS.append(w)
+    return _RN_WORKERS[0]
+
+
+def rn_loader(start, batches, workers):
+    """``DataLoader`` over ``rn_split(start, batches)`` on ``workers`` fork
+    workers."""
+    from paddle_tpu_torch.io import DataLoader
+    return DataLoader(rn_split(start, batches), batch_size=RN_B,
+                      num_workers=workers, shm_ring_capacity=RN_RING,
+                      timeout=RN_LOADER_TIMEOUT)
+
+
+def rn_feed_recorder(loader):
+    """A callback keeping the loader's ``worker_stats`` of every epoch."""
+    from paddle_tpu_torch.hapi import callbacks
+
+    class Feed(callbacks.Callback):
+        def __init__(self):
+            super().__init__()
+            self.epochs = []
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.epochs.append(loader.worker_stats)
+
+    return Feed()
+
+
+def rn_feed_check(tag, feed, workers, epochs, batches, problems):
+    """Each epoch forked ``workers`` workers and popped ``batches`` frames
+    from ``min(workers, batches)`` of them, with no restart; -> the
+    timing line (fork ms a worker, the consumer's pop and unpickle ms and
+    the host ms of the move to the card a batch)."""
+    for i, st in enumerate(feed.epochs):
+        if not (st.get("mode") == "processes" and st["workers"] == workers
+                and len(st["producers"]) == min(workers, batches)
+                and len(set(st["pids"])) == workers
+                and os.getpid() not in st["pids"]
+                and st["popped"] == batches and st["restarts"] == 0):
+            brief = {k: v for k, v in st.items()
+                     if k not in ("pop_ms", "unpickle_ms", "h2d_ms")}
+            problems.append(f"{tag}: epoch {i}'s feed did not run on "
+                            f"{workers} fork workers: {brief}")
+    if len(feed.epochs) != epochs:
+        problems.append(f"{tag}: {len(feed.epochs)} epochs recorded")
+    if problems:
+        return ""
+    fork = [x for st in feed.epochs for x in st["fork_ms"]]
+    # the first pop of an epoch waits for the workers' first batches
+    pop = [x for st in feed.epochs for x in st["pop_ms"][1:]]
+    first = [round(st["pop_ms"][0], 1) for st in feed.epochs]
+    unpk = [x for st in feed.epochs for x in st["unpickle_ms"]]
+    h2d = [x for st in feed.epochs for x in st["h2d_ms"]]
+    return (f"feed: {workers} fork workers an epoch, "
+            f"{sum(st['popped'] for st in feed.epochs)} frames popped; fork "
+            f"ms a worker median {np.median(fork):.2f} max {max(fork):.2f}; "
+            f"the consumer a batch: pop ms median {np.median(pop):.2f} (the "
+            f"first pop of each epoch {first}), unpickle ms median "
+            f"{np.median(unpk):.2f}, H2D ms (host, pageable) median "
+            f"{np.median(h2d):.2f}")
 
 
 def rn_model(strategy=None):
@@ -7000,6 +7117,9 @@ def phase_train_resnet(smi):
     steps = 2 * RN_STEPS
     rec = tb_step_recorder(profile_step=steps - 1)
     before = rn_stats(m.network)
+    workers = rn_workers(smi)
+    loader = rn_loader(0, RN_STEPS, workers)
+    feed = rn_feed_recorder(loader)
     log(f"[train-resnet] at the start: {tb_process_state()}; FakeData "
         f"{len(rn_data())} images built in {t_data:.2f} s")
     torch.cuda.synchronize()
@@ -7007,13 +7127,14 @@ def phase_train_resnet(smi):
     zero_launches()
     t0 = time.perf_counter()
     with paddle.amp.auto_cast(dtype="bfloat16"):
-        m.fit(rn_split(0, RN_STEPS), batch_size=RN_B, epochs=2,
-              shuffle=False, verbose=0, callbacks=[rec])
+        m.fit(loader, batch_size=RN_B, epochs=2, shuffle=False, verbose=0,
+              callbacks=[rec, feed])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     total = read_launches()
     rn_zero_counts("fit", total, problems)
+    feed_line = rn_feed_check("fit", feed, workers, 2, RN_STEPS, problems)
     rn_stats_moved("fit", before, rn_stats(m.network), problems)
     losses = rec.losses
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
@@ -7025,9 +7146,9 @@ def phase_train_resnet(smi):
         f"(port's flops), auto_cast bf16, {RN_B} images of 3 x {RN_SIDE} x "
         f"{RN_SIDE}: {steps} steps; losses {[round(x, 4) for x in losses]} "
         f"(first 5 mean {first:.4f}, last 5 {last:.4f}); "
-        f"{rn_timing_line(rec, steps, wall, flops)}; max_memory_allocated "
-        f"{peak} bytes; kernel launches and composite calls all 0: "
-        f"{not any(total.values())}")
+        f"{rn_timing_line(rec, steps, wall, flops)}; {feed_line}; "
+        f"max_memory_allocated {peak} bytes; kernel launches and composite "
+        f"calls all 0: {not any(total.values())}")
     zero_launches()
     with paddle.amp.auto_cast(dtype="bfloat16"):
         ev = m.evaluate(rn_split(RN_STEPS, RN_EVAL), batch_size=RN_B,
@@ -7116,18 +7237,23 @@ def phase_train_resnet_trainer(smi):
     first = FirstStep()
     rec = tb_step_recorder(profile_step=RN_TRAINER_STEPS - 1)
     flops = paddle.flops(m.network, [1, 3, RN_SIDE, RN_SIDE])
+    workers = rn_workers(smi)
+    loader = rn_loader(0, RN_TRAINER_STEPS, workers)
+    feed = rn_feed_recorder(loader)
     log(f"[train-resnet-trainer] at the start: {tb_process_state()}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.perf_counter()
-    m.fit(data, batch_size=RN_B, epochs=1, shuffle=False, verbose=0,
-          callbacks=[first, rec])
+    m.fit(loader, batch_size=RN_B, epochs=1, shuffle=False, verbose=0,
+          callbacks=[first, rec, feed])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = read_launches()
     rn_zero_counts("trainer", launches, problems)
+    feed_line = rn_feed_check("trainer", feed, workers, 1, RN_TRAINER_STEPS,
+                              problems)
     rn_stats_moved("trainer", before, rn_stats(m.network), problems)
     worst = max(float((first.stats[n] - b).abs().max() / rn_scale(eager, n))
                 for n, b in eager.items())
@@ -7145,8 +7271,8 @@ def phase_train_resnet_trainer(smi):
         f"{[round(x, 4) for x in losses]}; first step's running buffers "
         f"within {worst:.3e} (of each buffer's scale) of an eager "
         f"train_batch's; {rn_timing_line(rec, RN_TRAINER_STEPS, wall, flops)}"
-        f"; max_memory_allocated {peak} bytes; kernel launches and "
-        f"composite calls all 0: {not any(launches.values())}")
+        f"; {feed_line}; max_memory_allocated {peak} bytes; kernel launches "
+        f"and composite calls all 0: {not any(launches.values())}")
     del m
     del_all()
     if problems:
@@ -7154,6 +7280,458 @@ def phase_train_resnet_trainer(smi):
                          + "; ".join(problems))
     log("[train-resnet-trainer] ok")
     return {"train-resnet-trainer": launches}
+
+
+def phase_workers(smi):
+    """The DataLoader's fork workers on the card, before ResNet-50's fit
+    takes them: RN_CHECK_BATCHES batches of RN_CHECK_B FakeData images
+    from two workers over RN_RING rings, bitwise equal to
+    ``num_workers=0``'s on the card; the same under
+    ``PADDLE_FAULT_WORKER_KILL="1:1"`` (worker 1 exits 137 after its first
+    batch, ring left open) with ``worker_restarts=1`` (one restart); with
+    ``worker_restarts=0`` a ``RuntimeError`` naming worker 1 within the
+    loader's timeout.  No child and no ring is left; no kernel launch."""
+    import multiprocessing as mp
+    import shutil
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import DataLoader
+    paddle.set_device("gpu")
+    rn_workers(smi)
+    problems = []
+    data = rn_split(0, RN_CHECK_B * RN_CHECK_BATCHES // RN_B)
+    fr_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "chip_smoke_flightrec")
+    saved = {k: os.environ.get(k) for k in ("PADDLE_FAULT_WORKER_KILL",
+                                            "PADDLE_TPU_FLIGHTREC_DIR")}
+
+    def run(workers, **kw):
+        loader = DataLoader(data, batch_size=RN_CHECK_B, num_workers=workers,
+                            shm_ring_capacity=RN_RING,
+                            timeout=RN_LOADER_TIMEOUT, **kw)
+        t0 = time.perf_counter()
+        out = [(x, y) for x, y in loader]
+        return loader, out, time.perf_counter() - t0
+
+    def equal(a, b):
+        return len(a) == len(b) == RN_CHECK_BATCHES and all(
+            x.device.type == "cuda" and torch.equal(x, u) and
+            torch.equal(y, v) for (x, y), (u, v) in zip(a, b))
+
+    zero_launches()
+    _, ref, t_ref = run(0)
+    plain, got, t_w = run(2)
+    st = plain.worker_stats
+    if not (st["mode"] == "processes" and len(st["producers"]) == 2
+            and st["popped"] == RN_CHECK_BATCHES and equal(got, ref)):
+        problems.append(f"two workers: mode {st['mode']}, frames from "
+                        f"{st.get('producers')}, popped {st.get('popped')}, "
+                        f"batches equal {equal(got, ref)}")
+    rings = list(st.get("rings", []))
+    try:
+        os.environ["PADDLE_FAULT_WORKER_KILL"] = "1:1"
+        os.environ["PADDLE_TPU_FLIGHTREC_DIR"] = fr_dir
+        revived, again, t_kill = run(2, worker_restarts=1)
+        rs = revived.worker_stats
+        rings += rs["rings"]
+        if rs["restarts"] != 1 or not equal(again, ref):
+            problems.append(f"kill with a restart: {rs['restarts']} "
+                            f"restarts, batches equal {equal(again, ref)}")
+        t0 = time.perf_counter()
+        raised = ""
+        try:
+            run(2, worker_restarts=0)
+        except RuntimeError as e:
+            raised = str(e)
+        t_raise = time.perf_counter() - t0
+        if "worker 1 died" not in raised or t_raise >= RN_LOADER_TIMEOUT:
+            problems.append(f"kill without restarts: raised {raised!r} "
+                            f"after {t_raise:.2f} s")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        bundles = len([d for d in os.listdir(fr_dir)
+                       if not d.endswith(".tmp")]) \
+            if os.path.isdir(fr_dir) else 0
+        shutil.rmtree(fr_dir, ignore_errors=True)
+    if bundles < 2:
+        problems.append(f"{bundles} flight-recorder bundles from the killed "
+                        f"workers (at least 2)")
+    left = [n for n in rings if os.path.exists(f"/dev/shm/{n}")]
+    if mp.active_children() or left:
+        problems.append(f"left behind: children {mp.active_children()}, "
+                        f"rings {left}")
+    launches = read_launches()
+    rn_zero_counts("workers", launches, problems)
+    log(f"[workers] {smi}: {RN_CHECK_BATCHES} batches of {RN_CHECK_B} images: "
+        f"num_workers=0 {t_ref:.2f} s, two workers {t_w:.2f} s (fork ms "
+        f"{[round(x, 2) for x in st['fork_ms']]}), bitwise equal; worker 1 "
+        f"killed after its first batch: one restart, equal batches in "
+        f"{t_kill:.2f} s; without restarts: {raised!r} after {t_raise:.2f} "
+        f"s; {bundles} flight-recorder bundles from the killed workers; no "
+        f"child or ring left; kernel launches and composite calls all 0: "
+        f"{not any(launches.values())}")
+    if problems:
+        raise SystemExit("workers failed: " + "; ".join(problems))
+    log("[workers] ok")
+    return {"workers": launches}
+
+
+# ---------------------------------------------------------------------------
+# detect: every op of vision.ops at published shapes.  Faster R-CNN's test
+# scale (800 x 1344, Ren et al. 2015): the C4 map at stride 16 is 50 x 84;
+# the RPN keeps the top 1000 of 6000 proposals at IoU 0.7; the detector
+# samples 512 RoIs an image at output 14 (its C5 head) and keeps 100 of
+# 80 classes at score 0.05, IoU 0.5.  SSD300's six prior maps.  DCNv2's
+# ResNet-50 c5 (a 25 x 42 map at that scale, 512 channels, 3 x 3, with a
+# mask).  YOLOv3's three heads at 608 x 608 (its nine anchors, 80 classes,
+# ignore 0.7), batch 8, 50 gt boxes an image.
+# ---------------------------------------------------------------------------
+DET_H, DET_W, DET_STRIDE = 800, 1344, 16
+DET_PROPOSALS, DET_RPN_IOU, DET_RPN_TOP = 6000, 0.7, 1000
+DET_ROIS, DET_ROI_OUT = 512, 14
+DET_C4, DET_C5 = 1024, 512  # channels of the C4 map and of DCNv2's c5
+# RoIs an image held against the CPU (the CPU's f32 samples and their
+# backward take about 1.5 s an op at 32 RoIs an image, 4 s at 64): the
+# card runs all 512 too, timed
+DET_ROIS_CPU = 32
+DET_YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                    156, 198, 373, 326]
+# f32 on both sides: the same elementwise operations (exp, log, sigmoid
+# and a division by a scalar, which the card takes as a product with its
+# reciprocal, within an ulp), sums in another order; x max |cpu output|
+TOL_DET_F32 = 1e-5
+# the f32 sampling ops (RoI align / pool, deformable convolution): a
+# sample coordinate an ulp apart (about 4e-6 at coordinates near 50, the
+# scalar division above) moves a bilinear weight by as much, times the
+# map's difference between neighbours; x max |cpu output|
+TOL_DET_SAMPLE = 1e-4
+# roi_pool's gradient goes to the largest of a bin's four samples, so a
+# near-tie that those ulps order differently sends a bin's gradient to
+# another sample: its d x is held in the L2 norm, relative to the CPU's
+TOL_DET_POOL_L2 = 1e-3
+# bf16 on the card (RoI ops, deformable convolution) against f32 on the
+# CPU over the same bf16-rounded inputs, x max |cpu output|
+TOL_DET_BF16 = 1e-2
+# NMS keep sets must be equal but where a pair's IoU lies this close to the
+# threshold (card and CPU may round it to either side)
+TOL_NMS_IOU = 1e-5
+
+
+def det_timed(fn):
+    """``fn()`` and its milliseconds on the host clock, the card drained
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def det_near_pairs(boxes, thr):
+    """Pairs of ``boxes`` (f32, CPU) whose IoU lies within TOL_NMS_IOU of
+    ``thr``."""
+    from paddle_tpu_torch.vision import ops as V
+    iou = V.box_iou(boxes, boxes)
+    return int(((iou - thr).abs() <= TOL_NMS_IOU).triu(1).sum())
+
+
+def phase_detect(smi):
+    """Every op of ``vision.ops`` on the card at the published shapes
+    above, held against the same port function on the CPU (f32 there):
+    anchors and RPN proposals (``generate_anchors``, ``box_coder`` decode,
+    ``box_clip``, ``box_area``, ``box_iou``), the RPN's ``nms``, box coding
+    over 1000 x 81, ``multiclass_nms`` and ``detection_map`` on its rows,
+    SSD300's ``prior_box`` maps (8732 priors), ``roi_align`` /
+    ``roi_pool`` on the C4 map with the backward (bf16 on the card; the
+    CPU holds DET_ROIS_CPU RoIs an image), ``deform_conv2d`` with a mask
+    (and ``DeformConv2D``) with the backward (bf16), ``yolo_box`` and
+    ``yolo_loss`` with its backward on the three heads (f32).  Each op's
+    card ms is printed; rows 1-11 launch 0 times."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision import ops as V
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    problems, worst, ms, cpu_ms = [], {}, {}, {}
+    rng = np.random.RandomState(1234)
+    t_phase = time.perf_counter()
+    zero_launches()
+
+    def f32(what, card, cpu, tol=TOL_DET_F32):
+        """max |card - cpu| within ``tol`` x max |cpu|."""
+        card, cpu = card.detach().float().cpu(), cpu.detach().float()
+        if card.shape != cpu.shape:
+            problems.append(f"{what}: shapes {tuple(card.shape)} "
+                            f"{tuple(cpu.shape)}")
+            return
+        rel = float((card - cpu).abs().max() /
+                    cpu.abs().max().clamp_min(1e-30))
+        worst[what] = rel
+        if not rel <= tol:
+            problems.append(f"{what}: {rel:.3e} (tolerance {tol})")
+
+    def bf16(what, card, cpu):
+        card, cpu = card.detach().float().cpu(), cpu.detach().float()
+        rel = float((card - cpu).abs().max() / cpu.abs().max().clamp_min(
+            1e-30))
+        worst[what] = rel
+        if not (torch.isfinite(card).all() and rel <= TOL_DET_BF16):
+            problems.append(f"{what}: {rel:.3e} of its scale")
+
+    def on_cpu(fn):
+        paddle.set_device("cpu")
+        try:
+            return fn()
+        finally:
+            paddle.set_device("gpu")
+
+    # anchors on the C4 map and 6000 RPN proposals decoded from them
+    fh, fw = DET_H // DET_STRIDE, DET_W // DET_STRIDE
+    anchor_kw = dict(sizes=(32, 64, 128, 256, 512),
+                     aspect_ratios=(0.5, 1.0, 2.0))
+    anchors, ms["generate_anchors"] = det_timed(
+        lambda: V.generate_anchors(fh, fw, DET_STRIDE, **anchor_kw))
+    cpu_anchors = on_cpu(lambda: V.generate_anchors(fh, fw, DET_STRIDE,
+                                                    **anchor_kw))
+    if not (anchors.device.type == "cuda" and
+            torch.equal(anchors.cpu(), cpu_anchors)):
+        problems.append("generate_anchors differ")
+    pick = torch.from_numpy(rng.choice(fh * fw * 15, DET_PROPOSALS,
+                                       replace=False))
+    sel = cpu_anchors.reshape(-1, 4)[pick]
+    deltas = torch.from_numpy(rng.normal(0, 1, (DET_PROPOSALS, 4)).astype(
+        np.float32))
+    var = (0.1, 0.1, 0.2, 0.2)
+    dec, ms["box_coder decode"] = det_timed(lambda: V.box_coder(
+        sel.cuda(), deltas.cuda(), "decode_center_size", var))
+    cpu_dec = V.box_coder(sel, deltas, "decode_center_size", var)
+    f32("box_coder decode", dec, cpu_dec)
+    props, ms["box_clip"] = det_timed(lambda: V.box_clip(dec, (DET_H, DET_W)))
+    cpu_props = V.box_clip(cpu_dec, (DET_H, DET_W))
+    f32("box_clip", props, cpu_props)
+    props = cpu_props.cuda()   # the CPU's proposals feed both sides on
+    area, ms["box_area"] = det_timed(lambda: V.box_area(props))
+    f32("box_area", area, V.box_area(cpu_props))
+    iou, ms["box_iou"] = det_timed(lambda: V.box_iou(props[:1000], props))
+    f32("box_iou", iou, V.box_iou(cpu_props[:1000], cpu_props))
+    del iou
+
+    # the RPN's NMS
+    scores = torch.from_numpy(rng.uniform(0, 1, DET_PROPOSALS).astype(
+        np.float32))
+    V.nms(props[:16], scores[:16].cuda(), DET_RPN_IOU)  # warm-up
+    keep, ms["nms"] = det_timed(lambda: V.nms(props, scores.cuda(),
+                                              DET_RPN_IOU, top_k=DET_RPN_TOP))
+    cpu_keep, cpu_ms["nms"] = det_timed(lambda: V.nms(
+        cpu_props, scores, DET_RPN_IOU, top_k=DET_RPN_TOP))
+    near = det_near_pairs(cpu_props, DET_RPN_IOU)
+    same_keep = torch.equal(keep.cpu(), cpu_keep)
+    if not (same_keep or near) or len(cpu_keep) != DET_RPN_TOP:
+        problems.append(f"nms: {len(keep)} / {len(cpu_keep)} kept, equal "
+                        f"{same_keep}, {near} pairs near the threshold")
+
+    # box coding over 1000 x 81 (a box a class for each RoI)
+    priors = cpu_props[:1000, None, :]
+    per_class = (cpu_props[:1000, None, :] + torch.from_numpy(rng.normal(
+        0, 8, (1000, 81, 4)).astype(np.float32))).clamp(0, DET_W)
+    per_class[..., 2:] = torch.maximum(per_class[..., 2:],
+                                       per_class[..., :2] + 1)
+    enc, ms["box_coder encode"] = det_timed(lambda: V.box_coder(
+        priors.cuda(), per_class.cuda(), "encode_center_size", var))
+    cpu_enc = V.box_coder(priors, per_class, "encode_center_size", var)
+    f32("box_coder encode", enc, cpu_enc)
+
+    # multiclass NMS over 1000 boxes x 80 classes (a softmax over 81 with
+    # the background dropped, about 50 boxes a class above 0.05), and mAP
+    # on its rows
+    cls_scores = torch.softmax(torch.from_numpy(rng.normal(
+        0, 2, (1000, 81)).astype(np.float32)), -1)[:, 1:].T.contiguous()
+    mkw = dict(score_threshold=0.05, keep_top_k=100, nms_threshold=0.5)
+    det, ms["multiclass_nms"] = det_timed(lambda: V.multiclass_nms(
+        props[:1000], cls_scores.cuda(), **mkw))
+    cpu_det, cpu_ms["multiclass_nms"] = det_timed(
+        lambda: V.multiclass_nms(cpu_props[:1000], cls_scores, **mkw))
+    same_det = torch.equal(det.cpu(), cpu_det)
+    mnear = 0 if same_det else det_near_pairs(cpu_props[:1000], 0.5)
+    if not (same_det or mnear) or tuple(cpu_det.shape) != (100, 6) or \
+            det.device.type != "cuda":
+        problems.append(f"multiclass_nms: {tuple(det.shape)} on "
+                        f"{det.device}, equal {same_det}, {mnear} pairs near")
+    gt = cpu_det[::2, 2:] + torch.from_numpy(rng.normal(0, 2, (50, 4)).astype(
+        np.float32))
+    gt_lab = cpu_det[::2, 0].long()
+    mean_ap, ms["detection_map"] = det_timed(
+        lambda: V.detection_map([det], [gt], [gt_lab]))
+    cpu_map = V.detection_map([cpu_det], [gt], [gt_lab])
+    if not (mean_ap == cpu_map and 0.0 < cpu_map < 1.0):
+        problems.append(f"detection_map {mean_ap} against {cpu_map}")
+
+    # SSD300's prior maps
+    ssd = [(38, 30, 60, (2,), 8), (19, 60, 111, (2, 3), 16),
+           (10, 111, 162, (2, 3), 32), (5, 162, 213, (2, 3), 64),
+           (3, 213, 264, (2,), 100), (1, 264, 315, (2,), 300)]
+
+    def priors_of():
+        return [V.prior_box(f, f, 300, 300, (lo,), (hi,), (1.0, *ar),
+                            flip=True, step=step, clip=True)
+                for f, lo, hi, ar, step in ssd]
+
+    boxes_ssd, ms["prior_box"] = det_timed(priors_of)
+    cpu_ssd = on_cpu(priors_of)
+    n_priors = sum(b.shape[0] * b.shape[1] * b.shape[2] for b in boxes_ssd)
+    if n_priors != 8732 or not all(torch.equal(a.cpu(), b) for a, b in
+                                   zip(boxes_ssd, cpu_ssd)):
+        problems.append(f"prior_box: {n_priors} priors")
+
+    # RoI align / pool on the C4 map with the backward: f32 on both sides
+    # at DET_ROIS_CPU RoIs an image, then bf16 on the card at DET_ROIS (its
+    # rows of the cut RoIs against the CPU's: RoIs are independent)
+    x = torch.randn(2, DET_C4, fh, fw).to(torch.bfloat16).float()
+    rois = cpu_props[:2 * DET_ROIS]
+    num = torch.tensor([DET_ROIS, DET_ROIS])
+    rows = torch.cat([torch.arange(DET_ROIS_CPU),
+                      torch.arange(DET_ROIS, DET_ROIS + DET_ROIS_CPU)])
+    cut, cut_num = rois[rows], torch.tensor([DET_ROIS_CPU, DET_ROIS_CPU])
+    roi_kw = dict(output_size=DET_ROI_OUT, spatial_scale=1.0 / DET_STRIDE)
+    for name in ("roi_align", "roi_pool"):
+        op = getattr(V, name)
+
+        def fwd_bwd(xs, boxes, n, cot):
+            xs = xs.detach().requires_grad_()
+            out = op(xs, boxes, n, **roi_kw)
+            out.backward(cot)
+            return out, xs.grad
+
+        cot = torch.randn(2 * DET_ROIS_CPU, DET_C4, DET_ROI_OUT, DET_ROI_OUT)
+        fwd_bwd(x.cuda(), cut.cuda(), cut_num.cuda(), cot.cuda())
+        (out, grad), ms[f"{name} f32 fwd+bwd, {DET_ROIS_CPU} RoIs"] = \
+            det_timed(lambda: fwd_bwd(x.cuda(), cut.cuda(), cut_num.cuda(),
+                                      cot.cuda()))
+        (cpu_out, cpu_grad), cpu_ms[f"{name} fwd+bwd"] = det_timed(
+            lambda: fwd_bwd(x, cut, cut_num, cot))
+        f32(f"{name} f32, {DET_ROIS_CPU} RoIs an image", out, cpu_out,
+            TOL_DET_SAMPLE)
+        if name == "roi_align":
+            f32(f"{name} f32 d x", grad, cpu_grad, TOL_DET_SAMPLE)
+        else:
+            diff = grad.cpu() - cpu_grad
+            l2 = float(diff.norm() / cpu_grad.norm())
+            worst[f"{name} f32 d x (L2)"] = l2
+            worst[f"{name} f32 d x (max)"] = float(
+                diff.abs().max() / cpu_grad.abs().max())
+            if not l2 <= TOL_DET_POOL_L2:
+                problems.append(f"{name} d x: L2 {l2:.3e}")
+        del out, grad, cot, cpu_grad
+        full_cot = torch.randn(2 * DET_ROIS, DET_C4, DET_ROI_OUT,
+                               DET_ROI_OUT, device="cuda",
+                               dtype=torch.bfloat16)
+        xb = x.cuda().to(torch.bfloat16)
+        fwd_bwd(xb, rois.cuda(), num.cuda(), full_cot)
+        (out, grad), ms[f"{name} bf16 fwd+bwd, {DET_ROIS} RoIs"] = \
+            det_timed(lambda: fwd_bwd(xb, rois.cuda(), num.cuda(), full_cot))
+        bf16(f"{name} bf16, its rows of the cut RoIs", out[rows.cuda()],
+             cpu_out)
+        if not (torch.isfinite(out).all() and torch.isfinite(grad).all()):
+            problems.append(f"{name} at {DET_ROIS} RoIs an image: not finite")
+        del out, grad, full_cot, xb, cpu_out
+    del_all()
+
+    # deformable convolution v2 at DCNv2's ResNet-50 c5 shape: f32 on both
+    # sides, then bf16 on the card (offsets in f32) against the CPU's f32
+    dh, dw = fh // 2, fw // 2
+    layer = V.DeformConv2D(DET_C5, DET_C5, 3, padding=1)
+    dargs = [torch.randn(2, DET_C5, dh, dw), torch.randn(2, 18, dh, dw),
+             layer.weight.detach().cpu(), torch.rand(2, 9, dh, dw),
+             torch.randn(DET_C5) * 0.1, torch.randn(2, DET_C5, dh, dw)]
+
+    def deform(x_, off, w, m, b, cot):
+        args = [t.detach().requires_grad_() for t in (x_, off, w, m, b)]
+        out = V.deform_conv2d(args[0], args[1], args[2], args[4],
+                              padding=1, mask=args[3])
+        out.backward(cot.to(out.dtype))
+        return [out] + [a.grad for a in args]
+
+    card_args = [t.cuda() for t in dargs]
+    deform(*card_args)
+    got, ms["deform_conv2d f32 fwd+bwd"] = det_timed(
+        lambda: deform(*card_args))
+    ref, cpu_ms["deform_conv2d fwd+bwd"] = det_timed(lambda: deform(*dargs))
+    for what, a, b in zip(("out", "d x", "d offset", "d weight", "d mask",
+                           "d bias"), got, ref):
+        f32(f"deform_conv2d f32 {what}", a, b, TOL_DET_SAMPLE)
+    half = [t if i == 1 else t.to(torch.bfloat16)
+            for i, t in enumerate(card_args)]
+    deform(*half)
+    got, ms["deform_conv2d bf16 fwd+bwd"] = det_timed(lambda: deform(*half))
+    bf16("deform_conv2d bf16 out", got[0], ref[0])
+    if not all(torch.isfinite(g).all() for g in got):
+        problems.append("deform_conv2d bf16: not finite")
+    lay_out = layer(card_args[0], card_args[1], card_args[3])
+    f32("DeformConv2D", lay_out, V.deform_conv2d(
+        dargs[0], dargs[1], dargs[2], layer.bias.detach().cpu(), padding=1,
+        mask=dargs[3]), TOL_DET_SAMPLE)
+    del got, ref, card_args, half, lay_out, layer
+    del_all()
+
+    # YOLOv3's three heads at 608 x 608
+    nb, nc, ngt = 8, 80, 50
+    gt_box = np.concatenate([rng.uniform(0.05, 0.95, (nb, ngt, 2)), np.clip(
+        np.exp(rng.normal(-2.5, 0.8, (nb, ngt, 2))), 0.01, 0.9)], -1)
+    gt_box = torch.from_numpy(gt_box.astype(np.float32))
+    gt_lab = torch.from_numpy(rng.randint(0, nc, (nb, ngt)))
+    img = torch.full((nb, 2), 608, dtype=torch.int32)
+    heads = [(19, 32, [6, 7, 8]), (38, 16, [3, 4, 5]), (76, 8, [0, 1, 2])]
+    for side, ds, mask in heads:
+        xh = torch.randn(nb, 3 * (5 + nc), side, side) * 0.5
+        box_kw = dict(anchors=DET_YOLO_ANCHORS[2 * mask[0]:2 * mask[-1] + 2],
+                      class_num=nc, conf_thresh=0.005, downsample_ratio=ds)
+        (bx, sc), ms[f"yolo_box {side}"] = det_timed(
+            lambda: V.yolo_box(xh.cuda(), img.cuda(), **box_kw))
+        cbx, csc = V.yolo_box(xh, img, **box_kw)
+        f32(f"yolo_box {side} boxes", bx, cbx)
+        f32(f"yolo_box {side} scores", sc, csc)
+        loss_kw = dict(anchors=DET_YOLO_ANCHORS, anchor_mask=mask,
+                       class_num=nc, ignore_thresh=0.7, downsample_ratio=ds)
+
+        def loss(xs, gb, gl):
+            xs = xs.detach().requires_grad_()
+            out = V.yolo_loss(xs, gb, gl, **loss_kw)
+            out.sum().backward()
+            return out, xs.grad
+
+        (lo, lg), ms[f"yolo_loss {side} fwd+bwd"] = det_timed(
+            lambda: loss(xh.cuda(), gt_box.cuda(), gt_lab.cuda()))
+        (clo, clg), cpu_ms[f"yolo_loss {side} fwd+bwd"] = det_timed(
+            lambda: loss(xh, gt_box, gt_lab))
+        f32(f"yolo_loss {side}", lo, clo)
+        f32(f"yolo_loss {side} d x", lg, clg)
+        if not (clo > 0).all():
+            problems.append(f"yolo_loss {side}: {clo.tolist()}")
+
+    launches = read_launches()
+    rn_zero_counts("detect", launches, problems)
+    took = time.perf_counter() - t_phase
+    card = ", ".join(f"{k}: {v:.2f}" for k, v in ms.items())
+    host = ", ".join(f"{k}: {v:.1f}" for k, v in cpu_ms.items())
+    log(f"[detect] {smi}: card ms {{{card}}}; the CPU's f32 references ms "
+        f"{{{host}}}")
+    log(f"[detect] worst against the CPU, of each output's scale (f32 ops "
+        f"within {TOL_DET_F32}, f32 sampling {TOL_DET_SAMPLE}, roi_pool's d x "
+        f"{TOL_DET_POOL_L2} in L2, bf16 {TOL_DET_BF16}): "
+        f"{ {k: float(f'{v:.3e}') for k, v in worst.items()} }; nms kept "
+        f"{len(cpu_keep)} of {DET_PROPOSALS} (equal {same_keep}; "
+        f"{near} pairs within {TOL_NMS_IOU} of IoU {DET_RPN_IOU}); "
+        f"multiclass_nms {tuple(cpu_det.shape)} (equal {same_det}; "
+        f"{mnear} pairs near 0.5); mAP {cpu_map:.4f}; {n_priors} SSD300 "
+        f"priors; cut: the CPU holds {DET_ROIS_CPU} of {DET_ROIS} RoIs an "
+        f"image; kernel launches and composite calls all 0: "
+        f"{not any(launches.values())}; the phase took {took:.1f} s")
+    if problems:
+        raise SystemExit("detect failed: " + "; ".join(problems))
+    log("[detect] ok")
+    return {"detect": launches}
 
 
 def gpt_params(cfg):
@@ -7238,7 +7816,8 @@ def main():
         del_all()
         paths.update(phase(bf16, smi))
     for phase in (phase_train_transformer, phase_train_transformer_trainer,
-                  phase_train_resnet, phase_train_resnet_trainer):
+                  phase_workers, phase_train_resnet,
+                  phase_train_resnet_trainer, phase_detect):
         del_all()
         paths.update(phase(smi))
     _RN_DATA.clear()

@@ -1,6 +1,8 @@
 """``paddle.io`` (counterpart of ``paddle_tpu/io``): datasets, samplers,
-``DataLoader`` (``num_workers=0``) and the device prefetcher."""
-from .dataloader import DataLoader, default_collate_fn, get_worker_info
+``DataLoader`` (in this process, on threads, or on fork workers over
+shared-memory rings) and the device prefetcher."""
+from .dataloader import (DataLoader, WorkerInfo, default_collate_fn,
+                         get_worker_info)
 from .dataset import (ChainDataset, ComposeDataset, ConcatDataset, Dataset,
                       IterableDataset, Subset, TensorDataset, random_split)
 from .device_prefetch import DevicePrefetcher
@@ -12,4 +14,4 @@ __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
            "Sampler", "SequenceSampler", "RandomSampler",
            "WeightedRandomSampler", "BatchSampler",
            "DistributedBatchSampler", "DataLoader", "default_collate_fn",
-           "get_worker_info", "DevicePrefetcher"]
+           "WorkerInfo", "get_worker_info", "DevicePrefetcher"]

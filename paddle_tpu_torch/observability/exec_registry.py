@@ -71,9 +71,15 @@ def enabled() -> bool:
     return os.environ.get("PADDLE_TPU_EXEC_REGISTRY", "1") != "0"
 
 
+def _has_card() -> bool:
+    """A card this process may query: not in a process forked after its
+    parent initialized CUDA (a DataLoader worker), where CUDA raises."""
+    return torch.cuda.is_available() and not torch.cuda._is_in_bad_fork()
+
+
 def device_kind() -> str:
     """The card's name, lower case ("" without a card)."""
-    if not torch.cuda.is_available():
+    if not _has_card():
         return ""
     return torch.cuda.get_device_name().lower()
 
@@ -112,7 +118,7 @@ def device_hbm_capacity() -> Optional[int]:
     env = os.environ.get("PADDLE_TPU_HBM_BYTES")
     if env:
         return int(float(env))
-    if not torch.cuda.is_available():
+    if not _has_card():
         return None
     return int(torch.cuda.get_device_properties(
         torch.cuda.current_device()).total_memory)

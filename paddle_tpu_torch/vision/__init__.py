@@ -1,7 +1,8 @@
 """``paddle.vision`` (counterpart of ``paddle_tpu/vision``): the model
-zoo (LeNet, ResNet, VGG, MobileNet V1 / V2), the synthetic datasets and
-the host-side transforms.  ``vision.ops`` (the detection ops) is not
-ported yet: its names raise (ROADMAP.md Queue 1 item 3.5.2)."""
+zoo (LeNet, ResNet, VGG, MobileNet V1 / V2), the synthetic datasets, the
+host-side transforms and ``vision.ops``, the detection ops (boxes, NMS,
+anchors, box coding, RoI align / pool, deformable convolution, the YOLO
+box and loss)."""
 from . import datasets, models, ops, transforms  # noqa: F401
 from .models import (VGG, LeNet, MobileNetV1,  # noqa: F401
                      MobileNetV2, ResNet, mobilenet_v1, mobilenet_v2,

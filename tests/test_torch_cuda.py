@@ -1869,3 +1869,141 @@ def test_vision_resnet18_train_batch_launches_no_kernel(gen):
     assert after == before
     assert all(torch.isfinite(torch.tensor(losses)))
     assert not torch.equal(net.bn1._mean, mean0)
+
+
+# ---- detection ops and DataLoader workers -----------------------------------
+
+def test_detection_box_ops_on_the_card_equal_cpu(gen):
+    """Box math, box coding, NMS, multiclass NMS and the YOLO ops in f32
+    on the card against the CPU: within 1e-5 of max(|cpu|, 1) elementwise
+    (the YOLO loss and its gradient: of their largest magnitude); NMS
+    keep lists and multiclass rows equal (no IoU here lies within 1e-5
+    of a threshold: checked)."""
+    from paddle_tpu_torch.vision import ops as V
+    xy = torch.rand((300, 2), generator=gen, device="cuda") * 200
+    wh = torch.rand((300, 2), generator=gen, device="cuda") * 40 + 4
+    boxes = torch.cat([xy, xy + wh], 1)
+    scores = torch.rand((300,), generator=gen, device="cuda")
+    deltas = torch.randn((300, 4), generator=gen, device="cuda")
+    cpu_boxes = boxes.cpu()
+    assert not bool(((V.box_iou(cpu_boxes, cpu_boxes) - 0.5).abs()
+                     <= 1e-5).triu(1).any())
+
+    def close(got, ref, total=False):
+        got, ref = got.detach().float().cpu(), ref.detach().float()
+        scale = ref.abs().max() if total else ref.abs().clamp_min(1.0)
+        assert bool(((got - ref).abs() <= 1e-5 * scale).all())
+
+    for fn in (lambda b: V.box_area(b), lambda b: V.box_iou(b[:50], b),
+               lambda b: V.box_clip(b, (150, 180)),
+               lambda b: V.box_coder(b, deltas.to(b.device),
+                                     "decode_center_size", (.1, .1, .2, .2)),
+               lambda b: V.box_coder(b[:, None], b[None, :20] + 3.0)):
+        close(fn(boxes), fn(cpu_boxes))
+    keep = V.nms(boxes, scores, 0.5, top_k=50)
+    assert keep.device.type == "cuda"
+    assert torch.equal(keep.cpu(), V.nms(cpu_boxes, scores.cpu(), 0.5,
+                                         top_k=50))
+    cls = torch.rand((6, 300), generator=gen, device="cuda") ** 3
+    det = V.multiclass_nms(boxes, cls, nms_threshold=0.5)
+    assert det.device.type == "cuda"
+    assert torch.equal(det.cpu(), V.multiclass_nms(cpu_boxes, cls.cpu(),
+                                                   nms_threshold=0.5))
+    x = torch.randn((2, 3 * 8, 5, 6), generator=gen, device="cuda") * 0.5
+    img = torch.tensor([[160, 192], [100, 120]], device="cuda")
+    anchors = [10, 13, 16, 30, 33, 23]
+    for got, ref in zip(V.yolo_box(x, img, anchors, 3, 0.3, 32),
+                        V.yolo_box(x.cpu(), img.cpu(), anchors, 3, 0.3, 32)):
+        close(got, ref)
+    gt = torch.cat([torch.rand((2, 4, 2), generator=gen, device="cuda") * 0.8
+                    + 0.1, torch.rand((2, 4, 2), generator=gen,
+                                      device="cuda") * 0.4 + 0.05], -1)
+    lab = torch.randint(0, 3, (2, 4), generator=gen, device="cuda")
+    out = []
+    for dev in ("cuda", "cpu"):
+        xs = x.to(dev).detach().requires_grad_()
+        loss = V.yolo_loss(xs, gt.to(dev), lab.to(dev), anchors * 3,
+                           [0, 1, 2], 3, 0.7, 32)
+        loss.sum().backward()
+        out.append((loss, xs.grad))
+    close(out[0][0], out[1][0], total=True)
+    close(out[0][1], out[1][1], total=True)
+
+
+def test_detection_sampling_ops_on_the_card_match_cpu(gen):
+    """RoI align / pool and deformable convolution (with a mask) with
+    their backward: f32 on the card within 1e-5 of each output's largest
+    magnitude of the CPU's (sums in another order), bf16 on the card
+    within 1e-2 of the CPU's f32 on the same values."""
+    from paddle_tpu_torch.vision import ops as V
+    x = torch.randn((2, 16, 20, 24), generator=gen, device="cuda").to(
+        torch.bfloat16).float()
+    xy = torch.rand((12, 2), generator=gen, device="cuda") * 300
+    boxes = torch.cat([xy, xy + torch.rand((12, 2), generator=gen,
+                                           device="cuda") * 100 + 8], 1)
+    num = torch.tensor([5, 7], device="cuda")
+    cot = torch.randn((12, 16, 7, 7), generator=gen, device="cuda")
+
+    def rel(got, ref):
+        return float((got.float().cpu() - ref).abs().max() / ref.abs().max())
+
+    for op in (V.roi_align, V.roi_pool):
+        res = []
+        for xs, b, n, c in ((x, boxes, num, cot),
+                            (x.cpu(), boxes.cpu(), num.cpu(), cot.cpu())):
+            xs = xs.detach().requires_grad_()
+            out = op(xs, b, n, output_size=7, spatial_scale=1 / 16)
+            out.backward(c)
+            res.append((out, xs.grad))
+        (out, g), (cpu_out, cpu_g) = res
+        assert rel(out, cpu_out) <= 1e-5 and rel(g, cpu_g) <= 1e-5
+        half = op(x.to(torch.bfloat16), boxes, num, output_size=7,
+                  spatial_scale=1 / 16)
+        assert half.dtype == torch.bfloat16 and rel(half, cpu_out) <= 1e-2
+    off = torch.randn((2, 18, 20, 24), generator=gen, device="cuda")
+    mask = torch.rand((2, 9, 20, 24), generator=gen, device="cuda")
+    w = torch.randn((8, 16, 3, 3), generator=gen, device="cuda") * 0.1
+    dcot = torch.randn((2, 8, 20, 24), generator=gen, device="cuda")
+    res = []
+    for dev in ("cuda", "cpu"):
+        args = [t.to(dev).detach().requires_grad_() for t in (x, off, w, mask)]
+        out = V.deform_conv2d(args[0], args[1], args[2], padding=1,
+                              mask=args[3])
+        out.backward(dcot.to(dev))
+        res.append([out] + [a.grad for a in args])
+    for got, ref in zip(*res):
+        assert rel(got, ref) <= 1e-5
+    half = V.deform_conv2d(x.to(torch.bfloat16), off, w.to(torch.bfloat16),
+                           padding=1, mask=mask.to(torch.bfloat16))
+    assert half.dtype == torch.bfloat16 and rel(half, res[1][0]) <= 1e-2
+
+
+class _SquareDS:
+    def __len__(self):
+        return 37
+
+    def __getitem__(self, i):
+        return (torch.full((3, 4), float(i)).numpy(),
+                torch.tensor([i * i]).numpy())
+
+
+def test_worker_loader_forks_after_cuda_init(gen):
+    """A process that already made CUDA tensors forks two DataLoader
+    workers (they touch no CUDA): batches land on the card equal to
+    ``num_workers=0``'s, and no child or ring is left."""
+    import multiprocessing as mp
+    import os
+    import paddle_tpu_torch as tp
+    tp.set_device("gpu")
+    assert torch.randn((4,), generator=gen, device="cuda").is_cuda
+    ref = list(tp.io.DataLoader(_SquareDS(), batch_size=5))
+    loader = tp.io.DataLoader(_SquareDS(), batch_size=5, num_workers=2,
+                              timeout=60)
+    got = list(loader)
+    st = loader.worker_stats
+    assert st["mode"] == "processes" and len(st["producers"]) == 2
+    assert len(got) == len(ref) == 8
+    for (a, b), (c, d) in zip(got, ref):
+        assert a.is_cuda and torch.equal(a, c) and torch.equal(b, d)
+    assert mp.active_children() == []
+    assert not any(os.path.exists(f"/dev/shm/{n}") for n in st["rings"])

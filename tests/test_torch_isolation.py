@@ -71,7 +71,11 @@ NEW_MODULES = ["paddle_tpu_torch.core.flags", "paddle_tpu_torch.testing.faults",
                # the serving fleet's
                "paddle_tpu_torch.inference.router",
                "paddle_tpu_torch.inference.disagg",
-               "paddle_tpu_torch.inference.loadgen"]
+               "paddle_tpu_torch.inference.loadgen",
+               # the DataLoader workers' and the detection ops'
+               "paddle_tpu_torch.io.shm_ring",
+               "paddle_tpu_torch.io.dataloader",
+               "paddle_tpu_torch.vision.ops"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

@@ -444,9 +444,10 @@ def test_seed_restarts_the_layer_generator():
     assert not torch.equal(a, b)
 
 
-# the norms and Model.summary waited for the vision slice and now build
+# the norms and Model.summary waited for the vision slice, the DataLoader
+# workers and the detection ops for the next one; they now build
 PORTED_SINCE = {"BatchNorm2D", "GroupNorm", "InstanceNorm1D", "RMSNorm",
-                "Model-summary"}
+                "Model-summary", "DataLoader-workers", "vision-ops"}
 WAITING = {
     "BatchNorm2D": lambda: tnn.BatchNorm2D(4),
     "GroupNorm": lambda: tnn.GroupNorm(2, 4),
@@ -458,7 +459,8 @@ WAITING = {
         mesh={"dp": 2}),
     "Model-summary": lambda: tp.Model(tnn.Linear(2, 2)).summary((1, 2)),
     "save-remote": lambda: tp.save({}, "hdfs://host/ck.pdparams"),
-    "vision-ops": lambda: tp.vision.ops.roi_align(None, None),
+    "vision-ops": lambda: tp.vision.ops.roi_align(
+        torch.zeros(1, 1, 4, 4), torch.tensor([[0., 0., 2., 2.]])),
     "vision-dataset-files": lambda: tp.vision.datasets.Cifar100(),
 }
 

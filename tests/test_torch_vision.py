@@ -284,8 +284,10 @@ def test_vision_layers_that_raised_now_build_and_run():
 
 
 def test_detection_ops_and_dataset_files_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match=r"Queue 1 item 3\.5\.1"):
-        tv.ops.nms(torch.zeros(1, 4), torch.zeros(1))
+    # the detection ops (ROADMAP Queue 1 item 3.5.1) are ported since:
+    # they run (tests/test_torch_detection.py holds them to the JAX
+    # package); the dataset file readers still raise
+    assert tv.ops.nms(torch.zeros(1, 4), torch.zeros(1)).tolist() == [0]
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 3\.5\)"):
         tv.datasets.MNIST(mode="train")
     with pytest.raises(NotImplementedError, match=r"Queue 1 item 3\.5\)"):
