@@ -261,6 +261,7 @@ before the result lines:
    Lamb, Lars, LookAhead(Adam) and ModelAverage, with L1 / L2
    regularizers and global-norm clip where they take them: one update
    each at gpt3-1.3b width, 2 layers, on one 2 x 512 step's gradients,
+   of the last block's and the final norm's tensors,
    against the same update on f64 CPU copies (TOL_OPT_UPDATE per
    parameter and accumulator, no host read); then Lamb and
    LookAhead(Adam) with an EMA of the masters at full depth, 4 x 2048,
@@ -314,7 +315,24 @@ before the result lines:
 33. detect: every op of ``vision.ops`` at published detection shapes
    (Faster R-CNN's RPN NMS and RoI heads, SSD300's priors, DCNv2's c5,
    YOLOv3's three heads) on the card against the CPU, with each op's ms.
-   Rows 1-11 launch 0 times on phases 30-33.
+   Rows 1-11 launch 0 times on phases 30-33;
+34. tensor-ops: every public function of ``paddle_tpu_torch.tensor`` and
+   ``paddle_tpu_torch.linalg`` on the card against the same call on the
+   CPU (``[64, 256]`` f32 and bf16, batched ``4 x 64 x 64`` f32 for the
+   linear algebra; TOL_OPS_*), one line a module with the ops that read
+   the host;
+35. train-ctr: Wide & Deep at PaddleRec's widths (one 1 000 001 x 9
+   table shared by 26 slots, ``Embedding(sparse=True)``, lazy Adam, batch
+   512) fed by ``InMemoryDataset``, 60 eager steps: row-sparse table
+   gradients, ``opt.step()`` free of host syncs, untouched rows bitwise
+   unchanged, 5-step twins (sparse against dense SGD and Adam, card
+   against CPU) within TOL_CTR_TWIN;
+36. sparse-scale: lazy sparse Adam against dense at 1 M and 10 M x 64
+   rows; the sparse step must be the faster at 10 M.  Rows 1-11 launch
+   0 times on phases 34-36.
+
+Each phase's seconds are printed on a line of their own
+(``[phase-seconds]``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5884,7 +5902,8 @@ def rel_diff(card, cpu):
 def phase_train_optimizers(bf16, smi):
     """train-optimizers: every new rule's update on the card against the
     same update on f64 CPU copies (gpt3-1.3b width at 2 layers, the
-    gradients of one 2 x 512 bf16 AMP step); then Lamb and LookAhead(Adam)
+    gradients of one 2 x 512 bf16 AMP step, the last block's and the
+    final norm's tensors); then Lamb and LookAhead(Adam)
     with an EMA of the masters at full depth, 4 x 2048, bf16 AMP: a
     warm-up and 3 measured steps (finite falling losses, no host read,
     each flash kernel once a layer a step), step ms beside Adam's."""
@@ -5900,8 +5919,16 @@ def phase_train_optimizers(bf16, smi):
     ids, labels = token_batch(np.random.RandomState(23), cfg.vocab_size, 2,
                               512)
     trainer.train_step(ids, labels)
-    params = {n: p.detach().clone() for n, p in model.named_parameters()}
-    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    # the f64 CPU reference took most of the phase (about 130 s over
+    # every tensor): it checks the last block and the final norm (every
+    # kind of tensor the rules update), not the embeddings and the first
+    # block
+    keep = [n for n, _ in model.named_parameters()
+            if n.startswith(("gpt.blocks.1.", "gpt.ln_f."))]
+    params = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n in keep}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if n in keep}
     del model, trainer
     del_all()
     cpu_p = {n: t.double().cpu() for n, t in params.items()}
@@ -7734,6 +7761,968 @@ def phase_detect(smi):
     return {"detect": launches}
 
 
+# ---------------------------------------------------------------------------
+# tensor-ops: the op library on the card against the CPU
+# ---------------------------------------------------------------------------
+
+TOL_OPS_EW = 1e-5     # x max|CPU output|: f32 elementwise
+TOL_OPS_RED = 1e-4    # f32 reductions, products and linear algebra
+TOL_OPS_BF16 = 1e-2   # bf16 inputs
+OPS_RANDOM_N = 200_000  # draws of each random op compared in law
+
+
+def ops_inputs(dev):
+    """The tensor-ops phase's inputs on ``dev``, made on the CPU from seed
+    1234 (the same values on both devices): ``[64, 256]`` f32 in each
+    op's domain and their bf16 copies, ints, bools, complex, batched
+    ``4 x 64 x 64`` well-conditioned matrices, ragged ``[64, 32, 8]``
+    sequences."""
+    g = torch.Generator().manual_seed(1234)
+
+    def n(*s):
+        return torch.randn(*s, generator=g)
+
+    def u(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(*s, generator=g)
+
+    s = (64, 256)
+    d = {"x": n(*s), "y": n(*s), "pos": u(0.5, 2.0, *s),
+         "unit": u(-0.9, 0.9, *s), "gt1": u(1.1, 3.0, *s),
+         "prob": u(0.05, 0.95, *s), "near1": u(0.99, 1.01, *s),
+         "i": torch.randint(-9, 10, s, generator=g, dtype=torch.int32),
+         "ip": torch.randint(1, 20, s, generator=g, dtype=torch.int32),
+         "bo": torch.rand(*s, generator=g) > 0.5,
+         "bo2": torch.rand(*s, generator=g) > 0.5}
+    d["nan"] = d["x"].clone()
+    d["nan"].view(-1)[::7] = float("nan")
+    d["inf"] = d["nan"].clone()
+    d["inf"].view(-1)[1::11] = float("inf")
+    # bin centres only: no value on a histogram bin edge
+    d["hist"] = torch.round(d["x"] * 2).clamp(-7, 7) / 2 + 0.25
+    d["ties"] = torch.round(d["x"] * 2)
+    d["c"] = torch.complex(d["x"], d["y"])
+    for k in ("x", "y", "pos", "unit", "gt1", "prob", "ties", "near1",
+              "nan", "inf"):
+        d[k + "16"] = d[k].bfloat16()
+    eye = torch.eye(64)
+    m = eye + 0.3 * n(4, 64, 64) / 8
+    d["m"], d["m2"] = m, eye + 0.3 * n(4, 64, 64) / 8
+    d["m16"], d["m216"] = d["m"].bfloat16(), d["m2"].bfloat16()
+    d["spd"] = m @ m.transpose(-1, -2) + eye
+    d["tri"] = torch.triu(n(4, 64, 64) / 8) + 3 * eye
+    d["rhs"] = n(4, 64, 8)
+    d["low"] = n(4, 64, 4) @ n(4, 4, 64)
+    d["tall"] = n(128, 32)
+    d["tall_b"] = n(128, 4)
+    d["v3"] = n(64, 3)
+    d["w3"] = n(64, 3)
+    d["seq"] = n(64, 32, 8)
+    d["lens"] = torch.randint(0, 33, (64,), generator=g)
+    d["idx"] = torch.randint(-64, 64, (48,), generator=g)
+    d["perm"] = torch.randperm(64, generator=g)[:40]
+    d["col"] = torch.randint(0, 256, (64, 12), generator=g)
+    d["sorted"] = torch.sort(n(512)).values
+    out = {k: v.to(dev) for k, v in d.items()}
+    out["dev"] = torch.device(dev)
+    return out
+
+
+def _ops_table():
+    """``[(name, kind, call)]``: ``call(T, L, d)`` runs one op of the
+    library ``T`` (``L``: the ``linalg`` namespace) on the inputs ``d``;
+    ``kind`` picks the comparison (``ew``, ``red``, ``bf16``, ``exact``,
+    ``law``: random draws in law, ``recon``: factorizations through their
+    reconstructions, ``eig``: eigenvalues matched)."""
+    t = []
+
+    def add(name, kind, call):
+        t.append((name, kind, call))
+
+    unary = {"sqrt": "pos", "rsqrt": "pos", "square": "x", "exp": "x",
+             "expm1": "x", "log": "pos", "log2": "pos", "log10": "pos",
+             "log1p": "pos", "abs": "x", "ceil": "x", "floor": "x",
+             "round": "x", "trunc": "x", "frac": "x", "sign": "x",
+             "neg": "x", "reciprocal": "pos", "sin": "x", "cos": "x",
+             "tan": "unit", "asin": "unit", "acos": "unit", "atan": "x",
+             "sinh": "x", "cosh": "x", "tanh": "x", "asinh": "x",
+             "acosh": "gt1", "atanh": "unit", "erf": "x", "erfinv": "unit",
+             "lgamma": "pos", "digamma": "pos", "i0": "x", "i1": "x",
+             "deg2rad": "x", "rad2deg": "x", "isnan": "nan", "isinf": "inf",
+             "isfinite": "inf", "logit": "prob", "sigmoid": "x",
+             "stanh": "x"}
+    for name, k in unary.items():
+        add(name, "ew", lambda T, L, d, f=name, k=k: getattr(T, f)(d[k]))
+        if k not in ("nan", "inf"):
+            add(name, "bf16", lambda T, L, d, f=name, k=k: getattr(T, f)(
+                d[k + "16"]))
+    add("tanh_", "ew", lambda T, L, d: T.tanh_(d["x"].clone()))
+    binary = {"add": "y", "subtract": "y", "multiply": "y", "divide": "pos",
+              "floor_divide": "pos", "remainder": "pos", "mod": "pos",
+              "floor_mod": "pos", "maximum": "y", "minimum": "y",
+              "fmax": "y", "fmin": "y", "atan2": "y", "heaviside": "y",
+              "hypot": "y", "logaddexp": "y", "nextafter": "y",
+              "copysign": "y", "elementwise_add": "y",
+              "elementwise_sub": "y", "elementwise_mul": "y",
+              "elementwise_div": "pos"}
+    for name, k in binary.items():
+        add(name, "ew", lambda T, L, d, f=name, k=k: getattr(T, f)(d["x"],
+                                                                    d[k]))
+        add(name, "bf16", lambda T, L, d, f=name, k=k: getattr(T, f)(
+            d["x16"], d[k + "16"]))
+    add("pow", "ew", lambda T, L, d: T.pow(d["pos"], d["y"]))
+    add("pow", "bf16", lambda T, L, d: T.pow(d["pos16"], d["y16"]))
+    for name in ("gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor"):
+        add(name, "exact", lambda T, L, d, f=name: getattr(T, f)(d["i"],
+                                                                  d["ip"]))
+    add("bitwise_not", "exact", lambda T, L, d: T.bitwise_not(d["i"]))
+    for name in ("equal", "not_equal", "greater_than", "greater_equal",
+                 "less_than", "less_equal"):
+        add(name, "exact", lambda T, L, d, f=name: getattr(T, f)(
+            d["i"], d["ip"] - 10))
+    for name in ("logical_and", "logical_or", "logical_xor"):
+        add(name, "exact", lambda T, L, d, f=name: getattr(T, f)(d["bo"],
+                                                                  d["bo2"]))
+    add("logical_not", "exact", lambda T, L, d: T.logical_not(d["bo"]))
+    add("equal_all", "exact", lambda T, L, d: T.equal_all(d["x"], d["x"]))
+    add("allclose", "exact", lambda T, L, d: T.allclose(d["x"], d["x"] + 1e-9))
+    add("isclose", "exact", lambda T, L, d: T.isclose(d["x"], d["y"],
+                                                      atol=0.5))
+    add("is_empty", "exact", lambda T, L, d: T.is_empty(d["x"][:0]))
+    add("is_tensor", "exact", lambda T, L, d: T.is_tensor(d["x"]))
+    # reductions and products
+    red = [("sum", {"axis": 1}), ("mean", {}), ("max", {"axis": 0}),
+           ("min", {"axis": [0, 1], "keepdim": True}), ("amax", {"axis": 1}),
+           ("amin", {}), ("logsumexp", {"axis": 1}), ("cumsum", {"axis": 1}),
+           ("cummax", {"axis": 1}), ("cummin", {}), ("std", {"axis": 1}),
+           ("var", {"unbiased": False}), ("median", {"axis": 1}),
+           ("diff", {"axis": 1}), ("logcumsumexp", {"axis": 1}),
+           ("clip_by_norm", {"max_norm": 2.0}),
+           ("trapezoid", {"dx": 0.5}),
+           ("renorm", {"p": 2.0, "axis": 0, "max_norm": 5.0}),
+           ("quantile", {"q": [0.1, 0.5], "axis": 1})]
+    for name, kw in red:
+        add(name, "red", lambda T, L, d, f=name, kw=kw: getattr(T, f)(
+            d["x"], **kw))
+    for name, kw in red:
+        add(name, "bf16", lambda T, L, d, f=name, kw=kw: getattr(T, f)(
+            d["x16"], **kw))
+    # the other float-taking math ops on bf16 inputs
+    bf = [("prod", lambda T, d: T.prod(d["near116"], axis=1)),
+          ("cumprod", lambda T, d: T.cumprod(d["near116"], dim=1)),
+          ("nanmedian", lambda T, d: T.nanmedian(d["nan16"], axis=1)),
+          ("nanmean", lambda T, d: T.nanmean(d["nan16"], axis=0)),
+          ("nansum", lambda T, d: T.nansum(d["nan16"], axis=1)),
+          ("nan_to_num", lambda T, d: T.nan_to_num(d["inf16"], nan=2.0)),
+          ("add_n", lambda T, d: T.add_n([d["x16"], d["y16"]])),
+          ("trace", lambda T, d: T.trace(d["m16"][0])),
+          ("lerp", lambda T, d: T.lerp(d["x16"], d["y16"], 0.3)),
+          ("kron", lambda T, d: T.kron(d["x16"][:8, :8], d["y16"][:4, :4])),
+          ("inner", lambda T, d: T.inner(d["x16"], d["y16"])),
+          ("outer", lambda T, d: T.outer(d["x16"][0], d["y16"][1])),
+          ("mm", lambda T, d: T.mm(d["x16"], d["y16"].T)),
+          ("bmm", lambda T, d: T.bmm(d["m16"], d["m216"])),
+          ("dot", lambda T, d: T.dot(d["x16"], d["y16"])),
+          ("mv", lambda T, d: T.mv(d["x16"], d["y16"][0])),
+          ("addmm", lambda T, d: T.addmm(d["m16"][0], d["m16"][1],
+                                         d["m16"][2])),
+          ("clip", lambda T, d: T.clip(d["x16"], -0.5, 0.7)),
+          ("scale", lambda T, d: T.scale(d["x16"], 2.0, 0.5)),
+          ("multiplex", lambda T, d: T.multiplex(
+              [d["x16"], d["y16"]], d["bo"][:, :1].long())),
+          ("tanh_", lambda T, d: T.tanh_(d["x16"].clone())),
+          ("einsum", lambda T, d: T.einsum("bij,bjk->bik", d["m16"],
+                                           d["m216"])),
+          ("tensordot", lambda T, d: T.tensordot(d["m16"], d["m216"],
+                                                 [[1, 2], [2, 1]]))]
+    for name, call in bf:
+        add(name, "bf16", lambda T, L, d, c=call: c(T, d))
+    add("prod", "red", lambda T, L, d: T.prod(d["near1"], axis=1))
+    add("cumprod", "red", lambda T, L, d: T.cumprod(d["near1"], dim=1))
+    add("nanmedian", "red", lambda T, L, d: T.nanmedian(d["nan"], axis=1))
+    add("nanmean", "red", lambda T, L, d: T.nanmean(d["nan"], axis=0))
+    add("nansum", "red", lambda T, L, d: T.nansum(d["nan"]))
+    add("nan_to_num", "ew", lambda T, L, d: T.nan_to_num(d["inf"], nan=2.0))
+    add("all", "exact", lambda T, L, d: T.all(d["bo"], axis=1))
+    add("any", "exact", lambda T, L, d: T.any(d["bo"]))
+    add("count_nonzero", "exact", lambda T, L, d: T.count_nonzero(d["i"],
+                                                                  axis=0))
+    add("histogram", "exact", lambda T, L, d: T.histogram(d["hist"], 16, -4,
+                                                          4))
+    add("bincount", "exact", lambda T, L, d: T.bincount(d["ip"].reshape(-1)))
+    add("add_n", "ew", lambda T, L, d: T.add_n([d["x"], d["y"], d["pos"]]))
+    add("trace", "red", lambda T, L, d: T.trace(d["m"][0], offset=1))
+    add("lerp", "ew", lambda T, L, d: T.lerp(d["x"], d["y"], 0.3))
+    add("kron", "ew", lambda T, L, d: T.kron(d["x"][:8, :8], d["y"][:4, :4]))
+    add("inner", "red", lambda T, L, d: T.inner(d["x"], d["y"]))
+    add("outer", "ew", lambda T, L, d: T.outer(d["x"][0], d["y"][1]))
+    add("matmul", "red", lambda T, L, d: T.matmul(d["x"], d["y"],
+                                                  transpose_y=True))
+    add("matmul", "bf16", lambda T, L, d: T.matmul(d["x16"], d["y16"],
+                                                   transpose_y=True))
+    add("mm", "red", lambda T, L, d: T.mm(d["x"], d["y"].T))
+    add("bmm", "red", lambda T, L, d: T.bmm(d["m"], d["m2"]))
+    add("dot", "red", lambda T, L, d: T.dot(d["x"], d["y"]))
+    add("mv", "red", lambda T, L, d: T.mv(d["x"], d["y"][0]))
+    add("addmm", "red", lambda T, L, d: T.addmm(d["m"][0], d["m"][1],
+                                                d["m"][2], 0.5, 2.0))
+    add("clip", "ew", lambda T, L, d: T.clip(d["x"], -0.5, 0.7))
+    add("scale", "ew", lambda T, L, d: T.scale(d["x"], 2.0, 0.5, act="relu"))
+    add("multiplex", "ew", lambda T, L, d: T.multiplex(
+        [d["x"], d["y"]], d["bo"][:, :1].long()))
+    add("increment", "ew", lambda T, L, d: T.increment(d["x"][:1, 0].clone(),
+                                                       2.0))
+    # attribute
+    add("shape", "exact", lambda T, L, d: T.shape(d["x"]))
+    add("rank", "exact", lambda T, L, d: T.rank(d["m"]))
+    add("is_floating_point", "exact", lambda T, L, d: T.is_floating_point(
+        d["x"]))
+    add("is_integer", "exact", lambda T, L, d: T.is_integer(d["i"]))
+    add("is_complex", "exact", lambda T, L, d: T.is_complex(d["c"]))
+    for name in ("real", "imag", "conj", "angle"):
+        add(name, "ew", lambda T, L, d, f=name: getattr(T, f)(d["c"]))
+    add("set_printoptions", "exact", lambda T, L, d: T.set_printoptions())
+    # creation
+    dev = lambda d: d["dev"]  # noqa: E731
+    add("zeros", "exact", lambda T, L, d: T.zeros([3, 4], device=dev(d)))
+    add("ones", "exact", lambda T, L, d: T.ones(5, "int32", device=dev(d)))
+    add("full", "exact", lambda T, L, d: T.full([2, 2], 7.5, device=dev(d)))
+    add("empty", "exact", lambda T, L, d: T.empty([3], device=dev(d)))
+    add("arange", "exact", lambda T, L, d: T.arange(1, 9, 2, device=dev(d)))
+    add("linspace", "ew", lambda T, L, d: T.linspace(-1, 2, 33,
+                                                     device=dev(d)))
+    add("logspace", "ew", lambda T, L, d: T.logspace(0, 2, 9, 2.0,
+                                                     device=dev(d)))
+    add("eye", "exact", lambda T, L, d: T.eye(3, 5, device=dev(d)))
+    add("tril_indices", "exact", lambda T, L, d: T.tril_indices(
+        6, 5, 1, device=dev(d)))
+    add("triu_indices", "exact", lambda T, L, d: T.triu_indices(
+        6, 5, -1, device=dev(d)))
+    for name in ("zeros_like", "ones_like", "empty_like", "clone", "numel",
+                 "assign"):
+        add(name, "exact", lambda T, L, d, f=name: getattr(T, f)(d["x"]))
+    add("full_like", "exact", lambda T, L, d: T.full_like(d["x"], 2.5))
+    add("meshgrid", "exact", lambda T, L, d: T.meshgrid(d["x"][0], d["y"][0]))
+    add("diag", "exact", lambda T, L, d: T.diag(d["x"][0], 1, 9.0))
+    add("diagflat", "exact", lambda T, L, d: T.diagflat(d["x"][:3, :3]))
+    add("diag_embed", "exact", lambda T, L, d: T.diag_embed(d["x"][:4]))
+    add("tril", "exact", lambda T, L, d: T.tril(d["m"], 1))
+    add("triu", "exact", lambda T, L, d: T.triu(d["m"], -1))
+    add("complex", "exact", lambda T, L, d: T.complex(d["x"], d["y"]))
+    add("to_tensor", "exact", lambda T, L, d: T.to_tensor(
+        np.arange(6.0), place=dev(d)))
+    # manipulation
+    x = lambda d: d["x"]  # noqa: E731
+    man = [
+        ("reshape", lambda T, d: T.reshape(x(d), [128, -1])),
+        ("reshape_", lambda T, d: T.reshape_(x(d).clone(), [128, -1])),
+        ("flatten", lambda T, d: T.flatten(d["m"], 1)),
+        ("transpose", lambda T, d: T.transpose(d["m"], [2, 0, 1])),
+        ("t", lambda T, d: T.t(x(d))),
+        ("moveaxis", lambda T, d: T.moveaxis(d["m"], 0, 2)),
+        ("swapaxes", lambda T, d: T.swapaxes(d["m"], 0, 1)),
+        ("concat", lambda T, d: T.concat([x(d), d["y"]], axis=1)),
+        ("stack", lambda T, d: T.stack([x(d), d["y"]], axis=1)),
+        ("unstack", lambda T, d: T.unstack(d["m"], 0)),
+        ("unbind", lambda T, d: T.unbind(d["m"], 1)[:3]),
+        ("split", lambda T, d: T.split(x(d), [100, -1, 56], axis=1)),
+        ("chunk", lambda T, d: T.chunk(x(d), 4, axis=0)),
+        ("squeeze", lambda T, d: T.squeeze(x(d)[:1], axis=0)),
+        ("unsqueeze", lambda T, d: T.unsqueeze(x(d), [0, 2])),
+        ("squeeze_", lambda T, d: T.squeeze_(x(d)[:1].clone(), 0)),
+        ("unsqueeze_", lambda T, d: T.unsqueeze_(x(d).clone(), [0, 3])),
+        ("flip", lambda T, d: T.flip(x(d), [0, 1])),
+        ("rot90", lambda T, d: T.rot90(x(d), 3)),
+        ("roll", lambda T, d: T.roll(x(d), [3, -5], [0, 1])),
+        ("tile", lambda T, d: T.tile(x(d)[:4], [2, 1, 3])),
+        ("expand", lambda T, d: T.expand(x(d)[:1], [3, 64, -1])),
+        ("expand_as", lambda T, d: T.expand_as(x(d)[:1], d["y"])),
+        ("broadcast_to", lambda T, d: T.broadcast_to(x(d)[:1], [64, 256])),
+        ("broadcast_tensors", lambda T, d: T.broadcast_tensors(
+            [x(d)[:1], d["y"][:, :1]])),
+        ("broadcast_shape", lambda T, d: T.broadcast_shape([4, 1], [3])),
+        ("cast", lambda T, d: T.cast(x(d) * 4, "int32")),
+        ("view", lambda T, d: T.view(x(d), [16, 1024])),
+        ("view_as", lambda T, d: T.view_as(x(d)[:, :64], d["m"][0])),
+        ("gather", lambda T, d: T.gather(x(d), d["idx"])),
+        ("gather_nd", lambda T, d: T.gather_nd(d["m"], d["col"][:, :2] % 4)),
+        ("index_select", lambda T, d: T.index_select(x(d), d["col"][0], 1)),
+        ("index_sample", lambda T, d: T.index_sample(x(d), d["col"])),
+        ("take_along_axis", lambda T, d: T.take_along_axis(x(d), d["col"],
+                                                           1)),
+        ("scatter", lambda T, d: T.scatter(x(d), d["perm"], d["y"][:40])),
+        ("scatter_", lambda T, d: T.scatter_(x(d).clone(), d["perm"],
+                                             d["y"][:40])),
+        ("slice", lambda T, d: T.slice(d["m"], [1, 2], [-10, 3], [100, -2])),
+        ("strided_slice", lambda T, d: T.strided_slice(
+            d["m"], [1, 2], [0, 60], [64, 0], [3, -2])),
+        ("shard_index", lambda T, d: T.shard_index(d["ip"], 20, 3, 1)),
+        ("masked_fill", lambda T, d: T.masked_fill(x(d), d["bo"], 2.5)),
+        ("pad", lambda T, d: T.pad(d["m"][None], [1, 2, 3, 0],
+                                   mode="reflect")),
+        ("repeat_interleave", lambda T, d: T.repeat_interleave(x(d), 2, 1)),
+        ("as_complex", lambda T, d: T.as_complex(d["v3"][:, :2])),
+        ("as_real", lambda T, d: T.as_real(d["c"])),
+        ("atleast_1d", lambda T, d: T.atleast_1d(x(d)[0, 0])),
+        ("atleast_2d", lambda T, d: T.atleast_2d(x(d)[0])),
+        ("atleast_3d", lambda T, d: T.atleast_3d(x(d))),
+        ("crop", lambda T, d: T.crop(d["m"], [2, -1, 8], [1, 3, 4])),
+        ("crop_tensor", lambda T, d: T.crop_tensor(d["m"], [1, 8, 8],
+                                                   [2, 0, 0])),
+        ("unique", lambda T, d: T.unique(d["i"], True, True, True)),
+        ("unique_consecutive", lambda T, d: T.unique_consecutive(
+            torch.sort(d["i"].reshape(-1)).values, True, True)),
+        ("masked_select", lambda T, d: T.masked_select(x(d), d["bo"])),
+        ("argmax", lambda T, d: T.argmax(x(d), 1)),
+        ("argmin", lambda T, d: T.argmin(d["ties16"], 0)),
+        ("argsort", lambda T, d: T.argsort(d["ties"], 1, descending=True)),
+        ("sort", lambda T, d: T.sort(d["ties16"], 1, descending=True,
+                                     stable=True)),
+        ("topk", lambda T, d: T.topk(d["ties"], 5)),
+        ("kthvalue", lambda T, d: T.kthvalue(d["ties"], 7, 1)),
+        ("mode", lambda T, d: T.mode(d["ties"], 1)),
+        ("nonzero", lambda T, d: T.nonzero(d["i"] // 5)),
+        ("where", lambda T, d: T.where(d["bo"], x(d), d["y"])),
+        ("searchsorted", lambda T, d: T.searchsorted(d["sorted"], x(d))),
+        ("bucketize", lambda T, d: T.bucketize(x(d), d["sorted"],
+                                               right=True)),
+    ]
+    for name, call in man:
+        add(name, "exact", lambda T, L, d, c=call: c(T, d))
+    add("index_add", "red", lambda T, L, d: T.index_add(
+        d["x"], d["idx"] % 64, 0, d["y"][:48]))
+    add("index_put", "red", lambda T, L, d: T.index_put(
+        d["x"], [d["perm"], d["col"][:40, 0]], d["y"][0, :40], True))
+    add("put_along_axis", "red", lambda T, L, d: T.put_along_axis(
+        d["x"], d["col"], d["y"][:, :12], 1, "add"))
+    add("scatter_nd", "red", lambda T, L, d: T.scatter_nd(
+        d["col"][:, :2] % 8, d["x"][:, 0], [8, 8]))
+    add("scatter_nd_add", "red", lambda T, L, d: T.scatter_nd_add(
+        d["x"], d["col"][:, :2] % 64, d["y"][:, 0]))
+    add("tensordot", "red", lambda T, L, d: T.tensordot(d["m"], d["m2"],
+                                                        [[1, 2], [2, 1]]))
+    add("einsum", "red", lambda T, L, d: T.einsum("bij,bjk->bik", d["m"],
+                                                  d["m2"]))
+    # linear algebra, on batched 64 x 64 matrices
+    lin = [("norm", lambda T, d: T.norm(d["m"], p="fro", axis=[1, 2])),
+           ("norm", lambda T, d: T.norm(d["m"], p="nuc")),
+           ("p_norm", lambda T, d: T.p_norm(d["m"], 3, axis=2)),
+           ("vector_norm", lambda T, d: T.vector_norm(d["m"], 1, axis=1)),
+           ("matrix_norm", lambda T, d: T.matrix_norm(d["m"])),
+           ("cond", lambda T, d: T.cond(d["m"])),
+           ("cholesky", lambda T, d: T.cholesky(d["spd"])),
+           ("cholesky_solve", lambda T, d: T.cholesky_solve(
+               d["rhs"], T.cholesky(d["spd"]))),
+           ("inv", lambda T, d: T.inv(d["m"])),
+           ("inverse", lambda T, d: T.inverse(d["spd"])),
+           ("det", lambda T, d: T.det(d["m"])),
+           ("slogdet", lambda T, d: T.slogdet(d["m"])),
+           ("svdvals", lambda T, d: T.svdvals(d["m"])),
+           ("eigvalsh", lambda T, d: T.eigvalsh(d["m"])),
+           ("matrix_power", lambda T, d: T.matrix_power(d["m"], 3)),
+           ("pinv", lambda T, d: T.pinv(d["m"])),
+           ("solve", lambda T, d: T.solve(d["m"], d["rhs"])),
+           ("triangular_solve", lambda T, d: T.triangular_solve(
+               d["tri"], d["rhs"], transpose=True)),
+           ("cross", lambda T, d: T.cross(d["v3"], d["w3"])),
+           ("multi_dot", lambda T, d: T.multi_dot([d["m"][0], d["m"][1],
+                                                   d["m"][2]])),
+           ("corrcoef", lambda T, d: T.corrcoef(d["x"][:8])),
+           ("cov", lambda T, d: T.cov(d["x"][:8], ddof=False)),
+           ("householder_product", lambda T, d: T.householder_product(
+               d["m"][:, :, :16], d["prob"][:4, :16])),
+           ("dist", lambda T, d: T.dist(d["x"], d["y"], 3)),
+           ("lstsq", lambda T, d: T.lstsq(d["tall"], d["tall_b"]))]
+    for name, call in lin:
+        add(name, "red", lambda T, L, d, c=call: c(T, d))
+    add("matrix_rank", "exact", lambda T, L, d: T.matrix_rank(d["low"],
+                                                              tol=1e-3))
+    add("lu", "recon", lambda T, L, d: T.lu(d["m"]))
+    add("svd", "recon", lambda T, L, d: T.svd(d["m"]))
+    add("qr", "recon", lambda T, L, d: T.qr(d["m"]))
+    add("eigh", "recon", lambda T, L, d: T.eigh(d["spd"]))
+    add("eig", "eig", lambda T, L, d: T.eig(d["m"]))
+    add("eigvals", "eig", lambda T, L, d: T.eigvals(d["m"]))
+    for name in ("matmul", "bmm", "dot", "mv", "norm", "p_norm", "dist",
+                 "cholesky", "inv", "matrix_power", "multi_dot", "det",
+                 "slogdet", "svd", "qr", "eig", "eigh", "eigvals",
+                 "eigvalsh", "matrix_rank", "pinv", "solve",
+                 "triangular_solve", "lstsq", "cond", "lu",
+                 "cholesky_solve", "cross", "householder_product",
+                 "corrcoef", "cov", "histogram"):
+        # the namespace holds the library's own functions
+        add(f"linalg.{name}", "exact", lambda T, L, d, f=name: getattr(
+            L, f) is getattr(T, f))
+    # random draws, compared in law
+    N = OPS_RANDOM_N
+    rnd = [("uniform", lambda T, d: T.uniform([N], min=-2, max=3,
+                                               device=dev(d))),
+           ("rand", lambda T, d: T.rand([N], device=dev(d))),
+           ("randn", lambda T, d: T.randn([N], device=dev(d))),
+           ("standard_normal", lambda T, d: T.standard_normal(
+               [N], device=dev(d))),
+           ("normal", lambda T, d: T.normal(1.5, 2.0, [N], device=dev(d))),
+           ("gaussian", lambda T, d: T.gaussian([N], -1.0, 0.5,
+                                                device=dev(d))),
+           ("randint", lambda T, d: T.randint(-3, 7, [N], device=dev(d))),
+           ("randperm", lambda T, d: T.randperm(N, device=dev(d))),
+           ("uniform_", lambda T, d: T.uniform_(T.zeros([N], device=dev(d)),
+                                                0.0, 2.0)),
+           ("normal_", lambda T, d: T.normal_(T.zeros([N], device=dev(d)),
+                                              3.0, 0.25)),
+           ("bernoulli", lambda T, d: T.bernoulli(T.full([N], 0.3,
+                                                         device=dev(d)))),
+           ("bernoulli_", lambda T, d: T.bernoulli_(T.zeros([N],
+                                                            device=dev(d)),
+                                                    0.7)),
+           ("exponential_", lambda T, d: T.exponential_(
+               T.zeros([N], device=dev(d)), 2.0)),
+           ("poisson", lambda T, d: T.poisson(T.full([N], 4.0,
+                                                     device=dev(d)))),
+           ("binomial", lambda T, d: T.binomial(
+               T.full([N], 10.0, device=dev(d)), T.full([N], 0.3,
+                                                        device=dev(d)))),
+           ("randint_like", lambda T, d: T.randint_like(
+               T.zeros([N], device=dev(d)), 2, 5)),
+           ("shuffle", lambda T, d: T.shuffle(T.arange(
+               N, dtype="float32", device=dev(d)))),
+           ("multinomial", lambda T, d: T.multinomial(
+               d["prob"][0, :5].contiguous(), N // 10, True))]
+    for name, call in rnd:
+        add(name, "law", lambda T, L, d, c=call: c(T, d))
+    # sequences
+    for pool in ("sum", "average", "sqrt", "max", "first", "last"):
+        add("sequence_pool", "red", lambda T, L, d, p=pool: T.sequence_pool(
+            d["seq"], d["lens"], p))
+    for name in ("sequence_softmax", "sequence_reverse",
+                 "sequence_first_step", "sequence_last_step"):
+        add(name, "ew", lambda T, L, d, f=name: getattr(T, f)(
+            d["seq"][..., 0], d["lens"]))
+    add("sequence_enumerate", "exact", lambda T, L, d: T.sequence_enumerate(
+        d["seq"][..., 0], 3, -1.0))
+    add("sequence_expand", "exact", lambda T, L, d: T.sequence_expand(
+        d["seq"], d["lens"] % 3))
+    add("sequence_concat", "exact", lambda T, L, d: T.sequence_concat(
+        [d["seq"], d["seq"][:, :7]], [d["lens"], d["lens"] % 8]))
+    add("sequence_slice", "exact", lambda T, L, d: T.sequence_slice(
+        d["seq"], d["lens"], d["lens"] // 2, d["lens"] - d["lens"] // 2))
+    add("sequence_pad", "exact", lambda T, L, d: T.sequence_pad(
+        [np.ones((k, 2), np.float32) * k for k in (3, 1, 5)], -1.0,
+        device=dev(d)))
+    add("sequence_unpad", "exact", lambda T, L, d: T.sequence_unpad(
+        d["seq"], d["lens"]))
+    # TensorArray and the namespace's helpers
+    add("TensorArray", "exact", lambda T, L, d: len(T.TensorArray()))
+    add("create_array", "exact", lambda T, L, d: T.create_array(
+        "float32", [d["x"][0]]))
+    add("array_write", "exact", lambda T, L, d: T.array_write(
+        d["x"][1], 1, T.create_array("float32", [d["x"][0]])))
+    add("array_read", "exact", lambda T, L, d: T.array_read(
+        T.array_write(d["y"][0], 0), 0))
+    add("array_length", "exact", lambda T, L, d: T.array_length(
+        T.create_array("float32", [d["x"][0], d["x"][1]])))
+    add("Tensor", "exact", lambda T, L, d: isinstance(d["x"], T.Tensor))
+    add("InvalidArgumentError", "exact", lambda T, L, d: issubclass(
+        T.InvalidArgumentError, ValueError))
+    add("apply", "ew", lambda T, L, d: T.apply(torch.add, d["x"], d["y"],
+                                               name="add"))
+    add("convert_dtype", "exact", lambda T, L, d: str(T.convert_dtype(
+        "bfloat16")))
+    add("default_float_dtype", "exact", lambda T, L, d: str(
+        T.default_float_dtype()))
+    add("next_key", "exact", lambda T, L, d: T.next_key(
+        dev(d)).device.type == dev(d).type)
+    return t
+
+
+def _flat_outputs(out):
+    """An op's outputs as a flat list of tensors and Python values."""
+    if isinstance(out, (list, tuple)):
+        return [v for o in out for v in _flat_outputs(o)]
+    return [out]
+
+
+def ops_error(kind, card, cpu):
+    """Worst error of ``card`` against ``cpu`` over the outputs (a
+    fraction of each output's largest magnitude; exact kinds: 0 or 1)."""
+    worst = 0.0
+    for a, b in zip(_flat_outputs(card), _flat_outputs(cpu), strict=True):
+        if not torch.is_tensor(b):
+            worst = max(worst, float(a != b))
+            continue
+        a = a.detach().cpu()
+        b = b.detach()
+        if tuple(a.shape) != tuple(b.shape):
+            return float("inf")
+        if kind == "exact" or not (b.is_floating_point() or b.is_complex()):
+            same = torch.equal(a, b) if not b.is_floating_point() else \
+                bool(((a == b) | (a.isnan() & b.isnan())).all())
+            worst = max(worst, float(not same))
+            continue
+        a, b = a.to(torch.complex128 if b.is_complex() else torch.float64), \
+            b.to(torch.complex128 if b.is_complex() else torch.float64)
+        fin = torch.isfinite(b)
+        if not torch.equal(fin, torch.isfinite(a)) or \
+                not torch.equal(a[~fin].nan_to_num(), b[~fin].nan_to_num()):
+            return float("inf")
+        if fin.any():
+            scale = b[fin].abs().max().clamp_min(1e-30)
+            worst = max(worst, float((a[fin] - b[fin]).abs().max() / scale))
+    return worst
+
+
+def _recon(name, out):
+    """A factorization's product, sign-free (the factors are not)."""
+    if name == "lu":
+        lu_, piv = out
+        p, lo, up = torch.lu_unpack(lu_, piv)
+        return [p @ lo @ up]
+    if name == "svd":
+        u, s, vh = out
+        return [(u * s[..., None, :]) @ vh, s]
+    if name == "qr":
+        q, r = out
+        return [q @ r, r.diagonal(0, -2, -1).abs()]
+    w, v = out   # eigh
+    return [(v * w[..., None, :]) @ v.transpose(-1, -2), w]
+
+
+def _eig_error(card, cpu):
+    """Each card eigenvalue's distance to the nearest CPU one and back,
+    of the largest magnitude."""
+    w = card[0] if isinstance(card, tuple) else card
+    c = cpu[0] if isinstance(cpu, tuple) else cpu
+    w = w.detach().cpu().to(torch.complex128)
+    c = c.to(torch.complex128)
+    dist = (w[..., :, None] - c[..., None, :]).abs()
+    err = max(float(dist.min(-1).values.max()),
+              float(dist.min(-2).values.max()))
+    return err / float(c.abs().max())
+
+
+def _law_error(card, cpu):
+    """0 if the card's draws match the CPU's in law: shape, dtype, range,
+    mean within 8 standard errors, std within 3%."""
+    a, b = card.detach().cpu().double(), cpu.double()
+    if tuple(card.shape) != tuple(cpu.shape) or card.dtype != cpu.dtype:
+        return float("inf")
+    sd = float(b.std())
+    se = max(sd, 1e-3) / a.numel() ** 0.5
+    ok = (float(a.min()) >= float(b.min()) - 4 * sd - 1e-6
+          and float(a.max()) <= float(b.max()) + 4 * sd + 1e-6
+          and abs(float(a.mean()) - float(b.mean())) < 8 * se
+          and abs(float(a.std()) - sd) < 0.03 * max(sd, 1e-3))
+    return 0.0 if ok else 1.0
+
+
+OPS_BOUNDS = {"ew": TOL_OPS_EW, "red": TOL_OPS_RED, "bf16": TOL_OPS_BF16,
+              "recon": TOL_OPS_RED, "eig": TOL_OPS_RED}
+
+
+def ops_check(name, kind, call, card_in, cpu_in):
+    """One op of ``_ops_table`` on the card and on the CPU: ``(error,
+    bound, read the host)``; the card call runs under
+    ``set_sync_debug_mode('warn')``, whose warnings mark a host read."""
+    import warnings
+    from paddle_tpu_torch import linalg as L
+    from paddle_tpu_torch import tensor as T
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            card = call(T, L, card_in)
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    cpu = call(T, L, cpu_in)
+    host = any("synchroniz" in str(w.message) for w in caught)
+    if kind == "recon":
+        err = ops_error("red", _recon(name, card), _recon(name, cpu))
+    elif kind == "eig":
+        err = _eig_error(card, cpu)
+    elif kind == "law":
+        err = _law_error(card, cpu)
+    else:
+        err = ops_error(kind, card, cpu)
+    return err, OPS_BOUNDS.get(kind, 0.0), host
+
+
+def phase_tensor_ops(smi):
+    """tensor-ops: every public function of ``paddle_tpu_torch.tensor``
+    and ``paddle_tpu_torch.linalg`` called on the card and on the CPU
+    with the same inputs (``ops_inputs``) and compared: f32 within
+    TOL_OPS_EW (elementwise) or TOL_OPS_RED (reductions, products, linear
+    algebra) of each output's scale, bf16 within TOL_OPS_BF16, integers,
+    booleans and indices equal; factorizations through their
+    reconstructions, eigenvalues by matching, random draws in law.  Each
+    call runs under ``torch.cuda.set_sync_debug_mode('warn')``: the ops
+    that read the host are listed.  One line a module: the count, the
+    worst error against its bound, the host-reading ops.  Fails on any op
+    over its bound or any public name left uncalled; rows 1-11 launch 0
+    times."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import linalg as L
+    from paddle_tpu_torch import tensor as T
+    t_phase = time.perf_counter()
+    problems = []
+    zero_launches()
+    table = _ops_table()
+    called = {n for n, _, _ in table}
+    missing = sorted((set(T.__all__) | {f"linalg.{n}" for n in L.__all__})
+                     - called)
+    if missing:
+        problems.append(f"public names left uncalled: {missing}")
+    paddle.seed(1234)
+    card_in, cpu_in = ops_inputs("cuda"), ops_inputs("cpu")
+    # the process's first kernels load lazily, with a sync: not an op's
+    ops_check(*table[0], card_in, cpu_in)
+    by_module = {}
+    mod_of = {n: m for m in ("creation", "math", "manipulation", "logic",
+                             "search", "linalg", "random", "attribute",
+                             "einsum", "sequence", "array")
+              for n in importlib.import_module(
+                  f"paddle_tpu_torch.tensor.{m}").__all__}
+    for name, kind, call in table:
+        key = mod_of.get(name, "linalg" if name.startswith("linalg.")
+                         else "helpers")
+        rec = by_module.setdefault(key, {"n": set(), "worst": 0.0,
+                                         "worst_op": "", "host": set()})
+        rec["n"].add(name)
+        try:
+            err, bound, host = ops_check(name, kind, call, card_in, cpu_in)
+        except Exception as e:   # noqa: BLE001  (reported, fails the phase)
+            problems.append(f"{name} ({kind}) raised {type(e).__name__}: {e}")
+            continue
+        if host:
+            rec["host"].add(name)
+        rel = err / bound if bound else err
+        if rel > 1.0:
+            problems.append(f"{name} ({kind}): error {err:.3e} over "
+                            f"{bound:g}")
+        if rel >= rec["worst"]:
+            rec["worst"], rec["worst_op"] = rel, f"{name} ({kind}) {err:.3e}"
+    launches = read_launches()
+    rn_zero_counts("tensor-ops", launches, problems)
+    for key, rec in sorted(by_module.items()):
+        log(f"[tensor-ops] {key}: {len(rec['n'])} names called; worst "
+            f"{rec['worst']:.3f} of its bound ({rec['worst_op']}); synced "
+            f"with the host on the card: {sorted(rec['host']) or 'none'}")
+    log(f"[tensor-ops] {len(table)} calls of {len(called)} names on the "
+        f"card and the CPU; bounds f32 {TOL_OPS_EW} elementwise, "
+        f"{TOL_OPS_RED} reductions / linalg, bf16 {TOL_OPS_BF16}, random "
+        f"draws in law over {OPS_RANDOM_N}; kernel launches all 0: "
+        f"{not any(launches.values())} ({smi}); the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    finish("tensor-ops", problems)
+    return {"tensor-ops": launches}
+
+
+# ---------------------------------------------------------------------------
+# train-ctr and sparse-scale: row-sparse embedding gradients
+# ---------------------------------------------------------------------------
+
+# Wide & Deep (Cheng et al. 2016) at PaddleRec's
+# models/rank/wide_deep/config.yaml widths
+CTR_VOCAB = 1_000_001     # sparse_feature_number
+CTR_EMB = 9               # sparse_feature_dim
+CTR_SLOTS = 26            # Criteo's categorical slots
+CTR_DENSE = 13            # Criteo's integer slots (dense_input_dim)
+CTR_FC = (512, 256, 128, 32)
+CTR_BATCH = 512
+CTR_STEPS = 60
+CTR_LR = 0.001
+CTR_TWIN_STEPS = 5
+TOL_CTR_TWIN = 1e-4       # x max|reference parameter|, per parameter
+SCALE_VOCABS = (1_000_000, 10_000_000)
+SCALE_DIM, SCALE_BATCH, SCALE_STEPS = 64, 256, 5
+
+
+def ctr_records(n, seed=1234):
+    """Criteo-shaped synthetic records: 13 log-normal dense values and 26
+    ids a record; slot s draws Zipf(1.2)-skewed ids into its own hashed
+    range of the table (so a batch repeats ids); the click comes from a
+    hidden logistic model over the ids and the dense values."""
+    rng = np.random.RandomState(seed)
+    span = CTR_VOCAB // CTR_SLOTS
+    hidden = rng.randn(CTR_VOCAB) * 0.5
+    w_dense = rng.randn(CTR_DENSE) * 0.3
+    dense = rng.lognormal(0.0, 1.0, (n, CTR_DENSE)).astype(np.float32)
+    raw = rng.zipf(1.2, (n, CTR_SLOTS)) - 1
+    ids = (raw % span + np.arange(CTR_SLOTS) * span).astype(np.int64)
+    logit = hidden[ids].sum(1) + np.log1p(dense) @ w_dense - 1.0
+    label = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(np.float32)
+    names = [f"C{s + 1}" for s in range(CTR_SLOTS)]
+    recs = []
+    for r in range(n):
+        rec = {"label": [float(label[r])], "dense": dense[r].tolist()}
+        for s, name in enumerate(names):
+            rec[name] = [int(ids[r, s])]
+        recs.append(rec)
+    return recs, names
+
+
+def ctr_batches(n_batches):
+    """``n_batches`` batches of the port's ``InMemoryDataset`` (set_records,
+    local_shuffle(1234), batch_generator) as ``(ids [B, 26], dense
+    [B, 13], label [B, 1])`` host arrays."""
+    from paddle_tpu_torch.io import InMemoryDataset
+    recs, names = ctr_records(n_batches * CTR_BATCH)
+    ds = InMemoryDataset(use_slots=names, dense_slots={"dense": CTR_DENSE},
+                         batch_size=CTR_BATCH)
+    ds.set_records(recs)
+    ds.local_shuffle(seed=1234)
+    out = []
+    for b in ds.batch_generator(drop_last=True):
+        ids = np.concatenate([b[name] for name in names], 1)
+        out.append((ids, b["dense"], b["label"][:, :1]))
+    return out
+
+
+def ctr_model(device, sparse=True, seed=1234):
+    """Wide & Deep from the port's layers: one table shared by the 26
+    slots, the deep MLP over the slots' embeddings and the dense values,
+    the wide Linear(13, 1) over the dense values."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    paddle.seed(seed)
+    net = nn.Layer()
+    net.emb = nn.Embedding(CTR_VOCAB, CTR_EMB, sparse=sparse, device=device)
+    sizes = (CTR_SLOTS * CTR_EMB + CTR_DENSE,) + CTR_FC + (1,)
+    net.deep = nn.LayerList([nn.Linear(a, b, device=device)
+                             for a, b in zip(sizes[:-1], sizes[1:])])
+    net.wide = nn.Linear(CTR_DENSE, 1, device=device)
+    return net
+
+
+def ctr_forward(net, ids, dense):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.nn import functional as F
+    e = paddle.reshape(net.emb(ids), [ids.shape[0], CTR_SLOTS * CTR_EMB])
+    h = paddle.concat([e, dense], axis=1)
+    for i, fc in enumerate(net.deep):
+        h = fc(h)
+        if i < len(net.deep) - 1:
+            h = F.relu(h)
+    return h + net.wide(dense)
+
+
+def ctr_loss(net, batch, device):
+    from paddle_tpu_torch.nn import functional as F
+    ids, dense, label = (torch.as_tensor(a).to(device, non_blocking=True)
+                         for a in batch)
+    return F.binary_cross_entropy_with_logits(ctr_forward(net, ids, dense),
+                                              label)
+
+
+def ctr_twin(make_opt, batches, device, sparse, start):
+    """``CTR_TWIN_STEPS`` steps from the parameters ``start`` (a state
+    dict); returns the final state on the CPU."""
+    net = ctr_model(device, sparse=sparse)
+    net.set_state_dict({k: v.to(device) for k, v in start.items()})
+    opt = make_opt(net.parameters())
+    for b in batches[:CTR_TWIN_STEPS]:
+        ctr_loss(net, b, device).backward()
+        if sparse and not net.emb.weight.grad.is_sparse:
+            raise SystemExit("train-ctr: a twin's table gradient is dense")
+        opt.step()
+        opt.clear_grad()
+    out = {k: v.detach().float().cpu() for k, v in net.state_dict().items()}
+    del net, opt
+    return out
+
+
+def twin_error(a, b):
+    return max(rel_diff(a[k], b[k]) for k in b)
+
+
+def phase_train_ctr(smi):
+    """train-ctr: Wide & Deep (CTR_* widths) trained eagerly on the card,
+    ``Adam(learning_rate=0.001, lazy_mode=True)``, fed CTR_STEPS batches
+    of CTR_BATCH synthetic Criteo-shaped records through the port's
+    ``InMemoryDataset``: every step's table gradient row-sparse, every
+    ``opt.step()`` under ``set_sync_debug_mode('error')`` (the backward's
+    host syncs counted under 'warn'), the last 10 losses' mean below the
+    first 10's, every row no batch touched bitwise equal to its start;
+    5-step twins on the same batches (sparse SGD against dense SGD, sparse
+    Adam with ``lazy_mode=False`` against dense Adam, the lazy run on the
+    card against the port on the CPU) within TOL_CTR_TWIN; step ms,
+    examples/s over the loop's wall, the update's ms, peak memory; rows
+    1-11 launch 0 times."""
+    import warnings
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer as topt
+    t_phase = time.perf_counter()
+    problems = []
+    paddle.set_device("gpu")
+    t0 = time.perf_counter()
+    batches = ctr_batches(CTR_STEPS)
+    t_data = time.perf_counter() - t0
+    net = ctr_model("cuda")
+    start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    table0 = net.emb.weight.detach().clone()
+    touched = torch.zeros(CTR_VOCAB, dtype=torch.bool, device="cuda")
+    opt = topt.Adam(learning_rate=CTR_LR, parameters=net.parameters(),
+                    lazy_mode=True)
+    losses, step_ms, upd_ms, backward_syncs = [], [], [], 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    wall0 = time.perf_counter()
+    for i, b in enumerate(batches):
+        t_step = time.perf_counter()
+        ids = torch.as_tensor(b[0]).to("cuda", non_blocking=True)
+        touched[ids.reshape(-1)] = True
+        loss = ctr_loss(net, b, "cuda")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                loss.backward()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        backward_syncs += sum("synchroniz" in str(w.message) for w in caught)
+        if not net.emb.weight.grad.is_sparse:
+            problems.append(f"step {i}: the table's gradient is dense")
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            opt.step()
+        except RuntimeError as e:
+            problems.append(f"step {i}: opt.step() synced: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        ev1.record()
+        opt.clear_grad()
+        losses.append(loss.detach())
+        upd_ms.append((ev0, ev1))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t_step) * 1e3)
+    wall = time.perf_counter() - wall0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    upd = [a.elapsed_time(b) for a, b in upd_ms]
+    losses = [float(v) for v in losses]
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    if not (all(np.isfinite(losses)) and last < first):
+        problems.append(f"losses not finite and falling: first 10 {first:.4f}"
+                        f", last 10 {last:.4f}")
+    untouched = ~touched
+    frozen = torch.equal(net.emb.weight.detach()[untouched],
+                         table0[untouched])
+    n_touched = int(touched.sum())
+    if not frozen:
+        problems.append("a row no batch touched moved")
+    rn_zero_counts("train-ctr", launches, problems)
+    log(f"[train-ctr] Wide&Deep {CTR_VOCAB} x {CTR_EMB} table (sparse=True) "
+        f"shared by {CTR_SLOTS} slots, MLP {CTR_SLOTS * CTR_EMB + CTR_DENSE} "
+        f"-> {' -> '.join(map(str, CTR_FC))} -> 1 + wide Linear({CTR_DENSE}, "
+        f"1), B={CTR_BATCH}, lazy Adam lr {CTR_LR}, {CTR_STEPS} steps "
+        f"({smi}): loss first 10 {first:.4f}, last 10 {last:.4f}; step ms "
+        f"median {float(np.median(step_ms)):.3f} (first {step_ms[0]:.1f}); "
+        f"examples/s over the loop's wall {CTR_STEPS * CTR_BATCH / wall:.0f} "
+        f"({wall:.2f} s); the update (opt.step, device) median "
+        f"{float(np.median(upd)):.3f} ms; peak {peak} bytes; "
+        f"{n_touched} rows touched, the other {CTR_VOCAB - n_touched} "
+        f"bitwise at their start: {frozen}; opt.step() under "
+        f"set_sync_debug_mode('error'): {not any('synced' in p for p in problems)}; "
+        f"backward host syncs {backward_syncs} ({backward_syncs / CTR_STEPS:.1f} "
+        f"a step); data {t_data:.1f} s")
+    del net, opt, table0, touched
+    del_all()
+
+    # 5-step twins on the same batches
+    def sgd(ps):
+        return topt.SGD(learning_rate=0.1, parameters=ps)
+
+    def adam(lazy):
+        return lambda ps: topt.Adam(learning_rate=CTR_LR, parameters=ps,
+                                    lazy_mode=lazy)
+
+    twins = {
+        "sparse SGD vs dense SGD": (
+            ctr_twin(sgd, batches, "cuda", True, start),
+            ctr_twin(sgd, batches, "cuda", False, start)),
+        "sparse Adam lazy_mode=False vs dense Adam": (
+            ctr_twin(adam(False), batches, "cuda", True, start),
+            ctr_twin(adam(False), batches, "cuda", False, start)),
+        "lazy Adam, card vs CPU": (
+            ctr_twin(adam(True), batches, "cuda", True, start),
+            ctr_twin(adam(True), batches, "cpu", True,
+                     {k: v.cpu() for k, v in start.items()})),
+    }
+    errs = {k: twin_error(a, b) for k, (a, b) in twins.items()}
+    for k, e in errs.items():
+        if not e <= TOL_CTR_TWIN:
+            problems.append(f"twin {k}: {e:.3e} over {TOL_CTR_TWIN}")
+    log(f"[train-ctr] {CTR_TWIN_STEPS}-step twins, worst max|diff| / "
+        f"max|reference| over the parameters (tol {TOL_CTR_TWIN}): "
+        f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} }; the phase "
+        f"took {time.perf_counter() - t_phase:.1f} s")
+    del twins, start, batches
+    del_all()
+    finish("train-ctr", problems)
+    return {"train-ctr": launches}
+
+
+def phase_sparse_scale(smi):
+    """sparse-scale: a SCALE_DIM-wide embedding of each of SCALE_VOCABS
+    rows (the JAX package's million-row case, and ten times it), a batch
+    of SCALE_BATCH ids, MSE against a target: SCALE_STEPS lazy sparse
+    Adam steps against SCALE_STEPS dense ones (after a warm-up step each),
+    wall ms a step after a device sync; fails unless the sparse step is
+    the faster at the largest table."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer as topt
+    from paddle_tpu_torch.nn import functional as F
+    t_phase = time.perf_counter()
+    problems, rows = [], {}
+    zero_launches()
+    rng = np.random.RandomState(0)
+    for vocab in SCALE_VOCABS:
+        ids = torch.as_tensor(rng.randint(0, vocab, (SCALE_BATCH,))).cuda()
+        tgt = torch.as_tensor(rng.randn(SCALE_BATCH, SCALE_DIM)
+                              .astype(np.float32)).cuda()
+        for sparse in (True, False):
+            paddle.seed(0)
+            torch.cuda.reset_peak_memory_stats()
+            emb = nn.Embedding(vocab, SCALE_DIM, sparse=sparse, device="cuda")
+            opt = topt.Adam(learning_rate=0.01, parameters=emb.parameters(),
+                            lazy_mode=True)
+
+            def step():
+                F.mse_loss(emb(ids), tgt).backward()
+                opt.step()
+                opt.clear_grad()
+            step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SCALE_STEPS):
+                step()
+            torch.cuda.synchronize()
+            rows[(vocab, sparse)] = (time.perf_counter() - t0) * 1e3 \
+                / SCALE_STEPS
+            rows[(vocab, sparse, "peak")] = torch.cuda.max_memory_allocated()
+            del emb, opt
+            del_all()
+    for vocab in SCALE_VOCABS:
+        log(f"[sparse-scale] {vocab} x {SCALE_DIM} f32 table, {SCALE_BATCH} "
+            f"ids, Adam lazy_mode: sparse {rows[(vocab, True)]:.3f} ms a step "
+            f"(peak {rows[(vocab, True, 'peak')]} bytes), dense "
+            f"{rows[(vocab, False)]:.3f} ms (peak "
+            f"{rows[(vocab, False, 'peak')]} bytes): "
+            f"{rows[(vocab, False)] / rows[(vocab, True)]:.1f}x ({smi})")
+    big = SCALE_VOCABS[-1]
+    if not rows[(big, True)] < rows[(big, False)]:
+        problems.append(f"the sparse step is not the faster at {big} rows")
+    launches = read_launches()
+    rn_zero_counts("sparse-scale", launches, problems)
+    log(f"[sparse-scale] the phase took {time.perf_counter() - t_phase:.1f} s")
+    finish("sparse-scale", problems)
+    return {"sparse-scale": launches}
+
+
 def gpt_params(cfg):
     """Parameters of a GPT(-MoE) config: embeddings, blocks (an expert
     layer holds E FFNs and a router), final norm."""
@@ -7748,78 +8737,106 @@ def gpt_params(cfg):
     return n
 
 
+def timed_phase(tag, fn, *args):
+    """``fn(*args)`` with its seconds on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase-seconds] {tag}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
     name, count, smi = phase_device()
     t0 = time.perf_counter()
-    phase_build()
-    records = phase_kernels()
-    phase_window_kernels(records)
-    phase_qmm_kernels(records)
-    phase_f8_kernels(records)
-    phase_mega_kernels(records)
-    phase_train_kernels(records)
-    phase_dropout_kernels(records)
-    phase_transformer_kernels(records)
+    timed_phase("build", phase_build)
+    records = timed_phase("kernels", phase_kernels)
+    for tag, phase in (("window-kernels", phase_window_kernels),
+                       ("qmm-kernels", phase_qmm_kernels),
+                       ("f8-kernels", phase_f8_kernels),
+                       ("mega-kernels", phase_mega_kernels),
+                       ("train-kernels", phase_train_kernels),
+                       ("dropout-kernels", phase_dropout_kernels),
+                       ("transformer-kernels", phase_transformer_kernels)):
+        timed_phase(tag, phase, records)
     model = build_model()
     paths = {}
     for tag, phase in (("serve", phase_serve),
                        ("serve-paged", phase_serve_paged),
                        ("serve-pressure", phase_serve_pressure)):
-        paths[tag] = phase(model)
+        paths[tag] = timed_phase(tag, phase, model)
         gc.collect()
         torch.cuda.empty_cache()
-    paths.update(phase_serve_int8(model))
-    paths.update(phase_serve_chunked(model))
-    paths.update(phase_serve_spec(model))
-    paths.update(phase_serve_mega(model))
-    paths["serve-quant"] = phase_serve_quant(model)
+    for tag, phase in (("serve-int8", phase_serve_int8),
+                       ("serve-chunked", phase_serve_chunked),
+                       ("serve-spec", phase_serve_spec),
+                       ("serve-mega", phase_serve_mega)):
+        paths.update(timed_phase(tag, phase, model))
+    paths["serve-quant"] = timed_phase("serve-quant", phase_serve_quant,
+                                       model)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(phase_serve_fp8(model))
-    paths["serve-quant-fp8"] = phase_serve_quant_fp8(model)
+    paths.update(timed_phase("serve-fp8", phase_serve_fp8, model))
+    paths["serve-quant-fp8"] = timed_phase("serve-quant-fp8",
+                                           phase_serve_quant_fp8, model)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["serve-lifecycle"] = phase_serve_lifecycle(model)
+    paths["serve-lifecycle"] = timed_phase("serve-lifecycle",
+                                           phase_serve_lifecycle, model)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["serve-loadtest"] = phase_serve_loadtest(model, smi)
+    paths["serve-loadtest"] = timed_phase("serve-loadtest",
+                                          phase_serve_loadtest, model, smi)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(phase_serve_disagg(model))
+    paths.update(timed_phase("serve-disagg", phase_serve_disagg, model))
     del_all()
-    paths["serve-fleet"] = phase_serve_fleet(model, smi)
+    paths["serve-fleet"] = timed_phase("serve-fleet", phase_serve_fleet,
+                                       model, smi)
     del_all()
-    paths.update(phase_serve_telemetry(model, smi))
-    phase_warmup_child()
-    phase_teacher_forced(model)
-    phase_teacher_mega_quant(model)
-    phase_profile(model)
-    paths.update(phase_serve_decoding(model))
+    paths.update(timed_phase("serve-telemetry", phase_serve_telemetry, model,
+                             smi))
+    timed_phase("warmup-child", phase_warmup_child)
+    timed_phase("teacher-forced", phase_teacher_forced, model)
+    timed_phase("teacher-mega-quant", phase_teacher_mega_quant, model)
+    timed_phase("profile", phase_profile, model)
+    paths.update(timed_phase("serve-decoding", phase_serve_decoding, model))
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    paths.update(phase_serve_moe(smi))
-    phase_train_parity()
+    paths.update(timed_phase("serve-moe", phase_serve_moe, smi))
+    timed_phase("train-parity", phase_train_parity)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train-qat"] = phase_train_qat()
+    paths["train-qat"] = timed_phase("train-qat", phase_train_qat)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["train-qat-fp8"] = phase_train_qat_fp8()
-    bf16 = phase_train()
+    paths["train-qat-fp8"] = timed_phase("train-qat-fp8", phase_train_qat_fp8)
+    bf16 = timed_phase("train", phase_train)
     paths["train"] = bf16["launches"]
-    for phase in (phase_train_dropout, phase_train_fp16,
-                  phase_train_recompute_policies,
-                  phase_train_merge, phase_train_anomaly,
-                  phase_train_checkpoint, phase_train_telemetry,
-                  phase_train_optimizers, phase_train_moe):
+    for tag, phase in (("train-dropout", phase_train_dropout),
+                       ("train-fp16", phase_train_fp16),
+                       ("train-recompute-policies",
+                        phase_train_recompute_policies),
+                       ("train-merge", phase_train_merge),
+                       ("train-anomaly", phase_train_anomaly),
+                       ("train-checkpoint", phase_train_checkpoint),
+                       ("train-telemetry", phase_train_telemetry),
+                       ("train-optimizers", phase_train_optimizers),
+                       ("train-moe", phase_train_moe)):
         del_all()
-        paths.update(phase(bf16, smi))
-    for phase in (phase_train_transformer, phase_train_transformer_trainer,
-                  phase_workers, phase_train_resnet,
-                  phase_train_resnet_trainer, phase_detect):
+        paths.update(timed_phase(tag, phase, bf16, smi))
+    for tag, phase in (("train-transformer", phase_train_transformer),
+                       ("train-transformer-trainer",
+                        phase_train_transformer_trainer),
+                       ("workers", phase_workers),
+                       ("train-resnet", phase_train_resnet),
+                       ("train-resnet-trainer", phase_train_resnet_trainer),
+                       ("detect", phase_detect),
+                       ("tensor-ops", phase_tensor_ops),
+                       ("train-ctr", phase_train_ctr),
+                       ("sparse-scale", phase_sparse_scale)):
         del_all()
-        paths.update(phase(smi))
+        paths.update(timed_phase(tag, phase, smi))
     _RN_DATA.clear()
     # only the layer API's masked attention takes the composite: every
     # GPT path reads 0 composite calls

@@ -29,11 +29,20 @@ ModelAverage), and Paddle's layer API on one GPU (``nn.Layer`` and the
 layer zoo, ``amp.auto_cast``, ``save`` / ``load``, ``io.DataLoader``,
 ``metric``, ``hapi.Model``), and vision on one GPU (``nn``'s
 convolutions, pools and norms, ``vision.models``, ``vision.datasets``'
-synthetic data, ``vision.transforms``, ``summary`` / ``flops``).
+synthetic data, ``vision.transforms``, ``summary`` / ``flops``), and
+the op library (``tensor``, re-exported here as ``paddle.concat`` and
+so on, and bound as ``torch.Tensor`` methods under the names torch
+lacks; ``linalg``) with row-sparse embedding gradients
+(``core.selected_rows``, ``Embedding(sparse=True)``, sparse SGD and
+lazy Adam) and ``io.InMemoryDataset``.
 """
+from .tensor import *  # noqa: F401,F403
+from .tensor import __all__ as _tensor_all
+from .tensor import tensor_methods as _tensor_methods  # noqa: F401
 from . import (amp, autograd, core, device, distributed, framework, hapi,
-               incubate, inference, io, metric, models, nn, observability,
-               ops, optimizer, profiler, regularizer, testing, text, vision)
+               incubate, inference, io, linalg, metric, models, nn,
+               observability, ops, optimizer, profiler, regularizer, tensor,
+               testing, text, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .core.dtype import (bfloat16, bool_, float16, float32, float64,
@@ -46,12 +55,13 @@ from .framework.io import load, save
 from .hapi import Model, flops, summary
 from .nn.layer_base import ParamAttr
 
-__all__ = ["amp", "autograd", "core", "device", "distributed", "framework",
-           "hapi", "incubate", "inference", "io", "metric", "models", "nn",
+__all__ = [*_tensor_all, "amp", "autograd", "core", "device", "distributed",
+           "framework", "hapi", "incubate", "inference", "io", "linalg",
+           "metric", "models", "nn", "tensor",
            "observability", "ops", "optimizer", "profiler", "regularizer",
            "resolve_device", "testing", "text", "vision", "Model", "summary",
            "flops", "ParamAttr",
-           "Parameter", "to_tensor", "is_tensor", "save", "load", "seed",
+           "Parameter", "save", "load", "seed",
            "set_device", "get_device", "no_grad", "enable_grad", "grad",
            "set_grad_enabled", "is_grad_enabled", "set_default_dtype",
            "get_default_dtype", "bool_", "uint8", "int8", "int16", "int32",

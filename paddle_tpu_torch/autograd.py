@@ -5,8 +5,10 @@ The JAX package records its own tape; the port's tensors carry
 PyTorch's graph, so this module maps Paddle's entry points onto it:
 ``backward`` and ``grad`` with Paddle's argument semantics,
 ``no_grad`` / ``enable_grad`` / ``set_grad_enabled`` /
-``is_grad_enabled``, and ``PyLayer`` / ``PyLayerContext`` on a
-``torch.autograd.Function``.
+``is_grad_enabled``, ``PyLayer`` / ``PyLayerContext`` on a
+``torch.autograd.Function``, and ``apply``, the op library's entry (the
+JAX tape's ``apply`` without the tape: inputs cast by op name under
+``auto_cast``, then the function runs on the tensors themselves).
 """
 from __future__ import annotations
 
@@ -14,12 +16,20 @@ import torch
 
 __all__ = ["backward", "grad", "no_grad", "enable_grad",
            "set_grad_enabled", "is_grad_enabled", "PyLayer",
-           "PyLayerContext"]
+           "PyLayerContext", "apply"]
 
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
 set_grad_enabled = torch.set_grad_enabled
 is_grad_enabled = torch.is_grad_enabled
+
+
+def apply(fn, *args, name: str = ""):
+    """``fn(*args)`` with the tensor arguments cast for op ``name`` under
+    the thread's ``auto_cast`` (as the JAX tape's ``apply`` casts them);
+    PyTorch's autograd records whatever ``fn`` does."""
+    from .amp.auto_cast import cast_inputs
+    return fn(*cast_inputs(name, *args))
 
 
 def _as_list(x):

@@ -3,7 +3,8 @@ of the JAX package's hierarchy the port raises, with the same bases, so
 ``except KeyError`` catches an unknown flag as it does there."""
 from __future__ import annotations
 
-__all__ = ["EnforceNotMet", "NotFoundError", "PreconditionNotMetError"]
+__all__ = ["EnforceNotMet", "NotFoundError", "PreconditionNotMetError",
+           "InvalidArgumentError"]
 
 
 class EnforceNotMet(RuntimeError):
@@ -15,4 +16,8 @@ class NotFoundError(EnforceNotMet, KeyError):
 
 
 class PreconditionNotMetError(EnforceNotMet):
+    pass
+
+
+class InvalidArgumentError(EnforceNotMet, ValueError):
     pass

@@ -15,7 +15,8 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["seed", "set_seed", "get_generator", "philox_pair"]
+__all__ = ["seed", "set_seed", "get_generator", "next_key",
+           "philox_pair"]
 
 # the layer API's generator per device, made at first use from _SEED
 _GENERATORS = {}
@@ -48,6 +49,13 @@ def get_generator(device=None) -> torch.Generator:
         g = _GENERATORS[dev] = torch.Generator(device=dev)
         g.manual_seed(_SEED)
     return g
+
+
+def next_key(device=None) -> torch.Generator:
+    """What the op library draws from when no generator is given (the
+    JAX package's ``next_key`` hands out a key): the layer API's
+    generator on ``device``."""
+    return get_generator(device)
 
 
 def philox_pair(device=None,

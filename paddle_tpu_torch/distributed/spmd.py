@@ -76,6 +76,7 @@ import torch
 
 from ..core.errors import PreconditionNotMetError
 from ..core.flags import GLOBAL_FLAGS
+from ..core.selected_rows import dense_lookups
 from ..observability import doctor as _doctor
 from ..observability import exec_registry as _exec_registry
 from ..observability import flightrec as _flightrec
@@ -343,8 +344,10 @@ class SpmdTrainer:
         was = self.model.training
         self.model.train(training)
         try:
-            return torch.func.functional_call(
-                self.model, self._compute_params(), self._cast_inputs(inputs))
+            with dense_lookups():
+                return torch.func.functional_call(
+                    self.model, self._compute_params(),
+                    self._cast_inputs(inputs))
         finally:
             self.model.train(was)
 

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ...amp.auto_cast import cast_inputs
+from ...core.selected_rows import embedding_sparse, gather_rows
 
 __all__ = [
     "linear", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
@@ -97,19 +98,15 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
-    """Rows of ``weight`` by ``x``; rows at ``padding_idx`` come out
-    zero (and pass no gradient)."""
-    if sparse:
-        raise NotImplementedError(
-            "embedding(sparse=True) needs SelectedRows gradients, which "
-            "come with the tensor slice (ROADMAP.md Queue 1 item 3.5)")
+    """Rows of ``weight`` by ``x`` (-1 reads the last row); rows at
+    ``padding_idx`` come out zero (and pass no gradient).  With
+    ``sparse=True`` the eager weight gradient is row-sparse (a sparse COO
+    ``.grad``, ``core.selected_rows``); inside the trainer's step the
+    lookup is the plain gather either way."""
     (x, weight) = cast_inputs("embedding", x, weight)
-    out = weight[x.long()]
-    if padding_idx is not None:
-        out = torch.where((x == padding_idx)[..., None],
-                          torch.zeros((), dtype=out.dtype,
-                                      device=out.device), out)
-    return out
+    if sparse:
+        return embedding_sparse(x, weight, padding_idx)
+    return gather_rows(x.long(), weight, padding_idx)
 
 
 def one_hot(x, num_classes, name=None):

@@ -58,17 +58,13 @@ class Linear(Layer):
 class Embedding(Layer):
     """Lookup table ``weight [num_embeddings, embedding_dim]`` (default
     init N(0, 1)); the ``padding_idx`` row starts at zero and looks up
-    zeros.  ``sparse=True`` raises: SelectedRows gradients come with the
-    tensor slice (ROADMAP.md Queue 1 item 3.5)."""
+    zeros.  With ``sparse=True`` the weight's eager gradient is
+    row-sparse (SGD and Adam / AdamW update only its rows)."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
                  sparse=False, weight_attr=None, name=None, *, device=None,
                  dtype=None, generator=None):
         super().__init__(dtype=dtype)
-        if sparse:
-            raise NotImplementedError(
-                "Embedding(sparse=True) needs SelectedRows gradients, which "
-                "come with the tensor slice (ROADMAP.md Queue 1 item 3.5)")
         self._placement(device, generator)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
@@ -83,7 +79,8 @@ class Embedding(Layer):
                 self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"

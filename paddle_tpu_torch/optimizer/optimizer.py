@@ -17,6 +17,14 @@ during a step); the new value is cast back to the parameter's dtype.
 Each parameter's update runs at the learning rate times its own scale,
 ``optimize_attr["learning_rate"]`` (``nn.ParamAttr(learning_rate=...)``),
 as in the JAX package.
+
+A row-sparse gradient (the sparse COO ``.grad`` of
+``Embedding(sparse=True)``) takes the sparse branch of ``step()``: it is
+merged (``SelectedRows.merge``) and handed to ``_update_sparse``, which
+SGD and Adam / AdamW implement; any other rule raises, and so do
+gradient clipping and coupled weight decay with a sparse gradient, as
+in the JAX package.
+
 The learning rate is a Python float and the step count a Python int or
 an int32 device tensor (the trainer's under fp16 AMP and the ``skip``
 anomaly policy, which does not advance on a skipped step), so a step
@@ -101,6 +109,14 @@ class Optimizer:
         """Update ``p`` and ``state`` in place."""
         raise NotImplementedError
 
+    def _update_sparse(self, p: torch.Tensor, g, state, lr: float, step):
+        """Update ``p`` and ``state`` in place from ``g``, a merged
+        ``SelectedRows``.  Only SGD and Adam implement it."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support sparse "
+            f"(SelectedRows) gradients; use SGD or Adam, or construct "
+            f"the Embedding with sparse=False")
+
     def init_state(self, params: Dict[str, torch.Tensor]) -> None:
         """Create the accumulators of every ``params[n]`` not yet
         tracked (the trainer does so when it is built, so a checkpoint
@@ -161,14 +177,38 @@ class Optimizer:
                              "eager use")
         live = {str(i): p for i, p in enumerate(self._parameters)
                 if p.grad is not None and p.requires_grad}
+        sparse = {n: p for n, p in live.items() if p.grad.is_sparse}
+        if sparse and self._grad_clip is not None:
+            raise NotImplementedError(
+                "grad_clip with sparse (SelectedRows) gradients is not "
+                "supported; clip needs the dense grad")
+        if not self._decoupled_wd and any(
+                (getattr(p, "regularizer", None) or self._weight_decay)
+                is not None for p in sparse.values()):
+            raise NotImplementedError(
+                "coupled weight decay with sparse gradients is not "
+                "supported (the decay term is dense)")
+        dense = {n: p for n, p in live.items() if n not in sparse}
         self._param_objs = live
         try:
-            self.apply_gradients(live, {n: p.grad for n, p in live.items()},
+            self.apply_gradients(dense, {n: p.grad for n, p in dense.items()},
                                  step=self._step_count + 1)
+            self._step_sparse(sparse, self._step_count + 1)
         finally:
             self._param_objs = {}
             self._cur_param = None
         self._step_count += 1
+
+    @torch.no_grad()
+    def _step_sparse(self, params: Dict[str, torch.Tensor], step: int):
+        from ..core.selected_rows import SelectedRows
+        lr = self.get_lr()
+        self.init_state(params)
+        for n, p in params.items():
+            self._cur_param_name, self._cur_param = n, p
+            g = SelectedRows.from_sparse(p.grad).merge()
+            self._update_sparse(p, g, self._accumulators[n],
+                                lr * _lr_scale(p), step)
 
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._parameters or []:

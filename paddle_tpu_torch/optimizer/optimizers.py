@@ -47,6 +47,12 @@ class SGD(Optimizer):
     def _update(self, p, g, state, lr, step):
         p.sub_(lr * g.to(p.dtype))
 
+    def _update_sparse(self, p, g, state, lr, step):
+        """The touched rows only (untouched rows have a zero gradient, so
+        the result is the dense rule's); merge's padding adds zeros."""
+        rows, vals = g.in_range()
+        p.index_add_(0, rows, (-lr * vals).to(p.dtype))
+
 
 class Momentum(Optimizer):
     _accum_names = ("velocity",)
@@ -133,15 +139,21 @@ class Adadelta(Optimizer):
 
 
 class Adam(Optimizer):
+    """``lazy_mode``: a row-sparse gradient updates only its rows, their
+    moments included (untouched rows and moments stay as they are, an
+    O(rows x dim) step); without it the dense rule runs on the densified
+    gradient (moments decay everywhere)."""
+
     _accum_names = ("moment1", "moment2")
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None):
+                 grad_clip=None, lazy_mode=False):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
+        self._lazy_mode = bool(lazy_mode)
         self._step_size_key = self._step_size_val = None
 
     def _init_accumulators(self, p):
@@ -179,6 +191,29 @@ class Adam(Optimizer):
     def _extra_decay(self, new_p, p, lr):
         return new_p
 
+    def _update_sparse(self, p, g, state, lr, step):
+        if not self._lazy_mode:
+            self._update(p, g.to_dense(), state, lr, step)
+            return
+        # merge's padding slots (row out of range) repeat the first row
+        # and its gradient: they compute and write that row's own new
+        # values, so every write is well defined and nothing reads the
+        # host for the count of real rows
+        ok = g.rows < p.shape[0]
+        rows = torch.where(ok, g.rows, g.rows[:1])
+        gv = torch.where(ok.reshape((-1,) + (1,) * (g.values.dim() - 1)),
+                         g.values, g.values[:1]).float()
+        m1, m2 = state["moment1"], state["moment2"]
+        m1r = self._beta1 * m1[rows] + (1 - self._beta1) * gv
+        m2r = self._beta2 * m2[rows] + (1 - self._beta2) * gv * gv
+        step_size = self._step_size(lr, step)
+        old = p[rows]
+        pr = old.float() - step_size * m1r / (m2r.sqrt() + self._epsilon)
+        pr = self._extra_decay(pr, old, lr)  # AdamW: rows decay lazily
+        p.index_put_((rows,), pr.to(p.dtype))
+        m1.index_put_((rows,), m1r)
+        m2.index_put_((rows,), m2r)
+
 
 class AdamW(Adam):
     """Adam with decoupled weight decay ``p -= lr * coeff * p`` (from the
@@ -189,7 +224,8 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 apply_decay_param_fun=None, grad_clip=None):
+                 apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False):
         # decoupled decay is L2-shaped: an L2Decay gives its coefficient
         if isinstance(weight_decay, L2Decay):
             weight_decay = weight_decay.coeff
@@ -197,7 +233,7 @@ class AdamW(Adam):
             raise TypeError(f"AdamW weight_decay must be a float or an "
                             f"L2Decay, got {type(weight_decay)}")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         None, grad_clip)
+                         None, grad_clip, lazy_mode=lazy_mode)
         self._wd_coeff = float(weight_decay)
         self._apply_decay_param_fun = apply_decay_param_fun
 

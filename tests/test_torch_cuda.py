@@ -2007,3 +2007,85 @@ def test_worker_loader_forks_after_cuda_init(gen):
         assert a.is_cuda and torch.equal(a, c) and torch.equal(b, d)
     assert mp.active_children() == []
     assert not any(os.path.exists(f"/dev/shm/{n}") for n in st["rings"])
+
+
+# the op library and row-sparse embedding gradients
+
+TENSOR_MODULES = ["creation", "math", "manipulation", "logic", "search",
+                  "linalg", "random", "attribute", "einsum", "sequence",
+                  "array"]
+
+
+@pytest.mark.parametrize("module", TENSOR_MODULES)
+def test_tensor_module_on_the_card_equals_the_cpu(gen, module):
+    """Every op of one module of ``paddle_tpu_torch.tensor`` in
+    chip_smoke's tensor-ops table, on the card against the CPU within
+    the table's bounds (TOL_OPS_*)."""
+    cs = importlib.import_module("chip_smoke")
+    import paddle_tpu_torch as tp
+    names = set(importlib.import_module(
+        f"paddle_tpu_torch.tensor.{module}").__all__)
+    tp.seed(1234)
+    card_in, cpu_in = cs.ops_inputs("cuda"), cs.ops_inputs("cpu")
+    checked, bad = set(), []
+    for name, kind, call in cs._ops_table():
+        if name not in names:
+            continue
+        err, bound, _ = cs.ops_check(name, kind, call, card_in, cpu_in)
+        checked.add(name)
+        if err > (bound or 0.0):
+            bad.append((name, kind, err, bound))
+    assert checked == names and not bad, (names - checked, bad)
+
+
+def _sparse_table(vocab, dim, device, seed=0):
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import nn
+    tp.seed(seed)
+    return nn.Embedding(vocab, dim, sparse=True, device=device)
+
+
+def test_lazy_adam_step_reads_nothing_back_on_the_card(gen):
+    """A sparse lazy-Adam step (merge, moments and rows) raises no error
+    under ``set_sync_debug_mode('error')`` and equals the CPU's."""
+    import paddle_tpu_torch as tp
+    ids = torch.randint(0, 1000, (64, 26), generator=gen, device="cuda")
+    start = _sparse_table(1000, 9, "cpu").state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        emb = _sparse_table(1000, 9, dev)
+        emb.set_state_dict({k: v.to(dev) for k, v in start.items()})
+        opt = tp.optimizer.Adam(1e-2, parameters=emb.parameters(),
+                                lazy_mode=True)
+        for _ in range(2):
+            (emb(ids.to(dev)) ** 2).sum().backward()
+            assert emb.weight.grad.is_sparse
+            if dev == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                opt.step()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            opt.clear_grad()
+        out[dev] = emb.weight.detach().cpu()
+    err = (out["cuda"] - out["cpu"]).abs().max() / out["cpu"].abs().max()
+    assert err <= 1e-5, float(err)
+
+
+def test_minus_one_ids_update_the_last_row_on_the_card(gen):
+    """-1 reads and updates the table's last row (the JAX package's
+    reading of InMemoryDataset's padding): one lazy Adam step at lr 0.1
+    moves rows 1, 2 and 4 of a 5-row table by -0.1."""
+    import paddle_tpu_torch as tp
+    emb = _sparse_table(5, 2, "cuda")
+    w0 = emb.weight.detach().clone()
+    ids = torch.tensor([[1, -1], [2, 1]], device="cuda")
+    out = emb(ids)
+    assert torch.equal(out[0, 1], w0[4])
+    opt = tp.optimizer.Adam(0.1, parameters=emb.parameters(), lazy_mode=True)
+    out.sum().backward()
+    opt.step()
+    moved = (emb.weight.detach() - w0).cpu()
+    assert torch.allclose(moved[[1, 2, 4]], torch.full((3, 2), -0.1),
+                          rtol=1e-5, atol=0)
+    assert (moved[[0, 3]] == 0).all()

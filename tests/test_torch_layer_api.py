@@ -445,9 +445,11 @@ def test_seed_restarts_the_layer_generator():
 
 
 # the norms and Model.summary waited for the vision slice, the DataLoader
-# workers and the detection ops for the next one; they now build
+# workers and the detection ops for the next one, the sparse embedding for
+# the op library's; they now build
 PORTED_SINCE = {"BatchNorm2D", "GroupNorm", "InstanceNorm1D", "RMSNorm",
-                "Model-summary", "DataLoader-workers", "vision-ops"}
+                "Model-summary", "DataLoader-workers", "vision-ops",
+                "Embedding-sparse"}
 WAITING = {
     "BatchNorm2D": lambda: tnn.BatchNorm2D(4),
     "GroupNorm": lambda: tnn.GroupNorm(2, 4),
