@@ -298,6 +298,17 @@ before the result lines:
    ``prepare(strategy=...)`` with ``strategy.amp`` (``SpmdTrainer``) for
    10 steps, the same launch and composite counts.  Every other path
    must read 0 composite calls;
+29a. jit-transformer: the same network through ``paddle.jit.to_static``
+   for train-transformer's 20 fit steps: losses equal to the fit's, rows
+   1-3 (dropout forms) 12 launches a step, one capture per key, fresh
+   dropout bits on every call, the captured graph on the
+   ``paddle_tpu::flash_fwd`` op with no library attention; ``jit.save``
+   at ``InputSpec([None, 256], 'int64')`` x 2 and
+   ``inference.load_predictor`` on the card at B = 16 and 1 against the
+   eager forward (row 1 12 launches a call);
+29b. capi: ``libpd_inference.so`` and ``pd_capi_demo`` built with ``cc``;
+   ``PD_PredictorRun`` bitwise equal to the predictor, the demo binary's
+   checksum equal to Python's, ``PD_NewTrainer`` NULL with its reason;
 30. workers: the DataLoader's fork workers over shared-memory rings on
    four batches of FakeData, bitwise equal to ``num_workers=0``'s; under
    ``PADDLE_FAULT_WORKER_KILL="1:1"`` the same batches with one restart,
@@ -327,9 +338,16 @@ before the result lines:
    gradients, ``opt.step()`` free of host syncs, untouched rows bitwise
    unchanged, 5-step twins (sparse against dense SGD and Adam, card
    against CPU) within TOL_CTR_TWIN;
+35a. static-ctr: the same Wide & Deep written in static mode
+   (``static.data``, ``static.nn.sparse_embedding``, ``static.nn.fc``,
+   ``Adam(0.001).minimize``), 60 ``Executor.run`` steps on train-ctr's
+   batches: falling loss, 3 steps against a CPU replay of the same
+   program within TOL_STATIC_REPLAY, ``save_inference_model`` ->
+   ``load_inference_model`` against ``clone(for_test=True)`` within
+   TOL_STATIC_INFER;
 36. sparse-scale: lazy sparse Adam against dense at 1 M and 10 M x 64
    rows; the sparse step must be the faster at 10 M.  Rows 1-11 launch
-   0 times on phases 34-36.
+   0 times on phases 34-36 and 35a.
 
 Each phase's seconds are printed on a line of their own
 (``[phase-seconds]``).
@@ -6457,7 +6475,10 @@ TB_STEPS, TB_EVAL, TB_PREDICT, TB_TRAINER_STEPS = 10, 4, 2, 10
 # row in the backward too
 TOL_TB = 1e-2
 # the composite's paths: every other path must read 0 composite calls
-TB_PATHS = ("train-transformer", "train-transformer-trainer")
+# the layer API's paths: the decoder's masked self-attention takes the
+# composite (under a capture, counted when the graph is traced)
+TB_PATHS = ("train-transformer", "train-transformer-trainer",
+            "jit-transformer", "capi")
 COMPOSITE_KEY = "attention_composite"
 
 
@@ -6813,6 +6834,7 @@ def phase_train_transformer(smi):
     fit_counts = tb_counts("fit", read_launches(), steps, steps, problems)
     total = read_launches()
     losses = rec.losses
+    _TB_FIT_LOSSES[:] = losses
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if len(losses) != steps or not np.all(np.isfinite(losses)) or \
             not last < first:
@@ -6915,6 +6937,487 @@ def phase_train_transformer_trainer(smi):
                          + "; ".join(problems))
     log("[train-transformer-trainer] ok")
     return {"train-transformer-trainer": launches}
+
+
+# ---------------------------------------------------------------------------
+# The program path: Transformer-base through jit.to_static, jit.save and
+# inference.load_predictor, served from C (libpd_inference.so), and Wide &
+# Deep written in static mode (Program, Executor, save_inference_model)
+# ---------------------------------------------------------------------------
+# two epochs of 10 batches, as train-transformer's fit: over 10 fresh
+# batches the loss of the eager fit rises too (10.5334 -> 10.5445 over
+# train-transformer's first 10 steps)
+JIT_STEPS, JIT_BATCHES = 20, 10
+# the static program's logits against the eager layer's, and the loaded
+# predictor's against the eager layer's: within this share of each row's
+# max |logit| (the same kernels on the same bf16 casts; the capture may
+# order an f32 sum differently)
+TOL_JIT = 1e-2
+# the CPU replay of the static Wide & Deep program against the card's run:
+# each parameter within this share of its max |value| after 3 steps (f32
+# Adam; the card's matmuls take TF32-free f32, sums in another order)
+TOL_STATIC_REPLAY = 1e-4
+# save_inference_model's program against clone(for_test=True) on the card
+TOL_STATIC_INFER = 1e-6
+_JIT_SAVED = []
+# train-transformer's fit losses, which the to_static loop meets again
+_TB_FIT_LOSSES = []
+# the to_static losses against those fit losses, absolute: the same
+# program on the same batches, weights and dropout bits (the gap read 0
+# on the card); the bound leaves room for a reordered atomic sum only
+TOL_JIT_FIT = 1e-4
+
+
+def row_scale_error(got, ref):
+    """max over rows of max|got - ref| / max|ref| (rows: the last dim)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().amax(-1)
+    scale = ref.abs().amax(-1).clamp_min(1e-30)
+    return float((err / scale).max())
+
+
+def jit_counts(tag, launches, want, problems):
+    """Rows 1-3 (both forms) against ``want``; other forms 0."""
+    keys = (*FLASH, *(f"{k}_dropout" for k in FLASH))
+    for key in keys:
+        if launches[key] != want.get(key, 0):
+            problems.append(f"{tag}: {key} {launches[key]} != "
+                            f"{want.get(key, 0)}")
+    return {k: launches[k] for k in keys if launches[k]}
+
+
+def graph_targets(module):
+    """The call targets of a captured program's graph, as text."""
+    return {str(n.target) for n in module.graph.nodes
+            if n.op == "call_function"}
+
+
+def phase_jit_transformer(smi):
+    """jit-transformer: Transformer-base (``tb_network``, seed 1234)
+    through ``paddle.jit.to_static`` for JIT_STEPS training steps
+    (JIT_BATCHES batches twice, as train-transformer's fit) under
+    ``auto_cast(dtype='bfloat16')`` with the Adam + Noam of ``tb_model``:
+    finite losses, the last 5's mean below the first 5's, each within
+    TOL_JIT_FIT of train-transformer's fit loss (that phase runs first);
+    rows 1-3 in their dropout forms 12
+    launches a step each; one capture per key; the captured graph calls the
+    ``paddle_tpu::flash_fwd`` op and no library attention; an eval forward
+    static against eager within TOL_JIT of each row's logit scale.  Then
+    ``jit.save`` with ``InputSpec([None, 256], 'int64')`` twice (f32
+    weights, the bf16 casts captured in the program) and
+    ``inference.load_predictor`` on the card: B = 16 and B = 1 against
+    the eager eval forward within TOL_JIT, row 1 12 launches a call and
+    rows 2-3 none; ms a batch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.static import InputSpec
+    t_phase = time.perf_counter()
+    problems = []
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    net = tb_network()
+    sched = paddle.optimizer.lr.NoamDecay(d_model=512, warmup_steps=4000,
+                                          last_epoch=3999)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=net.parameters())
+    loss_fn = tb_loss()
+    static_net = paddle.jit.to_static(net)
+    data = tb_data(JIT_BATCHES * TB_B, 1234)
+    src_all, tgt_all, lab_all = (torch.as_tensor(a) for a in data.tensors)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    zero_launches()
+    for step in range(JIT_STEPS):
+        sl = slice(step % JIT_BATCHES * TB_B,
+                   (step % JIT_BATCHES + 1) * TB_B)
+        src, tgt, lab = (t[sl].cuda() for t in (src_all, tgt_all, lab_all))
+        t0 = time.perf_counter()
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            loss = loss_fn(static_net(src, tgt), lab)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    train_counts = jit_counts("to_static training", read_launches(), {
+        f"{k}_dropout": 2 * TB_LAYERS * JIT_STEPS for k in FLASH}, problems)
+    total = read_launches()
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if not (np.all(np.isfinite(losses)) and last < first):
+        problems.append(f"losses not finite and falling: {losses}")
+    if len(_TB_FIT_LOSSES) != len(losses):
+        raise RuntimeError(f"jit-transformer compares with train-transformer's"
+                           f" {len(losses)} fit losses; that phase left "
+                           f"{len(_TB_FIT_LOSSES)} (run it first)")
+    fit_gap = max(abs(a - b) for a, b in zip(losses, _TB_FIT_LOSSES))
+    if not fit_gap <= TOL_JIT_FIT:
+        problems.append(f"to_static losses vs the eager fit's: max gap "
+                        f"{fit_gap:.3e} > {TOL_JIT_FIT}")
+    vs_fit = (f"; max |loss - train-transformer's eager fit loss| "
+              f"{fit_gap:.3e} (tol {TOL_JIT_FIT})")
+    train_captures = static_net.captures
+    if train_captures != 1:
+        problems.append(f"{train_captures} captures for one key")
+    graph = graph_targets(next(iter(static_net._cache.values())))
+    if not any("paddle_tpu.flash_fwd" in t for t in graph) or \
+            any("scaled_dot_product" in t or "flash_attention" in t
+                for t in graph):
+        problems.append(f"captured graph attention ops: "
+                        f"{sorted(t for t in graph if 'attention' in t or 'flash' in t)}")
+    # the dropout bits are ops of the captured graph: two calls differ
+    with torch.no_grad(), paddle.amp.auto_cast(dtype="bfloat16"):
+        a = static_net(src_all[:TB_B].cuda(), tgt_all[:TB_B].cuda())
+        b = static_net(src_all[:TB_B].cuda(), tgt_all[:TB_B].cuda())
+    fresh = not torch.equal(a, b)
+    if not fresh:
+        problems.append("two training-mode calls drew the same dropout bits")
+    del a, b
+    # eval: static against eager on the same weights
+    net.eval()
+    src, tgt = src_all[:TB_B].cuda(), tgt_all[:TB_B].cuda()
+    zero_launches()
+    with torch.no_grad(), paddle.amp.auto_cast(dtype="bfloat16"):
+        got = static_net(src, tgt)
+        want = net(src, tgt)
+    eval_counts = jit_counts("eval forwards", read_launches(),
+                             {"flash_fwd": 2 * 2 * TB_LAYERS}, problems)
+    add_launches(total, read_launches())
+    eval_err = row_scale_error(got, want)
+    if not eval_err <= TOL_JIT:
+        problems.append(f"eval static vs eager {eval_err:.3e}")
+    if static_net.captures != 2:
+        problems.append(f"{static_net.captures} captures for two keys")
+    log(f"[jit-transformer] {smi}: Transformer-base through to_static, "
+        f"auto_cast bf16, {TB_B} x {TB_S} + {TB_B} x {TB_S} tokens, "
+        f"{JIT_STEPS} steps ({JIT_BATCHES} batches twice): losses "
+        f"{[round(x, 4) for x in losses]} (first 5 mean {first:.4f}, last 5 "
+        f"{last:.4f}{vs_fit}); step ms "
+        f"median {float(np.median(step_ms[2:])):.3f} (steps 3 on; first "
+        f"{step_ms[0]:.1f} with the capture); captures {train_captures} "
+        f"(train) + {static_net.captures - train_captures} (eval); launches "
+        f"{train_counts} (12 a step each); two training-mode calls draw "
+        f"other dropout bits: {fresh}; eval static vs eager max row "
+        f"error {eval_err:.3e} (tol {TOL_JIT}), launches {eval_counts}")
+    # save and load
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_jit", "tb")
+    t0 = time.perf_counter()
+    with paddle.amp.auto_cast(dtype="bfloat16"):
+        paddle.jit.save(net, path, input_spec=[InputSpec([None, TB_S],
+                                                         "int64")] * 2)
+    t_save = time.perf_counter() - t0
+    nbytes = {ext: os.path.getsize(path + ext)
+              for ext in (".pdmodel", ".pdiparams")}
+    t0 = time.perf_counter()
+    pred = paddle.inference.load_predictor(path)
+    t_load = time.perf_counter() - t0
+    loaded_graph = graph_targets(pred._exported)
+    if not any("paddle_tpu.flash_fwd" in t for t in loaded_graph) or \
+            any("scaled_dot_product" in t for t in loaded_graph):
+        problems.append(f"loaded program's attention ops: "
+                        f"{sorted(t for t in loaded_graph if 'attention' in t or 'flash' in t)}")
+    errs = {}
+    for b in (TB_B, 1):
+        zero_launches()
+        out = pred(src[:b], tgt[:b])
+        counts = jit_counts(f"predictor B={b}", read_launches(),
+                            {"flash_fwd": 2 * TB_LAYERS}, problems)
+        add_launches(total, read_launches())
+        with torch.no_grad(), paddle.amp.auto_cast(dtype="bfloat16"):
+            ref = net(src[:b], tgt[:b])
+        errs[b] = row_scale_error(out, ref)
+        if tuple(out.shape) != (b, TB_S, TB_VOCAB) or \
+                not bool(torch.isfinite(out.float()).all()) or \
+                not errs[b] <= TOL_JIT:
+            problems.append(f"predictor B={b}: shape {tuple(out.shape)}, "
+                            f"error {errs[b]:.3e}")
+    pred(src, tgt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        pred(src, tgt)
+    torch.cuda.synchronize()
+    pred_ms = (time.perf_counter() - t0) / 5 * 1e3
+    log(f"[jit-transformer] jit.save (eval, the bf16 casts captured in the "
+        f"program, f32 weights) {t_save:.2f} s, {nbytes} bytes; "
+        f"load_predictor on the card {t_load:.2f} s; predictor vs eager max "
+        f"row error {errs} (tol {TOL_JIT}); row 1 {counts} a call; "
+        f"{pred_ms:.3f} ms a batch of {TB_B} x {TB_S} (host clock, 5 calls)")
+    _JIT_SAVED[:] = [path, pred, src.cpu(), tgt.cpu()]
+    del net, opt, static_net, got, want
+    del_all()
+    log(f"[jit-transformer] the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    finish("jit-transformer", problems)
+    return {"jit-transformer": total}
+
+
+def phase_capi(smi):
+    """capi: ``libpd_inference.so`` built with ``cc``; ``PD_NewPredictor``
+    / ``PD_PredictorRun`` through ctypes on jit-transformer's artifact at
+    B = 16 equal bitwise to ``load_predictor``'s output (row 1 12 more
+    launches); the standalone ``pd_capi_demo`` binary as a subprocess:
+    exit 0 and its output's checksum equal to Python's; ``PD_NewTrainer``
+    NULL with ``PD_GetLastError`` naming the waiting item.  Where this
+    machine lacks Python.h or a shared libpython the phase drives
+    ``capi_bridge`` (what the shim calls) instead and says why."""
+    import ctypes
+    from paddle_tpu_torch.inference import capi_bridge
+    from paddle_tpu_torch.inference.capi import build as capi_build
+    t_phase = time.perf_counter()
+    problems = []
+    path, pred, src, tgt = _JIT_SAVED
+    src, tgt = src.cuda(), tgt.cuda()
+    inc, libdir, ver, ok = capi_build.embed_inputs()
+    log(f"[capi] build inputs: Python.h under {inc}, libpython{ver} shared "
+        f"under {libdir}: {ok}")
+    zero_launches()
+    want = pred(src, tgt)
+    add_total = read_launches()
+    want_bytes = capi_bridge._host(want).tobytes()
+    if not ok:
+        log("[capi] this machine lacks Python.h or a shared libpython: the "
+            "shim cannot be built here, so the phase drives capi_bridge's "
+            "create / run / destroy (what the shim calls)")
+        h = capi_bridge.create(path)
+        zero_launches()
+        out = capi_bridge.run(h, [(capi_bridge._host(t).tobytes(),
+                                   tuple(t.shape), "int64")
+                                  for t in (src, tgt)])
+        launches = read_launches()
+        capi_bridge.destroy(h)
+        if out[0][0] != want_bytes:
+            problems.append("capi_bridge.run differs from load_predictor")
+        jit_counts("capi_bridge", launches, {"flash_fwd": 2 * TB_LAYERS},
+                   problems)
+        finish("capi", problems)
+        return {"capi": launches}
+    t0 = time.perf_counter()
+    lib_path = capi_build.build_library()
+    exe = capi_build.build_demo()
+    t_build = time.perf_counter() - t0
+
+    class PDTensor(ctypes.Structure):
+        _fields_ = [("data", ctypes.c_void_p),
+                    ("shape", ctypes.c_int64 * 8),
+                    ("ndim", ctypes.c_int32),
+                    ("dtype", ctypes.c_char * 16)]
+
+    lib = ctypes.CDLL(lib_path)
+    lib.PD_NewPredictor.restype = ctypes.c_void_p
+    lib.PD_NewPredictor.argtypes = [ctypes.c_char_p]
+    lib.PD_NewTrainer.restype = ctypes.c_void_p
+    lib.PD_NewTrainer.argtypes = [ctypes.c_char_p]
+    lib.PD_PredictorRun.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(PDTensor), ctypes.c_int32,
+        ctypes.POINTER(ctypes.POINTER(PDTensor)),
+        ctypes.POINTER(ctypes.c_int32)]
+    lib.PD_GetLastError.restype = ctypes.c_char_p
+    lib.PD_DeletePredictor.argtypes = [ctypes.c_void_p]
+    handle = lib.PD_NewPredictor(path.encode())
+    if not handle:
+        raise SystemExit(f"capi: PD_NewPredictor failed: "
+                         f"{lib.PD_GetLastError()}")
+    host = [np.ascontiguousarray(t.cpu().numpy()) for t in (src, tgt)]
+    ins = (PDTensor * 2)()
+    for t, a in zip(ins, host):
+        t.data = a.ctypes.data_as(ctypes.c_void_p)
+        t.ndim = 2
+        t.shape[0], t.shape[1] = a.shape
+        t.dtype = b"int64"
+    outs = ctypes.POINTER(PDTensor)()
+    n_outs = ctypes.c_int32()
+    zero_launches()
+    t0 = time.perf_counter()
+    rc = lib.PD_PredictorRun(handle, ins, 2, ctypes.byref(outs),
+                             ctypes.byref(n_outs))
+    t_run = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise SystemExit(f"capi: PD_PredictorRun failed: "
+                         f"{lib.PD_GetLastError()}")
+    o = outs[0]
+    shape = tuple(o.shape[i] for i in range(o.ndim))
+    got = ctypes.string_at(o.data, int(np.prod(shape)) * 4)
+    bitwise = got == want_bytes
+    if not bitwise or shape != (TB_B, TB_S, TB_VOCAB):
+        problems.append(f"PD_PredictorRun {shape} differs from "
+                        f"load_predictor's output (bitwise {bitwise})")
+    c_counts = jit_counts("PD_PredictorRun", launches,
+                          {"flash_fwd": 2 * TB_LAYERS}, problems)
+    lib.PD_TensorsFree(outs, n_outs)
+    lib.PD_DeletePredictor(handle)
+    trainer = lib.PD_NewTrainer(path.encode())
+    err = lib.PD_GetLastError().decode()
+    if trainer or "export_train_step" not in err:
+        problems.append(f"PD_NewTrainer: handle {trainer}, error {err!r}")
+    # the standalone binary on the ramp inputs
+    ramp = torch.arange(TB_B * TB_S).reshape(TB_B, TB_S) % 1000 + 4
+    want_hash = capi_bridge.checksum(capi_bridge._host(pred(ramp, ramp))
+                                     .tobytes())
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))] +
+        [p for p in sys.path if p])
+    t0 = time.perf_counter()
+    proc = subprocess.run([exe, path, "int64", f"{TB_B}x{TB_S}", "int64",
+                           f"{TB_B}x{TB_S}"], env=env, capture_output=True,
+                          text=True, timeout=300)
+    t_demo = time.perf_counter() - t0
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("OUT 0")), "")
+    demo_hash = int(line.split("checksum=")[1].split(":")[0]) if line \
+        else None
+    if proc.returncode != 0 or "CAPI-DEMO-OK" not in proc.stdout or \
+            demo_hash != want_hash:
+        problems.append(f"pd_capi_demo rc {proc.returncode}, hash "
+                        f"{demo_hash} vs {want_hash}: {proc.stdout[-400:]} "
+                        f"{proc.stderr[-800:]}")
+    log(f"[capi] {smi}: libpd_inference.so and pd_capi_demo built in "
+        f"{t_build:.2f} s; PD_PredictorRun at B={TB_B}: bitwise equal to "
+        f"load_predictor {bitwise}, {t_run * 1e3:.3f} ms (host clock, "
+        f"marshalling included), launches {c_counts}; PD_NewTrainer NULL: "
+        f"{not trainer}, PD_GetLastError {err!r}; pd_capi_demo exit "
+        f"{proc.returncode} in {t_demo:.1f} s (cold start), checksum "
+        f"{demo_hash} == Python's {want_hash}: {demo_hash == want_hash}")
+    _JIT_SAVED.clear()
+    del pred
+    del_all()
+    log(f"[capi] the phase took {time.perf_counter() - t_phase:.1f} s")
+    finish("capi", problems)
+    add_launches(launches, add_total)
+    return {"capi": launches}
+
+
+def static_ctr_program(device):
+    """Wide & Deep written in static mode (``static.data``,
+    ``static.nn.sparse_embedding``, ``static.nn.fc``, ``Adam(CTR_LR)
+    .minimize``) in a fresh Program on ``device``; returns ``(main,
+    feeds, predict, loss)``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.nn import functional as F
+    paddle.set_device(device)
+    paddle.seed(1234)
+    main = static.Program()
+    with static.program_guard(main):
+        dense = static.data("dense", [None, CTR_DENSE], "float32")
+        sparse = static.data("sparse", [None, CTR_SLOTS], "int64")
+        label = static.data("label", [None, 1], "float32")
+        emb = static.nn.sparse_embedding(sparse, [CTR_VOCAB, CTR_EMB])
+        deep = paddle.concat([paddle.reshape(emb, [-1, CTR_SLOTS * CTR_EMB]),
+                              dense], axis=1)
+        for size in CTR_FC:
+            deep = static.nn.fc(deep, size, activation="relu")
+        logit = static.nn.fc(deep, 1) + static.nn.fc(dense, 1)
+        predict = F.sigmoid(logit)
+        loss = paddle.mean(F.binary_cross_entropy_with_logits(logit, label))
+        paddle.optimizer.Adam(learning_rate=CTR_LR).minimize(loss)
+    return main, (dense, sparse), predict, loss
+
+
+def phase_static_ctr(smi):
+    """static-ctr: Wide & Deep (CTR_* widths) in static mode on the card,
+    CTR_STEPS ``Executor.run`` steps on train-ctr's ``InMemoryDataset``
+    batches: the last 10 losses' mean below the first 10's; after 3 steps
+    every parameter against a CPU replay of the same program from the same
+    start within TOL_STATIC_REPLAY of its scale; step ms and examples/s;
+    ``save_inference_model(['dense', 'sparse'], [predict])`` ->
+    ``load_inference_model`` -> ``Executor.run`` on the card against
+    ``main.clone(for_test=True)`` within TOL_STATIC_INFER; rows 1-11 launch
+    0 times."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import static
+    t_phase = time.perf_counter()
+    problems = []
+    batches = ctr_batches(CTR_STEPS)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_static")
+    paddle.enable_static()
+    try:
+        main, feeds, predict, loss = static_ctr_program("gpu")
+        static.save(main, os.path.join(root, "start"))
+        exe = static.Executor()
+        losses, step_ms = [], []
+        torch.cuda.synchronize()
+        zero_launches()
+        wall0 = time.perf_counter()
+        for i, (ids, dense, label) in enumerate(batches):
+            t0 = time.perf_counter()
+            (lv,) = exe.run(main, feed={"dense": dense, "sparse": ids,
+                                        "label": label},
+                            fetch_list=[loss], return_numpy=False)
+            losses.append(float(lv))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 2:
+                static.save(main, os.path.join(root, "step3"))
+                wall0 += time.perf_counter() - t0 - step_ms[-1] / 1e3
+        wall = time.perf_counter() - wall0
+        launches = read_launches()
+        rn_zero_counts("static-ctr", launches, problems)
+        first, last = float(np.mean(losses[:10])), \
+            float(np.mean(losses[-10:]))
+        if not (all(np.isfinite(losses)) and last < first):
+            problems.append(f"losses not finite and falling: first 10 "
+                            f"{first:.4f}, last 10 {last:.4f}")
+        # inference: the test clone against the saved and loaded program
+        test_prog = main.clone(for_test=True)
+        ids, dense, _ = batches[0]
+        (want,) = exe.run(test_prog, feed={"dense": dense, "sparse": ids},
+                          fetch_list=[predict], return_numpy=False)
+        t0 = time.perf_counter()
+        static.save_inference_model(os.path.join(root, "infer"), list(feeds),
+                                    [predict], exe)
+        t_save = time.perf_counter() - t0
+        prog, names, n_out = static.load_inference_model(
+            os.path.join(root, "infer"))
+        (got,) = exe.run(prog, feed={"dense": dense, "sparse": ids},
+                         return_numpy=False)
+        infer_err = float((got - want).abs().max() /
+                          want.abs().max().clamp_min(1e-30))
+        if not infer_err <= TOL_STATIC_INFER or names != ["dense", "sparse"]:
+            problems.append(f"loaded inference program {names}: "
+                            f"{infer_err:.3e}")
+        del main, exe, test_prog, prog
+        del_all()
+        # the CPU replay of the first 3 steps from the same start
+        cpu_main, _, _, cpu_loss = static_ctr_program("cpu")
+        static.load(cpu_main, os.path.join(root, "start"))
+        cpu_exe = static.Executor(static.CPUPlace())
+        for ids, dense, label in batches[:3]:
+            cpu_exe.run(cpu_main, feed={"dense": dense, "sparse": ids,
+                                        "label": label},
+                        fetch_list=[cpu_loss])
+        static.save(cpu_main, os.path.join(root, "cpu3"))
+        card = static.load_program_state(os.path.join(root, "step3"))
+        cpu = static.load_program_state(os.path.join(root, "cpu3"))
+        replay = {k: float(np.abs(card[k] - cpu[k]).max() /
+                           max(np.abs(cpu[k]).max(), 1e-30)) for k in cpu}
+        worst = max(replay.values())
+        if not worst <= TOL_STATIC_REPLAY or set(card) != set(cpu):
+            problems.append(f"CPU replay: worst {worst:.3e}")
+        del cpu_main, cpu_exe
+    finally:
+        paddle.disable_static()
+        paddle.set_device("gpu")
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[static-ctr] {smi}: Wide & Deep in static mode ({CTR_VOCAB} x "
+        f"{CTR_EMB} sparse_embedding over {CTR_SLOTS} slots, fc "
+        f"{' -> '.join(map(str, CTR_FC))} -> 1 + wide fc({CTR_DENSE}, 1), "
+        f"B={CTR_BATCH}, Adam {CTR_LR}), {CTR_STEPS} Executor.run steps: "
+        f"loss first 10 {first:.4f}, last 10 {last:.4f}; step ms median "
+        f"{float(np.median(step_ms)):.3f} (first {step_ms[0]:.1f}); "
+        f"examples/s over the loop's wall {CTR_STEPS * CTR_BATCH / wall:.0f}; "
+        f"3 steps against the CPU replay, worst max|diff| / max|cpu| "
+        f"{worst:.3e} (tol {TOL_STATIC_REPLAY}) over {len(replay)} "
+        f"parameters; save_inference_model {t_save:.2f} s, the loaded "
+        f"program vs clone(for_test=True) {infer_err:.3e} (tol "
+        f"{TOL_STATIC_INFER}); the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    finish("static-ctr", problems)
+    return {"static-ctr": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -8828,12 +9331,15 @@ def main():
     for tag, phase in (("train-transformer", phase_train_transformer),
                        ("train-transformer-trainer",
                         phase_train_transformer_trainer),
+                       ("jit-transformer", phase_jit_transformer),
+                       ("capi", phase_capi),
                        ("workers", phase_workers),
                        ("train-resnet", phase_train_resnet),
                        ("train-resnet-trainer", phase_train_resnet_trainer),
                        ("detect", phase_detect),
                        ("tensor-ops", phase_tensor_ops),
                        ("train-ctr", phase_train_ctr),
+                       ("static-ctr", phase_static_ctr),
                        ("sparse-scale", phase_sparse_scale)):
         del_all()
         paths.update(timed_phase(tag, phase, smi))

@@ -34,15 +34,20 @@ the op library (``tensor``, re-exported here as ``paddle.concat`` and
 so on, and bound as ``torch.Tensor`` methods under the names torch
 lacks; ``linalg``) with row-sparse embedding gradients
 (``core.selected_rows``, ``Embedding(sparse=True)``, sparse SGD and
-lazy Adam) and ``io.InMemoryDataset``.
+lazy Adam) and ``io.InMemoryDataset``, and the program path
+(``jit``: ``to_static``, ``save`` / ``load`` over ``torch.export``, the
+attention kernels as ``torch.library`` custom ops; ``inference``:
+``load_predictor`` and the C API; ``static``: Program, Executor,
+``save`` / ``load_inference_model``; ``func``, ``extension``,
+``onnx``).
 """
 from .tensor import *  # noqa: F401,F403
 from .tensor import __all__ as _tensor_all
 from .tensor import tensor_methods as _tensor_methods  # noqa: F401
-from . import (amp, autograd, core, device, distributed, framework, hapi,
-               incubate, inference, io, linalg, metric, models, nn,
-               observability, ops, optimizer, profiler, regularizer, tensor,
-               testing, text, vision)
+from . import (amp, autograd, core, device, distributed, extension,
+               framework, func, hapi, incubate, inference, io, jit, linalg,
+               metric, models, nn, observability, onnx, ops, optimizer,
+               profiler, regularizer, static, tensor, testing, text, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .core.dtype import (bfloat16, bool_, float16, float32, float64,
@@ -50,15 +55,25 @@ from .core.dtype import (bfloat16, bool_, float16, float32, float64,
                          set_default_dtype, uint8)
 from .core.random import set_seed as seed
 from .core.tensor import Parameter, is_tensor, to_tensor
-from .device import get_device, resolve_device, set_device
+from .device import (CPUPlace, CUDAPlace, get_device, resolve_device,
+                     set_device)
 from .framework.io import load, save
 from .hapi import Model, flops, summary
 from .nn.layer_base import ParamAttr
+from .static import InputSpec
+from .static.program import disable_static, enable_static, in_static_mode
+
+
+def in_dynamic_mode() -> bool:
+    return not in_static_mode()
 
 __all__ = [*_tensor_all, "amp", "autograd", "core", "device", "distributed",
            "framework", "hapi", "incubate", "inference", "io", "linalg",
            "metric", "models", "nn", "tensor",
            "observability", "ops", "optimizer", "profiler", "regularizer",
+           "extension", "func", "jit", "onnx", "static", "InputSpec",
+           "enable_static", "disable_static", "in_static_mode",
+           "in_dynamic_mode", "CPUPlace", "CUDAPlace",
            "resolve_device", "testing", "text", "vision", "Model", "summary",
            "flops", "ParamAttr",
            "Parameter", "save", "load", "seed",

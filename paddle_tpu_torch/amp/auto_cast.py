@@ -100,12 +100,30 @@ def cast_inputs(name: str, *args):
         return torch.is_tensor(a) and a.is_floating_point()
 
     if name in st.black:
-        return tuple(a.float() if is_float(a) and a.dtype != torch.float32
-                     else a for a in args)
-    if name in st.white or st.level == "O2":
-        return tuple(a.to(st.dtype) if is_float(a) and
-                     a.dtype == torch.float32 else a for a in args)
-    return args
+        dtype, cast = torch.float32, (lambda a: a.dtype != torch.float32)
+    elif name in st.white or st.level == "O2":
+        dtype, cast = st.dtype, (lambda a: a.dtype == torch.float32)
+    else:
+        return args
+    to = _static_cast(args) or (lambda a, d: a.to(d))
+    return tuple(to(a, dtype) if is_float(a) and cast(a) else a
+                 for a in args)
+
+
+def _static_cast(args):
+    """While a static program records an op (a Variable among ``args``),
+    the cast of a captured tensor (a Parameter, a buffer) is recorded too,
+    so that the program reads the tensor when it runs and not a copy made
+    while recording; None otherwise."""
+    from ..static.program import Variable, maybe_record
+    if not any(isinstance(a, Variable) for a in args):
+        return None
+
+    def to(a, dtype):
+        if isinstance(a, Variable):
+            return a.to(dtype)
+        return maybe_record(torch.Tensor.to, (a, dtype), force=True)
+    return to
 
 
 def decorate(models, optimizers=None, level="O1", dtype="bfloat16",

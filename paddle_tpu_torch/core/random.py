@@ -59,7 +59,8 @@ def next_key(device=None) -> torch.Generator:
 
 
 def philox_pair(device=None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The Philox ``(seed, offset)`` pair of one attention-dropout call:
     an int64 ``[2]`` tensor on ``device`` (default: the CUDA device),
     drawn by ``torch.randint`` from ``generator`` (default: the device's
@@ -69,6 +70,11 @@ def philox_pair(device=None,
     so drawing it costs no host sync.  Drawn from the default generator,
     it is replayed by ``torch.utils.checkpoint``'s ``preserve_rng_state``
     when a recomputed region runs its forward again, so the backward
-    meets the forward's dropout bits."""
+    meets the forward's dropout bits.  Given ``like`` (and no generator)
+    the pair is drawn by ops on ``like`` (the same bits): a static
+    Program records them, so each run draws afresh."""
+    if like is not None and generator is None:
+        return torch.randint_like(like.new_empty((2,), dtype=torch.int64),
+                                  0, 1 << 62)
     return torch.randint(0, 1 << 62, (2,), generator=generator,
                          device=resolve_device(device), dtype=torch.int64)

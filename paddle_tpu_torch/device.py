@@ -14,15 +14,52 @@ from typing import Optional, Union
 import torch
 
 __all__ = ["resolve_device", "same_device", "set_device", "get_device",
-           "current_device", "is_compiled_with_cuda", "device_count"]
+           "current_device", "is_compiled_with_cuda", "device_count",
+           "Place", "CPUPlace", "CUDAPlace"]
 
 # set by set_device; None: the current CUDA device
 _current: Optional[torch.device] = None
 
 
+class Place:
+    """Paddle's place objects: a device type and index."""
+
+    def __init__(self, device_type: str, device_id: int = 0):
+        self.device_type = device_type
+        self.device_id = int(device_id)
+
+    def torch_device(self) -> torch.device:
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return torch.device(self.device_type, self.device_id)
+
+    def __eq__(self, other):
+        return (isinstance(other, Place) and
+                (self.device_type, self.device_id) ==
+                (other.device_type, other.device_id))
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def __repr__(self):
+        return f"Place({self.device_type}:{self.device_id})"
+
+
+class CPUPlace(Place):
+    def __init__(self):
+        super().__init__("cpu", 0)
+
+
+class CUDAPlace(Place):
+    def __init__(self, device_id: int = 0):
+        super().__init__("cuda", device_id)
+
+
 def _parse(device) -> torch.device:
-    """Paddle's place strings ('gpu', 'gpu:1', 'cpu', 'cuda:0') or a
-    torch device."""
+    """Paddle's place strings ('gpu', 'gpu:1', 'cpu', 'cuda:0'), a place
+    object or a torch device."""
+    if isinstance(device, Place):
+        return device.torch_device()
     if isinstance(device, str):
         kind, _, idx = device.partition(":")
         if kind == "gpu":

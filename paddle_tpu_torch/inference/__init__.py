@@ -1,3 +1,7 @@
+"""Inference entry points: ``load_predictor`` (``jit.load``'s
+``TranslatedLayer`` over a ``jit.save`` artifact, served from C through
+``capi``), and the GPT serving engines."""
+from ..jit.api import load as load_predictor
 from .disagg import DisaggServingEngine, PrefillWorker
 from .engine import InferenceEngine, Request, default_prefill_buckets
 from .loadgen import (MultiTenantWorkload, SharedPrefixWorkload,
@@ -7,7 +11,7 @@ from .paged_kv import (BlockAllocator, PagedKVCache, blocks_for,
 from .prefix_cache import RadixPrefixCache, score_overlap
 from .router import Router
 
-__all__ = ["InferenceEngine", "Request", "default_prefill_buckets",
+__all__ = ["load_predictor", "InferenceEngine", "Request", "default_prefill_buckets",
            "BlockAllocator", "PagedKVCache", "RadixPrefixCache",
            "blocks_for", "init_paged_cache", "SharedPrefixWorkload",
            "run_loadtest", "Router", "DisaggServingEngine",

@@ -74,7 +74,9 @@ def _composite(q, k, v, mask=None, dropout_p=0.0, is_causal=False,
             scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
+        # drawn from probs (a *_like op), so a static Program records it
+        keep = torch.rand_like(probs, dtype=torch.get_default_dtype()) \
+            >= dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             torch.zeros((), dtype=probs.dtype,
                                         device=probs.device))

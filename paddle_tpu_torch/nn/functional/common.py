@@ -68,7 +68,10 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
         axes = [axis] if isinstance(axis, int) else list(axis)
         axes = [a % x.dim() for a in axes]
         shape = [s if i in axes else 1 for i, s in enumerate(x.shape)]
-    keep = torch.rand(shape, device=x.device) >= p
+    # drawn from x (a *_like op), so a static Program records the draw
+    # and each run draws afresh
+    keep = torch.rand_like(x.new_empty(shape, dtype=torch.get_default_dtype(
+    ))) >= p
     kept = x / (1.0 - p) if mode == "upscale_in_train" else x
     return torch.where(keep, kept, torch.zeros((), dtype=x.dtype,
                                                device=x.device))
@@ -89,7 +92,7 @@ def alpha_dropout(x, p=0.5, training=True, name=None):
     if not training or p == 0.0:
         return x
     alpha_p = -1.6732632423543772 * 1.0507009873554805
-    keep = torch.rand(x.shape, device=x.device) >= p
+    keep = torch.rand_like(x, dtype=torch.get_default_dtype()) >= p
     q = 1.0 - p
     a_coef = (q + alpha_p ** 2 * q * p) ** -0.5
     b_coef = -a_coef * alpha_p * p

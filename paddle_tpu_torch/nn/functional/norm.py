@@ -78,10 +78,12 @@ def _update_running(af, running_mean, running_var, momentum):
     channel-first f32 input."""
     axes = [i for i in range(af.dim()) if i != 1]
     var, mean = torch.var_mean(af, dim=axes, unbiased=False)
-    running_mean.copy_((momentum * running_mean.float() +
-                        (1 - momentum) * mean).to(running_mean.dtype))
-    running_var.copy_((momentum * running_var.float() +
-                       (1 - momentum) * var).to(running_var.dtype))
+    # one op reads each running buffer, so a static Program that records
+    # this update (a rider) reads the buffer when it runs
+    running_mean.copy_(torch.add((1 - momentum) * mean, running_mean.float(),
+                                 alpha=momentum).to(running_mean.dtype))
+    running_var.copy_(torch.add((1 - momentum) * var, running_var.float(),
+                                alpha=momentum).to(running_var.dtype))
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,

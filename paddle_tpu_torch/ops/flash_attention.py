@@ -6,12 +6,18 @@ is the JAX package's: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]`` with
 ``H % Hkv == 0`` (query head ``h = hk * G + g`` reads kv head ``hk``),
 an optional key mask ``kv_mask [B, S]`` (1 = attend, 0 = padding).
 
-``flash_attention`` / ``flash_attention_fwd`` run through the autograd
-function ``_FlashAttention``: its forward emits o and the per-row lse
-``[B, H, S]`` (f32) and saves both; its backward makes ``do``
-contiguous and calls the dq kernel, which also forms ``delta =
-rowsum(do * o)`` in f32 from the SAVED o (as the JAX ``_bwd_gqa`` does)
-and writes it out, then the dk/dv kernel, which reads that delta.
+``flash_attention`` / ``flash_attention_fwd`` call the custom op
+``paddle_tpu::flash_fwd`` (``torch.library``): it emits o and the
+per-row lse ``[B, H, S]`` (f32), and its registered backward makes
+``do`` contiguous and calls ``_bwd``, which on CUDA tensors runs the
+custom ops ``paddle_tpu::flash_bwd_dq`` (the dq kernel, which also forms
+``delta = rowsum(do * o)`` in f32 from the SAVED o, as the JAX
+``_bwd_gqa`` does, and writes it out) and ``paddle_tpu::flash_bwd_dkv``
+(the dk/dv kernel, which reads that delta).  Each op has a fake
+implementation that gives its shapes and dtypes, so a graph capture
+(``torch.export``, ``jit.to_static``, ``jit.save``) records the op
+instead of tracing into the ``ctypes`` launch; the captured program
+calls the kernels at run time, and their launch counts grow there.
 
 Attention dropout (``dropout_p`` in [0, 1)): the JAX composite's
 ``probs = where(keep, probs / (1 - p), 0)`` after the softmax, whose
@@ -197,7 +203,10 @@ def _check_dropout(dropout_p):
                          f"got {dropout_p}")
 
 
-def _check_cuda(q, k, v, kv_mask, dropout_p=0.0, philox=None):
+def _check_shapes(q, k, v, kv_mask, dropout_p=0.0, philox=None):
+    """The kernels' conditions that shapes, dtypes and devices decide
+    (the fake implementations check them too, so a capture of an
+    unsupported call raises before anything runs)."""
     b, s, h, d = q.shape
     _check_dropout(dropout_p)
     if dropout_p and (philox is None or tuple(philox.shape) != (2,)
@@ -226,14 +235,22 @@ def _check_cuda(q, k, v, kv_mask, dropout_p=0.0, philox=None):
         if t.device != q.device:
             raise ValueError(f"flash_attention: {name} on {t.device}, q on "
                              f"{q.device}")
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, s) or kv_mask.dtype != torch.float32 \
+                or kv_mask.device != q.device:
+            raise ValueError(f"flash_attention kernel needs kv_mask as a "
+                             f"contiguous f32 [B, S] tensor on {q.device}")
+
+
+def _check_cuda(q, k, v, kv_mask, dropout_p=0.0, philox=None):
+    _check_shapes(q, k, v, kv_mask, dropout_p, philox)
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel needs contiguous, "
                              f"16-byte aligned {name}")
-    if kv_mask is not None:
-        if tuple(kv_mask.shape) != (b, s) or kv_mask.dtype != torch.float32 \
-                or not kv_mask.is_contiguous() or kv_mask.device != q.device:
-            raise ValueError(f"flash_attention kernel needs kv_mask as a "
-                             f"contiguous f32 [B, S] tensor on {q.device}")
+    if kv_mask is not None and not kv_mask.is_contiguous():
+        raise ValueError(f"flash_attention kernel needs kv_mask as a "
+                         f"contiguous f32 [B, S] tensor on {q.device}")
 
 
 def _check_operand(name, t, q, shape, dtype):
@@ -274,34 +291,63 @@ def _flash_cuda(q, k, v, causal, kv_mask, dropout_p=0.0, philox=None):
     return o, lse
 
 
-def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, dropout_p=0.0,
-                    philox=None):
-    """``(dq, dk, dv, delta)`` from the two kernels; delta ``[B, H, S]``
-    f32 is the dq kernel's rowsum ``do . o``."""
+def _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal, kv_mask,
+                       dropout_p=0.0, philox=None):
+    """``(dq, delta)`` from the dq kernel; delta ``[B, H, S]`` f32 is its
+    rowsum ``do . o`` from the saved o (JAX ``_bwd_gqa`` :577)."""
     _check_cuda(q, k, v, kv_mask, dropout_p, philox)
     b, s, h, d = q.shape
     _check_operand("o", o, q, q.shape, q.dtype)
     _check_operand("do", do, q, q.shape, q.dtype)
     _check_operand("lse", lse, q, (b, h, s), torch.float32)
     dq = torch.empty_like(q)
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    kernel = FLASH_BWD_DQ_DROPOUT if dropout_p else FLASH_BWD_DQ
+    kernel(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
+           _build.ptr(do), _build.ptr(lse), _build.ptr(kv_mask),
+           _build.ptr(dq), _build.ptr(delta), *_dims(q, k, causal),
+           *_tail(q, dropout_p, philox))
+    return dq, delta
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, kv_mask,
+                        dropout_p=0.0, philox=None):
+    """``(dk, dv)`` from the dk/dv kernel, which reads the dq kernel's
+    delta."""
+    _check_cuda(q, k, v, kv_mask, dropout_p, philox)
+    b, s, h, d = q.shape
+    _check_operand("do", do, q, q.shape, q.dtype)
+    _check_operand("lse", lse, q, (b, h, s), torch.float32)
+    _check_operand("delta", delta, q, (b, h, s), torch.float32)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    # delta_i = do_i . o_i from the saved o, in f32 (JAX _bwd_gqa :577):
-    # written by the dq kernel, read by the dk/dv kernel
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    qkv = (_build.ptr(q), _build.ptr(k), _build.ptr(v))
-    dims = (b, s, h, k.shape[2], d, int(bool(causal)),
+    kernel = FLASH_BWD_DKV_DROPOUT if dropout_p else FLASH_BWD_DKV
+    kernel(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(do),
+           _build.ptr(lse), _build.ptr(delta), _build.ptr(kv_mask),
+           _build.ptr(dk), _build.ptr(dv), *_dims(q, k, causal),
+           *_tail(q, dropout_p, philox))
+    return dk, dv
+
+
+def _dims(q, k, causal):
+    b, s, h, d = q.shape
+    return (b, s, h, k.shape[2], d, int(bool(causal)),
             _build.DTYPE_CODES[q.dtype])
-    tail = ((*_drop_args(dropout_p, philox), _build.stream_ptr(q))
+
+
+def _tail(q, dropout_p, philox):
+    return ((*_drop_args(dropout_p, philox), _build.stream_ptr(q))
             if dropout_p else (_build.stream_ptr(q),))
-    dq_kernel, dkv_kernel = ((FLASH_BWD_DQ_DROPOUT, FLASH_BWD_DKV_DROPOUT)
-                             if dropout_p else (FLASH_BWD_DQ, FLASH_BWD_DKV))
-    dq_kernel(*qkv, _build.ptr(o), _build.ptr(do), _build.ptr(lse),
-              _build.ptr(kv_mask), _build.ptr(dq), _build.ptr(delta), *dims,
-              *tail)
-    dkv_kernel(*qkv, _build.ptr(do), _build.ptr(lse), _build.ptr(delta),
-               _build.ptr(kv_mask), _build.ptr(dk), _build.ptr(dv), *dims,
-               *tail)
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, dropout_p=0.0,
+                    philox=None):
+    """``(dq, dk, dv, delta)`` from the two kernels; delta ``[B, H, S]``
+    f32 is the dq kernel's rowsum ``do . o``."""
+    dq, delta = _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal, kv_mask,
+                                   dropout_p, philox)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, kv_mask,
+                                 dropout_p, philox)
     return dq, dk, dv, delta
 
 
@@ -315,31 +361,95 @@ def _bwd(q, k, v, o, lse, do, causal, kv_mask, dropout_p=0.0, philox=None):
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, o, lse, do, causal, kv_mask,
                                 dropout_p, philox)
-    return _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, dropout_p,
-                           philox)[:3]
+    dq, delta = torch.ops.paddle_tpu.flash_bwd_dq(
+        q, k, v, o, lse, do, kv_mask, causal, dropout_p, philox)
+    dk, dv = torch.ops.paddle_tpu.flash_bwd_dkv(
+        q, k, v, do, lse, delta, kv_mask, causal, dropout_p, philox)
+    return dq, dk, dv
 
 
-class _FlashAttention(torch.autograd.Function):
-    """o and lse from the forward kernel; the backward recomputes p from
-    the saved lse in the dq and dk/dv kernels (plain versions on the
-    CPU), and with dropout redraws the keep bits from the saved (seed,
-    offset) pair.  lse is an output without a gradient."""
+# The three entries as torch.library custom ops.  Their CUDA form is the
+# kernel's ctypes launch; the forward's CPU form is the plain version,
+# and the two backward ops are CUDA only (``_bwd`` runs the plain
+# backward on CPU tensors).  The fake forms give shapes and dtypes (and
+# check the kernels' shape conditions for CUDA tensors) so that a
+# capture records the op.
 
-    @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal, dropout_p, philox):
-        o, lse = _fwd(q, k, v, causal, kv_mask, dropout_p, philox)
-        ctx.save_for_backward(q, k, v, o, lse, kv_mask, philox)
-        ctx.causal = causal
-        ctx.dropout_p = dropout_p
-        ctx.mark_non_differentiable(lse)
-        return o, lse
+@torch.library.custom_op("paddle_tpu::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_mask: Optional[torch.Tensor], causal: bool,
+                  dropout_p: float, philox: Optional[torch.Tensor]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _fwd(q, k, v, causal, kv_mask, dropout_p, philox)
 
-    @staticmethod
-    def backward(ctx, do, _dlse):
-        q, k, v, o, lse, kv_mask, philox = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
-                          kv_mask, ctx.dropout_p, philox)
-        return dq, dk, dv, None, None, None, None
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, kv_mask, causal, dropout_p, philox):
+    if q.device.type == "cuda":
+        _check_shapes(q, k, v, kv_mask, dropout_p, philox)
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu::flash_bwd_dq", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     kv_mask: Optional[torch.Tensor], causal: bool,
+                     dropout_p: float, philox: Optional[torch.Tensor]
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _flash_bwd_dq_cuda(q, k, v, o, lse, do, causal, kv_mask,
+                              dropout_p, philox)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, o, lse, do, kv_mask, causal, dropout_p, philox):
+    if q.device.type == "cuda":
+        _check_shapes(q, k, v, kv_mask, dropout_p, philox)
+    b, s, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, s), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu::flash_bwd_dkv", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, kv_mask: Optional[torch.Tensor],
+                      causal: bool, dropout_p: float,
+                      philox: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, kv_mask,
+                               dropout_p, philox)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, do, lse, delta, kv_mask, causal, dropout_p, philox):
+    if q.device.type == "cuda":
+        _check_shapes(q, k, v, kv_mask, dropout_p, philox)
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, kv_mask, causal, dropout_p, philox = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.kv_mask, ctx.philox = kv_mask, philox
+    ctx.causal, ctx.dropout_p = causal, dropout_p
+    ctx.mark_non_differentiable(lse)
+
+
+def _backward(ctx, do, _dlse):
+    """The backward recomputes p from the saved lse in the dq and dk/dv
+    kernels (plain versions on the CPU), and with dropout redraws the
+    keep bits from the saved (seed, offset) pair.  lse has no
+    gradient."""
+    q, k, v, o, lse = ctx.saved_tensors
+    dq, dk, dv = _bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                      ctx.kv_mask, ctx.dropout_p, ctx.philox)
+    return dq, dk, dv, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,
@@ -355,9 +465,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     dropout_p = float(dropout_p)
     _check_dropout(dropout_p)
-    philox = _random.philox_pair(q.device) if dropout_p else None
-    return _FlashAttention.apply(q, k, v, kv_mask, bool(causal), dropout_p,
-                                 philox)
+    philox = _random.philox_pair(q.device, like=q) if dropout_p else None
+    return torch.ops.paddle_tpu.flash_fwd(q, k, v, kv_mask, bool(causal),
+                                          dropout_p, philox)
 
 
 def flash_attention(q, k, v, causal: bool = False,

@@ -175,8 +175,11 @@ class Optimizer:
             raise ValueError("optimizer constructed without parameters; "
                              "pass parameters=model.parameters() for "
                              "eager use")
-        live = {str(i): p for i, p in enumerate(self._parameters)
-                if p.grad is not None and p.requires_grad}
+        self._step_live({str(i): p for i, p in enumerate(self._parameters)
+                         if p.grad is not None and p.requires_grad})
+
+    def _step_live(self, live: Dict[str, torch.Tensor]):
+        """One update of the named parameters from their ``.grad``."""
         sparse = {n: p for n, p in live.items() if p.grad.is_sparse}
         if sparse and self._grad_clip is not None:
             raise NotImplementedError(
@@ -198,6 +201,53 @@ class Optimizer:
             self._param_objs = {}
             self._cur_param = None
         self._step_count += 1
+
+    def _step_static(self, params, grads):
+        """A static program's update (``Executor.run`` after
+        ``minimize``): ``grads`` from ``torch.autograd.grad``, one per
+        parameter (None: the loss does not read it); accumulators by
+        parameter name, as the JAX static step keys them."""
+        live = {}
+        for p, g in zip(params, grads):
+            if g is not None:
+                p.grad = g
+                live[p.name] = p
+        try:
+            self._step_live(live)
+        finally:
+            for p in live.values():
+                p.grad = None
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """Paddle's ``minimize``.  Dygraph: the gradients are collected,
+        not recomputed (``loss.backward(); opt.minimize(loss)`` runs one
+        backward): a backward runs here only when no backward wrote this
+        optimizer's gradients since its last ``minimize``.  Static: a
+        Variable loss installs the training hook on the Program that
+        recorded it, and ``Executor.run`` then runs the step."""
+        from ..static.program import (Variable, default_main_program,
+                                      install_minimize)
+        if isinstance(loss, Variable):
+            install_minimize(loss.program or default_main_program(),
+                             loss, self)
+            return None, []
+        params = [p for p in (parameters or self._parameters or [])
+                  if p.requires_grad]
+        if all(p.grad is None for p in params) or \
+                self._grad_stamp(params) == getattr(self, "_seen_stamp",
+                                                    None):
+            loss.backward()
+        self.step()
+        self._seen_stamp = self._grad_stamp(params)
+        return None, [(p, p.grad) for p in params]
+
+    @staticmethod
+    def _grad_stamp(params):
+        """Which gradient tensors, at which versions, the parameters hold:
+        unchanged since the last minimize means no backward wrote them."""
+        return tuple((id(p.grad), p.grad._version) if p.grad is not None
+                     else None for p in params)
 
     @torch.no_grad()
     def _step_sparse(self, params: Dict[str, torch.Tensor], step: int):

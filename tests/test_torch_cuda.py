@@ -2089,3 +2089,86 @@ def test_minus_one_ids_update_the_last_row_on_the_card(gen):
     assert torch.allclose(moved[[1, 2, 4]], torch.full((3, 2), -0.1),
                           rtol=1e-5, atol=0)
     assert (moved[[0, 3]] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# rows 1-3 as torch.library custom ops inside captured programs
+# ---------------------------------------------------------------------------
+def _flash_inputs(gen, b, s=256, h=4, d=64):
+    return [_rand((b, s, h, d), gen).requires_grad_() for _ in range(3)]
+
+
+class _Attend(torch.nn.Module):
+    def __init__(self, p=0.0):
+        super().__init__()
+        self.p = p
+
+    def forward(self, q, k, v):
+        from paddle_tpu_torch.ops import flash_attention
+        return flash_attention(q, k, v, causal=True, dropout_p=self.p)
+
+
+def test_flash_ops_under_export_equal_the_eager_call(gen):
+    """The exported program calls paddle_tpu::flash_fwd (no library
+    attention), equals the eager call bitwise in its output and its
+    gradients, and launches the forward, dq and dk/dv kernels once
+    each a call."""
+    from paddle_tpu_torch import ops
+    q, k, v = _flash_inputs(gen, 2)
+    ep = torch.export.export(_Attend(), (q, k, v))
+    targets = {str(n.target) for n in ep.graph.nodes
+               if n.op == "call_function"}
+    assert any("paddle_tpu.flash_fwd" in t for t in targets)
+    assert not any("scaled_dot_product" in t for t in targets)
+    do = _rand(q.shape, gen)
+    counts = [ops.FLASH_FWD.launches, ops.FLASH_BWD_DQ.launches,
+              ops.FLASH_BWD_DKV.launches]
+    got = ep.module()(q, k, v)
+    got_g = torch.autograd.grad(got, (q, k, v), do)
+    assert [ops.FLASH_FWD.launches, ops.FLASH_BWD_DQ.launches,
+            ops.FLASH_BWD_DKV.launches] == [c + 1 for c in counts]
+    want = _Attend()(q, k, v)
+    want_g = torch.autograd.grad(want, (q, k, v), do)
+    assert torch.equal(got, want)
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a, b)
+
+
+def test_none_batch_export_runs_at_two_batch_sizes(gen, tmp_path):
+    """jit.save with a None batch dim; the loaded program on the card at
+    B = 1 and 3 against the eager layer within 1e-2 of each row's
+    scale, row 1 launched once a call."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.static import InputSpec
+    tp.set_device("gpu")
+    mha = tp.nn.MultiHeadAttention(256, 4).cuda()
+    mha.eval()
+    path = str(tmp_path / "mha")
+    with tp.amp.auto_cast(dtype="bfloat16"):
+        tp.jit.save(mha, path, input_spec=[InputSpec([None, 128, 256])] * 3)
+    pred = tp.inference.load_predictor(path)
+    for b in (1, 3):
+        x = torch.randn(b, 128, 256, generator=gen, device="cuda")
+        before = ops.FLASH_FWD.launches
+        got = pred(x, x, x)
+        assert ops.FLASH_FWD.launches == before + 1
+        with torch.no_grad(), tp.amp.auto_cast(dtype="bfloat16"):
+            want = mha(x, x, x)
+        _close(got, want.float())
+
+
+def test_dropout_pair_is_fresh_in_a_loaded_program(gen, tmp_path):
+    """A program saved with the attention's dropout form draws its
+    (seed, offset) pair in the graph: two calls differ, and each runs the
+    dropout kernel."""
+    from paddle_tpu_torch import ops
+    q, k, v = (t.detach() for t in _flash_inputs(gen, 1))
+    ep = torch.export.export(_Attend(0.1), (q, k, v))
+    path = str(tmp_path / "drop.pt2")
+    torch.export.save(ep, path)
+    loaded = torch.export.load(path).module()
+    before = ops.FLASH_FWD_DROPOUT.launches
+    a, b = loaded(q, k, v), loaded(q, k, v)
+    assert ops.FLASH_FWD_DROPOUT.launches == before + 2
+    assert not torch.equal(a, b)

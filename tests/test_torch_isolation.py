@@ -1,9 +1,10 @@
 """The port stands alone: paddle_tpu_torch and chip_smoke.py import
-neither JAX nor the JAX package, and the card path uses no library
-attention (torch's SDPA, found by an AST check) and names no
-torch.compile."""
+neither JAX nor the JAX package (its C sources name no module of it
+either), and the card path uses no library attention (torch's SDPA,
+found by an AST check) and no file of the port names torch.compile."""
 import ast
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -13,6 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
 CHECKED = PORT_FILES + [ROOT / "chip_smoke.py"]
+C_SOURCES = sorted(p for ext in ("*.c", "*.h", "*.cu", "*.cuh")
+                   for p in (ROOT / "paddle_tpu_torch").rglob(ext))
 
 
 def _forbidden(module: str) -> bool:
@@ -48,6 +51,43 @@ def test_no_jax_or_paddle_tpu_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def jax_package_names(text: str):
+    """Every JAX-package module a C source names: ``paddle_tpu.`` not
+    followed by ``_torch``, or a ``jax`` module in a string."""
+    return re.findall(r"\bpaddle_tpu\.[\w.]*|\"jax(?:lib)?[\".][\w.]*",
+                      text)
+
+
+def test_port_has_c_sources_to_check():
+    names = {p.name for p in C_SOURCES}
+    assert {"pd_inference.c", "pd_inference.h", "capi_demo.c",
+            "flash_fwd.cu"} <= names
+
+
+@pytest.mark.parametrize("path", C_SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in C_SOURCES])
+def test_c_sources_name_no_jax_package_module(path):
+    bad = jax_package_names(path.read_text())
+    assert not bad, f"{path.relative_to(ROOT)} names {bad}"
+
+
+@pytest.mark.parametrize("text,bad", [
+    ('PyImport_ImportModule("paddle_tpu.inference.capi_bridge");', True),
+    ('PyImport_ImportModule("jax.numpy");', True),
+    ('PyImport_ImportModule("paddle_tpu_torch.inference.capi_bridge");',
+     False),
+    ("/* Replaces: paddle_tpu/ops/flash_attention.py:72 */", False),
+], ids=["jax-package", "jax", "port", "replaces-comment"])
+def test_c_source_check_catches_planted_names(text, bad):
+    assert bool(jax_package_names(text)) == bad
+
+
+def test_no_port_file_names_torch_compile():
+    for path in PORT_FILES + C_SOURCES:
+        assert "torch.compile" not in path.read_text(), \
+            f"{path.relative_to(ROOT)} names torch.compile"
+
+
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; before = set(sys.modules); "
             "import paddle_tpu_torch, paddle_tpu_torch.models.gpt, "
@@ -75,7 +115,12 @@ NEW_MODULES = ["paddle_tpu_torch.core.flags", "paddle_tpu_torch.testing.faults",
                # the DataLoader workers' and the detection ops'
                "paddle_tpu_torch.io.shm_ring",
                "paddle_tpu_torch.io.dataloader",
-               "paddle_tpu_torch.vision.ops"]
+               "paddle_tpu_torch.vision.ops",
+               # the program path's
+               "paddle_tpu_torch.func", "paddle_tpu_torch.extension",
+               "paddle_tpu_torch.jit.api", "paddle_tpu_torch.static.program",
+               "paddle_tpu_torch.inference.capi_bridge",
+               "paddle_tpu_torch.onnx"]
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)

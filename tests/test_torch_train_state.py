@@ -624,8 +624,12 @@ def test_recompute_policies_keep_what_they_name():
     which runs the blocks without recompute, the tensors autograd saves
     for them (saved-tensor hooks: all saves of the forward, less those a
     fully recomputed run makes outside its checkpointed blocks).  full
-    keeps none of a block's, dots_no_batch the linears' mm outputs, dots
-    also the CPU attention's batched products."""
+    keeps none of a block's, dots_no_batch the linears' mm outputs, and
+    so does dots: the attention is one custom op
+    (``paddle_tpu::flash_fwd``) on the CPU as on the card, recomputed
+    under both, as the JAX policies recompute the TPU kernel.  dots also
+    keeps a batched product's output where one runs in the region
+    (``torch.bmm`` under ``recompute``), dots_no_batch does not."""
     ids, labels = gpt_batch(6)
     kept = {}
     real = recompute_mod._policy_fn
@@ -657,10 +661,23 @@ def test_recompute_policies_keep_what_they_name():
     layers = SMALL["num_layers"]
     # four block linears a layer, each one aten.mm
     assert kept["dots_no_batch"] == ["aten.mm.default"] * 4 * layers
-    assert set(kept["dots"]) == {"aten.mm.default", "aten.bmm.default"}
+    assert kept["dots"] == kept["dots_no_batch"]
     assert n["full"] == n["nothing"] == 0
     assert n["full"] < n["dots_no_batch"] <= n["dots"] < n["everything"]
     assert saves("everything") == saves("none")
+    # a batched product in the region: dots keeps it, dots_no_batch not
+    a = torch.randn(2, 3, 4, requires_grad=True)
+    b = torch.randn(2, 4, 5, requires_grad=True)
+    kept.clear()
+    recompute_mod._policy_fn = spy
+    try:
+        for policy in ("dots", "dots_no_batch"):
+            recompute_mod.recompute(lambda x, y: torch.bmm(x, y).tanh(), a,
+                                    b, policy=policy).sum().backward()
+    finally:
+        recompute_mod._policy_fn = real
+    assert kept["dots"] == ["aten.bmm.default"]
+    assert "dots_no_batch" not in kept
 
 
 def test_checkpoint_policy_maps_the_jax_names():
