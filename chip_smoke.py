@@ -149,9 +149,9 @@ before the result lines:
    step); serve-fleet: two paged bf16 replicas (8 slots, blocks of 128,
    seeds 21 and 22) behind ``Router``, ``MultiTenantWorkload(seed=5, 8
    tenants, skew 1.2, 512-token prefixes)``, ``warm_fleet``, then
-   ``run_fleet_loadtest`` windows (48 requests at 2 rps under
-   ``prefix``, 24 through the RPC shim, 48 under ``round_robin`` on
-   fresh replicas; every planned token, no timeout, router hits under
+   ``run_fleet_loadtest`` windows (FLEET_WINDOW, 12, requests at 2 rps
+   under ``prefix``, 6 through the RPC shim, 12 under ``round_robin``
+   on fresh replicas; every planned token, no timeout, router hits under
    ``prefix``, launches exact under the replicas' driver threads, both
    pools leak-free after ``Router.drain()``), each window's report with
    its fleet columns beside the card's name and power limit;
@@ -169,9 +169,10 @@ before the result lines:
    requests through each with the tracer, metrics and watchdog armed: no
    CUDA library may load or build after the warmups;
 14. profile: device time against wall time of steady decode steps
-   (torch.profiler), the top kernels by device time, for the dense, the
-   paged, and the int8 dense and paged engines, a chunked step, a spec
-   tick and two megakernel decode steps (dense bf16, paged int8);
+   (torch.profiler), the top kernels by device time, for the dense bf16
+   engine, a chunked step, a spec tick and a megakernel decode step
+   (dense bf16; the other cache forms and int8 compute were cut to keep
+   the script within its budget);
 15. train-parity: gpt3-1.3b width at 2 layers, f32 masters with bf16 AMP,
    one 2 x 512 batch through ``SpmdTrainer``: every parameter gradient
    of the kernel path against the same step with the plain attention
@@ -215,7 +216,7 @@ before the result lines:
    raise run), 'rollback' at 2 layers on a data-keyed blow-up (one
    rollback, one host sync a step, the snapshot's bytes and cost), and
    ``FLAGS_check_nan_inf`` at 2 layers (raises naming the gradients);
-21. train-checkpoint: 2 layers at full width (the depth cut for disk and
+21. train-checkpoint: 1 layer at full width (the depth cut for disk and
    time): ``save(manifest=True)``, a fresh trainer ``load``s it and
    continues bitwise, ``CheckpointManager(keep_last=2)`` over 3
    asynchronous saves; bytes and seconds;
@@ -239,9 +240,13 @@ before the result lines:
    B=8, T=256, N=64 against a float64 numpy Viterbi (equal paths),
    ``dynamic_decode`` over a tanh cell at V = 50304 (each beam rescored
    in f64 on the host); steps per second of each;
-24. serve-moe: GPT-MoE at gpt3-1.3b widths and depth,
-   every second FFN a top-2 layer of 8 experts at capacity factor 2.0
-   (4.13 B params, random bf16 weights, seed 1234): serve's 16 prompts
+24. serve-moe: GPT-MoE at gpt3-1.3b widths, every second FFN a top-2
+   layer of 8 experts at capacity factor 2.0 (random bf16 weights, seed
+   1234), the engines at SERVE_MOE_LAYERS = 8 layers (1.45 B params; a
+   depth cut for the budget) and the teacher-forced checks at the full
+   24 (4.13 B; at 8, bf16 routes two of the checked tokens across a
+   top-2 boundary, which the check cannot tell from a fault: ROADMAP
+   Queue 3; ``--moe-hit-routing``): serve's 16 prompts
    (serve-paged's for the paged engines) with 32 new tokens through 8
    slots on the dense, paged, int8 dense and paged, chunked (512) and
    speculative (K = 4, a gpt3-125m draft) engines and with
@@ -249,8 +254,8 @@ before the result lines:
    composed step runs).  Each: launches as in serve, one host read per
    decode step or spec tick and admission (serve-moe: as many as the
    dense serve phase on the same prompts), load + dropped = assigned,
-   the ``moe_experts`` ledger line = 12 x 8 x (2 H F + F + H) x 2
-   bytes; tokens/s against serve's; a ``run_loadtest`` window (16
+   the ``moe_experts`` ledger line = MoE layers x 8 x (2 H F + F + H)
+   x 2 bytes; tokens/s against serve's; a ``run_loadtest`` window (16
    requests at 2 rps, paged bf16) with its ``moe_*`` columns;
    the teacher-forced checks (every cache path and window, bf16 and
    int8, within TOL_TEACHER / TOL_TEACHER_INT8) at capacity factor E /
@@ -308,7 +313,8 @@ before the result lines:
    eager forward (row 1 12 launches a call);
 29b. capi: ``libpd_inference.so`` and ``pd_capi_demo`` built with ``cc``;
    ``PD_PredictorRun`` bitwise equal to the predictor, the demo binary's
-   checksum equal to Python's, ``PD_NewTrainer`` NULL with its reason;
+   checksum equal to Python's, ``PD_NewTrainer`` NULL on the inference
+   artifact (it has no ``.pdtrain``), with its reason;
 30. workers: the DataLoader's fork workers over shared-memory rings on
    four batches of FakeData, bitwise equal to ``num_workers=0``'s; under
    ``PADDLE_FAULT_WORKER_KILL="1:1"`` the same batches with one restart,
@@ -345,9 +351,28 @@ before the result lines:
    program within TOL_STATIC_REPLAY, ``save_inference_model`` ->
    ``load_inference_model`` against ``clone(for_test=True)`` within
    TOL_STATIC_INFER;
+35b. rnn-layers: ``nn.LSTM``, ``nn.GRU`` and ``nn.SimpleRNN`` at 2
+   layers x 512 on ``[128, 50, 512]``, forward and bidirectional, on the
+   card against the CPU from the same weights in f32 (cuDNN's TF32 on)
+   and under ``auto_cast`` bf16, and ``nn.LSTM`` against a stack of
+   ``RNN(LSTMCell)``; an LSTM's parameters in one buffer a layer;
+35c. train-seq2seq: the attention seq2seq at PaddleNLP's IWSLT'15 widths
+   (``seq2seq_model``) through ``Model.fit`` over ``text.WMT16``'s
+   synthetic pairs, 20 steps: a falling loss, step and period ms,
+   tokens/s, peak; one forward on the card against the CPU;
+35d. beam-seq2seq: its decoder under ``nn.BeamSearchDecoder`` at beam 10
+   with ``nn.dynamic_decode(max_step_num=50)`` on 128 sources, trained
+   and at its initial weights: ms and host reads a step, each beam's
+   score against a teacher-forced rescoring, the top beams against the
+   CPU search;
+35e. c-trainer: ``SpmdTrainer.export_train_step`` on Transformer-base
+   (bf16 AMP) stepped from C through ``PD_NewTrainer`` /
+   ``PD_TrainerStep``: at dropout 0 against a live trainer, at 0.1 a
+   falling loss, rows 1-3 (dropout forms at 0.1) 12 launches a step each;
+   ``pd_capi_train_demo`` prints CAPI-TRAIN-OK;
 36. sparse-scale: lazy sparse Adam against dense at 1 M and 10 M x 64
    rows; the sparse step must be the faster at 10 M.  Rows 1-11 launch
-   0 times on phases 34-36 and 35a.
+   0 times on phases 34-36, 35a-35d.
 
 Each phase's seconds are printed on a line of their own
 (``[phase-seconds]``).
@@ -359,7 +384,9 @@ Two measurements from which bounds above are set run apart:
 ``python3 chip_smoke.py --fp8-teacher-error`` (the plain fp8 path's
 teacher error, for TOL_TEACHER_FP8) and ``python3 chip_smoke.py
 --beam-fault`` (serve-decoding's beam searches with wrong cache regathers
-planted, which must fail TOL_BEAM_SCORE).
+planted, which must fail TOL_BEAM_SCORE).  ``python3 chip_smoke.py
+--moe-hit-routing`` records the MoE routing of the paged-hit teacher
+check at 8 layers against the forward's (why that depth fails it).
 """
 from __future__ import annotations
 
@@ -3639,6 +3666,9 @@ def phase_serve_disagg(model):
     return out
 
 
+# requests of each serve-fleet window under a policy (cut from 48 to
+# keep the script within its budget; the RPC window takes half as many)
+FLEET_WINDOW = 12
 FLEET_WORKLOAD = dict(seed=5, num_tenants=8, skew=1.2, prefix_len=512,
                       tail_len=(32, 256), max_new=(16, 32))
 
@@ -3662,9 +3692,10 @@ def phase_serve_fleet(model, smi):
     behind ``Router``; ``MultiTenantWorkload(50304, seed=5,
     num_tenants=8, skew=1.2, prefix_len=512, tail_len=(32, 256),
     max_new=(16, 32))``, ``warm_fleet``, then ``run_fleet_loadtest``
-    windows with ``deadline_s=120``: 48 requests at 2 rps under
-    ``prefix``, 24 at 2 rps through the RPC shim (``rpc=True``, same
-    replicas), and 48 at 2 rps under ``round_robin`` on fresh replicas.
+    windows with ``deadline_s=120``: FLEET_WINDOW requests at 2 rps under
+    ``prefix``, half as many at 2 rps through the RPC shim (``rpc=True``,
+    same replicas), and FLEET_WINDOW at 2 rps under ``round_robin`` on
+    fresh replicas.
     Each window: every planned token, no timeout, router hits under
     ``prefix``, and with launch counts zeroed before it and read after,
     flash once a layer a prefill without a cached prefix and the paged
@@ -3786,14 +3817,14 @@ def phase_serve_fleet(model, smi):
         log(f"[{tag} {name}] both pools leak-free after Router.drain()")
 
     router = fleet("prefix")
-    window("prefix", router, 48)
-    window("prefix rpc", router, 24, rpc=True)
+    window("prefix", router, FLEET_WINDOW)
+    window("prefix rpc", router, FLEET_WINDOW // 2, rpc=True)
     contention(router)
     drained("prefix", router)
     del router
     del_all()
     router = fleet("round_robin")
-    window("round_robin", router, 48)
+    window("round_robin", router, FLEET_WINDOW)
     drained("round_robin", router)
     del router
     del_all()
@@ -3891,6 +3922,11 @@ def timed_run(eng, prompts, new_tokens):
     return sum(map(len, streams)) / wall, streams
 
 
+# rounds of off, on, on, off in serve-telemetry's tokens/s turns (cut from
+# three to keep the script within its budget)
+TEL_ROUNDS = 1
+
+
 def phase_serve_telemetry(model, smi):
     """Telemetry on the serving path: gpt3-1.3b (full width and depth),
     8 slots, serve's 16 prompts with 32 new greedy tokens, a dense and a
@@ -3909,7 +3945,7 @@ def phase_serve_telemetry(model, smi):
     ``stats()``; the ledger's params and KV-cache bytes equal the
     tensors'; ``stats()["doctor"]`` is a list; a forced flight-recorder
     dump loads back with the decode ticks in its ring.  Then tokens/s on
-    and off in turns (three rounds of off, on, on, off), beside the
+    and off in turns (TEL_ROUNDS rounds of off, on, on, off), beside the
     card."""
     import shutil
     from paddle_tpu_torch.distributed import async_dispatch
@@ -3994,10 +4030,10 @@ def phase_serve_telemetry(model, smi):
                 problems.append(f"{layout}: blocking calls per tick on "
                                 f"{[on_['cap'][k] for k in keys]}, off "
                                 f"{[off['cap'][k] for k in keys]}")
-            # tokens/s in turns on the warmed engines: three rounds of
-            # off, on, on, off
+            # tokens/s in turns on the warmed engines: TEL_ROUNDS rounds
+            # of off, on, on, off
             tps = {False: [], True: []}
-            for on in (False, True, True, False) * 3:
+            for on in (False, True, True, False) * TEL_ROUNDS:
                 with telemetry(on):
                     rate, streams = timed_run(engines[on], prompts, new)
                 tps[on].append(rate)
@@ -4792,8 +4828,10 @@ def phase_serve_decoding(model):
 
 
 def phase_profile(model):
-    """Where a steady decode step's time goes, for the dense and the
-    paged engine, bf16 and int8 caches, the megakernel and int8 compute:
+    """Where a steady decode step's time goes, for the dense bf16 engine,
+    a chunked step, a spec tick and the megakernel (the other cache
+    forms and int8 compute were cut to keep the script within its
+    budget):
     8 active slots with 512-token prompts; 5 steps timed on the host
     clock (each step ends in its host sync, so that is the step's real
     duration), then 5 steps under torch.profiler for the device kernel
@@ -4803,8 +4841,7 @@ def phase_profile(model):
     runs = [(f"{layout} {kv_dtype or 'bf16'} decode step (8 active, "
              f"~520-token slots)", dict(kv_layout=layout, kv_dtype=kv_dtype),
              512, 16)
-            for layout, kv_dtype in (("dense", None), ("paged", None),
-                                     ("dense", "int8"), ("paged", "int8"))]
+            for layout, kv_dtype in (("dense", None),)]
     # a step of the chunked engine while slots are still prefilling: one
     # 512-token chunk tick and the decode step of the graduated slots;
     # a spec tick of the self-drafting dense engine (K = 4)
@@ -4813,14 +4850,9 @@ def phase_profile(model):
               1024, 16),
              ("dense bf16 spec tick (K = 4, self-draft, 8 active)",
               dict(spec_k=4, draft_model=model), 512, 80)]
-    # the megakernel's decode step, beside the composed ones above
-    runs += [(f"{layout} {kv_dtype or 'bf16'} megakernel decode step (8 "
-              f"active, ~520-token slots)",
-              dict(kv_layout=layout, kv_dtype=kv_dtype, mega=True), 512, 16)
-             for layout, kv_dtype in (("dense", None), ("paged", "int8"))]
-    # int8 compute (the weights quantized on every call)
-    runs += [("dense bf16 int8-compute decode step (8 active, ~520-token "
-              "slots)", dict(quant=True), 512, 16)]
+    # the megakernel's decode step, beside the composed one above
+    runs += [("dense bf16 megakernel decode step (8 active, ~520-token "
+              "slots)", dict(mega=True), 512, 16)]
     for what, kw, plen, new in runs:
         model.enable_decode_megakernel(kw.pop("mega", False))
         model.enable_quantize("int8" if kw.pop("quant", False) else None)
@@ -5682,7 +5714,7 @@ def phase_train_anomaly(bf16, smi):
 
 
 def phase_train_checkpoint(bf16, smi):
-    """gpt3-1.3b width at 2 layers (the depth cut only for disk and
+    """gpt3-1.3b width at 1 layer (the depth cut only for disk and
     time), bf16 AMP, Adam: save(manifest=True) after 2 steps, a fresh
     trainer loads it and its next 2 losses equal the uninterrupted
     trainer's bitwise; a CheckpointManager(keep_last=2) over 3 async
@@ -5690,7 +5722,7 @@ def phase_train_checkpoint(bf16, smi):
     import shutil
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.distributed import CheckpointManager, checkpoint
-    small = full_cfg(2)
+    small = full_cfg(1)
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "chip_smoke_checkpoints")
     shutil.rmtree(root, ignore_errors=True)
@@ -5728,7 +5760,7 @@ def phase_train_checkpoint(bf16, smi):
             os.path.join(root, "managed", k)) for k in kept)
         ok = (rest_a == rest_b and extra == {"phase": "train-checkpoint"}
               and kept == ["ckpt-6", "ckpt-7"] and valid)
-        log(f"[train-checkpoint] {smi}: gpt3-1.3b width, 2 layers, Adam: "
+        log(f"[train-checkpoint] {smi}: gpt3-1.3b width, 1 layer, Adam: "
             f"save(manifest=True) {nbytes} bytes in {save_s:.3f} s "
             f"({nbytes / save_s / 1e9:.3f} GB/s), load {load_s:.3f} s; "
             f"next 2 losses {rest_b} resumed vs {rest_a} uninterrupted "
@@ -6196,8 +6228,14 @@ def profile_moe_decode(model, smi):
         f"{kernels - attn - inside['moe_layer']:.3f} (card: {smi})")
 
 
+# serve-moe's engines at 8 of gpt3-1.3b's 24 layers (a depth cut for
+# the script's budget); its teacher-forced checks keep all 24
+SERVE_MOE_LAYERS = 8
+
+
 def phase_serve_moe(smi):
-    """GPT-MoE serving at gpt3-1.3b widths and depth (24 layers, 12 MoE):
+    """GPT-MoE serving at gpt3-1.3b widths (SERVE_MOE_LAYERS layers for
+    the engines, 24 for the teacher-forced checks; every second FFN MoE):
     serve's 16 prompts (and serve-paged's, 8 sharing a 1024-token prefix)
     with 32 new tokens through 8 slots on the dense, paged, int8 dense
     and paged, chunked (512) and speculative (K = 4, gpt3-125m draft)
@@ -6207,12 +6245,16 @@ def phase_serve_moe(smi):
     profiled decode step.  Per engine: launches as in serve, one host
     read per decode step or spec tick and admission, load + dropped =
     assigned, the ``moe_experts`` ledger line."""
-    model = build_moe_model()
+    model = build_moe_model(SERVE_MOE_LAYERS)
     out = serve_moe_engines(model, smi)
     out.update(serve_moe_spec(model))
     out.update(serve_moe_loadtest(model, smi))
-    teacher_moe(model)
     profile_moe_decode(model, smi)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_moe_model()
+    teacher_moe(model)
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -6239,6 +6281,100 @@ def teacher_moe(model):
     finally:
         for m in layers:
             m.capacity_factor = model.cfg.moe_capacity_factor
+
+
+def moe_hit_routing(layers=8):
+    """``python3 chip_smoke.py --moe-hit-routing``: why serve-moe's bf16
+    paged-hit teacher check fails at ``layers`` layers.  The hit path of
+    ``phase_teacher_forced`` (1024 cached tokens, a 76-token suffix in
+    bucket 128, 7 decode steps) at capacity factor E / k, with every MoE
+    layer's routing recorded, against the no-cache forward's: per checked
+    position the error over its largest |logit| and the layers whose
+    top-k expert set differs from the forward's; per layer the suffix and
+    decode tokens so rerouted, with the forward's gap between the k-th
+    and (k+1)-th gate probabilities at each, beside the median gap.  The
+    CPU tests hold the hit path to the JAX package's and to the forward
+    in f32 (``tests/test_torch_moe.py``)."""
+    from paddle_tpu_torch.distributed import moe
+    from paddle_tpu_torch.inference.paged_kv import init_paged_cache
+    phase_device()
+    phase_build()
+    model = build_moe_model(layers)
+    cfg = model.cfg
+    k = cfg.moe_top_k
+    for blk in model.gpt.blocks:
+        if blk.is_moe:
+            blk.mlp.capacity_factor = cfg.moe_num_experts / k
+    rng = np.random.RandomState(11)         # phase_teacher_forced's ids
+    steps, hit_prefix, hit_len = 8, 1024, 1100
+    ids = torch.from_numpy(
+        rng.randint(0, cfg.vocab_size, size=(1, hit_len + steps))).cuda()
+    kept, calls = moe.top_k_gating, []
+
+    def recording(logits, top_k, cap, normalize_gates=True):
+        out = kept(logits, top_k, cap, normalize_gates)
+        calls.append((torch.softmax(logits.float(), -1)[0], out[0][0]))
+        return out
+    bs, mb = 128, cfg.max_seq_len // 128
+    n_moe = sum(blk.is_moe for blk in model.gpt.blocks)
+    moe.top_k_gating = recording
+    try:
+        with torch.no_grad():
+            ref = model(ids).float()[0]
+            fwd = calls[:]
+            pool = init_paged_cache(model, 1 + 9 + 16, bs)
+
+            def table(blocks):
+                row = torch.zeros(mb, dtype=torch.int32, device="cuda")
+                row[:len(blocks)] = torch.tensor(blocks, dtype=torch.int32)
+                return row
+            model.prefill_paged(_padded(ids, 0, hit_prefix, hit_prefix),
+                                pool, table(list(range(1, 9))), 0,
+                                hit_prefix)
+            row = table(list(range(1, 10)))
+            calls.clear()
+            got = [model.prefill_paged(_padded(ids, hit_prefix, hit_len, 128),
+                                       pool, row, hit_prefix,
+                                       hit_len - hit_prefix)[0]]
+            for t in range(hit_len, hit_len + steps - 1):
+                got.append(model.decode_step_paged(
+                    ids[:, t], pool, row[None],
+                    torch.tensor([t], dtype=torch.int32, device="cuda"))[0])
+            hit = calls[:]
+    finally:
+        moe.top_k_gating = kept
+    n_suffix = hit_len - hit_prefix
+    # hit choices per MoE layer at positions hit_prefix .. hit_len+steps-2
+    chosen = []
+    for layer in range(n_moe):
+        parts = [hit[layer][1][:n_suffix]] + [
+            hit[n_moe * (1 + i) + layer][1] for i in range(steps - 1)]
+        chosen.append(torch.cat(parts).sort(-1).values)
+    first, last = hit_prefix, hit_len + steps - 1
+    moved = torch.zeros(last - first, dtype=torch.int64, device="cuda")
+    for layer in range(n_moe):
+        probs, experts = fwd[layer]
+        want = experts[first:last].sort(-1).values
+        diff = (want != chosen[layer]).any(-1)
+        moved += diff.long()
+        top = probs[first:last].sort(-1, descending=True).values
+        gap = top[:, k - 1] - top[:, k]
+        where = diff.nonzero()[:, 0].tolist()
+        log(f"[moe-hit-routing] MoE layer {layer}: {len(where)} of "
+            f"{last - first} tokens routed to another top-{k} set than the "
+            f"forward's, at positions {[first + i for i in where]}, the "
+            f"forward's k-th minus (k+1)-th gate probability there "
+            f"{[round(float(gap[i]), 5) for i in where]} (median over the "
+            f"tokens {float(gap.median()):.4f})")
+    got = torch.cat(got).float()
+    for i in range(steps):
+        pos = hit_len - 1 + i
+        want = ref[pos]
+        err = float((got[i] - want).abs().max() / want.abs().max())
+        log(f"[moe-hit-routing] position {pos}: max|diff|/max|logit| "
+            f"{err:.4e} (TOL_TEACHER {TOL_TEACHER}), MoE layers rerouted "
+            f"at this token {int(moved[pos - first])}, argmax "
+            f"{'equal' if int(got[i].argmax()) == int(want.argmax()) else 'differs'}")
 
 
 def serve_moe_engines(model, smi):
@@ -6478,7 +6614,7 @@ TOL_TB = 1e-2
 # the layer API's paths: the decoder's masked self-attention takes the
 # composite (under a capture, counted when the graph is traced)
 TB_PATHS = ("train-transformer", "train-transformer-trainer",
-            "jit-transformer", "capi")
+            "jit-transformer", "capi", "c-trainer")
 COMPOSITE_KEY = "attention_composite"
 
 
@@ -6573,11 +6709,11 @@ def tb_sinusoid(length, d):
     return torch.from_numpy(out)
 
 
-def tb_network():
+def tb_network(dropout=0.1):
     """Transformer-base from the port's layers: one Embedding(37000, 512)
     shared by source and target, scaled by sqrt(512), plus sinusoidal
     positions, dropout 0.1, ``nn.Transformer()`` at its defaults, and
-    Linear(512, 37000)."""
+    Linear(512, 37000) (``dropout``: every dropout's rate)."""
     from paddle_tpu_torch import nn
 
     class TransformerBase(nn.Layer):
@@ -6587,8 +6723,8 @@ def tb_network():
             self.embedding = nn.Embedding(
                 TB_VOCAB, self.d_model,
                 weight_attr=nn.initializer.Normal(0.0, self.d_model ** -0.5))
-            self.dropout = nn.Dropout(0.1)
-            self.transformer = nn.Transformer()
+            self.dropout = nn.Dropout(dropout)
+            self.transformer = nn.Transformer(dropout=dropout)
             self.project = nn.Linear(self.d_model, TB_VOCAB)
             self.register_buffer("position",
                                  tb_sinusoid(TB_S, self.d_model).cuda(),
@@ -7159,7 +7295,8 @@ def phase_capi(smi):
     B = 16 equal bitwise to ``load_predictor``'s output (row 1 12 more
     launches); the standalone ``pd_capi_demo`` binary as a subprocess:
     exit 0 and its output's checksum equal to Python's; ``PD_NewTrainer``
-    NULL with ``PD_GetLastError`` naming the waiting item.  Where this
+    on this inference artifact NULL with ``PD_GetLastError`` naming the
+    missing ``.pdtrain`` (c-trainer steps a train program).  Where this
     machine lacks Python.h or a shared libpython the phase drives
     ``capi_bridge`` (what the shim calls) instead and says why."""
     import ctypes
@@ -7248,9 +7385,11 @@ def phase_capi(smi):
                           {"flash_fwd": 2 * TB_LAYERS}, problems)
     lib.PD_TensorsFree(outs, n_outs)
     lib.PD_DeletePredictor(handle)
+    # an inference artifact is no train program: the trainer entry
+    # says which file it lacks
     trainer = lib.PD_NewTrainer(path.encode())
     err = lib.PD_GetLastError().decode()
-    if trainer or "export_train_step" not in err:
+    if trainer or ".pdtrain" not in err:
         problems.append(f"PD_NewTrainer: handle {trainer}, error {err!r}")
     # the standalone binary on the ramp inputs
     ramp = torch.arange(TB_B * TB_S).reshape(TB_B, TB_S) % 1000 + 4
@@ -7277,8 +7416,9 @@ def phase_capi(smi):
     log(f"[capi] {smi}: libpd_inference.so and pd_capi_demo built in "
         f"{t_build:.2f} s; PD_PredictorRun at B={TB_B}: bitwise equal to "
         f"load_predictor {bitwise}, {t_run * 1e3:.3f} ms (host clock, "
-        f"marshalling included), launches {c_counts}; PD_NewTrainer NULL: "
-        f"{not trainer}, PD_GetLastError {err!r}; pd_capi_demo exit "
+        f"marshalling included), launches {c_counts}; PD_NewTrainer on the "
+        f"inference artifact NULL: {not trainer}, PD_GetLastError {err!r}; "
+        f"pd_capi_demo exit "
         f"{proc.returncode} in {t_demo:.1f} s (cold start), checksum "
         f"{demo_hash} == Python's {want_hash}: {demo_hash == want_hash}")
     _JIT_SAVED.clear()
@@ -9226,6 +9366,785 @@ def phase_sparse_scale(smi):
     return {"sparse-scale": launches}
 
 
+# ---------------------------------------------------------------------------
+# Recurrent layers, the attention seq2seq and the C training entry
+# ---------------------------------------------------------------------------
+# PaddleNLP's machine-translation example (examples/machine_translation/
+# seq2seq, IWSLT'15 English-Vietnamese): 2-layer LSTM encoder and decoder,
+# hidden and embedding 512, batch 128, dropout 0.2, init_scale 0.1,
+# max_grad_norm 5.0, Adam at 0.001, beam 10; vocabularies 17191 (en) and
+# 7709 (vi).  The corpus is not in the repo: the phases feed WMT16's
+# synthetic pairs (ids below 7709 fit both tables), 50 tokens a side
+S2S_SRC_VOCAB, S2S_TRG_VOCAB = 17191, 7709
+S2S_HIDDEN, S2S_LAYERS, S2S_B, S2S_T = 512, 2, 128, 50
+S2S_DROPOUT, S2S_INIT, S2S_CLIP, S2S_LR = 0.2, 0.1, 5.0, 0.001
+S2S_EPOCHS, S2S_BEAM, S2S_MAX_STEP = 10, 10, 50
+S2S_BOS, S2S_EOS = 0, 1
+
+
+def seq2seq_model(paddle, src_vocab=S2S_SRC_VOCAB, trg_vocab=S2S_TRG_VOCAB,
+                  hidden=S2S_HIDDEN, layers=S2S_LAYERS, dropout=S2S_DROPOUT,
+                  init_scale=S2S_INIT, eos_id=S2S_EOS):
+    """``(model, criterion)`` of PaddleNLP's ``seq2seq_attn.py``
+    (``Seq2SeqAttnModel``, ``CrossEntropyCriterion``), written with
+    ``paddle``'s public API only, so that either package builds it: an
+    LSTM encoder; a decoder ``nn.RNN`` over a cell that feeds the last
+    attentional output back in (input feeding) through a stack of
+    ``LSTMCell``s and Luong attention (``input_proj``, scores over the
+    encoder outputs with padding masked, ``output_proj`` of [context,
+    hidden]); embeddings and projections drawn from Uniform(-init_scale,
+    init_scale).  The encoder memory reaches the cell as its ``memory``
+    attribute (the JAX ``RNN`` passes no keywords to its cell).  The
+    criterion sums over time the batch mean of the masked token
+    cross-entropy, the mask keeping each target up to and including its
+    first EOS.  ``model.beam_search(src, beam, max_step_num)`` runs
+    ``nn.BeamSearchDecoder`` / ``nn.dynamic_decode`` over the cell with
+    the memory tiled by ``tile_beam_merge_with_batch``."""
+    nn = paddle.nn
+    F = nn.functional
+    uniform = nn.initializer.Uniform(-init_scale, init_scale)
+
+    class AttentionLayer(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.input_proj = nn.Linear(hidden, hidden, weight_attr=uniform,
+                                        bias_attr=False)
+            self.output_proj = nn.Linear(2 * hidden, hidden,
+                                         weight_attr=uniform,
+                                         bias_attr=False)
+
+        def forward(self, h, enc_out, enc_mask):
+            mem = self.input_proj(enc_out)
+            scores = paddle.matmul(paddle.unsqueeze(h, [1]), mem,
+                                   transpose_y=True) + enc_mask
+            ctx = paddle.squeeze(paddle.matmul(F.softmax(scores, axis=-1),
+                                               mem), [1])
+            return self.output_proj(paddle.concat([ctx, h], axis=1))
+
+    class DecoderCell(nn.RNNCellBase):
+        def __init__(self):
+            super().__init__()
+            self.hidden_size = hidden
+            self.dropout = nn.Dropout(dropout)
+            self.lstm_cells = nn.LayerList([
+                nn.LSTMCell(2 * hidden if i == 0 else hidden, hidden)
+                for i in range(layers)])
+            self.attention_layer = AttentionLayer()
+            self.memory = None
+
+        def forward(self, step_input, states):
+            lstm_states, input_feed = states
+            enc_out, enc_mask = self.memory
+            x = paddle.concat([step_input, input_feed], axis=1)
+            new_states = []
+            for i, cell in enumerate(self.lstm_cells):
+                out, st = cell(x, lstm_states[i])
+                x = self.dropout(out)
+                new_states.append(st)
+            out = self.attention_layer(x, enc_out, enc_mask)
+            return out, [new_states, out]
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedder = nn.Embedding(src_vocab, hidden,
+                                         weight_attr=uniform)
+            self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                                dropout=dropout if layers > 1 else 0.0)
+
+        def forward(self, src):
+            return self.lstm(self.embedder(src))
+
+    class Decoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedder = nn.Embedding(trg_vocab, hidden,
+                                         weight_attr=uniform)
+            self.lstm_attention = nn.RNN(DecoderCell())
+            self.output_layer = nn.Linear(hidden, trg_vocab,
+                                          weight_attr=uniform,
+                                          bias_attr=False)
+
+        def forward(self, trg, init_states, enc_out, enc_mask):
+            self.lstm_attention.cell.memory = (enc_out, enc_mask)
+            out, _ = self.lstm_attention(self.embedder(trg),
+                                         initial_states=init_states)
+            return self.output_layer(out)
+
+    class Seq2SeqAttnModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.encoder = Encoder()
+            self.decoder = Decoder()
+
+        def initial_states(self, enc_out, state):
+            h, c = state
+            feed = self.decoder.lstm_attention.cell.get_initial_states(
+                batch_ref=enc_out, shape=[hidden])
+            return [[(h[i], c[i]) for i in range(layers)], feed]
+
+        def padding_mask(self, src):
+            keep = paddle.cast(src != eos_id, "float32")
+            return paddle.unsqueeze((keep - 1.0) * 1e9, [1])
+
+        def forward(self, src, trg):
+            enc_out, state = self.encoder(src)
+            return self.decoder(trg, self.initial_states(enc_out, state),
+                                enc_out, self.padding_mask(src))
+
+        def beam_search(self, src, beam_size, max_step_num, bos_id=S2S_BOS):
+            enc_out, state = self.encoder(src)
+            init = self.initial_states(enc_out, state)
+            tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+            cell = self.decoder.lstm_attention.cell
+            cell.memory = (tile(enc_out, beam_size),
+                           tile(self.padding_mask(src), beam_size))
+            dec = nn.BeamSearchDecoder(
+                cell, bos_id, eos_id, beam_size,
+                embedding_fn=self.decoder.embedder,
+                output_fn=self.decoder.output_layer)
+            return nn.dynamic_decode(dec, inits=init,
+                                     max_step_num=max_step_num)
+
+    class CrossEntropyCriterion(nn.Layer):
+        def forward(self, predict, label):
+            cost = F.cross_entropy(predict, label, reduction="none")
+            is_eos = paddle.cast(label == eos_id, "float32")
+            mask = paddle.cast(paddle.cumsum(is_eos, axis=1) - is_eos < 0.5,
+                               "float32")
+            return paddle.sum(paddle.mean(cost * mask, axis=[0]))
+
+    return Seq2SeqAttnModel(), CrossEntropyCriterion()
+
+
+# tolerances of the recurrent phases, stated before measuring.  cuDNN
+# runs f32 RNNs in TF32 (torch.backends.cudnn.allow_tf32, True by
+# default): each product's inputs keep 10 mantissa bits (2^-11 relative),
+# so a 512-wide gate sum carries about 2^-11 x sqrt(1024) of one term;
+# the recurrences through sigmoid and tanh are contractive, so over 50
+# steps the error stays near one step's.  Per tensor, x max|CPU value|:
+TOL_RNN_F32 = 1e-2
+# under auto_cast the RNN runs in bf16 on both sides (8 mantissa bits),
+# each product and state rounded where the two implementations choose
+TOL_RNN_BF16 = 5e-2
+# nn.LSTM (cuDNN, TF32) against a stack of RNN(LSTMCell) on the card
+# (cuBLAS f32 products): the TF32 rounding alone
+TOL_RNN_CELLS = 1e-2
+# the seq2seq's logits on the card against the CPU from the same weights,
+# per row, x max|CPU logit| of the row: the encoder LSTM in TF32, the rest
+# f32 in another order of sums
+TOL_S2S_FWD = 1e-2
+# each beam's score against the same ids rescored by the teacher-forced
+# forward on the card: the same cell ops at the same width, the encoder
+# at another batch (B x beam rows), relative to |score|
+TOL_S2S_BEAM = 1e-4
+# the exported Transformer-base step from C against the live trainer, per
+# step, relative (tests/test_capi_train.py's bound)
+TOL_C_TRAINER = 1e-4
+RNN_B, RNN_T, RNN_IN, RNN_H, RNN_LAYERS = 128, 50, 512, 512, 2
+RNN_CPU_ROWS = 16          # batch rows held against the CPU
+S2S_CPU_ROWS = 4           # source rows of the CPU forward and search
+C_STEPS = 10
+
+
+def rnn_twins(mode, direction, cpu_rows=RNN_CPU_ROWS):
+    """``nn.<mode>(512, 512, 2 layers, direction)`` on the card and its
+    CPU twin with the same weights."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    paddle.seed(1234)
+    paddle.set_device("gpu")
+    card = getattr(nn, mode)(RNN_IN, RNN_H, num_layers=RNN_LAYERS,
+                             direction=direction)
+    paddle.set_device("cpu")
+    cpu = getattr(nn, mode)(RNN_IN, RNN_H, num_layers=RNN_LAYERS,
+                            direction=direction)
+    cpu.set_state_dict({k: v.detach().cpu()
+                        for k, v in card.state_dict().items()})
+    paddle.set_device("gpu")
+    return card, cpu
+
+
+def scale_error(got, ref):
+    """max|got - ref| / max|ref| (f32 on the host)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def phase_rnn_layers(smi):
+    """rnn-layers: ``nn.LSTM``, ``nn.GRU`` and ``nn.SimpleRNN`` at 2 layers
+    x 512 on ``[128, 50, 512]``, forward and bidirectional: outputs and
+    final states on the card against the CPU twin (the first RNN_CPU_ROWS
+    rows) in f32 (cuDNN's TF32 on, as by default; TOL_RNN_F32) and under
+    ``auto_cast`` bf16 (TOL_RNN_BF16); ``nn.LSTM`` against a stack of
+    ``RNN(LSTMCell)`` with its weights on the card (TOL_RNN_CELLS); the
+    warnings cuDNN gives about weights outside one buffer counted; one
+    bf16 LSTM forward profiled for its kernels' names; the parameters
+    in one buffer a layer, and the ms ``auto_cast`` adds to a call to
+    cast and move them into cuDNN's layout; forward and
+    forward + backward ms a call; rows 1-11 launch 0 times."""
+    import warnings
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    t_phase = time.perf_counter()
+    problems = []
+    zero_launches()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(RNN_B, RNN_T, RNN_IN, generator=g)
+    xc = x.cuda()
+    log(f"[rnn-layers] {smi}: torch.backends.cudnn.allow_tf32 = "
+        f"{torch.backends.cudnn.allow_tf32}, enabled = "
+        f"{torch.backends.cudnn.enabled}, cuDNN "
+        f"{torch.backends.cudnn.version()}")
+    rows = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for mode in ("LSTM", "GRU", "SimpleRNN"):
+            for direction in ("forward", "bidirect"):
+                card, cpu = rnn_twins(mode, direction)
+                errs = {}
+                for amp in (False, True):
+                    ctx = paddle.amp.auto_cast(dtype="bfloat16") if amp \
+                        else contextlib.nullcontext()
+                    with torch.no_grad(), ctx:
+                        out, st = card(xc)
+                        ref, ref_st = cpu(x[:RNN_CPU_ROWS])
+                    want = "bfloat16" if amp else "float32"
+                    if str(out.dtype) != f"torch.{want}":
+                        problems.append(f"{mode} {direction} amp={amp}: "
+                                        f"output {out.dtype}")
+                    got = [out[:RNN_CPU_ROWS]] + [
+                        s[:, :RNN_CPU_ROWS] for s in
+                        (st if isinstance(st, tuple) else (st,))]
+                    refs = [ref] + list(ref_st if isinstance(ref_st, tuple)
+                                        else (ref_st,))
+                    errs[want] = max(scale_error(a, b)
+                                     for a, b in zip(got, refs))
+                    tol = TOL_RNN_BF16 if amp else TOL_RNN_F32
+                    if not errs[want] <= tol:
+                        problems.append(f"{mode} {direction} {want}: "
+                                        f"{errs[want]:.3e} > {tol}")
+                fwd_ms = cuda_ms(lambda: card(xc), iters=5, warmup=2)
+                xg = xc.clone().requires_grad_(True)
+
+                def fwd_bwd():
+                    o, _ = card(xg)
+                    o.sum().backward()
+                fb_ms = cuda_ms(fwd_bwd, iters=5, warmup=2)
+                card.clear_gradients()
+                rows.append((mode, direction, errs, fwd_ms, fb_ms))
+                log(f"[rnn-layers] {mode} {direction}: card vs CPU max "
+                    f"error / max|CPU| f32 {errs['float32']:.3e} (tol "
+                    f"{TOL_RNN_F32}), bf16 {errs['bfloat16']:.3e} (tol "
+                    f"{TOL_RNN_BF16}); forward {fwd_ms:.3f} ms, forward + "
+                    f"backward {fb_ms:.3f} ms a call (CUDA events, f32)")
+                del card, cpu
+        # nn.LSTM against RNN(LSTMCell) stacks with its weights
+        for direction in ("forward", "bidirect"):
+            card, _ = rnn_twins("LSTM", direction)
+            nd = 2 if direction == "bidirect" else 1
+            stack = []
+            for layer in range(RNN_LAYERS):
+                cells = []
+                for d in range(nd):
+                    sfx = f"_l{layer}" + ("_reverse" if d else "")
+                    cell = nn.LSTMCell(RNN_IN if layer == 0 else
+                                       RNN_H * nd, RNN_H)
+                    cell.set_state_dict({
+                        k: getattr(card, k + sfx).detach()
+                        for k in ("weight_ih", "weight_hh", "bias_ih",
+                                  "bias_hh")})
+                    cells.append(cell)
+                stack.append(nn.BiRNN(*cells) if nd == 2
+                             else nn.RNN(cells[0]))
+            with torch.no_grad():
+                want, _ = card(xc)
+                h = xc
+                for rnn in stack:
+                    h, _ = rnn(h)
+            err = scale_error(h, want)
+            log(f"[rnn-layers] nn.LSTM {direction} vs a stack of "
+                f"RNN(LSTMCell) on the card: {err:.3e} (tol "
+                f"{TOL_RNN_CELLS})")
+            if not err <= TOL_RNN_CELLS:
+                problems.append(f"LSTM {direction} vs cells {err:.3e}")
+            del card, stack
+    flat = [str(w.message)[:80] for w in caught
+            if "contiguous chunk" in str(w.message)]
+    log(f"[rnn-layers] warnings about weights outside one buffer: "
+        f"{len(flat)} {flat[:1]}")
+    # which kernels run a bf16 LSTM
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    card, _ = rnn_twins("LSTM", "bidirect")
+    with torch.no_grad(), paddle.amp.auto_cast(dtype="bfloat16"):
+        card(xc)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            card(xc)
+            torch.cuda.synchronize()
+    top = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)[:4]
+    top = [(e.key[:70], round(e.self_device_time_total / 1e3, 3))
+           for e in top]
+    log(f"[rnn-layers] bf16 LSTM bidirect forward's top kernels (device "
+        f"ms): {top}")
+    # the f32 parameters move into cuDNN's layout at their first f32 call
+    # and stay; an auto_cast call moves its bf16 copies on every call
+    # (``_RNNBase._flatten``), timed in turns against leaving them to
+    # cuDNN's own copy (which warns)
+    with torch.no_grad():
+        card(xc)
+    one = len({p.untyped_storage().data_ptr() for p in card.parameters()})
+
+    def amp_forward():
+        with torch.no_grad(), paddle.amp.auto_cast(dtype="bfloat16"):
+            card(xc)
+    turns = {"moved": [], "copied": []}
+    for _ in range(2):
+        turns["moved"].append(cuda_ms(amp_forward, iters=10, warmup=2))
+        card._flatten = lambda weights, input_size: None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            turns["copied"].append(cuda_ms(amp_forward, iters=10,
+                                           warmup=2))
+        del card._flatten
+    log(f"[rnn-layers] {smi}: LSTM bidirect's {RNN_LAYERS} layers hold their "
+        f"parameters in {one} buffers after an f32 call; a bf16 auto_cast "
+        f"forward (CUDA events, ms a call, two turns each): its weight "
+        f"copies moved into cuDNN's layout first "
+        f"{[round(t, 4) for t in turns['moved']]}, left to cuDNN's own "
+        f"copy {[round(t, 4) for t in turns['copied']]}")
+    if one != RNN_LAYERS:
+        problems.append(f"LSTM parameters in {one} buffers")
+    del card
+    launches = read_launches()
+    rn_zero_counts("rnn-layers", launches, problems)
+    del_all()
+    log(f"[rnn-layers] the phase took {time.perf_counter() - t_phase:.1f} s")
+    finish("rnn-layers", problems)
+    return {"rnn-layers": launches}
+
+
+# the trained seq2seq, handed from train-seq2seq to beam-seq2seq
+_S2S = {}
+
+
+def phase_train_seq2seq(smi):
+    """train-seq2seq: the attention seq2seq (``seq2seq_model``, PaddleNLP's
+    IWSLT'15 widths) through ``Model.fit`` on a ``DataLoader`` over
+    ``text.WMT16(mode='train', src_dict_size=7709, seq_len=50)`` (256
+    pairs: 2 batches of 128), ``Adam(0.001)`` with
+    ``ClipGradByGlobalNorm(5.0)``, dropout 0.2, S2S_EPOCHS epochs: finite
+    losses, the last 5's mean below the first 5's; step and period ms,
+    target tokens/s, peak memory, one profiled step's kernels and idle
+    share; then one eval forward on the card against the CPU twin on
+    S2S_CPU_ROWS rows within TOL_S2S_FWD of each row's logit scale; rows
+    1-11 launch 0 times."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    t_phase = time.perf_counter()
+    problems = []
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    model, crit = seq2seq_model(paddle)
+    n_params = sum(p.numel() for p in model.parameters())
+    init_state = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+    opt = paddle.optimizer.Adam(
+        learning_rate=S2S_LR, parameters=model.parameters(),
+        grad_clip=nn.ClipGradByGlobalNorm(S2S_CLIP))
+    m = paddle.Model(model)
+    m.prepare(opt, crit)
+    data = paddle.text.WMT16(mode="train", src_dict_size=S2S_TRG_VOCAB,
+                             seq_len=S2S_T)
+    steps = S2S_EPOCHS * len(data) // S2S_B
+    rec = tb_step_recorder(profile_step=steps - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    m.fit(data, batch_size=S2S_B, epochs=S2S_EPOCHS, shuffle=False,
+          verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches()
+    rn_zero_counts("train-seq2seq", launches, problems)
+    losses = rec.losses
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    if len(losses) != steps or not np.all(np.isfinite(losses)) or \
+            not last < first:
+        problems.append(f"losses not finite and falling: {losses}")
+    timing = tb_timing_line(rec, steps, wall, per_step=S2S_B * S2S_T)
+    log(f"[train-seq2seq] {smi}: attention seq2seq {n_params / 1e6:.2f} M "
+        f"params f32 (vocab {S2S_SRC_VOCAB} / {S2S_TRG_VOCAB}, hidden "
+        f"{S2S_HIDDEN}, {S2S_LAYERS} layers, dropout {S2S_DROPOUT}), "
+        f"{S2S_B} x {S2S_T} + {S2S_B} x {S2S_T} tokens, Adam {S2S_LR}, "
+        f"global-norm clip {S2S_CLIP}: {steps} steps; losses "
+        f"{[round(x, 3) for x in losses]} (first 5 mean {first:.3f}, last "
+        f"5 {last:.3f}); {timing}; max_memory_allocated {peak} bytes")
+    # one forward on the card against the CPU from the same weights
+    src = torch.as_tensor(data.src[:S2S_CPU_ROWS])
+    trg = torch.as_tensor(data.trg[:S2S_CPU_ROWS])
+    paddle.set_device("cpu")
+    paddle.seed(1234)
+    cpu_model, _ = seq2seq_model(paddle)
+    cpu_model.set_state_dict({k: v.detach().cpu()
+                              for k, v in model.state_dict().items()})
+    paddle.set_device("gpu")
+    model.eval()
+    cpu_model.eval()
+    with torch.no_grad():
+        got = model(src.cuda(), trg.cuda())
+        want = cpu_model(src, trg)
+    err = row_scale_error(got.cpu(), want)
+    log(f"[train-seq2seq] eval forward on {S2S_CPU_ROWS} rows, card vs CPU: "
+        f"max row error {err:.3e} of the row's max |logit| (tol "
+        f"{TOL_S2S_FWD}; cuDNN TF32 {torch.backends.cudnn.allow_tf32})")
+    if not err <= TOL_S2S_FWD:
+        problems.append(f"card vs CPU forward {err:.3e}")
+    _S2S.update(model=model, cpu_model=cpu_model, init_state=init_state,
+                src=torch.as_tensor(data.src[:S2S_B]))
+    del m, opt, got, want
+    del_all()
+    log(f"[train-seq2seq] the phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    finish("train-seq2seq", problems)
+    return {"train-seq2seq": launches}
+
+
+def s2s_rescore(model, src, ids, lengths):
+    """Each beam's summed log-probabilities of its ids (up to its length)
+    under one teacher-forced forward of the model: ``[B, K]``."""
+    b, t, k = ids.shape
+    beams = ids.permute(0, 2, 1).reshape(b * k, t).long()
+    trg = torch.cat([torch.full_like(beams[:, :1], S2S_BOS),
+                     beams[:, :-1]], 1)
+    with torch.no_grad():
+        logits = model(torch.repeat_interleave(src, k, dim=0), trg)
+        logp = torch.log_softmax(logits.float(), -1)
+    tok = logp.gather(-1, beams[..., None])[..., 0]
+    keep = torch.arange(t, device=ids.device)[None] < \
+        lengths.reshape(b * k, 1)
+    return (tok * keep).sum(-1).reshape(b, k)
+
+
+def s2s_search(tag, model, cpu_model, src, smi, problems):
+    """One beam search of ``model`` over ``src`` on the card (timed,
+    steps and host reads counted), each beam's score against the
+    teacher-forced rescoring (TOL_S2S_BEAM), and the top beams of the
+    first S2S_CPU_ROWS sources against the same search of ``cpu_model``
+    (the card's search of those rows rerun with cuDNN's TF32 off, so that
+    both sides take f32 products).  Returns the kernel launches."""
+    cell = model.decoder.lstm_attention.cell
+    forward = cell.forward
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return forward(*a, **k)
+    cell.forward = counted
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), HostReads(device_only=True) as reads:
+        ids, scores = model.beam_search(src.cuda(), S2S_BEAM, S2S_MAX_STEP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cell.forward = forward
+    launches = read_launches()
+    steps = len(calls)
+    eos_hit = ids == S2S_EOS
+    lengths = torch.where(eos_hit.any(1), eos_hit.int().argmax(1) + 1,
+                          torch.full_like(eos_hit[:, 0], ids.shape[1],
+                                          dtype=torch.int64))
+    rescored = s2s_rescore(model, src.cuda(), ids, lengths)
+    rel = float(((scores - rescored).abs() / rescored.abs()).max())
+    shape_ok = tuple(ids.shape) == (S2S_B, S2S_MAX_STEP, S2S_BEAM) and \
+        bool((scores[:, :-1] >= scores[:, 1:]).all())
+    if not (shape_ok and rel <= TOL_S2S_BEAM):
+        problems.append(f"{tag}: beam scores vs rescoring {rel:.3e}, shapes "
+                        f"{tuple(ids.shape)}")
+    rows = src[:S2S_CPU_ROWS]
+    with torch.no_grad(), torch.backends.cudnn.flags(allow_tf32=False):
+        fids, fscores = model.beam_search(rows.cuda(), S2S_BEAM,
+                                          S2S_MAX_STEP)
+    with torch.no_grad():
+        cids, cscores = cpu_model.beam_search(rows, S2S_BEAM, S2S_MAX_STEP)
+    top_equal = torch.equal(fids[:, :, 0].cpu(), cids[:, :, 0])
+    if not top_equal:
+        problems.append(f"{tag}: top beams differ from the CPU search")
+    top = lengths[:, 0].tolist()
+    log(f"[beam-seq2seq] {tag}, {smi}: beam {S2S_BEAM} over {S2S_B} sources "
+        f"({S2S_B * S2S_BEAM} rows), {steps} steps in {wall:.3f} s: "
+        f"{wall / steps * 1e3:.3f} ms a step (host clock), host reads "
+        f"{reads.n} ({reads.n / steps:.2f} a step); top beams' lengths "
+        f"min {min(top)} median {int(np.median(top))} max {max(top)}; "
+        f"scores vs teacher-forced rescoring worst {rel:.3e} (tol "
+        f"{TOL_S2S_BEAM}); top beams of {S2S_CPU_ROWS} sources (TF32 off) "
+        f"equal to the CPU search: {top_equal} (card scores "
+        f"{[round(x, 4) for x in fscores[:, 0].tolist()]}, CPU "
+        f"{[round(x, 4) for x in cscores[:, 0].tolist()]})")
+    return launches
+
+
+def phase_beam_seq2seq(smi):
+    """beam-seq2seq: train-seq2seq's model decoding one batch of 128
+    sources with ``nn.BeamSearchDecoder`` at beam S2S_BEAM and
+    ``nn.dynamic_decode(max_step_num=S2S_MAX_STEP)`` over its LSTMCell
+    stack (1 280 rows), checked by ``s2s_search``.  After 20 steps on
+    WMT16's synthetic targets (EOS, 1 in 50 of them, is their most
+    frequent id) the trained model ends its beams within a few steps; the
+    same search then runs on the model's weights from before training,
+    whose beams run to S2S_MAX_STEP.  Rows 1-11 launch 0 times."""
+    import paddle_tpu_torch as paddle
+    t_phase = time.perf_counter()
+    problems = []
+    model, cpu_model, src = _S2S["model"], _S2S["cpu_model"], _S2S["src"]
+    model.eval()
+    cpu_model.eval()
+    total = {}
+    add_launches(total, s2s_search("trained", model, cpu_model, src, smi,
+                                   problems))
+    with torch.no_grad():
+        model.set_state_dict(_S2S["init_state"])
+        cpu_model.set_state_dict({k: v.cpu() for k, v in
+                                  _S2S["init_state"].items()})
+    add_launches(total, s2s_search("at init", model, cpu_model, src, smi,
+                                   problems))
+    rn_zero_counts("beam-seq2seq", total, problems)
+    _S2S.clear()
+    del model, cpu_model
+    del_all()
+    paddle.set_device("gpu")
+    log(f"[beam-seq2seq] the phase took {time.perf_counter() - t_phase:.1f} s")
+    finish("beam-seq2seq", problems)
+    return {"beam-seq2seq": total}
+
+
+def c_trainer_lib():
+    """``libpd_inference.so`` built with ``cc`` and bound with ctypes for
+    the trainer entry."""
+    import ctypes
+    from paddle_tpu_torch.inference.capi import build as capi_build
+    lib = ctypes.CDLL(capi_build.build_library())
+    lib.PD_NewTrainer.restype = ctypes.c_void_p
+    lib.PD_NewTrainer.argtypes = [ctypes.c_char_p]
+    lib.PD_TrainerStep.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_int32,
+                                   ctypes.POINTER(ctypes.c_float)]
+    lib.PD_DeleteTrainer.argtypes = [ctypes.c_void_p]
+    lib.PD_GetLastError.restype = ctypes.c_char_p
+    return lib
+
+
+def c_batch(arrays):
+    """A ctypes ``PD_Tensor`` array over host numpy arrays (kept alive by
+    the caller)."""
+    import ctypes
+
+    class PDTensor(ctypes.Structure):
+        _fields_ = [("data", ctypes.c_void_p),
+                    ("shape", ctypes.c_int64 * 8),
+                    ("ndim", ctypes.c_int32),
+                    ("dtype", ctypes.c_char * 16)]
+    out = (PDTensor * len(arrays))()
+    for t, a in zip(out, arrays):
+        t.data = a.ctypes.data_as(ctypes.c_void_p)
+        t.ndim = a.ndim
+        for i, n in enumerate(a.shape):
+            t.shape[i] = n
+        t.dtype = a.dtype.name.encode()
+    return out
+
+
+def tb_trainer(dropout):
+    """Transformer-base (``tb_network(dropout)``, seed 1234) in
+    ``SpmdTrainer`` under ``strategy.amp`` (bf16 copies of the f32
+    masters) with ``tb_model``'s Adam on Noam's peak rate and the smoothed
+    cross-entropy."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    paddle.set_device("gpu")
+    paddle.seed(1234)
+    net = tb_network(dropout)
+    sched = paddle.optimizer.lr.NoamDecay(d_model=512, warmup_steps=4000,
+                                          last_epoch=3999)
+    opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                                epsilon=1e-9, parameters=net.parameters())
+    st = DistributedStrategy()
+    st.amp = True
+    return SpmdTrainer(net, opt, tb_loss(), strategy=st)
+
+
+def c_train_demo(base):
+    """``pd_capi_train_demo`` (built with ``cc``) started on the JAX
+    demo's regression net (Linear(6, 16), ReLU, Linear(16, 1), Adam 0.02,
+    MSE), exported on the card under ``base``; returns the running
+    process (20 steps, CAPI-TRAIN-OK when the loss fell)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.inference.capi import build as capi_build
+    paddle.set_device("gpu")
+    paddle.seed(0)
+    reg = nn.Sequential(nn.Linear(6, 16), nn.ReLU(), nn.Linear(16, 1))
+    opt = paddle.optimizer.Adam(learning_rate=0.02,
+                                parameters=reg.parameters())
+    tr = SpmdTrainer(reg, opt, lambda o, y: nn.functional.mse_loss(o, y))
+    x = np.random.RandomState(0).randn(8, 6).astype(np.float32)
+    path = os.path.join(base, "reg")
+    tr.export_train_step(path, x, x.sum(1, keepdims=True))
+    exe = capi_build.build_demo(source="capi_train_demo.c")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))] +
+        [p for p in sys.path if p])
+    env.pop("PD_INFERENCE_DEVICE", None)
+    # its output to files, so that no pipe fills while nobody reads it
+    with open(os.path.join(base, "demo.out"), "w") as out, \
+            open(os.path.join(base, "demo.err"), "w") as err:
+        return subprocess.Popen([exe, path, "6", "8"], env=env, stdout=out,
+                                stderr=err)
+
+
+def tb_export(dropout, path, batch):
+    """``tb_trainer(dropout)``'s step exported to ``path`` on ``batch``
+    (source, target, label); returns ``(seconds, file sizes)``."""
+    src, tgt, lab = batch
+    tr = tb_trainer(dropout)
+    t0 = time.perf_counter()
+    tr.export_train_step(path, (src, tgt), lab)
+    seconds = time.perf_counter() - t0
+    del tr
+    del_all()
+    return seconds, {ext: os.path.getsize(path + ext)
+                     for ext in (".pdtrain", ".pdtrainstate")}
+
+
+def phase_c_trainer(smi):
+    """c-trainer: ``SpmdTrainer.export_train_step`` on Transformer-base
+    (bf16 AMP, train-transformer's seed and batches), stepped from C
+    through ``PD_NewTrainer`` / ``PD_TrainerStep`` (``libpd_inference.so``
+    by ctypes).  At dropout 0: C_STEPS C steps on C_STEPS batches against a
+    live trainer from the same weights over the same batches within
+    TOL_C_TRAINER a step, rows 1-3 12 launches a step each.  At the
+    model's dropout 0.1: C_STEPS C steps (5 batches twice), the last 5
+    losses' mean below the first 5's, the dropout forms 12 launches a step
+    each.  The export's seconds, the files' bytes and the C step ms; and
+    ``pd_capi_train_demo`` (``c_train_demo``, in its own process beside
+    the rest) prints CAPI-TRAIN-OK."""
+    import ctypes
+    t_phase = time.perf_counter()
+    problems = []
+    lib = c_trainer_lib()
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ctrainer")
+    # the C demo runs in its own process beside the Transformer-base runs
+    demo, t_demo0 = c_train_demo(base), time.perf_counter()
+    try:
+        data = tb_data(C_STEPS * TB_B, 1234)
+        src_all, tgt_all, lab_all = data.tensors
+        batches = [tuple(np.ascontiguousarray(a[i * TB_B:(i + 1) * TB_B])
+                         for a in (src_all, tgt_all, lab_all))
+                   for i in range(C_STEPS)]
+        total = {}
+        for dropout in (0.0, 0.1):
+            tag = f"p={dropout}"
+            path = os.path.join(base, f"tb_p{dropout}")
+            t_export, sizes = tb_export(dropout, path, batches[0])
+            t0 = time.perf_counter()
+            handle = lib.PD_NewTrainer(path.encode())
+            t_load = time.perf_counter() - t0
+            if not handle:
+                raise SystemExit(f"c-trainer: PD_NewTrainer failed: "
+                                 f"{lib.PD_GetLastError()}")
+            order = list(range(C_STEPS)) if dropout == 0.0 else \
+                [i % 5 for i in range(C_STEPS)]
+            losses, ms = [], []
+            loss = ctypes.c_float()
+            zero_launches()
+            for i in order:
+                arrays = batches[i]
+                ct = c_batch(arrays)
+                t0 = time.perf_counter()
+                if lib.PD_TrainerStep(handle, ct, 3, ctypes.byref(loss)) != 0:
+                    raise SystemExit(f"c-trainer: PD_TrainerStep failed: "
+                                     f"{lib.PD_GetLastError()}")
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(loss.value)
+            c_launches = read_launches()
+            lib.PD_DeleteTrainer(handle)
+            add_launches(total, c_launches)
+            form = "" if dropout == 0.0 else "_dropout"
+            want = {f"{k}{form}": 2 * TB_LAYERS * C_STEPS for k in FLASH}
+            counts = jit_counts(f"c-trainer {tag}", c_launches, want, problems)
+            if not np.all(np.isfinite(losses)):
+                problems.append(f"{tag}: losses {losses}")
+            line = (f"[c-trainer] {smi}: Transformer-base {tag}, bf16 AMP: "
+                    f"export_train_step {t_export:.1f} s, files {sizes} "
+                    f"bytes; "
+                    f"PD_NewTrainer {t_load:.1f} s; {C_STEPS} C steps, losses "
+                    f"{[round(x, 4) for x in losses]}, step ms "
+                    f"{[round(x, 2) for x in ms]} (median of steps 3 on "
+                    f"{float(np.median(ms[2:])):.3f}, host clock, the loss "
+                    f"read back each step); launches {counts}")
+            if dropout == 0.0:
+                live = tb_trainer(0.0)
+                zero_launches()
+                live_ms, live_losses = [], []
+                for i in order:
+                    src, tgt, lab = batches[i]
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    live_losses.append(float(live.train_step((src, tgt), lab)))
+                    live_ms.append((time.perf_counter() - t0) * 1e3)
+                add_launches(total, read_launches())
+                rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                              live_losses))
+                line += (f"; the live trainer's losses "
+                         f"{[round(x, 4) for x in live_losses]}, step ms "
+                         f"median {float(np.median(live_ms[2:])):.3f}; worst "
+                         f"relative "
+                         f"gap {rel:.3e} (tol {TOL_C_TRAINER})")
+                if not rel <= TOL_C_TRAINER:
+                    problems.append(f"{tag}: C vs live {rel:.3e}")
+                del live
+            else:
+                first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+                line += f"; first 5 mean {first:.4f}, last 5 {last:.4f}"
+                if not last < first:
+                    problems.append(f"{tag}: losses do not fall: {losses}")
+            log(line)
+            del_all()
+    finally:
+        if demo.poll() is None and sys.exc_info()[0] is not None:
+            demo.kill()
+    demo.wait(timeout=300)
+    t_demo = time.perf_counter() - t_demo0
+    with open(os.path.join(base, "demo.out")) as f_out, \
+            open(os.path.join(base, "demo.err")) as f_err:
+        out, err = f_out.read(), f_err.read()
+    ok_line = next((ln for ln in out.splitlines()
+                    if "CAPI-TRAIN-OK" in ln), None)
+    if demo.returncode != 0 or ok_line is None:
+        problems.append(f"pd_capi_train_demo rc {demo.returncode}: "
+                        f"{out[-400:]} {err[-800:]}")
+    log(f"[c-trainer] pd_capi_train_demo (its own process, on the card, "
+        f"beside the runs above) exit {demo.returncode} after {t_demo:.1f} "
+        f"s: {ok_line}")
+    import shutil
+    shutil.rmtree(base, ignore_errors=True)
+    del_all()
+    log(f"[c-trainer] the phase took {time.perf_counter() - t_phase:.1f} s")
+    finish("c-trainer", problems)
+    return {"c-trainer": total}
+
+
 def gpt_params(cfg):
     """Parameters of a GPT(-MoE) config: embeddings, blocks (an expert
     layer holds E FFNs and a router), final norm."""
@@ -9340,6 +10259,10 @@ def main():
                        ("tensor-ops", phase_tensor_ops),
                        ("train-ctr", phase_train_ctr),
                        ("static-ctr", phase_static_ctr),
+                       ("rnn-layers", phase_rnn_layers),
+                       ("train-seq2seq", phase_train_seq2seq),
+                       ("beam-seq2seq", phase_beam_seq2seq),
+                       ("c-trainer", phase_c_trainer),
                        ("sparse-scale", phase_sparse_scale)):
         del_all()
         paths.update(timed_phase(tag, phase, smi))
@@ -9383,5 +10306,7 @@ if __name__ == "__main__":
         fp8_teacher_error()
     elif sys.argv[1:] == ["--beam-fault"]:
         beam_fault_check()
+    elif sys.argv[1:] == ["--moe-hit-routing"]:
+        moe_hit_routing()
     else:
         main()

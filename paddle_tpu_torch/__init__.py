@@ -39,15 +39,21 @@ lazy Adam) and ``io.InMemoryDataset``, and the program path
 attention kernels as ``torch.library`` custom ops; ``inference``:
 ``load_predictor`` and the C API; ``static``: Program, Executor,
 ``save`` / ``load_inference_model``; ``func``, ``extension``,
-``onnx``).
+``onnx``), and the recurrent layers (``nn.LSTM``, ``nn.GRU``,
+``nn.SimpleRNN``, their cells, ``nn.RNN`` / ``nn.BiRNN``) with
+``text.datasets``, the C training entry
+(``SpmdTrainer.export_train_step``, ``PD_NewTrainer``), the file
+systems (``framework.fs``), ``distribution``, ``nn.utils.weight_norm``,
+``utils.unique_name`` and ``callbacks``.
 """
 from .tensor import *  # noqa: F401,F403
 from .tensor import __all__ as _tensor_all
 from .tensor import tensor_methods as _tensor_methods  # noqa: F401
-from . import (amp, autograd, core, device, distributed, extension,
-               framework, func, hapi, incubate, inference, io, jit, linalg,
-               metric, models, nn, observability, onnx, ops, optimizer,
-               profiler, regularizer, static, tensor, testing, text, vision)
+from . import (amp, autograd, callbacks, core, device, distributed,
+               distribution, extension, framework, func, hapi, incubate,
+               inference, io, jit, linalg, metric, models, nn,
+               observability, onnx, ops, optimizer, profiler, regularizer,
+               static, tensor, testing, text, utils, vision)
 from .autograd import (enable_grad, grad, is_grad_enabled, no_grad,
                        set_grad_enabled)
 from .core.dtype import (bfloat16, bool_, float16, float32, float64,
@@ -67,15 +73,15 @@ from .static.program import disable_static, enable_static, in_static_mode
 def in_dynamic_mode() -> bool:
     return not in_static_mode()
 
-__all__ = [*_tensor_all, "amp", "autograd", "core", "device", "distributed",
-           "framework", "hapi", "incubate", "inference", "io", "linalg",
-           "metric", "models", "nn", "tensor",
+__all__ = [*_tensor_all, "amp", "autograd", "callbacks", "core", "device",
+           "distributed", "distribution", "framework", "hapi", "incubate",
+           "inference", "io", "linalg", "metric", "models", "nn", "tensor",
            "observability", "ops", "optimizer", "profiler", "regularizer",
            "extension", "func", "jit", "onnx", "static", "InputSpec",
            "enable_static", "disable_static", "in_static_mode",
            "in_dynamic_mode", "CPUPlace", "CUDAPlace",
-           "resolve_device", "testing", "text", "vision", "Model", "summary",
-           "flops", "ParamAttr",
+           "resolve_device", "testing", "text", "utils", "vision", "Model",
+           "summary", "flops", "ParamAttr",
            "Parameter", "save", "load", "seed",
            "set_device", "get_device", "no_grad", "enable_grad", "grad",
            "set_grad_enabled", "is_grad_enabled", "set_default_dtype",

@@ -687,6 +687,125 @@ class SpmdTrainer:
         from .checkpoint import load_trainer
         return load_trainer(self, path)
 
+    def export_train_step(self, path: str, example_inputs,
+                          example_labels) -> str:
+        """Write the whole train step (forward, backward, update) as a
+        program a non-Python runtime steps (``inference.capi_bridge``'s
+        ``create_trainer`` / ``trainer_step``, ``PD_NewTrainer`` in C).
+
+        The program is the pure function ``(params, opt_state, buffers,
+        lr, step, *batch) -> (params', opt_state', buffers', loss)`` of
+        the JAX trainer's fused step: the bf16 copies of the f32 masters
+        under AMP, the forward in training mode (``func.functional_call``),
+        the gradients (``torch.autograd.grad`` of the loss), then this
+        optimizer's own ``apply_gradients`` (clip, decay, ``_update``) on
+        clones of the tensors it is given.  The function is traced to ATen
+        ops, backward included, by ``make_fx`` on fake tensors, and that
+        graph is captured by ``torch.export``.  Random draws (dropout
+        masks, the attention-dropout pair) are ops of the graph: every
+        step draws afresh.  The attention kernels stay the
+        ``torch.library`` custom ops, so stepping the program launches
+        them.  Files: ``path + ".pdtrain"`` (``torch.export.save``) and
+        ``path + ".pdtrainstate"`` (a pickle of numpy ``params``,
+        ``opt_state``, ``buffers`` and ``lr``, ``step_count``: the JAX
+        file's keys and layout; bf16 saved as f32)."""
+        import os
+        import pickle
+        from torch.fx.experimental.proxy_tensor import make_fx
+        from ..func import functional_call
+        from ..jit.api import _to_numpy
+        if self.fp16_scaling or self._check_nan_inf or \
+                self.anomaly_policy != "raise":
+            raise NotImplementedError(
+                "export_train_step supports the standard bf16/fp32 step "
+                "(no fp16 scaler state, no nan guard, no anomaly policy) "
+                "for a stable serialized signature")
+        inputs = tuple(example_inputs) if isinstance(
+            example_inputs, (tuple, list)) else (example_inputs,)
+        labels = tuple(example_labels) if isinstance(
+            example_labels, (tuple, list)) else (example_labels,)
+        batch = self.shard_batch(inputs + labels)
+        n_in = len(inputs)
+        trainer = self
+
+        def step(params, opt_state, buffers, lr, step_no, *batch):
+            xs, ys = batch[:n_in], batch[n_in:]
+            train = {n: params[n] for n in trainer._train}
+            new_buffers = {}
+
+            def loss_of(train_params):
+                full = {**params, **train_params}
+                if trainer.amp_enabled:
+                    full = {n: p.to(trainer.amp_dtype)
+                            if p.is_floating_point() else p
+                            for n, p in full.items()}
+                with collect_aux_losses() as aux, dense_lookups():
+                    outs, bufs = functional_call(
+                        trainer.model, full, buffers,
+                        *trainer._cast_inputs(xs), training=True)
+                new_buffers.update(bufs)
+                loss = trainer.loss_fn(outs, *ys).float()
+                for a in aux:
+                    loss = loss + a.float()
+                return loss
+
+            # leaves of the trace's autograd: make_fx records the
+            # backward the engine runs (torch.func.grad cannot pass the
+            # attention custom ops' registered autograd)
+            leaves = {n: p.detach().requires_grad_(True)
+                      for n, p in train.items()}
+            with torch.enable_grad():
+                loss = loss_of(leaves)
+                got = torch.autograd.grad(loss, list(leaves.values()),
+                                          allow_unused=True)
+            grads = {n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(leaves.items(), got)}
+            new_params = {n: p.clone() for n, p in params.items()}
+            new_opt = {n: {k: v.clone() for k, v in acc.items()}
+                       for n, acc in opt_state.items()}
+            trainer.optimizer.apply_gradients(
+                {n: new_params[n] for n in train}, grads, lr=lr,
+                step=step_no, states=new_opt)
+            return new_params, new_opt, new_buffers, loss.detach()
+
+        params = {n: p.detach() for n, p in self._params.items()}
+        # every parameter's accumulators, as the JAX state holds them
+        # (a frozen parameter's stay at their start)
+        opt_state = {n: {k: v.detach() for k, v in (
+            self.optimizer._accumulators[n] if n in self._train
+            else self.optimizer._init_accumulators(p)).items()}
+            for n, p in self._params.items()}
+        buffers = {n: b.detach() for n, b in self.model.named_buffers()
+                   if b is not None}
+        lr = torch.tensor(self.optimizer.get_lr(), dtype=torch.float32,
+                          device=self.device)
+        step_no = torch.tensor(self._step_count + 1, dtype=torch.int32,
+                               device=self.device)
+        args = (params, opt_state, buffers, lr, step_no, *batch)
+        graph = make_fx(step, tracing_mode="fake")(*args)
+        try:
+            program = torch.export.export(graph, args)
+        except Exception as e:
+            raise RuntimeError(
+                f"export_train_step: capturing the traced step with "
+                f"torch.export failed ({type(e).__name__}: {e})") from e
+        program.example_inputs = None
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path + ".pdtrain", "wb") as f:
+            torch.export.save(program, f)
+
+        def host(tree):
+            return {k: host(v) if isinstance(v, dict) else _to_numpy(v)
+                    for k, v in tree.items()}
+
+        state = {"params": host(params), "opt_state": host(opt_state),
+                 "buffers": host(buffers),
+                 "lr": float(self.optimizer.get_lr()),
+                 "step_count": self._step_count}
+        with open(path + ".pdtrainstate", "wb") as f:
+            pickle.dump(state, f, protocol=4)
+        return path
+
     @property
     def loss_scale(self) -> Optional[float]:
         """The current dynamic loss scale (None unless fp16 AMP); reading

@@ -8,12 +8,12 @@ either package loads in the other.  bf16 tensors travel as
 ``ml_dtypes.bfloat16`` arrays (the JAX package's numpy form), which
 needs ``ml_dtypes`` installed.  ``load`` puts tensors on the current
 device (``device.set_device``), or returns the arrays with
-``return_numpy=True``.  Remote file systems (``fs.py``) wait for a
-later slice (ROADMAP.md Queue 1 item 3.5).
+``return_numpy=True``.  Both go through ``framework.fs``: an
+``hdfs://`` or ``afs://`` path through the hadoop CLI, a local path
+written atomically (fsync, then rename).
 """
 from __future__ import annotations
 
-import os
 import pickle
 from typing import Any
 
@@ -67,29 +67,18 @@ def _unpack(obj: Any, return_numpy: bool, device):
     return obj
 
 
-def _local(path) -> str:
-    path = str(path)
-    if "://" in path:
-        raise NotImplementedError(
-            f"{path}: remote file systems (framework/fs.py) come with a "
-            f"later slice (ROADMAP.md Queue 1 item 3.5); use a local path")
-    return path
-
-
 def save(obj, path, protocol=4, **configs):
     """Pickle ``obj`` (a state dict, nested containers, a tensor) in the
     JAX package's format."""
-    path = _local(path)
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    with open(path, "wb") as f:
+    from .fs import open_for_write
+    with open_for_write(str(path), "wb") as f:
         pickle.dump(_pack(obj), f, protocol=protocol)
 
 
 def load(path, return_numpy=False, **configs):
     """Read what ``save`` (of either package) wrote."""
-    with open(_local(path), "rb") as f:
+    from .fs import open_for_read
+    with open_for_read(str(path), "rb") as f:
         obj = pickle.load(f)
     device = None if return_numpy else current_device()
     return _unpack(obj, return_numpy, device)

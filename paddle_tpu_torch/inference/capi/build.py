@@ -1,7 +1,8 @@
-"""Build the C inference library and the demo binary (counterpart of
-``paddle_tpu/inference/capi/build.py``): one ``cc`` call each with
-CPython's embed flags, into ``build/paddle_tpu_torch/capi/`` beside the
-package (ignored by git), not into the package directory.
+"""Build the C inference library and the demo binaries, inference and
+training (counterpart of ``paddle_tpu/inference/capi/build.py``): one
+``cc`` call each with CPython's embed flags, into
+``build/paddle_tpu_torch/capi/`` beside the package (ignored by git), not
+into the package directory.
 
     python -m paddle_tpu_torch.inference.capi.build
 """
@@ -61,13 +62,17 @@ def build_library(output: str | None = None) -> str:
     return out
 
 
-def build_demo(output: str | None = None) -> str:
-    """Compile the standalone demo executable (capi_demo.c with the
-    library's source); returns its path."""
-    out = output or os.path.join(OUT_DIR, "pd_capi_demo")
+def build_demo(output: str | None = None,
+               source: str = "capi_demo.c") -> str:
+    """Compile a standalone demo executable with the library's source
+    (``capi_demo.c``, the inference demo ``pd_capi_demo``, or
+    ``capi_train_demo.c``, the training demo ``pd_capi_train_demo``);
+    returns its path."""
+    out = output or os.path.join(
+        OUT_DIR, os.path.splitext(source)[0].replace("capi_", "pd_capi_"))
     os.makedirs(os.path.dirname(out), exist_ok=True)
     incs, libs = _embed_flags()
-    _run([_cc(), "-O2", os.path.join(HERE, "capi_demo.c"),
+    _run([_cc(), "-O2", os.path.join(HERE, source),
           os.path.join(HERE, "pd_inference.c"), "-o", out, f"-I{HERE}",
           *incs, *libs])
     return out
@@ -76,3 +81,4 @@ def build_demo(output: str | None = None) -> str:
 if __name__ == "__main__":
     print(build_library())
     print(build_demo())
+    print(build_demo(source="capi_train_demo.c"))

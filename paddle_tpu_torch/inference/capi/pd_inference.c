@@ -1,5 +1,6 @@
 /* C inference API implementation: embeds CPython and drives
- * paddle_tpu_torch.inference.capi_bridge (create/run/destroy).
+ * paddle_tpu_torch.inference.capi_bridge (create / run / destroy, and
+ * create_trainer / trainer_step / destroy_trainer).
  *
  * Paddle's pd_predictor.cc wraps its C++ AnalysisPredictor; here the
  * predictor is jit.load's program (torch.export) on the GPU, and CPython
@@ -105,6 +106,45 @@ static int dtype_size(const char *name) {
     return -1;
 }
 
+/* The tensors as a Python list of (bytes, shape tuple, dtype name)
+ * triples; NULL (and g_err set) on failure. */
+static PyObject *marshal(const PD_Tensor *ts, int32_t n, const char *where) {
+    PyObject *list = PyList_New(n);
+    if (!list) {
+        set_err_from_py(where);
+        return NULL;
+    }
+    for (int i = 0; i < n; i++) {
+        const PD_Tensor *t = &ts[i];
+        int isz = dtype_size(t->dtype);
+        if (isz < 0 || t->ndim < 0 || t->ndim > PD_MAX_DIMS) {
+            snprintf(g_err, sizeof(g_err),
+                     "%s: input %d: bad dtype %s or ndim %d", where, i,
+                     t->dtype, t->ndim);
+            Py_DECREF(list);
+            return NULL;
+        }
+        PyObject *raw = PyBytes_FromStringAndSize(
+            (const char *)t->data, (Py_ssize_t)(numel(t) * isz));
+        PyObject *shape = PyTuple_New(t->ndim);
+        for (int d = 0; shape && d < t->ndim; d++)
+            PyTuple_SET_ITEM(shape, d, PyLong_FromLongLong(t->shape[d]));
+        PyObject *dtype = PyUnicode_FromString(t->dtype);
+        PyObject *trip = (raw && shape && dtype)
+                             ? PyTuple_Pack(3, raw, shape, dtype) : NULL;
+        Py_XDECREF(raw);
+        Py_XDECREF(shape);
+        Py_XDECREF(dtype);
+        if (!trip) {
+            set_err_from_py(where);
+            Py_DECREF(list);
+            return NULL;
+        }
+        PyList_SET_ITEM(list, i, trip); /* steals trip */
+    }
+    return list;
+}
+
 int PD_PredictorRun(PD_Predictor *pred,
                     const PD_Tensor *inputs, int32_t n_inputs,
                     PD_Tensor **outputs, int32_t *n_outputs) {
@@ -116,35 +156,8 @@ int PD_PredictorRun(PD_Predictor *pred,
     m = bridge();
     if (!m) goto done;
 
-    args_list = PyList_New(n_inputs);
-    for (int i = 0; i < n_inputs; i++) {
-        const PD_Tensor *t = &inputs[i];
-        int isz = dtype_size(t->dtype);
-        if (isz < 0 || t->ndim > PD_MAX_DIMS) {
-            snprintf(g_err, sizeof(g_err),
-                     "input %d: bad dtype %s or ndim %d", i, t->dtype,
-                     t->ndim);
-            goto done;
-        }
-        PyObject *raw = PyBytes_FromStringAndSize(
-            (const char *)t->data, (Py_ssize_t)(numel(t) * isz));
-        PyObject *shape = PyTuple_New(t->ndim);
-        for (int d = 0; d < t->ndim; d++)
-            PyTuple_SET_ITEM(shape, d, PyLong_FromLongLong(t->shape[d]));
-        PyObject *dtype = PyUnicode_FromString(t->dtype);
-        if (!raw || !shape || !dtype) {
-            Py_XDECREF(raw);
-            Py_XDECREF(shape);
-            Py_XDECREF(dtype);
-            set_err_from_py("PD_PredictorRun: input marshal");
-            goto done;
-        }
-        PyObject *trip = PyTuple_Pack(3, raw, shape, dtype);
-        Py_DECREF(raw);
-        Py_DECREF(shape);
-        Py_DECREF(dtype);
-        PyList_SET_ITEM(args_list, i, trip); /* steals trip */
-    }
+    args_list = marshal(inputs, n_inputs, "PD_PredictorRun");
+    if (!args_list) goto done;
 
     res = PyObject_CallMethod(m, "run", "LO", pred->handle, args_list);
     if (!res) {
@@ -226,27 +239,50 @@ PD_Trainer *PD_NewTrainer(const char *model_path) {
     return out;
 }
 
-/* No trainer handle exists while create_trainer raises: a step only
- * reports the bridge's reason (trainer_step raises it) and fails. */
 int PD_TrainerStep(PD_Trainer *trainer,
                    const PD_Tensor *batch, int32_t n_batch,
                    float *loss_out) {
-    (void)batch;
-    (void)n_batch;
-    (void)loss_out;
-    if (ensure_python() != 0) return -1;
-    PyGILState_STATE st = PyGILState_Ensure();
-    PyObject *m = bridge();
-    if (m) {
-        PyObject *r = PyObject_CallMethod(
-            m, "trainer_step", "LO", trainer ? trainer->handle : -1LL,
-            Py_None);
-        Py_XDECREF(r);
-        set_err_from_py("PD_TrainerStep");
-        Py_DECREF(m);
+    if (!trainer) {
+        snprintf(g_err, sizeof(g_err), "PD_TrainerStep: no trainer");
+        return -1;
     }
+    if (ensure_python() != 0) return -1;
+    int rc = -1;
+    PyGILState_STATE st = PyGILState_Ensure();
+    PyObject *m = NULL, *args_list = NULL, *res = NULL;
+
+    m = bridge();
+    if (!m) goto done;
+    args_list = marshal(batch, n_batch, "PD_TrainerStep");
+    if (!args_list) goto done;
+    res = PyObject_CallMethod(m, "trainer_step", "LO", trainer->handle,
+                              args_list);
+    if (!res) {
+        set_err_from_py("PD_TrainerStep");
+        goto done;
+    }
+    {
+        /* the loss: one float32 */
+        PyObject *raw = PyTuple_GetItem(res, 0);
+        PyObject *dtype = PyTuple_GetItem(res, 2);
+        if (!raw || !dtype || PyBytes_Size(raw) != (Py_ssize_t)sizeof(float)
+            || strcmp(PyUnicode_AsUTF8(dtype), "float32") != 0) {
+            snprintf(g_err, sizeof(g_err),
+                     "PD_TrainerStep: the loss is not one float32");
+            goto done;
+        }
+        float v;
+        memcpy(&v, PyBytes_AsString(raw), sizeof(float));
+        if (loss_out) *loss_out = v;
+        rc = 0;
+    }
+
+done:
+    Py_XDECREF(res);
+    Py_XDECREF(args_list);
+    Py_XDECREF(m);
     PyGILState_Release(st);
-    return -1;
+    return rc;
 }
 
 void PD_DeleteTrainer(PD_Trainer *trainer) {

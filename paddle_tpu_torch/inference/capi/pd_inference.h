@@ -49,9 +49,12 @@ int PD_PredictorRun(PD_Predictor *pred,
 
 void PD_TensorsFree(PD_Tensor *tensors, int32_t n);
 
-/* Native TRAINING entry (Paddle's fluid/train/demo).  It waits for
- * SpmdTrainer.export_train_step: PD_NewTrainer returns NULL,
- * PD_TrainerStep returns -1, and PD_GetLastError says why. */
+/* Native TRAINING entry (Paddle's fluid/train/demo).  PD_NewTrainer
+ * loads "<path>.pdtrain" + "<path>.pdtrainstate" (written by
+ * SpmdTrainer.export_train_step) on the GPU, or on the device
+ * PD_INFERENCE_DEVICE names; each PD_TrainerStep runs one forward,
+ * backward and optimizer update on the caller's batch (the inputs, then
+ * the labels) and writes the step's loss (float32) to *loss_out. */
 typedef struct PD_Trainer PD_Trainer;
 
 PD_Trainer *PD_NewTrainer(const char *model_path);

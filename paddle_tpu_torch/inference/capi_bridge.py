@@ -8,9 +8,14 @@ boundary.  The predictor is ``jit.load``'s ``TranslatedLayer`` on the
 card, or on the device ``PD_INFERENCE_DEVICE`` names (``cpu``), which a
 C program sets as a Python one passes ``device="cpu"``.
 
-The training entry (``create_trainer`` / ``trainer_step``) waits for
-``SpmdTrainer.export_train_step``: it raises, and the C caller reads the
-reason from ``PD_GetLastError``.
+The training entry (``create_trainer`` / ``trainer_step`` /
+``destroy_trainer``, behind ``PD_NewTrainer`` / ``PD_TrainerStep``)
+steps the program ``SpmdTrainer.export_train_step`` wrote: ``path +
+".pdtrain"`` over the state in ``path + ".pdtrainstate"``, on the card
+unless ``device`` (or ``PD_INFERENCE_DEVICE``) names the CPU.  Each step
+feeds the state the last one returned, at the saved learning rate and
+the next step number, and hands back the loss.  A failure raises, and
+the C caller reads the reason from ``PD_GetLastError``.
 """
 from __future__ import annotations
 
@@ -69,18 +74,63 @@ def checksum(raw: bytes) -> int:
                     dtype=np.uint64))
 
 
-_WAITING = ("the C training entry waits for SpmdTrainer.export_train_step "
-            "(ROADMAP Queue 1 item 2): the port does not capture a "
-            "backward and update step yet")
+_trainers: Dict[int, dict] = {}
 
 
-def create_trainer(path: str) -> int:
-    raise NotImplementedError(_WAITING)
+def create_trainer(path: str, device=None) -> int:
+    """Load an ``export_train_step`` artifact; returns an opaque
+    handle."""
+    global _next_handle
+    import pickle
+    from ..device import resolve_device
+    from ..jit.api import _move_program, input_dtypes
+    device = resolve_device(device if device is not None
+                            else os.environ.get("PD_INFERENCE_DEVICE"))
+    with open(path + ".pdtrain", "rb") as f:
+        exported = _move_program(torch.export.load(f), device)
+    with open(path + ".pdtrainstate", "rb") as f:
+        state = pickle.load(f)
+    dtypes = input_dtypes(exported)
+
+    def load(tree):
+        return {k: load(v) if isinstance(v, dict) else
+                torch.as_tensor(np.asarray(v)).to(device, next(dtypes))
+                for k, v in tree.items()}
+
+    # input order: params, opt_state, buffers (then lr, step, batch)
+    params = load(state["params"])
+    opt_state = load(state["opt_state"])
+    buffers = load(state["buffers"])
+    h = _next_handle
+    _next_handle += 1
+    _trainers[h] = {
+        "program": exported.module(), "device": device, "params": params,
+        "opt_state": opt_state, "buffers": buffers,
+        "lr": torch.tensor(float(state["lr"]), dtype=torch.float32,
+                           device=device),
+        "step": int(state["step_count"])}
+    return h
 
 
-def trainer_step(handle: int, inputs) -> Tuple[bytes, Tuple[int, ...], str]:
-    raise NotImplementedError(_WAITING)
+def trainer_step(handle: int,
+                 inputs: List[Tuple[bytes, Tuple[int, ...], str]]
+                 ) -> Tuple[bytes, Tuple[int, ...], str]:
+    """One step of the exported program on ``inputs`` (the batch as
+    ``(bytes, shape, dtype name)`` triples); returns the loss triple."""
+    t = _trainers[handle]
+    dev = t["device"]
+    batch = [torch.from_numpy(np.frombuffer(raw, dtype=np.dtype(dt))
+                              .reshape(tuple(shape)).copy()).to(dev)
+             for raw, shape, dt in inputs]
+    step = torch.tensor(t["step"] + 1, dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        t["params"], t["opt_state"], t["buffers"], loss = t["program"](
+            t["params"], t["opt_state"], t["buffers"], t["lr"], step,
+            *batch)
+    t["step"] += 1
+    a = _to_numpy(loss)     # a 0-d array (_host would make it 1-d)
+    return (a.tobytes(), tuple(a.shape), a.dtype.name)
 
 
 def destroy_trainer(handle: int) -> None:
-    pass
+    _trainers.pop(handle, None)

@@ -261,6 +261,14 @@ def _move_program(ep, device: torch.device):
     return move_to_device_pass(ep, device)
 
 
+def input_dtypes(exported):
+    """The dtype of each tensor input of an exported program, in input
+    order (an iterator)."""
+    user = set(exported.graph_signature.user_inputs)
+    return iter(n.meta["val"].dtype for n in exported.graph.nodes
+                if n.op == "placeholder" and n.name in user)
+
+
 class TranslatedLayer(torch.nn.Module):
     """The layer ``jit.load`` returns: the loaded program with the loaded
     weights, on one device, for inference."""
@@ -271,9 +279,7 @@ class TranslatedLayer(torch.nn.Module):
         self._exported = _move_program(exported, self._device)
         self._program = self._exported.module()
         # the dtype each weight takes in the program, in input order
-        user = set(self._exported.graph_signature.user_inputs)
-        dtypes = iter(n.meta["val"].dtype for n in self._exported.graph.nodes
-                      if n.op == "placeholder" and n.name in user)
+        dtypes = input_dtypes(self._exported)
 
         def load(arr):
             return torch.as_tensor(np.asarray(arr)).to(

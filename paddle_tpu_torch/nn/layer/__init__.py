@@ -14,8 +14,10 @@ from .norm import *  # noqa: F401,F403
 from .norm import __all__ as _norm
 from .pooling import *  # noqa: F401,F403
 from .pooling import __all__ as _pool
+from .rnn import *  # noqa: F401,F403
+from .rnn import __all__ as _rnn
 from .transformer import *  # noqa: F401,F403
 from .transformer import __all__ as _transformer
 
 __all__ = [*_act, *_common, *_container, *_conv, *_distance, *_loss,
-           *_norm, *_pool, *_transformer]
+           *_norm, *_pool, *_rnn, *_transformer]

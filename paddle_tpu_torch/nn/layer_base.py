@@ -36,6 +36,8 @@ __all__ = ["Layer", "ParamAttr", "HookRemoveHelper"]
 # per-prefix counters (linear_0, layernorm_0, linear_1), as in the JAX
 # package
 _layer_name_counters: Dict[str, int] = {}
+# the name prefix utils.unique_name.guard("ns_") sets
+_layer_name_prefix: str = ""
 
 
 class ParamAttr:
@@ -91,7 +93,7 @@ class Layer(torch.nn.Module):
         super().__init__()
         self._dtype = convert_dtype(dtype) or default_float_dtype()
         if name_scope is None:
-            prefix = self.__class__.__name__.lower()
+            prefix = _layer_name_prefix + self.__class__.__name__.lower()
             idx = _layer_name_counters.get(prefix, 0)
             _layer_name_counters[prefix] = idx + 1
             name_scope = f"{prefix}_{idx}"

@@ -19,8 +19,9 @@ Prometheus scraper:
 - Exposition is the Prometheus text format (``exposition()``), the same
   text the JAX package writes for the same operations, with a parser
   (``parse_exposition``) that reads either package's text back, and an
-  atomic JSONL snapshot writer (fsync, temporary file, rename: a crash
-  mid-write never truncates the history file).
+  atomic JSONL snapshot writer (``framework.fs.open_for_write``: fsync,
+  temporary file, rename, so a crash mid-write never truncates the
+  history file).
 
 ``PADDLE_TPU_METRICS=0`` disables the registry: every factory returns a
 shared null metric whose children are no-ops, so the disabled path
@@ -31,7 +32,6 @@ default snapshot file; ``PADDLE_TPU_METRICS_HISTORY`` (lines, default
 from __future__ import annotations
 
 import bisect
-import contextlib
 import json
 import os
 import threading
@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 __all__ = ["Registry", "registry", "counter", "gauge", "histogram",
            "snapshot", "write_snapshot", "parse_exposition",
-           "metrics_enabled", "open_for_write", "DEFAULT_MS_BUCKETS"]
+           "metrics_enabled", "DEFAULT_MS_BUCKETS"]
 
 # latency buckets in milliseconds, from sub-ms CPU runs to multi-second
 # prefills
@@ -50,28 +50,6 @@ DEFAULT_MS_BUCKETS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
 
 def metrics_enabled() -> bool:
     return os.environ.get("PADDLE_TPU_METRICS", "1") != "0"
-
-
-@contextlib.contextmanager
-def open_for_write(path: str, mode: str = "w"):
-    """Yield a file handle whose bytes land at ``path`` atomically on a
-    clean exit (fsync, then rename over the destination); an exception
-    inside the block removes the temporary file and leaves ``path`` as
-    it was."""
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    tmp = path + ".tmp"
-    try:
-        with open(tmp, mode) as f:
-            yield f
-            f.flush()
-            os.fsync(f.fileno())
-    except BaseException:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise
-    os.replace(tmp, path)
 
 
 class _CounterChild:
@@ -368,6 +346,7 @@ class Registry:
                 total = sum(len(p) for p in prior)
                 while prior and total > budget:
                     total -= len(prior.pop(0))
+            from ..framework.fs import open_for_write
             with open_for_write(path, "w") as f:
                 f.write("".join(prior) + line)
         return path

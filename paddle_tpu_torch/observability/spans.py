@@ -35,7 +35,6 @@ import threading
 import time
 from typing import List, Optional
 
-from .metrics import open_for_write
 
 __all__ = ["SpanTracer", "tracer", "span", "export_chrome_trace",
            "validate_chrome_trace", "PID_HOST", "PID_REQUESTS"]
@@ -135,7 +134,8 @@ class SpanTracer:
                 "otherData": {"dropped_events": self.dropped}}
 
     def export(self, path: str) -> str:
-        """Write the Chrome-trace JSON atomically."""
+        """Write the Chrome-trace JSON atomically (``framework.fs``)."""
+        from ..framework.fs import open_for_write
         with open_for_write(path, "w") as f:
             json.dump(self.chrome_trace(), f)
         return path

@@ -353,7 +353,11 @@ def _flash_bwd_cuda(q, k, v, o, lse, do, causal, kv_mask, dropout_p=0.0,
 
 def _fwd(q, k, v, causal, kv_mask, dropout_p=0.0, philox=None):
     if q.device.type == "cpu":
-        return _flash_plain(q, k, v, causal, kv_mask, dropout_p, philox)
+        o, lse = _flash_plain(q, k, v, causal, kv_mask, dropout_p, philox)
+        # in the layout the op's fake form gives (q's strides, lse
+        # contiguous): a graph traced on fake tensors views the outputs
+        # by those strides
+        return torch.empty_like(q).copy_(o), lse.contiguous()
     return _flash_cuda(q, k, v, causal, kv_mask, dropout_p, philox)
 
 

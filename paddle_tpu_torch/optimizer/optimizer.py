@@ -129,14 +129,21 @@ class Optimizer:
     @torch.no_grad()
     def apply_gradients(self, params: Dict[str, torch.Tensor],
                         grads: Dict[str, torch.Tensor],
-                        lr: Optional[float] = None,
+                        lr: Union[float, torch.Tensor, None] = None,
                         step: Union[int, torch.Tensor, None] = None,
-                        skip: Optional[torch.Tensor] = None) -> None:
+                        skip: Optional[torch.Tensor] = None,
+                        states: Optional[Dict[str, Dict[str, torch.Tensor]]]
+                        = None) -> None:
         """Clip, decay, update: every ``params[n]`` in place from
-        ``grads[n]``; accumulators live on the optimizer by name.
+        ``grads[n]``; accumulators live on the optimizer by name, or in
+        ``states[n]`` when given (also updated in place: an exported
+        train step passes its own).  ``lr`` may be a device scalar.
         ``skip``: a device bool scalar; where it is set every parameter
         and accumulator keeps its old value."""
-        lr = self.get_lr() if lr is None else float(lr)
+        if lr is None:
+            lr = self.get_lr()
+        elif not torch.is_tensor(lr):
+            lr = float(lr)
         if step is None:
             step = self._step_count + 1
         elif not torch.is_tensor(step):
@@ -146,9 +153,11 @@ class Optimizer:
         if not self._decoupled_wd:
             grads = {n: self._decay(n, params[n], g)
                      for n, g in grads.items()}
-        self.init_state(params)
+        if states is None:
+            self.init_state(params)
+            states = self._accumulators
         for n, p in params.items():
-            state = self._accumulators[n]
+            state = states[n]
             self._cur_param_name = n
             self._cur_param = self._param_objs.get(n)
             plr = lr * _lr_scale(p)

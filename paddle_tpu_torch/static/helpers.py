@@ -449,10 +449,10 @@ def _assign(p, value):
 def save(program, model_path, protocol=4):
     """``paddle.static.save``: the program's persistables as numpy
     arrays in ``model_path + '.pdparams'``."""
+    from ..framework.fs import open_for_write
     state = {name: _host(p)
              for name, p in _canonical_named_params(program).items()}
-    os.makedirs(os.path.dirname(model_path) or ".", exist_ok=True)
-    with open(model_path + ".pdparams", "wb") as f:
+    with open_for_write(model_path + ".pdparams") as f:
         pickle.dump(state, f, protocol=protocol)
 
 
@@ -462,9 +462,10 @@ def load(program, model_path, executor=None, var_list=None):
 
 
 def load_program_state(model_path, var_list=None):
+    from ..framework.fs import open_for_read
     path = model_path if model_path.endswith(".pdparams") \
         else model_path + ".pdparams"
-    with open(path, "rb") as f:
+    with open_for_read(path) as f:
         state = pickle.load(f)
     if var_list is not None:
         names = {getattr(v, "name", v) for v in var_list}
@@ -509,13 +510,14 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     ``filename``."""
     program = main_program or default_main_program()
     items = _selected_named_params(program, vars, predicate)
-    os.makedirs(dirname, exist_ok=True)
+    from ..framework.fs import get_fs, open_for_write
+    get_fs(dirname).makedirs(dirname)
     if filename:
-        with open(os.path.join(dirname, filename), "wb") as f:
+        with open_for_write(os.path.join(dirname, filename)) as f:
             pickle.dump({n: _host(p) for n, p in items}, f)
     else:
         for n, p in items:
-            with open(os.path.join(dirname, n), "wb") as f:
+            with open_for_write(os.path.join(dirname, n)) as f:
                 pickle.dump(_host(p), f)
 
 
@@ -523,25 +525,28 @@ def load_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None):
     program = main_program or default_main_program()
     items = _selected_named_params(program, vars, predicate)
+    from ..framework.fs import open_for_read
     if filename:
-        with open(os.path.join(dirname, filename), "rb") as f:
+        with open_for_read(os.path.join(dirname, filename)) as f:
             state = pickle.load(f)
         for n, p in items:
             if n in state:
                 _assign(p, state[n])
     else:
         for n, p in items:
-            with open(os.path.join(dirname, n), "rb") as f:
+            with open_for_read(os.path.join(dirname, n)) as f:
                 _assign(p, pickle.load(f))
 
 
 def save_to_file(path, content: bytes):
-    with open(path, "wb") as f:
+    from ..framework.fs import open_for_write
+    with open_for_write(path) as f:
         f.write(content)
 
 
 def load_from_file(path) -> bytes:
-    with open(path, "rb") as f:
+    from ..framework.fs import open_for_read
+    with open_for_read(path) as f:
         return f.read()
 
 

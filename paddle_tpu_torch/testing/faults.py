@@ -6,6 +6,15 @@ so processes the program forks (DataLoader workers) inherit the plan
 through the environment, and tests can set it per case.  Counts are
 1-indexed, so a fault hits the same call in every run.
 
+PADDLE_FAULT_FS="op:nth[:count][,op2:nth2...]"
+    The nth (to nth + count - 1) call of the named file-system op raises
+    ``InjectedFault`` (an ``OSError``, so ``framework.fs``'s retries treat
+    it as a transient storage error).  ``op`` is one of put, get,
+    exists, mkdir, remove, list, open_read, open_write, run, or ``*``
+    for any op (one shared count).
+PADDLE_FAULT_FS_DELAY_MS="op:ms[,op2:ms2...]"
+    Sleep ms milliseconds before each matching file-system op (``*``
+    matches any): slow storage.  Composes with PADDLE_FAULT_FS.
 PADDLE_FAULT_NAN_STEP="k"
     ``SpmdTrainer`` fills every floating gradient with NaN on train
     step k (1-indexed).  Read when the trainer is built.
@@ -20,9 +29,81 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import Optional
 
-__all__ = ["nan_poison_step", "maybe_kill_worker", "flightrec_dump"]
+__all__ = ["InjectedFault", "reset", "maybe_fail_fs", "maybe_delay_fs",
+           "nan_poison_step", "maybe_kill_worker", "flightrec_dump"]
+
+
+class InjectedFault(IOError):
+    """Raised by an armed fault point (an ``OSError``, so the file
+    systems' retries treat it as a real transient error)."""
+
+
+_lock = threading.Lock()
+_fs_counts: dict = {}
+
+
+def reset():
+    """Clear the injection counts (tests call it between cases)."""
+    with _lock:
+        _fs_counts.clear()
+
+
+def _parse_fs_spec(spec: str):
+    """``[(op, first, last)]`` windows, 1-indexed and inclusive."""
+    out = []
+    for part in spec.split(","):
+        bits = part.strip().split(":")
+        if len(bits) < 2:
+            continue
+        try:
+            first = int(bits[1])
+            count = int(bits[2]) if len(bits) > 2 else 1
+        except ValueError:
+            continue
+        out.append((bits[0], first, first + count - 1))
+    return out
+
+
+def maybe_fail_fs(op: str):
+    """Fault point of a file-system op: raises ``InjectedFault`` where
+    ``PADDLE_FAULT_FS`` arms this op's call number."""
+    spec = os.environ.get("PADDLE_FAULT_FS")
+    if not spec:
+        return
+    with _lock:
+        for w_op, first, last in _parse_fs_spec(spec):
+            if w_op != op and w_op != "*":
+                continue
+            # "*" windows share one count across ops
+            n = _fs_counts.get(w_op, 0) + 1
+            _fs_counts[w_op] = n
+            if first <= n <= last:
+                raise InjectedFault(
+                    f"injected fs fault: op={op!r} call #{n} "
+                    f"(PADDLE_FAULT_FS={spec!r})")
+            return  # the first matching window owns the count
+
+
+def maybe_delay_fs(op: str):
+    """Delay point of a file-system op: sleeps where
+    ``PADDLE_FAULT_FS_DELAY_MS`` arms this op (the op then runs)."""
+    spec = os.environ.get("PADDLE_FAULT_FS_DELAY_MS")
+    if not spec:
+        return
+    for part in spec.split(","):
+        w_op, _, ms = part.strip().partition(":")
+        if not ms or (w_op != op and w_op != "*"):
+            continue
+        try:
+            delay = float(ms)
+        except ValueError:
+            continue
+        if delay > 0:
+            time.sleep(delay / 1e3)
+        return
 
 
 def nan_poison_step() -> Optional[int]:

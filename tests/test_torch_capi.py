@@ -1,9 +1,9 @@
 """The port's C inference API on the CPU: ``libpd_inference.so`` built
 with ``cc`` from the repo's sources, driven through ctypes on a
 ``jit.save`` artifact (its output bitwise equal to the Python
-predictor's), ``PD_GetLastError`` on a bad path and on
-``PD_NewTrainer`` (the training entry waits for
-``SpmdTrainer.export_train_step``), and the standalone ``pd_capi_demo``
+predictor's), ``PD_GetLastError`` on a bad path for the predictor and
+the trainer (``tests/test_torch_capi_train.py`` steps a trainer), and
+the standalone ``pd_capi_demo``
 binary as a subprocess (``slow``, as the JAX package's is).  The
 embedded interpreter runs the predictor on the device
 ``PD_INFERENCE_DEVICE`` names, here ``cpu``."""
@@ -141,13 +141,12 @@ def test_errors_reach_the_c_caller(lib):
     assert b"PD_NewPredictor" in lib.PD_GetLastError()
     assert not lib.PD_NewTrainer(b"/nonexistent/model")
     err = lib.PD_GetLastError()
-    assert b"PD_NewTrainer" in err and b"export_train_step" in err
+    assert b"PD_NewTrainer" in err and b"/nonexistent/model.pdtrain" in err
     loss = ctypes.c_float()
     assert lib.PD_TrainerStep(None, None, 0, ctypes.byref(loss)) == -1
-    err = lib.PD_GetLastError()
-    assert b"PD_TrainerStep" in err and b"export_train_step" in err
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        capi_bridge.create_trainer("x")
+    assert b"PD_TrainerStep" in lib.PD_GetLastError()
+    with pytest.raises(FileNotFoundError):
+        capi_bridge.create_trainer("/nonexistent/model", device="cpu")
 
 
 def test_bridge_round_trip(exported):

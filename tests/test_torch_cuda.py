@@ -2172,3 +2172,126 @@ def test_dropout_pair_is_fresh_in_a_loaded_program(gen, tmp_path):
     a, b = loaded(q, k, v), loaded(q, k, v)
     assert ops.FLASH_FWD_DROPOUT.launches == before + 2
     assert not torch.equal(a, b)
+
+
+def test_lstm_on_the_card_against_the_cpu(gen):
+    """nn.LSTM (2 layers, bidirectional) through cuDNN against the same
+    weights on the CPU: outputs and final states within 1e-2 of each
+    tensor's max |CPU value| (cuDNN's TF32 on, as by default), and the
+    gradients of the input and of every weight within 1e-2 likewise; no
+    cuDNN warning about weights outside one buffer, f32 or bf16; the
+    parameters stay in one buffer across calls and an optimizer step,
+    and a bf16 backward reaches every f32 parameter."""
+    import paddle_tpu_torch as tp
+    tp.set_device("gpu")
+    tp.seed(0)
+    card = tp.nn.LSTM(64, 64, num_layers=2, direction="bidirect")
+    tp.set_device("cpu")
+    cpu = tp.nn.LSTM(64, 64, num_layers=2, direction="bidirect")
+    cpu.set_state_dict({k: v.detach().cpu()
+                        for k, v in card.state_dict().items()})
+    tp.set_device("gpu")
+    x = torch.randn(8, 20, 64, generator=gen, device="cuda")
+    xc = x.cpu().requires_grad_(True)
+    x.requires_grad_(True)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out, (h, c) = card(x)
+        with tp.amp.auto_cast(dtype="bfloat16"):
+            card(x)
+    # the weights reach cuDNN in its own layout: no copy, no warning
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+    ptrs = [p.data_ptr() for p in card.parameters()]
+    assert len({p.untyped_storage().data_ptr()
+                for p in card.parameters()}) == 2      # one a layer
+    ref, (rh, rc) = cpu(xc)
+    for got, want in ((out, ref), (h, rh), (c, rc)):
+        err = (got.detach().cpu() - want.detach()).abs().max()
+        assert err <= 1e-2 * want.detach().abs().max()
+    (out.sum() + h.sum()).backward()
+    (ref.sum() + rh.sum()).backward()
+    pairs = [(x.grad, xc.grad)] + [
+        (p.grad, dict(cpu.named_parameters())[n].grad)
+        for n, p in card.named_parameters()]
+    for got, want in pairs:
+        err = (got.cpu() - want).abs().max()
+        assert err <= 1e-2 * want.abs().max()
+    tp.optimizer.SGD(learning_rate=0.1,
+                     parameters=card.parameters()).step()
+    card.clear_gradients()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        card(x)
+        with tp.amp.auto_cast(dtype="bfloat16"):
+            out16, _ = card(x)
+        out16.float().sum().backward()
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+    assert [p.data_ptr() for p in card.parameters()] == ptrs
+    for n, p in card.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, n
+        assert bool(torch.isfinite(p.grad).all()) and p.grad.abs().max() > 0
+
+
+def test_distribution_samples_on_the_current_device(gen):
+    """A distribution built from numbers lives and samples on the layer
+    API's current device (the card), and two default draws differ."""
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch.device import current_device
+    tp.set_device("gpu")
+    d = D.Normal(0.0, 1.0)
+    a, b = d.sample([256]), d.sample([256])
+    want = current_device()
+    assert a.device == want and d.loc.device == want
+    assert not torch.equal(a, b)
+    assert D.Categorical([0.1, 0.5, 0.2]).sample([8]).device == want
+    assert D.Uniform(0.0, 1.0).log_prob(0.5).device == want
+
+
+def test_exported_train_step_steps_on_the_card(gen, tmp_path):
+    """SpmdTrainer.export_train_step of a small Transformer under bf16
+    AMP, stepped on the card by capi_bridge: 3 steps' losses within rel
+    1e-4 of the live trainer's, rows 1-3 launched once a step each per
+    attention (the program calls the custom ops): the encoder's
+    self-attention, and the decoder's self- and cross-attention (no mask
+    is given)."""
+    import numpy as np
+    import paddle_tpu_torch as tp
+    from paddle_tpu_torch import ops
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.inference import capi_bridge
+
+    def build():
+        tp.set_device("gpu")
+        tp.seed(1)
+        net = tp.nn.Transformer(d_model=128, nhead=2, num_encoder_layers=1,
+                                num_decoder_layers=1, dim_feedforward=256,
+                                dropout=0.0)
+        opt = tp.optimizer.Adam(learning_rate=1e-3,
+                                parameters=net.parameters())
+        st = DistributedStrategy()
+        st.amp = True
+        return SpmdTrainer(net, opt, lambda o, y: tp.nn.functional.mse_loss(
+            o.float(), y), strategy=st)
+
+    rng = np.random.RandomState(3)
+    src, tgt, lab = (rng.randn(2, 64, 128).astype(np.float32)
+                     for _ in range(3))
+    path = str(tmp_path / "tb")
+    build().export_train_step(path, (src, tgt), lab)
+    h = capi_bridge.create_trainer(path)
+    live = build()
+    for i in range(3):
+        before = [ops.FLASH_FWD.launches, ops.FLASH_BWD_DQ.launches,
+                  ops.FLASH_BWD_DKV.launches]
+        raw, shape, dtype = capi_bridge.trainer_step(
+            h, [(a.tobytes(), a.shape, "float32") for a in (src, tgt, lab)])
+        after = [ops.FLASH_FWD.launches, ops.FLASH_BWD_DQ.launches,
+                 ops.FLASH_BWD_DKV.launches]
+        assert [a - b for a, b in zip(after, before)] == [3, 3, 3]
+        got = float(np.frombuffer(raw, np.float32)[0])
+        want = float(live.train_step((src, tgt), lab))
+        assert abs(got - want) <= 1e-4 * abs(want), (i, got, want)
+    capi_bridge.destroy_trainer(h)

@@ -61,7 +61,7 @@ def jax_package_names(text: str):
 def test_port_has_c_sources_to_check():
     names = {p.name for p in C_SOURCES}
     assert {"pd_inference.c", "pd_inference.h", "capi_demo.c",
-            "flash_fwd.cu"} <= names
+            "capi_train_demo.c", "flash_fwd.cu"} <= names
 
 
 @pytest.mark.parametrize("path", C_SOURCES,

@@ -446,10 +446,10 @@ def test_seed_restarts_the_layer_generator():
 
 # the norms and Model.summary waited for the vision slice, the DataLoader
 # workers and the detection ops for the next one, the sparse embedding for
-# the op library's; they now build
+# the op library's, remote paths for the file systems; they now build
 PORTED_SINCE = {"BatchNorm2D", "GroupNorm", "InstanceNorm1D", "RMSNorm",
                 "Model-summary", "DataLoader-workers", "vision-ops",
-                "Embedding-sparse"}
+                "Embedding-sparse", "save-remote"}
 WAITING = {
     "BatchNorm2D": lambda: tnn.BatchNorm2D(4),
     "GroupNorm": lambda: tnn.GroupNorm(2, 4),
@@ -460,7 +460,7 @@ WAITING = {
     "Model-mesh": lambda: tp.Model(tnn.Linear(2, 2)).prepare(
         mesh={"dp": 2}),
     "Model-summary": lambda: tp.Model(tnn.Linear(2, 2)).summary((1, 2)),
-    "save-remote": lambda: tp.save({}, "hdfs://host/ck.pdparams"),
+    "save-remote": lambda: tp.framework.fs.get_fs("hdfs://host/ck.pdparams"),
     "vision-ops": lambda: tp.vision.ops.roi_align(
         torch.zeros(1, 1, 4, 4), torch.tensor([[0., 0., 2., 2.]])),
     "vision-dataset-files": lambda: tp.vision.datasets.Cifar100(),
