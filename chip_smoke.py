@@ -133,10 +133,10 @@ before the result lines:
    Poisson arrivals) on warmed engines, each window's report (tokens/s,
    offered and achieved rps, TTFT and ITL p50/p99, occupancy, prefix
    hit rate, preemptions, timed-out requests) printed beside the card's
-   name and power limit: A paged bf16 with the prefix cache, 48
+   name and power limit: A paged bf16 with the prefix cache, 32
    requests at 2 rps (all tokens, no timeout, prefix hits, leak-free
    after ``drain()``), B the same engine, 16 requests at 200 rps with
-   ``deadline_s=0.0`` (all time out empty), C 24 requests without a
+   ``deadline_s=0.0`` (all time out empty), C 16 requests without a
    shared prefix at 2 rps on a dense engine with ``prefill_chunk=512``
    beside a monolithic one (ITL p99 of both, no prefill stall when
    chunked); serve-disagg: ``DisaggServingEngine`` (8 slots, blocks of
@@ -366,13 +366,45 @@ before the result lines:
    score against a teacher-forced rescoring, the top beams against the
    CPU search;
 35e. c-trainer: ``SpmdTrainer.export_train_step`` on Transformer-base
-   (bf16 AMP) stepped from C through ``PD_NewTrainer`` /
-   ``PD_TrainerStep``: at dropout 0 against a live trainer, at 0.1 a
-   falling loss, rows 1-3 (dropout forms at 0.1) 12 launches a step each;
-   ``pd_capi_train_demo`` prints CAPI-TRAIN-OK;
+   at 2 + 2 layers (C_LAYERS; bf16 AMP) stepped from C through
+   ``PD_NewTrainer`` / ``PD_TrainerStep``: at dropout 0 against a live
+   trainer of the same depth, at 0.1 a falling loss, rows 1-3 (dropout
+   forms at 0.1) 4 launches a step each; ``pd_capi_train_demo`` prints
+   CAPI-TRAIN-OK;
 36. sparse-scale: lazy sparse Adam against dense at 1 M and 10 M x 64
    rows; the sparse step must be the faster at 10 M.  Rows 1-11 launch
    0 times on phases 34-36, 35a-35d.
+37. cost-model: the registry's analytic costs (``exec_registry.analyze``)
+   of train's gpt3-1.3b step and serve's prefill and decode step kinds;
+   the train step's profile MFU against the train phase's (after the LM
+   head's share of the flops, TOL_COST_MFU); the doctor's roofline
+   verdict over train's stats with its ``remat_policy`` action;
+   ``cost_stats`` of jit-transformer's ``to_static`` capture reporting
+   rows 1-3's flops;
+38. autotune-train: ``AutotuneController`` over ``SpmdTrainer`` at
+   gpt3-1.3b widths, AT_LAYERS layers, 4 x 2048, axes ``remat_policy`` and
+   ``prefetch_depth``: the trial log, no compile in a measured window or
+   outside the trials, commits with provenance, a fresh trainer reading
+   ``tuned_remat_policy``; rows 1-3 in every trial;
+39. autotune-live: ``LiveRetuner`` on a dense and a paged gpt3-1.3b
+   engine (8 slots, every bucket warmed): a real TTFT breach schedules one
+   episode, held while work is queued, run on the quiesced engine with no
+   compile; a subset of the warmed list; no second episode inside the
+   cooldown; requests after it complete, an unchanged bucket's tokens
+   equal; a new engine boots with the list the episode left;
+40. qmm-sweep: ``autotune_qmm_sweep`` for gpt3-1.3b's four int8 products
+   at M = 512 (each plan's ms beside the default's and ``torch._int_mm``
+   + rescale's; the winner bitwise equal to the default plan), then a
+   ``quantize='int8'`` engine reading the winners (row 10's launches);
+41. faults: child processes over a 1-layer trainer: a SIGTERM-step
+   preemption saved and resumed bitwise, a truncated checkpoint commit
+   (exit 137) walked past on resume, a hung engine tick leaving a
+   watchdog stall bundle;
+42. report: ``python -m paddle_tpu_torch.observability.report`` over this
+   run's snapshot (with ``--tuning``) and the stall bundle, exit 0.
+The tuning table of a run is a temporary file (``PADDLE_TPU_TUNING_CACHE``
+set before the first phase, removed at the end); phases 37-42 come last,
+since they write it.
 
 Each phase's seconds are printed on a line of their own
 (``[phase-seconds]``).
@@ -387,6 +419,9 @@ teacher error, for TOL_TEACHER_FP8) and ``python3 chip_smoke.py
 planted, which must fail TOL_BEAM_SCORE).  ``python3 chip_smoke.py
 --moe-hit-routing`` records the MoE routing of the paged-hit teacher
 check at 8 layers against the forward's (why that depth fails it).
+``python3 chip_smoke.py --autotune-phases`` runs phases 37-42 alone
+(with serve, train and one Transformer-base capture for cost-model's
+stashes).
 """
 from __future__ import annotations
 
@@ -2475,6 +2510,12 @@ def drive(tag, eng, prompts, new_tokens, sample_every=5):
 # tag: serve-moe holds its own against the dense serve phase's
 TOKENS_PER_S = {}
 HOST_READS = {}
+# the cost model's readings stashed by serve, train and jit-transformer
+# for the cost-model phase
+COST = {}
+# {"dir": this run's temporary directory (the tuning table, the faults'
+# checkpoints and bundles, the report's snapshot)}
+TUNING = {}
 
 
 class HostReads:
@@ -2577,6 +2618,11 @@ def phase_serve(model):
     launches, _, problems = drive("serve", eng, serve_prompts(cfg.vocab_size),
                                   32)
     finish("serve", problems)
+    # the cost model's reading of this engine's step kinds (cost-model
+    # prints and checks it)
+    from paddle_tpu_torch.observability import exec_registry
+    exec_registry.analyze_all(eng._exec_component)
+    COST["serve"] = exec_registry.profile(eng._exec_component)
     return launches
 
 
@@ -3470,16 +3516,22 @@ def planned_tokens(vocab, n, **over):
     return sum(wl.sample()[1] for _ in range(n))
 
 
+# serve-loadtest's request counts of windows A and C (48 and 24 before
+# the autotune phases took their seconds; 2 rps, so each is its count / 2
+# seconds of wall)
+LOADTEST_A, LOADTEST_C = 32, 16
+
+
 def phase_serve_loadtest(model, smi):
     """Open-loop Poisson load through ``run_loadtest`` on warmed engines.
     A: a paged bf16 engine (blocks of 128, prefix cache, 8 slots),
     ``SharedPrefixWorkload(50304, seed=11, shared_frac=0.5,
-    prefix_len=1024, tail_len=(32, 512), max_new=(16, 64))``, 48 requests
-    at 2 rps with a 120 s deadline: every request returns its tokens,
+    prefix_len=1024, tail_len=(32, 512), max_new=(16, 64))``, LOADTEST_A
+    requests at 2 rps with a 120 s deadline: every request returns its tokens,
     none times out, prefix hits, a leak-free pool after ``drain()``.  B:
     the same engine, 16 requests at 200 rps with ``deadline_s=0.0``: all
     16 time out in the queue, no token.  C: the workload without a
-    prefix, 24 requests at 2 rps, on a dense bf16 engine with
+    prefix, LOADTEST_C requests at 2 rps, on a dense bf16 engine with
     ``prefill_chunk=512`` beside a monolithic one: ITL p99 of both, no
     prefill stall when chunked.  Each window's report on its own line."""
     from paddle_tpu_torch.inference import InferenceEngine, run_loadtest
@@ -3496,12 +3548,14 @@ def phase_serve_loadtest(model, smi):
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
 
     rep, launches, _, bad = measured(f"{tag} A", eng, lambda: run_loadtest(
-        eng, 48, 2.0, workload=loadtest_workload(vocab), deadline_s=120.0))
+        eng, LOADTEST_A, 2.0, workload=loadtest_workload(vocab),
+        deadline_s=120.0))
     add_launches(total, launches)
     problems += bad
     report_line(f"{tag} A", rep, smi)
-    want = planned_tokens(vocab, 48)
-    if rep["tokens_generated"] != want or rep["num_requests"] != 48:
+    want = planned_tokens(vocab, LOADTEST_A)
+    if rep["tokens_generated"] != want or \
+            rep["num_requests"] != LOADTEST_A:
         problems.append(f"A: {rep['tokens_generated']} tokens of {want}")
     if rep["timed_out_requests"] or not rep["prefix_hit_rate"] > 0:
         problems.append("A: timed out requests or no prefix hit")
@@ -3529,14 +3583,15 @@ def phase_serve_loadtest(model, smi):
         eng.warmup(eng.buckets)
         rep, launches, _, bad = measured(
             f"{tag} {name}", eng, lambda: run_loadtest(
-                eng, 24, 2.0, workload=loadtest_workload(
+                eng, LOADTEST_C, 2.0, workload=loadtest_workload(
                     vocab, shared_frac=0.0, prefix_len=0), deadline_s=120.0))
         add_launches(total, launches)
         problems += bad
         report_line(f"{tag} {name}", rep, smi)
         st = eng.stats()
         itl[name] = (rep["itl_ms_p99"], st["prefill_stall_ms"])
-        want = planned_tokens(vocab, 24, shared_frac=0.0, prefix_len=0)
+        want = planned_tokens(vocab, LOADTEST_C, shared_frac=0.0,
+                              prefix_len=0)
         if rep["tokens_generated"] != want or rep["timed_out_requests"]:
             problems.append(f"{name}: {rep['tokens_generated']} tokens of "
                             f"{want}, {rep['timed_out_requests']} timed out")
@@ -5099,6 +5154,14 @@ def phase_train():
         problems.append("master parameters are no longer f32")
     if problems:
         raise SystemExit("train phase failed: " + "; ".join(problems))
+    # the cost model's reading of this step (cost-model prints and checks
+    # it): the analytic cost, the roofline digest, the doctor's verdicts
+    from paddle_tpu_torch.observability import exec_registry
+    exec_registry.analyze_all(trainer._exec_component)
+    st = trainer.stats
+    COST["train"] = {"mfu": mfu, "bench_flops": cfg.flops_per_token(s) * b * s,
+                     "profile": st["exec_profile"], "doctor": st["doctor"],
+                     "step_ms": step_ms}
 
     # one profiled step: device time against the measured step time
     with profile(activities=[ProfilerActivity.CPU,
@@ -6709,11 +6772,12 @@ def tb_sinusoid(length, d):
     return torch.from_numpy(out)
 
 
-def tb_network(dropout=0.1):
+def tb_network(dropout=0.1, layers=TB_LAYERS):
     """Transformer-base from the port's layers: one Embedding(37000, 512)
     shared by source and target, scaled by sqrt(512), plus sinusoidal
     positions, dropout 0.1, ``nn.Transformer()`` at its defaults, and
-    Linear(512, 37000) (``dropout``: every dropout's rate)."""
+    Linear(512, 37000) (``dropout``: every dropout's rate; ``layers``:
+    encoder and decoder depth, a cut below the default 6)."""
     from paddle_tpu_torch import nn
 
     class TransformerBase(nn.Layer):
@@ -6724,7 +6788,9 @@ def tb_network(dropout=0.1):
                 TB_VOCAB, self.d_model,
                 weight_attr=nn.initializer.Normal(0.0, self.d_model ** -0.5))
             self.dropout = nn.Dropout(dropout)
-            self.transformer = nn.Transformer(dropout=dropout)
+            self.transformer = nn.Transformer(
+                num_encoder_layers=layers, num_decoder_layers=layers,
+                dropout=dropout)
             self.project = nn.Linear(self.d_model, TB_VOCAB)
             self.register_buffer("position",
                                  tb_sinusoid(TB_S, self.d_model).cuda(),
@@ -7179,6 +7245,8 @@ def phase_jit_transformer(smi):
     train_counts = jit_counts("to_static training", read_launches(), {
         f"{k}_dropout": 2 * TB_LAYERS * JIT_STEPS for k in FLASH}, problems)
     total = read_launches()
+    COST["tb"] = tb_capture_cost(static_net, loss_fn, src, tgt, lab)
+    opt.clear_grad()
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
     if not (np.all(np.isfinite(losses)) and last < first):
         problems.append(f"losses not finite and falling: {losses}")
@@ -9545,6 +9613,10 @@ RNN_B, RNN_T, RNN_IN, RNN_H, RNN_LAYERS = 128, 50, 512, 512, 2
 RNN_CPU_ROWS = 16          # batch rows held against the CPU
 S2S_CPU_ROWS = 4           # source rows of the CPU forward and search
 C_STEPS = 10
+# c-trainer's encoder and decoder depth: Transformer-base's 6 + 6 cut to
+# 2 + 2, since the export and PD_NewTrainer's load scale with the graph
+# (the widths, the batch and every check stay)
+C_LAYERS = 2
 
 
 def rnn_twins(mode, direction, cpu_rows=RNN_CPU_ROWS):
@@ -9961,8 +10033,8 @@ def c_batch(arrays):
     return out
 
 
-def tb_trainer(dropout):
-    """Transformer-base (``tb_network(dropout)``, seed 1234) in
+def tb_trainer(dropout, layers=TB_LAYERS):
+    """Transformer-base (``tb_network(dropout, layers)``, seed 1234) in
     ``SpmdTrainer`` under ``strategy.amp`` (bf16 copies of the f32
     masters) with ``tb_model``'s Adam on Noam's peak rate and the smoothed
     cross-entropy."""
@@ -9971,7 +10043,7 @@ def tb_trainer(dropout):
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     paddle.set_device("gpu")
     paddle.seed(1234)
-    net = tb_network(dropout)
+    net = tb_network(dropout, layers)
     sched = paddle.optimizer.lr.NoamDecay(d_model=512, warmup_steps=4000,
                                           last_epoch=3999)
     opt = paddle.optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
@@ -10013,10 +10085,11 @@ def c_train_demo(base):
 
 
 def tb_export(dropout, path, batch):
-    """``tb_trainer(dropout)``'s step exported to ``path`` on ``batch``
-    (source, target, label); returns ``(seconds, file sizes)``."""
+    """``tb_trainer(dropout, C_LAYERS)``'s step exported to ``path`` on
+    ``batch`` (source, target, label); returns ``(seconds, file
+    sizes)``."""
     src, tgt, lab = batch
-    tr = tb_trainer(dropout)
+    tr = tb_trainer(dropout, C_LAYERS)
     t0 = time.perf_counter()
     tr.export_train_step(path, (src, tgt), lab)
     seconds = time.perf_counter() - t0
@@ -10028,14 +10101,15 @@ def tb_export(dropout, path, batch):
 
 def phase_c_trainer(smi):
     """c-trainer: ``SpmdTrainer.export_train_step`` on Transformer-base
-    (bf16 AMP, train-transformer's seed and batches), stepped from C
-    through ``PD_NewTrainer`` / ``PD_TrainerStep`` (``libpd_inference.so``
-    by ctypes).  At dropout 0: C_STEPS C steps on C_STEPS batches against a
-    live trainer from the same weights over the same batches within
-    TOL_C_TRAINER a step, rows 1-3 12 launches a step each.  At the
-    model's dropout 0.1: C_STEPS C steps (5 batches twice), the last 5
-    losses' mean below the first 5's, the dropout forms 12 launches a step
-    each.  The export's seconds, the files' bytes and the C step ms; and
+    at C_LAYERS encoder and decoder layers (bf16 AMP, train-transformer's
+    seed, widths and batches), stepped from C through ``PD_NewTrainer`` /
+    ``PD_TrainerStep`` (``libpd_inference.so`` by ctypes).  At dropout 0:
+    C_STEPS C steps on C_STEPS batches against a live trainer of the same
+    depth from the same weights over the same batches within
+    TOL_C_TRAINER a step, rows 1-3 2 x C_LAYERS launches a step each.  At
+    the model's dropout 0.1: C_STEPS C steps (5 batches twice), the last
+    5 losses' mean below the first 5's, the dropout forms 2 x C_LAYERS
+    launches a step each.  The export's seconds, the files' bytes and the C step ms; and
     ``pd_capi_train_demo`` (``c_train_demo``, in its own process beside
     the rest) prints CAPI-TRAIN-OK."""
     import ctypes
@@ -10081,11 +10155,12 @@ def phase_c_trainer(smi):
             lib.PD_DeleteTrainer(handle)
             add_launches(total, c_launches)
             form = "" if dropout == 0.0 else "_dropout"
-            want = {f"{k}{form}": 2 * TB_LAYERS * C_STEPS for k in FLASH}
+            want = {f"{k}{form}": 2 * C_LAYERS * C_STEPS for k in FLASH}
             counts = jit_counts(f"c-trainer {tag}", c_launches, want, problems)
             if not np.all(np.isfinite(losses)):
                 problems.append(f"{tag}: losses {losses}")
-            line = (f"[c-trainer] {smi}: Transformer-base {tag}, bf16 AMP: "
+            line = (f"[c-trainer] {smi}: Transformer-base at {C_LAYERS} + "
+                    f"{C_LAYERS} layers {tag}, bf16 AMP: "
                     f"export_train_step {t_export:.1f} s, files {sizes} "
                     f"bytes; "
                     f"PD_NewTrainer {t_load:.1f} s; {C_STEPS} C steps, losses "
@@ -10094,7 +10169,7 @@ def phase_c_trainer(smi):
                     f"{float(np.median(ms[2:])):.3f}, host clock, the loss "
                     f"read back each step); launches {counts}")
             if dropout == 0.0:
-                live = tb_trainer(0.0)
+                live = tb_trainer(0.0, C_LAYERS)
                 zero_launches()
                 live_ms, live_losses = [], []
                 for i in order:
@@ -10145,6 +10220,790 @@ def phase_c_trainer(smi):
     return {"c-trainer": total}
 
 
+# ---------------------------------------------------------------------------
+# autotune: the cost model, the controller, the live retuner, row 10's
+# plan sweep, the single-device faults and the report
+# ---------------------------------------------------------------------------
+# autotune-train's depth (gpt3-1.3b widths; the 24 layers cut for the
+# budget: remat_policy_key carries the depth), trials (one more than the
+# remat axis's four values, so that a descent that runs out of moves
+# shows as converged) and steps a trial
+AT_LAYERS = 6
+AT_MAX_TRIALS = 5
+AT_WARM, AT_MEAS = 1, 3
+# the profile's MFU against the train phase's, after the flops-count
+# ratio (the profile counts the LM head, bench's formula does not): the
+# registry's step time is the host's per step, which trails the card's
+# by a queue's depth at most
+TOL_COST_MFU = 0.15
+# row 10's sweep: gpt3-1.3b's four int8 products at M = 512, (n, k)
+QMM_SWEEP = {"qkv": (6144, 2048), "out": (2048, 2048),
+             "up": (8192, 2048), "down": (2048, 8192)}
+QMM_SWEEP_M = 512
+# the faults' trainer: gpt3-1.3b widths at 1 layer, 2 x 512 tokens
+FAULT_STEPS = 6
+FAULT_SIGTERM_STEP = 3
+
+
+def tb_capture_cost(static_net, loss_fn, src, tgt, lab):
+    """``profiler.cost_stats`` of a ``to_static`` capture: its graph
+    walked (no run), and one bf16 training step through it on the card
+    counted op by op; the gradients it leaves are the caller's to clear."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profiler
+
+    def step():
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            loss = loss_fn(static_net(src, tgt), lab)
+        loss.backward()
+    walk = profiler.cost_stats(static_net)
+    run = profiler.cost_stats(step)
+    torch.cuda.synchronize()
+    return {"walk": walk, "run": run}
+
+
+def phase_cost_model(smi):
+    """cost-model: the registry's analytic costs (``exec_registry.
+    analyze``) of gpt3-1.3b's train step (train's trainer), prefill and
+    decode step kinds (serve's engine): non-None profiles; the train
+    step's MFU from the profile against the train phase's (bench's
+    formula) after the flops-count ratio, within TOL_COST_MFU; the
+    doctor's roofline verdict over the train phase's stats with its
+    ``remat_policy`` action; ``cost_stats`` of jit-transformer's
+    ``to_static`` capture: rows 1-3's flops (4 B H S^2 D a call, 2 x
+    TB_LAYERS calls a step each)."""
+    problems = []
+    train, serve, tb = COST.get("train"), COST.get("serve"), COST.get("tb")
+    if train is None or serve is None or tb is None:
+        raise SystemExit(f"cost-model needs the train, serve and "
+                         f"jit-transformer phases first (have "
+                         f"{sorted(COST)})")
+    prof = train["profile"]
+    if not prof or "train_step" not in prof:
+        raise SystemExit(f"cost-model: no train_step profile: {prof}")
+    row = prof["train_step"]
+    ratio = row["flops"] / train["bench_flops"]
+    want = train["mfu"] * ratio
+    gap = abs(row["mfu"] / want - 1)
+    log(f"[cost-model] {smi}: train step (gpt3-1.3b, 4 x 2048, bf16 AMP, "
+        f"Adam): analytic {row['flops']:.4e} flops, {row['bytes_accessed']:.4e} "
+        f"bytes (per-op), AI {row['arithmetic_intensity']} against the ridge "
+        f"{row['ridge_ai']}: {row['bound']}-bound; temp (activations) "
+        f"{row.get('temp_bytes')} bytes; profile mean step "
+        f"{row['mean_ms']} ms over {row['calls']} calls, MFU "
+        f"{row['mfu']:.4f}, HBM {row.get('hbm_bw_frac')}, roof "
+        f"{row.get('roof_frac')}; the train phase's MFU {train['mfu']:.4f} "
+        f"(bench's flops) x {ratio:.4f} (the LM head's share) = {want:.4f}: "
+        f"gap {gap:.3%} (tol {TOL_COST_MFU:.0%})")
+    if not gap <= TOL_COST_MFU:
+        problems.append(f"profile MFU {row['mfu']:.4f} vs {want:.4f}")
+    roof = [v for v in train["doctor"]
+            if v["bottleneck"] == "mfu-below-target"]
+    log(f"[cost-model] the doctor over the train phase's stats: "
+        f"{[(v['bottleneck'], v['score'], v.get('action')) for v in train['doctor']]}")
+    if not roof or (roof[0].get("action") or {}).get("param") != \
+            "remat_policy":
+        problems.append(f"no roofline verdict with the remat_policy action: "
+                        f"{train['doctor']}")
+    for kind in ("prefill", "decode", "sample"):
+        r = (serve or {}).get(kind)
+        if r is None:
+            problems.append(f"serve profile has no {kind}")
+            continue
+        log(f"[cost-model] serve {kind} ({r['name']}): {r['calls']} calls, "
+            f"mean {r['mean_ms']} ms, {r['flops']:.4e} flops, "
+            f"{r['bytes_accessed']:.4e} bytes, AI "
+            f"{r.get('arithmetic_intensity')}: {r.get('bound')}-bound, MFU "
+            f"{r.get('mfu')}, HBM {r.get('hbm_bw_frac')}")
+    per_call = 4 * TB_B * TB_HEADS * TB_S * TB_S * TB_D
+    calls = 2 * TB_LAYERS
+    want_rows = {"paddle_tpu.flash_fwd": per_call * calls,
+                 "paddle_tpu.flash_bwd_dq": per_call * calls,
+                 "paddle_tpu.flash_bwd_dkv": per_call * calls}
+    walk, run = tb["walk"], tb["run"]
+    log(f"[cost-model] Transformer-base to_static capture: graph walk "
+        f"{walk.get('flops', 0):.4e} flops, {walk.get('bytes_accessed', 0):.4e} "
+        f"bytes, by op {walk.get('flops_by_op')}; one training step through "
+        f"it {run.get('flops', 0):.4e} flops, by op {run.get('flops_by_op')}")
+    if walk.get("flops_by_op", {}).get("paddle_tpu.flash_fwd") != \
+            want_rows["paddle_tpu.flash_fwd"]:
+        problems.append(f"capture graph row 1 flops "
+                        f"{walk.get('flops_by_op')}")
+    for op, n in want_rows.items():
+        if run.get("flops_by_op", {}).get(op) != n:
+            problems.append(f"{op} flops {run.get('flops_by_op', {}).get(op)}"
+                            f" != {n}")
+    finish("cost-model", problems)
+
+
+def phase_autotune_train(smi):
+    """autotune-train (the ``once`` tier): ``AutotuneController(kind=
+    'train', objective_key='mfu')`` over ``SpmdTrainer`` at gpt3-1.3b
+    widths, AT_LAYERS layers (hidden 2048, 16 x 128 heads, vocab 50304,
+    4 x 2048 tokens, bf16 AMP, fused CE, Adam), axes ``remat_policy`` and
+    ``prefetch_depth`` from ``{'remat_policy': 'full', 'prefetch_depth':
+    2}``, at most AT_MAX_TRIALS trials.  A trial: a fresh trainer on the
+    one model, AT_WARM warm-up and AT_MEAS measured steps from a
+    ``DevicePrefetcher``, MFU over the measured window (bench's
+    formula), the doctor over its analyzed stats.  Checks: no compile in
+    a measured window and none outside the trials, rows 1-3 launched in
+    every trial, every commit in the table with its provenance, and a
+    fresh ``SpmdTrainer(recompute=True)`` running the policy
+    ``tuned_remat_policy`` reads (full recompute when none applies)."""
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.autotune import AutotuneController
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.distributed import SpmdTrainer
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.spmd import (remat_policy_key,
+                                                   tuned_remat_policy)
+    from paddle_tpu_torch.io import DevicePrefetcher
+    from paddle_tpu_torch.models import (GPTForCausalLM,
+                                         GPTPretrainingCriterion)
+    from paddle_tpu_torch.observability import exec_registry
+    from paddle_tpu_torch.utils import compile_counter, tuning
+    problems = []
+    cfg = full_cfg(AT_LAYERS)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           generator=prandom.seed(4321, "cuda"))
+    crit = GPTPretrainingCriterion()
+    b, s = 4, 2048
+    batch = token_batch(np.random.RandomState(0), cfg.vocab_size, b, s)
+    total = {}
+
+    def strategy(policy):
+        st = DistributedStrategy()
+        st.amp = True
+        if policy != "off":
+            st.recompute = True
+            st.recompute_configs = {"policy": policy}
+        return st
+
+    def measure(config):
+        policy = config["remat_policy"]
+        # 'off' runs the same model without recompute (the strategy
+        # turns it on, nothing turns it off)
+        model.gpt._recompute = False
+        tr = SpmdTrainer(model, topt.Adam(learning_rate=1e-4),
+                         lambda o, lab: crit(o, lab),
+                         strategy=strategy(policy))
+        feed = DevicePrefetcher(itertools.repeat(batch, AT_WARM + AT_MEAS),
+                                device="cuda", timings=tr._timings,
+                                depth=config["prefetch_depth"])
+        for i, (ids, labels) in enumerate(feed):
+            if i == AT_WARM:
+                torch.cuda.synchronize()
+                zero_launches()
+                snap = compile_counter.snapshot()
+                t0 = time.perf_counter()
+            out = tr.train_step(ids, labels)
+        loss = float(out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        add_launches(total, launches)
+        compiles = snap.new_compiles
+        exec_registry.analyze_all(tr._exec_component)
+        st = tr.stats
+        mfu = cfg.flops_per_token(s) * AT_MEAS * b * s / wall / \
+            PEAK_BF16_FLOPS
+        prof = (st["exec_profile"] or {}).get("train_step") or {}
+        flash = {k: launches[k] for k in FLASH}
+        log(f"[autotune-train] trial {config}: step "
+            f"{wall * 1e3 / AT_MEAS:.2f} ms, MFU {mfu:.4f} (profile "
+            f"{prof.get('mfu')}, {prof.get('bound')}-bound), loss "
+            f"{loss:.4f}, compiles in the measured window {compiles}, rows "
+            f"1-3 {flash}, doctor "
+            f"{[(v['bottleneck'], (v.get('action') or {}).get('param')) for v in st['doctor']]}")
+        if not all(flash.values()):
+            problems.append(f"trial {config}: rows 1-3 launches {flash}")
+        if not np.isfinite(loss):
+            problems.append(f"trial {config}: loss {loss}")
+        return {"mfu": mfu, "doctor": st["doctor"],
+                "xla_compiles_measured": compiles,
+                "step_ms": wall * 1e3 / AT_MEAS}
+
+    key = remat_policy_key(cfg)
+    ctl = AutotuneController(
+        measure, kind="train", objective_key="mfu",
+        axes=["remat_policy", "prefetch_depth"], max_trials=AT_MAX_TRIALS,
+        run_id="chip-smoke-autotune-train",
+        commit_keys={"remat_policy": ("remat_policy", key)}, log=log)
+    base = {"remat_policy": "full", "prefetch_depth": 2}
+    summary = ctl.run(dict(base))
+    if summary.get("error"):
+        raise SystemExit(f"autotune-train: incumbent failed: "
+                         f"{summary['error']}")
+    for t in summary["trials"]:
+        log(f"[autotune-train] trial log: {t['axis']}={t['value']!r} "
+            f"{t['outcome']}{' (' + t['reason'] + ')' if t.get('reason') else ''}"
+            f" MFU {t['objective']} against {t['incumbent_objective']}, "
+            f"improvement {t.get('improvement')}, compiles {t['compiles']}, "
+            f"verdict {t['bottleneck']}")
+    log(f"[autotune-train] {smi}: {summary['measured_trials']} trials, "
+        f"accepted {summary['accepted']}, rolled back "
+        f"{summary['rolled_back']}, baseline MFU {summary['baseline']:.4f} "
+        f"-> {summary['best']:.4f} ({summary['improvement']:+.2%}), config "
+        f"{summary['config']}, converged {summary['converged']}, "
+        f"compiles_total {summary['compiles_total']}, "
+        f"compiles_outside_trials {summary['compiles_outside_trials']}, "
+        f"committed {summary['committed']}")
+    storms = [t for t in summary["trials"]
+              if t.get("reason") == "recompile-storm"]
+    if storms:
+        problems.append(f"compiles inside measured windows: {storms}")
+    if summary["compiles_outside_trials"]:
+        problems.append(f"{summary['compiles_outside_trials']} compiles "
+                        f"outside the trials")
+    for c in summary["committed"]:
+        got = tuning.lookup(c["op"], c["key"])
+        meta = tuning.provenance(c["op"], c["key"]) or {}
+        log(f"[autotune-train] table {c['op']}|{'|'.join(c['key'])} = "
+            f"{got!r}, provenance {meta}")
+        if got != c["value"] or meta.get("source") != "autotune" or \
+                meta.get("run") != "chip-smoke-autotune-train":
+            problems.append(f"commit {c} reads back {got!r} {meta}")
+    if summary["committed"]:
+        AUTOTUNE_SOURCES.add("autotune")
+    else:
+        log(f"[autotune-train] converged without a commit: the incumbent "
+            f"{summary['config']} stays")
+    tuned = tuned_remat_policy(model)
+    model.gpt._recompute = False
+    st = DistributedStrategy()
+    st.amp = True
+    st.recompute = True
+    # no policy asked for: the trainer reads the table's
+    st.recompute_configs = {"policy": None}
+    fresh = SpmdTrainer(model, topt.Adam(learning_rate=1e-4),
+                        lambda o, lab: crit(o, lab), strategy=st)
+    ran = model.gpt._recompute_policy
+    log(f"[autotune-train] a fresh SpmdTrainer(recompute=True) on key "
+        f"{key}: tuned_remat_policy -> {tuned!r}, the model recomputes with "
+        f"policy {ran!r}")
+    if ran != (tuned or "full") or not model.gpt._recompute:
+        problems.append(f"fresh trainer policy {ran!r}, tuned {tuned!r}")
+    del fresh, model
+    del_all()
+    finish("autotune-train", problems)
+    return {"autotune-train": total}
+
+
+def live_engine_run(tag, eng, prompts, new_tokens, monitor=None):
+    """Serve ``prompts`` greedily to the end; feed each request's TTFT to
+    ``monitor``; returns ``(streams, launches)``."""
+    rids = [eng.add_request(p, max_new_tokens=new_tokens) for p in prompts]
+    torch.cuda.synchronize()
+    zero_launches()
+    res = eng.run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if monitor is not None:
+        for r in rids:
+            monitor.observe(eng.request_stats[r]["ttft_ms"])
+    return [res[r].tolist() for r in rids], launches
+
+
+def phase_autotune_live(model, smi):
+    """autotune-live (the ``live`` tier) on gpt3-1.3b: a dense and a paged
+    engine (8 slots, max_seq_len 2048, blocks of 128) built under
+    ``PADDLE_TPU_AUTOTUNE=live`` and warmed over their whole bucket list;
+    serve's prompts with 16 new tokens, each request's TTFT into an
+    ``SLOMonitor`` whose target sits below what the engine achieves, so
+    its check is a real breach that schedules one episode.  Checks: the
+    episode waits while a request is queued or active, runs on the next
+    tick of the quiesced engine with no compile, keeps a subset of the
+    warmed list; a second verdict (the same monitor, and a healthy one
+    then a breach inside the cooldown) schedules nothing; requests after
+    it complete; a prompt whose bucket is unchanged gives the same greedy
+    tokens as before; a new engine boots with the list the episode left
+    (the table's when it applied one).  Bucket times and the merged list
+    printed."""
+    from paddle_tpu_torch.autotune.live import LiveRetuner
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.observability import exec_registry
+    from paddle_tpu_torch.observability.slo import SLOMonitor
+    from paddle_tpu_torch.utils import compile_counter, tuning
+    problems, total = [], {}
+    prompts = serve_prompts(model.cfg.vocab_size)
+    # 1536 tokens: the largest bucket, which every kept list holds
+    probe = prompts[3]
+    os.environ["PADDLE_TPU_AUTOTUNE"] = "live"
+    try:
+        engines = {
+            "dense": InferenceEngine(model, batch_slots=8, device="cuda"),
+            "paged": InferenceEngine(model, batch_slots=8, kv_layout="paged",
+                                     kv_block_size=128, device="cuda")}
+    finally:
+        del os.environ["PADDLE_TPU_AUTOTUNE"]
+    for tag, eng in engines.items():
+        r = eng._retuner
+        if not isinstance(r, LiveRetuner):
+            raise SystemExit(f"autotune-live {tag}: no retuner armed")
+        warmed = list(eng.buckets)
+        eng.warmup(warmed)
+        before, _ = live_engine_run(tag, eng, [probe], 16)
+        seen = SLOMonitor(ttft_p99_ms=None)
+        _, launches = live_engine_run(tag, eng, prompts, 16, seen)
+        add_launches(total, launches)
+        achieved = seen.check()["p99_ms"]
+        mon = SLOMonitor(ttft_p99_ms=achieved / 2).add_listener(r.notify_slo)
+        for v in seen._window:
+            mon.observe(v)
+        table_before = tuning.lookup(
+            "prefill_buckets", (tuning.device_kind(), eng.max_seq_len))
+        verdict = mon.check()
+        scheduled = r._pending
+        # the quiesce gate: a queued request holds the episode back
+        eng.add_request(probe, max_new_tokens=4)
+        eng.step()
+        held = r.episodes == 0 and r._pending
+        eng.run()
+        with compile_counter.assert_no_recompiles(f"{tag} live episode"):
+            t0 = time.perf_counter()
+            eng.step()
+            episode_s = time.perf_counter() - t0
+        ep = r.last_episode or {}
+        again = mon.check()
+        latched = not r._pending
+        healthy = SLOMonitor(ttft_p99_ms=achieved * 100)
+        healthy.add_listener(r.notify_slo)
+        for v in seen._window:
+            healthy.observe(v)
+        healthy.check()
+        mon.check()
+        cooled = not r._pending
+        after, launches = live_engine_run(tag, eng, prompts[:4], 8)
+        add_launches(total, launches)
+        probe_after, _ = live_engine_run(tag, eng, [probe], 16)
+        same_bucket = eng._bucket_for(len(probe)) == \
+            min(b for b in warmed if b >= len(probe))
+        table = tuning.lookup("prefill_buckets",
+                              (tuning.device_kind(), eng.max_seq_len))
+        fresh = InferenceEngine(model, batch_slots=8, device="cuda",
+                                **({"kv_layout": "paged",
+                                    "kv_block_size": 128}
+                                   if tag == "paged" else {}))
+        log(f"[autotune-live] {smi}: {tag} engine, warmed {warmed}; TTFT "
+            f"p99 {achieved:.2f} ms, SLO target {achieved / 2:.2f} ms: "
+            f"breached {verdict['breached']}, scheduled {scheduled}, held "
+            f"while queued {held}; episode {r.episodes} in "
+            f"{episode_s * 1e3:.1f} ms: bucket ms "
+            f"{ep.get('times_ms')}, merged {ep.get('merged')}, improvement "
+            f"{ep.get('improvement')}, applied {bool(r.applied)}, list now "
+            f"{eng.buckets}; second verdict scheduled nothing {latched}, "
+            f"cooldown held {cooled}; table {table}; a new engine boots "
+            f"with {fresh.buckets}; probe ({len(probe)} tokens) same tokens "
+            f"{probe_after == before} (bucket unchanged {same_bucket})")
+        if not (verdict["breached"] and scheduled):
+            problems.append(f"{tag}: the breach scheduled no episode")
+        if not held:
+            problems.append(f"{tag}: the episode ran with work queued")
+        if r.episodes != 1 or r.failures:
+            problems.append(f"{tag}: episodes {r.episodes}, failures "
+                            f"{r.failures}")
+        if not set(eng.buckets) <= set(warmed) or \
+                eng.buckets[-1] != warmed[-1]:
+            problems.append(f"{tag}: list {eng.buckets} not a subset of "
+                            f"{warmed} with its largest")
+        if not (latched and cooled):
+            problems.append(f"{tag}: a second verdict scheduled an episode")
+        if [len(x) for x in after] != [8] * 4:
+            problems.append(f"{tag}: after the episode {after}")
+        if not same_bucket or probe_after != before:
+            problems.append(f"{tag}: probe tokens changed (bucket "
+                            f"unchanged {same_bucket})")
+        if r.applied:
+            AUTOTUNE_SOURCES.add("autotune")
+            if table != eng.buckets or fresh.buckets != eng.buckets:
+                problems.append(f"{tag}: table {table}, new engine "
+                                f"{fresh.buckets}, live {eng.buckets}")
+        elif table != table_before or \
+                fresh.buckets != (sorted(table) if table else warmed):
+            problems.append(f"{tag}: no apply, yet table {table} (was "
+                            f"{table_before}) / new engine {fresh.buckets}")
+        if tag == "paged":
+            eng.check_leak_free()
+        # the step kinds' costs, while the engine lives (report reads them)
+        exec_registry.analyze_all(eng._exec_component)
+        del fresh
+    del engines
+    del_all()
+    finish("autotune-live", problems)
+    return {"autotune-live": total}
+
+
+def phase_qmm_sweep(model, smi):
+    """qmm-sweep: ``autotune_qmm_sweep`` for gpt3-1.3b's four int8
+    products at M = 512 (every plan of the built kernel in turns, CUDA
+    graph replays timed with CUDA events, the winner recorded with
+    provenance), each candidate's ms beside the default plan's and
+    ``torch._int_mm`` + rescale's (graph replays too, best of 5); the
+    winner's output bitwise equal to the default plan's on other inputs;
+    then a ``quantize='int8'`` engine (buckets 512 and 2048) on prompts
+    of 300-512 tokens reads the winners through ``get_qmm_tiles`` (every
+    M = 512 product), row 10 four launches a layer a prefill and decode
+    step."""
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.utils import tuning
+    qmm = importlib.import_module("paddle_tpu_torch.ops.quantized_matmul")
+    problems, winners = [], {}
+    m = QMM_SWEEP_M
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    for name, (n, k) in QMM_SWEEP.items():
+        t0 = time.perf_counter()
+        win = qmm.autotune_qmm_sweep(m, n, k)
+        sweep_s = time.perf_counter() - t0
+        rec = qmm.SWEEP_LOG[-1]
+        winners[(n, k)] = win
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        w = torch.randn(n, k, device="cuda", generator=gen)
+        qx, sx = qmm.quantize_channel(x, axis=1, dtype="int8")
+        qw_t, sw = qmm.quantize_channel(w, axis=1, dtype="int8")
+        qx, qw_t, sw = qx.contiguous(), qw_t.contiguous(), sw.reshape(1, n)
+        y_win = qmm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16, tiles=win)
+        y_def = qmm._qmm_cuda(qx, qw_t, sx, sw, torch.bfloat16, tiles={})
+        equal = torch.equal(y_win, y_def)
+        # the library timed as the sweep times the plans: graph replays
+        lib_ms = in_turns([lambda: ((torch._int_mm(qx, qw_t.t()).float() *
+                                     sx) * sw).to(torch.bfloat16)], 8,
+                          rounds=5)[0]
+        meta = tuning.provenance("qmm_tiles", (tuning.device_kind(), m, n, k,
+                                               "int8"))
+        base_ms = next(t for bn, sp, t in rec["ms"]
+                       if {"bn": bn, "splits": sp} == rec["default"])
+        log(f"[qmm-sweep] {smi}: {name} M={m} N={n} K={k}: candidates "
+            f"(bn, splits, ms) {[(bn, sp, round(t, 4)) for bn, sp, t in rec['ms']]}"
+            f"; default {rec['default']} {base_ms:.4f} ms, winner {win} "
+            f"({rec['improvement']:+.2%}); torch._int_mm + rescale "
+            f"{lib_ms:.4f} ms; winner == default bitwise {equal}; "
+            f"provenance {meta}; sweep {sweep_s:.2f} s")
+        if not equal:
+            problems.append(f"{name}: winner output differs")
+        if (meta or {}).get("source") != "sweep":
+            problems.append(f"{name}: provenance {meta}")
+        AUTOTUNE_SOURCES.add("sweep")
+    hits = []
+    real = qmm.get_qmm_tiles
+
+    def counted(mm, n, k, dtype="int8"):
+        got = real(mm, n, k, dtype)
+        hits.append((mm, n, k, got))
+        return got
+    qmm.get_qmm_tiles = counted
+    model.enable_quantize("int8")
+    try:
+        # prefills at the swept M exactly (the live phase may have tuned
+        # the default bucket list)
+        eng = InferenceEngine(model, batch_slots=8, device="cuda",
+                              prefill_buckets=[m, model.cfg.max_seq_len])
+        rng = np.random.RandomState(31)
+        prompts = random_prompts(rng, model.cfg.vocab_size,
+                                 [300, 400, 480, 512])
+        streams, launches, st, wall = run_engine("qmm-sweep", eng, prompts, 8)
+    finally:
+        qmm.get_qmm_tiles = real
+        model.enable_quantize(None)
+    layers = model.cfg.num_layers
+    at_m = [(n, k, got) for mm, n, k, got in hits if mm == m]
+    read_winner = sum(got == winners.get((n, k)) for n, k, got in at_m)
+    want = {"quantized_matmul": 4 * layers * (st["prefills"] +
+                                              st["decode_steps"]),
+            "decode_attention": layers * st["decode_steps"],
+            "flash_fwd": layers * st["prefills"]}
+    log(f"[qmm-sweep] int8 engine: {st['prefills']} prefills at bucket 512, "
+        f"{st['decode_steps']} decode steps, tokens/s "
+        f"{sum(len(x) for x in streams) / wall:.1f}; get_qmm_tiles calls "
+        f"{len(hits)}, at M={m} {len(at_m)}, of them the sweep's winner "
+        f"{read_winner}")
+    check_launches("qmm-sweep", launches, want, problems)
+    if not at_m or read_winner != len(at_m) or \
+            len(at_m) != 4 * layers * st["prefills"]:
+        problems.append(f"the engine read {read_winner} winners in "
+                        f"{len(at_m)} M={m} products")
+    if [len(x) for x in streams] != [8] * len(prompts):
+        problems.append(f"streams {[len(x) for x in streams]}")
+    del eng
+    del_all()
+    finish("qmm-sweep", problems)
+    return {"qmm-sweep": launches}
+
+
+def fault_trainer():
+    """The faults' trainer: gpt3-1.3b widths at 1 layer, f32 masters,
+    bf16 AMP, Adam, seed 4321; and its batches (2 x 512, seed 0)."""
+    from paddle_tpu_torch import optimizer as topt
+    cfg = full_cfg(1)
+    _, trainer = make_trainer(cfg, 4321, topt.Adam(learning_rate=1e-4))
+    rng = np.random.RandomState(0)
+    return trainer, [token_batch(rng, cfg.vocab_size, 2, 512)
+                     for _ in range(FAULT_STEPS)]
+
+
+def param_digest(trainer):
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in sorted(trainer.model.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def fault_child(kind, base):
+    """A child of the faults phase (``--fault-child kind base``):
+    ``sigterm`` trains under a ``PreemptionGuard`` and saves on the
+    signal; ``hang-truncate`` serves a 1-layer engine whose tick hangs
+    (the watchdog's stall bundle), then trains with manifest checkpoints
+    until the truncated commit exits 137."""
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.distributed.resilience import (CheckpointManager,
+                                                         PreemptionGuard)
+    t0 = time.perf_counter()
+    if kind == "sigterm":
+        trainer, batches = fault_trainer()
+        mgr = CheckpointManager(os.path.join(base, "sigterm"),
+                                async_save=False)
+        with PreemptionGuard() as guard:
+            for ids, labels in batches:
+                trainer.train_step(ids, labels)
+                if guard.preempted:
+                    mgr.save(trainer)
+                    print(f"FAULT-CHILD sigterm saved at step "
+                          f"{trainer._step_count} after "
+                          f"{time.perf_counter() - t0:.1f} s", flush=True)
+                    return
+        raise SystemExit("no SIGTERM arrived")
+    if kind == "hang-truncate":
+        from paddle_tpu_torch.core import random as prandom
+        from paddle_tpu_torch.inference import InferenceEngine
+        from paddle_tpu_torch.models import GPTForCausalLM
+        cfg = full_cfg(1)
+        model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                               generator=prandom.seed(7, "cuda")).eval()
+        eng = InferenceEngine(model, batch_slots=2, prefill_buckets=[64],
+                              device="cuda").warmup()
+        # the watchdog arms at the first tick: only the hang stalls it
+        eng.generate(np.arange(1, 33), max_new_tokens=6)
+        print(f"FAULT-CHILD hang served, {eng.watchdog.stalls} stall(s), "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        eng.watchdog.disarm()
+        del os.environ["PADDLE_TPU_WATCHDOG_S"]
+        del eng, model
+        trainer, batches = fault_trainer()
+        d = os.path.join(base, "truncate")
+        for step, (ids, labels) in enumerate(batches, 1):
+            trainer.train_step(ids, labels)
+            checkpoint.save_trainer(trainer, os.path.join(d, f"ckpt-{step}"),
+                                    manifest=True)
+            print(f"FAULT-CHILD committed ckpt-{step} at "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        raise SystemExit("no truncated commit")
+    raise SystemExit(f"unknown fault child {kind!r}")
+
+
+def fault_resume(base):
+    """The faults phase's checks in its own process: the run resumed from
+    the SIGTERM child's checkpoint against an uninterrupted one
+    (bitwise), and the walk past the truncated checkpoint."""
+    from paddle_tpu_torch.distributed import checkpoint
+    from paddle_tpu_torch.distributed.resilience import CheckpointManager
+    trainer, batches = fault_trainer()
+    for ids, labels in batches:
+        trainer.train_step(ids, labels)
+    want = param_digest(trainer)
+    del trainer
+    resumed, _ = fault_trainer()
+    CheckpointManager(os.path.join(base, "sigterm"),
+                      async_save=False).restore_latest(resumed)
+    start = resumed._step_count
+    for ids, labels in batches[start:]:
+        resumed.train_step(ids, labels)
+    got = param_digest(resumed)
+    del resumed
+    d = os.path.join(base, "truncate")
+    latest = checkpoint.latest_checkpoint(d)
+    valid = {os.path.basename(p): checkpoint.validate_checkpoint(p)
+             for _, p in checkpoint.checkpoint_candidates(d)}
+    walked, _ = fault_trainer()
+    CheckpointManager(d, async_save=False).restore_latest(walked)
+    out = {"resumed_from": start, "bitwise": got == want,
+           "latest": os.path.basename(latest or ""), "valid": valid,
+           "walked_to_step": walked._step_count}
+    del walked
+    del_all()
+    return out
+
+
+def phase_faults(smi):
+    """faults: two child processes, side by side, over a 1-layer trainer
+    at gpt3-1.3b widths (``fault_child``): ``PADDLE_FAULT_SIGTERM_STEP``
+    leads to a ``PreemptionGuard`` save, and the run resumed from it here
+    (``fault_resume``) ends bitwise equal to an uninterrupted one;
+    ``PADDLE_FAULT_CKPT_TRUNCATE=2`` makes the other child exit 137 with
+    ckpt-2 cut, and the resume walks back to ckpt-1;
+    ``PADDLE_FAULT_HANG`` in that child's engine tick loop under a 0.5 s
+    watchdog leaves a ``stall`` bundle."""
+    from paddle_tpu_torch.observability import flightrec
+    problems = []
+    base = os.path.join(TUNING["dir"], "faults")
+    frdir = os.path.join(base, "flightrec")
+    os.makedirs(frdir, exist_ok=True)
+    script = os.path.abspath(__file__)
+
+    def child(kind, **env):
+        e = dict(os.environ, PADDLE_TPU_FLIGHTREC_DIR=frdir, **env)
+        return subprocess.Popen([sys.executable, script, "--fault-child",
+                                 kind, base], env=e, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    procs = {"sigterm": child("sigterm",
+                              PADDLE_FAULT_SIGTERM_STEP=str(FAULT_SIGTERM_STEP)),
+             "hang-truncate": child("hang-truncate",
+                                    PADDLE_FAULT_HANG="3:2",
+                                    PADDLE_TPU_WATCHDOG_S="0.5",
+                                    PADDLE_FAULT_CKPT_TRUNCATE="2")}
+    outs = {}
+    for kind, p in procs.items():
+        out, _ = p.communicate(timeout=600)
+        outs[kind] = (p.returncode, out)
+        log(f"[faults] child {kind}: exit {p.returncode}; "
+            f"{[ln for ln in out.splitlines() if 'FAULT-CHILD' in ln]}")
+    if outs["sigterm"][0] != 0:
+        problems.append(f"sigterm child exit {outs['sigterm'][0]}: "
+                        f"{outs['sigterm'][1][-1500:]}")
+    if outs["hang-truncate"][0] != 137:
+        problems.append(f"hang-truncate child exit "
+                        f"{outs['hang-truncate'][0]} (want 137): "
+                        f"{outs['hang-truncate'][1][-1500:]}")
+    got = fault_resume(base)
+    bundles = flightrec.find_bundles(frdir)
+    stalls = [b for b in bundles if b.endswith("-stall") and
+              str((flightrec.load_bundle(b)["bundle"].get("stall") or {})
+                  .get("label", "")).startswith("decode")]
+    cut = [b for b in bundles if b.endswith("-ckpt_truncate")]
+    log(f"[faults] {smi}: resume {got}; bundles "
+        f"{[os.path.basename(b) for b in bundles]}")
+    if got["resumed_from"] != FAULT_SIGTERM_STEP or not got["bitwise"]:
+        problems.append(f"SIGTERM resume {got}")
+    if got["latest"] != "ckpt-1" or got["valid"] != {"ckpt-2": False,
+                                                     "ckpt-1": True} or \
+            got["walked_to_step"] != 1:
+        problems.append(f"truncated checkpoint walk {got}")
+    if not stalls or not cut:
+        problems.append(f"bundles: stall {stalls}, truncate {cut}")
+    else:
+        info = flightrec.load_bundle(stalls[0])["bundle"]
+        log(f"[faults] stall bundle reason {info.get('reason')}, stall "
+            f"{info.get('stall')}")
+    FAULT_BUNDLES.extend(stalls)
+    finish("faults", problems)
+
+
+FAULT_BUNDLES = []
+# the provenance sources this run committed to the tuning table
+AUTOTUNE_SOURCES = set()
+
+
+def phase_report(smi):
+    """report: ``python -m paddle_tpu_torch.observability.report`` over a
+    snapshot this run wrote (the registry with analyzed step kinds), the
+    stall bundle of faults, and the tuning table with ``--tuning``: each
+    exits 0 and prints the executables, doctor and tuning tables, the last
+    with provenance."""
+    import paddle_tpu_torch.observability as obs
+    from paddle_tpu_torch.observability import exec_registry
+    problems = []
+    exec_registry.analyze_all()
+    snap = os.path.join(TUNING["dir"], "snapshot.jsonl")
+    obs.write_snapshot(snap)
+    if not FAULT_BUNDLES:
+        raise SystemExit("report: faults left no stall bundle to render")
+    runs = {"snapshot": ["--snapshot", snap, "--tuning"],
+            "bundle": ["--bundle", FAULT_BUNDLES[0]]}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in sys.path if p]))
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.observability.report",
+         *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=here, env=env) for tag, args in runs.items()}
+    for tag, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        lines = out.splitlines()
+        # the rows of step kinds whose engine or trainer is gone (no
+        # cost to show) are counted, not echoed
+        shown = [ln for ln in lines
+                 if not ln.rstrip().endswith("!owner released")]
+        log(f"[report] {tag}: exit {proc.returncode}, {len(out)} chars, "
+            f"{len(lines) - len(shown)} rows of released owners not echoed")
+        for ln in shown:
+            log(f"[report] | {ln}")
+        want = ["executables on h100", "doctor"]
+        if tag == "snapshot":
+            # the table's rows with the provenance this run committed
+            want += ["tuning table (", *sorted(AUTOTUNE_SOURCES)]
+        missing = [w for w in want if w not in out]
+        if proc.returncode != 0 or missing:
+            problems.append(f"{tag}: exit {proc.returncode}, missing "
+                            f"{missing}: {err[-800:]}")
+    finish("report", problems)
+
+
+
+def autotune_phases():
+    """``python3 chip_smoke.py --autotune-phases``: phases 37-42 alone, in
+    about two minutes of command time.  It builds the six sources they
+    launch (rows 1-4, 6, 10), runs serve and train for the stashes
+    cost-model reads and one ``to_static`` Transformer-base step for its
+    capture, then cost-model, autotune-train, autotune-live, qmm-sweep,
+    faults and report under a temporary tuning table."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops import _build
+    TUNING["dir"] = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    os.environ["PADDLE_TPU_TUNING_CACHE"] = os.path.join(TUNING["dir"],
+                                                         "tuning.json")
+    try:
+        _, _, smi = phase_device()
+        t0 = time.perf_counter()
+        _build.build(["flash_fwd.cu", "flash_bwd_dq.cu", "flash_bwd_dkv.cu",
+                      "decode_attention.cu", "paged_decode_attention.cu",
+                      "quantized_matmul.cu"])
+        model = build_model()
+        timed_phase("serve", phase_serve, model)
+        del model
+        del_all()
+        timed_phase("train", phase_train)
+        del_all()
+        paddle.set_device("gpu")
+        paddle.seed(1234)
+        static_net = paddle.jit.to_static(tb_network())
+        src, tgt, lab = (torch.as_tensor(a).cuda()
+                         for a in tb_data(TB_B, 1234).tensors)
+        with paddle.amp.auto_cast(dtype="bfloat16"):
+            tb_loss()(static_net(src, tgt), lab)
+        COST["tb"] = tb_capture_cost(static_net, tb_loss(), src, tgt, lab)
+        del static_net
+        del_all()
+        paths = {}
+        timed_phase("cost-model", phase_cost_model, smi)
+        paths.update(timed_phase("autotune-train", phase_autotune_train, smi))
+        model = build_model()
+        paths.update(timed_phase("autotune-live", phase_autotune_live, model,
+                                 smi))
+        paths.update(timed_phase("qmm-sweep", phase_qmm_sweep, model, smi))
+        del model
+        del_all()
+        timed_phase("faults", phase_faults, smi)
+        timed_phase("report", phase_report, smi)
+        log(f"[autotune-phases] launches by path "
+            f"{ {p: {k: n for k, n in v.items() if n} for p, v in paths.items()} }"
+            f"; {time.perf_counter() - t0:.1f} s after the device check")
+    finally:
+        shutil.rmtree(TUNING["dir"], ignore_errors=True)
+
+
 def gpt_params(cfg):
     """Parameters of a GPT(-MoE) config: embeddings, blocks (an expert
     layer holds E FFNs and a router), final norm."""
@@ -10168,6 +11027,20 @@ def timed_phase(tag, fn, *args):
 
 
 def main():
+    # the tuning table of this run: a temporary file (every phase sees an
+    # empty table; no run leaves one for the next to boot from)
+    import shutil
+    import tempfile
+    TUNING["dir"] = tempfile.mkdtemp(prefix="chip_smoke_tuning_")
+    os.environ["PADDLE_TPU_TUNING_CACHE"] = os.path.join(TUNING["dir"],
+                                                         "tuning.json")
+    try:
+        run_phases()
+    finally:
+        shutil.rmtree(TUNING["dir"], ignore_errors=True)
+
+
+def run_phases():
     name, count, smi = phase_device()
     t0 = time.perf_counter()
     timed_phase("build", phase_build)
@@ -10267,6 +11140,18 @@ def main():
         del_all()
         paths.update(timed_phase(tag, phase, smi))
     _RN_DATA.clear()
+    # autotune: these phases write the tuning table, so they come last
+    del_all()
+    timed_phase("cost-model", phase_cost_model, smi)
+    paths.update(timed_phase("autotune-train", phase_autotune_train, smi))
+    model = build_model()
+    paths.update(timed_phase("autotune-live", phase_autotune_live, model,
+                             smi))
+    paths.update(timed_phase("qmm-sweep", phase_qmm_sweep, model, smi))
+    del model
+    del_all()
+    timed_phase("faults", phase_faults, smi)
+    timed_phase("report", phase_report, smi)
     # only the layer API's masked attention takes the composite: every
     # GPT path reads 0 composite calls
     composite = {p: n.get(COMPOSITE_KEY, 0) for p, n in paths.items()}
@@ -10308,5 +11193,9 @@ if __name__ == "__main__":
         beam_fault_check()
     elif sys.argv[1:] == ["--moe-hit-routing"]:
         moe_hit_routing()
+    elif sys.argv[1:] == ["--autotune-phases"]:
+        autotune_phases()
+    elif sys.argv[1:2] == ["--fault-child"] and len(sys.argv) == 4:
+        fault_child(sys.argv[2], sys.argv[3])
     else:
         main()

@@ -14,8 +14,10 @@ trainer_state_from_paddle_tpu`` checks the names), and each package's
 ``validate_checkpoint`` accepts the other's directories.
 
 Two on-disk formats:
-- the single file: the pickle written to ``path + ".tmp"``, fsync'd and
-  renamed into place;
+- the single file, written through ``framework.fs.open_for_write`` (a
+  local path: the pickle to ``path + ".tmp"``, fsync'd and renamed into
+  place; ``hdfs://`` / ``afs://``: staged locally and put) and read
+  through ``open_for_read``;
 - the manifest directory: the pickle as ``state.pdtrainer`` and
   ``MANIFEST.json`` (sha256 and size per entry) written LAST inside a
   ``<name>.tmp`` staging directory that is renamed into place, so a
@@ -25,6 +27,12 @@ Two on-disk formats:
 The JAX package's version-2 states also record the mesh and each leaf's
 sharding; on one device that record is read and ignored, and the port
 writes version 1 (no record).
+
+``PADDLE_FAULT_CKPT_TRUNCATE=n`` (``testing.faults``) makes the nth
+manifest commit of a process write half its payload under a manifest of
+the whole, rename it into its final name, leave a flight-recorder bundle
+and exit 137; ``latest_checkpoint`` and ``CheckpointManager.
+restore_latest`` walk past it to the newest checkpoint that validates.
 
 Telemetry: ``save_trainer`` counts ``checkpoint_saves_total`` (label
 ``format``) and sets ``checkpoint_save_ms``, ``load_trainer`` counts
@@ -44,9 +52,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..framework.fs import open_for_read, open_for_write
 from ..observability import flightrec as _flightrec
 from ..observability import metrics as _metrics
 from ..optimizer.lr import LRScheduler
+from ..testing import faults as _faults
 
 __all__ = ["save_trainer", "load_trainer", "latest_checkpoint",
            "snapshot_trainer", "restore_trainer", "write_checkpoint",
@@ -239,8 +249,13 @@ def write_checkpoint(state: dict, path: str) -> str:
     _rm(tmp)
     os.makedirs(tmp)
     payload = pickle.dumps(state, protocol=4)
+    # fault point: a commit killed mid-write, whose cut payload sits at
+    # the final path under a manifest of the whole
+    truncate_and_die = _faults.ckpt_truncate_commit()
+    body = payload[:max(1, len(payload) // 2)] if truncate_and_die \
+        else payload
     with open(os.path.join(tmp, _STATE_ENTRY), "wb") as f:
-        f.write(payload)
+        f.write(body)
         fsync_file(f)
     manifest = {
         "format": _MANIFEST_FORMAT,
@@ -254,6 +269,11 @@ def write_checkpoint(state: dict, path: str) -> str:
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
         json.dump(manifest, f)
         fsync_file(f)
+    if truncate_and_die:
+        _rm(path)
+        os.rename(tmp, path)
+        _faults.flightrec_dump("ckpt_truncate")
+        os._exit(137)
     if os.path.exists(path):
         # a re-save of the same step: the old one is renamed aside first,
         # so no checkpoint is missing for longer than two renames
@@ -322,26 +342,15 @@ def read_checkpoint(path: str) -> dict:
             raise ValueError(
                 f"checkpoint {path} failed manifest/checksum validation "
                 f"(truncated or corrupt)")
-        path = os.path.join(path, _STATE_ENTRY)
-    with open(path, "rb") as f:
+        with open(os.path.join(path, _STATE_ENTRY), "rb") as f:
+            return pickle.load(f)
+    with open_for_read(path, "rb") as f:
         return pickle.load(f)
 
 
 def _write_file(state: dict, path: str):
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    tmp = path + ".tmp"
-    try:
-        with open(tmp, "wb") as f:
-            pickle.dump(state, f, protocol=4)
-            fsync_file(f)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise
-    os.replace(tmp, path)
-    _fsync_dir(d)
+    with open_for_write(path, "wb") as f:
+        pickle.dump(state, f, protocol=4)
 
 
 # ---------------------------------------------------------------------------

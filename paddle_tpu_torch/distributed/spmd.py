@@ -32,13 +32,14 @@ The JAX trainer's step variants, each a few device ops here:
   moves on the device;
 - **anomaly_policy='skip'**: the same select on a non-finite loss or
   gradient, with an on-device ``skipped`` counter;
-- **anomaly_policy='rollback'**: before each step a copy of the
+- **anomaly_policy='rollback'**: before the first step, and then every
+  ``PADDLE_TPU_ROLLBACK_EVERY`` (default 1) good steps, a copy of the
   parameters and optimizer state goes to one pinned host buffer; a
   non-finite step restores it and rewinds the step count and the
   device's default generator (dropout bits, a host-side state), so the
-  steps after a rollback draw what a run without the bad batch draws.  The flags are
-  read every step, so the state a step starts from is always good.  One
-  host read per step;
+  steps after a rollback draw what a run without the bad batch draws.
+  The flags are read every step, so a snapshot is always of a good
+  state.  One host read per step;
 - **FLAGS_check_nan_inf** (read when the trainer is built): one finite
   flag per checked tensor, read once per step, raising with the bad
   tensors' names.  Under fp16 only a non-finite unscaled loss raises
@@ -60,14 +61,27 @@ params, optimizer-state, buffer and gradient-merge lines;
 
 Every enabled strategy flag is either supported or raises, as in the
 JAX trainer.  Supported here: ``amp``, ``recompute`` (every policy of
-``distributed.recompute``; policy ``None`` is full recompute, as the JAX
-trainer's when its tuning table holds nothing), ``qat`` (the model's
-``enable_quantize(qat_configs['quantize'])``) and ``gradient_merge``.
-Multi-device flags raise with a pointer to ROADMAP.md.
+``distributed.recompute``; with no ``recompute_configs['policy']`` the
+tuning table's measured policy for this device and model shape,
+``tuned_remat_policy``, else full recompute, as in the JAX trainer),
+``qat`` (the model's ``enable_quantize(qat_configs['quantize'])``) and
+``gradient_merge``.  Multi-device flags raise with a pointer to
+ROADMAP.md.
+
+Knobs read when the trainer is built, as the JAX trainer reads them:
+``PADDLE_TPU_ANOMALY_POLICY`` (the policy when the argument is None)
+and ``PADDLE_TPU_ROLLBACK_EVERY`` (rollback's snapshot every n good
+steps, default 1; the first step always has one).  After every step the
+fault points ``PADDLE_FAULT_SIGTERM_STEP`` and ``PADDLE_FAULT_HANG``
+(``testing.faults``) run, and ``PADDLE_TPU_AUTOTUNE=live`` arms an
+advisory ``autotune.live.TrainerRetuner`` fed each step's wall time.
+``_exec_cost`` gives the registry the analytic cost of a step
+(``observability.cost_model``) at the last batch's shape.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Callable, Dict, List, Optional
 
@@ -86,11 +100,13 @@ from ..observability import watchdog as _watchdog
 from ..observability.capture import ProfileWindow
 from ..profiler import StepTimer
 from ..testing import faults
+from ..utils import compile_counter as _compile_counter
+from ..utils import tuning as _tuning
 from .async_dispatch import StepResult, record_host_sync
 from .fleet.strategy import DistributedStrategy
 from .moe import collect_aux_losses
 
-__all__ = ["SpmdTrainer"]
+__all__ = ["SpmdTrainer", "remat_policy_key", "tuned_remat_policy"]
 
 # flags that need no work on one device (no collectives to fuse or
 # reduce, no unused-parameter bookkeeping under autograd)
@@ -99,6 +115,36 @@ _MOOT = {"find_unused_parameters", "fuse_all_reduce_ops",
 _SUPPORTED = {"amp", "recompute", "qat", "gradient_merge"}
 # one telemetry label per trainer
 _TRAINER_IDS = itertools.count()
+
+
+def remat_policy_key(cfg):
+    """Tuning-table key of the measured remat policy: the device kind
+    and the model dims that move the trade-off, ``(device_kind, hidden,
+    layers, max_seq_len)``; None for a model without such a config."""
+    h = getattr(cfg, "hidden_size", None)
+    if not h:
+        return None
+    return (_tuning.device_kind(), int(h),
+            int(getattr(cfg, "num_layers", 0) or 0),
+            int(getattr(cfg, "max_seq_len", 0) or 0))
+
+
+def tuned_remat_policy(model):
+    """The tuning table's measured remat policy (op ``remat_policy``:
+    'dots_no_batch' / 'dots' / 'full' / ...) for this device and model
+    shape: the exact key, else the nearest tabled shape within a bounded
+    distance (each dim within about 2x overall: a policy measured on a
+    small model must not drive a much larger one).  'off' / 'none'
+    entries (the winner ran without recompute) and an empty table give
+    None."""
+    key = remat_policy_key(getattr(model, "cfg", None))
+    if key is None:
+        return None
+    val = _tuning.lookup_nearest("remat_policy", key, match_idx=(0,),
+                                 near_idx=(1, 2, 3), max_dist=2.1)
+    if not isinstance(val, str) or val.lower() in ("off", "none", ""):
+        return None
+    return val
 
 
 def _detached(outs):
@@ -170,7 +216,9 @@ class SpmdTrainer:
                 "not supported; use bf16 AMP or k_steps == 1")
 
         self._check_nan_inf = bool(GLOBAL_FLAGS.get("check_nan_inf"))
-        self.anomaly_policy = anomaly_policy or "raise"
+        self.anomaly_policy = (anomaly_policy or
+                               os.environ.get("PADDLE_TPU_ANOMALY_POLICY")
+                               or "raise")
         if self.anomaly_policy not in ("raise", "skip", "rollback"):
             raise ValueError(f"anomaly_policy must be raise|skip|rollback, "
                              f"got {self.anomaly_policy!r}")
@@ -188,7 +236,10 @@ class SpmdTrainer:
                            not self.fp16_scaling)
         self._anom_rollback = self.anomaly_policy == "rollback"
         self._rollback_count = 0
-        # rollback's host copy of the state the step in flight started from
+        self._rollback_every = int(os.environ.get(
+            "PADDLE_TPU_ROLLBACK_EVERY", "1"))
+        # rollback's host copy of the state to go back to: taken before
+        # the first step and then every _rollback_every good steps
         self._snapshot = None
         self._fault_nan_step = faults.nan_poison_step()
         # train_step(return_outputs=True) keeps the forward's outputs
@@ -205,7 +256,7 @@ class SpmdTrainer:
                     "strategy.recompute=True but the model has no "
                     "enable_recompute()")
             model.enable_recompute(st.recompute_configs.get("policy")
-                                   or "full")
+                                   or tuned_remat_policy(model) or "full")
 
         # quantization-aware training: every block linear runs the int8
         # or e4m3 fake-quant matmul (qat_configs['quantize']; quantized
@@ -257,6 +308,10 @@ class SpmdTrainer:
             self._grad_buf = {n: torch.zeros_like(p)
                               for n, p in self._params.items()}
         self._init_telemetry()
+        # PADDLE_TPU_AUTOTUNE=live: advice on a sustained regression
+        from ..autotune.live import arm_trainer
+        self._retuner = arm_trainer(self)
+        self._batch_shape = None
 
     def _init_telemetry(self):
         """The step timer, registry children bound once, the capture
@@ -512,6 +567,7 @@ class SpmdTrainer:
             else (labels,)
         batch = self.shard_batch(inputs + labels)
         inputs, labels = batch[:len(inputs)], batch[len(inputs):]
+        self._batch_shape = tuple(inputs[0].shape)
         t0 = time.perf_counter()
         self._keep_outputs = return_outputs
         if self.k_steps == 1:
@@ -541,6 +597,8 @@ class SpmdTrainer:
             self._raise_nonfinite(
                 self._read(flags),
                 ["loss"] if self.fp16_scaling else self._nanguard_names())
+        faults.maybe_sigterm(self._step_count)
+        faults.maybe_hang(self._step_count)
         self._telemetry_step_end()
         result = StepResult(loss, timings=self._timings)
         if return_outputs:
@@ -570,12 +628,29 @@ class SpmdTrainer:
             self._m_step_ms.set(last)
             self._m_step_hist.observe(last)
         _flightrec.record("train_step", dur_ms=last, step=self._step_count)
+        if self._retuner is not None:
+            self._retuner.on_step(last)
+
+    def _exec_cost(self, key, kind: str):
+        """The analytic cost of one step at the last batch's shape (the
+        registry's ``analyze``); None for a model without a GPT config
+        or before a step."""
+        cfg = getattr(self.model, "cfg", None)
+        if kind != "train_step" or self._batch_shape is None or \
+                len(self._batch_shape) != 2 or \
+                not hasattr(cfg, "ffn_hidden_size"):
+            return None
+        from ..observability.cost_model import gpt_step_cost
+        b, s = self._batch_shape
+        return gpt_step_cost(cfg, "train_step", batch=b, seq=s)
 
     def _fused_step(self, inputs, labels):
         """forward + backward + update (k_steps == 1); returns the loss
         and the flags the host reads (None when it reads none)."""
         step_no = self._step_count + 1
-        if self._anom_rollback:
+        if self._anom_rollback and (
+                self._snapshot is None or
+                self._step_count % self._rollback_every == 0):
             self._take_snapshot()
         lr = self.optimizer.get_lr()
         flags = None
@@ -789,6 +864,7 @@ class SpmdTrainer:
             raise RuntimeError(
                 f"export_train_step: capturing the traced step with "
                 f"torch.export failed ({type(e).__name__}: {e})") from e
+        _compile_counter.note("capture", what="export_train_step")
         program.example_inputs = None
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path + ".pdtrain", "wb") as f:

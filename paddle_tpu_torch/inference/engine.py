@@ -100,8 +100,21 @@ radix cache off), ``PADDLE_TPU_PREFILL_BUCKETS`` (a comma list, through
 serves on one device: ``PADDLE_TPU_SERVE_TP`` or ``PADDLE_TPU_SERVE_EP``
 above 1 raises (tensor- and expert-parallel serving wait for the port's
 meshes).  ``PADDLE_TPU_INFER_DONATE`` (XLA buffer donation) has no
-counterpart in eager PyTorch and is not read.  Not ported: the JAX
-package's tuned bucket table and autotune hooks.
+counterpart in eager PyTorch and is not read.
+
+Autotune: with no ``prefill_buckets`` and no
+``PADDLE_TPU_PREFILL_BUCKETS``, the bucket list is the tuning table's
+(``utils.tuning``, op ``prefill_buckets``, key ``(device_kind,
+max_seq_len)``) before the powers-of-two default, so a list tuned for a
+traffic mix outlives the process.  ``PADDLE_TPU_AUTOTUNE=live`` arms an
+``autotune.live.LiveRetuner`` at construction (``_retuner``; None
+otherwise), whose ``notify_slo`` an ``SLOMonitor`` listener feeds and
+whose tick hook, at the top of ``step()``, runs a scheduled episode on a
+quiesced engine only.  ``_exec_cost(key, kind)`` gives the registry the
+analytic cost of each step kind (``observability.cost_model``) from
+this run's buckets, live slots and context lengths.  The fault point
+``PADDLE_FAULT_HANG`` (``testing.faults.maybe_hang``) sits after each
+decode and spec tick.
 
 Threads: every engine entry point runs its model calls under the
 model's own ``torch.no_grad`` methods (grad mode is per thread), and
@@ -133,7 +146,10 @@ from ..observability import metrics as _metrics
 from ..observability import spans as _spans
 from ..observability import watchdog as _watchdog
 from ..observability.capture import ProfileWindow
+from ..observability.cost_model import gpt_step_cost
 from ..ops.quantized_matmul import resolve_kv_quant
+from ..testing import faults as _faults
+from ..utils import tuning as _tuning
 from .paged_kv import (BlockAllocator, blocks_for, blocks_to_extend,
                        init_paged_cache)
 from .prefix_cache import RadixPrefixCache
@@ -145,17 +161,28 @@ __all__ = ["InferenceEngine", "Request", "default_prefill_buckets"]
 def default_prefill_buckets(max_seq_len: int, lo: int = 16) -> List[int]:
     """Powers of two from ``lo`` below ``max_seq_len``, then
     ``max_seq_len`` itself; ``PADDLE_TPU_PREFILL_BUCKETS="64,256,1024"``
-    replaces them (entries above ``max_seq_len`` dropped)."""
+    replaces them, and between the two sits the tuning table (op
+    ``prefill_buckets``, key ``(device_kind, max_seq_len)``).  Entries
+    above ``max_seq_len`` are dropped."""
     env = os.environ.get("PADDLE_TPU_PREFILL_BUCKETS", "").strip()
     if env:
         bks = sorted({int(x) for x in env.split(",") if x.strip()})
     else:
-        bks = []
-        b = lo
-        while b < max_seq_len:
-            bks.append(b)
-            b *= 2
-        bks.append(max_seq_len)
+        bks = None
+        try:
+            tuned = _tuning.lookup("prefill_buckets",
+                                   (_tuning.device_kind(), max_seq_len))
+            if tuned:
+                bks = sorted({int(x) for x in tuned})
+        except (ValueError, TypeError):
+            pass
+        if not bks:
+            bks = []
+            b = lo
+            while b < max_seq_len:
+                bks.append(b)
+                b *= 2
+            bks.append(max_seq_len)
     return [b for b in bks if b <= max_seq_len] or [max_seq_len]
 
 
@@ -359,7 +386,14 @@ class InferenceEngine:
                                  "itself is a valid one)")
             self._spec = SpecDecoder(self, draft_model, sk)
         self.spec_k = self._spec.k if self._spec else 0
+        # live slots and their context tokens summed over decode steps
+        # and spec ticks: the cost model's mean batch and length
+        self._decode_rows_sum = 0
+        self._decode_ctx_sum = 0
         self._init_telemetry()
+        # PADDLE_TPU_AUTOTUNE=live: the SLO-triggered bucket retuner
+        from ..autotune.live import arm_engine
+        self._retuner = arm_engine(self)
 
     def _init_telemetry(self):
         """Registry children bound once (a tick costs attribute
@@ -448,6 +482,33 @@ class InferenceEngine:
             return None
         # one read (a copy on the CPU too)
         return np.asarray(self._moe_load_d.tolist(), np.float64)
+
+    def _exec_cost(self, key, kind: str) -> Optional[dict]:
+        """The analytic cost of one step of ``kind`` (the registry's
+        ``analyze``): a prefill at its bucket (a chunk tick at its slots
+        x chunk), decode and spec ticks at this run's mean live slots and
+        context, the sampler over every slot."""
+        cfg = self.model.cfg
+        steps = self._decode_rows_sum and self._timings["decode_steps"]
+        rows = self._decode_rows_sum / steps if steps else self.batch_slots
+        ctx = self._decode_ctx_sum / self._decode_rows_sum \
+            if self._decode_rows_sum else 0.0
+        quant = self.kv_dtype is not None
+        kw = dict(weight_itemsize=next(self.model.parameters()).element_size(),
+                  kv_itemsize=1 if quant else 2, kv_scales=quant)
+        if kind == "prefill":
+            tokens = int(key[1])
+            if str(key[0]).startswith("prefill_chunk"):
+                tokens *= self.batch_slots
+            return gpt_step_cost(cfg, "prefill", seq=tokens, **kw)
+        if kind in ("decode", "megakernel_decode"):
+            return gpt_step_cost(cfg, kind, batch=rows, context=ctx, **kw)
+        if kind == "spec_verify":
+            return gpt_step_cost(cfg, kind, batch=rows, context=ctx,
+                                 window=self.spec_k + 1, **kw)
+        if kind == "sample":
+            return gpt_step_cost(cfg, kind, batch=self.batch_slots)
+        return None
 
     def _exec(self, key, kind: str, dt_ms: float):
         """The step kind's registry entry (its first call's time includes
@@ -1220,6 +1281,9 @@ class InferenceEngine:
         decode one token (or run one spec tick) for every live slot.
         Returns the tokens produced this step (first tokens included)."""
         self._watchdog_beat()
+        if self._retuner is not None:
+            # a pending retune episode runs only on a quiesced engine
+            self._retuner.on_tick()
         if self._profile is not None:
             # PADDLE_TPU_PROFILE=start:stop over decode ticks
             self._profile.on_step(self._timings["decode_steps"])
@@ -1315,6 +1379,10 @@ class InferenceEngine:
     def _note_decode_step(self, t0: float, chunked_now: bool, key,
                           kind: str):
         ms = (time.perf_counter() - t0) * 1e3
+        for slot, req in enumerate(self._slots):
+            if req is not None and not req.prefilling:
+                self._decode_rows_sum += 1
+                self._decode_ctx_sum += int(self._slot_len[slot])
         self._timings["decode_host_syncs"] += 1
         record_host_sync()
         self._timings["decode_steps"] += 1
@@ -1335,6 +1403,7 @@ class InferenceEngine:
         _flightrec.record(kind, dur_ms=(now - t0) * 1e3,
                           tick=self._timings["decode_steps"], tokens=tokens,
                           **args)
+        _faults.maybe_hang(self._timings["decode_steps"])
 
     def _step_spec(self, chunked_now: bool) -> int:
         """One speculative tick for every live slot; commits each slot's

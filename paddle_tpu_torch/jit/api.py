@@ -40,6 +40,7 @@ from torch.utils import _pytree as pytree
 
 from ..device import current_device, resolve_device
 from ..func import functional_call, functional_state
+from ..utils import compile_counter
 
 __all__ = ["to_static", "not_to_static", "StaticFunction", "save", "load",
            "TranslatedLayer", "in_tracing", "enable_to_static"]
@@ -125,6 +126,8 @@ class StaticFunction:
             self._fn == self._layer.forward
         self._input_spec = input_spec
         self._cache: Dict[Any, Any] = {}
+        # the ExportedProgram of each key (profiler.cost_stats walks them)
+        self.exported: Dict[Any, Any] = {}
         self.captures = 0
         functools.update_wrapper(self, self._fn)
 
@@ -142,7 +145,9 @@ class StaticFunction:
                          None if whole else self._fn, training)
             ep = _capture(pure, (params, buffers, *args), kwargs)
             program = self._cache[key] = ep.module()
+            self.exported[key] = ep
             self.captures += 1
+            compile_counter.note("capture", what="to_static")
         out, new_buffers = program(params, buffers, *args, **kwargs)
         if new_buffers:
             with torch.no_grad():

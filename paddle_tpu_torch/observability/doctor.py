@@ -18,8 +18,10 @@ the step it costs" scale, and the output is JSON-safe, so it rides
 ``trainer.stats['doctor']``, ``engine.stats()['doctor']`` and the load
 report.  The rule table, thresholds, knob texts and actions are the JAX
 package's: the same stats dict gives the same verdicts in both
-packages.  The roofline rules read ``stats['exec_profile']``, which the
-port leaves None (``exec_registry``), so they take their threshold
+packages.  The roofline rules read ``stats['exec_profile']``: the
+registry's digest once its entries are analyzed
+(``exec_registry.analyze_all``, the analytic costs of
+``cost_model``), else None, and then the rules take their threshold
 fallbacks.
 
 The doctor reports; it enforces nothing.

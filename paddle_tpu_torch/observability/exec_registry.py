@@ -23,13 +23,26 @@
   to its owner so a dead engine drops out, against the capacity that
   ``torch.cuda.get_device_properties(dev).total_memory`` reports.
 
-Not ported: XLA's ``cost_analysis`` and ``memory_analysis`` have no
-counterpart for eager PyTorch, so an entry's ``flops`` and
-``bytes_accessed`` are None, nothing is ever ``analyzed``,
-``profile()`` returns None, and the doctor takes its threshold rules
-(the path the JAX package takes before its analyses run).  An analytic
-cost per step kind (the bound formulas ``chip_smoke.py`` uses) is left
-for later.
+Analysis: ``analyze(entry)`` (``analyze_all``, ``snapshot(analyze=
+True)``) folds in the entry's cost and memory.  Where the JAX package
+re-lowers the executable for XLA's ``cost_analysis`` and
+``memory_analysis``, the port asks the entry's owner (an engine or a
+trainer, held by weakref) for the analytic cost of that step kind from
+its model config and this run's shapes (``cost_model.gpt_step_cost``:
+model flops, per-op bytes, argument / output / temp bytes): the
+kernels of rows 4-11 are ``ctypes`` launches that no tracer can see, so
+nothing is traced.  An entry whose owner is gone, or whose owner has no
+cost for its kind, stays timing-only and counts
+``exec_analysis_failures_total{stage}``.  An analyzed entry's snapshot
+row carries its roofline position (achieved FLOP/s and bytes/s, MFU,
+arithmetic intensity against the ridge, compute- or bandwidth-bound,
+fraction of its roof, its share of the gap to the 45% target), and
+``profile(component)`` builds the per-kind digest the doctor's roofline
+rules read (None until something is analyzed: reading stats never
+analyzes).  The step time behind a row is the owner's host time per
+call: a trainer's step ends when its host work does, and with no read
+back in the loop the host waits on the card's queue, so a steady step's
+host time is its device time.
 
 Knobs: ``PADDLE_TPU_EXEC_REGISTRY=0`` disables registration;
 ``PADDLE_TPU_PEAK_FLOPS``, ``PADDLE_TPU_PEAK_HBM_GBPS`` and
@@ -44,14 +57,15 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from ..utils import compile_counter as _compile_counter
 from . import metrics as _metrics
 
 __all__ = [
     "ExecEntry", "ExecRegistry", "HBMLedger", "registry", "ledger",
-    "register", "note_runtime", "profile",
-    "snapshot", "track_bytes", "tree_bytes", "enabled", "device_kind",
-    "peak_flops", "peak_hbm_bytes_per_s", "device_hbm_capacity",
-    "MFU_TARGET", "OOM_HEADROOM_MIN",
+    "register", "note_runtime", "analyze", "analyze_all", "profile",
+    "profile_from_snapshot", "snapshot", "track_bytes", "tree_bytes",
+    "enabled", "device_kind", "peak_flops", "peak_hbm_bytes_per_s",
+    "device_hbm_capacity", "MFU_TARGET", "OOM_HEADROOM_MIN",
 ]
 
 MFU_TARGET = 0.45
@@ -78,10 +92,12 @@ def _has_card() -> bool:
 
 
 def device_kind() -> str:
-    """The card's name, lower case ("" without a card)."""
+    """The card's short kind ("h100"; ``utils.tuning.device_kind``, one
+    copy for the tuning table and the peak tables), "" without a card."""
     if not _has_card():
         return ""
-    return torch.cuda.get_device_name().lower()
+    from ..utils.tuning import device_kind as _kind
+    return _kind()
 
 
 def _kind_lookup(table: Dict[str, float], kind: Optional[str]
@@ -151,6 +167,8 @@ class ExecEntry:
         self.compile_ms: Optional[float] = None
         self.calls = 0
         self.runtime_ms = 0.0
+        self.analysis: Optional[dict] = None
+        self.analysis_error: Optional[str] = None
         self._owner = weakref.ref(owner) if owner is not None else None
 
     @property
@@ -170,6 +188,10 @@ class ExecRegistry:
         self._m_registered = _metrics.counter(
             "exec_registered_total", "executables joined the registry",
             labels=("kind",))
+        self._m_failures = _metrics.counter(
+            "exec_analysis_failures_total",
+            "executable cost/memory analyses that degraded to "
+            "timing-only", labels=("stage",))
 
     def register(self, component: str, key, kind: str,
                  meta: Optional[dict] = None, name: Optional[str] = None,
@@ -220,6 +242,45 @@ class ExecRegistry:
         elif self.register(component, key, kind, meta=meta,
                            owner=owner) is not None:
             self.note_compile(component, key, dt_ms)
+            _compile_counter.note("step_kind", component=component,
+                                  step=kind)
+
+    # ---- analysis (explicit, off the hot path) ------------------------
+    def analyze(self, e: ExecEntry) -> bool:
+        """Fold in the entry's analytic cost from its owner's
+        ``_exec_cost(key, kind)``; an owner gone or without a cost for
+        the kind leaves the entry timing-only (counted), never raises."""
+        if e.analysis is not None:
+            return True
+        owner = e._owner() if e._owner is not None else None
+        if owner is None:
+            self._m_failures.labels(stage="owner_released").inc()
+            e.analysis_error = e.analysis_error or "owner released"
+            return False
+        try:
+            cost = owner._exec_cost(e.key, e.kind)
+        except Exception as exc:
+            self._m_failures.labels(stage="cost_model").inc()
+            e.analysis_error = (f"cost_model: {type(exc).__name__}: "
+                                f"{str(exc)[:200]}")
+            return False
+        if not cost:
+            self._m_failures.labels(stage="cost_model").inc()
+            e.analysis_error = f"cost_model: no model for {e.kind!r}"
+            return False
+        e.analysis = {
+            "cost": {"flops": cost["flops"],
+                     "bytes_accessed": cost["bytes_accessed"]},
+            "memory": {k: cost[k] for k in
+                       ("argument_bytes", "output_bytes", "temp_bytes",
+                        "alias_bytes", "peak_bytes") if k in cost}}
+        e.analysis_error = None
+        return True
+
+    def analyze_all(self, component: Optional[str] = None) -> int:
+        """Analyze every (matching) entry; returns how many have an
+        analysis afterwards."""
+        return sum(self.analyze(e) for e in self.entries(component))
 
     def entries(self, component: Optional[str] = None) -> List[ExecEntry]:
         with self._lock:
@@ -229,7 +290,8 @@ class ExecRegistry:
         return es
 
     @staticmethod
-    def _entry_snapshot(e: ExecEntry, nominal: bool) -> dict:
+    def _entry_snapshot(e: ExecEntry, pf: float, pb: float,
+                        nominal: bool) -> dict:
         mean_ms = (e.runtime_ms / e.calls) if e.calls else None
         d = {
             "component": e.component, "name": e.name, "kind": e.kind,
@@ -238,28 +300,71 @@ class ExecRegistry:
             "mean_ms": round(mean_ms, 4) if mean_ms is not None else None,
             "compile_ms": round(e.compile_ms, 2)
             if e.compile_ms is not None else None,
-            "analyzed": False,
+            "analyzed": e.analysis is not None,
             "flops": None, "bytes_accessed": None,
             "peaks_nominal": nominal,
         }
         if e.meta:
             d["meta"] = dict(e.meta)
+        if e.analysis_error:
+            d["analysis_error"] = e.analysis_error
+        if e.analysis is None:
+            return d
+        cost, mem = e.analysis["cost"], e.analysis["memory"]
+        d["flops"] = cost.get("flops")
+        d["bytes_accessed"] = cost.get("bytes_accessed")
+        d.update({k: int(v) for k, v in mem.items()})
+        flops = d["flops"] or 0.0
+        nbytes = d["bytes_accessed"] or 0.0
+        if mean_ms and mean_ms > 0:
+            sec = mean_ms / 1e3
+            if flops:
+                d["achieved_flops_per_s"] = round(flops / sec, 1)
+                d["mfu"] = round(flops / sec / pf, 6)
+            if nbytes:
+                d["achieved_hbm_gbps"] = round(nbytes / sec / 1e9, 3)
+                d["hbm_bw_frac"] = round(nbytes / sec / pb, 6)
+        if flops and nbytes:
+            ai = flops / nbytes
+            ridge = pf / pb
+            d["arithmetic_intensity"] = round(ai, 3)
+            d["ridge_ai"] = round(ridge, 3)
+            d["bound"] = "compute" if ai >= ridge else "bandwidth"
+            if mean_ms and mean_ms > 0:
+                # the roof this step kind can reach at its intensity
+                d["roof_frac"] = round(
+                    flops / (mean_ms / 1e3) / min(pf, ai * pb), 6)
         return d
 
-    def snapshot(self, component: Optional[str] = None) -> dict:
+    def snapshot(self, component: Optional[str] = None,
+                 analyze: bool = False) -> dict:
         """JSON-safe snapshot: per-entry records sorted by runtime, each
-        with its share of the total, and the device's peaks."""
+        with its share of the total and, once analyzed, its roofline
+        position and its share of the gap to the MFU target; the
+        device's peaks.  ``analyze=True`` analyzes the entries first."""
+        if analyze:
+            self.analyze_all(component)
         kind = device_kind()
         pf, f_nom = peak_flops(kind)
         pb, b_nom = peak_hbm_bytes_per_s(kind)
         nominal = f_nom or b_nom
-        rows = [self._entry_snapshot(e, nominal)
+        rows = [self._entry_snapshot(e, pf, pb, nominal)
                 for e in self.entries(component)]
         rows.sort(key=lambda r: -(r["runtime_ms"] or 0.0))
         total_rt = sum(r["runtime_ms"] for r in rows) or 0.0
+        total_flops = 0.0
         for r in rows:
             if total_rt > 0:
                 r["time_share"] = round(r["runtime_ms"] / total_rt, 4)
+                mfu = r.get("mfu")
+                if mfu is not None:
+                    r["mfu_weighted"] = round(r["time_share"] * mfu, 6)
+                    r["gap_share"] = round(
+                        r["time_share"] *
+                        max(MFU_TARGET - mfu, 0.0) / MFU_TARGET, 4)
+                    total_flops += (r.get("flops") or 0.0) * r["calls"]
+        overall_mfu = (total_flops / (total_rt / 1e3) / pf) \
+            if total_rt > 0 and total_flops else None
         out = {
             "device_kind": kind or "host",
             "peak_flops": pf,
@@ -267,8 +372,11 @@ class ExecRegistry:
             "peaks_nominal": nominal,
             "mfu_target": MFU_TARGET,
             "executables": rows,
-            "overall": {"runtime_ms": round(total_rt, 3), "analyzed": 0,
-                        "registered": len(rows), "mfu": None},
+            "overall": {"runtime_ms": round(total_rt, 3),
+                        "analyzed": sum(1 for r in rows if r["analyzed"]),
+                        "registered": len(rows),
+                        "mfu": round(overall_mfu, 6)
+                        if overall_mfu is not None else None},
         }
         self._export_gauges(rows)
         return out
@@ -287,9 +395,35 @@ class ExecRegistry:
             g_calls.labels(**lbl).set(r["calls"])
 
     def profile(self, component: str) -> Optional[dict]:
-        """The per-kind roofline digest the doctor reads, built from
-        analyzed entries: the port analyses none, so it is None."""
+        """Per-kind roofline digest of one component (what
+        ``stats()['exec_profile']`` carries): dict math over entries
+        already analyzed, None when none is; never analyzes."""
+        if not any(e.analysis is not None
+                   for e in self.entries(component)):
+            return None
+        return profile_from_snapshot(self.snapshot(component))
+
+
+def profile_from_snapshot(snap: dict) -> Optional[dict]:
+    """The per-kind ``exec_profile`` digest the doctor's rules read, from
+    a registry snapshot, live or reloaded by the report: the analyzed row
+    of most runtime for each kind, with ``_overall`` and ``_peaks``."""
+    prof: Dict[str, dict] = {}
+    for r in snap.get("executables") or []:
+        if not r.get("analyzed") or r.get("kind") is None:
+            continue
+        cur = prof.get(r["kind"])
+        if cur is None or (r.get("runtime_ms") or 0) > \
+                (cur.get("runtime_ms") or 0):
+            prof[r["kind"]] = r
+    if not prof:
         return None
+    prof["_overall"] = snap.get("overall")
+    prof["_peaks"] = {"device_kind": snap.get("device_kind"),
+                      "peak_flops": snap.get("peak_flops"),
+                      "peak_hbm_gbps": snap.get("peak_hbm_gbps"),
+                      "peaks_nominal": snap.get("peaks_nominal")}
+    return prof
 
 
 def _default_name(key, kind: str) -> str:
@@ -339,13 +473,21 @@ class HBMLedger:
                     self._tracked.pop(key, None)
         return out
 
-    def snapshot(self) -> dict:
+    def snapshot(self, exec_registry: Optional[ExecRegistry] = None
+                 ) -> dict:
         live = self._live()
         by_cat: Dict[str, int] = {}
         for r in live:
             by_cat[r["category"]] = by_cat.get(r["category"], 0) + \
                 r["bytes"]
         live_bytes = sum(by_cat.values())
+        reg = exec_registry if exec_registry is not None else registry()
+        exec_temp, exec_worst = 0, None
+        for e in reg.entries():
+            t = int(((e.analysis or {}).get("memory") or {}).get(
+                "temp_bytes", 0) or 0)
+            if t > exec_temp:
+                exec_temp, exec_worst = t, f"{e.component}:{e.name}"
         cap = device_hbm_capacity()
         out = {
             "capacity_bytes": cap,
@@ -353,12 +495,12 @@ class HBMLedger:
             "by_category": by_cat,
             "tracked": [{"category": r["category"], "name": r["name"],
                          "bytes": r["bytes"]} for r in live],
-            # no executable analyses in the port: no temp bytes
-            "exec_temp_bytes": 0,
-            "exec_temp_worst": None,
+            # the worst analyzed step kind's temp bytes (activations)
+            "exec_temp_bytes": exec_temp,
+            "exec_temp_worst": exec_worst,
         }
         if cap:
-            headroom = cap - live_bytes
+            headroom = cap - live_bytes - exec_temp
             out["headroom_bytes"] = int(headroom)
             out["headroom_frac"] = round(headroom / cap, 4)
             out["oom_risk"] = headroom / cap < OOM_HEADROOM_MIN
@@ -400,12 +542,21 @@ def note_runtime(component: str, key, dt_ms: float):
     _REGISTRY.note_runtime(component, key, dt_ms)
 
 
+def analyze(e: ExecEntry) -> bool:
+    return _REGISTRY.analyze(e)
+
+
+def analyze_all(component: Optional[str] = None) -> int:
+    return _REGISTRY.analyze_all(component)
+
+
 def profile(component: str) -> Optional[dict]:
     return _REGISTRY.profile(component)
 
 
-def snapshot(component: Optional[str] = None) -> dict:
-    return _REGISTRY.snapshot(component)
+def snapshot(component: Optional[str] = None, analyze: bool = False
+             ) -> dict:
+    return _REGISTRY.snapshot(component, analyze=analyze)
 
 
 def track_bytes(owner, category: str, name: str, nbytes: int, **meta):

@@ -29,6 +29,8 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
+from ..utils import compile_counter
+
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "CudaKernel", "build",
            "library_path", "build_log", "stream_ptr", "ptr", "DTYPE_CODES"]
 
@@ -100,6 +102,7 @@ def build(sources: Optional[Iterable[str]] = None) -> Dict[str, float]:
                     f"nvcc {name} (exit {proc.returncode}):\n{log}")
                 continue
             os.replace(tmp, out)
+            compile_counter.note("kernel_build", source=name)
         if failures:
             raise RuntimeError("CUDA kernel build failed:\n"
                                + "\n".join(failures))

@@ -48,6 +48,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..core import random as _random
 from . import _build, _philox
@@ -454,6 +455,28 @@ def _backward(ctx, do, _dlse):
 
 
 _flash_fwd_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+# flop formulas (``torch.utils.flop_counter``, read by ``profiler.
+# cost_stats``): model flops over the full Sq x Sk square, whether causal
+# or not (the convention of torch's SDPA formula and of
+# ``GPTConfig.flops_per_token``); the forward's two products, 4 B H Sq Sk
+# D, and each backward kernel its two (dq: dP and dQ; dk/dv: dV and dK),
+# the recomputed QK^T left out, so a step's attention is 3x its forward
+def _attn_flops(q_shape, k_shape) -> int:
+    b, sq, h, d = q_shape
+    return 4 * b * h * sq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.paddle_tpu.flash_fwd)
+def _(q, k, v, *args, out_shape=None, **kwargs):
+    return _attn_flops(q, k)
+
+
+@register_flop_formula([torch.ops.paddle_tpu.flash_bwd_dq,
+                        torch.ops.paddle_tpu.flash_bwd_dkv])
+def _(q, k, v, *args, out_shape=None, **kwargs):
+    return _attn_flops(q, k)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False,

@@ -27,9 +27,21 @@ codes run the same two regimes in ``csrc/quantized_matmul_f8.cu``
 registers; split-K pieces added in piece order).  The kernels take the
 weight codes transposed, ``[N, K]``: the 8-bit tensor core products
 want both operands K-contiguous.  Weights are quantized on
-every call, as the JAX package does.  The JAX module's TPU tile table
-(``get_qmm_tiles``, ``autotune_qmm_sweep``) and its backend probe
-(``quantized_matmul_available``) have no counterpart here.
+every call, as the JAX package does.  The JAX module's backend probe
+(``quantized_matmul_available``) has no counterpart here.
+
+Tuning: the tuning table's op ``qmm_tiles`` (key ``(device_kind,
+m_bucket, n, k, dtype)``, as in the JAX package) holds, for an int8
+product above M = 16, the plan overrides ``{"bn": 128 | 256, "splits":
+s}`` that ``_qmm_plan`` takes (tile width and k splits of the built
+kernel), not the JAX package's TPU block sizes (a list, which the port
+ignores).  ``get_qmm_tiles`` reads them (nearest tabled shape when the
+exact one is missing); ``autotune_qmm_sweep`` times every plan the
+built kernel takes for a shape on the card, checks each output equal to
+the default plan's (int32 sums are exact, so any plan gives the same
+bits) and records the fastest with provenance.  With
+``PADDLE_TPU_TUNING=sweep`` the first int8 product of an untabled shape
+runs the sweep.  A sweep that fails raises.
 
 ``'fp8'`` has no TPU kernel in the JAX package (it rides the composite
 ``_qmm_composite``); the card has e4m3 tensor cores, so here it gets its
@@ -50,8 +62,8 @@ from . import _build
 __all__ = ["QUANT_DTYPES", "kv_storage_dtype", "kv_quant_mode",
            "resolve_kv_quant", "quantize_channel", "quantize_kv",
            "dequantize_kv", "write_kv", "quantized_matmul",
-           "fake_quant_matmul",
-           "QUANTIZED_MATMUL", "QUANTIZED_MATMUL_F8"]
+           "fake_quant_matmul", "get_qmm_tiles", "autotune_qmm_sweep",
+           "SWEEP_LOG", "QUANTIZED_MATMUL", "QUANTIZED_MATMUL_F8"]
 
 QUANT_DTYPES = ("int8", "fp8")
 _EPS = 1e-8
@@ -347,7 +359,142 @@ def _counters(device, n: int) -> torch.Tensor:
     return buf
 
 
-def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
+def _m_bucket(m: int) -> int:
+    b = 1
+    while b * 2 <= m:
+        b *= 2
+    return b
+
+
+def _valid_tiles(tiles, n: int, k: int) -> Optional[dict]:
+    """A table value as plan overrides the built kernel takes, or None:
+    ``bn`` 128, or 256 where it divides N; ``splits`` clamped to
+    1 .. K / 128."""
+    if not isinstance(tiles, dict):
+        return None
+    try:
+        bn, splits = int(tiles["bn"]), int(tiles["splits"])
+    except (KeyError, TypeError, ValueError):
+        return None
+    if bn not in (128, 256) or (bn == 256 and n % 256):
+        return None
+    return {"bn": bn, "splits": max(1, min(splits, k // _BK))}
+
+
+def get_qmm_tiles(m: int, n: int, k: int, dtype: str = "int8"
+                  ) -> Optional[dict]:
+    """The tuned plan overrides ``{"bn", "splits"}`` of an ``m x k @ k x
+    n`` product above M = 16, or None (the default plan).  The tuning
+    table first (op ``qmm_tiles``, M bucketed to its power of two); with
+    ``PADDLE_TPU_TUNING=sweep`` and an untabled int8 shape on the card,
+    a sweep of this shape recorded back into it; then the nearest tabled
+    shape of the same device and dtype."""
+    if m <= _DECODE_M:
+        return None
+    from ..utils import tuning as _tuning
+    key = (_tuning.device_kind(), _m_bucket(m), n, k, dtype)
+    tuned = _tuning.lookup("qmm_tiles", key)
+    if tuned is None and dtype == "int8" and _tuning.sweep_enabled() \
+            and torch.cuda.is_available():
+        tuned = autotune_qmm_sweep(_m_bucket(m), n, k)
+    if tuned is None:
+        tuned = _tuning.lookup_nearest("qmm_tiles", key,
+                                       match_idx=(0, 4), near_idx=(1, 2, 3))
+    return _valid_tiles(tuned, n, k)
+
+
+# one record per sweep: the shape, every candidate's ms and the winner
+SWEEP_LOG: list = []
+# calls of a plan in the CUDA graph whose replay the sweep times
+_SWEEP_GRAPH_CALLS = 8
+
+
+def autotune_qmm_sweep(m: int, n: int, k: int, iters: int = 20,
+                       seed: int = 0) -> dict:
+    """Time every plan of the built int8 kernel for an ``m x k @ k x n``
+    product (M > 16) on the card: a CUDA graph of a few calls a plan,
+    its replays timed with CUDA events in turns (``iters`` rounds, each
+    plan once a round; the median per call), on random operands from
+    ``seed``; check each output bitwise equal to the default plan's;
+    record the fastest in the tuning table (op ``qmm_tiles``, source
+    'sweep', its improvement over the default plan) and return it.
+    Candidates are the plans the built kernel takes at run time: tile
+    width 128 or 256 (where it divides N), times 1, 2, 4, ... k splits up
+    to K / 128.  Raises on a failed launch or an output that differs."""
+    from ..utils import tuning as _tuning
+    if m <= _DECODE_M:
+        raise ValueError(f"autotune_qmm_sweep: M={m} is in the decode "
+                         f"regime (M <= {_DECODE_M}), which has no plan "
+                         f"to choose")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=gen) * 0.1
+    w = torch.randn(n, k, device=dev, generator=gen) * 0.1
+    qx, sx = quantize_channel(x, axis=1, dtype="int8")
+    qw_t, sw_t = quantize_channel(w, axis=1, dtype="int8")
+    qx, qw_t, sw = qx.contiguous(), qw_t.contiguous(), sw_t.reshape(1, n)
+    sms = _sm_count(dev)
+    default = _qmm_plan(m, n, k, sms)
+    cands = []
+    for bn in (128, 256):
+        if bn == 256 and n % 256:
+            continue
+        splits = 1
+        while splits <= k // _BK:
+            cands.append({"bn": bn, "splits": splits})
+            splits *= 2
+    base = {"bn": default["bn"], "splits": default["splits"]}
+    if base not in cands:
+        cands.insert(0, base)
+    ref = _qmm_cuda(qx, qw_t, sx, sw, torch.float32, tiles=base)
+    for c in cands:
+        out = _qmm_cuda(qx, qw_t, sx, sw, torch.float32, tiles=c)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"autotune_qmm_sweep: plan {c} at "
+                               f"({m}, {n}, {k}) differs from the default "
+                               f"plan {base}")
+    # one CUDA graph of _SWEEP_GRAPH_CALLS calls a plan, its replay timed:
+    # the host's gap between two launches outlasts these kernels, so
+    # launches from the host would time the host
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graphs = []
+    with torch.cuda.stream(side):
+        for c in cands:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=side):
+                for _ in range(_SWEEP_GRAPH_CALLS):
+                    _qmm_cuda(qx, qw_t, sx, sw, torch.float32, tiles=c)
+            graphs.append(g)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    times = {i: [] for i in range(len(cands))}
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    for _ in range(iters):
+        for i, g in enumerate(graphs):
+            t0.record()
+            g.replay()
+            t1.record()
+            t1.synchronize()
+            times[i].append(t0.elapsed_time(t1) / _SWEEP_GRAPH_CALLS)
+    del graphs
+    med = [sorted(t)[len(t) // 2] for t in times.values()]
+    best = min(range(len(cands)), key=lambda i: med[i])
+    base_ms = med[cands.index(base)]
+    winner = dict(cands[best])
+    improvement = (base_ms - med[best]) / base_ms if base_ms > 0 else 0.0
+    _tuning.record("qmm_tiles", (_tuning.device_kind(), _m_bucket(m), n, k,
+                                 "int8"), winner, source="sweep",
+                   run=f"qmm-sweep-{m}x{n}x{k}", improvement=improvement)
+    SWEEP_LOG.append({"m": m, "n": n, "k": k, "default": base,
+                      "winner": winner, "improvement": improvement,
+                      "ms": [(c["bn"], c["splits"], med[i])
+                             for i, c in enumerate(cands)]})
+    return winner
+
+
+def _qmm_cuda(qx, qw_t, sx, sw, out_dtype, tiles=None):
     """The kernel on int8 or e4m3 ``qx [M, K]`` and transposed weight
     codes ``qw_t [N, K]`` of the same dtype, f32 ``sx [M, 1]`` and ``sw
     [1, N]``; raises on what it does not take: N and K multiples of 128,
@@ -385,8 +532,16 @@ def _qmm_cuda(qx, qw_t, sx, sw, out_dtype):
                              f"16-byte aligned {name}")
     sms = _sm_count(qx.device)
     f8 = codes == torch.float8_e4m3fn
-    plan = _qmm_plan(m, n, k, sms, 128) if f8 and m > _DECODE_M \
-        else _qmm_plan(m, n, k, sms)
+    if f8 and m > _DECODE_M:
+        plan = _qmm_plan(m, n, k, sms, 128)
+    else:
+        # int8 above M = 16: the given overrides ({} the default plan),
+        # else the tuning table's
+        if tiles is None and not f8:
+            tiles = get_qmm_tiles(m, n, k, "int8")
+        plan = _qmm_plan(m, n, k, sms, (tiles or {}).get("bn"),
+                         (tiles or {}).get("splits")) \
+            if m > _DECODE_M else _qmm_plan(m, n, k, sms)
     y = torch.empty((m, n), dtype=out_dtype, device=qx.device)
     work = torch.empty(plan["work_ints"], dtype=torch.int32,
                        device=qx.device) if plan["work_ints"] else None

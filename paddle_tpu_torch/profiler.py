@@ -10,9 +10,21 @@ control writing a Chrome trace that holds the device kernels
 ``torch.profiler.profile`` with CPU and, on the card, CUDA activities),
 and (3) wall-clock step statistics (``StepTimer``).
 
-The JAX package's ``memory_stats`` and ``cost_stats`` are left out: they
-read XLA's analyses of a compiled executable, and the port runs eager
-PyTorch and hand-written kernels, with no executable to analyse.
+``cost_stats`` and ``memory_stats`` (4) are the JAX package's analyses
+of a compiled executable, made on what the port compiles or runs: a
+``torch.export.ExportedProgram`` (its graph walked node by node, from
+the shapes each node records; nothing runs), a ``jit.to_static``
+function (its latest capture, walked the same way), or a callable with
+example inputs (run once under a dispatch mode that sees every ATen or
+custom op, ``fake=True`` on fake tensors, so nothing computes).  flops
+are ``torch.utils.flop_counter``'s formulas (matmuls, convolutions,
+attention; the flash ops register theirs in ``ops.flash_attention``);
+``bytes_accessed`` sums the bytes of each op's tensor operands and
+results, XLA's per-op convention.  Memory is argument + output bytes
+plus, when the call runs on the card, the allocator's peak over it
+above what was allocated at its start.  An object that cannot be
+analysed gives ``{}`` and counts ``exec_analysis_failures_total
+{stage}``; neither function raises.
 """
 from __future__ import annotations
 
@@ -27,7 +39,8 @@ from typing import Optional
 from .observability import spans as _spans
 
 __all__ = ["RecordEvent", "record_event", "profiler", "start_profiler",
-           "stop_profiler", "StepTimer", "default_log_dir"]
+           "stop_profiler", "StepTimer", "default_log_dir", "cost_stats",
+           "memory_stats"]
 
 # the one live capture: (torch.profiler.profile, log_dir)
 _ACTIVE = {"prof": None, "log_dir": None}
@@ -169,3 +182,175 @@ class StepTimer:
     def summary(self):
         return {"steps": len(self.times_ms), "mean_ms": self.mean_ms,
                 "p50_ms": self.p50_ms, "last_ms": self.last_ms}
+
+
+# ---------------------------------------------------------------------------
+# cost and memory analyses
+# ---------------------------------------------------------------------------
+def _analysis_degraded(stage: str) -> dict:
+    """An object the analyses cannot read degrades to ``{}`` (the exec
+    registry keeps its entry timing-only), and the failure is counted so
+    a dashboard sees the blind spot."""
+    try:
+        from .observability import metrics as _metrics
+        _metrics.counter(
+            "exec_analysis_failures_total",
+            "executable cost/memory analyses that degraded to "
+            "timing-only", labels=("stage",)).labels(stage=stage).inc()
+    except Exception:
+        pass
+    return {}
+
+
+def _tensor_bytes(tree) -> int:
+    import torch
+    from torch.utils import _pytree as pytree
+    return sum(t.numel() * t.element_size()
+               for t in pytree.tree_leaves(tree) if torch.is_tensor(t))
+
+
+def _op_flops(func, args, kwargs, out) -> int:
+    from torch.utils.flop_counter import flop_registry
+    f = flop_registry.get(getattr(func, "_overloadpacket", func))
+    return int(f(*args, **kwargs, out_val=out)) if f is not None else 0
+
+
+def _latest_program(obj):
+    """The ExportedProgram to walk: ``obj`` itself, or a ``to_static``
+    function's latest capture (None otherwise)."""
+    import torch
+    if isinstance(obj, torch.export.ExportedProgram):
+        return obj
+    exported = getattr(obj, "exported", None)
+    if isinstance(exported, dict) and exported:
+        return list(exported.values())[-1]
+    return None
+
+
+def _walk(ep):
+    """``(flops, bytes, argument_bytes, output_bytes, flops by op)`` of an
+    exported graph from the values its nodes record."""
+    import torch
+    from torch.utils import _pytree as pytree
+
+    def val(a):
+        return a.meta.get("val") if isinstance(a, torch.fx.Node) else a
+
+    flops = nbytes = arg_bytes = out_bytes = 0
+    by_op: dict = {}
+    for node in ep.graph.nodes:
+        if node.op == "placeholder":
+            arg_bytes += _tensor_bytes(node.meta.get("val"))
+        elif node.op == "output":
+            out_bytes += _tensor_bytes(
+                pytree.tree_map(val, node.args))
+        elif node.op == "call_function" and isinstance(
+                node.target, torch._ops.OpOverload):
+            args = pytree.tree_map(val, node.args)
+            kwargs = pytree.tree_map(val, node.kwargs)
+            out = node.meta.get("val")
+            f = _op_flops(node.target, args, kwargs, out)
+            if f:
+                name = str(node.target.overloadpacket)
+                by_op[name] = by_op.get(name, 0) + f
+            flops += f
+            nbytes += _tensor_bytes((args, kwargs)) + _tensor_bytes(out)
+    return flops, nbytes, arg_bytes, out_bytes, by_op
+
+
+def _run_counted(fn, args, kwargs, fake: bool):
+    """Run ``fn(*args, **kwargs)`` once under a dispatch mode summing
+    each op's flops and operand + result bytes.  Returns ``(out, flops,
+    bytes, flops by op)``."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    tally = {"flops": 0, "bytes": 0, "by_op": {}}
+
+    class _Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, a=(), k=None):
+            k = k or {}
+            out = func(*a, **k)
+            f = _op_flops(func, a, k, out)
+            if f:
+                name = str(func.overloadpacket)
+                tally["by_op"][name] = tally["by_op"].get(name, 0) + f
+            tally["flops"] += f
+            tally["bytes"] += _tensor_bytes((a, k)) + _tensor_bytes(out)
+            return out
+
+    if fake:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils import _pytree as pytree
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        args, kwargs = pytree.tree_map(
+            lambda t: mode.from_tensor(t) if torch.is_tensor(t) else t,
+            (args, kwargs))
+        with mode, _Count():
+            out = fn(*args, **kwargs)
+    else:
+        with _Count():
+            out = fn(*args, **kwargs)
+    return out, tally["flops"], tally["bytes"], tally["by_op"]
+
+
+def cost_stats(obj, *args, fake: bool = False, **kwargs) -> dict:
+    """``{"flops", "bytes_accessed", "flops_by_op"}`` of an
+    ExportedProgram, a ``to_static`` function's latest capture, or
+    ``obj(*args, **kwargs)`` run once (``fake=True``: on fake tensors);
+    ``flops_by_op`` maps each op with flops (``"aten.mm"``,
+    ``"paddle_tpu.flash_fwd"``) to its total.  ``{}`` (counted) when the
+    object cannot be analysed."""
+    try:
+        ep = _latest_program(obj)
+        if ep is not None:
+            flops, nbytes, _, _, by_op = _walk(ep)
+        elif callable(obj):
+            _, flops, nbytes, by_op = _run_counted(obj, args, kwargs, fake)
+        else:
+            return _analysis_degraded("cost_analysis")
+    except Exception:
+        return _analysis_degraded("cost_analysis")
+    return {"flops": float(flops), "bytes_accessed": float(nbytes),
+            "flops_by_op": {k: float(v) for k, v in by_op.items()}}
+
+
+def memory_stats(obj, *args, **kwargs) -> dict:
+    """``{"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+    "peak_bytes"}``: argument and output bytes (an ExportedProgram's from
+    its placeholders and outputs; a callable's from its inputs, a
+    module's parameters and buffers, and its result), ``temp_bytes`` the
+    allocator's peak over one call on the card above what was allocated
+    at its start (0 for a graph walked without running, or on the CPU),
+    ``peak_bytes`` their sum.  ``{}`` (counted) on failure."""
+    import torch
+    try:
+        ep = _latest_program(obj)
+        temp = 0
+        if ep is not None:
+            _, _, arg_bytes, out_bytes, _ = _walk(ep)
+        elif callable(obj):
+            arg_bytes = _tensor_bytes((args, kwargs))
+            if isinstance(obj, torch.nn.Module):
+                arg_bytes += _tensor_bytes(list(obj.parameters()) +
+                                           list(obj.buffers()))
+            on_card = any(t.is_cuda for t in
+                          torch.utils._pytree.tree_leaves((args, kwargs))
+                          if torch.is_tensor(t))
+            if on_card:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            out = obj(*args, **kwargs)
+            out_bytes = _tensor_bytes(out)
+            if on_card:
+                torch.cuda.synchronize()
+                temp = max(0, torch.cuda.max_memory_allocated() - base -
+                           out_bytes)
+        else:
+            return _analysis_degraded("memory_analysis")
+    except Exception:
+        return _analysis_degraded("memory_analysis")
+    return {"argument_bytes": int(arg_bytes), "output_bytes": int(out_bytes),
+            "temp_bytes": int(temp), "alias_bytes": 0,
+            "peak_bytes": int(arg_bytes + out_bytes + temp)}

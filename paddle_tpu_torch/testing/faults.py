@@ -24,16 +24,35 @@ PADDLE_FAULT_WORKER_KILL="w:after_n"
     never closed, no traceback), which the loader's liveness polling
     must see and ``worker_restarts`` may revive.  A flight-recorder
     bundle is written first, as a real death would leave one.
+PADDLE_FAULT_SIGTERM_STEP="k"
+    The training process sends itself SIGTERM right after train step k
+    completes (once a process): a preemption for kill-and-resume tests.
+PADDLE_FAULT_CKPT_TRUNCATE="n"
+    The nth ``write_checkpoint`` commit of the process writes half its
+    state payload, renames the staging directory into its final name,
+    writes a flight-recorder bundle and exits 137: a checkpoint killed
+    mid-commit that looks committed on disk and fails its manifest
+    check, which resume must walk past.
+PADDLE_FAULT_HANG="step:seconds"
+    The step loop sleeps ``seconds`` right after train step or decode
+    tick number ``step`` (once a process), on the loop's own thread, as
+    a wedged store would: the stall watchdog's no-progress hang.
+
+The multi-device injectors of the JAX package (``mesh_shrink``,
+``slice_down``, ``slice_is_down``, ``maybe_delay_dcn``) wait for the
+port's meshes.
 """
 from __future__ import annotations
 
 import os
+import signal
 import threading
 import time
 from typing import Optional
 
 __all__ = ["InjectedFault", "reset", "maybe_fail_fs", "maybe_delay_fs",
-           "nan_poison_step", "maybe_kill_worker", "flightrec_dump"]
+           "nan_poison_step", "maybe_kill_worker", "flightrec_dump",
+           "maybe_sigterm", "ckpt_truncate_commit", "maybe_hang"]
 
 
 class InjectedFault(IOError):
@@ -43,12 +62,19 @@ class InjectedFault(IOError):
 
 _lock = threading.Lock()
 _fs_counts: dict = {}
+_sigterm_fired = False
+_ckpt_commits = 0
+_hang_fired = False
 
 
 def reset():
     """Clear the injection counts (tests call it between cases)."""
+    global _sigterm_fired, _ckpt_commits, _hang_fired
     with _lock:
         _fs_counts.clear()
+        _sigterm_fired = False
+        _ckpt_commits = 0
+        _hang_fired = False
 
 
 def _parse_fs_spec(spec: str):
@@ -152,3 +178,54 @@ def maybe_kill_worker(worker_id: int, batches_done: int):
     if worker_id == w and batches_done >= after_n:
         flightrec_dump("worker_kill")
         os._exit(137)
+
+
+def maybe_sigterm(step: int):
+    """Fault point on the training thread: SIGTERM to this process once
+    ``step`` reaches ``PADDLE_FAULT_SIGTERM_STEP`` (once a process)."""
+    global _sigterm_fired
+    v = os.environ.get("PADDLE_FAULT_SIGTERM_STEP")
+    if not v or _sigterm_fired:
+        return
+    try:
+        k = int(v)
+    except ValueError:
+        return
+    if step >= k:
+        _sigterm_fired = True
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def ckpt_truncate_commit() -> bool:
+    """Fault point inside ``write_checkpoint``: True on exactly the armed
+    nth commit of this process (the caller then commits a truncated
+    payload and exits 137)."""
+    global _ckpt_commits
+    v = os.environ.get("PADDLE_FAULT_CKPT_TRUNCATE")
+    if not v:
+        return False
+    try:
+        nth = int(v)
+    except ValueError:
+        return False
+    with _lock:
+        _ckpt_commits += 1
+        return _ckpt_commits == nth
+
+
+def maybe_hang(step: int):
+    """Fault point in the step and tick loops (``PADDLE_FAULT_HANG=
+    "step:seconds"``): the calling thread sleeps ``seconds`` once
+    ``step`` reaches the armed step (once a process)."""
+    global _hang_fired
+    spec = os.environ.get("PADDLE_FAULT_HANG")
+    if not spec or _hang_fired:
+        return
+    k_s, _, secs_s = spec.partition(":")
+    try:
+        k, secs = int(k_s), float(secs_s)
+    except ValueError:
+        return
+    if step >= k and secs > 0:
+        _hang_fired = True
+        time.sleep(secs)

@@ -787,7 +787,8 @@ def test_qmm_kernel_forced_plans_equal_plain(gen, monkeypatch, m, bn, splits):
     edge, filled by TMA with zeros and not written) with and without a K
     split, through plans the wrapper would not choose here."""
     plan = qm._qmm_plan
-    monkeypatch.setattr(qm, "_qmm_plan", lambda m_, n_, k_, sms: plan(
+    # the wrapper also passes the tuning table's overrides (None here)
+    monkeypatch.setattr(qm, "_qmm_plan", lambda m_, n_, k_, sms, *tuned: plan(
         m_, n_, k_, sms, bn, splits))
     _, _, qx, qw_t, sx, sw = _qmm_operands(gen, m, 256, 384)
     got = qm._qmm_cuda(qx, qw_t, sx, sw, torch.float32)
@@ -2295,3 +2296,64 @@ def test_exported_train_step_steps_on_the_card(gen, tmp_path):
         want = float(live.train_step((src, tgt), lab))
         assert abs(got - want) <= 1e-4 * abs(want), (i, got, want)
     capi_bridge.destroy_trainer(h)
+
+
+def test_qmm_sweep_winner_is_bitwise_the_default_plan(gen, tmp_path,
+                                                      monkeypatch):
+    """``autotune_qmm_sweep`` at M = 64 and 512 (every plan of the built
+    kernel): each candidate's output equals the default plan's (checked
+    inside the sweep), the winner lands in the table with 'sweep'
+    provenance, and a later product of that shape runs the winner's plan
+    and equals the default plan's bit for bit."""
+    from paddle_tpu_torch.utils import tuning
+    monkeypatch.setenv("PADDLE_TPU_TUNING_CACHE", str(tmp_path / "t.json"))
+    tuning.reset_for_tests()
+    try:
+        for m, n, k in ((64, 2048, 2048), (512, 6144, 2048)):
+            win = qm.autotune_qmm_sweep(m, n, k, iters=3)
+            key = (tuning.device_kind(), m, n, k, "int8")
+            assert tuning.lookup("qmm_tiles", key) == win
+            assert tuning.provenance("qmm_tiles", key)["source"] == "sweep"
+            assert qm.get_qmm_tiles(m, n, k) == win
+            x = torch.randn(m, k, device="cuda", generator=gen)
+            w = torch.randn(k, n, device="cuda", generator=gen)
+            y = qm.quantized_matmul(x, w, "int8", out_dtype=torch.float32)
+            qx, sx = qm.quantize_channel(x, axis=1, dtype="int8")
+            qw_t, sw = qm.quantize_channel(w.t(), axis=1, dtype="int8")
+            ref = qm._qmm_cuda(qx.contiguous(), qw_t.contiguous(), sx,
+                               sw.reshape(1, n), torch.float32, tiles={})
+            assert torch.equal(y, ref)
+    finally:
+        tuning.reset_for_tests()
+
+
+def test_live_episode_on_the_card_is_compile_free(gen, tmp_path,
+                                                  monkeypatch):
+    """A ``LiveRetuner`` episode on a warmed 2-layer engine on the card
+    (dense and paged): no compile, a subset of the warmed buckets, and
+    the engine serves on."""
+    import numpy as np
+    from paddle_tpu_torch.core import random as prandom
+    from paddle_tpu_torch.inference import InferenceEngine
+    from paddle_tpu_torch.models import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.utils import compile_counter, tuning
+    monkeypatch.setenv("PADDLE_TPU_TUNING_CACHE", str(tmp_path / "t.json"))
+    monkeypatch.setenv("PADDLE_TPU_AUTOTUNE", "live")
+    tuning.reset_for_tests()
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=512)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=prandom.seed(1, "cuda")).eval()
+    for kw in ({}, {"kv_layout": "paged", "kv_block_size": 16}):
+        eng = InferenceEngine(model, batch_slots=2, device="cuda", **kw)
+        warmed = list(eng.buckets)
+        eng.warmup(warmed)
+        assert eng._retuner.notify_slo({"breached": True, "p99_ms": 1.0})
+        with compile_counter.assert_no_recompiles("episode"):
+            eng.step()
+        r = eng._retuner
+        assert r.episodes == 1 and not r.failures
+        assert set(eng.buckets) <= set(warmed)
+        out = eng.generate(np.arange(1, 40), max_new_tokens=4)
+        assert len(out) == 4
+    tuning.reset_for_tests()
